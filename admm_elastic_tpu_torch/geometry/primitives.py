@@ -1,0 +1,51 @@
+"""Procedural mesh builders (numpy, host side).
+
+Counterpart of `admm_elastic_tpu/geometry/primitives.py`; only
+`make_beam_tets` (the 100k-tet benchmark mesh) is ported so far.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .tetmesh import TetMesh
+
+
+def make_beam_tets(nx: int, ny: int, nz: int, size: float = 1.0) -> TetMesh:
+    """Regular (nx,ny,nz)-cell hexahedral beam split into 5 tets per cell.
+
+    (nx*ny*nz*5 tets; used to generate the 100k-tet benchmark mesh.)
+    Alternating cell parity keeps shared faces conforming.
+    """
+    gx, gy, gz = nx + 1, ny + 1, nz + 1
+    xs = np.linspace(0.0, size * nx, gx)
+    ys = np.linspace(0.0, size * ny, gy)
+    zs = np.linspace(0.0, size * nz, gz)
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    verts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+
+    def vid(i, j, k):
+        return (i * gy + j) * gz + k
+
+    # 5-tet decompositions for even/odd parity cells
+    even = [(0, 1, 2, 5), (0, 2, 3, 7), (0, 5, 7, 4), (2, 7, 5, 6), (0, 2, 5, 7)]
+    odd = [(1, 3, 0, 4), (1, 6, 2, 3), (1, 4, 6, 5), (3, 6, 4, 7), (1, 3, 4, 6)]
+
+    tets = []
+    for i in range(nx):
+        for j in range(ny):
+            for k in range(nz):
+                c = [
+                    vid(i, j, k),
+                    vid(i + 1, j, k),
+                    vid(i + 1, j + 1, k),
+                    vid(i, j + 1, k),
+                    vid(i, j, k + 1),
+                    vid(i + 1, j, k + 1),
+                    vid(i + 1, j + 1, k + 1),
+                    vid(i, j + 1, k + 1),
+                ]
+                pattern = even if (i + j + k) % 2 == 0 else odd
+                for t in pattern:
+                    tets.append((c[t[0]], c[t[1]], c[t[2]], c[t[3]]))
+    return TetMesh(verts.astype(np.float64), np.asarray(tets, dtype=np.int32))

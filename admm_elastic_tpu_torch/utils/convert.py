@@ -1,0 +1,52 @@
+"""Carry a JAX `System`'s params and state into a port `System`.
+
+`from_reference(system, params_np, state_np)` takes the JAX System's
+`params` and `state` trees as numpy (e.g. `jax.device_get(sys.params)`)
+and loads them into a port System that was built and initialized from the
+same scene. Forces match by their `c{i}_{Type}` names. The JAX Pallas
+layout pads per-element planes ((9, E_pad), (3, E_pad), (12, E_pad)) to
+the kernel block; the port's planes are unpadded, so the padding is cut
+off. A port param that the reference derives on the fly (`w2`, the
+squared weight) is derived here from the reference's `weight`. Takes numpy
+only: this module never imports jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _load(port, ref, where):
+    if isinstance(port, dict):
+        if not isinstance(ref, dict):
+            raise ValueError(f"{where}: expected a dict in the reference tree")
+        if "w2" in port and "w2" not in ref and "weight" in ref:
+            ref = {**ref, "w2": np.asarray(ref["weight"]) ** 2}
+        missing = set(port) - set(ref)
+        if missing:
+            raise KeyError(f"{where}: reference lacks {sorted(missing)}")
+        return {k: _load(port[k], ref[k], f"{where}/{k}") for k in port}
+    a = np.asarray(ref)
+    shape = tuple(port.shape)
+    if a.shape != shape:
+        # strip the block padding of the last (element) axis
+        if (a.ndim == len(shape) and a.ndim >= 1
+                and a.shape[:-1] == shape[:-1] and a.shape[-1] > shape[-1]):
+            a = a[..., : shape[-1]]
+        else:
+            raise ValueError(f"{where}: reference shape {a.shape}, port {shape}")
+    # a fresh writable, contiguous copy (device_get may return read-only
+    # views)
+    return torch.as_tensor(np.array(a), dtype=port.dtype, device=port.device)
+
+
+def from_reference(system, params_np, state_np) -> None:
+    """Overwrite `system.params` and `system.state` with the reference's
+    values (converted to the port's dtype, device and layout), and set
+    `elapsed_s` from the reference's time."""
+    if not system.initialized:
+        raise RuntimeError("initialize() the port System first")
+    system.params = _load(system.params, params_np, "params")
+    system.state = _load(system.state, state_np, "state")
+    system.elapsed_s = float(np.asarray(state_np["t"]))

@@ -1,0 +1,91 @@
+"""Where a timestep's time goes on the card: torch.profiler over a few
+steps of the 100k-tet beam (the `chip_smoke.py` main path).
+
+    python -m admm_elastic_tpu_torch.utils.profile_step [--cg 25 75]
+        [--steps 10]
+
+For each CG budget it times `steps` steps twice in one process, each
+window closed by `torch.cuda.synchronize()`: first without the profiler,
+then under it, tracing the device only. It prints one line: both windows'
+wall ms/step, the profiled window's device-busy ms/step (the union of its
+kernel and memcpy intervals) and idle share (1 - busy/wall, both from that
+same window), and device operations per step; then the kernels with the
+most device time. The profiled wall carries the tracer's own cost, so its
+idle share is an upper bound for the unprofiled run. Needs a CUDA device;
+fails if the profiler records no device activity.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from .scenes import tet100k
+
+
+def _union_us(intervals):
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _window_ms(s, steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(steps)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def profile(cg, steps):
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    s = tet100k(cg)
+    s.run(2)
+    plain_ms = _window_ms(s, steps)
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_ms = _window_ms(s, steps)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in dev]) / 1e3 / steps
+    per_name = {}
+    for e in dev:
+        c, t = per_name.get(e.name, (0, 0.0))
+        per_name[e.name] = (c + 1, t + (e.time_range.end - e.time_range.start))
+    print(f"[profile cg{cg}] unprofiled_wall_ms_per_step={plain_ms} "
+          f"profiled_wall_ms_per_step={wall_ms} "
+          f"device_busy_ms_per_step={busy_ms} "
+          f"idle_share={1.0 - busy_ms / wall_ms} "
+          f"device_ops_per_step={len(dev) / steps}", flush=True)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:12]
+    for name, (count, us) in top:
+        print(f"  {us / 1e3 / steps:9.4f} ms/step {count / steps:7.1f}/step "
+              f"{name[:90]}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cg", type=int, nargs="+", default=[25, 75])
+    ap.add_argument("--steps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA device")
+    print(torch.cuda.get_device_name(0), flush=True)
+    for cg in args.cg:
+        profile(cg, args.steps)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,285 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. It builds the hand-written kernels from
+`admm_elastic_tpu_torch/csrc/`, checks each against its plain PyTorch
+version on the card, checks the slice against the CPU run, then drives the
+port's main path (the 100,000-tet NeoHookean beam: System -> initialize ->
+step/run, dia global solver, f32) and times it. Every phase prints one
+line of numbers. Any failure raises: the script then exits non-zero and
+prints no result line. It needs CUDA (it never falls back to the CPU) and
+imports nothing of JAX.
+
+The last two lines are a JSON object with each kernel's launch count in
+the main-path run, error against its plain version and times, then
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DT = 0.04  # the workload's timestep and ADMM iterations
+ADMM_ITERS = 10  # (admm_elastic_tpu_torch/utils/scenes.py)
+WARMUP_STEPS = 2
+WINDOWS, WINDOW_STEPS = 3, 10
+
+
+def say(phase, **numbers):
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in numbers.items()),
+          flush=True)
+
+
+def cuda_ms(torch, fn, reps, warmup=1):
+    """Median device time of fn() in ms, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def nh_inputs(torch, s, rng):
+    """The tet100k beam's first ADMM iteration (x_bar after the gravity
+    kick, zero dual, unit warm start). The rest state has F = I, where the
+    SVD is degenerate; so half of the elements are randomly deformed, and
+    half of those inverted (row z of F negated)."""
+    p = s.params["c1_HyperElasticTet"]
+    E = p["indices"].shape[0]
+    x0 = s.state["x"]
+    v = torch.zeros_like(x0)
+    v[:, 1] = -9.8 * DT
+    xbar = x0 + DT * v
+    xg = xbar[p["indices"]].reshape(E, 12).T.contiguous()
+    perm = torch.as_tensor(rng.permutation(E), device=xg.device)
+    inv, noisy = perm[: E // 4], perm[: E // 2]
+    for a in (2, 5, 8, 11):
+        xg[a, inv] = -xg[a, inv]
+    xg[:, noisy] += torch.as_tensor(
+        0.02 * rng.standard_normal((12, len(noisy))), dtype=xg.dtype,
+        device=xg.device)
+    u = torch.zeros((9, E), dtype=xg.dtype, device=xg.device)
+    warm = torch.ones((3, E), dtype=xg.dtype, device=xg.device)
+    return [xg, u, warm, p["coeff_p"], p["mu"], p["lam"], p["k"], p["w2"]]
+
+
+def separated(ins):
+    """Elements whose singular-value gaps exceed 1e-2 (computed in f64 on
+    the host): elsewhere the SVD basis is ill-conditioned."""
+    xg, u, _, cp = (t.double().cpu().numpy() for t in ins[:4])
+    E = xg.shape[1]
+    dx = np.einsum("bke,kae->abe", cp.reshape(3, 4, E), xg.reshape(4, 3, E))
+    F = (dx.reshape(9, E) + u).T.reshape(E, 3, 3)
+    svs = np.linalg.svd(F, compute_uv=False)
+    gaps = np.minimum(svs[:, 0] - svs[:, 1], svs[:, 1] - svs[:, 2])
+    return gaps > 1e-2
+
+
+def check_nh(torch, pnh, ins, dtype):
+    ins = [t.to(dtype) for t in ins]
+    got = pnh.nh_local_step_fused(*ins, iters=5)
+    want = pnh.nh_local_step_fused_reference(*ins, iters=5)
+    torch.cuda.synchronize()
+    sep = separated(ins)
+    E = ins[0].shape[1]
+    err = np.zeros(E)
+    rel = 0.0
+    for g, w in zip(got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError("nh_local_step_fused: non-finite output")
+        d = (g - w).abs().amax(dim=0).double().cpu().numpy()
+        err = np.maximum(err, d)
+        scale = float(w.abs().amax(dim=0).double().cpu().numpy()[sep].max())
+        rel = max(rel, float(d[sep].max()) / scale)
+    if dtype == torch.float64:
+        ok = float(err[sep].max()) <= 1e-9
+        verdict = dict(max_abs_err_sep=float(err[sep].max()), tol_abs=1e-9)
+    else:
+        ok = rel <= 1e-3
+        verdict = dict(max_abs_err_sep=float(err[sep].max()), max_rel_err_sep=rel,
+                       tol_rel=1e-3)
+    ms = cuda_ms(torch, lambda: pnh.nh_local_step_fused(*ins, iters=5), 20)
+    plain_ms = cuda_ms(torch, lambda: pnh.nh_local_step_fused_reference(
+        *ins, iters=5), 5)
+    say(f"kernel nh_local {str(dtype)[6:]}", E=E, separated=int(sep.sum()),
+        **verdict, ms=ms, plain_ms=plain_ms, ok=ok)
+    if not ok:
+        raise AssertionError(f"nh_local_step_fused disagrees in {dtype}")
+    return float(err[sep].max()), ms, plain_ms
+
+
+def check_cg(torch, pcg, s, dtype, n_iters):
+    sv = s.params["_solver"]
+    x0 = s.state["x"].to(dtype)
+    b = (s._masses_dev[:, None] * x0).to(dtype)
+    b[:, 1] -= (s._masses_dev * 9.8 * DT * DT).to(dtype)
+    args = (b, x0, sv["diag"].to(dtype), sv["dia_vals"].to(dtype),
+            s._dia_offsets, n_iters)
+    got = pcg.cg_dia_solve(*args)
+    want = pcg.cg_dia_solve_reference(*args)
+    again = pcg.cg_dia_solve(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    ok = (rel <= tol and bool(torch.isfinite(got).all())
+          and bool(torch.equal(got, again)))
+    ms = cuda_ms(torch, lambda: pcg.cg_dia_solve(*args), 20)
+    plain_ms = cuda_ms(torch, lambda: pcg.cg_dia_solve_reference(*args), 5)
+    say(f"kernel cg_dia {str(dtype)[6:]}", n=b.shape[0],
+        diagonals=len(s._dia_offsets), n_iters=n_iters, max_abs_err=err,
+        rel_err=rel, tol=tol, bitwise_repeat=bool(torch.equal(got, again)),
+        ms=ms, plain_ms=plain_ms, ok=ok)
+    if not ok:
+        raise AssertionError(f"cg_dia_solve disagrees in {dtype} at {n_iters}")
+    return err, ms, plain_ms
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this script runs only on a CUDA device")
+    sys.path.insert(0, HERE)
+    from admm_elastic_tpu_torch.ops.kernels import _build
+    from admm_elastic_tpu_torch.ops.kernels import cg_dia as pcg
+    from admm_elastic_tpu_torch.ops.kernels import nh_local as pnh
+    from admm_elastic_tpu_torch.utils.scenes import beam_system, tet100k
+
+    # phase 1: the device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    say("device", name=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(), torch=torch.__version__,
+        cuda=torch.version.cuda)
+
+    # phase 2: build the kernels from the checkout's sources
+    lib_path, build_s = _build.build()
+    _build.load_library()
+    say("build", seconds=round(build_s, 3), library=os.path.relpath(lib_path, HERE))
+    entry, spills = "?", ""
+    for line in _build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            used = line.split(":", 1)[1].strip()
+            print(f"  ptxas {entry}: {used}; {spills}")
+
+    # phase 3: each kernel against its plain version at the slice's shapes
+    rng = np.random.default_rng(0)
+    ref64 = tet100k(25, torch.float64)
+    ins = nh_inputs(torch, ref64, rng)
+    check_nh(torch, pnh, ins, torch.float64)
+    nh_err, nh_ms, nh_plain = check_nh(torch, pnh, ins, torch.float32)
+    cg_ms = {}
+    for dtype in (torch.float64, torch.float32):
+        for k in (25, 75):
+            cg_ms[(dtype, k)] = check_cg(torch, pcg, ref64, dtype, k)
+    del ref64, ins
+
+    # phase 4: slice parity, card vs CPU, and determinism on the card
+    def small(device):
+        s = beam_system((6, 4, 4), 0.05, 1.0, 25, torch.float64, device)
+        s.run(5)
+        return s.x, s.v
+
+    xc, _ = small("cpu")
+    xg1, vg1 = small("cuda")
+    xg2, vg2 = small("cuda")
+    diff = float(np.abs(xg1 - xc).max())
+    bitwise = bool(np.array_equal(xg1, xg2) and np.array_equal(vg1, vg2))
+    say("slice parity 6x4x4 f64", max_abs_dx_cuda_vs_cpu=diff, tol=1e-8,
+        bitwise_repeat=bitwise)
+    if not (diff < 1e-8 and bitwise):
+        raise AssertionError("slice parity or determinism failed on the card")
+
+    # phase 5: the main path at full width, f32
+    steps = WARMUP_STEPS + WINDOWS * WINDOW_STEPS
+    systems = {cg: tet100k(cg, torch.float32) for cg in (75, 25)}
+    pnh.nh_local_step_fused.launches = 0
+    pcg.cg_dia_solve.launches = 0
+    per_budget = {}
+    for cg, s in systems.items():
+        n0 = (pnh.nh_local_step_fused.launches, pcg.cg_dia_solve.launches)
+        s.run(WARMUP_STEPS)
+        torch.cuda.synchronize()
+        windows = []
+        for _ in range(WINDOWS):
+            t0 = time.perf_counter()
+            s.run(WINDOW_STEPS)
+            torch.cuda.synchronize()
+            windows.append(1e3 * (time.perf_counter() - t0) / WINDOW_STEPS)
+        counts = (pnh.nh_local_step_fused.launches - n0[0],
+                  pcg.cg_dia_solve.launches - n0[1])
+        per_budget[cg] = (statistics.median(windows), windows, counts, s)
+    launches = {"nh_local": pnh.nh_local_step_fused.launches,
+                "cg_dia": pcg.cg_dia_solve.launches}
+
+    for cg, (med, windows, counts, s) in per_budget.items():
+        x = s.x
+        anchored = np.flatnonzero(s._x[:, 0] < 1e-9)
+        drift = float(np.abs(x[anchored] - s._x[anchored]).max())
+        sag = float((x[:, 1] - s._x[:, 1]).min())
+        nh_step = ADMM_ITERS * nh_ms
+        cg_step = ADMM_ITERS * cg_ms[(torch.float32, cg)][1]
+        say(f"tet100k cg{cg} f32", ms_per_step_median=med,
+            windows_ms=[round(w, 4) for w in windows],
+            spread_ms=max(windows) - min(windows), steps=steps,
+            nh_launches=counts[0], cg_launches=counts[1],
+            anchor_drift_m=drift, min_dy_m=sag,
+            finite=bool(np.isfinite(x).all()))
+        say(f"attribution cg{cg}", local_nh_ms=nh_step, cg_ms=cg_step,
+            rest_ms=med - nh_step - cg_step)
+        if counts != (steps * ADMM_ITERS, steps * ADMM_ITERS):
+            raise AssertionError(f"cg{cg}: kernel launches {counts}, expected "
+                                 f"{steps * ADMM_ITERS} each")
+        if not (np.isfinite(x).all() and drift < 1e-4 and sag < 0):
+            raise AssertionError(f"cg{cg}: bad trajectory (drift {drift}, "
+                                 f"min dy {sag})")
+
+    print(json.dumps({"kernels": [
+        {"name": "nh_local_step_fused", "route": "cuda",
+         "source": "admm_elastic_tpu_torch/csrc/nh_local.cu",
+         "replaces": "admm_elastic_tpu/ops/pallas/nh_local.py:442",
+         "launches": launches["nh_local"], "max_abs_err": nh_err,
+         "ms": nh_ms, "plain_ms": nh_plain},
+        {"name": "cg_dia_solve", "route": "cuda",
+         "source": "admm_elastic_tpu_torch/csrc/cg_dia.cu",
+         "replaces": "admm_elastic_tpu/ops/pallas/cg_dia.py:99",
+         "launches": launches["cg_dia"],
+         "max_abs_err": cg_ms[(torch.float32, 75)][0],
+         "ms": cg_ms[(torch.float32, 75)][1],
+         "plain_ms": cg_ms[(torch.float32, 75)][2]},
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
