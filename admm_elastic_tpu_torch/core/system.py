@@ -13,9 +13,14 @@ Same API as `admm_elastic_tpu.core.system` (reference System.hpp:29-99):
       x     = fixed-budget Jacobi-PCG on A_hat     (dia kernel)
     v = (x' - x)/dt                                System.cpp:70-71
 
-Ported so far: the dia global solver with kernel-backed tets, anchors and
-explicit forces. Every other setting raises NotImplementedError rather
-than running something else.
+With `Settings.lattice_fast_path=True` the whole timestep runs instead as
+one kernel launch per rollout window (`core/banded.py`), when the scene
+qualifies; a scene that does not qualify raises.
+
+Ported so far: the dia global solver with kernel-backed tets, anchors,
+collisions and explicit forces, on the general route and the banded
+whole-timestep route. Every other setting raises NotImplementedError
+rather than running something else.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from ..models.base import ForceBatch
 from ..ops.kernels.cg_dia import MAX_DIAGONALS, cg_dia_solve
+from .banded import banded_from_system
 from .solver import (
     assemble_A_hat_dia,
     assemble_transpose_incidence,
@@ -52,7 +58,10 @@ class Settings:
     #: (first, rest) gives ADMM iteration 0, whose warm start is stale by
     #: the whole explicit kick, a deeper solve than the others
     cg_fixed_iters: int | tuple | None = None
-    #: the whole-timestep fast paths are not ported
+    #: True runs whole timesteps in one kernel launch per rollout window
+    #: (the banded route, core/banded.py). A scene that the banded kernel
+    #: does not take raises: the lattice and cloth fast paths are not
+    #: ported (ROADMAP A7), and the general route never runs in their place
     lattice_fast_path: bool = False
     # Settings of the JAX package that the port does not implement yet.
     # They keep the reference's defaults; any other value raises.
@@ -67,8 +76,6 @@ class Settings:
         out = []
         if self.global_solver != "dia":
             out.append(f"global_solver={self.global_solver!r} (only 'dia')")
-        if self.lattice_fast_path:
-            out.append("lattice_fast_path=True (whole-timestep fast paths)")
         if self.relaxation != 1.0:
             out.append(f"relaxation={self.relaxation}")
         if self.acceleration is not None:
@@ -76,7 +83,8 @@ class Settings:
         if self.residual_tol is not None:
             out.append(f"residual_tol={self.residual_tol}")
         if self.collect_residuals:
-            out.append(f"collect_residuals={self.collect_residuals!r}")
+            out.append(f"collect_residuals={self.collect_residuals!r} "
+                       "(ROADMAP A2 item 2d; in-kernel residuals B2)")
         if self.reorder != "auto":
             out.append(f"reorder={self.reorder!r}")
         return out
@@ -104,6 +112,7 @@ class System:
         self._m = np.zeros((0,), dtype=np.float64)
         self.initialized = False
         self.elapsed_s = 0.0
+        self._stepper = None
 
     # ------------------------------------------------------------- building
 
@@ -188,6 +197,7 @@ class System:
                              "inc_idx": inc_idx}
 
         dtype = s.dtype
+        self._params_host = params
         self.params = _to_device(params, dtype, device)
         self.state = {
             "x": torch.as_tensor(self._x, dtype=dtype, device=device),
@@ -200,6 +210,9 @@ class System:
         # the zero row that the incidence's padding slots gather
         self._sentinel = torch.zeros((1, 3), dtype=dtype, device=device)
 
+        if s.lattice_fast_path:
+            self._route_fast_path()
+
         if s.verbose >= 1:
             print(
                 f"Solver::initialize: {n} nodes, {len(self.forces)} constraint "
@@ -209,6 +222,21 @@ class System:
             )
         self.initialized = True
         return True
+
+    def _route_fast_path(self):
+        """Engage the banded whole-timestep kernel, or raise: the lattice
+        and cloth kernels the JAX package would try next are not ported."""
+        self._stepper = banded_from_system(self)
+        if self._stepper is None:
+            raise NotImplementedError(
+                "lattice_fast_path=True: the scene does not qualify for the "
+                "banded whole-timestep kernel, and the lattice and cloth "
+                "fast paths are not ported (ROADMAP A7); use "
+                "lattice_fast_path=False for the general route"
+            )
+        if self.settings.verbose >= 1:
+            print("Solver: whole-timestep fast path engaged "
+                  f"(model={self._stepper.model})")
 
     # ----------------------------------------------------------- step fn
 
@@ -275,7 +303,10 @@ class System:
             raise RuntimeError("call initialize() first")
         for cb in self.pre_step_callbacks:
             cb(self)
-        self.state = self._step(self.state, self.params)
+        if self._stepper is not None:
+            self._stepper.step()
+        else:
+            self.state = self._step(self.state, self.params)
         self.elapsed_s += self.settings.timestep_s
         return True
 
@@ -283,8 +314,11 @@ class System:
         """Advance n_steps with no per-step callbacks."""
         if not self.initialized:
             raise RuntimeError("call initialize() first")
-        for _ in range(n_steps):
-            self.state = self._step(self.state, self.params)
+        if self._stepper is not None:
+            self._stepper.run(n_steps)
+        else:
+            for _ in range(n_steps):
+                self.state = self._step(self.state, self.params)
         self.elapsed_s += n_steps * self.settings.timestep_s
         return True
 
@@ -294,12 +328,16 @@ class System:
     def x(self) -> np.ndarray:
         if not self.initialized:
             return self._x
+        if self._stepper is not None:
+            return self._stepper.x
         return self.state["x"].cpu().numpy()
 
     @x.setter
     def x(self, value):
         value = np.asarray(value, dtype=np.float64).reshape(-1, 3)
-        if self.initialized:
+        if self._stepper is not None:
+            self._stepper.set_positions(value)
+        elif self.initialized:
             self.state["x"] = torch.as_tensor(
                 value, dtype=self.settings.dtype, device=self.state["x"].device
             )
@@ -309,6 +347,8 @@ class System:
     def v(self) -> np.ndarray:
         if not self.initialized:
             return np.zeros_like(self._x)
+        if self._stepper is not None:
+            return self._stepper.v
         return self.state["v"].cpu().numpy()
 
     @v.setter
@@ -316,6 +356,9 @@ class System:
         if not self.initialized:
             raise RuntimeError("set velocities after initialize()")
         vv = np.asarray(value, dtype=np.float64).reshape(-1, 3)
+        if self._stepper is not None:
+            self._stepper.set_velocities(vv)
+            return
         self.state["v"] = torch.as_tensor(
             vv, dtype=self.settings.dtype, device=self.state["v"].device
         )

@@ -31,46 +31,16 @@
 // another block of the same launch writes. All reductions are fixed-order
 // trees, never atomics: two runs are bitwise equal.
 
-#include "common.cuh"
+#include "dia.cuh"
 
 namespace admm {
 namespace cg {
 
 constexpr int THREADS = 256;
-constexpr int MAX_DIAGONALS = 48;
-
-struct Offsets {
-  int v[MAX_DIAGONALS];
-};
-
-template <typename T>
-__device__ __forceinline__ void dia_row(const T* __restrict__ dia,
-                                        const Offsets& offs, int D, int n,
-                                        int i, const T* __restrict__ x,
-                                        T out[3]) {
-  T a0 = T(0), a1 = T(0), a2 = T(0);
-  for (int d = 0; d < D; ++d) {
-    const int j = i + offs.v[d];
-    if (j >= 0 && j < n) {
-      const T w = dia[static_cast<size_t>(d) * n + i];
-      a0 = a0 + w * x[3 * j];
-      a1 = a1 + w * x[3 * j + 1];
-      a2 = a2 + w * x[3 * j + 2];
-    }
-  }
-  out[0] = a0;
-  out[1] = a1;
-  out[2] = a2;
-}
-
-// Sum of `count` per-block partials, in the same order in every block.
-template <typename T>
-__device__ __forceinline__ T sum_partials(const T* __restrict__ part,
-                                          int count, T* sh) {
-  T acc = T(0);
-  for (int i = threadIdx.x; i < count; i += blockDim.x) acc = acc + part[i];
-  return block_sum(acc, sh);
-}
+using dia::dia_row;
+using dia::MAX_DIAGONALS;
+using dia::Offsets;
+using dia::sum_partials;
 
 // r = b - A x0; x = x0; p = D^-1 r; partials of r.(D^-1 r)
 template <typename T>

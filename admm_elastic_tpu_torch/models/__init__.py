@@ -2,7 +2,9 @@
 
 from .base import ForceBatch
 from .anchor import StaticAnchor
+from .collision import Collision, Cylinder, Floor, Sphere
 from .tet import HyperElasticTet
 from .explicit import ExplicitForce
 
-__all__ = ["ForceBatch", "StaticAnchor", "HyperElasticTet", "ExplicitForce"]
+__all__ = ["ForceBatch", "StaticAnchor", "Collision", "Floor", "Sphere",
+           "Cylinder", "HyperElasticTet", "ExplicitForce"]

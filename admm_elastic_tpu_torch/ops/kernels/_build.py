@@ -1,6 +1,7 @@
 """Builds and loads the hand-written CUDA kernels.
 
-`csrc/*.cu` are compiled by `nvcc` into one shared library with a plain C
+Each `csrc/*.cu` is compiled by its own `nvcc` process, all started
+together, and the objects are linked into one shared library with a plain C
 interface, loaded with `ctypes`. The library goes to `build/torch_kernels/`
 beside the package, under a hash of the sources and flags, so an unchanged
 tree builds once. Nothing here runs at import: the CPU tests never need
@@ -34,7 +35,7 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -69,22 +70,36 @@ def build() -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    nvcc = _nvcc()
+    cu = sorted(CSRC.glob("*.cu"))
+    # objects and the library are made under a private name first, so a
+    # concurrent build of the same tree never reads a half-written file
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    objs = [work / (p.stem + ".o") for p in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                               "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for p, o in zip(cu, objs)]
+    log = "".join(f"== {c.name}\n{''.join(p.communicate())}"
+                  for c, p in zip(cu, procs))
+    failed = [c.name for c, p in zip(cu, procs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(work / lib.name), *map(str, objs)],
+            capture_output=True, text=True)
+        log += f"== link\n{link.stdout}{link.stderr}"
+        if link.returncode != 0:
+            failed = ["link"]
     seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    (out_dir / "build.log").write_text(log)
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+    os.replace(work / lib.name, lib)  # atomic: all or nothing
+    shutil.rmtree(work, ignore_errors=True)
     return lib, seconds
 
 
@@ -96,6 +111,12 @@ _SIGNATURES = {
     **{f"cg_dia_solve_{t}": (_I, [_P] * 5 + [_I] * 3 + [_P] * 6)
        for t in ("f32", "f64")},
     "cg_dia_partials": (_I, [_I]),
+    # state 6, element planes 6, vertex planes 6, scratch 7, host arrays 4,
+    # then n, E, D, S, n_shapes, model, newton_iters, cg_iters, admm_iters,
+    # n_steps, part_len, and the stream
+    **{f"banded_rollout_{t}": (_I, [_P] * 29 + [_I] * 11 + [_P])
+       for t in ("f32", "f64")},
+    **{f"banded_rollout_grid_{t}": (_I, [_I]) for t in ("f32", "f64")},
     "admm_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

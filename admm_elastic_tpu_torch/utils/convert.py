@@ -9,6 +9,10 @@ the kernel block; the port's planes are unpadded, so the padding is cut
 off. A port param that the reference derives on the fly (`w2`, the
 squared weight) is derived here from the reference's `weight`. Takes numpy
 only: this module never imports jax.
+
+`banded_from_reference(stepper, state_np, subs, positions)` does the same
+for the banded route: it loads a JAX `BandedStepper`'s state into the
+port's `BandedStepper` built from the same scene.
 """
 
 from __future__ import annotations
@@ -50,3 +54,34 @@ def from_reference(system, params_np, state_np) -> None:
     system.params = _load(system.params, params_np, "params")
     system.state = _load(system.state, state_np, "state")
     system.elapsed_s = float(np.asarray(state_np["t"]))
+
+
+def banded_from_reference(stepper, state_np, subs, positions) -> None:
+    """Overwrite a port `BandedStepper`'s state with a JAX `BandedStepper`'s.
+
+    state_np: the JAX stepper's `state` as numpy (x, v, ancu, colu as
+    (3*Nr, 128) planes; d as (n_chunks, 12*SUB, 128) chunk planes; t).
+    subs: its `_subs`, the (n_chunks, SUB, 128) chunk -> element map (-1
+    pads). positions: its `_positions`, vertex -> slot of the flattened
+    planes. The JAX stepper relabels tet corners (`perm`) to pack its
+    scatter lanes; the dual u and the warm start live in F-space, which
+    that relabeling leaves alone, so they carry across by element id."""
+    positions = np.asarray(positions, np.int64)
+    subs = np.asarray(subs, np.int64)
+    n_chunks = subs.shape[0]
+
+    def xyz(planes):
+        return np.asarray(planes).reshape(3, -1)[:, positions].T
+
+    d = np.asarray(state_np["d"])
+    d = d.reshape(n_chunks, 12, -1, d.shape[-1]).transpose(1, 0, 2, 3)
+    real = subs >= 0
+    ue = np.zeros((12, stepper.n_elements))
+    ue[:, subs[real]] = d[:, real]
+    new = {"x": xyz(state_np["x"]), "v": xyz(state_np["v"]), "u": ue[:9],
+           "warm": ue[9:], "au": xyz(state_np["ancu"]),
+           "cu": xyz(state_np["colu"]), "t": np.asarray(state_np["t"])}
+    ref = stepper.state
+    stepper.state = {k: torch.as_tensor(np.array(a), dtype=ref[k].dtype,
+                                        device=ref[k].device)
+                     for k, a in new.items()}

@@ -1,17 +1,20 @@
 """Where a timestep's time goes on the card: torch.profiler over a few
-steps of the 100k-tet beam (the `chip_smoke.py` main path).
+steps of the 100k-tet beam (the `chip_smoke.py` main paths).
 
     python -m admm_elastic_tpu_torch.utils.profile_step [--cg 25 75]
-        [--steps 10]
+        [--steps 10] [--route general|fast]
 
-For each CG budget it times `steps` steps twice in one process, each
-window closed by `torch.cuda.synchronize()`: first without the profiler,
-then under it, tracing the device only. It prints one line: both windows'
-wall ms/step, the profiled window's device-busy ms/step (the union of its
-kernel and memcpy intervals) and idle share (1 - busy/wall, both from that
-same window), and device operations per step; then the kernels with the
-most device time. The profiled wall carries the tracer's own cost, so its
-idle share is an upper bound for the unprofiled run. Needs a CUDA device;
+`--route general` (the default) steps the general route; `--route fast`
+steps the banded whole-timestep route (`lattice_fast_path=True`), where
+`steps` = 10 is one kernel launch. For each CG budget it times `steps`
+steps twice in one process, each window closed by
+`torch.cuda.synchronize()`: first without the profiler, then under it,
+tracing the device only. It prints one line: both windows' wall ms/step,
+the profiled window's device-busy ms/step (the union of its kernel and
+memcpy intervals) and idle share (1 - busy/wall, both from that same
+window), and device operations per step; then the kernels with the most
+device time. The profiled wall carries the tracer's own cost, so its idle
+share is an upper bound for the unprofiled run. Needs a CUDA device;
 fails if the profiler records no device activity.
 """
 
@@ -46,11 +49,14 @@ def _window_ms(s, steps):
     return 1e3 * (time.perf_counter() - t0) / steps
 
 
-def profile(cg, steps):
+def profile(cg, steps, route="general", s=None) -> dict:
+    """Profile `steps` steps of tet100k (or of the given System `s`) and
+    print and return the numbers."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    s = tet100k(cg)
-    s.run(2)
+    if s is None:
+        s = tet100k(cg, fast=route == "fast")
+        s.run(2)
     plain_ms = _window_ms(s, steps)
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_ms = _window_ms(s, steps)
@@ -64,27 +70,31 @@ def profile(cg, steps):
     for e in dev:
         c, t = per_name.get(e.name, (0, 0.0))
         per_name[e.name] = (c + 1, t + (e.time_range.end - e.time_range.start))
-    print(f"[profile cg{cg}] unprofiled_wall_ms_per_step={plain_ms} "
-          f"profiled_wall_ms_per_step={wall_ms} "
-          f"device_busy_ms_per_step={busy_ms} "
-          f"idle_share={1.0 - busy_ms / wall_ms} "
-          f"device_ops_per_step={len(dev) / steps}", flush=True)
+    out = {"unprofiled_wall_ms_per_step": plain_ms,
+           "profiled_wall_ms_per_step": wall_ms,
+           "device_busy_ms_per_step": busy_ms,
+           "idle_share": 1.0 - busy_ms / wall_ms,
+           "device_ops_per_step": len(dev) / steps}
+    print(f"[profile {route} cg{cg}] "
+          + " ".join(f"{k}={v}" for k, v in out.items()), flush=True)
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:12]
     for name, (count, us) in top:
         print(f"  {us / 1e3 / steps:9.4f} ms/step {count / steps:7.1f}/step "
               f"{name[:90]}")
+    return out
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cg", type=int, nargs="+", default=[25, 75])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--route", choices=("general", "fast"), default="general")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     print(torch.cuda.get_device_name(0), flush=True)
     for cg in args.cg:
-        profile(cg, args.steps)
+        profile(cg, args.steps, args.route)
 
 
 if __name__ == "__main__":

@@ -5,16 +5,19 @@
 
 Run from the root of a checkout. It builds the hand-written kernels from
 `admm_elastic_tpu_torch/csrc/`, checks each against its plain PyTorch
-version on the card, checks the slice against the CPU run, then drives the
-port's main path (the 100,000-tet NeoHookean beam: System -> initialize ->
-step/run, dia global solver, f32) and times it. Every phase prints one
-line of numbers. Any failure raises: the script then exits non-zero and
-prints no result line. It needs CUDA (it never falls back to the CPU) and
-imports nothing of JAX.
+version on the card, checks the general route against the CPU run, then
+drives the port's two main paths on the 100,000-tet NeoHookean beam
+(System -> initialize -> step/run, dia global solver, f32): the general
+route (nh_local + cg_dia kernels) and the banded whole-timestep route
+(`lattice_fast_path=True`, one banded_rollout launch per 10-step window),
+and times both in this one process. Every phase prints one line of
+numbers. Any failure raises: the script then exits non-zero and prints no
+result line. It needs CUDA (it never falls back to the CPU) and imports
+nothing of JAX.
 
 The last two lines are a JSON object with each kernel's launch count in
-the main-path run, error against its plain version and times, then
-{"ok": true, "device": {...}}.
+its main path's run, error against its plain version, times and roofline
+bound, then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -26,9 +29,22 @@ import subprocess
 import sys
 import time
 
+import dataclasses
+
 import numpy as np
+import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+from admm_elastic_tpu_torch.ops.kernels import _build  # noqa: E402
+from admm_elastic_tpu_torch.ops.kernels import banded_step as pbs  # noqa: E402
+from admm_elastic_tpu_torch.ops.kernels import cg_dia as pcg  # noqa: E402
+from admm_elastic_tpu_torch.ops.kernels import nh_local as pnh  # noqa: E402
+from admm_elastic_tpu_torch.utils import profile_step, scenes  # noqa: E402
+from admm_elastic_tpu_torch.utils.opcount import (  # noqa: E402
+    count_ops, nbytes, roofline_ms)
+from admm_elastic_tpu_torch.utils.scenes import tet100k  # noqa: E402
 DT = 0.04  # the workload's timestep and ADMM iterations
 ADMM_ITERS = 10  # (admm_elastic_tpu_torch/utils/scenes.py)
 WARMUP_STEPS = 2
@@ -54,6 +70,23 @@ def cuda_ms(torch, fn, reps, warmup=1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def drive(torch, s):
+    """The main-path protocol: WARMUP_STEPS single steps, then WINDOWS
+    run(WINDOW_STEPS) windows, each timed on the host clock around work
+    that ends in torch.cuda.synchronize(). Returns (median ms/step,
+    per-window ms/step)."""
+    for _ in range(WARMUP_STEPS):
+        s.step()
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(WINDOWS):
+        t0 = time.perf_counter()
+        s.run(WINDOW_STEPS)
+        torch.cuda.synchronize()
+        windows.append(1e3 * (time.perf_counter() - t0) / WINDOW_STEPS)
+    return statistics.median(windows), windows
 
 
 def nh_inputs(torch, s, rng):
@@ -118,11 +151,14 @@ def check_nh(torch, pnh, ins, dtype):
     ms = cuda_ms(torch, lambda: pnh.nh_local_step_fused(*ins, iters=5), 20)
     plain_ms = cuda_ms(torch, lambda: pnh.nh_local_step_fused_reference(
         *ins, iters=5), 5)
+    n_ops, _ = count_ops(pnh.nh_local_step_fused_reference, *ins, iters=5)
+    bound_ms, bound_by = roofline_ms(nbytes(ins, got), n_ops)
     say(f"kernel nh_local {str(dtype)[6:]}", E=E, separated=int(sep.sum()),
-        **verdict, ms=ms, plain_ms=plain_ms, ok=ok)
+        **verdict, ms=ms, plain_ms=plain_ms, operations=n_ops,
+        bound_ms=bound_ms, bound_by=bound_by, ok=ok)
     if not ok:
         raise AssertionError(f"nh_local_step_fused disagrees in {dtype}")
-    return float(err[sep].max()), ms, plain_ms
+    return float(err[sep].max()), ms, plain_ms, bound_ms, bound_by
 
 
 def check_cg(torch, pcg, s, dtype, n_iters):
@@ -143,26 +179,87 @@ def check_cg(torch, pcg, s, dtype, n_iters):
           and bool(torch.equal(got, again)))
     ms = cuda_ms(torch, lambda: pcg.cg_dia_solve(*args), 20)
     plain_ms = cuda_ms(torch, lambda: pcg.cg_dia_solve_reference(*args), 5)
+    n_ops, _ = count_ops(pcg.cg_dia_solve_reference, *args)
+    bound_ms, bound_by = roofline_ms(nbytes(args, got), n_ops)
     say(f"kernel cg_dia {str(dtype)[6:]}", n=b.shape[0],
         diagonals=len(s._dia_offsets), n_iters=n_iters, max_abs_err=err,
         rel_err=rel, tol=tol, bitwise_repeat=bool(torch.equal(got, again)),
-        ms=ms, plain_ms=plain_ms, ok=ok)
+        ms=ms, plain_ms=plain_ms, operations=n_ops, bound_ms=bound_ms,
+        bound_by=bound_by, ok=ok)
     if not ok:
         raise AssertionError(f"cg_dia_solve disagrees in {dtype} at {n_iters}")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def banded_errors(torch, pbs, st, cfg, steps):
+    """Kernel and twin from the same state; (x abs err, x rel err, v abs
+    err, bitwise repeat, finite, kernel result)."""
+    got = pbs.banded_rollout(st.state, st.planes, cfg, steps)
+    again = pbs.banded_rollout(st.state, st.planes, cfg, steps)
+    want = pbs.banded_rollout_reference(st.state, st.planes, cfg, steps)
+    torch.cuda.synchronize()
+    ex = float((got["x"] - want["x"]).abs().max())
+    ev = float((got["v"] - want["v"]).abs().max())
+    rel = ex / float(want["x"].abs().max())
+    bit = all(torch.equal(got[k], again[k]) for k in pbs.STATE)
+    fin = all(bool(torch.isfinite(got[k]).all()) for k in pbs.STATE)
+    return ex, rel, ev, bit, fin, got
+
+
+def check_banded_small(torch, pbs, jittered_system, dtype):
+    """The jittered 8x6x5 beam with anchors, floor, sphere and cylinder:
+    1 step of 1 ADMM iteration, then a 10-step window."""
+    st = jittered_system((8, 6, 5), dtype=dtype)._stepper
+    f64 = dtype == torch.float64
+    ok = True
+    for tag, cfg, steps, tol in (
+            ("1 iteration", dataclasses.replace(st.cfg, admm_iters=1), 1,
+             1e-11 if f64 else 1e-4),
+            ("10-step window", st.cfg, 10, 1e-8 if f64 else 1e-4)):
+        ex, rel, ev, bit, fin, _ = banded_errors(torch, pbs, st, cfg, steps)
+        err = ex if f64 else rel
+        good = err <= tol and bit and fin
+        say(f"kernel banded {str(dtype)[6:]} small {tag}", n=st.n_nodes,
+            E=st.n_elements, max_abs_err_x=ex, rel_err_x=rel,
+            max_abs_err_v=ev, tol=tol, tol_on="abs x" if f64 else "rel x",
+            bitwise_repeat=bit, finite=fin, ok=good)
+        ok = ok and good
+    if not ok:
+        raise AssertionError(f"banded_rollout disagrees in {dtype} (small)")
+
+
+def check_banded_tet100k(torch, pbs, dtype, tol):
+    """One full-width tet100k step at cg75, kernel vs twin; the kernel's
+    time per 1-step and per 10-step launch, the twin's, and the bound."""
+    st = tet100k(75, dtype, fast=True)._stepper
+    ex, rel, ev, bit, fin, got = banded_errors(torch, pbs, st, st.cfg, 1)
+    err = ex if dtype == torch.float64 else rel
+    ok = err <= tol and bit and fin
+    ms = cuda_ms(torch, lambda: pbs.banded_rollout(st.state, st.planes,
+                                                   st.cfg, 1), 5)
+    window_ms = cuda_ms(torch, lambda: pbs.banded_rollout(
+        st.state, st.planes, st.cfg, 10), 3)
+    plain_ms = cuda_ms(torch, lambda: pbs.banded_rollout_reference(
+        st.state, st.planes, st.cfg, 1), 2, warmup=0)
+    n_ops, _ = count_ops(pbs.banded_rollout_reference, st.state, st.planes,
+                         st.cfg, 1)
+    ins = ({k: st.state[k] for k in pbs.STATE}, st.planes)
+    bound_ms, bound_by = roofline_ms(nbytes(ins, got), n_ops)
+    say(f"kernel banded {str(dtype)[6:]} tet100k cg75", n=st.n_nodes,
+        E=st.n_elements, max_abs_err_x=ex, rel_err_x=rel, max_abs_err_v=ev,
+        tol=tol, bitwise_repeat=bit, finite=fin,
+        ms_per_1step_launch=ms, ms_per_10step_launch=window_ms,
+        ms_per_step_in_window=window_ms / 10, plain_ms_per_step=plain_ms,
+        operations=n_ops, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+    if not ok:
+        raise AssertionError(f"banded_rollout disagrees at tet100k, {dtype}")
+    return ex, ms, plain_ms, bound_ms, bound_by
 
 
 def main():
-    import torch
-
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA device")
-    sys.path.insert(0, HERE)
-    from admm_elastic_tpu_torch.ops.kernels import _build
-    from admm_elastic_tpu_torch.ops.kernels import cg_dia as pcg
-    from admm_elastic_tpu_torch.ops.kernels import nh_local as pnh
-    from admm_elastic_tpu_torch.utils.scenes import beam_system, tet100k
 
     # phase 1: the device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -195,16 +292,23 @@ def main():
     ref64 = tet100k(25, torch.float64)
     ins = nh_inputs(torch, ref64, rng)
     check_nh(torch, pnh, ins, torch.float64)
-    nh_err, nh_ms, nh_plain = check_nh(torch, pnh, ins, torch.float32)
+    nh32 = check_nh(torch, pnh, ins, torch.float32)
     cg_ms = {}
     for dtype in (torch.float64, torch.float32):
         for k in (25, 75):
             cg_ms[(dtype, k)] = check_cg(torch, pcg, ref64, dtype, k)
     del ref64, ins
 
+    # phase 3b: the banded whole-timestep kernel against its plain version
+    for dtype in (torch.float64, torch.float32):
+        check_banded_small(torch, pbs, scenes.jittered_system, dtype)
+    check_banded_tet100k(torch, pbs, torch.float64, 1e-8)
+    banded32 = check_banded_tet100k(torch, pbs, torch.float32, 1e-4)
+
     # phase 4: slice parity, card vs CPU, and determinism on the card
     def small(device):
-        s = beam_system((6, 4, 4), 0.05, 1.0, 25, torch.float64, device)
+        s = scenes.beam_system((6, 4, 4), 0.05, 1.0, 25, torch.float64,
+                               device)
         s.run(5)
         return s.x, s.v
 
@@ -218,34 +322,29 @@ def main():
     if not (diff < 1e-8 and bitwise):
         raise AssertionError("slice parity or determinism failed on the card")
 
-    # phase 5: the main path at full width, f32
+    # phase 5: the general route at full width, f32
     steps = WARMUP_STEPS + WINDOWS * WINDOW_STEPS
     systems = {cg: tet100k(cg, torch.float32) for cg in (75, 25)}
     pnh.nh_local_step_fused.launches = 0
     pcg.cg_dia_solve.launches = 0
+    pbs.banded_rollout.launches = 0
     per_budget = {}
     for cg, s in systems.items():
         n0 = (pnh.nh_local_step_fused.launches, pcg.cg_dia_solve.launches)
-        s.run(WARMUP_STEPS)
-        torch.cuda.synchronize()
-        windows = []
-        for _ in range(WINDOWS):
-            t0 = time.perf_counter()
-            s.run(WINDOW_STEPS)
-            torch.cuda.synchronize()
-            windows.append(1e3 * (time.perf_counter() - t0) / WINDOW_STEPS)
-        counts = (pnh.nh_local_step_fused.launches - n0[0],
-                  pcg.cg_dia_solve.launches - n0[1])
-        per_budget[cg] = (statistics.median(windows), windows, counts, s)
+        per_budget[cg] = (*drive(torch, s),
+                          (pnh.nh_local_step_fused.launches - n0[0],
+                           pcg.cg_dia_solve.launches - n0[1]), s)
     launches = {"nh_local": pnh.nh_local_step_fused.launches,
                 "cg_dia": pcg.cg_dia_solve.launches}
+    if pbs.banded_rollout.launches:
+        raise AssertionError("the general route launched banded_rollout")
 
     for cg, (med, windows, counts, s) in per_budget.items():
         x = s.x
         anchored = np.flatnonzero(s._x[:, 0] < 1e-9)
         drift = float(np.abs(x[anchored] - s._x[anchored]).max())
         sag = float((x[:, 1] - s._x[:, 1]).min())
-        nh_step = ADMM_ITERS * nh_ms
+        nh_step = ADMM_ITERS * nh32[1]
         cg_step = ADMM_ITERS * cg_ms[(torch.float32, cg)][1]
         say(f"tet100k cg{cg} f32", ms_per_step_median=med,
             windows_ms=[round(w, 4) for w in windows],
@@ -262,19 +361,60 @@ def main():
             raise AssertionError(f"cg{cg}: bad trajectory (drift {drift}, "
                                  f"min dy {sag})")
 
+    # phase 5b: the banded whole-timestep route at full width, f32
+    fast = {cg: tet100k(cg, torch.float32, fast=True) for cg in (75, 25)}
+    pnh.nh_local_step_fused.launches = 0
+    pcg.cg_dia_solve.launches = 0
+    pbs.banded_rollout.launches = 0
+    fast_budget = {}
+    for cg, s in fast.items():
+        n0 = pbs.banded_rollout.launches
+        fast_budget[cg] = (*drive(torch, s), pbs.banded_rollout.launches - n0)
+    launches["banded"] = pbs.banded_rollout.launches
+    if pnh.nh_local_step_fused.launches or pcg.cg_dia_solve.launches:
+        raise AssertionError("the banded route launched a general-route kernel")
+    for cg, (med, windows, n_launch) in fast_budget.items():
+        s, gen = fast[cg], per_budget[cg][3]
+        x = s.x
+        anchored = np.flatnonzero(s._x[:, 0] < 1e-9)
+        drift = float(np.abs(x[anchored] - s._x[anchored]).max())
+        sag = float((x[:, 1] - s._x[:, 1]).min())
+        vs_general = float(np.abs(x - gen.x).max())
+        want = WARMUP_STEPS + WINDOWS  # single warm-up steps, one per window
+        say(f"tet100k fast cg{cg} f32", ms_per_step_median=med,
+            windows_ms=[round(w, 4) for w in windows],
+            spread_ms=max(windows) - min(windows), steps=steps,
+            banded_launches=n_launch, expected_launches=want,
+            anchor_drift_m=drift, min_dy_m=sag,
+            max_abs_dx_vs_general_m=vs_general,
+            finite=bool(np.isfinite(x).all()))
+        say(f"routes cg{cg} f32 (this call)",
+            general_ms_per_step=per_budget[cg][0], fast_ms_per_step=med)
+        if n_launch != want:
+            raise AssertionError(f"fast cg{cg}: {n_launch} banded launches, "
+                                 f"expected {want}")
+        if not (np.isfinite(x).all() and drift < 1e-4 and sag < 0):
+            raise AssertionError(f"fast cg{cg}: bad trajectory (drift "
+                                 f"{drift}, min dy {sag})")
+    for cg, s in fast.items():
+        profile_step.profile(cg, WINDOW_STEPS, "fast", s=s)
+
+    def entry(name, source, replaces, n, err, ms, plain_ms, bound_ms,
+              bound_by):
+        return {"name": name, "route": "cuda",
+                "source": f"admm_elastic_tpu_torch/csrc/{source}",
+                "replaces": f"admm_elastic_tpu/ops/pallas/{replaces}",
+                "launches": n, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "nh_local_step_fused", "route": "cuda",
-         "source": "admm_elastic_tpu_torch/csrc/nh_local.cu",
-         "replaces": "admm_elastic_tpu/ops/pallas/nh_local.py:442",
-         "launches": launches["nh_local"], "max_abs_err": nh_err,
-         "ms": nh_ms, "plain_ms": nh_plain},
-        {"name": "cg_dia_solve", "route": "cuda",
-         "source": "admm_elastic_tpu_torch/csrc/cg_dia.cu",
-         "replaces": "admm_elastic_tpu/ops/pallas/cg_dia.py:99",
-         "launches": launches["cg_dia"],
-         "max_abs_err": cg_ms[(torch.float32, 75)][0],
-         "ms": cg_ms[(torch.float32, 75)][1],
-         "plain_ms": cg_ms[(torch.float32, 75)][2]},
+        entry("nh_local_step_fused", "nh_local.cu", "nh_local.py:442",
+              launches["nh_local"], *nh32),
+        entry("cg_dia_solve", "cg_dia.cu", "cg_dia.py:99", launches["cg_dia"],
+              *cg_ms[(torch.float32, 75)]),
+        entry("banded_rollout", "banded_step.cu", "banded_step.py:1090",
+              launches["banded"], *banded32),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

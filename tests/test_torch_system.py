@@ -107,7 +107,7 @@ def test_anchors_hold_and_callbacks_run():
 @pytest.mark.parametrize("bad", [
     dict(global_solver="ell"),
     dict(global_solver="auto"),
-    dict(lattice_fast_path=True),
+    dict(lattice_fast_path=True, relaxation=1.5),
     dict(relaxation=1.5),
     dict(acceleration="anderson"),
     dict(residual_tol=1e-6),
