@@ -14,13 +14,14 @@ Same API as `admm_elastic_tpu.core.system` (reference System.hpp:29-99):
     v = (x' - x)/dt                                System.cpp:70-71
 
 With `Settings.lattice_fast_path=True` the whole timestep runs instead as
-one kernel launch per rollout window (`core/banded.py`), when the scene
-qualifies; a scene that does not qualify raises.
+one kernel launch per rollout window, when the scene qualifies: tet scenes
+on the banded kernel (`core/banded.py`), grid cloth on the cloth kernel
+(`core/cloth.py`); a scene that qualifies for neither raises.
 
-Ported so far: the dia global solver with kernel-backed tets, anchors,
-collisions and explicit forces, on the general route and the banded
-whole-timestep route. Every other setting raises NotImplementedError
-rather than running something else.
+Ported so far: the dia global solver with kernel-backed tets and
+triangle strain, bend hinges, anchors, collisions, gravity and wind, on
+the general route and the two whole-timestep routes. Every other setting
+raises NotImplementedError rather than running something else.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 from ..models.base import ForceBatch
 from ..ops.kernels.cg_dia import MAX_DIAGONALS, cg_dia_solve
 from .banded import banded_from_system
+from .cloth import cloth_from_system
 from .solver import (
     assemble_A_hat_dia,
     assemble_transpose_incidence,
@@ -58,10 +60,17 @@ class Settings:
     #: (first, rest) gives ADMM iteration 0, whose warm start is stale by
     #: the whole explicit kick, a deeper solve than the others
     cg_fixed_iters: int | tuple | None = None
-    #: True runs whole timesteps in one kernel launch per rollout window
-    #: (the banded route, core/banded.py). A scene that the banded kernel
-    #: does not take raises: the lattice and cloth fast paths are not
-    #: ported (ROADMAP A7), and the general route never runs in their place
+    #: global-step PCG preconditioner: only 'jacobi' is ported ('amg', the
+    #: in-kernel multigrid of the whole-timestep kernels, raises)
+    preconditioner: str = "jacobi"
+    #: CG execution backend of the JAX package's ell mode; under 'dia' it
+    #: is ignored there and here ('dia' always runs the dia CG kernel)
+    cg_backend: str = "xla"
+    #: True runs whole timesteps in one kernel launch per rollout window:
+    #: the banded route (core/banded.py) for a tet scene, else the cloth
+    #: route (core/cloth.py). A scene that neither kernel takes raises: the
+    #: lattice fast path is not ported (ROADMAP B10), and the general route
+    #: never runs in its place
     lattice_fast_path: bool = False
     # Settings of the JAX package that the port does not implement yet.
     # They keep the reference's defaults; any other value raises.
@@ -76,6 +85,9 @@ class Settings:
         out = []
         if self.global_solver != "dia":
             out.append(f"global_solver={self.global_solver!r} (only 'dia')")
+        if self.preconditioner != "jacobi":
+            out.append(f"preconditioner={self.preconditioner!r} (only "
+                       "'jacobi'; the in-kernel multigrid is ROADMAP B2/B9)")
         if self.relaxation != 1.0:
             out.append(f"relaxation={self.relaxation}")
         if self.acceleration is not None:
@@ -178,7 +190,7 @@ class System:
             u0[f.name] = f.dual_init()
         for i, e in enumerate(self.explicit_forces):
             e.name = f"e{i}_{type(e).__name__}"
-            params[e.name] = e.build()
+            params[e.name] = e.build(n)
 
         self._constraint_names = [f.name for f in self.forces]
         cparams = {k: params[k] for k in self._constraint_names}
@@ -224,14 +236,17 @@ class System:
         return True
 
     def _route_fast_path(self):
-        """Engage the banded whole-timestep kernel, or raise: the lattice
-        and cloth kernels the JAX package would try next are not ported."""
+        """Engage a whole-timestep kernel, tried in the JAX package's order
+        (the banded kernel, then the cloth kernel; the lattice kernel
+        between them is not ported), or raise."""
         self._stepper = banded_from_system(self)
         if self._stepper is None:
+            self._stepper = cloth_from_system(self)
+        if self._stepper is None:
             raise NotImplementedError(
-                "lattice_fast_path=True: the scene does not qualify for the "
-                "banded whole-timestep kernel, and the lattice and cloth "
-                "fast paths are not ported (ROADMAP A7); use "
+                "lattice_fast_path=True: the scene qualifies for neither "
+                "the banded nor the cloth whole-timestep kernel, and the "
+                "lattice fast path is not ported (ROADMAP B10); use "
                 "lattice_fast_path=False for the general route"
             )
         if self.settings.verbose >= 1:

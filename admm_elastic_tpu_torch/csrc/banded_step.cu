@@ -24,9 +24,9 @@
 //       the anchor weight is 0) and its RHS; collision shapes projected
 //       in declaration order, dual and RHS; r = M xbar + dt^2 b - A x;
 //       p = D^-1 r; per-block partials of r.p                      barrier
-//     cg_iters times (the three stages of cg_dia.cu, the barriers in
-//     place of its launches; every block sums the partials itself in one
-//     fixed order, so all blocks hold the same scalars):
+//     cg_iters times (coop_pcg.cuh: the three stages of cg_dia.cu, the
+//     barriers in place of its launches; every block sums the partials
+//     itself in one fixed order, so all blocks hold the same scalars):
 //       Ap = A p, partials of p.Ap                                  barrier
 //       alpha = rz / pAp; x += alpha p; r -= alpha Ap; partials of
 //       (r D^-1) r                                                  barrier
@@ -56,7 +56,7 @@
 
 #include <cooperative_groups.h>
 
-#include "dia.cuh"
+#include "coop_pcg.cuh"
 #include "hyper.cuh"
 
 namespace admm {
@@ -260,9 +260,10 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args<T> a) {
   __shared__ T sh[THREADS];
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int gstride = gridDim.x * blockDim.x;
-  const int nb = gridDim.x;
-  T* pap_part = a.part;
-  T* rz_part = a.part + nb;
+  const coop::PcgVecs<T> pcg_vecs{a.x, a.r, a.p, a.ap, a.invd, a.part, a.n};
+  const auto row = [&a](int i, const T* y, T out[3]) {
+    dia::dia_row(a.dia, a.offs, a.D, a.n, i, y, out);
+  };
 
   for (int step = 0; step < a.n_steps; ++step) {
     for (int i = gtid; i < a.n; i += gstride) {
@@ -287,59 +288,7 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args<T> a) {
 
       T local = T(0);
       for (int i = gtid; i < a.n; i += gstride) local = local + vertex_step(a, i);
-      T tot = block_sum(local, sh);
-      if (threadIdx.x == 0) rz_part[blockIdx.x] = tot;
-      grid.sync();
-      T rz = dia::sum_partials(rz_part, nb, sh);
-
-      for (int k = 0; k < a.cg_iters; ++k) {
-        local = T(0);
-        for (int i = gtid; i < a.n; i += gstride) {
-          T apv[3];
-          dia::dia_row(a.dia, a.offs, a.D, a.n, i,
-                       static_cast<const T*>(a.p), apv);
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const size_t q = 3 * static_cast<size_t>(i) + c;
-            a.ap[q] = apv[c];
-            local = local + a.p[q] * apv[c];
-          }
-        }
-        tot = block_sum(local, sh);
-        if (threadIdx.x == 0) pap_part[blockIdx.x] = tot;
-        grid.sync();
-
-        const T pAp = dia::sum_partials(pap_part, nb, sh);
-        const T alpha = rz / (pAp > T(0) ? pAp : T(1));
-        local = T(0);
-        for (int i = gtid; i < a.n; i += gstride) {
-          const T invd = a.invd[i];
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const size_t q = 3 * static_cast<size_t>(i) + c;
-            a.x[q] = a.x[q] + alpha * a.p[q];
-            const T ri = a.r[q] - alpha * a.ap[q];
-            a.r[q] = ri;
-            local = local + ri * invd * ri;
-          }
-        }
-        tot = block_sum(local, sh);
-        if (threadIdx.x == 0) rz_part[blockIdx.x] = tot;
-        grid.sync();
-
-        const T rz_new = dia::sum_partials(rz_part, nb, sh);
-        const T beta = rz_new / (rz > T(0) ? rz : T(1));
-        for (int i = gtid; i < a.n; i += gstride) {
-          const T invd = a.invd[i];
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const size_t q = 3 * static_cast<size_t>(i) + c;
-            a.p[q] = invd * a.r[q] + beta * a.p[q];
-          }
-        }
-        rz = rz_new;
-        grid.sync();
-      }
+      coop::pcg(grid, pcg_vecs, a.cg_iters, local, row, sh);
     }
 
     for (int i = gtid; i < a.n; i += gstride) {

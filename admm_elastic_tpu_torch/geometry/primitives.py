@@ -1,7 +1,8 @@
 """Procedural mesh builders (numpy, host side).
 
 Counterpart of `admm_elastic_tpu/geometry/primitives.py`; only
-`make_beam_tets` (the 100k-tet benchmark mesh) is ported so far.
+`make_beam_tets` (the 100k-tet benchmark mesh) and `make_plane_grid` (the
+cloth100k sheet) are ported so far.
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from .tetmesh import TetMesh
+from .trimesh import TriMesh
 
 
 def make_beam_tets(nx: int, ny: int, nz: int, size: float = 1.0) -> TetMesh:
@@ -49,3 +51,29 @@ def make_beam_tets(nx: int, ny: int, nz: int, size: float = 1.0) -> TetMesh:
                 for t in pattern:
                     tets.append((c[t[0]], c[t[1]], c[t[2]], c[t[3]]))
     return TetMesh(verts.astype(np.float64), np.asarray(tets, dtype=np.int32))
+
+
+def make_plane_grid(nx: int, ny: int, size: float = 1.0) -> TriMesh:
+    """Regular (nx,ny)-quad cloth plane without center vertices: grid
+    vertices only, each quad split into two triangles along a consistent
+    diagonal, spanning [-size, size]^2 at z=0. The vertex set is a regular
+    grid, so A_hat collapses onto constant diagonals."""
+    gx, gy = nx + 1, ny + 1
+    xs = np.linspace(-size, size, gx)
+    ys = np.linspace(-size, size, gy)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    verts = np.stack([X.ravel(), Y.ravel(), np.zeros(gx * gy)], axis=1)
+
+    def vid(i, j):
+        return i * gy + j
+
+    faces = []
+    for i in range(nx):
+        for j in range(ny):
+            a, b = vid(i, j), vid(i + 1, j)
+            c, d = vid(i + 1, j + 1), vid(i, j + 1)
+            faces.append((a, b, c))
+            faces.append((a, c, d))
+    return TriMesh(
+        vertices=verts, faces=np.asarray(faces, dtype=np.int32)
+    )

@@ -2,9 +2,12 @@
 
 from .base import ForceBatch
 from .anchor import StaticAnchor
+from .bend import Bend
 from .collision import Collision, Cylinder, Floor, Sphere
 from .tet import HyperElasticTet
-from .explicit import ExplicitForce
+from .triangle import LimitedTriangleStrain
+from .explicit import ExplicitForce, WindForce
 
-__all__ = ["ForceBatch", "StaticAnchor", "Collision", "Floor", "Sphere",
-           "Cylinder", "HyperElasticTet", "ExplicitForce"]
+__all__ = ["ForceBatch", "StaticAnchor", "Bend", "Collision", "Floor",
+           "Sphere", "Cylinder", "HyperElasticTet", "LimitedTriangleStrain",
+           "ExplicitForce", "WindForce"]

@@ -111,12 +111,20 @@ _SIGNATURES = {
     **{f"cg_dia_solve_{t}": (_I, [_P] * 5 + [_I] * 3 + [_P] * 6)
        for t in ("f32", "f64")},
     "cg_dia_partials": (_I, [_I]),
+    **{f"tri_local_step_fused_{t}": (_I, [_P] * 10 + [_I] * 2 + [_P])
+       for t in ("f32", "f64")},
     # state 6, element planes 6, vertex planes 6, scratch 7, host arrays 4,
     # then n, E, D, S, n_shapes, model, newton_iters, cg_iters, admm_iters,
     # n_steps, part_len, and the stream
     **{f"banded_rollout_{t}": (_I, [_P] * 29 + [_I] * 11 + [_P])
        for t in ("f32", "f64")},
     **{f"banded_rollout_grid_{t}": (_I, [_I]) for t in ("f32", "f64")},
+    # state 5, element planes 7, vertex planes 7, scratch 8, host arrays 2,
+    # then n, Et, Eh, Ew, D, S, Sw, limiting, cg_iters, admm_iters,
+    # n_steps, part_len, and the stream
+    **{f"cloth_rollout_{t}": (_I, [_P] * 29 + [_I] * 12 + [_P])
+       for t in ("f32", "f64")},
+    **{f"cloth_rollout_grid_{t}": (_I, []) for t in ("f32", "f64")},
     "admm_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

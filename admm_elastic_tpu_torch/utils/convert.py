@@ -12,7 +12,9 @@ only: this module never imports jax.
 
 `banded_from_reference(stepper, state_np, subs, positions)` does the same
 for the banded route: it loads a JAX `BandedStepper`'s state into the
-port's `BandedStepper` built from the same scene.
+port's `BandedStepper` built from the same scene, and
+`cloth_from_reference(stepper, state_np)` a JAX `ClothStepper`'s state into
+the port's `ClothStepper`.
 """
 
 from __future__ import annotations
@@ -27,10 +29,15 @@ def _load(port, ref, where):
             raise ValueError(f"{where}: expected a dict in the reference tree")
         if "w2" in port and "w2" not in ref and "weight" in ref:
             ref = {**ref, "w2": np.asarray(ref["weight"]) ** 2}
+        if "inc" in port and "inc" not in ref:
+            # WindForce's vertex incidence exists only in the port
+            ref = {**ref, "inc": port["inc"]}
         missing = set(port) - set(ref)
         if missing:
             raise KeyError(f"{where}: reference lacks {sorted(missing)}")
         return {k: _load(port[k], ref[k], f"{where}/{k}") for k in port}
+    if ref is port:
+        return port
     a = np.asarray(ref)
     shape = tuple(port.shape)
     if a.shape != shape:
@@ -83,5 +90,34 @@ def banded_from_reference(stepper, state_np, subs, positions) -> None:
            "cu": xyz(state_np["colu"]), "t": np.asarray(state_np["t"])}
     ref = stepper.state
     stepper.state = {k: torch.as_tensor(np.array(a), dtype=ref[k].dtype,
+                                        device=ref[k].device)
+                     for k, a in new.items()}
+
+
+def cloth_from_reference(stepper, state_np) -> None:
+    """Overwrite a port `ClothStepper`'s state with a JAX `ClothStepper`'s.
+
+    state_np: the JAX stepper's `state` as numpy: x, v, ancu as (3, N)
+    lane-padded planes; u as (n_groups, 16, N) group planes, indexed by
+    each element's base (minimum) vertex, triangle groups first (planes
+    0-5), then bend groups (planes 0-8); t. The port's stepper groups its
+    elements the same way, so each element's dual is read at (its group,
+    its base)."""
+    n = stepper.n_nodes
+    u = np.asarray(state_np["u"])
+    Gt = stepper.planes["ttab"].shape[0]
+
+    def duals(planes, grp, base):
+        return u[grp[None, :], np.arange(planes)[:, None], base[None, :]]
+
+    new = {"x": np.asarray(state_np["x"])[:, :n].T,
+           "v": np.asarray(state_np["v"])[:, :n].T,
+           "tu": duals(6, stepper._tgrp, stepper._tbase),
+           "hu": duals(9, Gt + stepper._hgrp, stepper._hbase),
+           "au": np.asarray(state_np["ancu"])[:, :n].T,
+           "t": np.asarray(state_np["t"])}
+    ref = stepper.state
+    stepper.state = {k: torch.as_tensor(np.array(a, order="C"),
+                                        dtype=ref[k].dtype,
                                         device=ref[k].device)
                      for k, a in new.items()}

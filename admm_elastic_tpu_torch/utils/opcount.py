@@ -13,12 +13,17 @@ each input read once and each output written once.
 
 bound_ms = max(bytes / memory rate, operations / peak rate) is the least
 time the card could take for the same work (`roofline_ms`).
+`tri_local_counts` and `rollout_counts` give (operations, bytes) of the
+triangle kernel and of the whole-timestep kernels on their inputs, from
+their twins.
 """
 
 from __future__ import annotations
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..ops.kernels import tri_local
 
 _ELEMENTWISE = frozenset((
     "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "rsqrt", "log",
@@ -77,3 +82,19 @@ def roofline_ms(n_bytes, n_ops, bytes_per_s=H100_BYTES_PER_S,
     t_bytes, t_ops = n_bytes / bytes_per_s, n_ops / ops_per_s
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tri_local_counts(xg9, u6, cp6, w2, k, lmin, lmax, limiting=True):
+    """(operations, bytes) of `tri_local_step_fused` on these inputs."""
+    ins = (xg9, u6, cp6, w2, k, lmin, lmax)
+    ops, out = count_ops(tri_local.tri_local_step_fused_reference, *ins,
+                         limiting=limiting)
+    return ops, nbytes(ins, out)
+
+
+def rollout_counts(reference, keys, state, planes, cfg, n_steps):
+    """(operations, bytes) of a whole-timestep kernel (banded_rollout or
+    cloth_rollout, given its twin and state keys) for n_steps: the state
+    and planes read once, the new state written once."""
+    ops, out = count_ops(reference, state, planes, cfg, n_steps)
+    return ops, nbytes(({k: state[k] for k in keys}, planes), out)

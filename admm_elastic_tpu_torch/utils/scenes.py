@@ -1,9 +1,17 @@
-"""The beam workloads through the port's public API, for `chip_smoke.py`
-and `profile_step`: a `make_beam_tets` beam with a StaticAnchor on the
-x=0 face, gravity, and a kernel-backed HyperElasticTet (mu = lam = 1e5,
-5 Newton iterations) on the dia solver, dt 0.04, 10 ADMM iterations; with
+"""The workloads through the port's public API, for `chip_smoke.py` and
+`profile_step`.
+
+`tet100k`: a `make_beam_tets` beam with a StaticAnchor on the x=0 face,
+gravity, and a kernel-backed HyperElasticTet (mu = lam = 1e5, 5 Newton
+iterations) on the dia solver, dt 0.04, 10 ADMM iterations; with
 `fast=True` it runs on the banded whole-timestep route
 (`lattice_fast_path=True`), as `bench.py --preset tet100k` does.
+
+`cloth100k`: the windyflag physics of `bench.py --preset cloth100k` on a
+225 x 225 `make_plane_grid` sheet: kernel-backed LimitedTriangleStrain,
+Bend, 26 StaticAnchors on the top edge, gravity and WindForce, dia solver;
+with `fast=True` on the cloth whole-timestep route. `small_cloth` is the
+8 x 6 sheet of the cloth parity tests.
 
 `jittered_beam` is the randomly perturbed beam of the banded parity tests:
 no constant-offset stencil survives the jitter, while the numbering stays
@@ -15,9 +23,10 @@ import numpy as np
 import torch
 
 from ..core.system import Settings, System
-from ..geometry import make_beam_tets
-from ..models import (Collision, Cylinder, ExplicitForce, Floor,
-                      HyperElasticTet, Sphere, StaticAnchor)
+from ..geometry import extract_hinges, make_beam_tets, make_plane_grid
+from ..models import (Bend, Collision, Cylinder, ExplicitForce, Floor,
+                      HyperElasticTet, LimitedTriangleStrain, Sphere,
+                      StaticAnchor, WindForce)
 
 
 def beam_system(dims, size, total_mass, cg, dtype=torch.float32,
@@ -40,6 +49,46 @@ def tet100k(cg, dtype=torch.float32, fast=False) -> System:
     """The repo's headline workload (bench.py build_tet100k): 40 x 25 x 20
     cells x 5 = 100,000 tets, 22,386 nodes, 50 kg, cell size 0.05 m."""
     return beam_system((40, 25, 20), 0.05, 50.0, cg, dtype, fast=fast)
+
+
+def cloth_system(nx, ny, cg, dtype=torch.float32, device="cuda", fast=True,
+                 wind=(4.0, 0.0, 1.0), anchors=None) -> System:
+    """A make_plane_grid(nx, ny) sheet with bench.py build_cloth100k's
+    physics and Settings: 0.5 kg, LimitedTriangleStrain(100, 0.95, 1.05),
+    Bend(20), StaticAnchors on the top edge (every len(top)//24-th vertex,
+    or the first `anchors`), gravity and WindForce(wind)."""
+    mesh = make_plane_grid(nx, ny)
+    n = mesh.n_vertices
+    s = System(Settings(
+        timestep_s=0.04, admm_iters=10, verbose=0, dtype=dtype,
+        device=device, global_solver="dia", cg_fixed_iters=cg,
+        cg_backend="fused", preconditioner="jacobi", lattice_fast_path=fast))
+    s.add_nodes(mesh.vertices, np.full(n, 0.5 / n))
+    s.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05,
+                                      backend="pallas"))
+    s.add_force(Bend(extract_hinges(mesh.faces), 20.0))
+    top = np.flatnonzero(np.abs(mesh.vertices[:, 1]
+                                - mesh.vertices[:, 1].max()) < 1e-9)
+    s.add_force(StaticAnchor(top[:: max(1, len(top) // 24)]
+                             if anchors is None else top[:anchors]))
+    s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
+    s.add_explicit_force(WindForce(mesh.faces, direction=wind))
+    assert s.initialize()
+    return s
+
+
+def cloth100k(cg, dtype=torch.float32, fast=True) -> System:
+    """bench.py build_cloth100k: 225 x 225 quads, 51,076 nodes, 101,250
+    triangles, 151,425 hinges, 26 anchors, wind (4, 0, 1)."""
+    return cloth_system(225, 225, cg, dtype, fast=fast)
+
+
+def small_cloth(dtype=torch.float64, device="cuda", fast=True) -> System:
+    """The 8 x 6 sheet of tests/test_cloth_fast.py: the same physics with
+    4 anchors, wind (1.5, 0, 0.4) (the cloth100k wind makes so coarse a
+    sheet diverge) and 30 CG iterations."""
+    return cloth_system(8, 6, 30, dtype, device, fast, wind=(1.5, 0.0, 0.4),
+                        anchors=4)
 
 
 def jittered_beam(nx=4, ny=3, nz=3, seed=0, jitter=0.08):

@@ -97,3 +97,85 @@ def test_dia_apply_and_gather_match_jax():
     gb = psolver.transpose_gather_apply(torch.as_tensor(flat),
                                         torch.as_tensor(inc, dtype=torch.int64))
     np.testing.assert_allclose(gb.numpy(), ga, rtol=1e-13, atol=1e-13)
+
+
+# ---- the cloth slice's copies
+
+
+GRIDS = [(1, 1, 1.0), (3, 2, 1.0), (8, 6, 1.0), (7, 5, 0.3), (25, 20, 2.0)]
+
+
+@pytest.mark.parametrize("nx,ny,size", GRIDS)
+def test_make_plane_grid_and_connectivity_equal(nx, ny, size):
+    from admm_elastic_tpu.geometry import connectivity as jconn
+    from admm_elastic_tpu.geometry import make_plane_grid as jax_grid
+    from admm_elastic_tpu_torch.geometry import connectivity as pconn
+    from admm_elastic_tpu_torch.geometry import make_plane_grid as port_grid
+
+    a, b = jax_grid(nx, ny, size=size), port_grid(nx, ny, size=size)
+    assert np.array_equal(a.vertices, b.vertices)
+    assert np.array_equal(a.faces, b.faces) and a.faces.dtype == b.faces.dtype
+    assert b.n_faces == 2 * nx * ny and b.n_vertices == (nx + 1) * (ny + 1)
+    # (the JAX package's numpy paths: these meshes are below its native
+    # thresholds)
+    for name in ("unique_edges", "across_edge", "extract_hinges"):
+        want = getattr(jconn, name)(a.faces)
+        got = getattr(pconn, name)(b.faces)
+        assert np.array_equal(want, got) and want.dtype == got.dtype, name
+
+
+@pytest.mark.parametrize("nx,ny,size", GRIDS)
+def test_build_tri_basis_and_bend_alpha_equal(nx, ny, size):
+    from admm_elastic_tpu.geometry import extract_hinges, make_plane_grid
+    from admm_elastic_tpu.models import bend as jbend
+    from admm_elastic_tpu.models import triangle as jtri
+    from admm_elastic_tpu_torch.models import bend as pbend
+    from admm_elastic_tpu_torch.models import triangle as ptri
+
+    mesh = make_plane_grid(nx, ny, size=size)
+    # a bent sheet, so the hinge weights are not all the flat ones
+    x = mesh.vertices.copy()
+    x[:, 2] = 0.2 * np.sin(3.0 * x[:, 0]) * np.cos(2.0 * x[:, 1])
+    Ba, aa = jtri.build_tri_basis(x, mesh.faces)
+    Bb, ab = ptri.build_tri_basis(x, mesh.faces)
+    assert np.array_equal(Ba, Bb) and np.array_equal(aa, ab)
+    pa = jtri._tri_selector_params(mesh.faces, Ba)
+    pb = ptri._tri_selector_params(mesh.faces, Bb)
+    assert all(np.array_equal(pa[k], pb[k]) for k in ("indices", "coeff"))
+    lts = jtri.LimitedTriangleStrain(mesh.faces, 100.0, backend="pallas")
+    cp_jax = lts._coeff_planes(pa)
+    assert np.array_equal(cp_jax[:, : mesh.n_faces], ptri._coeff_planes(pb))
+
+    hinges = extract_hinges(mesh.faces)
+    if len(hinges) == 0:
+        return
+    ja, _ = jbend.Bend(hinges, 20.0).build(x, None, 0.04)
+    jb, _ = pbend.Bend(hinges, 20.0).build(x, None, 0.04)
+    for k in ("indices", "coeff", "weight", "stiffness", "alpha"):
+        assert np.array_equal(ja[k], jb[k]), k
+
+
+@pytest.mark.parametrize("nx,ny", [(5, 4), (8, 6), (30, 20)])
+def test_group_constant_offsets_equal(nx, ny):
+    from admm_elastic_tpu.core import cloth as jcloth
+    from admm_elastic_tpu.geometry import extract_hinges, make_plane_grid
+    from admm_elastic_tpu_torch.core import cloth as pcloth
+
+    mesh = make_plane_grid(nx, ny)
+    hinges = extract_hinges(mesh.faces)
+    dup = np.vstack([mesh.faces, mesh.faces[:1]])
+    rng = np.random.default_rng(0)
+    scrambled = rng.permutation(mesh.n_vertices)[mesh.faces]
+    for idx in (mesh.faces, hinges, dup, scrambled):
+        ga = jcloth.group_constant_offsets(idx)
+        gb = pcloth.group_constant_offsets(idx)
+        assert (ga is None) == (gb is None)
+        if ga is None:
+            continue
+        assert len(ga) == len(gb)
+        for (oa, ea, ba), (ob, eb, bb) in zip(ga, gb):
+            assert oa == ob
+            assert np.array_equal(ea, eb) and np.array_equal(ba, bb)
+    assert len(pcloth.group_constant_offsets(mesh.faces)) == 2
+    assert len(pcloth.group_constant_offsets(hinges)) == 3
+    assert pcloth.group_constant_offsets(dup) is None

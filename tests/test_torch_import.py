@@ -1,6 +1,6 @@
-"""The port imports torch and never jax: it imports and steps with jax made
-unimportable, and no source file of the package imports jax or the JAX
-package."""
+"""The port imports torch and never jax: it imports and steps a beam and a
+cloth (general and cloth routes) with jax made unimportable, and no source
+file of the package imports jax or the JAX package."""
 
 import ast
 import os
@@ -32,6 +32,24 @@ assert s.initialize()
 s.step()
 s.run(2)
 assert np.isfinite(s.x).all() and s.x[:, 1].min() < 0
+from admm_elastic_tpu_torch.models import (Bend, LimitedTriangleStrain,
+                                           WindForce)
+grid = pt.geometry.make_plane_grid(4, 3)
+for fast in (False, True):
+    c = pt.System(pt.Settings(admm_iters=3, verbose=0, dtype=torch.float64,
+                              device="cpu", cg_fixed_iters=5,
+                              lattice_fast_path=fast))
+    c.add_nodes(grid.vertices, np.full(grid.n_vertices, 0.01))
+    c.add_force(LimitedTriangleStrain(grid.faces, 100.0, 0.95, 1.05,
+                                      backend="pallas"))
+    c.add_force(Bend(pt.geometry.extract_hinges(grid.faces), 20.0))
+    c.add_force(StaticAnchor([0, 4]))
+    c.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
+    c.add_explicit_force(WindForce(grid.faces, direction=(1.5, 0, 0.4)))
+    assert c.initialize()
+    assert (c._stepper is not None) == fast
+    c.run(2)
+    assert np.isfinite(c.x).all() and c.x[:, 1].min() < 0
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print("OK")
