@@ -21,9 +21,9 @@ planes over a diluted, spatially ordered vertex layout, hub splits, an
 85 MB VMEM budget) is TPU layout and is dropped, so a mesh that packing
 rejects still takes this kernel here, with the same physics.
 
-Out of this slice (raise or do not qualify, see ROADMAP.md): LinearTetStrain
-'arap', in-kernel residuals, in-kernel multigrid (geometric and algebraic)
-and scenario sweeps (B2).
+Out of this slice (raise or do not qualify, see ROADMAP.md): the arap mode
+(a LinearTetStrain scene raises), in-kernel residuals, in-kernel multigrid
+(geometric and algebraic) and scenario sweeps (B2).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..models import (Collision, Cylinder, ExplicitForce, Floor,
-                      HyperElasticTet, Sphere, StaticAnchor)
+                      HyperElasticTet, LinearTetStrain, Sphere, StaticAnchor)
 from ..ops.kernels.banded_step import BandedConfig, banded_rollout
 from .solver import assemble_transpose_incidence
 
@@ -169,18 +169,23 @@ def banded_from_system(system):
     System, with its matrix in the same form, or None when the scene does
     not qualify.
 
-    Qualifying (as the JAX package's banded_from_system): one
-    HyperElasticTet (nh or stvk), StaticAnchors with any weights, at most
-    one Collision over all nodes holding only Floor/Sphere/Cylinder,
-    all-node ExplicitForce kicks. (Relaxation, acceleration and the
-    other global modes never reach here: System.initialize rejects them.)
-    A `(first, rest)` cg_fixed_iters raises: the kernel takes one budget
-    (the JAX stepper's int() of a tuple fails as well).
+    Qualifying (as the JAX package's banded_from_system): the dia or ell
+    global mode, one HyperElasticTet (nh or stvk), StaticAnchors with any
+    weights, at most one Collision over all nodes holding only
+    Floor/Sphere/Cylinder, all-node ExplicitForce kicks. (Relaxation never
+    reaches here: System.initialize keeps it on the general route;
+    acceleration and residuals raise there.) A LinearTetStrain scene that
+    qualifies otherwise raises: the JAX package runs it on the kernel's
+    arap mode, which is not ported. A `(first, rest)` cg_fixed_iters
+    raises: the kernel takes one budget (the JAX stepper's int() of a
+    tuple fails as well).
     """
     s = system.settings
+    if system._solver_mode not in ("dia", "ell"):
+        return None
     tet, anchors, coll = None, [], None
     for f in system.forces:
-        if isinstance(f, HyperElasticTet):
+        if isinstance(f, (HyperElasticTet, LinearTetStrain)):
             if tet is not None:
                 return None
             tet = f
@@ -201,6 +206,13 @@ def banded_from_system(system):
         if type(e) is not ExplicitForce or e.indices is not None:
             return None
         gravity = gravity + e.direction
+    if isinstance(tet, LinearTetStrain):
+        raise NotImplementedError(
+            "lattice_fast_path=True: the JAX package runs this "
+            "LinearTetStrain scene on the banded whole-timestep kernel's "
+            "arap mode, which is not ported (ROADMAP B2); use "
+            "lattice_fast_path=False for the general route"
+        )
     if isinstance(s.cg_fixed_iters, (tuple, list)):
         raise NotImplementedError(
             "the banded whole-timestep kernel runs one CG budget for every "

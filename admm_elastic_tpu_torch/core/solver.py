@@ -3,8 +3,10 @@
 The SPD system A = M + dt^2 D^T W^2 D never mixes xyz components, so
 A = A_hat (x) I_3 with A_hat only (n,n): the solve is A_hat X = B with X, B
 of shape (n,3). A_hat is assembled once on the host (numpy/scipy, the same
-code as `admm_elastic_tpu/core/solver.py`), in sparse-DIAgonal form where
-the numbering allows it and in padded ELL form for any mesh; the
+code as `admm_elastic_tpu/core/solver.py`): dense for the 'dense' global
+mode (inverted once), in sparse-DIAgonal form where the numbering allows it
+and in padded ELL form for any mesh. The 'cg' mode never assembles it:
+`A_hat_apply` and `A_hat_diag` apply it element by element. The
 per-iteration pieces below are plain PyTorch. They are the references the
 hand-written kernels (`ops/kernels/cg_dia.py`, `cg_ell.py`, `cg_step.py`)
 are held against.
@@ -47,6 +49,22 @@ def _assemble_A_hat_csr(n, masses, dt, force_params):
     # structural zeros are kept: the sparsity pattern follows the
     # constraint topology, not the current weights
     return A
+
+
+def assemble_A_hat(n, masses, dt, force_params):
+    """Dense A_hat (n,n) float64, by the sparse assembly."""
+    return _assemble_A_hat_csr(n, masses, dt, force_params).toarray()
+
+
+def dense_inverse(A, dtype, device) -> torch.Tensor:
+    """A_hat^-1 for the 'dense' mode from the host's float64 A_hat: inverted
+    once in float64 on `device` (an LU inverse: cuSOLVER on a card, LAPACK
+    on the CPU, where the JAX package calls np.linalg.inv on the host), then
+    cast to `dtype`. The float64 copies are freed before it returns."""
+    a = torch.as_tensor(A, dtype=torch.float64, device=device)
+    inv = torch.linalg.inv(a)
+    del a
+    return inv.to(dtype)
 
 
 def assemble_A_hat_dia(n, masses, dt, force_params, max_diagonals: int = 48):
@@ -148,6 +166,42 @@ def transpose_gather_apply(contribs_flat: torch.Tensor,
     A gather and a reduction over a fixed axis: no atomics, so two runs are
     bitwise equal."""
     return contribs_flat[inc_idx].sum(dim=1)
+
+
+def _incidence_sum(rows, inc_idx, like, width):
+    """Per-vertex sums of per-(element, slot) rows, one (E*K, width) block
+    per force in the incidence's order, gathered through the vertex
+    incidence (`assemble_transpose_incidence`) with the zero sentinel row
+    appended: a fixed-order sum, no scatter."""
+    rows = [*rows, like.new_zeros((1, width))]
+    return transpose_gather_apply(torch.cat(rows, dim=0), inc_idx)
+
+
+def A_hat_apply(x, masses, dt2, force_params, inc_idx):
+    """Matrix-free A_hat @ x, (n,3) -> (n,3): M x + dt^2 sum_f C^T W^2 C x
+    element by element (the JAX package's A_hat_apply, with its segment
+    sum replaced by the incidence gather). force_params: the constraint
+    forces' params in the incidence's order.
+
+    The per-element products are broadcast multiplies and sums, not
+    `torch.einsum`: on a card einsum lowers them to cuBLAS batched GEMMs
+    of 3x4 matrices, ~0.1 ms each for 100,000 elements on an H100."""
+    rows = []
+    for p in force_params.values():
+        C = p["coeff"][:, :, :, None]  # (E,R,K,1)
+        y = (C * x[p["indices"]][:, None]).sum(dim=2)  # (E,R,3)
+        wy = (p["weight"] ** 2)[:, None, None] * y
+        rows.append((C * wy[:, :, None]).sum(dim=1).reshape(-1, 3))
+    return masses[:, None] * x + dt2 * _incidence_sum(rows, inc_idx, x, 3)
+
+
+def A_hat_diag(masses, dt2, force_params, inc_idx):
+    """The exact diagonal of A_hat, (n,): m + dt^2 sum_f sum_r w2 C_rk^2
+    per vertex (the Jacobi preconditioner of the 'cg' mode)."""
+    rows = [((p["weight"] ** 2)[:, None]
+             * torch.sum(p["coeff"] * p["coeff"], dim=1)).reshape(-1, 1)
+            for p in force_params.values()]
+    return masses + dt2 * _incidence_sum(rows, inc_idx, masses, 1)[:, 0]
 
 
 def pcg_solve(A_apply, b, x0, diag, tol, max_iters):

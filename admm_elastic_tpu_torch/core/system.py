@@ -8,28 +8,41 @@ Same API as `admm_elastic_tpu.core.system` (reference System.hpp:29-99):
     explicit forces kick velocities                System.cpp:37-39
     x_bar = x + dt v;   M x_bar                    System.cpp:46-47
     admm_iters times:                              System.cpp:51-67
-      z, u  = per-element local step + dual update (fused kernel for tets)
+      z, u  = per-element local step + dual update
       b     = M x_bar + dt^2 D^T W^2 (z - u)       (incidence gather)
-      x     = Jacobi-PCG on A_hat                  (dia or ell solve)
+      x     = global solve of A_hat x = b
     v = (x' - x)/dt                                System.cpp:70-71
 
-The global solve, as in the JAX package: 'dia' runs the dia CG kernel
-when A_hat fits MAX_DIAGONALS diagonals in the caller's numbering, else
-falls back to 'ell'; 'ell' (any topology) runs, with a fixed budget, the
-plain ELL PCG (`cg_backend="xla"`), the ELL matvec plus one fused update
-kernel per iteration ("fused") or the whole solve in the ELL CG kernel
-("kernel"), and with `cg_fixed_iters=None` the tolerance-driven PCG.
+The local step of a kernel-backed force runs fused (one kernel from the
+gathered positions to the RHS rows) under the dia and ell modes with
+relaxation 1, and otherwise unfused, as in the JAX package: D x, the
+over-relaxation blend h = a D x + (1 - a) z_prev (z_prev starts at D x0),
+the prox and dual update on h, then the RHS rows. Either way the rows are
+summed per vertex through the fixed-order incidence gather (no atomics).
+
+The global solve, in the JAX package's order: 'dense' (and 'auto' for up to
+dense_max_nodes nodes) multiplies by A_hat^-1, inverted once at
+initialize, plus dense_refine_steps rounds of residual correction; 'dia'
+runs the dia CG kernel when A_hat fits MAX_DIAGONALS diagonals in the
+caller's numbering, else falls back to 'ell'; 'ell' (any topology) runs,
+with a fixed budget, the plain ELL PCG (`cg_backend="xla"`), the ELL matvec
+plus one fused update kernel per iteration ("fused") or the whole solve in
+the ELL CG kernel ("kernel"); 'cg' runs a matrix-free Jacobi PCG (A_hat
+applied element by element). Under 'ell' and 'cg', `cg_fixed_iters=None`
+means the tolerance-driven PCG.
 
 With `Settings.lattice_fast_path=True` the whole timestep runs instead as
 one kernel launch per rollout window, when the scene qualifies: tet scenes
 on the banded kernel (`core/banded.py`, dia or ELL matvec), grid cloth on
 the cloth kernel (`core/cloth.py`); a scene that qualifies for neither
-raises.
+raises. Over-relaxation disables the fast paths (the kernels run the plain
+iteration), as in the JAX package.
 
-Ported so far: the dia and ell global solvers with kernel-backed tets and
-triangle strain, bend hinges, anchors, collisions, gravity and wind, on
-the general route and the two whole-timestep routes. Every other setting
-raises NotImplementedError rather than running something else.
+Ported so far: every global mode, with kernel-backed hyperelastic and
+corotational tets and triangle strain, bend hinges, anchors, collisions,
+gravity and wind, relaxation, on the general route and the two
+whole-timestep routes. Every other setting raises NotImplementedError
+rather than running something else.
 """
 
 from __future__ import annotations
@@ -48,9 +61,13 @@ from .banded import banded_from_system
 from .cloth import cloth_from_system
 from .lattice import detect_grid_numbering
 from .solver import (
+    A_hat_apply,
+    A_hat_diag,
+    assemble_A_hat,
     assemble_A_hat_dia,
     assemble_A_hat_ell,
     assemble_transpose_incidence,
+    dense_inverse,
     ell_apply,
     pcg_solve,
     pcg_solve_fixed,
@@ -59,13 +76,6 @@ from .solver import (
 
 GLOBAL_SOLVERS = ("auto", "dense", "cg", "ell", "dia")
 CG_BACKENDS = ("xla", "fused", "kernel")
-
-
-def _unported_mode(mode: str) -> str:
-    return (f"global_solver={mode!r}: the dense and cg global modes are "
-            "not ported (ROADMAP A2 item 2c); they need the unfused element "
-            "steps nh_local_step (ROADMAP B1) and tri_local_step (B7). Use "
-            "global_solver='dia' or 'ell'")
 
 
 @dataclasses.dataclass
@@ -81,18 +91,23 @@ class Settings:
     device: str = "cuda"
     #: 'auto' resolves as in the JAX package: 'dense' for n <=
     #: dense_max_nodes, else 'dia'. 'dia' falls back to 'ell' when A_hat
-    #: has more than MAX_DIAGONALS diagonals; 'ell' takes any topology.
-    #: 'dense' and 'cg' raise (ROADMAP A2 item 2c)
+    #: has more than MAX_DIAGONALS diagonals; 'ell' takes any topology;
+    #: 'cg' is matrix-free
     global_solver: str = "auto"
     dense_max_nodes: int = 4096
+    #: 'dense': rounds of x += A_inv (b - A_hat x) after the product with
+    #: the stored inverse (A_hat applied in ELL form), to recover accuracy
+    #: a float32 inverse loses
+    dense_refine_steps: int = 0
     #: relative residual tolerance and iteration cap of the
-    #: tolerance-driven PCG, which 'ell' runs when cg_fixed_iters is None
+    #: tolerance-driven PCG, which 'ell' and 'cg' run when cg_fixed_iters
+    #: is None
     cg_tol: float = 1e-10
     cg_max_iters: int = 250
     #: CG iterations per global solve; None means 25 under 'dia' and the
-    #: tolerance-driven PCG under 'ell'. A tuple (first, rest) gives ADMM
-    #: iteration 0, whose warm start is stale by the whole explicit kick, a
-    #: deeper solve than the others
+    #: tolerance-driven PCG under 'ell' and 'cg'. A tuple (first, rest)
+    #: gives ADMM iteration 0, whose warm start is stale by the whole
+    #: explicit kick, a deeper solve than the others
     cg_fixed_iters: int | tuple | None = None
     #: global-step PCG preconditioner: only 'jacobi' is ported ('amg', the
     #: in-kernel multigrid of the whole-timestep kernels, raises)
@@ -121,13 +136,9 @@ class Settings:
     def unsupported(self) -> list[str]:
         """Names of the settings that ask for an unported feature."""
         out = []
-        if self.global_solver in ("dense", "cg"):
-            out.append(_unported_mode(self.global_solver))
         if self.preconditioner != "jacobi":
             out.append(f"preconditioner={self.preconditioner!r} (only "
                        "'jacobi'; the in-kernel multigrid is ROADMAP B2/B9)")
-        if self.relaxation != 1.0:
-            out.append(f"relaxation={self.relaxation}")
         if self.acceleration is not None:
             out.append(f"acceleration={self.acceleration!r}")
         if self.residual_tol is not None:
@@ -239,16 +250,24 @@ class System:
             params[e.name] = e.build(n)
 
         self._constraint_names = [f.name for f in self.forces]
-        cparams = {k: params[k] for k in self._constraint_names}
+        cparams = self._cparams(params)
         params["_solver"] = self._assemble_solver(cparams)
 
         dtype = s.dtype
         self._params_host = params
         self.params = _to_device(params, dtype, device)
-        if self._solver_mode == "ell":
+        sv = self.params["_solver"]
+        if "ell_idx" in sv:
             # the ELL CG kernel and the banded kernel take int32 indices
-            self.params["_solver"]["ell_idx"] = torch.as_tensor(
+            sv["ell_idx"] = torch.as_tensor(
                 params["_solver"]["ell_idx"], dtype=torch.int32, device=device)
+        self._masses_dev = torch.as_tensor(self._m, dtype=dtype, device=device)
+        if self._solver_mode == "dense":
+            sv["A_inv"] = dense_inverse(assemble_A_hat(n, self._m, dt, cparams),
+                                        dtype, device)
+        elif self._solver_mode == "cg":
+            sv["diag"] = A_hat_diag(self._masses_dev, dt * dt,
+                                    self._cparams(self.params), sv["inc_idx"])
         self.state = {
             "x": torch.as_tensor(self._x, dtype=dtype, device=device),
             "v": torch.zeros((n, 3), dtype=dtype, device=device),
@@ -256,18 +275,22 @@ class System:
             "u": _to_device(u0, dtype, device),
             "forces": _to_device(state_forces, dtype, device),
         }
-        self._masses_dev = torch.as_tensor(self._m, dtype=dtype, device=device)
         # the zero row that the incidence's padding slots gather
         self._sentinel = torch.zeros((1, 3), dtype=dtype, device=device)
 
-        if s.lattice_fast_path:
+        if s.lattice_fast_path and s.relaxation != 1.0:
+            # the whole-timestep kernels run the plain iteration only
+            if s.verbose >= 1:
+                print("Solver: relaxation active, whole-timestep fast paths "
+                      "disabled (the general route honors it)")
+        elif s.lattice_fast_path:
             self._route_fast_path()
 
         if s.verbose >= 1:
-            sv = params["_solver"]
-            shape = (f"{len(self._dia_offsets)} diagonals"
-                     if self._solver_mode == "dia"
-                     else f"ELL width {sv['ell_idx'].shape[1]}")
+            shape = {"dia": lambda: f"{len(self._dia_offsets)} diagonals",
+                     "ell": lambda: f"ELL width {sv['ell_idx'].shape[1]}",
+                     "dense": lambda: f"inverse of {n} x {n}",
+                     "cg": lambda: "matrix-free"}[self._solver_mode]()
             print(
                 f"Solver::initialize: {n} nodes, {len(self.forces)} constraint "
                 f"batches ({sum(f.n_elements for f in self.forces)} elements), "
@@ -277,20 +300,24 @@ class System:
         self.initialized = True
         return True
 
+    def _cparams(self, params):
+        """The constraint forces' params, in the incidence's order."""
+        return {k: params[k] for k in self._constraint_names}
+
     def _assemble_solver(self, cparams) -> dict:
         """Choose the global mode as the JAX package does and assemble its
-        host arrays; sets `_solver_mode` ('dia' or 'ell')."""
+        host arrays; sets `_solver_mode` ('dense', 'cg', 'dia' or 'ell').
+        The dense inverse and the cg diagonal are made on the device in
+        initialize()."""
         s = self.settings
         n, dt = self.n_nodes, s.timestep_s
         mode = s.global_solver
         if mode == "auto":
             mode = "dense" if n <= s.dense_max_nodes else "dia"
-            if mode == "dense":
-                raise NotImplementedError(
-                    f"global_solver='auto' resolves to 'dense' for {n} nodes "
-                    f"(dense_max_nodes={s.dense_max_nodes}), as in the JAX "
-                    "package. " + _unported_mode("dense"))
         sv = {}
+        if mode == "dense" and s.dense_refine_steps > 0:
+            sv["ell_idx"], sv["ell_vals"], _ = assemble_A_hat_ell(
+                n, self._m, dt, cparams)
         if mode == "dia":
             dia = assemble_A_hat_dia(n, self._m, dt, cparams,
                                      max_diagonals=MAX_DIAGONALS)
@@ -345,30 +372,48 @@ class System:
             return int(fixed[0]) if i == 0 else int(fixed[1])
         return int(fixed)
 
-    def _solve(self, i, b, x, sv):
+    def _solve(self, i, b, x, params):
         """The global solve of ADMM iteration i, warm-started at x, in the
         JAX package's order of branches."""
         s = self.settings
-        if self._solver_mode == "dia":
+        sv = params["_solver"]
+        mode = self._solver_mode
+        if mode == "dense":
+            # A_inv @ b is one product outside any kernel, as in the JAX
+            # package (torch.matmul, full float32: TF32 stays off)
+            x = sv["A_inv"] @ b
+            for _ in range(s.dense_refine_steps):
+                x = x + sv["A_inv"] @ (b - ell_apply(x, sv["ell_idx"],
+                                                     sv["ell_vals"]))
+            return x
+        if mode == "dia":
             return cg_dia_solve(b, x, sv["diag"], sv["dia_vals"],
                                 self._dia_offsets, self._cg_budget(i))
+        if mode == "ell":
+            def A(y):
+                return ell_apply(y, sv["ell_idx"], sv["ell_vals"])
+        else:
+            dt2 = s.timestep_s ** 2
+            cparams = self._cparams(params)
 
-        def A(y):
-            return ell_apply(y, sv["ell_idx"], sv["ell_vals"])
+            def A(y):
+                return A_hat_apply(y, self._masses_dev, dt2, cparams,
+                                   sv["inc_idx"])
 
         if s.cg_fixed_iters is None:
             return pcg_solve(A, b, x, sv["diag"], s.cg_tol, s.cg_max_iters)[0]
         k = self._cg_budget(i)
-        if s.cg_backend == "kernel":
+        if mode == "ell" and s.cg_backend == "kernel":
             return cg_ell_solve(b, x, sv["diag"], sv["ell_idx"],
                                 sv["ell_vals"], k)
-        if s.cg_backend == "fused":
+        if mode == "ell" and s.cg_backend == "fused":
             return pcg_solve_fixed_fused(A, b, x, sv["diag"], k)
         return pcg_solve_fixed(A, b, x, sv["diag"], k)[0]
 
     def _step(self, state, params):
         dt = self.settings.timestep_s
         dt2 = dt * dt
+        relax = float(self.settings.relaxation)
         masses = self._masses_dev
         x0, v = state["x"], state["v"]
         for e in self.explicit_forces:
@@ -379,21 +424,31 @@ class System:
         u = dict(state["u"])
         fstate = dict(state["forces"])
         sv = params["_solver"]
+        # the fused kernels consume x directly; the other modes and the
+        # relaxation blend run the unfused per-force pipeline
+        fused = self._solver_mode in ("dia", "ell") and relax == 1.0
+        # z_prev of over-relaxation starts at D x0 (System.cpp:43)
+        zprev = ({f.name: f.compute_Dx(params[f.name], x0)
+                  for f in self.forces} if relax != 1.0 else None)
 
         curr_x = xbar
         for i in range(self.settings.admm_iters):
             contribs = []
             for f in self.forces:
                 p = params[f.name]
-                if getattr(f, "supports_fused_local_rhs", False):
+                if fused and getattr(f, "supports_fused_local_rhs", False):
                     _, u[f.name], fstate[f.name], c = f.fused_local_rhs(
                         p, curr_x, u[f.name], fstate[f.name]
                     )
                 else:
-                    Dx = f.compute_Dx(p, curr_x)
+                    h = f.compute_Dx(p, curr_x)
+                    if zprev is not None:
+                        h = relax * h + (1.0 - relax) * zprev[f.name]
                     z, u[f.name], fstate[f.name] = f.project_with_dual(
-                        Dx, u[f.name], p, fstate[f.name]
+                        h, u[f.name], p, fstate[f.name]
                     )
+                    if zprev is not None:
+                        zprev[f.name] = z
                     c = f.rhs_contribution(p, z, u[f.name])
                 contribs.append(c)
             contribs.append(self._sentinel)
@@ -402,7 +457,7 @@ class System:
             out = transpose_gather_apply(torch.cat(contribs, dim=0),
                                          sv["inc_idx"])
             b = Mxbar + dt2 * out
-            curr_x = self._solve(i, b, curr_x, sv)
+            curr_x = self._solve(i, b, curr_x, params)
 
         return {
             "x": curr_x,

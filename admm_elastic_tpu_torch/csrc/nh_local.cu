@@ -1,19 +1,25 @@
-// Fused hyperelastic tet local step (NeoHookean / StVK) for Hopper.
+// Hyperelastic tet local step (NeoHookean / StVK) for Hopper: two entries.
 //
-// Replaces: admm_elastic_tpu/ops/pallas/nh_local.py, nh_local_step_fused
-// (kernel _make_hyper_fused_kernel). The SVD, Newton prox and warm-start
-// guards are the shared device functions of hyper.cuh.
+// Replaces, in admm_elastic_tpu/ops/pallas/nh_local.py:
+//   nh_local_step_fused (kernel _make_hyper_fused_kernel), which forms Dx
+//     from gathered positions and emits the RHS rows (the dia/ell route);
+//   nh_local_step (kernel _make_hyper_kernel), which takes Dx (the unfused
+//     pipeline: dense and cg global modes, over-relaxation).
+// The SVD, Newton prox and warm-start guards are the shared device
+// functions of hyper.cuh.
 //
-// Per element: F = sum_k cp*xg + u -> oriented 3x3 SVD (6 Jacobi sweeps on
-// F^T F) -> damped Newton on sigma for the proximal objective (fixed
-// iterations, backtracking ladder + gradient candidates, sigma floor) ->
-// z = U diag(sigma*) V^T, u' = u + Dx - z, warm start sigma*, and the RHS
-// rows contrib[3k+j] = w2 * sum_r cp[4r+k] * (z - u')[3j+r].
+// Per element: F = Dx + u (Dx = sum_k cp*xg in the fused entry) -> oriented
+// 3x3 SVD (6 Jacobi sweeps on F^T F) -> damped Newton on sigma for the
+// proximal objective (fixed iterations, backtracking ladder + gradient
+// candidates, sigma floor) -> z = U diag(sigma*) V^T, u' = u + Dx - z, warm
+// start sigma*, and (fused only) the RHS rows contrib[3k+j] = w2 * sum_r
+// cp[4r+k] * (z - u')[3j+r].
 //
-// What bounds it on this card: registers and the ALU. Each element reads
-// 12+9+3+12+4 values and writes 9+9+3+12 (about 290 bytes in f32) but runs
-// a few thousand dependent flops, including ~40 logs and ~60 divisions; at
-// 100,000 elements the arrays sit in the 50 MB L2.
+// What bounds it on this card: registers and the ALU. The fused entry
+// reads 12+9+3+12+4 values per element and writes 9+9+3+12 (about 290
+// bytes in f32), the unfused one reads 9+9+3+3 and writes 9+9+3 (180
+// bytes), but each runs a few thousand dependent flops, including ~40 logs
+// and ~60 divisions; at 100,000 elements the arrays sit in the 50 MB L2.
 //
 // Design: one thread per element, everything in registers, no shared
 // memory. Arrays are plane-major (P, E), so neighbouring threads read
@@ -32,6 +38,41 @@ namespace nh {
 using hyper::newton_hyper;
 using hyper::svd_columns;
 using hyper::warm_guard;
+
+// The element step shared by both entries: z, u' = u + Dx - z and the new
+// warm start (written to warm_out) from Dx, u and the old warm start.
+template <typename T, int MODEL>
+__device__ __forceinline__ void element(const T dx[9], const T uu[9],
+                                        const T* __restrict__ warm,
+                                        T* __restrict__ warm_out, T mu, T lam,
+                                        T k, int iters, size_t sE, int e,
+                                        T z[9], T un[9]) {
+  T f[9];
+#pragma unroll
+  for (int p = 0; p < 9; ++p) f[p] = dx[p] + uu[p];
+
+  T U[3][3], V[3][3], s[3];
+  svd_columns<T>(f, Limits<T>::eps(), U, V, s);
+
+  T w1 = warm[e], w2 = warm[sE + e], w3;
+  warm_guard(w1, w2, warm[2 * sE + e], w3);
+
+  newton_hyper<T, MODEL>(s, w1, w2, w3, mu, lam, k, iters);
+  warm_out[e] = w1;
+  warm_out[sE + e] = w2;
+  warm_out[2 * sE + e] = w3;
+
+  const T sig[3] = {w1, w2, w3};
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc) {
+      z[3 * r + cc] = U[0][r] * sig[0] * V[0][cc] +
+                      U[1][r] * sig[1] * V[1][cc] +
+                      U[2][r] * sig[2] * V[2][cc];
+      un[3 * r + cc] = uu[3 * r + cc] + dx[3 * r + cc] - z[3 * r + cc];
+    }
+}
 
 template <typename T, int MODEL>
 __global__ void __launch_bounds__(128)
@@ -55,7 +96,7 @@ __global__ void __launch_bounds__(128)
   for (int p = 0; p < 9; ++p) uu[p] = u[p * sE + e];
 
   // dx[3a+b] = F_{a,b} = sum_k cp[4b+k] * xg[3k+a]
-  T dx[9], f[9];
+  T dx[9];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
@@ -65,33 +106,17 @@ __global__ void __launch_bounds__(128)
       for (int kk = 1; kk < 4; ++kk) acc = acc + c[4 * b + kk] * x[3 * kk + a];
       dx[3 * a + b] = acc;
     }
-#pragma unroll
-  for (int p = 0; p < 9; ++p) f[p] = dx[p] + uu[p];
 
-  T U[3][3], V[3][3], s[3];
-  svd_columns<T>(f, Limits<T>::eps(), U, V, s);
-
-  T w1 = warm[e], w2 = warm[sE + e], w3;
-  warm_guard(w1, w2, warm[2 * sE + e], w3);
-
-  newton_hyper<T, MODEL>(s, w1, w2, w3, mu_[e], lam_[e], k_[e], iters);
-  warm_out[e] = w1;
-  warm_out[sE + e] = w2;
-  warm_out[2 * sE + e] = w3;
-
-  const T sig[3] = {w1, w2, w3};
+  T z[9], un[9];
+  element<T, MODEL>(dx, uu, warm, warm_out, mu_[e], lam_[e], k_[e], iters, sE,
+                    e, z, un);
   T zu[9];
 #pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int cc = 0; cc < 3; ++cc) {
-      const T z = U[0][r] * sig[0] * V[0][cc] + U[1][r] * sig[1] * V[1][cc] +
-                  U[2][r] * sig[2] * V[2][cc];
-      const T un = uu[3 * r + cc] + dx[3 * r + cc] - z;
-      z_out[(3 * r + cc) * sE + e] = z;
-      u_out[(3 * r + cc) * sE + e] = un;
-      zu[3 * r + cc] = z - un;
-    }
+  for (int p = 0; p < 9; ++p) {
+    z_out[p * sE + e] = z[p];
+    u_out[p * sE + e] = un[p];
+    zu[p] = z[p] - un[p];
+  }
 
   const T w2e = w2_[e];
 #pragma unroll
@@ -105,20 +130,64 @@ __global__ void __launch_bounds__(128)
     }
 }
 
+template <typename T, int MODEL>
+__global__ void __launch_bounds__(128)
+    step_kernel(const T* __restrict__ dx9, const T* __restrict__ u,
+                const T* __restrict__ warm, const T* __restrict__ mu_,
+                const T* __restrict__ lam_, const T* __restrict__ k_,
+                T* __restrict__ z_out, T* __restrict__ u_out,
+                T* __restrict__ warm_out, int E, int iters) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const size_t sE = static_cast<size_t>(E);
+  T dx[9], uu[9];
+#pragma unroll
+  for (int p = 0; p < 9; ++p) {
+    dx[p] = dx9[p * sE + e];
+    uu[p] = u[p * sE + e];
+  }
+  T z[9], un[9];
+  element<T, MODEL>(dx, uu, warm, warm_out, mu_[e], lam_[e], k_[e], iters, sE,
+                    e, z, un);
+#pragma unroll
+  for (int p = 0; p < 9; ++p) {
+    z_out[p * sE + e] = z[p];
+    u_out[p * sE + e] = un[p];
+  }
+}
+
+constexpr int kThreads = 128;
+
+inline int blocks_for(int E) { return (E + kThreads - 1) / kThreads; }
+
 template <typename T>
-int launch(const T* xg, const T* u, const T* warm, const T* cp, const T* mu,
-           const T* lam, const T* k, const T* w2, T* z, T* u_out, T* warm_out,
-           T* contrib, int E, int iters, int model, void* stream) {
+int launch_fused(const T* xg, const T* u, const T* warm, const T* cp,
+                 const T* mu, const T* lam, const T* k, const T* w2, T* z,
+                 T* u_out, T* warm_out, T* contrib, int E, int iters,
+                 int model, void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
-  constexpr int threads = 128;
-  const int blocks = (E + threads - 1) / threads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (model == 0)
-    fused_kernel<T, 0><<<blocks, threads, 0, st>>>(
+    fused_kernel<T, 0><<<blocks_for(E), kThreads, 0, st>>>(
         xg, u, warm, cp, mu, lam, k, w2, z, u_out, warm_out, contrib, E, iters);
   else
-    fused_kernel<T, 1><<<blocks, threads, 0, st>>>(
+    fused_kernel<T, 1><<<blocks_for(E), kThreads, 0, st>>>(
         xg, u, warm, cp, mu, lam, k, w2, z, u_out, warm_out, contrib, E, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_step(const T* dx, const T* u, const T* warm, const T* mu,
+                const T* lam, const T* k, T* z, T* u_out, T* warm_out, int E,
+                int iters, int model, void* stream) {
+  if (E <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (model == 0)
+    step_kernel<T, 0><<<blocks_for(E), kThreads, 0, st>>>(
+        dx, u, warm, mu, lam, k, z, u_out, warm_out, E, iters);
+  else
+    step_kernel<T, 1><<<blocks_for(E), kThreads, 0, st>>>(
+        dx, u, warm, mu, lam, k, z, u_out, warm_out, E, iters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -127,14 +196,16 @@ int launch(const T* xg, const T* u, const T* warm, const T* cp, const T* mu,
 
 extern "C" {
 
-// model: 0 = NeoHookean, 1 = StVK. Returns the cudaError_t of the launch.
+// model: 0 = NeoHookean, 1 = StVK. Each returns the cudaError_t of the
+// launch.
 int nh_local_step_fused_f32(const float* xg, const float* u, const float* warm,
                             const float* cp, const float* mu, const float* lam,
                             const float* k, const float* w2, float* z,
                             float* u_out, float* warm_out, float* contrib,
                             int E, int iters, int model, void* stream) {
-  return admm::nh::launch<float>(xg, u, warm, cp, mu, lam, k, w2, z, u_out,
-                                 warm_out, contrib, E, iters, model, stream);
+  return admm::nh::launch_fused<float>(xg, u, warm, cp, mu, lam, k, w2, z,
+                                       u_out, warm_out, contrib, E, iters,
+                                       model, stream);
 }
 
 int nh_local_step_fused_f64(const double* xg, const double* u,
@@ -143,8 +214,25 @@ int nh_local_step_fused_f64(const double* xg, const double* u,
                             const double* k, const double* w2, double* z,
                             double* u_out, double* warm_out, double* contrib,
                             int E, int iters, int model, void* stream) {
-  return admm::nh::launch<double>(xg, u, warm, cp, mu, lam, k, w2, z, u_out,
-                                  warm_out, contrib, E, iters, model, stream);
+  return admm::nh::launch_fused<double>(xg, u, warm, cp, mu, lam, k, w2, z,
+                                        u_out, warm_out, contrib, E, iters,
+                                        model, stream);
+}
+
+int nh_local_step_f32(const float* dx, const float* u, const float* warm,
+                      const float* mu, const float* lam, const float* k,
+                      float* z, float* u_out, float* warm_out, int E,
+                      int iters, int model, void* stream) {
+  return admm::nh::launch_step<float>(dx, u, warm, mu, lam, k, z, u_out,
+                                      warm_out, E, iters, model, stream);
+}
+
+int nh_local_step_f64(const double* dx, const double* u, const double* warm,
+                      const double* mu, const double* lam, const double* k,
+                      double* z, double* u_out, double* warm_out, int E,
+                      int iters, int model, void* stream) {
+  return admm::nh::launch_step<double>(dx, u, warm, mu, lam, k, z, u_out,
+                                       warm_out, E, iters, model, stream);
 }
 
 const char* admm_cuda_error_string(int err) {

@@ -1,18 +1,23 @@
-// Fused triangle-strain (cloth) local step for Hopper.
+// Triangle-strain (cloth) local step for Hopper: two entries.
 //
-// Replaces: admm_elastic_tpu/ops/pallas/tri_local.py, tri_local_step_fused
-// (kernel _make_tri_fused_kernel, without emit_z). The projection is the
-// shared device code of tri.cuh.
+// Replaces, in admm_elastic_tpu/ops/pallas/tri_local.py:
+//   tri_local_step_fused (kernel _make_tri_fused_kernel, without emit_z),
+//     which forms F from gathered positions and emits the RHS rows (the dia
+//     route);
+//   tri_local_step (kernel _make_tri_kernel), which takes Dx (the unfused
+//     pipeline: dense and cg global modes, over-relaxation).
+// The projection is the shared device code of tri.cuh.
 //
-// Per element: F = sum_k cp*xg + u (3x2) -> closed-form 3x2 SVD -> z = (k
-// U V^T + w2 F) / (w2 + k), column norms clamped into [lmin, lmax] ->
-// u' = F - z, and the RHS rows contrib[3k+j] = w2 * sum_r cp[3r+k] *
-// (z - u')[2j+r].
+// Per element: F = Dx + u (3x2; Dx = sum_k cp*xg in the fused entry) ->
+// closed-form 3x2 SVD -> z = (k U V^T + w2 F) / (w2 + k), column norms
+// clamped into [lmin, lmax] -> u' = F - z, and (fused only) the RHS rows
+// contrib[3k+j] = w2 * sum_r cp[3r+k] * (z - u')[2j+r].
 //
-// What bounds it on this card: bytes. Each element reads 9 + 6 + 6 + 4
-// values and writes 6 + 6 + 9 (184 bytes in f32, ~18.6 MB at the cloth100k
-// sheet's 101,250 triangles) against a few hundred flops and five square
-// roots; the arrays are L2-sized (50 MB).
+// What bounds it on this card: bytes. The fused entry reads 9 + 6 + 6 + 4
+// values per element and writes 6 + 6 + 9 (184 bytes in f32, ~18.6 MB at
+// the cloth100k sheet's 101,250 triangles), the unfused one reads 6 + 6 + 4
+// and writes 6 + 6 (112 bytes), against a few hundred flops and five
+// square roots; the arrays are L2-sized (50 MB).
 //
 // Design: one thread per element, everything in registers, no shared
 // memory. Arrays are plane-major (P, E), so neighbouring threads read
@@ -74,14 +79,52 @@ __global__ void __launch_bounds__(128)
 }
 
 template <typename T>
-int launch(const T* xg, const T* u, const T* cp, const T* w2, const T* k,
-           const T* lmin, const T* lmax, T* z, T* u_out, T* contrib, int E,
-           int limiting, void* stream) {
+__global__ void __launch_bounds__(128)
+    step_kernel(const T* __restrict__ dx, const T* __restrict__ u,
+                const T* __restrict__ w2_, const T* __restrict__ k_,
+                const T* __restrict__ lmin_, const T* __restrict__ lmax_,
+                T* __restrict__ z_out, T* __restrict__ u_out, int E,
+                int limiting) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const size_t sE = static_cast<size_t>(E);
+  T f[6];
+#pragma unroll
+  for (int p = 0; p < 6; ++p) f[p] = dx[p * sE + e] + u[p * sE + e];
+  const T w2 = w2_[e], k = k_[e];
+  T z[6];
+  tri_body<T>(f, w2, k, T(1) / (w2 + k), lmin_[e], lmax_[e], limiting != 0,
+              z);
+#pragma unroll
+  for (int p = 0; p < 6; ++p) {
+    z_out[p * sE + e] = z[p];
+    u_out[p * sE + e] = f[p] - z[p];
+  }
+}
+
+constexpr int kThreads = 128;
+
+inline int blocks_for(int E) { return (E + kThreads - 1) / kThreads; }
+
+template <typename T>
+int launch_fused(const T* xg, const T* u, const T* cp, const T* w2,
+                 const T* k, const T* lmin, const T* lmax, T* z, T* u_out,
+                 T* contrib, int E, int limiting, void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
-  constexpr int threads = 128;
-  const int blocks = (E + threads - 1) / threads;
-  fused_kernel<T><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  fused_kernel<T><<<blocks_for(E), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
       xg, u, cp, w2, k, lmin, lmax, z, u_out, contrib, E, limiting);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_step(const T* dx, const T* u, const T* w2, const T* k,
+                const T* lmin, const T* lmax, T* z, T* u_out, int E,
+                int limiting, void* stream) {
+  if (E <= 0) return static_cast<int>(cudaSuccess);
+  step_kernel<T><<<blocks_for(E), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      dx, u, w2, k, lmin, lmax, z, u_out, E, limiting);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -90,15 +133,15 @@ int launch(const T* xg, const T* u, const T* cp, const T* w2, const T* k,
 
 extern "C" {
 
-// limiting: 0 or 1 (strain limiting on). Returns the cudaError_t of the
-// launch.
+// limiting: 0 or 1 (strain limiting on). Each returns the cudaError_t of
+// the launch.
 int tri_local_step_fused_f32(const float* xg, const float* u, const float* cp,
                              const float* w2, const float* k,
                              const float* lmin, const float* lmax, float* z,
                              float* u_out, float* contrib, int E,
                              int limiting, void* stream) {
-  return admm::tri::launch<float>(xg, u, cp, w2, k, lmin, lmax, z, u_out,
-                                  contrib, E, limiting, stream);
+  return admm::tri::launch_fused<float>(xg, u, cp, w2, k, lmin, lmax, z,
+                                        u_out, contrib, E, limiting, stream);
 }
 
 int tri_local_step_fused_f64(const double* xg, const double* u,
@@ -107,8 +150,24 @@ int tri_local_step_fused_f64(const double* xg, const double* u,
                              const double* lmax, double* z, double* u_out,
                              double* contrib, int E, int limiting,
                              void* stream) {
-  return admm::tri::launch<double>(xg, u, cp, w2, k, lmin, lmax, z, u_out,
-                                   contrib, E, limiting, stream);
+  return admm::tri::launch_fused<double>(xg, u, cp, w2, k, lmin, lmax, z,
+                                         u_out, contrib, E, limiting, stream);
+}
+
+int tri_local_step_f32(const float* dx, const float* u, const float* w2,
+                       const float* k, const float* lmin, const float* lmax,
+                       float* z, float* u_out, int E, int limiting,
+                       void* stream) {
+  return admm::tri::launch_step<float>(dx, u, w2, k, lmin, lmax, z, u_out, E,
+                                       limiting, stream);
+}
+
+int tri_local_step_f64(const double* dx, const double* u, const double* w2,
+                       const double* k, const double* lmin,
+                       const double* lmax, double* z, double* u_out, int E,
+                       int limiting, void* stream) {
+  return admm::tri::launch_step<double>(dx, u, w2, k, lmin, lmax, z, u_out,
+                                        E, limiting, stream);
 }
 
 }  // extern "C"

@@ -5,8 +5,11 @@ world positions to the 3x2 deformation gradient F = X_def @ B; coeff[e,r,c]
 = B[e,c,r], so the canonical (E,R,3) layout Dx[e,r,:] holds F^T rows.
 
 The port keeps the kernel-backed force's per-element quantities in plane
-layout, unpadded: u and z are (6, E) with plane 2a+b holding F_{a,b}; the
-selector coefficients are (6, E) with plane 3b+k holding coeff[e,b,k].
+layout, unpadded: Dx, u and z are (6, E) with plane 2a+b holding F_{a,b};
+the selector coefficients are (6, E) with plane 3b+k holding coeff[e,b,k].
+The fused kernel forms Dx and the RHS rows itself (the dia route); the
+unfused pipeline (the dense and cg global modes, over-relaxation) takes Dx
+from `compute_Dx` and its rows from `rhs_contribution`.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.kernels.tri_local import tri_local_step, tri_local_step_fused
 from .base import ForceBatch
 
 _D3 = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
@@ -66,7 +70,7 @@ class LimitedTriangleStrain(ForceBatch):
     of z into [limit_min, limit_max] (TriangleForce.cpp:79-113).
 
     backend: 'pallas' runs the element step through the hand-written
-    kernel (`ops/kernels/tri_local.py`), the counterpart of the JAX
+    kernels (`ops/kernels/tri_local.py`), the counterpart of the JAX
     package's Pallas route. The JAX default 'xla' (vmapped `svd3x2`) is not
     ported yet."""
 
@@ -86,7 +90,7 @@ class LimitedTriangleStrain(ForceBatch):
         if backend == "xla":
             raise NotImplementedError(
                 "LimitedTriangleStrain(backend='xla') needs ops/svd.py "
-                "(svd3x2), which is not ported yet (ROADMAP A: the "
+                "(svd3x2), which is not ported yet (ROADMAP A2 item 2a: the "
                 "backend='xla' routes); use backend='pallas'"
             )
         if backend != "pallas":
@@ -117,8 +121,6 @@ class LimitedTriangleStrain(ForceBatch):
         """One kernel for the per-iteration element pipeline: gathered
         positions in; z, u' and the flat D^T W^2 (z-u') rows (E*3, 3)
         out."""
-        from ..ops.kernels.tri_local import tri_local_step_fused
-
         E = params["indices"].shape[0]
         # xg[3k+a, e] = x[face[e,k], a]
         xg = x[params["indices"]].reshape(E, 9).T.contiguous()
@@ -130,12 +132,31 @@ class LimitedTriangleStrain(ForceBatch):
         # contrib[3k+j, e] -> row 3e+k, column j
         return z6, unew6, state, contrib.T.reshape(E * 3, 3)
 
+    def compute_Dx(self, params, x):
+        """Dx planes (6, E): plane 2a+b = sum_k coeff[e,b,k] x[face[e,k], a]."""
+        E = params["indices"].shape[0]
+        verts = x[params["indices"]]  # (E,K,3)
+        return torch.einsum("ebk,eka->abe", params["coeff"],
+                            verts).reshape(6, E).contiguous()
+
+    def rhs_contribution(self, params, z, u):
+        """Rows of D^T W^2 (z - u) from planes: (E*3, 3)."""
+        E = params["indices"].shape[0]
+        y3 = (z - u).reshape(3, 2, E)  # [j,r,e]
+        c = torch.einsum("erk,e,jre->ekj", params["coeff"], params["w2"], y3)
+        return c.reshape(-1, 3)
+
+    def project_with_dual(self, Dx, u, params, state):
+        """The unfused element step from Dx planes: (z6, u6', state)."""
+        z6, unew6 = tri_local_step(Dx, u, params["w2"], params["k"],
+                                   params["limit_min"], params["limit_max"],
+                                   limiting=self.strain_limiting)
+        return z6, unew6, state
+
     def project(self, Dx, u, params, state):
-        raise NotImplementedError(
-            "LimitedTriangleStrain.project needs the unfused element step "
-            "(tri_local_step, ROADMAP queue B7); the port runs only the "
-            "fused dia route"
-        )
+        """Plane-layout z (and state); the System calls project_with_dual."""
+        z, _, st = self.project_with_dual(Dx, u, params, state)
+        return z, st
 
     def primal_piece(self, params, u_new, u_old):
         du = u_new - u_old

@@ -113,7 +113,15 @@ _SIGNATURES = {
     **{f"cg_update_{t}": (_I, [_P] * 6 + [_I] + [_P] * 6)
        for t in ("f32", "f64")},
     "cg_partials": (_I, [_I]),
+    **{f"nh_local_step_{t}": (_I, [_P] * 9 + [_I] * 3 + [_P])
+       for t in ("f32", "f64")},
     **{f"tri_local_step_fused_{t}": (_I, [_P] * 10 + [_I] * 2 + [_P])
+       for t in ("f32", "f64")},
+    **{f"tri_local_step_{t}": (_I, [_P] * 8 + [_I] * 2 + [_P])
+       for t in ("f32", "f64")},
+    **{f"arap_local_step_fused_{t}": (_I, [_P] * 8 + [_I] + [_P])
+       for t in ("f32", "f64")},
+    **{f"arap_local_step_{t}": (_I, [_P] * 6 + [_I] + [_P])
        for t in ("f32", "f64")},
     # state 6, element planes 6, vertex planes 5, matrix 3 (dia, ell_idx,
     # ell_vals), scratch 7, host arrays 4, then n, E, D, K, S, n_shapes,
@@ -160,3 +168,41 @@ def check(err: int, what: str) -> None:
 
 def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def check_inputs(planes, vectors):
+    """Check a kernel wrapper's inputs: planes {name: (tensor, rows)} of
+    shape (rows, E) and vectors {name: tensor} of shape (E,), contiguous,
+    all of one device and one dtype (f32 or f64). Returns E."""
+    first = next(iter(planes.values()))[0]
+    E = first.shape[1] if first.dim() == 2 else -1
+    shapes = {**{n: (t, (rows, E)) for n, (t, rows) in planes.items()},
+              **{n: (t, (E,)) for n, t in vectors.items()}}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+        if t.device != first.device or t.dtype != first.dtype:
+            raise ValueError(
+                f"{name}: {t.dtype} on {t.device}, expected {first.dtype} on "
+                f"{first.device}"
+            )
+    if first.dtype not in SUFFIX:
+        raise TypeError(f"unsupported dtype {first.dtype}")
+    return E
+
+
+def launch(name, ins, outs, *ints):
+    """Launch the C entry `name`_f32/_f64 on CUDA tensors: the pointers of
+    ins and outs, then ints and the current stream. Raises on any CUDA
+    error of the launch."""
+    t0 = ins[0]
+    if t0.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {t0.device}")
+    fn = getattr(load_library(), f"{name}_{SUFFIX[t0.dtype]}")
+    err = fn(*(t.data_ptr() for t in (*ins, *outs)), *ints, stream_ptr(t0))
+    check(err, name)

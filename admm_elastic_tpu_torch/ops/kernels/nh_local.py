@@ -1,21 +1,23 @@
-"""Fused hyperelastic tet local step: hand-written CUDA kernel + plain twin.
+"""Hyperelastic tet local step: hand-written CUDA kernels + plain twins.
 
-Counterpart of `admm_elastic_tpu/ops/pallas/nh_local.py`
-(`nh_local_step_fused`). Per element:
+Counterpart of `admm_elastic_tpu/ops/pallas/nh_local.py`, both entries.
+Per element:
 
-    F      = sum_k cp * xg + u             (selector apply on gathered x)
+    F      = Dx + u          (fused: Dx = sum_k cp * xg, selector on x)
     U,s,V  = oriented SVD(F)               (signed s2; proper rotations)
     sigma* = argmin psi(sigma) + k/2 ||sigma - s||^2   (damped Newton)
     z      = U diag(sigma*) V^T,   u' = u + Dx - z
-    contrib[3k+j] = w2 * sum_r cp[4r+k] * (z - u')[3j+r]
+    contrib[3k+j] = w2 * sum_r cp[4r+k] * (z - u')[3j+r]   (fused only)
 
-Layout: plane-major xg12, cp12, contrib12 (12,E); u9, z9 (9,E); warm (3,E);
-mu, lam, k, w2 (E,). No padding: E is any size.
+`nh_local_step_fused` takes gathered positions and emits the RHS rows (the
+dia/ell route); `nh_local_step` takes Dx (the unfused pipeline of the dense
+and cg global modes and of over-relaxation). Layout: plane-major xg12,
+cp12, contrib12 (12,E); dx9, u9, z9 (9,E); warm (3,E); mu, lam, k, w2
+(E,). No padding: E is any size.
 
-`nh_local_step_fused` launches the kernel (`csrc/nh_local.cu`) for CUDA
-tensors and runs `nh_local_step_fused_reference`, a straight transcription
-of the Pallas math, for CPU tensors. It never falls back from one to the
-other.
+Each wrapper launches its kernel (`csrc/nh_local.cu`) for CUDA tensors and
+runs its `_reference` twin, a straight transcription of the Pallas math,
+for CPU tensors. It never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ SIGMA_FLOOR = 1e-8
 _ALPHAS = (1.0, 0.5, 0.25, 0.0625, 1.0 / 64.0, 1.0 / 256.0)
 _GRAD_ALPHAS = (1.0, 0.0625)
 _MODELS = {"nh": 0, "stvk": 1}
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _jacobi_cs(app, aqq, apq, eps):
@@ -46,6 +47,22 @@ def _jacobi_cs(app, aqq, apq, eps):
 def _svd_columns(f, eps):
     """f: 9 planes of F (row-major). Returns (U cols, V cols, s) where
     U/V are 3 lists of 3 arrays (columns) and s = (s0,s1,s2) signed."""
+    U, cols, (b0, b1), matvec = _svd_factors(f, eps)
+    b2 = matvec(2)
+    u0, u1, u2 = U
+    s = (
+        u0[0] * b0[0] + u0[1] * b0[1] + u0[2] * b0[2],
+        u1[0] * b1[0] + u1[1] * b1[1] + u1[2] * b1[2],
+        u2[0] * b2[0] + u2[1] * b2[1] + u2[2] * b2[2],
+    )
+    return U, cols, s
+
+
+def _svd_factors(f, eps):
+    """The rotations of the oriented SVD of F: (U cols, V cols, (F V_0,
+    F V_1), matvec), where matvec(c) = F V_c. The Pallas kernels compute
+    the same in one function (nh_local._svd_columns, and without the
+    singular values tet_local._polar_rotation)."""
 
     def col(c):
         return (f[c], f[3 + c], f[6 + c])
@@ -128,7 +145,7 @@ def _svd_columns(f, eps):
             f[6] * vc[0] + f[7] * vc[1] + f[8] * vc[2],
         ]
 
-    b0, b1, b2 = matvec(0), matvec(1), matvec(2)
+    b0, b1 = matvec(0), matvec(1)
 
     def norm3(x):
         return torch.sqrt(x[0] * x[0] + x[1] * x[1] + x[2] * x[2])
@@ -164,13 +181,7 @@ def _svd_columns(f, eps):
         u0[2] * u1[0] - u0[0] * u1[2],
         u0[0] * u1[1] - u0[1] * u1[0],
     ]
-    U = [u0, u1, u2]
-    s = (
-        u0[0] * b0[0] + u0[1] * b0[1] + u0[2] * b0[2],
-        u1[0] * b1[0] + u1[1] * b1[1] + u1[2] * b1[2],
-        u2[0] * b2[0] + u2[1] * b2[1] + u2[2] * b2[2],
-    )
-    return U, cols, s
+    return [u0, u1, u2], cols, (b0, b1), matvec
 
 
 def _prox(s1, s2, s3, k, c1, c2, c3):
@@ -306,6 +317,27 @@ def _warm_guard(warm):
             torch.where(collapsed, 1e-3, w3))
 
 
+def _hyper_body(dx, uu, warm, mu, lam, k, iters, model):
+    """The element step both kernels share: dx and uu lists of 9 planes ->
+    (z planes, u' planes, warm_new (3,E))."""
+    f = [dx[p] + uu[p] for p in range(9)]
+    eps = torch.finfo(f[0].dtype).eps
+    U, V, s = _svd_columns(f, eps)
+    x1, x2, x3 = _newton_hyper(s, _warm_guard(warm), mu, lam, k, iters, model)
+    sig = (x1, x2, x3)
+    z_planes, u_planes = [], []
+    for r in range(3):
+        for c in range(3):
+            z = (
+                U[0][r] * sig[0] * V[0][c]
+                + U[1][r] * sig[1] * V[1][c]
+                + U[2][r] * sig[2] * V[2][c]
+            )
+            z_planes.append(z)
+            u_planes.append(uu[3 * r + c] + dx[3 * r + c] - z)
+    return z_planes, u_planes, torch.stack([x1, x2, x3])
+
+
 def nh_local_step_fused_reference(xg12, u9, warm, cp12, mu, lam, k, w2,
                                   iters=5, model="nh"):
     """Plain PyTorch version of the fused kernel, same signature and
@@ -319,26 +351,9 @@ def nh_local_step_fused_reference(xg12, u9, warm, cp12, mu, lam, k, w2,
             for kk in range(1, 4):
                 acc = acc + cp[4 * b + kk] * xg[3 * kk + a]
             dx.append(acc)
-    uu = [u9[p] for p in range(9)]
-    f = [dx[p] + uu[p] for p in range(9)]
-    eps = torch.finfo(xg12.dtype).eps
-    U, V, s = _svd_columns(f, eps)
-    x1, x2, x3 = _newton_hyper(s, _warm_guard(warm), mu, lam, k, iters, model)
-    warm_new = torch.stack([x1, x2, x3])
-
-    sig = (x1, x2, x3)
-    z_planes, u_planes, zu = [], [], [None] * 9
-    for r in range(3):
-        for c in range(3):
-            z = (
-                U[0][r] * sig[0] * V[0][c]
-                + U[1][r] * sig[1] * V[1][c]
-                + U[2][r] * sig[2] * V[2][c]
-            )
-            un = uu[3 * r + c] + dx[3 * r + c] - z
-            z_planes.append(z)
-            u_planes.append(un)
-            zu[3 * r + c] = z - un
+    z_planes, u_planes, warm_new = _hyper_body(
+        dx, [u9[p] for p in range(9)], warm, mu, lam, k, iters, model)
+    zu = [z_planes[p] - u_planes[p] for p in range(9)]
 
     contrib = []
     for kk in range(4):
@@ -351,25 +366,13 @@ def nh_local_step_fused_reference(xg12, u9, warm, cp12, mu, lam, k, w2,
             torch.stack(contrib))
 
 
-def _check(xg12, u9, warm, cp12, mu, lam, k, w2):
-    E = xg12.shape[1] if xg12.dim() == 2 else -1
-    shapes = {"xg12": (xg12, (12, E)), "u9": (u9, (9, E)),
-              "warm": (warm, (3, E)), "cp12": (cp12, (12, E)),
-              "mu": (mu, (E,)), "lam": (lam, (E,)), "k": (k, (E,)),
-              "w2": (w2, (E,))}
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: not contiguous")
-        if t.device != xg12.device or t.dtype != xg12.dtype:
-            raise ValueError(
-                f"{name}: {t.dtype} on {t.device}, expected {xg12.dtype} on "
-                f"{xg12.device}"
-            )
-    if xg12.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"unsupported dtype {xg12.dtype}")
-    return E
+def nh_local_step_reference(dx9, u9, warm, mu, lam, k, iters=5, model="nh"):
+    """Plain PyTorch version of the unfused kernel, same signature and
+    outputs: (z9, u9_new, warm_new)."""
+    z_planes, u_planes, warm_new = _hyper_body(
+        [dx9[p] for p in range(9)], [u9[p] for p in range(9)], warm, mu, lam,
+        k, iters, model)
+    return torch.stack(z_planes), torch.stack(u_planes), warm_new
 
 
 def nh_local_step_fused(xg12, u9, warm, cp12, mu, lam, k, w2, iters=5,
@@ -383,25 +386,37 @@ def nh_local_step_fused(xg12, u9, warm, cp12, mu, lam, k, w2, iters=5,
         )
     if model not in _MODELS:
         raise ValueError(f"unknown hyperelastic model {model!r}")
-    E = _check(xg12, u9, warm, cp12, mu, lam, k, w2)
+    E = _build.check_inputs({"xg12": (xg12, 12), "u9": (u9, 9), "warm": (warm, 3),
+                "cp12": (cp12, 12)}, {"mu": mu, "lam": lam, "k": k, "w2": w2})
     if xg12.device.type == "cpu":
         return nh_local_step_fused_reference(xg12, u9, warm, cp12, mu, lam,
                                              k, w2, iters=iters, model=model)
-    if xg12.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {xg12.device}")
-    ins = [xg12, u9, warm, cp12, mu, lam, k, w2]
-    z9 = torch.empty_like(ins[1])
-    unew = torch.empty_like(ins[1])
-    warm_new = torch.empty_like(ins[2])
-    contrib = torch.empty_like(ins[0])
-    fn = getattr(_build.load_library(), "nh_local_step_fused_"
-                 + _SUFFIX[xg12.dtype])
-    err = fn(*(t.data_ptr() for t in ins + [z9, unew, warm_new, contrib]),
-             E, int(iters), _MODELS[model], _build.stream_ptr(xg12))
-    _build.check(err, "nh_local_step_fused")
+    outs = (torch.empty_like(u9), torch.empty_like(u9), torch.empty_like(warm),
+            torch.empty_like(xg12))
+    _build.launch("nh_local_step_fused", (xg12, u9, warm, cp12, mu, lam, k, w2),
+            outs, E, int(iters), _MODELS[model])
     nh_local_step_fused.launches += 1
-    return z9, unew, warm_new, contrib
+    return outs
 
 
 nh_local_step_fused.launches = 0
 
+
+def nh_local_step(dx9, u9, warm, mu, lam, k, iters=5, model="nh"):
+    """Unfused local step from Dx. Returns (z9, u9_new, warm_new)."""
+    if model not in _MODELS:
+        raise ValueError(f"unknown hyperelastic model {model!r}")
+    E = _build.check_inputs({"dx9": (dx9, 9), "u9": (u9, 9), "warm": (warm, 3)},
+               {"mu": mu, "lam": lam, "k": k})
+    if dx9.device.type == "cpu":
+        return nh_local_step_reference(dx9, u9, warm, mu, lam, k,
+                                       iters=iters, model=model)
+    outs = (torch.empty_like(u9), torch.empty_like(u9),
+            torch.empty_like(warm))
+    _build.launch("nh_local_step", (dx9, u9, warm, mu, lam, k), outs, E,
+            int(iters), _MODELS[model])
+    nh_local_step.launches += 1
+    return outs
+
+
+nh_local_step.launches = 0

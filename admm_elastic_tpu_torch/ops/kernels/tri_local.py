@@ -1,25 +1,28 @@
-"""Fused triangle-strain (cloth) local step: hand-written CUDA kernel +
-plain twin.
+"""Triangle-strain (cloth) local step: hand-written CUDA kernels + plain
+twins.
 
-Counterpart of `admm_elastic_tpu/ops/pallas/tri_local.py`
-(`tri_local_step_fused`). Per element:
+Counterpart of `admm_elastic_tpu/ops/pallas/tri_local.py`, both entries.
+Per element:
 
-    F      = sum_k cp * xg + u              (3x2, selector on gathered x)
+    F      = Dx + u          (3x2; fused: Dx = sum_k cp * xg, selector on x)
     U,s,V  = closed-form SVD(F)             (2x2 eig of F^T F + safe
                                              orthonormalization of F V)
     z      = (k U V^T + w2 F) / (w2 + k),   column norms clamped into
                                             [lmin, lmax] when limiting
     u'     = F - z
-    contrib[3k+j] = w2 * sum_r cp[3r+k] * (z - u')[2j+r]
+    contrib[3k+j] = w2 * sum_r cp[3r+k] * (z - u')[2j+r]   (fused only)
 
-Layout: plane-major xg9, contrib9 (9,E) with plane 3k+a = x[face[e,k], a];
-u6, z6, cp6 (6,E) with plane 2a+b = F_{a,b} and plane 3b+k = coeff[e,b,k];
-w2, k, lmin, lmax (E,). No padding: E is any size.
+`tri_local_step_fused` takes gathered positions and emits the RHS rows (the
+dia route); `tri_local_step` takes Dx (the unfused pipeline of the dense and
+cg global modes and of over-relaxation). Layout: plane-major xg9, contrib9
+(9,E) with plane 3k+a = x[face[e,k], a]; dx6, u6, z6, cp6 (6,E) with plane
+2a+b = F_{a,b} and plane 3b+k = coeff[e,b,k]; w2, k, lmin, lmax (E,). No
+padding: E is any size.
 
-`tri_local_step_fused` launches the kernel (`csrc/tri_local.cu`) for CUDA
-tensors and runs `tri_local_step_fused_reference`, a straight transcription
-of the Pallas math in its evaluation order, for CPU tensors. It never falls
-back from one to the other. `_svd32` and `_tri_body` are shared with the
+Each wrapper launches its kernel (`csrc/tri_local.cu`) for CUDA tensors and
+runs its `_reference` twin, a straight transcription of the Pallas math in
+its evaluation order, for CPU tensors. It never falls back from one to the
+other. `_svd32` and `_tri_body` are shared with the
 cloth kernel's twin (`ops/kernels/cloth_step.py`), as `csrc/tri.cuh` is
 shared by the two kernels.
 """
@@ -29,9 +32,6 @@ from __future__ import annotations
 import torch
 
 from . import _build
-
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
 
 def _norm3(x):
     return torch.sqrt(x[0] * x[0] + x[1] * x[1] + x[2] * x[2])
@@ -144,24 +144,12 @@ def tri_local_step_fused_reference(xg9, u6, cp6, w2, k, lmin, lmax,
     return torch.stack(z), torch.stack(u_new), torch.stack(contrib)
 
 
-def _check(xg9, u6, cp6, w2, k, lmin, lmax):
-    E = xg9.shape[1] if xg9.dim() == 2 else -1
-    shapes = {"xg9": (xg9, (9, E)), "u6": (u6, (6, E)), "cp6": (cp6, (6, E)),
-              "w2": (w2, (E,)), "k": (k, (E,)), "lmin": (lmin, (E,)),
-              "lmax": (lmax, (E,))}
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: not contiguous")
-        if t.device != xg9.device or t.dtype != xg9.dtype:
-            raise ValueError(
-                f"{name}: {t.dtype} on {t.device}, expected {xg9.dtype} on "
-                f"{xg9.device}"
-            )
-    if xg9.dtype not in _SUFFIX:
-        raise TypeError(f"unsupported dtype {xg9.dtype}")
-    return E
+def tri_local_step_reference(dx6, u6, w2, k, lmin, lmax, limiting=True):
+    """Plain PyTorch version of the unfused kernel, same signature and
+    outputs: (z6, u6_new)."""
+    f = [dx6[p] + u6[p] for p in range(6)]
+    z = _tri_body(f, w2, k, 1.0 / (w2 + k), lmin, lmax, limiting)
+    return torch.stack(z), torch.stack([f[p] - z[p] for p in range(6)])
 
 
 def tri_local_step_fused(xg9, u6, cp6, w2, k, lmin, lmax, limiting=True,
@@ -173,23 +161,33 @@ def tri_local_step_fused(xg9, u6, cp6, w2, k, lmin, lmax, limiting=True,
             "emit_z (dual-residual rows) belongs to collect_residuals, "
             "which is not ported yet"
         )
-    E = _check(xg9, u6, cp6, w2, k, lmin, lmax)
+    E = _build.check_inputs({"xg9": (xg9, 9), "u6": (u6, 6), "cp6": (cp6, 6)},
+                            {"w2": w2, "k": k, "lmin": lmin, "lmax": lmax})
     if xg9.device.type == "cpu":
         return tri_local_step_fused_reference(xg9, u6, cp6, w2, k, lmin, lmax,
                                               limiting=limiting)
-    if xg9.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {xg9.device}")
-    ins = [xg9, u6, cp6, w2, k, lmin, lmax]
-    z6 = torch.empty_like(u6)
-    unew = torch.empty_like(u6)
-    contrib = torch.empty_like(xg9)
-    fn = getattr(_build.load_library(), "tri_local_step_fused_"
-                 + _SUFFIX[xg9.dtype])
-    err = fn(*(t.data_ptr() for t in ins + [z6, unew, contrib]), E,
-             int(bool(limiting)), _build.stream_ptr(xg9))
-    _build.check(err, "tri_local_step_fused")
+    outs = (torch.empty_like(u6), torch.empty_like(u6), torch.empty_like(xg9))
+    _build.launch("tri_local_step_fused", (xg9, u6, cp6, w2, k, lmin, lmax),
+                  outs, E, int(bool(limiting)))
     tri_local_step_fused.launches += 1
-    return z6, unew, contrib
+    return outs
 
 
 tri_local_step_fused.launches = 0
+
+
+def tri_local_step(dx6, u6, w2, k, lmin, lmax, limiting=True):
+    """Unfused local step from Dx. Returns (z6, u6_new)."""
+    E = _build.check_inputs({"dx6": (dx6, 6), "u6": (u6, 6)},
+                            {"w2": w2, "k": k, "lmin": lmin, "lmax": lmax})
+    if dx6.device.type == "cpu":
+        return tri_local_step_reference(dx6, u6, w2, k, lmin, lmax,
+                                        limiting=limiting)
+    outs = (torch.empty_like(u6), torch.empty_like(u6))
+    _build.launch("tri_local_step", (dx6, u6, w2, k, lmin, lmax), outs, E,
+                  int(bool(limiting)))
+    tri_local_step.launches += 1
+    return outs
+
+
+tri_local_step.launches = 0

@@ -7,8 +7,10 @@ same scene. Forces match by their `c{i}_{Type}` names. The JAX Pallas
 layout pads per-element planes ((9, E_pad), (3, E_pad), (12, E_pad)) to
 the kernel block; the port's planes are unpadded, so the padding is cut
 off. A port param that the reference derives on the fly (`w2`, the
-squared weight) is derived here from the reference's `weight`. Takes numpy
-only: this module never imports jax.
+squared weight) is derived here from the reference's `weight`; arrays that
+only the port keeps (`_PORT_ONLY`) stay as the port built them. Carries
+every global mode, the dense inverse included. Takes numpy only: this
+module never imports jax.
 
 `banded_from_reference(stepper, state_np, subs, positions)` does the same
 for the banded route: it loads a JAX `BandedStepper`'s state into the
@@ -23,15 +25,23 @@ import numpy as np
 import torch
 
 
+#: keys of the port's tree that a JAX tree may lack: WindForce's vertex
+#: incidence (`inc`), the RHS incidence (`inc_idx`; the JAX dense and cg
+#: modes scatter instead) and the whole `_solver` of the cg mode (the port
+#: stores its incidence and the Jacobi diagonal; JAX recomputes the
+#: diagonal every step)
+_PORT_ONLY = ("inc", "inc_idx", "_solver")
+
+
 def _load(port, ref, where):
     if isinstance(port, dict):
         if not isinstance(ref, dict):
             raise ValueError(f"{where}: expected a dict in the reference tree")
         if "w2" in port and "w2" not in ref and "weight" in ref:
             ref = {**ref, "w2": np.asarray(ref["weight"]) ** 2}
-        if "inc" in port and "inc" not in ref:
-            # WindForce's vertex incidence exists only in the port
-            ref = {**ref, "inc": port["inc"]}
+        # arrays that only the port keeps stay the port's own
+        ref = {**{k: port[k] for k in _PORT_ONLY if k in port and k not in ref},
+               **ref}
         missing = set(port) - set(ref)
         if missing:
             raise KeyError(f"{where}: reference lacks {sorted(missing)}")

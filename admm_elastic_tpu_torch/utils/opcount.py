@@ -14,9 +14,9 @@ each input read once and each output written once.
 bound_ms = max(bytes / memory rate, operations / peak rate) is the least
 time the card could take for the same work (`roofline_ms`).
 `twin_counts` gives (operations, bytes) of a kernel on its inputs from its
-twin (`tri_local_counts`, `cg_update_counts` and `cg_ell_counts` name the
-kernels), and `rollout_counts` those of the whole-timestep kernels (banded
-in dia or ELL mode, cloth).
+twin (the element steps', by their `_reference` twins; `cg_update_counts`
+and `cg_ell_counts` name the CG kernels), and `rollout_counts` those of the
+whole-timestep kernels (banded in dia or ELL mode, cloth).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..ops.kernels import cg_ell, cg_step, tri_local
+from ..ops.kernels import cg_ell, cg_step
 
 _ELEMENTWISE = frozenset((
     "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "rsqrt", "log",
@@ -91,12 +91,6 @@ def twin_counts(reference, *args, **kwargs) -> tuple[int, int]:
     output written once."""
     ops, out = count_ops(reference, *args, **kwargs)
     return ops, nbytes(args, out)
-
-
-def tri_local_counts(xg9, u6, cp6, w2, k, lmin, lmax, limiting=True):
-    """(operations, bytes) of `tri_local_step_fused` on these inputs."""
-    return twin_counts(tri_local.tri_local_step_fused_reference, xg9, u6,
-                       cp6, w2, k, lmin, lmax, limiting=limiting)
 
 
 def cg_update_counts(x, r, p, rz, Ap, inv_diag):

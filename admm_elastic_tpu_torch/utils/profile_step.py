@@ -1,6 +1,6 @@
 """Where a timestep's time goes on the card: torch.profiler over a few
 steps of the 100k-tet beam, the cloth100k sheet or the delaunay100k mesh
-(the `chip_smoke.py` main paths).
+(the `chip_smoke.py` main paths), or of any System given to `profile`.
 
     python -m admm_elastic_tpu_torch.utils.profile_step [--cg 25 75]
         [--steps 10] [--route general|fast]
@@ -36,7 +36,8 @@ import time
 import numpy as np
 import torch
 
-from ..ops.kernels import banded_step, cloth_step, nh_local, tri_local
+from ..ops.kernels import (banded_step, cloth_step, nh_local, tet_local,
+                           tri_local)
 from . import scenes
 
 
@@ -63,13 +64,16 @@ def _window_ms(s, steps):
 SCENES = ("tet100k", "cloth100k", "delaunay100k")
 ATTEMPTS = 5
 # the entry kernels of the port's one-launch-per-call wrappers
-_OWN = ("void admm::nh::fused_kernel", "void admm::tri::fused_kernel",
-        "void admm::banded::rollout_kernel", "void admm::cloth::rollout_kernel")
+_OWN = tuple(f"void admm::{ns}::{k}_kernel"
+             for ns in ("nh", "tri", "arap") for k in ("fused", "step")) + (
+    "void admm::banded::rollout_kernel", "void admm::cloth::rollout_kernel")
 
 
 def _own_launches():
     return sum(k.launches for k in (
-        nh_local.nh_local_step_fused, tri_local.tri_local_step_fused,
+        nh_local.nh_local_step_fused, nh_local.nh_local_step,
+        tri_local.tri_local_step_fused, tri_local.tri_local_step,
+        tet_local.arap_local_step_fused, tet_local.arap_local_step,
         banded_step.banded_rollout, cloth_step.cloth_rollout))
 
 

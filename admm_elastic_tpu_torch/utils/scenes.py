@@ -5,13 +5,24 @@
 gravity, and a kernel-backed HyperElasticTet (mu = lam = 1e5, 5 Newton
 iterations) on the dia solver, dt 0.04, 10 ADMM iterations; with
 `fast=True` it runs on the banded whole-timestep route
-(`lattice_fast_path=True`), as `bench.py --preset tet100k` does.
+(`lattice_fast_path=True`), as `bench.py --preset tet100k` does, and with
+`global_solver="dense"` on the dense inverse (as `bench.py --preset tet100k
+--global-solver dense`, dense_max_nodes raised past its 22,386 nodes).
+
+`arap100k`: tet100k's beam, anchors, gravity, masses and Settings with a
+kernel-backed LinearTetStrain (stiffness 1e5) in place of the NeoHookean
+tet: k = stiffness vol equals the NeoHookean scene's min(mu, lam) vol, so
+the weights and A_hat are the same. No bench.py preset runs this model at
+this size (plinko's LinearTetStrain mesh, horse759, is not in the repo);
+it is the port's full-width workload of the corotational tet. With
+`relaxation` != 1 it runs the unfused pipeline.
 
 `cloth100k`: the windyflag physics of `bench.py --preset cloth100k` on a
 225 x 225 `make_plane_grid` sheet: kernel-backed LimitedTriangleStrain,
 Bend, 26 StaticAnchors on the top edge, gravity and WindForce, dia solver;
-with `fast=True` on the cloth whole-timestep route. `small_cloth` is the
-8 x 6 sheet of the cloth parity tests.
+with `fast=True` on the cloth whole-timestep route, with
+`global_solver="cg"` (and fast=False) on the matrix-free CG of the unfused
+pipeline. `small_cloth` is the 8 x 6 sheet of the cloth parity tests.
 
 `jittered_beam` is the randomly perturbed beam of the banded parity tests:
 no constant-offset stencil survives the jitter, while the numbering stays
@@ -35,44 +46,66 @@ from ..core.banded import BandedStepper
 from ..core.system import Settings, System
 from ..geometry import extract_hinges, make_beam_tets, make_plane_grid
 from ..models import (Bend, Collision, Cylinder, ExplicitForce, Floor,
-                      HyperElasticTet, LimitedTriangleStrain, Sphere,
-                      StaticAnchor, WindForce)
+                      HyperElasticTet, LimitedTriangleStrain, LinearTetStrain,
+                      Sphere, StaticAnchor, WindForce)
 
 
 def beam_system(dims, size, total_mass, cg, dtype=torch.float32,
-                device="cuda", fast=False) -> System:
+                device="cuda", fast=False, arap=False,
+                **settings) -> System:
+    """An anchored beam under gravity: NeoHookean tets (mu = lam = 1e5, 5
+    Newton iterations) or, with arap=True, LinearTetStrain (stiffness 1e5),
+    kernel-backed; dia solver unless `settings` say otherwise."""
     beam = make_beam_tets(*dims, size=size)
     n = beam.n_vertices
-    s = System(Settings(timestep_s=0.04, admm_iters=10, verbose=0,
-                        dtype=dtype, device=device, global_solver="dia",
-                        cg_fixed_iters=cg, lattice_fast_path=fast))
+    s = System(Settings(**{
+        "timestep_s": 0.04, "admm_iters": 10, "verbose": 0, "dtype": dtype,
+        "device": device, "global_solver": "dia", "cg_fixed_iters": cg,
+        "lattice_fast_path": fast, **settings}))
     s.add_nodes(beam.vertices, np.full(n, total_mass / n))
     s.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
-    s.add_force(HyperElasticTet(beam.tets, mu=1e5, lam=1e5, max_iters=5,
-                                model="nh", backend="pallas"))
+    if arap:
+        s.add_force(LinearTetStrain(beam.tets, stiffness=1e5,
+                                    backend="pallas"))
+    else:
+        s.add_force(HyperElasticTet(beam.tets, mu=1e5, lam=1e5, max_iters=5,
+                                    model="nh", backend="pallas"))
     s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
     assert s.initialize()
     return s
 
 
-def tet100k(cg, dtype=torch.float32, fast=False) -> System:
+def tet100k(cg, dtype=torch.float32, fast=False,
+            global_solver="dia") -> System:
     """The repo's headline workload (bench.py build_tet100k): 40 x 25 x 20
-    cells x 5 = 100,000 tets, 22,386 nodes, 50 kg, cell size 0.05 m."""
-    return beam_system((40, 25, 20), 0.05, 50.0, cg, dtype, fast=fast)
+    cells x 5 = 100,000 tets, 22,386 nodes, 50 kg, cell size 0.05 m.
+    global_solver="dense" raises dense_max_nodes past n, as bench.py does
+    (the inverse is 2.0 GB in f32); cg is then unused."""
+    return beam_system((40, 25, 20), 0.05, 50.0, cg, dtype, fast=fast,
+                       global_solver=global_solver, dense_max_nodes=1 << 30)
+
+
+def arap100k(cg, dtype=torch.float32, relaxation=1.0) -> System:
+    """tet100k with LinearTetStrain(stiffness=1e5) in place of the
+    NeoHookean tet, on the dia solver (see the module docstring)."""
+    return beam_system((40, 25, 20), 0.05, 50.0, cg, dtype, arap=True,
+                       relaxation=relaxation)
 
 
 def cloth_system(nx, ny, cg, dtype=torch.float32, device="cuda", fast=True,
-                 wind=(4.0, 0.0, 1.0), anchors=None) -> System:
+                 wind=(4.0, 0.0, 1.0), anchors=None, **settings) -> System:
     """A make_plane_grid(nx, ny) sheet with bench.py build_cloth100k's
-    physics and Settings: 0.5 kg, LimitedTriangleStrain(100, 0.95, 1.05),
-    Bend(20), StaticAnchors on the top edge (every len(top)//24-th vertex,
-    or the first `anchors`), gravity and WindForce(wind)."""
+    physics and Settings (unless `settings` say otherwise): 0.5 kg,
+    LimitedTriangleStrain(100, 0.95, 1.05), Bend(20), StaticAnchors on the
+    top edge (every len(top)//24-th vertex, or the first `anchors`),
+    gravity and WindForce(wind)."""
     mesh = make_plane_grid(nx, ny)
     n = mesh.n_vertices
-    s = System(Settings(
-        timestep_s=0.04, admm_iters=10, verbose=0, dtype=dtype,
-        device=device, global_solver="dia", cg_fixed_iters=cg,
-        cg_backend="fused", preconditioner="jacobi", lattice_fast_path=fast))
+    s = System(Settings(**{
+        "timestep_s": 0.04, "admm_iters": 10, "verbose": 0, "dtype": dtype,
+        "device": device, "global_solver": "dia", "cg_fixed_iters": cg,
+        "cg_backend": "fused", "preconditioner": "jacobi",
+        "lattice_fast_path": fast, **settings}))
     s.add_nodes(mesh.vertices, np.full(n, 0.5 / n))
     s.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05,
                                       backend="pallas"))
@@ -87,18 +120,21 @@ def cloth_system(nx, ny, cg, dtype=torch.float32, device="cuda", fast=True,
     return s
 
 
-def cloth100k(cg, dtype=torch.float32, fast=True) -> System:
+def cloth100k(cg, dtype=torch.float32, fast=True,
+              global_solver="dia") -> System:
     """bench.py build_cloth100k: 225 x 225 quads, 51,076 nodes, 101,250
     triangles, 151,425 hinges, 26 anchors, wind (4, 0, 1)."""
-    return cloth_system(225, 225, cg, dtype, fast=fast)
+    return cloth_system(225, 225, cg, dtype, fast=fast,
+                        global_solver=global_solver)
 
 
-def small_cloth(dtype=torch.float64, device="cuda", fast=True) -> System:
+def small_cloth(dtype=torch.float64, device="cuda", fast=True,
+                **settings) -> System:
     """The 8 x 6 sheet of tests/test_cloth_fast.py: the same physics with
     4 anchors, wind (1.5, 0, 0.4) (the cloth100k wind makes so coarse a
     sheet diverge) and 30 CG iterations."""
     return cloth_system(8, 6, 30, dtype, device, fast, wind=(1.5, 0.0, 0.4),
-                        anchors=4)
+                        anchors=4, **settings)
 
 
 def jittered_beam(nx=4, ny=3, nz=3, seed=0, jitter=0.08):

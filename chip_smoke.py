@@ -5,10 +5,10 @@
 
 Run from the root of a checkout. It builds the hand-written kernels from
 `admm_elastic_tpu_torch/csrc/`, checks each against its plain PyTorch
-version on the card, checks the general route against the CPU run, then
-drives the port's main paths (System -> initialize -> step/run, f32) and
-times them in this one process: on the 100,000-tet NeoHookean beam (dia
-global solver) the general route (nh_local + cg_dia kernels) and the
+version on the card, checks small scenes of every route against the CPU
+run, then drives the port's main paths (System -> initialize -> step/run,
+f32) and times them in this one process: on the 100,000-tet NeoHookean beam
+(dia global solver) the general route (nh_local + cg_dia kernels) and the
 banded whole-timestep route (`lattice_fast_path=True`, one banded_rollout
 launch per 10-step window); on the cloth100k sheet (101,250 triangles,
 bend hinges, anchors, gravity, wind; dia) the general route (tri_local +
@@ -16,7 +16,12 @@ cg_dia kernels) and the cloth whole-timestep route (one cloth_rollout
 launch per 10-step window); on the delaunay100k mesh (100,852 tets of
 arbitrary topology, ell global solver) the general route with each CG
 backend (xla: plain PyTorch PCG; fused: cg_update kernel; kernel: cg_ell
-kernel; all with nh_local) and the banded route with its ELL matvec.
+kernel; all with nh_local) and the banded route with its ELL matvec; and
+the unfused pipeline: the beam on the dense global mode (nh_local_step
+kernel, A_inv @ b), the beam as LinearTetStrain (arap100k) on dia
+(arap_local_step_fused + cg_dia) and with over-relaxation 1.6
+(arap_local_step), and cloth100k on the matrix-free cg mode
+(tri_local_step, plain PyTorch PCG).
 Every phase prints one line of numbers. Any failure raises: the script
 then exits non-zero and prints no result line. It needs CUDA (it never
 falls back to the CPU) and imports nothing of JAX.
@@ -46,19 +51,22 @@ sys.path.insert(0, HERE)
 from admm_elastic_tpu_torch.models import StaticAnchor  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import _build  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import banded_step as pbs  # noqa: E402
-from admm_elastic_tpu_torch.core.solver import ell_apply  # noqa: E402
+from admm_elastic_tpu_torch.core.solver import (  # noqa: E402
+    assemble_A_hat, dense_inverse, ell_apply)
 from admm_elastic_tpu_torch.ops.kernels import cg_dia as pcg  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import cg_ell as pell  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import cg_step as pstep  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import cloth_step as pcs  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import nh_local as pnh  # noqa: E402
+from admm_elastic_tpu_torch.ops.kernels import tet_local as ptet  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import tri_local as ptri  # noqa: E402
 from admm_elastic_tpu_torch.utils import profile_step, scenes  # noqa: E402
 from admm_elastic_tpu_torch.utils.opcount import (  # noqa: E402
     cg_ell_counts, cg_update_counts, count_ops, nbytes, rollout_counts,
-    roofline_ms, tri_local_counts)
+    roofline_ms, twin_counts)
 from admm_elastic_tpu_torch.utils.scenes import (  # noqa: E402
-    cloth100k, delaunay100k, small_cloth, small_delaunay, tet100k)
+    arap100k, beam_system, cloth100k, delaunay100k, small_cloth,
+    small_delaunay, tet100k)
 DT = 0.04  # the workload's timestep and ADMM iterations
 ADMM_ITERS = 10  # (admm_elastic_tpu_torch/utils/scenes.py)
 WARMUP_STEPS = 2
@@ -69,7 +77,8 @@ CLOTH_BUDGETS = (300, 25)  # cg300: the Jacobi budget matched at 225x225
 DELAUNAY_BUDGETS = (25, 75)
 KERNELS = (pnh.nh_local_step_fused, pcg.cg_dia_solve, pbs.banded_rollout,
            ptri.tri_local_step_fused, pcs.cloth_rollout, pstep.cg_update,
-           pell.cg_ell_solve)
+           pell.cg_ell_solve, pnh.nh_local_step, ptri.tri_local_step,
+           ptet.arap_local_step_fused, ptet.arap_local_step)
 
 
 def reset_launches():
@@ -118,12 +127,14 @@ def drive(torch, s):
     return statistics.median(windows), windows
 
 
-def nh_inputs(torch, s, rng):
-    """The tet100k beam's first ADMM iteration (x_bar after the gravity
-    kick, zero dual, unit warm start). The rest state has F = I, where the
-    SVD is degenerate; so half of the elements are randomly deformed, and
-    half of those inverted (row z of F negated)."""
-    p = s.params["c1_HyperElasticTet"]
+def tet_inputs(torch, s, name, rng):
+    """A tet100k-sized beam's first ADMM iteration (x_bar after the gravity
+    kick, zero dual): gathered positions xg (12,E) and the force's params.
+    The rest state has F = I, where the SVD is degenerate; so half of the
+    elements are randomly deformed, and half of those inverted (row z of F
+    negated); 64 more collapse to a point (F = 0) and 64 to a line (rank
+    1)."""
+    p = s.params[name]
     E = p["indices"].shape[0]
     x0 = s.state["x"]
     v = torch.zeros_like(x0)
@@ -137,58 +148,101 @@ def nh_inputs(torch, s, rng):
     xg[:, noisy] += torch.as_tensor(
         0.02 * rng.standard_normal((12, len(noisy))), dtype=xg.dtype,
         device=xg.device)
-    u = torch.zeros((9, E), dtype=xg.dtype, device=xg.device)
-    warm = torch.ones((3, E), dtype=xg.dtype, device=xg.device)
-    return [xg, u, warm, p["coeff_p"], p["mu"], p["lam"], p["k"], p["w2"]]
+    point, line = perm[E // 2: E // 2 + 64], perm[E // 2 + 64: E // 2 + 128]
+    xg[:, point] = xg[0:3, point].repeat(4, 1)
+    d = torch.as_tensor(rng.standard_normal((3, 64)), dtype=xg.dtype,
+                        device=xg.device)
+    xg[:, line] = torch.cat([xg[0:3, line] + 0.01 * t * d
+                             for t in (0.0, 1.0, 3.0, -2.0)])
+    return xg, p
 
 
-def separated(ins):
+def tet_dx(xg, cp):
+    """dx[3a+b] = F_{a,b} = sum_k cp[4b+k] xg[3k+a], (9,E)."""
+    E = xg.shape[1]
+    return torch.einsum("bke,kae->abe", cp.reshape(3, 4, E),
+                        xg.reshape(4, 3, E)).reshape(9, E).contiguous()
+
+
+def separated(F9):
     """Elements whose singular-value gaps exceed 1e-2 (computed in f64 on
     the host): elsewhere the SVD basis is ill-conditioned."""
-    xg, u, _, cp = (t.double().cpu().numpy() for t in ins[:4])
-    E = xg.shape[1]
-    dx = np.einsum("bke,kae->abe", cp.reshape(3, 4, E), xg.reshape(4, 3, E))
-    F = (dx.reshape(9, E) + u).T.reshape(E, 3, 3)
+    F = F9.double().cpu().numpy().T.reshape(-1, 3, 3)
     svs = np.linalg.svd(F, compute_uv=False)
     gaps = np.minimum(svs[:, 0] - svs[:, 1], svs[:, 1] - svs[:, 2])
     return gaps > 1e-2
 
 
-def check_nh(torch, pnh, ins, dtype):
+def check_element(torch, label, kernel, twin, ins, dtype, tol, tol_on,
+                  mask=None, **kw):
+    """An element-step kernel against its plain twin on the same inputs
+    (cast to dtype): every output within tol ('abs' or 'rel' to the largest
+    twin value) over the elements of `mask` (all by default), finite, and
+    repeated bitwise; 'bitwise_vs_twin' says whether kernel and twin agree
+    to the last bit. Times the kernel over batches of 20 launches and the
+    twin, and bounds it by its twin's operations and bytes. Returns (error,
+    ms, plain_ms, bound_ms, bound_by)."""
     ins = [t.to(dtype) for t in ins]
-    got = pnh.nh_local_step_fused(*ins, iters=5)
-    want = pnh.nh_local_step_fused_reference(*ins, iters=5)
+    got = kernel(*ins, **kw)
+    again = kernel(*ins, **kw)
+    want = twin(*ins, **kw)
     torch.cuda.synchronize()
-    sep = separated(ins)
     E = ins[0].shape[1]
-    err = np.zeros(E)
-    rel = 0.0
+    m = np.ones(E, bool) if mask is None else mask
+    err, rel = 0.0, 0.0
     for g, w in zip(got, want):
-        if not bool(torch.isfinite(g).all()):
-            raise AssertionError("nh_local_step_fused: non-finite output")
-        d = (g - w).abs().amax(dim=0).double().cpu().numpy()
-        err = np.maximum(err, d)
-        scale = float(w.abs().amax(dim=0).double().cpu().numpy()[sep].max())
-        rel = max(rel, float(d[sep].max()) / scale)
-    if dtype == torch.float64:
-        ok = float(err[sep].max()) <= 1e-9
-        verdict = dict(max_abs_err_sep=float(err[sep].max()), tol_abs=1e-9)
-    else:
-        ok = rel <= 1e-3
-        verdict = dict(max_abs_err_sep=float(err[sep].max()), max_rel_err_sep=rel,
-                       tol_rel=1e-3)
-    ms = cuda_ms(torch, lambda: pnh.nh_local_step_fused(*ins, iters=5), 10,
-                 batch=20)
-    plain_ms = cuda_ms(torch, lambda: pnh.nh_local_step_fused_reference(
-        *ins, iters=5), 5)
-    n_ops, _ = count_ops(pnh.nh_local_step_fused_reference, *ins, iters=5)
-    bound_ms, bound_by = roofline_ms(nbytes(ins, got), n_ops)
-    say(f"kernel nh_local {str(dtype)[6:]}", E=E, separated=int(sep.sum()),
-        **verdict, ms=ms, plain_ms=plain_ms, operations=n_ops,
+        d = (g - w).abs().amax(dim=0).double().cpu().numpy()[m]
+        scale = float(w.abs().amax(dim=0).double().cpu().numpy()[m].max())
+        err = max(err, float(d.max()))
+        rel = max(rel, float(d.max()) / scale)
+    fin = all(bool(torch.isfinite(g).all()) for g in got)
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+    ok = fin and repeat and (err if tol_on == "abs" else rel) <= tol
+    ms = cuda_ms(torch, lambda: kernel(*ins, **kw), 10, batch=20)
+    plain_ms = cuda_ms(torch, lambda: twin(*ins, **kw), 5)
+    n_ops, n_bytes = twin_counts(twin, *ins, **kw)
+    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
+    say(f"kernel {label} {str(dtype)[6:]}", E=E, checked=int(m.sum()),
+        max_abs_err=err, max_rel_err=rel, tol=tol, tol_on=tol_on,
+        bitwise_vs_twin=bitwise, bitwise_repeat=repeat, finite=fin, ms=ms,
+        plain_ms=plain_ms, operations=n_ops, bytes=n_bytes,
         bound_ms=bound_ms, bound_by=bound_by, ok=ok)
     if not ok:
-        raise AssertionError(f"nh_local_step_fused disagrees in {dtype}")
-    return float(err[sep].max()), ms, plain_ms, bound_ms, bound_by
+        raise AssertionError(f"{label} disagrees with its twin in {dtype}")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def check_nh(torch, ins, dx, dtype):
+    """Both hyperelastic entries: 1e-9 absolute (f64) or 1e-3 relative
+    (f32) on the separated elements."""
+    xg, u, warm, cp, mu, lam, k, w2 = ins
+    sep = separated(dx + u)
+    tol = (1e-9, "abs") if dtype == torch.float64 else (1e-3, "rel")
+    fused = check_element(torch, "nh_local", pnh.nh_local_step_fused,
+                          pnh.nh_local_step_fused_reference, ins, dtype, *tol,
+                          mask=sep, iters=5)
+    step = check_element(torch, "nh_local_step", pnh.nh_local_step,
+                         pnh.nh_local_step_reference,
+                         [dx, u, warm, mu, lam, k], dtype, *tol, mask=sep,
+                         iters=5)
+    return fused, step
+
+
+def check_arap(torch, xg, p, dtype):
+    """Both ARAP entries on arap100k's elements: 1e-12 (f64) or 1e-5 (f32)
+    relative on every element."""
+    u = torch.zeros((9, xg.shape[1]), dtype=xg.dtype, device=xg.device)
+    tol = (1e-12, "rel") if dtype == torch.float64 else (1e-5, "rel")
+    fused = check_element(torch, "arap_local_step_fused",
+                          ptet.arap_local_step_fused,
+                          ptet.arap_local_step_fused_reference,
+                          [xg, u, p["coeff_p"], p["w2"], p["k"]], dtype, *tol)
+    step = check_element(torch, "arap_local_step", ptet.arap_local_step,
+                         ptet.arap_local_step_reference,
+                         [tet_dx(xg, p["coeff_p"]), u, p["w2"], p["k"]],
+                         dtype, *tol)
+    return fused, step
 
 
 def check_cg(torch, pcg, s, dtype, n_iters):
@@ -388,47 +442,41 @@ def check_rollout_full(torch, kind, st, label, dtype, tol):
 def tri_inputs(torch, s, rng):
     """The cloth100k sheet's triangle-step inputs with every vertex moved
     by 0.2 grid spacings N(0,1) per axis (at rest F^T F is isotropic, a
-    single branch of the SVD) and a random dual 0.05 N(0,1)."""
+    single branch of the SVD) and a random dual 0.05 N(0,1); 64 triangles
+    collapse to a point and 64 to a line, with a zero dual (F = 0, rank
+    1)."""
     p = s.params["c0_LimitedTriangleStrain"]
     E = p["indices"].shape[0]
     x = s.state["x"]
     x = x + torch.as_tensor(0.2 * (2.0 / 225) * rng.standard_normal(x.shape),
                             dtype=x.dtype, device=x.device)
     xg = x[p["indices"]].reshape(E, 9).T.contiguous()
+    perm = torch.as_tensor(rng.permutation(E), device=xg.device)
+    point, line = perm[:64], perm[64:128]
+    xg[:, point] = xg[0:3, point].repeat(3, 1)
+    xg[6:9, line] = 2.0 * xg[3:6, line] - xg[0:3, line]
     u = torch.as_tensor(0.05 * rng.standard_normal((6, E)), dtype=x.dtype,
                         device=x.device)
+    u[:, perm[:128]] = 0.0
     return [xg, u, p["coeff_p"], p["w2"], p["k"], p["limit_min"],
             p["limit_max"]]
 
 
-def check_tri(torch, ptri, ins, dtype):
-    ins = [t.to(dtype) for t in ins]
-    got = ptri.tri_local_step_fused(*ins)
-    want = ptri.tri_local_step_fused_reference(*ins)
-    again = ptri.tri_local_step_fused(*ins)
-    torch.cuda.synchronize()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    rel = err / max(float(w.abs().max()) for w in want)
-    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
-    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
-    fin = all(bool(torch.isfinite(g).all()) for g in got)
-    f64 = dtype == torch.float64
-    tol = 1e-12 if f64 else 1e-5
-    ok = fin and repeat and (err if f64 else rel) <= tol
-    ms = cuda_ms(torch, lambda: ptri.tri_local_step_fused(*ins), 10,
-                 batch=20)
-    plain_ms = cuda_ms(torch, lambda: ptri.tri_local_step_fused_reference(
-        *ins), 5)
-    n_ops, n_bytes = tri_local_counts(*ins)
-    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
-    say(f"kernel tri_local {str(dtype)[6:]}", E=ins[0].shape[1],
-        max_abs_err=err, rel_err=rel, tol=tol,
-        tol_on="abs" if f64 else "rel", bitwise_vs_twin=bitwise,
-        bitwise_repeat=repeat, ms=ms, plain_ms=plain_ms, operations=n_ops,
-        bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
-    if not ok:
-        raise AssertionError(f"tri_local_step_fused disagrees in {dtype}")
-    return err, ms, plain_ms, bound_ms, bound_by
+def check_tri(torch, ins, dtype):
+    """Both triangle entries: 1e-12 absolute (f64) or 1e-5 relative
+    (f32)."""
+    xg, u, cp, w2, k, lmin, lmax = ins
+    E = xg.shape[1]
+    dx = torch.einsum("bke,kae->abe", cp.reshape(2, 3, E),
+                      xg.reshape(3, 3, E)).reshape(6, E).contiguous()
+    tol = (1e-12, "abs") if dtype == torch.float64 else (1e-5, "rel")
+    fused = check_element(torch, "tri_local", ptri.tri_local_step_fused,
+                          ptri.tri_local_step_fused_reference, ins, dtype,
+                          *tol)
+    step = check_element(torch, "tri_local_step", ptri.tri_local_step,
+                         ptri.tri_local_step_reference,
+                         [dx, u, w2, k, lmin, lmax], dtype, *tol)
+    return fused, step
 
 
 def cloth_trajectory(s):
@@ -436,6 +484,16 @@ def cloth_trajectory(s):
     x = s.x
     anchored = np.concatenate([f.indices for f in s.forces
                                if isinstance(f, StaticAnchor)])
+    drift = float(np.abs(x[anchored] - s._x[anchored]).max())
+    sag = float((x[:, 1] - s._x[:, 1]).min())
+    return bool(np.isfinite(x).all()), drift, sag
+
+
+def beam_trajectory(s):
+    """(finite, anchor drift m, lowest dy m) of a beam System anchored at
+    x = 0."""
+    x = s.x
+    anchored = np.flatnonzero(s._x[:, 0] < 1e-9)
     drift = float(np.abs(x[anchored] - s._x[anchored]).max())
     sag = float((x[:, 1] - s._x[:, 1]).min())
     return bool(np.isfinite(x).all()), drift, sag
@@ -482,14 +540,25 @@ def main():
     # phase 3: each kernel against its plain version at the slice's shapes
     rng = np.random.default_rng(0)
     ref64 = tet100k(25, torch.float64)
-    ins = nh_inputs(torch, ref64, rng)
-    check_nh(torch, pnh, ins, torch.float64)
-    nh32 = check_nh(torch, pnh, ins, torch.float32)
+    xg, p = tet_inputs(torch, ref64, "c1_HyperElasticTet", rng)
+    u = torch.zeros((9, xg.shape[1]), dtype=xg.dtype, device=xg.device)
+    warm = torch.ones((3, xg.shape[1]), dtype=xg.dtype, device=xg.device)
+    ins = [xg, u, warm, p["coeff_p"], p["mu"], p["lam"], p["k"], p["w2"]]
+    check_nh(torch, ins, tet_dx(xg, p["coeff_p"]), torch.float64)
+    nh32, nhstep32 = check_nh(torch, ins, tet_dx(xg, p["coeff_p"]),
+                              torch.float32)
     cg_ms = {}
     for dtype in (torch.float64, torch.float32):
         for k in (25, 75):
             cg_ms[(dtype, k)] = check_cg(torch, pcg, ref64, dtype, k)
-    del ref64, ins
+    del ref64, ins, xg, p
+
+    # phase 3i: the ARAP entries at arap100k's elements
+    a64 = arap100k(25, torch.float64)
+    xg, p = tet_inputs(torch, a64, "c1_LinearTetStrain", rng)
+    check_arap(torch, xg, p, torch.float64)
+    arapf32, arap32 = check_arap(torch, xg, p, torch.float32)
+    del a64, xg, p
 
     # phase 3b: the banded whole-timestep kernel against its plain version
     for dtype in (torch.float64, torch.float32):
@@ -506,8 +575,8 @@ def main():
     # phase 3c: the triangle-strain kernel at the cloth100k sheet's shapes
     cloth64 = cloth100k(25, torch.float64, fast=False)
     ins = tri_inputs(torch, cloth64, rng)
-    check_tri(torch, ptri, ins, torch.float64)
-    tri32 = check_tri(torch, ptri, ins, torch.float32)
+    check_tri(torch, ins, torch.float64)
+    tri32, tristep32 = check_tri(torch, ins, torch.float32)
     del cloth64, ins
 
     # phase 3d: the cloth whole-timestep kernel against its plain version
@@ -542,22 +611,42 @@ def main():
         torch, "banded", delaunay100k(25, torch.float32)._stepper,
         "delaunay100k cg25", torch.float32, 1e-4)
 
-    # phase 4: slice parity, card vs CPU, and determinism on the card
-    def small(device):
-        s = scenes.beam_system((6, 4, 4), 0.05, 1.0, 25, torch.float64,
-                               device)
-        s.run(5)
-        return s.x, s.v
+    # phase 4: small scenes of every general route, card vs CPU, and
+    # determinism on the card: the 6x4x4 slice on dia and with bare
+    # Settings() ('auto': dense), a LinearTetStrain beam on dia, dense and
+    # over-relaxation 1.6, the 8x6 cloth on the cg mode
+    small_routes = {
+        "slice 6x4x4 dia": lambda d: beam_system(
+            (6, 4, 4), 0.05, 1.0, 25, torch.float64, d),
+        "slice 6x4x4 Settings() (dense)": lambda d: beam_system(
+            (6, 4, 4), 0.05, 1.0, None, torch.float64, d,
+            global_solver="auto"),
+        "arap 6x4x4 dia": lambda d: beam_system(
+            (6, 4, 4), 0.05, 1.0, 25, torch.float64, d, arap=True),
+        "arap 6x4x4 dense": lambda d: beam_system(
+            (6, 4, 4), 0.05, 1.0, 25, torch.float64, d, arap=True,
+            global_solver="dense"),
+        "arap 6x4x4 relax1.6": lambda d: beam_system(
+            (6, 4, 4), 0.05, 1.0, 25, torch.float64, d, arap=True,
+            relaxation=1.6),
+        "cloth 8x6 cg": lambda d: small_cloth(torch.float64, d, fast=False,
+                                              global_solver="cg"),
+    }
+    for label, build in small_routes.items():
+        def small(device):
+            s = build(device)
+            s.run(5)
+            return s.x, s.v, s._solver_mode
 
-    xc, _ = small("cpu")
-    xg1, vg1 = small("cuda")
-    xg2, vg2 = small("cuda")
-    diff = float(np.abs(xg1 - xc).max())
-    bitwise = bool(np.array_equal(xg1, xg2) and np.array_equal(vg1, vg2))
-    say("slice parity 6x4x4 f64", max_abs_dx_cuda_vs_cpu=diff, tol=1e-8,
-        bitwise_repeat=bitwise)
-    if not (diff < 1e-8 and bitwise):
-        raise AssertionError("slice parity or determinism failed on the card")
+        xc, _, mode = small("cpu")
+        xg1, vg1, _ = small("cuda")
+        xg2, vg2, _ = small("cuda")
+        diff = float(np.abs(xg1 - xc).max())
+        bitwise = bool(np.array_equal(xg1, xg2) and np.array_equal(vg1, vg2))
+        say(f"{label} f64", mode=mode, max_abs_dx_cuda_vs_cpu=diff, tol=1e-8,
+            bitwise_repeat=bitwise)
+        if not (diff < 1e-8 and bitwise and np.isfinite(xg1).all()):
+            raise AssertionError(f"{label}: card vs CPU or determinism failed")
 
     # phase 5: the general route at full width, f32
     steps = WARMUP_STEPS + WINDOWS * WINDOW_STEPS
@@ -631,6 +720,7 @@ def main():
                                  f"{drift}, min dy {sag})")
     for cg, s in fast.items():
         profile_step.profile(cg, WINDOW_STEPS, "fast", s=s)
+    tet75_x = per_budget[75][3].x  # phase 5e's trusted route
     del systems, fast, per_budget, fast_budget
 
     # phase 5c: cloth100k on the general and the cloth route, f32
@@ -781,6 +871,129 @@ def main():
     launches["banded_ell"] = launches_of("banded", "banded_rollout")
     del d_routes
 
+    # phase 5e: the unfused pipeline at full width, f32: tet100k on the
+    # dense mode, arap100k on dia (fused) at cg25/cg75 and with relaxation
+    # 1.6 (unfused), cloth100k on the matrix-free cg mode at cg25
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = tet100k(25, torch.float32, global_solver="dense")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = assemble_A_hat(dense.n_nodes, dense.masses, DT,
+                       dense._cparams(dense._params_host))
+    assemble_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A_inv = dense_inverse(A, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    inverse_s = time.perf_counter() - t0
+    b = dense._masses_dev[:, None] * dense.state["x"]
+    matmul_ms = cuda_ms(torch, lambda: A_inv @ b, 10, batch=20)
+    mm_bound, mm_by = roofline_ms(nbytes(A_inv, b, b),
+                                  2 * dense.n_nodes ** 2 * 3)
+    same = bool(torch.equal(A_inv, dense.params["_solver"]["A_inv"]))
+    say("dense inverse tet100k f32", n=dense.n_nodes,
+        inverse_gb=A_inv.numel() * 4 / 1e9, system_init_s=init_s,
+        host_assembly_s=assemble_s, inverse_on_card_s=inverse_s,
+        same_as_system=same, matmul_ms=matmul_ms, matmul_bound_ms=mm_bound,
+        matmul_bound_by=mm_by,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del A, A_inv
+    if not same:
+        raise AssertionError("dense inverse: not repeatable on the card")
+
+    routes = {
+        "tet100k dense": (dense, {"nh_local_step": 1}),
+        "arap100k cg25": (arap100k(25), {"arap_local_step_fused": 1,
+                                         "cg_dia_solve": 1}),
+        "arap100k cg75": (arap100k(75), {"arap_local_step_fused": 1,
+                                         "cg_dia_solve": 1}),
+        "arap100k relax1.6 cg25": (arap100k(25, relaxation=1.6),
+                                   {"arap_local_step": 1, "cg_dia_solve": 1}),
+        "cloth100k cg cg25": (cloth100k(25, fast=False, global_solver="cg"),
+                              {"tri_local_step": 1}),
+    }
+    u_runs = {}
+    for label, (s, per_iter) in routes.items():
+        reset_launches()
+        med, windows = drive(torch, s)
+        counts = {k.__name__: k.launches for k in KERNELS}
+        u_runs[label] = (med, windows, counts)
+        want = {k.__name__: 0 for k in KERNELS}
+        want.update({k: steps * ADMM_ITERS * n for k, n in per_iter.items()})
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{want}")
+
+    # the witnesses: each new route against a route the port trusts at
+    # cg75, beside the new route's own divergence from a start moved by
+    # 1e-6 m. The relaxed route runs cg25, and on this stiff beam the
+    # budget alone moves a trajectory by centimetres; over-relaxation on so
+    # truncated a solve overshoots further, so its bound is twice the plain
+    # cg25 route's distance, and its soft anchors drift like delaunay100k's
+    # (1e-3 m)
+    def perturbed(s):
+        s.x = s._x + 1e-6 * np.random.default_rng(1).standard_normal(
+            s._x.shape)
+        s.run(steps)
+        return s.x
+
+    arap75_x = routes["arap100k cg75"][0].x
+    witness = {
+        "tet100k dense": (tet75_x, perturbed(tet100k(
+            25, torch.float32, global_solver="dense")), None),
+        "arap100k relax1.6 cg25": (arap75_x, perturbed(
+            arap100k(25, relaxation=1.6)), float(np.abs(
+                routes["arap100k cg25"][0].x - arap75_x).max())),
+    }
+    bad = []
+    for label, (s, _) in routes.items():
+        relaxed = "relax" in label
+        med, windows, counts = u_runs[label]
+        fin, drift, sag = (cloth_trajectory(s) if label.startswith("cloth")
+                           else beam_trajectory(s))
+        extra = {}
+        if label in witness:
+            trusted, pert, budget = witness[label]
+            extra = dict(max_abs_dx_vs_trusted_m=float(
+                np.abs(s.x - trusted).max()),
+                perturbed_start_divergence_m=float(np.abs(s.x - pert).max()))
+            if budget is not None:
+                extra["plain_cg25_vs_trusted_m"] = budget
+        say(f"{label} f32", ms_per_step_median=med,
+            windows_ms=[round(w, 4) for w in windows],
+            spread_ms=max(windows) - min(windows), steps=steps,
+            launches_per_step={k: v / steps for k, v in counts.items() if v},
+            anchor_drift_m=drift, min_dy_m=sag, finite=fin, **extra)
+        if not (fin and drift < (1e-3 if relaxed else 1e-4) and sag < 0):
+            bad.append(f"{label}: bad trajectory")
+        if extra and extra["max_abs_dx_vs_trusted_m"] > max(
+                1e-3, 10.0 * extra["perturbed_start_divergence_m"],
+                2.0 * extra.get("plain_cg25_vs_trusted_m", 0.0)):
+            bad.append(f"{label}: {extra['max_abs_dx_vs_trusted_m']} m from "
+                       "the trusted route")
+    if bad:
+        raise AssertionError("unfused routes: " + "; ".join(bad))
+    say("unfused routes f32 (this call, ms/step)",
+        **{k.replace(" ", "_"): v[0] for k, v in u_runs.items()})
+    for label, (s, _) in routes.items():
+        profile_step.profile(25, 2 if label.startswith("cloth")
+                             else WINDOW_STEPS, "general", s=s, scene=label)
+
+    def launches_u(label, name):
+        return u_runs[label][2][name]
+
+    launches["nh_local_step"] = launches_u("tet100k dense", "nh_local_step")
+    launches["arap_fused"] = (launches_u("arap100k cg25",
+                                         "arap_local_step_fused")
+                              + launches_u("arap100k cg75",
+                                           "arap_local_step_fused"))
+    launches["arap_step"] = launches_u("arap100k relax1.6 cg25",
+                                       "arap_local_step")
+    launches["tri_local_step"] = launches_u("cloth100k cg cg25",
+                                            "tri_local_step")
+    del routes, witness, dense
+
     def entry(name, source, replaces, n, err, ms, plain_ms, bound_ms,
               bound_by):
         return {"name": name, "route": "cuda",
@@ -807,6 +1020,14 @@ def main():
               *ell_ms[(torch.float32, 25)]),
         entry("banded_rollout[ell]", "banded_step.cu", "banded_step.py:1090",
               launches["banded_ell"], *bandedell32),
+        entry("nh_local_step", "nh_local.cu", "nh_local.py:466",
+              launches["nh_local_step"], *nhstep32),
+        entry("tri_local_step", "tri_local.cu", "tri_local.py:206",
+              launches["tri_local_step"], *tristep32),
+        entry("arap_local_step_fused", "tet_local.cu", "tet_local.py:265",
+              launches["arap_fused"], *arapf32),
+        entry("arap_local_step", "tet_local.cu", "tet_local.py:289",
+              launches["arap_step"], *arap32),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""The hand-written kernels of the ell routes against their plain twins on
-a CUDA device. Every case is marked `cuda` and skips without a card. This
+"""Hand-written kernels against their plain twins on a CUDA device: those of
+the ell routes, and the element steps of the unfused pipeline and of
+LinearTetStrain. Every case is marked `cuda` and skips without a card. This
 file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed (tests/conftest.py sets JAX up, hence --noconftest):
 
@@ -8,14 +9,19 @@ PyTorch is installed (tests/conftest.py sets JAX up, hence --noconftest):
 The twins of cg_update and cg_ell_solve add in the kernels' order
 (`chain_dot`, `ell_apply_by_slot`), so the kernels must repeat them
 bitwise; the banded kernel's CG reduces in another order than its twin,
-so its window compares at chip_smoke.py's 1e-8 (f64)."""
+so its window compares at chip_smoke.py's 1e-8 (f64). The element steps
+(nh_local_step, tri_local_step, arap_local_step_fused, arap_local_step)
+are built without FMA contraction and use correctly rounded sqrt and
+division, as their twins do on the card: bitwise."""
 
 import numpy as np
 import pytest
 import torch
 
 from admm_elastic_tpu_torch.core import solver
-from admm_elastic_tpu_torch.ops.kernels import banded_step, cg_ell, cg_step
+from admm_elastic_tpu_torch.ops.kernels import (banded_step, cg_ell, cg_step,
+                                                nh_local, tet_local,
+                                                tri_local)
 from admm_elastic_tpu_torch.utils.scenes import small_delaunay
 
 DTYPES = [torch.float64, torch.float32]
@@ -77,3 +83,44 @@ def test_banded_ell_kernel_matches_twin():
                                                 10)
     assert float((got["x"] - want["x"]).abs().max()) < 1e-8
     assert np.isfinite(got["x"].cpu().numpy()).all()
+
+
+def _element_inputs(planes, vectors, dtype, device, seed=0, E=4096):
+    """Random (P, E) planes and positive (E,) vectors; the first plane set
+    gets a quarter of its elements sign-flipped on its last third of rows
+    (inverted F) and 64 elements zeroed (degenerate F)."""
+    rng = np.random.default_rng(seed)
+    ins = [rng.normal(size=(r, E)) for r in planes]
+    p0 = ins[0]
+    p0[-(p0.shape[0] // 3):, : E // 4] *= -1.0
+    p0[:, E // 4: E // 4 + 64] = 0.0
+    ins += [rng.uniform(0.5, 2.0, E) for _ in range(vectors)]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in ins]
+
+
+ELEMENT_STEPS = {
+    "nh_local_step": (nh_local.nh_local_step,
+                      nh_local.nh_local_step_reference, (9, 9, 3), 3),
+    "tri_local_step": (tri_local.tri_local_step,
+                       tri_local.tri_local_step_reference, (6, 6), 4),
+    "arap_local_step_fused": (tet_local.arap_local_step_fused,
+                              tet_local.arap_local_step_fused_reference,
+                              (12, 9, 12), 2),
+    "arap_local_step": (tet_local.arap_local_step,
+                        tet_local.arap_local_step_reference, (9, 9), 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ELEMENT_STEPS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_element_step_kernel_is_its_twin(dtype, name):
+    dev = _cuda()
+    kernel, twin, planes, vectors = ELEMENT_STEPS[name]
+    ins = _element_inputs(planes, vectors, dtype, dev)
+    n0 = kernel.launches
+    got = kernel(*ins)
+    assert kernel.launches == n0 + 1
+    for g, w in zip(got, twin(*ins)):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)

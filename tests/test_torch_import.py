@@ -1,8 +1,9 @@
-"""The port imports torch and never jax: it imports and steps a beam, a
-cloth (general and cloth routes) and a Delaunay tet mesh (the ell route
-with each CG backend, and the banded route's ELL matvec) with jax made
-unimportable, and no source file of the package imports jax or the JAX
-package."""
+"""The port imports torch and never jax: it imports and steps a beam (dia,
+and NeoHookean on the default dense mode), a LinearTetStrain beam (dia, and
+cg with over-relaxation), a cloth (general and cloth routes) and a Delaunay
+tet mesh (the ell route with each CG backend, and the banded route's ELL
+matvec) with jax made unimportable, and no source file of the package
+imports jax or the JAX package."""
 
 import ast
 import os
@@ -34,6 +35,23 @@ assert s.initialize()
 s.step()
 s.run(2)
 assert np.isfinite(s.x).all() and s.x[:, 1].min() < 0
+from admm_elastic_tpu_torch.models import LinearTetStrain
+for tet, settings in (
+        (HyperElasticTet(beam.tets, 1e3, 1e3, max_iters=3,
+                         backend="pallas"), {}),  # 'auto': dense
+        (LinearTetStrain(beam.tets, 1e3, backend="pallas"),
+         dict(global_solver="dia", cg_fixed_iters=5)),
+        (LinearTetStrain(beam.tets, 1e3, backend="pallas"),
+         dict(global_solver="cg", cg_fixed_iters=5, relaxation=1.6))):
+    a = pt.System(pt.Settings(admm_iters=3, verbose=0, dtype=torch.float64,
+                              device="cpu", **settings))
+    a.add_nodes(beam.vertices, np.full(beam.n_vertices, 0.1))
+    a.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
+    a.add_force(tet)
+    a.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
+    assert a.initialize()
+    a.run(2)
+    assert np.isfinite(a.x).all() and a.x[:, 1].min() < 0
 from admm_elastic_tpu_torch.models import (Bend, LimitedTriangleStrain,
                                            WindForce)
 grid = pt.geometry.make_plane_grid(4, 3)

@@ -1,5 +1,7 @@
-"""The port's plain fused tet local step against the JAX package's Pallas
-kernel (`nh_local_step_fused`) in f64.
+"""The port's plain hyperelastic tet local steps against the JAX package's
+Pallas kernels in f64: the fused one (`nh_local_step_fused`, from gathered
+positions) and the unfused one (`nh_local_step`, from Dx), on the same
+inputs (Dx formed from them).
 
 Tolerance: 1e-9 absolute on elements whose singular-value gaps exceed 1e-2
 (the SVD basis is ill-conditioned at near-degenerate sigma, so both answers
@@ -94,14 +96,15 @@ def _objective_tie(model, ins, sig_a, sig_b):
     return close_f & close_s
 
 
-@pytest.mark.parametrize("model", ["nh", "stvk"])
-def test_plain_matches_pallas_interpret(model):
-    assert E % BLOCK == 0
-    ins = _inputs(3 if model == "nh" else 4)
-    ref = jax_fused(*(jnp.asarray(a) for a in ins), iters=5,
-                    interpret=True, model=model)
-    out = pnh.nh_local_step_fused(*(torch.as_tensor(a) for a in ins),
-                                  iters=5, model=model)
+def _unfused(ins):
+    """The unfused kernel's inputs (dx9, u9, warm, mu, lam, k)."""
+    xg, u, warm, cp, mu, lam, k, _ = ins
+    return _planes_F(xg, cp, 0.0), u, warm, mu, lam, k
+
+
+def _assert_interpret_agreement(model, ins, ref, out):
+    """1e-9 on separated elements but for asserted objective ties (at most
+    5%, within 1e-6); ref and out put the warm start third."""
     sep = _separated(ins[0], ins[3], ins[1])
     assert sep.sum() > 0.8 * E
     ref = [np.asarray(r)[:, :E] for r in ref]
@@ -118,6 +121,29 @@ def test_plain_matches_pallas_interpret(model):
     assert (tie | ~off).all(), msg
     assert off.sum() <= 0.05 * E, msg
     assert err[sep & ~off].max() < 1e-9 and err[off].max(initial=0) < 1e-6, msg
+
+
+@pytest.mark.parametrize("model", ["nh", "stvk"])
+def test_plain_matches_pallas_interpret(model):
+    assert E % BLOCK == 0
+    ins = _inputs(3 if model == "nh" else 4)
+    ref = jax_fused(*(jnp.asarray(a) for a in ins), iters=5,
+                    interpret=True, model=model)
+    out = pnh.nh_local_step_fused(*(torch.as_tensor(a) for a in ins),
+                                  iters=5, model=model)
+    _assert_interpret_agreement(model, ins, ref, out)
+
+
+@pytest.mark.parametrize("model", ["nh", "stvk"])
+def test_unfused_plain_matches_pallas_interpret(model):
+    ins = _inputs(3 if model == "nh" else 4)
+    args = _unfused(ins)
+    # 3 Newton iterations: the interpreter's compile time grows with them
+    ref = jnh.nh_local_step(*(jnp.asarray(a) for a in args), iters=3,
+                            interpret=True, model=model)
+    out = pnh.nh_local_step(*(torch.as_tensor(a) for a in args), iters=3,
+                            model=model)
+    _assert_interpret_agreement(model, ins, ref, out)
 
 
 class _Ref:
@@ -166,6 +192,22 @@ def test_plain_is_the_kernel_body_bitwise(model, monkeypatch):
             f"{model} {name}: {int((d > 0).sum())} values differ, max {d.max():.3g}")
 
 
+@pytest.mark.parametrize("model", ["nh", "stvk"])
+def test_unfused_plain_is_the_kernel_body_bitwise(model, monkeypatch):
+    args = _unfused(_inputs(3 if model == "nh" else 4))
+    refs = [_Ref(a) for a in args[:3]] + [_Ref(a[None]) for a in args[3:]]
+    want = [_Ref(np.zeros_like(args[i])) for i in (1, 1, 2)]
+    with jax.disable_jit():
+        jnh._make_hyper_kernel(5, model)(*refs, *want)
+    monkeypatch.setattr(pnh, "torch", _TorchWithXlaElementary())
+    got = pnh.nh_local_step_reference(
+        *(torch.as_tensor(a) for a in args), iters=5, model=model)
+    for name, w, g in zip(("z9", "u9'", "warm'"), want, got):
+        d = np.abs(g.numpy() - w.a)
+        assert np.array_equal(g.numpy(), w.a), (
+            f"{model} {name}: {int((d > 0).sum())} values differ, max {d.max():.3g}")
+
+
 def test_wrapper_checks_and_cpu_route():
     ins = [torch.as_tensor(a) for a in _inputs(5)]
     pnh.nh_local_step_fused.launches = 0
@@ -191,3 +233,24 @@ def test_wrapper_checks_and_cpu_route():
         pnh.nh_local_step_fused(*ins, emit_z=True)
     with pytest.raises(ValueError, match="model"):
         pnh.nh_local_step_fused(*ins, model="arap")
+
+
+def test_unfused_wrapper_checks_and_cpu_route():
+    args = [torch.as_tensor(a) for a in _unfused(_inputs(5))]
+    pnh.nh_local_step.launches = 0
+    for x, y in zip(pnh.nh_local_step(*args, iters=2),
+                    pnh.nh_local_step_reference(*args, iters=2)):
+        assert torch.equal(x, y)
+    assert pnh.nh_local_step.launches == 0
+    bad = list(args)
+    bad[2] = args[2][:2]
+    with pytest.raises(ValueError, match="warm"):
+        pnh.nh_local_step(*bad)
+    bad = list(args)
+    bad[5] = args[5].float()
+    with pytest.raises(ValueError, match="k"):
+        pnh.nh_local_step(*bad)
+    with pytest.raises(ValueError, match="model"):
+        pnh.nh_local_step(*args, model="arap")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        pnh.nh_local_step(*(t.to("meta") for t in args))

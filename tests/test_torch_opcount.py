@@ -35,7 +35,8 @@ def test_tri_local_counts_are_per_element():
     """The triangle step's work does not depend on the data: the count
     doubles with E, and the bytes are 25 inputs and 21 outputs per
     element."""
-    from admm_elastic_tpu_torch.utils.opcount import tri_local_counts
+    from admm_elastic_tpu_torch.ops.kernels import tri_local
+    from admm_elastic_tpu_torch.utils.opcount import twin_counts
 
     def counts(E, seed):
         g = torch.Generator().manual_seed(seed)
@@ -43,7 +44,7 @@ def test_tri_local_counts_are_per_element():
                for r in (9, 6, 6)]
         ins += [torch.rand(E, generator=g, dtype=torch.float64) + 0.5
                 for _ in range(4)]
-        return tri_local_counts(*ins)
+        return twin_counts(tri_local.tri_local_step_fused_reference, *ins)
 
     (o1, b1), (o2, b2) = counts(40, 0), counts(80, 1)
     assert o2 == 2 * o1 and o1 > 100 * 40
@@ -116,3 +117,32 @@ def test_banded_ell_rollout_counts_one_cg_iteration():
     n, K = st.n_nodes, cfg.ell_width
     assert o4 - o3 == cfg.admm_iters * (6 * n * K + 36 * n + 6)
     assert b3 == b4 > 0
+
+
+@pytest.mark.parametrize("kernel,planes,vectors,floats", [
+    ("nh_local_step", (9, 9, 3), 3, 45),
+    ("arap_local_step_fused", (12, 9, 12), 2, 65),
+    ("arap_local_step", (9, 9), 2, 38),
+    ("tri_local_step", (6, 6), 4, 28),
+], ids=["nh_local_step", "arap_local_step_fused", "arap_local_step",
+        "tri_local_step"])
+def test_local_step_counts_are_per_element(kernel, planes, vectors, floats):
+    """The element steps' work does not depend on the data: the count
+    doubles with E, and each element reads and writes `floats` values
+    (inputs once, outputs once)."""
+    from admm_elastic_tpu_torch.ops import kernels
+    from admm_elastic_tpu_torch.utils.opcount import twin_counts
+
+    reference = getattr(kernels, kernel + "_reference")
+
+    def counts(E, seed):
+        g = torch.Generator().manual_seed(seed)
+        ins = [torch.randn(r, E, generator=g, dtype=torch.float64)
+               for r in planes]
+        ins += [torch.rand(E, generator=g, dtype=torch.float64) + 0.5
+                for _ in range(vectors)]
+        return twin_counts(reference, *ins)
+
+    (o1, b1), (o2, b2) = counts(40, 0), counts(80, 1)
+    assert o2 == 2 * o1 and o1 > 100 * 40
+    assert b1 == 40 * floats * 8 and b2 == 2 * b1

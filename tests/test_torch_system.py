@@ -106,16 +106,20 @@ def test_anchors_hold_and_callbacks_run():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(global_solver="cg"),
-    dict(global_solver="auto"),  # resolves to 'dense' for this small beam
-    dict(lattice_fast_path=True, relaxation=1.5),
-    dict(relaxation=1.5),
+    dict(global_solver="cg", collect_residuals="primal"),
+    # 'auto' resolves to 'dense' for this small beam
+    dict(global_solver="auto", acceleration="anderson"),
+    dict(lattice_fast_path=True, relaxation=1.5, acceleration="anderson"),
+    dict(relaxation=1.5, residual_tol=1e-6),
     dict(acceleration="anderson"),
     dict(residual_tol=1e-6),
     dict(collect_residuals=True),
-    dict(global_solver="dense"),
+    dict(global_solver="dense", preconditioner="amg"),
 ])
 def test_out_of_slice_settings_raise(bad):
+    """Every global mode and relaxation are ported; Anderson acceleration,
+    residual collection and the multigrid preconditioner are not, in any
+    mode."""
     with pytest.raises(NotImplementedError):
         _build(pt, 25, **bad)
 

@@ -1,5 +1,7 @@
-"""The port's plain fused triangle-strain local step against the JAX
-package's Pallas kernel (`tri_local_step_fused`) in f64.
+"""The port's plain triangle-strain local steps against the JAX package's
+Pallas kernels in f64: the fused one (`tri_local_step_fused`, from gathered
+positions) and the unfused one (`tri_local_step`, from Dx, formed from the
+same inputs).
 
 The inputs are random selector planes and positions, plus elements whose F
 is set exactly (positions zero, so F = u): rank 1, isotropic F^T F (scaled
@@ -146,6 +148,45 @@ def test_plain_matches_pallas_interpret(limiting):
         np.testing.assert_allclose(o, r, rtol=0, atol=1e-12)
 
 
+def _unfused(ins):
+    """The unfused kernel's inputs (dx6, u6, w2, k, lmin, lmax)."""
+    xg, u, cp, w2, k, lmin, lmax = ins
+    dx = np.einsum("bke,kae->abe", cp.reshape(2, 3, E),
+                   xg.reshape(3, 3, E)).reshape(6, E)
+    return dx, u, w2, k, lmin, lmax
+
+
+@pytest.mark.parametrize("limiting", [True, False], ids=["limiting", "plain"])
+def test_unfused_plain_is_the_kernel_body_bitwise(limiting, monkeypatch):
+    args = _unfused(_inputs(1))
+    refs = [_Ref(a) for a in args[:2]] + [_Ref(a[None]) for a in args[2:]]
+    want = [_Ref(np.zeros((6, E))) for _ in range(2)]
+    with jax.disable_jit():
+        jtri._make_tri_kernel(limiting)(*refs, *want)
+    monkeypatch.setattr(ptri, "torch", _TorchWithRoundedSqrt())
+    got = ptri.tri_local_step_reference(
+        *(torch.as_tensor(a) for a in args), limiting=limiting)
+    for name, w, g in zip(("z6", "u6'"), want, got):
+        d = np.abs(g.numpy() - w.a)
+        assert np.array_equal(g.numpy(), w.a), (
+            f"{name}: {int((d > 0).sum())} values differ, max {d.max():.3g}")
+
+
+@pytest.mark.parametrize("limiting", [True, False], ids=["limiting", "plain"])
+def test_unfused_plain_matches_pallas_interpret(limiting):
+    args = _unfused(_inputs(2))
+    ref = jtri.tri_local_step(*(jnp.asarray(a) for a in args),
+                              interpret=True, limiting=limiting)
+    out = ptri.tri_local_step(*(torch.as_tensor(a) for a in args),
+                              limiting=limiting)
+    assert len(ref) == len(out) == 2
+    for r, o in zip(ref, out):
+        r, o = np.asarray(r), o.numpy()
+        assert o.shape == r.shape and np.isfinite(o).all()
+        assert np.abs(r).max() < 100.0
+        np.testing.assert_allclose(o, r, rtol=0, atol=1e-12)
+
+
 def test_clamp_branches_are_exercised():
     """The special elements reach every branch they were built for: the
     exact-bound columns tie (no scaling), the others clamp."""
@@ -202,3 +243,22 @@ def test_wrapper_checks_and_cpu_route():
     meta = [t.to("meta") for t in ins]
     with pytest.raises(RuntimeError, match="no kernel"):
         ptri.tri_local_step_fused(*meta)
+
+
+def test_unfused_wrapper_checks_and_cpu_route():
+    args = [torch.as_tensor(a) for a in _unfused(_inputs(5))]
+    ptri.tri_local_step.launches = 0
+    for x, y in zip(ptri.tri_local_step(*args, limiting=False),
+                    ptri.tri_local_step_reference(*args, limiting=False)):
+        assert torch.equal(x, y)
+    assert ptri.tri_local_step.launches == 0
+    bad = list(args)
+    bad[0] = args[0][:5]
+    with pytest.raises(ValueError, match="dx6"):
+        ptri.tri_local_step(*bad)
+    bad = list(args)
+    bad[5] = args[5].float()
+    with pytest.raises(ValueError, match="lmax"):
+        ptri.tri_local_step(*bad)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ptri.tri_local_step(*(t.to("meta") for t in args))
