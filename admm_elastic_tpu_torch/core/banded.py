@@ -1,7 +1,7 @@
 """The banded whole-timestep route: `BandedStepper` and `banded_from_system`.
 
-Counterpart of `admm_elastic_tpu/core/banded.py` with a NeoHookean or StVK
-tet force, in dia mode and in ell mode (its uell matvec: a tet mesh of any
+Counterpart of `admm_elastic_tpu/core/banded.py` with a NeoHookean, StVK
+or corotational (ARAP) tet force, in dia mode and in ell mode (its uell matvec: a tet mesh of any
 topology). One kernel launch (`ops/kernels/
 banded_step.py`) runs a whole window of timesteps: gravity kick, every ADMM
 iteration's local steps and dual updates, anchors, collisions and the
@@ -21,9 +21,9 @@ planes over a diluted, spatially ordered vertex layout, hub splits, an
 85 MB VMEM budget) is TPU layout and is dropped, so a mesh that packing
 rejects still takes this kernel here, with the same physics.
 
-Out of this slice (raise or do not qualify, see ROADMAP.md): the arap mode
-(a LinearTetStrain scene raises), in-kernel residuals, in-kernel multigrid
-(geometric and algebraic) and scenario sweeps (B2).
+Out of this slice (raise or do not qualify, see ROADMAP.md): in-kernel
+residuals, in-kernel multigrid (geometric and algebraic) and scenario
+sweeps (B2).
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ class BandedStepper:
     """Whole-timestep ADMM stepper for a tet mesh on the dia or ell solver.
 
     Matches the System dia route for one `HyperElasticTet` (nh or stvk,
-    per-element materials, `newton_iters` warm-started Newton iterations),
+    per-element materials, `newton_iters` warm-started Newton iterations)
+    or one `LinearTetStrain` (model 'arap', per-element k),
     StaticAnchors with per-node weights, an optional Collision of
     floor/sphere/cylinder shapes, all-node gravity kicks and `cg_iters`
     fixed Jacobi-PCG iterations per global solve. Arrays are numpy, in the
@@ -170,15 +171,13 @@ def banded_from_system(system):
     not qualify.
 
     Qualifying (as the JAX package's banded_from_system): the dia or ell
-    global mode, one HyperElasticTet (nh or stvk), StaticAnchors with any
-    weights, at most one Collision over all nodes holding only
-    Floor/Sphere/Cylinder, all-node ExplicitForce kicks. (Relaxation never
-    reaches here: System.initialize keeps it on the general route;
-    acceleration and residuals raise there.) A LinearTetStrain scene that
-    qualifies otherwise raises: the JAX package runs it on the kernel's
-    arap mode, which is not ported. A `(first, rest)` cg_fixed_iters
-    raises: the kernel takes one budget (the JAX stepper's int() of a
-    tuple fails as well).
+    global mode, one HyperElasticTet (nh or stvk) or LinearTetStrain (the
+    kernel's arap mode), StaticAnchors with any weights, at most one
+    Collision over all nodes holding only Floor/Sphere/Cylinder, all-node
+    ExplicitForce kicks. (Relaxation never reaches here: System.initialize
+    keeps it on the general route; acceleration and residuals raise
+    there.) A `(first, rest)` cg_fixed_iters raises: the kernel takes one
+    budget (the JAX stepper's int() of a tuple fails as well).
     """
     s = system.settings
     if system._solver_mode not in ("dia", "ell"):
@@ -206,13 +205,6 @@ def banded_from_system(system):
         if type(e) is not ExplicitForce or e.indices is not None:
             return None
         gravity = gravity + e.direction
-    if isinstance(tet, LinearTetStrain):
-        raise NotImplementedError(
-            "lattice_fast_path=True: the JAX package runs this "
-            "LinearTetStrain scene on the banded whole-timestep kernel's "
-            "arap mode, which is not ported (ROADMAP B2); use "
-            "lattice_fast_path=False for the general route"
-        )
     if isinstance(s.cg_fixed_iters, (tuple, list)):
         raise NotImplementedError(
             "the banded whole-timestep kernel runs one CG budget for every "
@@ -223,6 +215,14 @@ def banded_from_system(system):
 
     host = system._params_host
     p = host[tet.name]
+    E = len(p["indices"])
+    if isinstance(tet, LinearTetStrain):
+        # the arap mode: the stiffness-weighted k per element, mu = lam = 1
+        # and one (unused) Newton iteration, as the JAX package passes them
+        model, mu, lam, newton_iters = "arap", np.ones(E), np.ones(E), 1
+    else:
+        model, mu, lam = tet.model, p["mu"], p["lam"]
+        newton_iters = tet.max_iters
     anchor_idx = [np.asarray(host[a.name]["indices"]).ravel() for a in anchors]
     anchor_w2 = [np.asarray(host[a.name]["weight"], np.float64) ** 2
                  for a in anchors]
@@ -242,8 +242,8 @@ def banded_from_system(system):
     else:
         matrix = dict(dia_offs=system._dia_offsets, dia_vals=sv["dia_vals"])
     return BandedStepper(
-        system._x, system._m, p["indices"], p["coeff"], p["w2"], p["mu"],
-        p["lam"], p["k"], tet.model, tet.max_iters,
+        system._x, system._m, p["indices"], p["coeff"], p["w2"], mu, lam,
+        p["k"], model, newton_iters,
         np.concatenate(anchor_idx or [np.zeros(0, np.int64)]),
         np.concatenate(anchor_w2 or [np.zeros(0)]),
         np.concatenate(anchor_pos or [np.zeros((0, 3))]),

@@ -16,10 +16,10 @@ The kernel itself reads elements by index, so the groups only fix the
 order of each vertex's sums (group by group, corner by corner, as the
 Pallas kernel accumulates them) and the per-group constants.
 
-Out of this slice (raise, see ROADMAP.md): the scrambled-grid and
-sym-plane numberings (`detect_grid_numbering`,
-`detect_symplane_numbering`, `detect_symplane_positions`), the in-kernel
-2D multigrid (`preconditioner="amg"`) and in-kernel residuals.
+Out of this slice (raise, see ROADMAP.md): the kernel on a sheet that
+qualifies only after the JAX package's scrambled-grid or sym-plane
+renumbering (the detectors are here, to tell when that happens), the
+in-kernel 2D multigrid (`preconditioner="amg"`) and in-kernel residuals.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from ..models import (Bend, ExplicitForce, LimitedTriangleStrain,
                       StaticAnchor, WindForce)
 from ..ops.kernels.cloth_step import (BEND_TAB, TRI_TAB, ClothConfig,
                                       cloth_rollout)
+from .lattice import detect_grid_numbering
 from .solver import assemble_A_hat_dia
 
 # group budget of the JAX kernel (sym-plane: 4 tri + 6 hinge stencils;
@@ -72,6 +73,114 @@ def _uniform(arr, rel=1e-6):
     if np.abs(r - r[0]).max() > rel * scale:
         return None
     return a[0]
+
+
+def detect_symplane_numbering(faces, n):
+    """Canonical permutation for the sym-plane tessellation (the reference's
+    cloth builder, make_sym_plane): (W+1)x(H+1) grid corners x-major
+    followed by WxH quad centers, 4 triangles per quad around the center.
+    Interleaving each x-column's corners with its centers (column x maps to
+    rows x (2H+1): corners at +y, centers at +(H+1)+y) puts every triangle
+    class on constant offsets.
+
+    Detection is exact: (W, H) are recovered from the vertex and face
+    counts (n = 2WH + W + H + 1, n_faces = 4WH) and the face list must
+    regenerate verbatim. Returns cid (new index per old vertex) or None."""
+    f = np.asarray(faces, np.int64)
+    if f.ndim != 2 or f.shape[1] != 3 or len(f) % 4:
+        return None
+    F = len(f) // 4  # = W*H
+    s = n - 2 * F - 1  # = W + H
+    if F <= 0 or s <= 1:
+        return None
+    disc = s * s - 4 * F
+    if disc < 0:
+        return None
+    r = int(round(np.sqrt(disc)))
+    if r * r != disc or (s - r) % 2:
+        return None
+    for W, H in {((s + r) // 2, (s - r) // 2), ((s - r) // 2, (s + r) // 2)}:
+        if W < 1 or H < 1 or W * H != F:
+            continue
+        n_grid = (W + 1) * (H + 1)
+        quads = []
+        for x in range(W):
+            for y in range(H):
+                ll = y + x * (H + 1)
+                lr = y + (x + 1) * (H + 1)
+                ul, ur = ll + 1, lr + 1
+                cent = n_grid + x * H + y
+                quads += [(ll, lr, cent), (lr, ur, cent),
+                          (cent, ur, ul), (ll, cent, ul)]
+        if not np.array_equal(f, np.asarray(quads, np.int64)):
+            continue
+        cid = np.empty(n, np.int64)
+        for x in range(W + 1):
+            base = x * (2 * H + 1)
+            cid[x * (H + 1): (x + 1) * (H + 1)] = base + np.arange(H + 1)
+        for x in range(W):
+            base = x * (2 * H + 1) + (H + 1)
+            cid[n_grid + x * H: n_grid + (x + 1) * H] = base + np.arange(H)
+        return cid
+    return None
+
+
+def detect_symplane_positions(vertices, rel_tol=1e-5):
+    """Position-based sym-plane canonicalization, the fallback when
+    detect_symplane_numbering's exact regeneration fails (reordered faces,
+    renumbered vertices): the rest positions projected onto their best-fit
+    plane quantize onto a half-spacing lattice, grid corners on (even,
+    even) and quad centers on (odd, odd) coordinates. Returns the same
+    interleaved-column permutation cid, or None. The caller validates it by
+    building the stepper."""
+    v = np.asarray(vertices, np.float64)
+    n = len(v)
+    if n < 5:  # W = H = 1 -> 5 vertices
+        return None
+    c = v.mean(0)
+    _, sv, vt = np.linalg.svd(v - c, full_matrices=False)
+    scale = max(sv[0], 1e-30)
+    if sv[2] > 1e-4 * scale:  # not planar
+        return None
+    p = (v - c) @ vt[:2].T
+    p -= p.min(0)
+
+    q = np.empty((n, 2), np.int64)
+    for a in range(2):
+        vals = np.unique(np.sort(p[:, a]))
+        keep = [vals[0]]  # merge within tolerance
+        for x in vals[1:]:
+            if x - keep[-1] > rel_tol * scale * 8:
+                keep.append(x)
+        keep = np.asarray(keep)
+        if len(keep) < 3:
+            return None
+        h = np.diff(keep)
+        if np.abs(h - h[0]).max() > rel_tol * scale * 16:
+            return None  # not a uniform half-spacing lattice
+        q[:, a] = np.round(p[:, a] / h[0]).astype(np.int64)
+        if np.abs(p[:, a] - q[:, a] * h[0]).max() > rel_tol * scale * 16:
+            return None
+    par = q % 2
+    corner = (par[:, 0] == 0) & (par[:, 1] == 0)
+    center = (par[:, 0] == 1) & (par[:, 1] == 1)
+    if not (corner | center).all():
+        return None
+    W2, H2 = q.max(0)
+    if W2 % 2 or H2 % 2 or W2 < 2 or H2 < 2:
+        return None
+    W, H = W2 // 2, H2 // 2
+    if corner.sum() != (W + 1) * (H + 1) or center.sum() != W * H:
+        return None
+    i, j = q[:, 0] // 2, q[:, 1] // 2
+    cid = np.where(
+        corner,
+        i * (2 * H + 1) + j,
+        i * (2 * H + 1) + (H + 1) + j,
+    ).astype(np.int64)
+    if len(np.unique(cid)) != n:
+        return None
+    return cid
 
 
 def _ordered_incidence(n, verts, keys):
@@ -302,8 +411,8 @@ class ClothStepper:
 
 
 def cloth_from_system(system):
-    """A ClothStepper equivalent to an initialized dia-route System, or
-    None when the scene is not a cloth scene.
+    """A ClothStepper equivalent to an initialized System, or None when the
+    scene does not qualify.
 
     Qualifying (as the JAX package's cloth_from_system): one
     LimitedTriangleStrain whose faces group into constant-offset stencils
@@ -311,9 +420,13 @@ def cloth_from_system(system):
     StaticAnchors with one shared weight, all-node ExplicitForce kicks, at
     most one WindForce over groupable triangles, and a dia-structured
     A_hat. (Relaxation, residuals and the multigrid never reach here:
-    System.initialize rejects them.) A cloth scene whose vertex numbering
-    does not group raises NotImplementedError: the JAX package would try
-    its grid and sym-plane renumberings next, which are not ported."""
+    System.initialize rejects them.) Where the sheet does not qualify in
+    its own numbering, the JAX package tries its grid and sym-plane
+    renumberings (`detect_grid_numbering`, `detect_symplane_numbering`,
+    `detect_symplane_positions`) and runs the kernel on the first that
+    qualifies; the port raises NotImplementedError there, and returns None
+    (the general route) where none qualifies. A `(first, rest)`
+    cg_fixed_iters raises, as the JAX stepper's int() of a tuple fails."""
     s = system.settings
     tri, bend, anchors = None, None, []
     for f in system.forces:
@@ -364,20 +477,57 @@ def cloth_from_system(system):
     anchor_idx = (np.concatenate([np.asarray(a.indices, np.int64).ravel()
                                   for a in anchors])
                   if anchors else np.zeros(0, np.int64))
-    try:
-        return ClothStepper(
-            system._x, system._m, tri, bend, anchor_idx,
-            anchor_weight=anchor_weight, gravity=tuple(gravity),
-            wind=((wind.direction, wind.tris) if wind is not None else None),
-            dt=s.timestep_s, admm_iters=s.admm_iters,
-            cg_iters=25 if s.cg_fixed_iters is None else int(s.cg_fixed_iters),
-            dtype=s.dtype, device=s.device,
-        )
-    except ValueError as err:
-        raise NotImplementedError(
-            f"lattice_fast_path=True: the cloth does not qualify in its own "
-            f"vertex numbering ({err}); the JAX package's grid and sym-plane "
-            "renumberings (detect_grid_numbering, detect_symplane_numbering, "
-            "detect_symplane_positions) are not ported (ROADMAP B9); use "
-            "lattice_fast_path=False for the general route"
-        ) from err
+    verts, n = system._x, system.n_nodes
+
+    def build(cid):
+        """The stepper with vertex permutation cid (None: the System's
+        own numbering), or None where the mesh does not qualify."""
+        if cid is None:
+            vv, mm, remap = verts, system._m, np.asarray
+            tri_r, bend_r = tri, bend
+        else:
+            vv = np.empty_like(verts)
+            vv[cid] = verts
+            mm = np.empty(n)
+            mm[cid] = system._m
+
+            def remap(idx):
+                return cid[np.asarray(idx, np.int64)]
+
+            tri_r = LimitedTriangleStrain(
+                remap(tri.faces), tri.stiffness, tri.limit_min,
+                tri.limit_max, strain_limiting=tri.strain_limiting,
+                backend=tri.backend)
+            bend_r = (Bend(remap(bend.hinges), bend.stiffness)
+                      if bend is not None else None)
+        try:
+            return ClothStepper(
+                vv, mm, tri_r, bend_r, remap(anchor_idx),
+                anchor_weight=anchor_weight, gravity=tuple(gravity),
+                wind=((wind.direction, remap(wind.tris)) if wind is not None
+                      else None),
+                dt=s.timestep_s, admm_iters=s.admm_iters,
+                cg_iters=(25 if s.cg_fixed_iters is None
+                          else int(s.cg_fixed_iters)),
+                dtype=s.dtype, device=s.device)
+        except ValueError:
+            return None
+
+    stepper = build(None)
+    if stepper is not None:
+        return stepper
+    # the JAX package's renumberings (cloth.py:612-623): the port does not
+    # run the cloth kernel on a renumbered sheet, so where one of them
+    # would engage it, it raises; where none does, the general route runs
+    for name, detect in (
+            ("grid", lambda: detect_grid_numbering(verts)),
+            ("sym-plane", lambda: detect_symplane_numbering(tri.faces, n)),
+            ("sym-plane positions", lambda: detect_symplane_positions(verts))):
+        cid = detect()
+        if cid is not None and build(cid) is not None:
+            raise NotImplementedError(
+                f"lattice_fast_path=True: the JAX package runs this cloth on "
+                f"the cloth whole-timestep kernel after its {name} "
+                "renumbering, which is not ported (ROADMAP A8b); use "
+                "lattice_fast_path=False for the general route")
+    return None

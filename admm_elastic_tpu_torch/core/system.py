@@ -32,15 +32,17 @@ applied element by element). Under 'ell' and 'cg', `cg_fixed_iters=None`
 means the tolerance-driven PCG.
 
 With `Settings.lattice_fast_path=True` the whole timestep runs instead as
-one kernel launch per rollout window, when the scene qualifies: tet scenes
-on the banded kernel (`core/banded.py`, dia or ELL matvec), grid cloth on
-the cloth kernel (`core/cloth.py`); a scene that qualifies for neither
-raises. Over-relaxation disables the fast paths (the kernels run the plain
-iteration), as in the JAX package.
+one kernel launch per rollout window, when the scene qualifies, tried in
+the JAX package's order: tet scenes under 'dia' or 'ell' on the banded
+kernel (`core/banded.py`, dia or ELL matvec), uniform beam lattices on the
+lattice kernel (`core/lattice.py`), grid cloth on the cloth kernel
+(`core/cloth.py`); any other scene steps the general route. Over-
+relaxation disables the fast paths (the kernels run the plain iteration),
+as in the JAX package.
 
 Ported so far: every global mode, with kernel-backed hyperelastic and
 corotational tets and triangle strain, bend hinges, anchors, collisions,
-gravity and wind, relaxation, on the general route and the two
+gravity and wind, relaxation, on the general route and the three
 whole-timestep routes. Every other setting raises NotImplementedError
 rather than running something else.
 """
@@ -59,7 +61,7 @@ from ..ops.kernels.cg_ell import cg_ell_solve
 from ..ops.kernels.cg_step import pcg_solve_fixed_fused
 from .banded import banded_from_system
 from .cloth import cloth_from_system
-from .lattice import detect_grid_numbering
+from .lattice import detect_grid_numbering, lattice_from_system
 from .solver import (
     A_hat_apply,
     A_hat_diag,
@@ -109,6 +111,9 @@ class Settings:
     #: gives ADMM iteration 0, whose warm start is stale by the whole
     #: explicit kick, a deeper solve than the others
     cg_fixed_iters: int | tuple | None = None
+    #: default backend for constraint batches built by the scene layer:
+    #: 'xla' or 'pallas' (the scene layer is not ported yet, ROADMAP A7)
+    local_backend: str = "xla"
     #: global-step PCG preconditioner: only 'jacobi' is ported ('amg', the
     #: in-kernel multigrid of the whole-timestep kernels, raises)
     preconditioner: str = "jacobi"
@@ -116,11 +121,18 @@ class Settings:
     #: matvec + one cg_update kernel per iteration) or 'kernel' (the whole
     #: solve in the cg_ell kernel). Ignored under 'dia', as in JAX
     cg_backend: str = "xla"
-    #: True runs whole timesteps in one kernel launch per rollout window:
-    #: the banded route (core/banded.py) for a tet scene, else the cloth
-    #: route (core/cloth.py). A scene that neither kernel takes raises: the
-    #: lattice fast path is not ported (ROADMAP B10), and the general route
-    #: never runs in its place
+    #: True runs whole timesteps in one kernel launch per rollout window
+    #: where the scene qualifies, trying the JAX package's chain in order:
+    #: the banded kernel (core/banded.py; a tet scene under 'dia' or
+    #: 'ell', nh/stvk or arap), the lattice kernel (core/lattice.py; a
+    #: uniform make_beam_tets beam in any vertex numbering under any mode,
+    #: one uniform tet force, StaticAnchors of one weight, at most one
+    #: Floor, gravity kicks), the cloth kernel (core/cloth.py; grid cloth).
+    #: A scene that none takes steps the general route, with JAX's note at
+    #: verbose >= 1. It raises only where the JAX package would engage a
+    #: kernel or mode the port lacks: the cloth kernel after a grid or
+    #: sym-plane renumbering, and a (first, rest) cg_fixed_iters on a
+    #: kernel (which the JAX steppers reject too)
     lattice_fast_path: bool = False
     #: 'auto': a mesh that 'dia' rejects but whose positions form a regular
     #: grid is renumbered by the JAX package; the port raises there
@@ -132,6 +144,31 @@ class Settings:
     acceleration: str | None = None
     residual_tol: float | None = None
     collect_residuals: bool | str = False
+    #: Anderson history depth m; inert while `acceleration` raises
+    anderson_m: int = 5
+
+    def parse_args(self, argv):
+        """CLI parity with the reference: -dt, -v, -it, -help
+        (System.cpp:182-208)."""
+        i = 0
+        while i < len(argv):
+            a = argv[i]
+            if a == "-help":
+                print(
+                    "Args:\n\t-dt: time step (s)\n\t-v: verbosity"
+                    "\n\t-it: # admm iters"
+                )
+            elif a == "-dt" and i + 1 < len(argv):
+                self.timestep_s = float(argv[i + 1])
+                i += 1
+            elif a == "-v" and i + 1 < len(argv):
+                self.verbose = int(argv[i + 1])
+                i += 1
+            elif a == "-it" and i + 1 < len(argv):
+                self.admm_iters = int(argv[i + 1])
+                i += 1
+            i += 1
+        return self
 
     def unsupported(self) -> list[str]:
         """Names of the settings that ask for an unported feature."""
@@ -180,7 +217,9 @@ class System:
         self._m = np.zeros((0,), dtype=np.float64)
         self.initialized = False
         self.elapsed_s = 0.0
+        # a whole-timestep stepper, and the caller's vertex id -> its own
         self._stepper = None
+        self._to_canon = None
 
     # ------------------------------------------------------------- building
 
@@ -346,18 +385,21 @@ class System:
 
     def _route_fast_path(self):
         """Engage a whole-timestep kernel, tried in the JAX package's order
-        (the banded kernel, then the cloth kernel; the lattice kernel
-        between them is not ported), or raise."""
-        self._stepper = banded_from_system(self)
-        if self._stepper is None:
-            self._stepper = cloth_from_system(self)
-        if self._stepper is None:
-            raise NotImplementedError(
-                "lattice_fast_path=True: the scene qualifies for neither "
-                "the banded nor the cloth whole-timestep kernel, and the "
-                "lattice fast path is not ported (ROADMAP B10); use "
-                "lattice_fast_path=False for the general route"
-            )
+        (system.py:899-942): the banded kernel (dia and ell modes), then
+        the lattice kernel, then the cloth kernel. A scene that none takes
+        steps the general route, with JAX's note. Sets `_stepper` and
+        `_to_canon` (the caller's vertex id -> the stepper's)."""
+        stepper, to_canon = banded_from_system(self), np.arange(self.n_nodes)
+        if stepper is None:
+            stepper, to_canon = lattice_from_system(self) or (None, to_canon)
+        if stepper is None:
+            stepper = cloth_from_system(self)
+        if stepper is None:
+            if self.settings.verbose >= 1:
+                print("Solver: scene does not qualify for a whole-timestep "
+                      "fast path; using the general solver")
+            return
+        self._stepper, self._to_canon = stepper, to_canon
         if self.settings.verbose >= 1:
             print("Solver: whole-timestep fast path engaged "
                   f"(model={self._stepper.model})")
@@ -501,14 +543,17 @@ class System:
         if not self.initialized:
             return self._x
         if self._stepper is not None:
-            return self._stepper.x
+            # the stepper's numbering -> the caller's
+            return self._stepper.x[self._to_canon]
         return self.state["x"].cpu().numpy()
 
     @x.setter
     def x(self, value):
         value = np.asarray(value, dtype=np.float64).reshape(-1, 3)
         if self._stepper is not None:
-            self._stepper.set_positions(value)
+            xc = np.empty_like(value)
+            xc[self._to_canon] = value
+            self._stepper.set_positions(xc)
         elif self.initialized:
             self.state["x"] = torch.as_tensor(
                 value, dtype=self.settings.dtype, device=self.state["x"].device
@@ -520,7 +565,7 @@ class System:
         if not self.initialized:
             return np.zeros_like(self._x)
         if self._stepper is not None:
-            return self._stepper.v
+            return self._stepper.v[self._to_canon]
         return self.state["v"].cpu().numpy()
 
     @v.setter
@@ -529,7 +574,9 @@ class System:
             raise RuntimeError("set velocities after initialize()")
         vv = np.asarray(value, dtype=np.float64).reshape(-1, 3)
         if self._stepper is not None:
-            self._stepper.set_velocities(vv)
+            vc = np.empty_like(vv)
+            vc[self._to_canon] = vv
+            self._stepper.set_velocities(vc)
             return
         self.state["v"] = torch.as_tensor(
             vv, dtype=self.settings.dtype, device=self.state["v"].device

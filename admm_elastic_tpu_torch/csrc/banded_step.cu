@@ -1,10 +1,10 @@
 // Whole ADMM timesteps in one persistent cooperative kernel, for Hopper.
 //
 // Replaces: admm_elastic_tpu/ops/pallas/banded_step.py, _banded_call
-// (kernel _make_banded_kernel), with model nh or stvk and A_hat as
+// (kernel _make_banded_kernel), with model nh, stvk or arap and A_hat as
 // diagonals (dia mode) or as ELL rows (its uell mode: a tet mesh of any
-// topology): explicit gravity kick, every ADMM iteration's hyperelastic
-// local steps, dual updates, anchor and collision projections, right-hand
+// topology): explicit gravity kick, every ADMM iteration's hyperelastic or
+// corotational local steps, dual updates, anchor and collision projections, right-hand
 // side, and a whole fixed-budget Jacobi-PCG solve, for n_steps timesteps
 // per launch.
 //
@@ -22,7 +22,8 @@
 //     M xbar = m x                                                  barrier
 //   admm_iters times:
 //     element phase, one thread per element: F = u + sum_k cp x[idx_k],
-//       oriented SVD, warm-start guards, Newton prox, u' = F - z, warm',
+//       oriented SVD; nh/stvk: warm-start guards, Newton prox, warm';
+//       arap: z = (k U diag(1,1,+-1) V^T + w2 F) / (w2 + k); u' = F - z,
 //       rows[3k+a] = sum_b cp[4b+k] w2 (F - 2u')[3a+b]            barrier
 //     vertex phase, one thread per vertex: b = its incidence rows summed
 //       in slot order (fixed order, no atomics); anchor dual (zero where
@@ -62,9 +63,9 @@
 
 #include <cooperative_groups.h>
 
+#include "arap.cuh"
 #include "coop_pcg.cuh"
 #include "ell.cuh"
-#include "hyper.cuh"
 
 namespace admm {
 namespace banded {
@@ -146,28 +147,41 @@ __device__ __forceinline__ void element_step(const Args<T>& a, int e) {
 
   T U[3][3], V[3][3], s[3];
   hyper::svd_columns<T>(f, Limits<T>::eps(), U, V, s);
-  T w1 = a.warm[e], w2 = a.warm[sE + e], w3;
-  hyper::warm_guard(w1, w2, a.warm[2 * sE + e], w3);
-  hyper::newton_hyper<T, MODEL>(s, w1, w2, w3, a.mu[e], a.lam[e], a.kp[e],
-                                a.newton_iters);
-  a.warm[e] = w1;
-  a.warm[sE + e] = w2;
-  a.warm[2 * sE + e] = w3;
-
-  const T sig[3] = {w1, w2, w3};
   const T w2e = a.w2[e];
+  T z[9];
+  if constexpr (MODEL == 2) {
+    // arap (banded_step.py:374-388): sigma -> (1, 1, +-1),
+    // z = (k P + w2 F) / (w2 + k), the warm start untouched
+    const T kp = a.kp[e];
+    const T mix = T(1) / (w2e + (w2e + kp > T(0) ? kp : T(1)));
+    T P[9];
+    arap::signed_projection<T>(U, V, s, P);
+#pragma unroll
+    for (int q = 0; q < 9; ++q) z[q] = (kp * P[q] + w2e * f[q]) * mix;
+  } else {
+    T w1 = a.warm[e], w2 = a.warm[sE + e], w3;
+    hyper::warm_guard(w1, w2, a.warm[2 * sE + e], w3);
+    hyper::newton_hyper<T, MODEL>(s, w1, w2, w3, a.mu[e], a.lam[e], a.kp[e],
+                                  a.newton_iters);
+    a.warm[e] = w1;
+    a.warm[sE + e] = w2;
+    a.warm[2 * sE + e] = w3;
+    const T sig[3] = {w1, w2, w3};
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc)
+        z[3 * r + cc] = U[0][r] * sig[0] * V[0][cc] +
+                        U[1][r] * sig[1] * V[1][cc] +
+                        U[2][r] * sig[2] * V[2][cc];
+  }
   T zu[9];
 #pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int cc = 0; cc < 3; ++cc) {
-      const T z = U[0][r] * sig[0] * V[0][cc] + U[1][r] * sig[1] * V[1][cc] +
-                  U[2][r] * sig[2] * V[2][cc];
-      const T up = f[3 * r + cc] - z;
-      a.u[(3 * r + cc) * sE + e] = up;
-      // z - u' = F - 2u'
-      zu[3 * r + cc] = w2e * (f[3 * r + cc] - T(2) * up);
-    }
+  for (int q = 0; q < 9; ++q) {
+    const T up = f[q] - z[q];
+    a.u[q * sE + e] = up;
+    zu[q] = w2e * (f[q] - T(2) * up);  // z - u' = F - 2u'
+  }
 #pragma unroll
   for (int k = 0; k < 4; ++k)
 #pragma unroll
@@ -315,17 +329,23 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args<T> a) {
   }
 }
 
+template <typename T, bool ELL>
+void* kernel_of(int model) {
+  return model == 0   ? (void*)rollout_kernel<T, 0, ELL>
+         : model == 1 ? (void*)rollout_kernel<T, 1, ELL>
+                      : (void*)rollout_kernel<T, 2, ELL>;
+}
+
 template <typename T>
 void* kernel_for(int model, int ell) {
-  if (ell) return model == 0 ? (void*)rollout_kernel<T, 0, true>
-                             : (void*)rollout_kernel<T, 1, true>;
-  return model == 0 ? (void*)rollout_kernel<T, 0, false>
-                    : (void*)rollout_kernel<T, 1, false>;
+  return ell ? kernel_of<T, true>(model) : kernel_of<T, false>(model);
 }
 
 // Blocks of the cooperative grid on the current device, or -cudaError_t.
 template <typename T>
 int grid_blocks(int model, int ell) {
+  if (model < 0 || model > 2)
+    return -static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -355,7 +375,7 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
       ell ? (D == 0 && ell_idx != nullptr && ell_vals != nullptr)
           : (D >= 1 && D <= dia::MAX_DIAGONALS && dia_vals != nullptr);
   if (n < 1 || E < 1 || !matrix_ok || K < 0 || S < 1 ||
-      n_shapes < 0 || n_shapes > MAX_SHAPES || (model != 0 && model != 1) ||
+      n_shapes < 0 || n_shapes > MAX_SHAPES || model < 0 || model > 2 ||
       newton_iters < 0 || cg_iters < 0 || admm_iters < 0 || n_steps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = grid_blocks<T>(model, ell);
@@ -413,10 +433,10 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
 
 extern "C" {
 
-// model: 0 = NeoHookean, 1 = StVK. The matrix is dia_vals at D offsets
-// (K = 0, ELL pointers null) or ell_idx/ell_vals with K slots (D = 0,
-// dia_vals null). The state (x, v, u, warm, au, cu) is
-// advanced n_steps timesteps in place. offsets, shape_kinds, shape_prm
+// model: 0 = NeoHookean, 1 = StVK, 2 = ARAP (mu, lam and newton_iters
+// unused). The matrix is dia_vals at D offsets (K = 0, ELL pointers null)
+// or ell_idx/ell_vals with K slots (D = 0, dia_vals null). The state (x,
+// v, u, warm, au, cu) is advanced n_steps timesteps in place. offsets, shape_kinds, shape_prm
 // (n_shapes x 5) and scalars (7: dt, dt^2, 1/dt, dt g xyz, collision
 // weight^2, formed in double) are host arrays. part holds part_len >=
 // 2 x banded_rollout_grid_*(model) values. Returns the cudaError_t of the

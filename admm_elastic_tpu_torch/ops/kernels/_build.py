@@ -136,6 +136,12 @@ _SIGNATURES = {
     **{f"cloth_rollout_{t}": (_I, [_P] * 29 + [_I] * 12 + [_P])
        for t in ("f32", "f64")},
     **{f"cloth_rollout_grid_{t}": (_I, []) for t in ("f32", "f64")},
+    # state 6, vertex planes 5, scratch 7, host arrays 5, then nx, ny, nz,
+    # D, model, floor, newton_iters, cg_iters, admm_iters, n_steps,
+    # part_len, and the stream
+    **{f"lattice_rollout_{t}": (_I, [_P] * 23 + [_I] * 11 + [_P])
+       for t in ("f32", "f64")},
+    **{f"lattice_rollout_grid_{t}": (_I, [_I]) for t in ("f32", "f64")},
     "admm_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,14 +1,17 @@
 """Whole ADMM timesteps in one launch: hand-written CUDA kernel + plain twin.
 
 Counterpart of `admm_elastic_tpu/ops/pallas/banded_step.py`
-(`banded_rollout` / `_banded_call`) with model nh or stvk, in dia mode and
-in its uell mode (A_hat as ELL rows: a tet mesh of any topology). One
+(`banded_rollout` / `_banded_call`) with model nh, stvk or arap, in dia
+mode and in its uell mode (A_hat as ELL rows: a tet mesh of any
+topology). One
 call advances `n_steps` timesteps of a tet mesh with StaticAnchors,
 optional analytic collision shapes and a gravity kick:
 
     prologue       v += dt g (where m > 0); x_pre = x; x += dt v; M xbar
     admm_iters x   element phase: F = u + sum_k cp x[idx_k] -> SVD -> Newton
-                     prox -> u' = F - z, warm'; rows = w2 D^T (F - 2u')
+                     prox -> u' = F - z, warm' (arap: z = (k U diag(1, 1,
+                     +-1) V^T + w2 F) / (w2 + k), warm untouched);
+                     rows = w2 D^T (F - 2u')
                    vertex phase: b = incidence sum of the rows (slot order);
                      anchor dual (0 where the anchor weight is 0) and RHS;
                      collisions in declaration order, dual and RHS;
@@ -17,8 +20,8 @@ optional analytic collision shapes and a gravity kick:
     epilogue       v = (x - x_pre) (1/dt)
 
 State (`STATE`): x, v, anchor dual au, collision dual cu (n,3); tet dual u
-(9,E), plane 3a+b holding F_{a,b}; warm start (3,E). Planes (`PLANES`):
-idx (4,E) int32 corner vertices; cp (12,E) selector planes; w2, mu, lam, k
+(9,E), plane 3a+b holding F_{a,b}; warm start (3,E), unused by arap.
+Planes (`PLANES`): idx (4,E) int32 corner vertices; cp (12,E) selector planes; w2, mu, lam, k
 (E,); mass, invd = 1/diag(A), aw2 = summed anchor weight^2 (n,); ancz
 (n,3) anchor targets; inc (n,S) int32 vertex -> 4e+k incidence, sentinel
 4E after the real slots (`core.solver.assemble_transpose_incidence`); the
@@ -54,7 +57,7 @@ MATRIX_PLANES = {"dia": ("dia",), "ell": ("ell_idx", "ell_vals")}
 MAX_SHAPES = 16  # the kernel's collision table (csrc/banded_step.cu)
 _SHAPE_KINDS = {"floor": 0, "sphere": 1, "cylinder": 2}
 _SHAPE_ARITY = {"floor": 1, "sphere": 4, "cylinder": 3}
-_MODELS = {"nh": 0, "stvk": 1}
+_MODELS = {"nh": 0, "stvk": 1, "arap": 2}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -164,19 +167,28 @@ def _element_phase(x, u, warm, planes, cfg, eps):
                 acc = acc + cp[4 * b + k] * xg[k, :, a]
             f.append(acc)
     U, V, s = _svd_columns(f, eps)
-    sig = _newton_hyper(s, _warm_guard(warm), planes["mu"], planes["lam"],
-                        planes["k"], cfg.newton_iters, cfg.model)
-    w2 = planes["w2"]
+    w2, kp = planes["w2"], planes["k"]
+    if cfg.model == "arap":
+        # sigma -> (1, 1, +-1); z = (k P + w2 F) / (w2 + k); warm untouched
+        one = torch.ones_like(s[0])
+        sig = (one, one, torch.where(s[2] < 0, -one, one))
+        mix = 1.0 / (w2 + torch.where(w2 + kp > 0, kp, 1.0))
+    else:
+        sig = _newton_hyper(s, _warm_guard(warm), planes["mu"], planes["lam"],
+                            kp, cfg.newton_iters, cfg.model)
+        warm = torch.stack(sig)
     up, zu = [], []
     for r in range(3):
         for c in range(3):
             z = (U[0][r] * sig[0] * V[0][c] + U[1][r] * sig[1] * V[1][c]
                  + U[2][r] * sig[2] * V[2][c])
+            if cfg.model == "arap":
+                z = (kp * z + w2 * f[3 * r + c]) * mix
             up.append(f[3 * r + c] - z)
             zu.append(w2 * (f[3 * r + c] - 2.0 * up[-1]))  # z - u' = F - 2u'
     rows = [cp[k] * zu[3 * j] + cp[4 + k] * zu[3 * j + 1]
             + cp[8 + k] * zu[3 * j + 2] for k in range(4) for j in range(3)]
-    return torch.stack(up), torch.stack(sig), torch.stack(rows)
+    return torch.stack(up), warm, torch.stack(rows)
 
 
 def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps):

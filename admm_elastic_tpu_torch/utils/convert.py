@@ -16,7 +16,8 @@ module never imports jax.
 for the banded route: it loads a JAX `BandedStepper`'s state into the
 port's `BandedStepper` built from the same scene, and
 `cloth_from_reference(stepper, state_np)` a JAX `ClothStepper`'s state into
-the port's `ClothStepper`.
+the port's `ClothStepper`, and `lattice_from_reference(stepper, state_np)` a
+JAX `LatticeStepper`'s state into the port's `LatticeStepper`.
 """
 
 from __future__ import annotations
@@ -132,3 +133,40 @@ def cloth_from_reference(stepper, state_np) -> None:
                                         dtype=ref[k].dtype,
                                         device=ref[k].device)
                      for k, a in new.items()}
+
+
+def lattice_from_reference(stepper, state_np) -> None:
+    """Overwrite a port `LatticeStepper`'s state with a JAX
+    `LatticeStepper`'s.
+
+    state_np: the JAX stepper's `state` as numpy: x, v, ancu, colu as (3, N)
+    lane-padded planes; u as (n_groups, 16, N) and warm as (n_groups, 8, N)
+    group planes (planes 0-8 and 0-2 used), indexed by each cell's corner-0
+    vertex, phantom cells included; t. The port keeps only the tets of
+    valid cells, in make_beam_tets order: tet e = 5 c + slot of cell c =
+    (i ny + j) nz + k, in group 5 parity + slot at base vertex
+    (i gy + j) gz + k."""
+    n, E = stepper.n_nodes, stepper.n_elements
+    nx, ny, nz = stepper.cfg.dims
+    cell = np.arange(E) // 5
+    i, rem = np.divmod(cell, ny * nz)
+    j, k = np.divmod(rem, nz)
+    grp = 5 * ((i + j + k) % 2) + np.arange(E) % 5
+    base = (i * (ny + 1) + j) * (nz + 1) + k
+
+    def planes(a, rows):
+        return np.asarray(a)[grp[None, :], np.arange(rows)[:, None],
+                             base[None, :]]
+
+    new = {"x": np.asarray(state_np["x"])[:, :n].T,
+           "v": np.asarray(state_np["v"])[:, :n].T,
+           "u": planes(state_np["u"], 9),
+           "warm": planes(state_np["warm"], 3),
+           "au": np.asarray(state_np["ancu"])[:, :n].T,
+           "cu": np.asarray(state_np["colu"])[:, :n].T,
+           "t": np.asarray(state_np["t"])}
+    ref = stepper.state
+    stepper.state = {k_: torch.as_tensor(np.array(a, order="C"),
+                                         dtype=ref[k_].dtype,
+                                         device=ref[k_].device)
+                     for k_, a in new.items()}

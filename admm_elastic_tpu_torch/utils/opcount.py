@@ -16,7 +16,9 @@ time the card could take for the same work (`roofline_ms`).
 `twin_counts` gives (operations, bytes) of a kernel on its inputs from its
 twin (the element steps', by their `_reference` twins; `cg_update_counts`
 and `cg_ell_counts` name the CG kernels), and `rollout_counts` those of the
-whole-timestep kernels (banded in dia or ELL mode, cloth).
+whole-timestep kernels (banded in dia or ELL mode, cloth, lattice). The
+lattice kernel's twin skips a group's zero selector coefficients as the
+kernel does, so its count is the arithmetic of the nonzero ones.
 """
 
 from __future__ import annotations
@@ -107,8 +109,8 @@ def cg_ell_counts(b, x0, diag, ell_idx, ell_vals, n_iters):
 
 
 def rollout_counts(reference, keys, state, planes, cfg, n_steps):
-    """(operations, bytes) of a whole-timestep kernel (banded_rollout or
-    cloth_rollout, given its twin and state keys) for n_steps: the state
-    and planes read once, the new state written once."""
+    """(operations, bytes) of a whole-timestep kernel (banded_rollout,
+    cloth_rollout or lattice_rollout, given its twin and state keys) for
+    n_steps: the state and planes read once, the new state written once."""
     ops, out = count_ops(reference, state, planes, cfg, n_steps)
     return ops, nbytes(({k: state[k] for k in keys}, planes), out)

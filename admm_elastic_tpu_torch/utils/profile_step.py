@@ -3,14 +3,16 @@ steps of the 100k-tet beam, the cloth100k sheet or the delaunay100k mesh
 (the `chip_smoke.py` main paths), or of any System given to `profile`.
 
     python -m admm_elastic_tpu_torch.utils.profile_step [--cg 25 75]
-        [--steps 10] [--route general|fast]
+        [--steps 10] [--route general|fast|lattice]
         [--scene tet100k|cloth100k|delaunay100k]
         [--cg-backend xla|fused|kernel]
 
 `--route general` (the default) steps the general route; `--route fast`
 steps the scene's whole-timestep route (`lattice_fast_path=True`: the
 banded kernel for tet100k and delaunay100k, the cloth kernel for
-cloth100k), where `steps` = 10 is one kernel launch. `--cg-backend` picks
+cloth100k), where `steps` = 10 is one kernel launch; `--route lattice`
+steps tet100k on the lattice kernel (the cg global mode with
+`lattice_fast_path=True`). `--cg-backend` picks
 delaunay100k's ell CG on the general route (the other scenes run dia).
 For each CG budget it times `steps` steps twice in one process, each
 window closed by `torch.cuda.synchronize()`: first without the profiler,
@@ -36,8 +38,8 @@ import time
 import numpy as np
 import torch
 
-from ..ops.kernels import (banded_step, cloth_step, nh_local, tet_local,
-                           tri_local)
+from ..ops.kernels import (banded_step, cloth_step, lattice_step, nh_local,
+                           tet_local, tri_local)
 from . import scenes
 
 
@@ -66,7 +68,8 @@ ATTEMPTS = 5
 # the entry kernels of the port's one-launch-per-call wrappers
 _OWN = tuple(f"void admm::{ns}::{k}_kernel"
              for ns in ("nh", "tri", "arap") for k in ("fused", "step")) + (
-    "void admm::banded::rollout_kernel", "void admm::cloth::rollout_kernel")
+    "void admm::banded::rollout_kernel", "void admm::cloth::rollout_kernel",
+    "void admm::lattice::rollout_kernel")
 
 
 def _own_launches():
@@ -74,7 +77,8 @@ def _own_launches():
         nh_local.nh_local_step_fused, nh_local.nh_local_step,
         tri_local.tri_local_step_fused, tri_local.tri_local_step,
         tet_local.arap_local_step_fused, tet_local.arap_local_step,
-        banded_step.banded_rollout, cloth_step.cloth_rollout))
+        banded_step.banded_rollout, cloth_step.cloth_rollout,
+        lattice_step.lattice_rollout))
 
 
 def profile(cg, steps, route="general", s=None, scene="tet100k",
@@ -85,7 +89,11 @@ def profile(cg, steps, route="general", s=None, scene="tet100k",
 
     if s is None:
         kw = {"cg_backend": cg_backend} if scene == "delaunay100k" else {}
-        s = getattr(scenes, scene)(cg, fast=route == "fast", **kw)
+        if route == "lattice":
+            if scene != "tet100k":
+                raise ValueError("--route lattice steps tet100k")
+            kw["global_solver"] = "cg"
+        s = getattr(scenes, scene)(cg, fast=route != "general", **kw)
         s.run(2)
     plain_ms = _window_ms(s, steps)
     # the tracer can drop kernel records (seen after traces of tens of
@@ -135,7 +143,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cg", type=int, nargs="+", default=[25, 75])
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--route", choices=("general", "fast"), default="general")
+    ap.add_argument("--route", choices=("general", "fast", "lattice"),
+                    default="general")
     ap.add_argument("--scene", choices=SCENES, default="tet100k")
     ap.add_argument("--cg-backend", choices=("xla", "fused", "kernel"),
                     default="xla")

@@ -7,7 +7,10 @@ iterations) on the dia solver, dt 0.04, 10 ADMM iterations; with
 `fast=True` it runs on the banded whole-timestep route
 (`lattice_fast_path=True`), as `bench.py --preset tet100k` does, and with
 `global_solver="dense"` on the dense inverse (as `bench.py --preset tet100k
---global-solver dense`, dense_max_nodes raised past its 22,386 nodes).
+--global-solver dense`, dense_max_nodes raised past its 22,386 nodes); with
+`fast=True, global_solver="cg"` on the lattice whole-timestep route (the
+banded kernel takes only the dia and ell modes, so the JAX package's chain
+reaches the lattice kernel).
 
 `arap100k`: tet100k's beam, anchors, gravity, masses and Settings with a
 kernel-backed LinearTetStrain (stiffness 1e5) in place of the NeoHookean
@@ -15,7 +18,8 @@ tet: k = stiffness vol equals the NeoHookean scene's min(mu, lam) vol, so
 the weights and A_hat are the same. No bench.py preset runs this model at
 this size (plinko's LinearTetStrain mesh, horse759, is not in the repo);
 it is the port's full-width workload of the corotational tet. With
-`relaxation` != 1 it runs the unfused pipeline.
+`relaxation` != 1 it runs the unfused pipeline; with `fast=True` the banded
+kernel's arap mode.
 
 `cloth100k`: the windyflag physics of `bench.py --preset cloth100k` on a
 225 x 225 `make_plane_grid` sheet: kernel-backed LimitedTriangleStrain,
@@ -85,11 +89,12 @@ def tet100k(cg, dtype=torch.float32, fast=False,
                        global_solver=global_solver, dense_max_nodes=1 << 30)
 
 
-def arap100k(cg, dtype=torch.float32, relaxation=1.0) -> System:
+def arap100k(cg, dtype=torch.float32, relaxation=1.0,
+             fast=False) -> System:
     """tet100k with LinearTetStrain(stiffness=1e5) in place of the
     NeoHookean tet, on the dia solver (see the module docstring)."""
-    return beam_system((40, 25, 20), 0.05, 50.0, cg, dtype, arap=True,
-                       relaxation=relaxation)
+    return beam_system((40, 25, 20), 0.05, 50.0, cg, dtype, fast=fast,
+                       arap=True, relaxation=relaxation)
 
 
 def cloth_system(nx, ny, cg, dtype=torch.float32, device="cuda", fast=True,

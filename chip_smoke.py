@@ -21,7 +21,10 @@ the unfused pipeline: the beam on the dense global mode (nh_local_step
 kernel, A_inv @ b), the beam as LinearTetStrain (arap100k) on dia
 (arap_local_step_fused + cg_dia) and with over-relaxation 1.6
 (arap_local_step), and cloth100k on the matrix-free cg mode
-(tri_local_step, plain PyTorch PCG).
+(tri_local_step, plain PyTorch PCG); the beam on the lattice
+whole-timestep route (the cg global mode with `lattice_fast_path=True`,
+one lattice_rollout launch per 10-step window) against the banded route;
+and arap100k on the banded route's arap mode against its general route.
 Every phase prints one line of numbers. Any failure raises: the script
 then exits non-zero and prints no result line. It needs CUDA (it never
 falls back to the CPU) and imports nothing of JAX.
@@ -48,6 +51,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+from admm_elastic_tpu_torch.core.banded import BandedStepper  # noqa: E402
+from admm_elastic_tpu_torch.core.lattice import LatticeStepper  # noqa: E402
 from admm_elastic_tpu_torch.models import StaticAnchor  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import _build  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import banded_step as pbs  # noqa: E402
@@ -57,6 +62,7 @@ from admm_elastic_tpu_torch.ops.kernels import cg_dia as pcg  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import cg_ell as pell  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import cg_step as pstep  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import cloth_step as pcs  # noqa: E402
+from admm_elastic_tpu_torch.ops.kernels import lattice_step as plat  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import nh_local as pnh  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import tet_local as ptet  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import tri_local as ptri  # noqa: E402
@@ -78,7 +84,8 @@ DELAUNAY_BUDGETS = (25, 75)
 KERNELS = (pnh.nh_local_step_fused, pcg.cg_dia_solve, pbs.banded_rollout,
            ptri.tri_local_step_fused, pcs.cloth_rollout, pstep.cg_update,
            pell.cg_ell_solve, pnh.nh_local_step, ptri.tri_local_step,
-           ptet.arap_local_step_fused, ptet.arap_local_step)
+           ptet.arap_local_step_fused, ptet.arap_local_step,
+           plat.lattice_rollout)
 
 
 def reset_launches():
@@ -369,6 +376,8 @@ def check_cg_ell(torch, prob, dtype, n_iters):
 ROLLOUTS = {
     "banded": (pbs.banded_rollout, pbs.banded_rollout_reference, pbs.STATE),
     "cloth": (pcs.cloth_rollout, pcs.cloth_rollout_reference, pcs.STATE),
+    "lattice": (plat.lattice_rollout, plat.lattice_rollout_reference,
+                plat.STATE),
 }
 
 
@@ -388,7 +397,8 @@ def rollout_errors(torch, kind, st, cfg, steps):
     return ex, rel, ev, bit, fin
 
 
-def check_rollout_small(torch, kind, st, dtype, tol_1it, tol_f32=1e-4):
+def check_rollout_small(torch, kind, st, dtype, tol_1it, tol_f32=1e-4,
+                        name=""):
     """1 step of 1 ADMM iteration, then a 10-step window: x within tol_1it
     and 1e-8 (f64) or tol_f32 relative (f32)."""
     f64 = dtype == torch.float64
@@ -400,13 +410,14 @@ def check_rollout_small(torch, kind, st, dtype, tol_1it, tol_f32=1e-4):
         ex, rel, ev, bit, fin = rollout_errors(torch, kind, st, cfg, steps)
         err = ex if f64 else rel
         good = err <= tol and bit and fin
-        say(f"kernel {kind} {str(dtype)[6:]} small {tag}", n=st.n_nodes,
+        say(f"kernel {kind}{name} {str(dtype)[6:]} small {tag}", n=st.n_nodes,
             elements=st.n_elements, max_abs_err_x=ex, rel_err_x=rel,
             max_abs_err_v=ev, tol=tol, tol_on="abs x" if f64 else "rel x",
             bitwise_repeat=bit, finite=fin, ok=good)
         ok = ok and good
     if not ok:
-        raise AssertionError(f"{kind} rollout disagrees in {dtype} (small)")
+        raise AssertionError(f"{kind}{name} rollout disagrees in {dtype} "
+                             "(small)")
 
 
 def check_rollout_full(torch, kind, st, label, dtype, tol):
@@ -497,6 +508,21 @@ def beam_trajectory(s):
     drift = float(np.abs(x[anchored] - s._x[anchored]).max())
     sag = float((x[:, 1] - s._x[:, 1]).min())
     return bool(np.isfinite(x).all()), drift, sag
+
+
+def small_lattice(model, dtype, floor=False):
+    """An 8 x 6 x 5 beam (cell 0.25 m, 2 kg) anchored at x = 0 on the
+    lattice kernel: NeoHookean (mu 1e4, lam 2.5e4), StVK (mu 100, lam 400)
+    or ARAP (stiffness 1e4), 4 Newton iterations, 10 ADMM iterations, cg25;
+    with floor=True a Floor at y = 0.02 m, above its lowest layer."""
+    n = 9 * 7 * 6
+    mu, lam = {"nh": (1e4, 2.5e4), "stvk": (100.0, 400.0),
+               "arap": (1e4, 1e4)}[model]
+    return LatticeStepper(8, 6, 5, 0.25, np.full(n, 2.0 / n), mu, lam,
+                          np.arange(7 * 6), admm_iters=ADMM_ITERS,
+                          newton_iters=4, cg_iters=25, dtype=dtype,
+                          model=model, floor_y=0.02 if floor else None,
+                          device="cuda")
 
 
 def off_path(*kernels):
@@ -611,6 +637,39 @@ def main():
         torch, "banded", delaunay100k(25, torch.float32)._stepper,
         "delaunay100k cg25", torch.float32, 1e-4)
 
+    # phase 3j: the lattice whole-timestep kernel against its plain
+    # version: nh, stvk, arap and nh over a floor on a small beam, then
+    # tet100k's beam on the cg mode (its route, phase 5f) at cg75
+    for dtype in (torch.float64, torch.float32):
+        for model, floor in (("nh", False), ("stvk", False), ("arap", False),
+                             ("nh", True)):
+            tag = f" {model} floor" if floor else f" {model}"
+            check_rollout_small(torch, "lattice",
+                                small_lattice(model, dtype, floor), dtype,
+                                1e-11, name=tag)
+    check_rollout_full(
+        torch, "lattice",
+        tet100k(75, torch.float64, fast=True, global_solver="cg")._stepper,
+        "tet100k cg75", torch.float64, 1e-8)
+    lattice32 = check_rollout_full(
+        torch, "lattice",
+        tet100k(75, torch.float32, fast=True, global_solver="cg")._stepper,
+        "tet100k cg75", torch.float32, 1e-4)
+
+    # phase 3k: the banded kernel's arap mode on a small beam and at
+    # arap100k (cg75)
+    for dtype in (torch.float64, torch.float32):
+        check_rollout_small(torch, "banded",
+                            beam_system((6, 4, 4), 0.05, 1.0, 25, dtype,
+                                        fast=True, arap=True)._stepper,
+                            dtype, 1e-11, name=" arap")
+    check_rollout_full(torch, "banded",
+                       arap100k(75, torch.float64, fast=True)._stepper,
+                       "arap100k cg75", torch.float64, 1e-8)
+    bandedarap32 = check_rollout_full(
+        torch, "banded", arap100k(75, torch.float32, fast=True)._stepper,
+        "arap100k cg75", torch.float32, 1e-4)
+
     # phase 4: small scenes of every general route, card vs CPU, and
     # determinism on the card: the 6x4x4 slice on dia and with bare
     # Settings() ('auto': dense), a LinearTetStrain beam on dia, dense and
@@ -661,7 +720,7 @@ def main():
     launches = {"nh_local": pnh.nh_local_step_fused.launches,
                 "cg_dia": pcg.cg_dia_solve.launches}
     off_path(pbs.banded_rollout, ptri.tri_local_step_fused,
-             pcs.cloth_rollout)
+             pcs.cloth_rollout, plat.lattice_rollout)
 
     for cg, (med, windows, counts, s) in per_budget.items():
         x = s.x
@@ -694,7 +753,8 @@ def main():
         fast_budget[cg] = (*drive(torch, s), pbs.banded_rollout.launches - n0)
     launches["banded"] = pbs.banded_rollout.launches
     off_path(pnh.nh_local_step_fused, pcg.cg_dia_solve,
-             ptri.tri_local_step_fused, pcs.cloth_rollout)
+             ptri.tri_local_step_fused, pcs.cloth_rollout,
+             plat.lattice_rollout)
     for cg, (med, windows, n_launch) in fast_budget.items():
         s, gen = fast[cg], per_budget[cg][3]
         x = s.x
@@ -718,10 +778,67 @@ def main():
         if not (np.isfinite(x).all() and drift < 1e-4 and sag < 0):
             raise AssertionError(f"fast cg{cg}: bad trajectory (drift "
                                  f"{drift}, min dy {sag})")
+    # phase 5f's trusted route, at the same 32 steps (profiling steps on)
+    banded_x = {cg: s.x for cg, s in fast.items()}
     for cg, s in fast.items():
         profile_step.profile(cg, WINDOW_STEPS, "fast", s=s)
     tet75_x = per_budget[75][3].x  # phase 5e's trusted route
+    banded_ms = {cg: run[0] for cg, run in fast_budget.items()}
     del systems, fast, per_budget, fast_budget
+
+    # phase 5f: tet100k on the lattice whole-timestep route: the cg global
+    # mode with lattice_fast_path=True, where the JAX package's chain passes
+    # the banded kernel (dia and ell only) and engages the lattice kernel;
+    # f32, against the banded route's trajectory, beside the lattice
+    # route's own divergence from a start moved by 1e-6 m
+    lat = {cg: tet100k(cg, torch.float32, fast=True, global_solver="cg")
+           for cg in (75, 25)}
+    for cg, s in lat.items():
+        if not isinstance(s._stepper, LatticeStepper):
+            raise AssertionError(f"cg{cg}: the lattice route did not engage "
+                                 f"({type(s._stepper).__name__})")
+    reset_launches()
+    lat_runs = {}
+    for cg, s in lat.items():
+        n0 = plat.lattice_rollout.launches
+        lat_runs[cg] = (*drive(torch, s), plat.lattice_rollout.launches - n0)
+    launches["lattice"] = plat.lattice_rollout.launches
+    off_path(*(k for k in KERNELS if k is not plat.lattice_rollout))
+    sens = {}
+    for cg in lat:
+        p = tet100k(cg, torch.float32, fast=True, global_solver="cg")
+        p.x = p._x + 1e-6 * np.random.default_rng(1).standard_normal(
+            p._x.shape)
+        p.run(steps)
+        sens[cg] = float(np.abs(p.x - lat[cg].x).max())
+        del p
+    for cg, (med, windows, n_launch) in lat_runs.items():
+        s = lat[cg]
+        fin, drift, sag = beam_trajectory(s)
+        vs_same = float(np.abs(s.x - banded_x[cg]).max())
+        want = WARMUP_STEPS + WINDOWS
+        say(f"tet100k lattice cg{cg} f32", ms_per_step_median=med,
+            windows_ms=[round(w, 4) for w in windows],
+            spread_ms=max(windows) - min(windows), steps=steps,
+            lattice_launches=n_launch, expected_launches=want,
+            anchor_drift_m=drift, min_dy_m=sag,
+            max_abs_dx_vs_banded_same_budget_m=vs_same,
+            max_abs_dx_vs_banded_cg75_m=float(
+                np.abs(s.x - banded_x[75]).max()),
+            perturbed_start_divergence_m=sens[cg], finite=fin)
+        say(f"lattice routes cg{cg} f32 (this call)",
+            banded_ms_per_step=banded_ms[cg], lattice_ms_per_step=med)
+        if n_launch != want:
+            raise AssertionError(f"lattice cg{cg}: {n_launch} launches, "
+                                 f"expected {want}")
+        if not (fin and drift < 1e-4 and sag < 0
+                and vs_same <= max(1e-3, 10.0 * sens[cg])):
+            raise AssertionError(f"lattice cg{cg}: bad trajectory (drift "
+                                 f"{drift}, min dy {sag}, {vs_same} m from "
+                                 "the banded route)")
+    for cg, s in lat.items():
+        profile_step.profile(cg, WINDOW_STEPS, "lattice", s=s)
+    del lat, banded_x
 
     # phase 5c: cloth100k on the general and the cloth route, f32
     gen = {cg: cloth100k(cg, torch.float32, fast=False)
@@ -734,7 +851,8 @@ def main():
                         (ptri.tri_local_step_fused.launches - n0[0],
                          pcg.cg_dia_solve.launches - n0[1]))
     launches["tri_local"] = ptri.tri_local_step_fused.launches
-    off_path(pnh.nh_local_step_fused, pbs.banded_rollout, pcs.cloth_rollout)
+    off_path(pnh.nh_local_step_fused, pbs.banded_rollout, pcs.cloth_rollout,
+             plat.lattice_rollout)
 
     cloth = {cg: cloth100k(cg, torch.float32, fast=True)
              for cg in CLOTH_BUDGETS}
@@ -745,7 +863,7 @@ def main():
         cloth_runs[cg] = (*drive(torch, s), pcs.cloth_rollout.launches - n0)
     launches["cloth"] = pcs.cloth_rollout.launches
     off_path(pnh.nh_local_step_fused, pcg.cg_dia_solve, pbs.banded_rollout,
-             ptri.tri_local_step_fused)
+             ptri.tri_local_step_fused, plat.lattice_rollout)
 
     # the general route once more from rest positions moved by 1e-6 m
     # (N(0,1) per axis, about f32 round-off): how far the same 32 steps
@@ -939,6 +1057,8 @@ def main():
         return s.x
 
     arap75_x = routes["arap100k cg75"][0].x
+    # phase 5g's trusted routes, at the same 32 steps (profiling steps on)
+    general_arap_x = {cg: routes[f"arap100k cg{cg}"][0].x for cg in (25, 75)}
     witness = {
         "tet100k dense": (tet75_x, perturbed(tet100k(
             25, torch.float32, global_solver="dense")), None),
@@ -994,6 +1114,51 @@ def main():
                                             "tri_local_step")
     del routes, witness, dense
 
+    # phase 5g: arap100k on the banded route (the kernel's arap mode), f32,
+    # against the general arap route of phase 5e at the same budget and at
+    # cg75
+    afast = {cg: arap100k(cg, fast=True) for cg in (75, 25)}
+    reset_launches()
+    a_runs = {}
+    for cg, s in afast.items():
+        if not (isinstance(s._stepper, BandedStepper)
+                and s._stepper.cfg.model == "arap"):
+            raise AssertionError(f"arap100k cg{cg}: the banded arap mode did "
+                                 "not engage")
+        n0 = pbs.banded_rollout.launches
+        a_runs[cg] = (*drive(torch, s), pbs.banded_rollout.launches - n0)
+    launches["banded_arap"] = pbs.banded_rollout.launches
+    off_path(*(k for k in KERNELS if k is not pbs.banded_rollout))
+    sens = {cg: float(np.abs(perturbed(arap100k(cg, fast=True))
+                             - afast[cg].x).max()) for cg in afast}
+    for cg, (med, windows, n_launch) in a_runs.items():
+        s = afast[cg]
+        fin, drift, sag = beam_trajectory(s)
+        vs_same = float(np.abs(s.x - general_arap_x[cg]).max())
+        want = WARMUP_STEPS + WINDOWS
+        say(f"arap100k banded cg{cg} f32", ms_per_step_median=med,
+            windows_ms=[round(w, 4) for w in windows],
+            spread_ms=max(windows) - min(windows), steps=steps,
+            banded_launches=n_launch, expected_launches=want,
+            anchor_drift_m=drift, min_dy_m=sag,
+            max_abs_dx_vs_general_same_budget_m=vs_same,
+            max_abs_dx_vs_general_cg75_m=float(
+                np.abs(s.x - general_arap_x[75]).max()),
+            perturbed_start_divergence_m=sens[cg], finite=fin)
+        say(f"arap100k routes cg{cg} f32 (this call)",
+            general_ms_per_step=u_runs[f"arap100k cg{cg}"][0],
+            banded_ms_per_step=med)
+        if n_launch != want:
+            raise AssertionError(f"arap100k banded cg{cg}: {n_launch} "
+                                 f"launches, expected {want}")
+        if not (fin and drift < 1e-4 and sag < 0
+                and vs_same <= max(1e-3, 10.0 * sens[cg])):
+            raise AssertionError(f"arap100k banded cg{cg}: bad trajectory "
+                                 f"({vs_same} m from the general route)")
+    for cg, s in afast.items():
+        profile_step.profile(cg, WINDOW_STEPS, "fast", s=s, scene="arap100k")
+    del afast, general_arap_x
+
     def entry(name, source, replaces, n, err, ms, plain_ms, bound_ms,
               bound_by):
         return {"name": name, "route": "cuda",
@@ -1028,6 +1193,10 @@ def main():
               launches["arap_fused"], *arapf32),
         entry("arap_local_step", "tet_local.cu", "tet_local.py:289",
               launches["arap_step"], *arap32),
+        entry("lattice_rollout", "lattice_step.cu", "lattice_step.py:439",
+              launches["lattice"], *lattice32),
+        entry("banded_rollout[arap]", "banded_step.cu", "banded_step.py:1090",
+              launches["banded_arap"], *bandedarap32),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """The port's banded whole-timestep route (plain twin on the CPU) against
 the JAX package's banded kernel (`BandedStepper`, Pallas interpret mode),
-on the jittered beams of tests/test_banded.py, f64.
+on the jittered beams of tests/test_banded.py, f64, in the nh, stvk and
+arap modes.
 
 Tolerances: 1e-8 for one ADMM iteration, the slice parity bound of
 tests/test_torch_system.py: torch's CPU sqrt and XLA's log differ in the
@@ -33,6 +34,7 @@ SCENES = {
     "materials": (dict(seed=3), dict(seed=7), 5),
     "floor-anchor-w0": (dict(seed=5), dict(floor_y=0.0, anchor_w=0.0), 8),
     "floor-sphere-cylinder": (dict(seed=11), dict(shapes=True), 10),
+    "arap": (dict(seed=2), dict(model="arap"), 5),
 }
 
 
@@ -51,12 +53,19 @@ def _run(pkg, name):
 @pytest.fixture(scope="module", params=list(SCENES))
 def jax_run(request):
     s = _run(aet, request.param)
-    return request.param, np.asarray(s.x), np.asarray(s.v), \
-        jax.device_get(s._lattice.state)
+    out = (request.param, np.asarray(s.x), np.asarray(s.v),
+           jax.device_get(s._lattice.state))
+    if request.param != "arap":
+        return out
+    # one step more from that state, for the carry-over of an arap stepper
+    st = s._lattice
+    carry = (np.asarray(st._subs), np.asarray(st._positions))
+    s.step()
+    return (*out, carry, np.asarray(s.x))
 
 
 def test_matches_jax_banded(jax_run):
-    name, x, v, state = jax_run
+    name, x, v, state = jax_run[:4]
     s = _run(pt, name)
     if name == "one-iteration":
         assert np.abs(s.x - x).max() < 1e-8, np.abs(s.x - x).max()
@@ -72,6 +81,16 @@ def test_matches_jax_banded(jax_run):
     if name == "floor-sphere-cylinder":
         lo = jittered_beam(seed=11).vertices[:, 1].min()
         assert x[:, 1].min() > lo - 0.8, "shapes must stop the fall"
+    if name == "arap":
+        # the kernel's arap mode, and banded_from_reference on its stepper
+        assert s._stepper.cfg.model == "arap"
+        (subs, positions), x_next = jax_run[4:]
+        c = build(pt, jittered_beam(**SCENES[name][0]), fast=True,
+                  **SCENES[name][1])
+        banded_from_reference(c._stepper, state, subs, positions)
+        np.testing.assert_array_equal(c.x, x)
+        c.step()
+        np.testing.assert_allclose(c.x, x_next, rtol=1e-6, atol=1e-8)
 
 
 @pytest.fixture(scope="module")

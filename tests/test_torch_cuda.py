@@ -1,6 +1,6 @@
 """Hand-written kernels against their plain twins on a CUDA device: those of
-the ell routes, and the element steps of the unfused pipeline and of
-LinearTetStrain. Every case is marked `cuda` and skips without a card. This
+the ell routes, the element steps of the unfused pipeline and of
+LinearTetStrain, the lattice kernel and the banded kernel's arap mode. Every case is marked `cuda` and skips without a card. This
 file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed (tests/conftest.py sets JAX up, hence --noconftest):
 
@@ -9,7 +9,8 @@ PyTorch is installed (tests/conftest.py sets JAX up, hence --noconftest):
 The twins of cg_update and cg_ell_solve add in the kernels' order
 (`chain_dot`, `ell_apply_by_slot`), so the kernels must repeat them
 bitwise; the banded kernel's CG reduces in another order than its twin,
-so its window compares at chip_smoke.py's 1e-8 (f64). The element steps
+so its window compares at chip_smoke.py's 1e-8 (f64), as do the lattice
+kernel's and the banded arap mode's. The element steps
 (nh_local_step, tri_local_step, arap_local_step_fused, arap_local_step)
 are built without FMA contraction and use correctly rounded sqrt and
 division, as their twins do on the card: bitwise."""
@@ -19,10 +20,11 @@ import pytest
 import torch
 
 from admm_elastic_tpu_torch.core import solver
+from admm_elastic_tpu_torch.core.lattice import LatticeStepper
 from admm_elastic_tpu_torch.ops.kernels import (banded_step, cg_ell, cg_step,
-                                                nh_local, tet_local,
-                                                tri_local)
-from admm_elastic_tpu_torch.utils.scenes import small_delaunay
+                                                lattice_step, nh_local,
+                                                tet_local, tri_local)
+from admm_elastic_tpu_torch.utils.scenes import beam_system, small_delaunay
 
 DTYPES = [torch.float64, torch.float32]
 
@@ -124,3 +126,51 @@ def test_element_step_kernel_is_its_twin(dtype, name):
     for g, w in zip(got, twin(*ins)):
         assert bool(torch.isfinite(g).all())
         assert torch.equal(g, w)
+
+
+# name: LatticeStepper keyword arguments
+LATTICES = {
+    "nh": dict(),
+    "stvk": dict(model="stvk", mu=100.0, lam=400.0),
+    "arap": dict(model="arap"),
+    "floor": dict(floor_y=0.02),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LATTICES))
+def test_lattice_kernel_matches_twin(name):
+    """One 10-step launch on a 4 x 3 x 3 beam against the twin on the card
+    (1e-8, f64), repeated bitwise."""
+    dev = _cuda()
+    kw = {"mu": 1e4, "lam": 1e4, **LATTICES[name]}
+    beam_n = 5 * 4 * 4
+    st = LatticeStepper(4, 3, 3, 0.25, np.full(beam_n, 1.0 / beam_n),
+                        kw.pop("mu"), kw.pop("lam"), np.arange(12),
+                        admm_iters=6, cg_iters=25, dtype=torch.float64,
+                        device=dev, **kw)
+    n0 = lattice_step.lattice_rollout.launches
+    got = lattice_step.lattice_rollout(st.state, st.planes, st.cfg, 10)
+    again = lattice_step.lattice_rollout(st.state, st.planes, st.cfg, 10)
+    assert lattice_step.lattice_rollout.launches == n0 + 2
+    want = lattice_step.lattice_rollout_reference(st.state, st.planes,
+                                                  st.cfg, 10)
+    assert float((got["x"] - want["x"]).abs().max()) < 1e-8
+    for k in lattice_step.STATE:
+        assert torch.equal(got[k], again[k]), k
+        assert bool(torch.isfinite(got[k]).all()), k
+
+
+@pytest.mark.cuda
+def test_banded_arap_kernel_matches_twin():
+    """The arap mode on a 4 x 3 x 3 beam (dia): one 10-step launch against
+    the twin on the card (1e-8, f64)."""
+    dev = _cuda()
+    st = beam_system((4, 3, 3), 0.25, 2.0, 25, torch.float64, "cuda",
+                     fast=True, arap=True)._stepper
+    assert st.cfg.model == "arap" and st.device == dev
+    got = banded_step.banded_rollout(st.state, st.planes, st.cfg, 10)
+    want = banded_step.banded_rollout_reference(st.state, st.planes, st.cfg,
+                                                10)
+    assert float((got["x"] - want["x"]).abs().max()) < 1e-8
+    assert torch.equal(got["warm"], st.state["warm"])  # arap leaves it

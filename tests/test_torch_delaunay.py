@@ -186,13 +186,24 @@ def test_settings_defaults_match_jax():
     (dict(cg_backend="triton"), ValueError),
     (dict(global_solver="sparse"), ValueError),
     (dict(reorder="rcm"), ValueError),
-    # no whole-timestep kernel the port has takes the cg mode
-    (dict(global_solver="cg", fast=True), NotImplementedError),
+    # the banded kernel takes only dia and ell, the lattice kernel only a
+    # make_beam_tets beam, the cloth kernel only cloth: the cg mode with the
+    # fast path steps the general route, as in JAX (err None)
+    (dict(global_solver="cg", fast=True), None),
     (dict(fast=True, cg=(40, 25)), NotImplementedError),
     (dict(fast=True, preconditioner="amg"), NotImplementedError),
 ], ids=["cg_backend", "global_solver", "reorder", "cg-mode", "fast-schedule",
         "fast-amg"])
 def test_bad_settings_raise(bad, err):
+    if err is None:
+        runs = []
+        for fast in (True, False):
+            s = build(pt, admm=2, **dict(bad, fast=fast))
+            assert s._stepper is None and s._solver_mode == "cg"
+            s.run(2)
+            runs.append(s.x)
+        assert np.array_equal(runs[0], runs[1])
+        return
     with pytest.raises(err):
         build(pt, **bad)
 

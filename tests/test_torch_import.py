@@ -1,6 +1,7 @@
 """The port imports torch and never jax: it imports and steps a beam (dia,
 and NeoHookean on the default dense mode), a LinearTetStrain beam (dia, and
-cg with over-relaxation), a cloth (general and cloth routes) and a Delaunay
+cg with over-relaxation), a beam lattice on the lattice route (cg) and the
+banded route's arap mode (dia), a cloth (general and cloth routes) and a Delaunay
 tet mesh (the ell route with each CG backend, and the banded route's ELL
 matvec) with jax made unimportable, and no source file of the package
 imports jax or the JAX package."""
@@ -50,6 +51,25 @@ for tet, settings in (
     a.add_force(tet)
     a.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
     assert a.initialize()
+    a.run(2)
+    assert np.isfinite(a.x).all() and a.x[:, 1].min() < 0
+# the whole-timestep routes of a beam lattice: the lattice kernel's twin
+# (cg mode), the banded kernel's arap mode (dia)
+lat = pt.geometry.make_beam_tets(2, 1, 1)
+for tet, mode, route in (
+        (HyperElasticTet(lat.tets, 1e3, 1e3, max_iters=3, backend="pallas"),
+         "cg", "LatticeStepper"),
+        (LinearTetStrain(lat.tets, 1e3, backend="pallas"), "dia",
+         "BandedStepper")):
+    a = pt.System(pt.Settings(admm_iters=3, verbose=0, dtype=torch.float64,
+                              device="cpu", global_solver=mode,
+                              cg_fixed_iters=5, lattice_fast_path=True))
+    a.add_nodes(lat.vertices, np.full(lat.n_vertices, 0.1))
+    a.add_force(StaticAnchor(np.flatnonzero(lat.vertices[:, 0] < 1e-9)))
+    a.add_force(tet)
+    a.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
+    assert a.initialize()
+    assert type(a._stepper).__name__ == route
     a.run(2)
     assert np.isfinite(a.x).all() and a.x[:, 1].min() < 0
 from admm_elastic_tpu_torch.models import (Bend, LimitedTriangleStrain,

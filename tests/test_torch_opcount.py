@@ -119,6 +119,51 @@ def test_banded_ell_rollout_counts_one_cg_iteration():
     assert b3 == b4 > 0
 
 
+def test_lattice_rollout_counts():
+    """One more CG iteration per ADMM iteration adds the dia matvec (a
+    product and a sum per diagonal: 6nD) and the 36n + 6 vector and scalar
+    operations of a Jacobi-PCG iteration, per ADMM iteration; and the
+    element phase does no work on a group's zero selector coefficients."""
+    import dataclasses
+
+    import numpy as np
+
+    from admm_elastic_tpu_torch.core.lattice import LatticeStepper
+    from admm_elastic_tpu_torch.ops.kernels import lattice_step
+    from admm_elastic_tpu_torch.utils.opcount import count_ops, rollout_counts
+
+    st = LatticeStepper(3, 2, 2, 0.25, np.full(36, 1 / 36), 1e4, 1e4,
+                        np.arange(9), dtype=torch.float64, device="cpu",
+                        model="arap")
+    cfg = dataclasses.replace(st.cfg, cg_iters=3, admm_iters=2)
+
+    def counts(cfg):
+        return rollout_counts(lattice_step.lattice_rollout_reference,
+                              lattice_step.STATE, st.state, st.planes, cfg, 1)
+
+    o3, b3 = counts(cfg)
+    o4, b4 = counts(dataclasses.replace(cfg, cg_iters=4))
+    n, D = st.n_nodes, len(cfg.dia_offs)
+    assert o4 - o3 == cfg.admm_iters * (6 * n * D + 36 * n + 6)
+    assert b3 == b4 > 0
+    idx, grp, _ = lattice_step.lattice_tables(cfg.dims)
+    members = [torch.as_tensor(np.flatnonzero(grp == g)) for g in range(10)]
+
+    def element_ops(cfg):
+        return count_ops(lattice_step._element_phase, st.state["x"],
+                         st.state["u"], st.state["warm"], cfg,
+                         torch.as_tensor(idx), members)[0]
+
+    # every zero coefficient made 1: 6 more operations in F (a product and
+    # a sum in each of 3 rows) and 6 in the RHS rows, per tet
+    zeros = sum((12 - np.count_nonzero(cfg.cp[g])) * len(m)
+                for g, m in enumerate(members))
+    assert zeros > 0
+    dense = dataclasses.replace(cfg, cp=tuple(
+        tuple(q if q != 0 else 1.0 for q in g) for g in cfg.cp))
+    assert element_ops(dense) - element_ops(cfg) == 12 * zeros
+
+
 @pytest.mark.parametrize("kernel,planes,vectors,floats", [
     ("nh_local_step", (9, 9, 3), 3, 45),
     ("arap_local_step_fused", (12, 9, 12), 2, 65),

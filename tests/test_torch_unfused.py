@@ -178,11 +178,14 @@ def test_cg_apply_and_diag_match_the_assembled_matrix():
 
 
 def test_routing_under_lattice_fast_path():
-    """LinearTetStrain takes the banded kernel's arap mode in JAX: the
-    port raises. Relaxation turns the fast paths off in JAX: the port
-    steps the general route, bitwise."""
-    with pytest.raises(NotImplementedError, match="arap"):
-        beam(pt, arap=True, global_solver="dia", lattice_fast_path=True)
+    """LinearTetStrain takes the banded kernel's arap mode, as in JAX.
+    Relaxation turns the fast paths off in JAX: the port steps the general
+    route, bitwise."""
+    from admm_elastic_tpu_torch.core.banded import BandedStepper
+
+    s = beam(pt, arap=True, global_solver="dia", lattice_fast_path=True)
+    assert isinstance(s._stepper, BandedStepper)
+    assert s._stepper.cfg.model == "arap"
     runs = []
     for fast in (False, True):
         s = beam(pt, global_solver="dia", cg_fixed_iters=25, relaxation=1.6,

@@ -31,7 +31,8 @@ def build(pkg, mesh, *, fast, model="nh", mu=1e4, lam=2.5e4, floor_y=None,
           anchor_w=1000.0, seed=None, admm=6, shapes=False, cg=25,
           explicit_indices=None, **settings):
     """test_banded.py build_system, for `pkg` in (aet, pt). shapes=True
-    replaces the anchors by the mixed collision shapes."""
+    replaces the anchors by the mixed collision shapes; model="arap" takes
+    a LinearTetStrain of stiffness mu in place of the hyperelastic tet."""
     n = mesh.n_vertices
     if pkg is aet:
         s = aet.System(aet.Settings(
@@ -52,8 +53,12 @@ def build(pkg, mesh, *, fast, model="nh", mu=1e4, lam=2.5e4, floor_y=None,
         mu = mu * (0.5 + rng.rand(len(mesh.tets)))
         lam = lam * (0.5 + rng.rand(len(mesh.tets)))
     m = pkg.models
-    s.add_force(m.HyperElasticTet(mesh.tets, mu=mu, lam=lam, max_iters=4,
-                                  model=model, backend="pallas"))
+    if model == "arap":  # LinearTetStrain with stiffness mu
+        s.add_force(m.LinearTetStrain(mesh.tets, stiffness=mu,
+                                      backend="pallas"))
+    else:
+        s.add_force(m.HyperElasticTet(mesh.tets, mu=mu, lam=lam, max_iters=4,
+                                      model=model, backend="pallas"))
     if shapes:
         s.add_force(m.Collision(mixed_shapes(pkg, mesh), n_nodes=n))
     else:
