@@ -12,6 +12,7 @@ Layout (mirrors the JAX package):
              wrappers and their plain PyTorch twins
   csrc/      CUDA C++ sources of the kernels (built at first use)
   geometry/  procedural meshes (numpy)
+  parallel/  the sharded banded stepper (one device so far)
   utils/     carrying a JAX System's params and state across
 """
 

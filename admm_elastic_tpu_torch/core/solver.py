@@ -243,9 +243,14 @@ def pcg_solve_fixed(A_apply, b, x0, diag, n_iters: int, dot=None):
     three columns of (n,3) form one system: alpha and beta are single
     scalars over all 3n values. alpha, beta and rz stay tensors, so no
     scalar is read back to the host. `dot(a, b)` sums a*b over all 3n
-    values (default torch.sum; a kernel's twin passes the kernel's order)."""
-    inv_diag = 1.0 / diag
+    values (default torch.sum; a kernel's twin passes the kernel's order).
+    Returns (x, n_iters)."""
+    return pcg_fixed_inv(A_apply, b, x0, 1.0 / diag, n_iters, dot), n_iters
 
+
+def pcg_fixed_inv(A_apply, b, x0, inv_diag, n_iters: int, dot=None):
+    """`pcg_solve_fixed` given the preconditioner's inverse diagonal (n,)
+    itself, as the banded steppers store it; returns x."""
     if dot is None:
         def dot(a, b):
             return torch.sum(a * b)
@@ -266,4 +271,4 @@ def pcg_solve_fixed(A_apply, b, x0, diag, n_iters: int, dot=None):
         beta = rz_new / torch.where(rz > 0, rz, 1.0)
         p = z + beta * p
         rz = rz_new
-    return x, n_iters
+    return x

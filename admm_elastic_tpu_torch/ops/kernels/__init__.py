@@ -15,6 +15,8 @@ from .tet_local import (arap_local_step, arap_local_step_fused,
                         arap_local_step_fused_reference,
                         arap_local_step_reference)
 from .cloth_step import cloth_rollout, cloth_rollout_reference
+from .banded_local import banded_local_rhs, banded_local_rhs_reference
+from .cheb_dia import cheb_dia_chunk, cheb_dia_chunk_reference
 
 __all__ = [
     "nh_local_step_fused", "nh_local_step_fused_reference",
@@ -28,4 +30,6 @@ __all__ = [
     "arap_local_step_fused", "arap_local_step_fused_reference",
     "arap_local_step", "arap_local_step_reference",
     "cloth_rollout", "cloth_rollout_reference",
+    "banded_local_rhs", "banded_local_rhs_reference",
+    "cheb_dia_chunk", "cheb_dia_chunk_reference",
 ]

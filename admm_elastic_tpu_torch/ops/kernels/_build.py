@@ -142,6 +142,16 @@ _SIGNATURES = {
     **{f"lattice_rollout_{t}": (_I, [_P] * 23 + [_I] * 11 + [_P])
        for t in ("f32", "f64")},
     **{f"lattice_rollout_grid_{t}": (_I, [_I]) for t in ("f32", "f64")},
+    # state in 5, element planes 6, vertex planes 3, outputs 6 (b, au, cu,
+    # u, warm, rows scratch), host arrays 3, then n, E, S, n_shapes, model,
+    # newton_iters, and the stream
+    **{f"banded_local_rhs_{t}": (_I, [_P] * 23 + [_I] * 6 + [_P])
+       for t in ("f32", "f64")},
+    # b, x, z, d, invd, dia, c1, c2, x/z/d out, d scratch, offsets, then n,
+    # D, n_it, first, last, inv_theta, and the stream
+    **{f"cheb_dia_chunk_{t}": (_I, [_P] * 13 + [_I] * 5
+                                + [ctypes.c_double, _P])
+       for t in ("f32", "f64")},
     "admm_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -191,6 +191,30 @@ def _element_phase(x, u, warm, planes, cfg, eps):
     return torch.stack(up), warm, torch.stack(rows)
 
 
+def _vertex_rhs(x, au, cu, rows, planes, cfg):
+    """The vertex phase's RHS: b = the incidence sum of the element rows
+    (slot order; row 4e+k, column a, and the zero sentinel row at 4E), the
+    anchor dual (0 where the anchor weight is 0) and its RHS, the
+    collision shapes in declaration order, their dual and RHS. Returns
+    (b, au', cu')."""
+    E = rows.shape[1]
+    aw2, ancz = planes["aw2"][:, None], planes["ancz"]
+    inc = planes["inc"].long()
+    flat = rows.reshape(4, 3, E).permute(2, 0, 1).reshape(4 * E, 3)
+    flat = torch.cat([flat, flat.new_zeros((1, 3))])
+    b = torch.zeros_like(x)
+    for j in range(inc.shape[1]):  # slot order
+        b = b + flat[inc[:, j]]
+    au = torch.where(aw2 > 0, au + (x - ancz), 0.0)
+    b = b + aw2 * (ancz - au)
+    if cfg.coll_shapes:
+        cw2 = torch.tensor(cfg.scalars()[-1], dtype=x.dtype, device=x.device)
+        z = _project(x + cu, cfg)
+        cu = cu + (x - z)
+        b = b + cw2 * (z - cu)
+    return b, au, cu
+
+
 def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps):
     """Plain PyTorch version of the kernel: the same phases in the same
     order, one torch op at a time."""
@@ -198,14 +222,10 @@ def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps):
     dtype, dev = x.dtype, x.device
     dt, dt2, inv_dt, *rest = (torch.tensor(q, dtype=dtype, device=dev)
                               for q in cfg.scalars())
-    dtg, cw2 = torch.stack(rest[:3]), rest[3]
+    dtg = torch.stack(rest[:3])
     eps = torch.finfo(dtype).eps
     mass = planes["mass"][:, None]
     invd = planes["invd"][:, None]
-    aw2 = planes["aw2"][:, None]
-    ancz = planes["ancz"]
-    inc = planes["inc"].long()
-    E = u.shape[1]
 
     def A(y):
         if cfg.matrix == "ell":
@@ -219,18 +239,7 @@ def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps):
         mxbar = mass * x
         for _ in range(cfg.admm_iters):
             u, warm, rows = _element_phase(x, u, warm, planes, cfg, eps)
-            # row 4e+k, column a; the zero row at 4E is the sentinel's
-            flat = rows.reshape(4, 3, E).permute(2, 0, 1).reshape(4 * E, 3)
-            flat = torch.cat([flat, flat.new_zeros((1, 3))])
-            b = torch.zeros_like(x)
-            for j in range(inc.shape[1]):  # slot order
-                b = b + flat[inc[:, j]]
-            au = torch.where(aw2 > 0, au + (x - ancz), 0.0)
-            b = b + aw2 * (ancz - au)
-            if cfg.coll_shapes:
-                z = _project(x + cu, cfg)
-                cu = cu + (x - z)
-                b = b + cw2 * (z - cu)
+            b, au, cu = _vertex_rhs(x, au, cu, rows, planes, cfg)
             r = mxbar + dt2 * b - A(x)
             p = invd * r
             rz = torch.sum(r * p)

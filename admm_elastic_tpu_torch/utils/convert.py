@@ -18,6 +18,9 @@ port's `BandedStepper` built from the same scene, and
 `cloth_from_reference(stepper, state_np)` a JAX `ClothStepper`'s state into
 the port's `ClothStepper`, and `lattice_from_reference(stepper, state_np)` a
 JAX `LatticeStepper`'s state into the port's `LatticeStepper`.
+`sharded_banded_from_reference(stepper, state_np, subs, positions,
+cheb_bounds)` loads a JAX `ShardedBandedStepper`'s detached state and its
+Chebyshev bounds into the port's `ShardedBandedStepper`.
 """
 
 from __future__ import annotations
@@ -104,6 +107,23 @@ def banded_from_reference(stepper, state_np, subs, positions) -> None:
     stepper.state = {k: torch.as_tensor(np.array(a), dtype=ref[k].dtype,
                                         device=ref[k].device)
                      for k, a in new.items()}
+
+
+def sharded_banded_from_reference(stepper, state_np, subs, positions,
+                                  cheb_bounds=None) -> None:
+    """Overwrite a port `ShardedBandedStepper`'s state with a JAX
+    `ShardedBandedStepper`'s, and adopt its Chebyshev bounds.
+
+    state_np: the JAX stepper's state as its `detach()` writes it into its
+    base `BandedStepper` (`jax.device_get(base.state)`), with that base's
+    `_subs` and `_positions`, mapped as `banded_from_reference` maps them
+    (the port stepper's base takes the same state). cheb_bounds: the JAX
+    stepper's `cheb_bounds`, (lmin, lmax): the port rebuilds its schedule
+    from them, so both packages run the same recurrence."""
+    banded_from_reference(stepper.base, state_np, subs, positions)
+    stepper.state = {k: t.clone() for k, t in stepper.base.state.items()}
+    if cheb_bounds is not None:
+        stepper.set_cheb_bounds(*(float(b) for b in cheb_bounds))
 
 
 def cloth_from_reference(stepper, state_np) -> None:

@@ -15,7 +15,8 @@ bound_ms = max(bytes / memory rate, operations / peak rate) is the least
 time the card could take for the same work (`roofline_ms`).
 `twin_counts` gives (operations, bytes) of a kernel on its inputs from its
 twin (the element steps', by their `_reference` twins; `cg_update_counts`
-and `cg_ell_counts` name the CG kernels), and `rollout_counts` those of the
+and `cg_ell_counts` name the CG kernels; `banded_local_counts` and
+`cheb_dia_counts` the sharded stepper's), and `rollout_counts` those of the
 whole-timestep kernels (banded in dia or ELL mode, cloth, lattice). The
 lattice kernel's twin skips a group's zero selector coefficients as the
 kernel does, so its count is the arithmetic of the nonzero ones.
@@ -26,7 +27,7 @@ from __future__ import annotations
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..ops.kernels import cg_ell, cg_step
+from ..ops.kernels import banded_local, cg_ell, cg_step, cheb_dia
 
 _ELEMENTWISE = frozenset((
     "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "rsqrt", "log",
@@ -114,3 +115,25 @@ def rollout_counts(reference, keys, state, planes, cfg, n_steps):
     n_steps: the state and planes read once, the new state written once."""
     ops, out = count_ops(reference, state, planes, cfg, n_steps)
     return ops, nbytes(({k: state[k] for k in keys}, planes), out)
+
+
+def banded_local_counts(x, au, cu, u, warm, planes, cfg):
+    """(operations, bytes) of one `banded_local_rhs`: the state and the
+    planes it reads once, its five outputs written once (the element rows
+    passed between its two kernels are not counted)."""
+    return twin_counts(banded_local.banded_local_rhs_reference, x, au, cu, u,
+                       warm, {k: planes[k] for k in banded_local.PLANES}, cfg)
+
+
+def cheb_dia_counts(b, x, z, d, invd, dia, c1, c2, *, offsets, n_it, first,
+                    last, inv_theta):
+    """(operations, bytes) of one `cheb_dia_chunk`: what it reads (b with
+    `first`, else z and d; n_it coefficients each) once, x, z, d written
+    once; the matrix counts once however often the iterations read it. The
+    twin's matvec also multiplies the zero fill past either end, which
+    the kernel skips (a few per cent of the matvec at tet100k)."""
+    ops, out = count_ops(cheb_dia.cheb_dia_chunk_reference, b, x, z, d, invd,
+                         dia, c1, c2, offsets=offsets, n_it=n_it, first=first,
+                         last=last, inv_theta=inv_theta)
+    read = [x, invd, dia, c1[:n_it], c2[:n_it], *([b] if first else [z, d])]
+    return ops, nbytes(read, out)

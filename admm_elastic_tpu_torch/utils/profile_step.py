@@ -3,8 +3,8 @@ steps of the 100k-tet beam, the cloth100k sheet or the delaunay100k mesh
 (the `chip_smoke.py` main paths), or of any System given to `profile`.
 
     python -m admm_elastic_tpu_torch.utils.profile_step [--cg 25 75]
-        [--steps 10] [--route general|fast|lattice]
-        [--scene tet100k|cloth100k|delaunay100k]
+        [--steps 10] [--route general|fast|lattice|sharded]
+        [--solver cg|cheb] [--scene tet100k|cloth100k|delaunay100k]
         [--cg-backend xla|fused|kernel]
 
 `--route general` (the default) steps the general route; `--route fast`
@@ -12,7 +12,9 @@ steps the scene's whole-timestep route (`lattice_fast_path=True`: the
 banded kernel for tet100k and delaunay100k, the cloth kernel for
 cloth100k), where `steps` = 10 is one kernel launch; `--route lattice`
 steps tet100k on the lattice kernel (the cg global mode with
-`lattice_fast_path=True`). `--cg-backend` picks
+`lattice_fast_path=True`); `--route sharded` steps tet100k on the sharded
+banded stepper at one device (`scenes.tet100k_sharded`) with `--solver`
+cg or cheb, whose budgets `--cg` then gives. `--cg-backend` picks
 delaunay100k's ell CG on the general route (the other scenes run dia).
 For each CG budget it times `steps` steps twice in one process, each
 window closed by `torch.cuda.synchronize()`: first without the profiler,
@@ -38,8 +40,8 @@ import time
 import numpy as np
 import torch
 
-from ..ops.kernels import (banded_step, cloth_step, lattice_step, nh_local,
-                           tet_local, tri_local)
+from ..ops.kernels import (banded_local, banded_step, cheb_dia, cloth_step,
+                           lattice_step, nh_local, tet_local, tri_local)
 from . import scenes
 
 
@@ -65,11 +67,14 @@ def _window_ms(s, steps):
 
 SCENES = ("tet100k", "cloth100k", "delaunay100k")
 ATTEMPTS = 5
-# the entry kernels of the port's one-launch-per-call wrappers
+# the entry kernels of the port's wrappers, one per call (banded_local_rhs
+# launches an element kernel and then this vertex kernel)
 _OWN = tuple(f"void admm::{ns}::{k}_kernel"
              for ns in ("nh", "tri", "arap") for k in ("fused", "step")) + (
     "void admm::banded::rollout_kernel", "void admm::cloth::rollout_kernel",
-    "void admm::lattice::rollout_kernel")
+    "void admm::lattice::rollout_kernel",
+    "void admm::banded_local::vertex_kernel",
+    "void admm::cheb::chunk_kernel")
 
 
 def _own_launches():
@@ -78,16 +83,22 @@ def _own_launches():
         tri_local.tri_local_step_fused, tri_local.tri_local_step,
         tet_local.arap_local_step_fused, tet_local.arap_local_step,
         banded_step.banded_rollout, cloth_step.cloth_rollout,
-        lattice_step.lattice_rollout))
+        lattice_step.lattice_rollout, banded_local.banded_local_rhs,
+        cheb_dia.cheb_dia_chunk))
 
 
 def profile(cg, steps, route="general", s=None, scene="tet100k",
-            cg_backend="xla") -> dict:
-    """Profile `steps` steps of the scene (or of the given System `s`) and
-    print and return the numbers."""
+            cg_backend="xla", solver="cg") -> dict:
+    """Profile `steps` steps of the scene (or of the given System or
+    stepper `s`) and print and return the numbers."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    if s is None:
+    if s is None and route == "sharded":
+        if scene != "tet100k":
+            raise ValueError("--route sharded steps tet100k")
+        s = scenes.tet100k_sharded(solver, cg)
+        s.run(2)
+    elif s is None:
         kw = {"cg_backend": cg_backend} if scene == "delaunay100k" else {}
         if route == "lattice":
             if scene != "tet100k":
@@ -126,10 +137,12 @@ def profile(cg, steps, route="general", s=None, scene="tet100k",
            "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
            "device_ops_per_step": len(dev) / steps if dev else None,
            "traced_windows": attempt, "lost_kernel_records": max(lost, 0)}
-    label = route
+    label, budget = route, f"cg{cg}"
     if route == "general" and s._solver_mode == "ell":
         label = f"general {s.settings.cg_backend}"
-    print(f"[profile {scene} {label} cg{cg}] "
+    elif route == "sharded":
+        budget = f"{s.solver}{cg}"
+    print(f"[profile {scene} {label} {budget}] "
           + " ".join(f"{k}={'not measured' if v is None else v}"
                      for k, v in out.items()), flush=True)
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:12]
@@ -143,8 +156,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cg", type=int, nargs="+", default=[25, 75])
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--route", choices=("general", "fast", "lattice"),
-                    default="general")
+    ap.add_argument("--route", choices=("general", "fast", "lattice",
+                                        "sharded"), default="general")
+    ap.add_argument("--solver", choices=("cg", "cheb"), default="cg")
     ap.add_argument("--scene", choices=SCENES, default="tet100k")
     ap.add_argument("--cg-backend", choices=("xla", "fused", "kernel"),
                     default="xla")
@@ -153,7 +167,8 @@ def main():
         raise SystemExit("profile_step: needs a CUDA device")
     print(torch.cuda.get_device_name(0), flush=True)
     outs = [profile(cg, args.steps, args.route, scene=args.scene,
-                    cg_backend=args.cg_backend) for cg in args.cg]
+                    cg_backend=args.cg_backend, solver=args.solver)
+            for cg in args.cg]
     if any(o["device_busy_ms_per_step"] is None for o in outs):
         raise SystemExit("profile_step: the profiler recorded no device "
                          "activity")

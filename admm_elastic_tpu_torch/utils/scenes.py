@@ -28,6 +28,12 @@ with `fast=True` on the cloth whole-timestep route, with
 `global_solver="cg"` (and fast=False) on the matrix-free CG of the unfused
 pipeline. `small_cloth` is the 8 x 6 sheet of the cloth parity tests.
 
+`tet100k_sharded`: tet100k's scene on the sharded banded stepper at one
+device (`parallel/banded_spmd.py`): `tet100k(budget, fast=True)`, then
+`sharded_banded_from_system` with solver "cg" (a `budget`-iteration
+Jacobi-PCG per solve) or "cheb" (`budget` Chebyshev iterations; the bounds
+from a host Lanczos at construction, seconds at this size).
+
 `jittered_beam` is the randomly perturbed beam of the banded parity tests:
 no constant-offset stencil survives the jitter, while the numbering stays
 banded.
@@ -87,6 +93,15 @@ def tet100k(cg, dtype=torch.float32, fast=False,
     (the inverse is 2.0 GB in f32); cg is then unused."""
     return beam_system((40, 25, 20), 0.05, 50.0, cg, dtype, fast=fast,
                        global_solver=global_solver, dense_max_nodes=1 << 30)
+
+
+def tet100k_sharded(solver="cg", budget=75, dtype=torch.float32):
+    """The ShardedBandedStepper of tet100k (see the module docstring)."""
+    from ..parallel import sharded_banded_from_system
+
+    spmd, _ = sharded_banded_from_system(tet100k(budget, dtype, fast=True),
+                                         solver=solver, cheb_iters=budget)
+    return spmd
 
 
 def arap100k(cg, dtype=torch.float32, relaxation=1.0,

@@ -24,7 +24,10 @@ kernel, A_inv @ b), the beam as LinearTetStrain (arap100k) on dia
 (tri_local_step, plain PyTorch PCG); the beam on the lattice
 whole-timestep route (the cg global mode with `lattice_fast_path=True`,
 one lattice_rollout launch per 10-step window) against the banded route;
-and arap100k on the banded route's arap mode against its general route.
+and arap100k on the banded route's arap mode against its general route;
+and the beam on the sharded banded stepper at one device (cg25, cg75 in
+plain torch, cheb180 through one cheb_dia_chunk launch per solve; one
+banded_local_rhs call per ADMM iteration) against the banded route.
 Every phase prints one line of numbers. Any failure raises: the script
 then exits non-zero and prints no result line. It needs CUDA (it never
 falls back to the CPU) and imports nothing of JAX.
@@ -57,7 +60,7 @@ from admm_elastic_tpu_torch.models import StaticAnchor  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import _build  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import banded_step as pbs  # noqa: E402
 from admm_elastic_tpu_torch.core.solver import (  # noqa: E402
-    assemble_A_hat, dense_inverse, ell_apply)
+    assemble_A_hat, dense_inverse, dia_apply, ell_apply)
 from admm_elastic_tpu_torch.ops.kernels import cg_dia as pcg  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import cg_ell as pell  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import cg_step as pstep  # noqa: E402
@@ -66,13 +69,18 @@ from admm_elastic_tpu_torch.ops.kernels import lattice_step as plat  # noqa: E40
 from admm_elastic_tpu_torch.ops.kernels import nh_local as pnh  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import tet_local as ptet  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import tri_local as ptri  # noqa: E402
+from admm_elastic_tpu_torch.ops.kernels import banded_local as pbl  # noqa: E402
+from admm_elastic_tpu_torch.ops.kernels import cheb_dia as pchb  # noqa: E402
+from admm_elastic_tpu_torch.parallel import ShardedBandedStepper  # noqa: E402
+from admm_elastic_tpu_torch.parallel.cheb import (  # noqa: E402
+    cheb_coefficients, dia_operator_bounds)
 from admm_elastic_tpu_torch.utils import profile_step, scenes  # noqa: E402
 from admm_elastic_tpu_torch.utils.opcount import (  # noqa: E402
-    cg_ell_counts, cg_update_counts, count_ops, nbytes, rollout_counts,
-    roofline_ms, twin_counts)
+    banded_local_counts, cg_ell_counts, cg_update_counts, cheb_dia_counts,
+    count_ops, nbytes, rollout_counts, roofline_ms, twin_counts)
 from admm_elastic_tpu_torch.utils.scenes import (  # noqa: E402
     arap100k, beam_system, cloth100k, delaunay100k, small_cloth,
-    small_delaunay, tet100k)
+    small_delaunay, tet100k, tet100k_sharded)
 DT = 0.04  # the workload's timestep and ADMM iterations
 ADMM_ITERS = 10  # (admm_elastic_tpu_torch/utils/scenes.py)
 WARMUP_STEPS = 2
@@ -85,7 +93,11 @@ KERNELS = (pnh.nh_local_step_fused, pcg.cg_dia_solve, pbs.banded_rollout,
            ptri.tri_local_step_fused, pcs.cloth_rollout, pstep.cg_update,
            pell.cg_ell_solve, pnh.nh_local_step, ptri.tri_local_step,
            ptet.arap_local_step_fused, ptet.arap_local_step,
-           plat.lattice_rollout)
+           plat.lattice_rollout, pbl.banded_local_rhs, pchb.cheb_dia_chunk)
+# the sharded banded stepper at tet100k (phase 5h): solver, budget; cheb180
+# is the Chebyshev budget matched at 100k tets (f64 study, worst residual
+# ratio 1.027 against an exact solve, as cg75's 1.022)
+SHARDED = (("cg", 25), ("cg", 75), ("cheb", 180))
 
 
 def reset_launches():
@@ -450,6 +462,119 @@ def check_rollout_full(torch, kind, st, label, dtype, tol):
     return ex, ms, plain_ms, bound_ms, bound_by
 
 
+def local_inputs(torch, st, rng, jitter):
+    """Inputs of one banded_local_rhs call on a BandedStepper: x = the
+    first ADMM iteration's x_bar (rest positions after the gravity kick)
+    moved by jitter N(0,1) per axis, random duals (au 0.01 N(0,1) on every
+    vertex, so a released anchor's must come back exactly 0; cu 0.01
+    N(0,1); u 0.01 N(0,1)) and warm = 1."""
+    x0 = st.state["x"]
+
+    def noise(shape, scale):
+        return torch.as_tensor(scale * rng.standard_normal(shape),
+                               dtype=x0.dtype, device=x0.device)
+
+    x = x0 + noise(x0.shape, jitter)
+    x[:, 1] -= 9.8 * DT * DT
+    E = st.n_elements
+    return [x, noise(x0.shape, 0.01), noise(x0.shape, 0.01),
+            noise((9, E), 0.01), torch.ones((3, E), dtype=x0.dtype,
+                                            device=x0.device)]
+
+
+def check_local(torch, label, ins, planes, cfg, dtype, released=None):
+    """banded_local_rhs against its plain twin on the same inputs: every
+    output within 1e-12 (f64) or 1e-4 (f32) relative to its largest twin
+    value (a last-bit difference may move a Newton tie in f32), finite,
+    repeated bitwise; a released anchor's dual exactly 0. Times the call
+    over batches of 20 launches and the twin, and bounds it. Returns
+    (error, ms, plain_ms, bound_ms, bound_by)."""
+    got = pbl.banded_local_rhs(*ins, planes, cfg)
+    again = pbl.banded_local_rhs(*ins, planes, cfg)
+    want = pbl.banded_local_rhs_reference(*ins, planes, cfg)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-300)
+              for g, w in zip(got, want))
+    fin = all(bool(torch.isfinite(g).all()) for g in got)
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    gated = (released is None
+             or (float(got[1][released].abs().max()) == 0.0
+                 and float(want[1][released].abs().max()) == 0.0))
+    ok = fin and repeat and gated and rel <= tol
+    ms = cuda_ms(torch, lambda: pbl.banded_local_rhs(*ins, planes, cfg), 10,
+                 batch=20)
+    plain_ms = cuda_ms(torch, lambda: pbl.banded_local_rhs_reference(
+        *ins, planes, cfg), 5)
+    n_ops, n_bytes = banded_local_counts(*ins, planes, cfg)
+    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
+    say(f"kernel banded_local_rhs {str(dtype)[6:]} {label}",
+        n=ins[0].shape[0], E=ins[3].shape[1], model=cfg.model,
+        shapes=len(cfg.coll_shapes), max_abs_err=err, max_rel_err=rel,
+        tol=tol, tol_on="rel", bitwise_vs_twin=bitwise,
+        bitwise_repeat=repeat, finite=fin, released_anchor_dual_zero=gated,
+        ms=ms, plain_ms=plain_ms, operations=n_ops, bytes=n_bytes,
+        bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+    if not ok:
+        raise AssertionError(f"banded_local_rhs disagrees at {label}, {dtype}")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def check_cheb(torch, label, args, kw, dtype, reps=10):
+    """cheb_dia_chunk against its plain twin: x, z, d within 1e-10 (f64)
+    or 1e-4 (f32) relative to the largest twin value, finite, repeated
+    bitwise. Times one launch per event pair and the twin, and bounds it.
+    Returns (error, ms, plain_ms, bound_ms, bound_by)."""
+    got = pchb.cheb_dia_chunk(*args, **kw)
+    again = pchb.cheb_dia_chunk(*args, **kw)
+    want = pchb.cheb_dia_chunk_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-300)
+              for g, w in zip(got, want))
+    fin = all(bool(torch.isfinite(g).all()) for g in got)
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    ok = fin and repeat and rel <= tol
+    ms = cuda_ms(torch, lambda: pchb.cheb_dia_chunk(*args, **kw), reps)
+    plain_ms = cuda_ms(torch, lambda: pchb.cheb_dia_chunk_reference(
+        *args, **kw), 3)
+    n_ops, n_bytes = cheb_dia_counts(*args, **kw)
+    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
+    say(f"kernel cheb_dia_chunk {str(dtype)[6:]} {label}",
+        n=args[0].shape[0], diagonals=len(kw["offsets"]), n_it=kw["n_it"],
+        first=kw["first"], last=kw["last"], max_abs_err=err, max_rel_err=rel,
+        tol=tol, tol_on="rel", bitwise_vs_twin=bitwise,
+        bitwise_repeat=repeat, finite=fin, ms=ms, plain_ms=plain_ms,
+        operations=n_ops, bytes=n_bytes, bound_ms=bound_ms,
+        bound_by=bound_by, ok=ok)
+    if not ok:
+        raise AssertionError(f"cheb_dia_chunk disagrees at {label}, {dtype}")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def cheb_problem(torch, st, rng, budget=180):
+    """tet100k's A_hat (a BandedStepper's dia planes) and a global solve
+    as the first ADMM iteration poses it from rest: b = A x_rest + M dt^2
+    g, x = x_rest; z and d N(0,1) for chunks that are not the first; the
+    Chebyshev schedule of `budget` iterations from the operator's bounds.
+    Returns (args without c1/c2, (inv_theta, c1, c2), bounds)."""
+    dia, offs = st.planes["dia"], st.cfg.dia_offs
+    x = st.state["x"]
+    b = dia_apply(x, offs, dia)
+    b[:, 1] -= st.planes["mass"] * 9.8 * DT * DT
+    z, d = (torch.as_tensor(rng.standard_normal(x.shape), dtype=x.dtype,
+                            device=x.device) for _ in range(2))
+    bounds = dia_operator_bounds(dia.double().cpu().numpy(), offs)
+    inv_theta, c1, c2 = cheb_coefficients(budget, *bounds)
+    c1, c2 = (torch.as_tensor(c, dtype=x.dtype, device=x.device)
+              for c in (c1, c2))
+    return (b, x, z, d, st.planes["invd"], dia), (inv_theta, c1, c2), bounds
+
+
 def tri_inputs(torch, s, rng):
     """The cloth100k sheet's triangle-step inputs with every vertex moved
     by 0.2 grid spacings N(0,1) per axis (at rest F^T F is isotropic, a
@@ -670,6 +795,48 @@ def main():
         torch, "banded", arap100k(75, torch.float32, fast=True)._stepper,
         "arap100k cg75", torch.float32, 1e-4)
 
+    # phase 3l: the sharded stepper's local phase (banded_local_rhs)
+    # against its plain version: on the jittered 8x6x5 beam (anchors, floor,
+    # sphere, cylinder) in the nh, stvk and arap modes with vertex 0's
+    # anchor released (weight 0), and at tet100k's first ADMM iteration
+    for dtype in (torch.float64, torch.float32):
+        st = scenes.jittered_system(dtype=dtype)._stepper
+        planes = dict(st.planes, aw2=st.planes["aw2"].clone())
+        planes["aw2"][0] = 0.0
+        ins = local_inputs(torch, st, rng, 0.05)
+        for model in ("nh", "stvk", "arap"):
+            check_local(torch, f"jittered 8x6x5 {model}", ins, planes,
+                        dataclasses.replace(st.cfg, model=model), dtype,
+                        released=0)
+    local32 = {}
+    for dtype in (torch.float64, torch.float32):
+        st = tet100k(25, dtype, fast=True)._stepper
+        local32[dtype] = check_local(torch, "tet100k",
+                                     local_inputs(torch, st, rng, 0.002),
+                                     st.planes, st.cfg, dtype)
+        del st
+
+    # phase 3m: the Chebyshev chunk (cheb_dia_chunk) against its plain
+    # version on tet100k's own A_hat: the init-only first chunk, a middle
+    # chunk of 20 iterations, and the whole cheb180 solve of one launch
+    # (n_it = 179, first = last = True)
+    cheb32 = {}
+    for dtype in (torch.float64, torch.float32):
+        st = tet100k(25, dtype, fast=True)._stepper
+        args, (inv_theta, c1, c2), bounds = cheb_problem(torch, st, rng)
+        say(f"cheb bounds tet100k {str(dtype)[6:]}", lmin=bounds[0],
+            lmax=bounds[1], inv_theta=inv_theta)
+        for label, n_it, first, last, lo in (("first", 0, True, False, 0),
+                                             ("middle", 20, False, False, 50),
+                                             ("whole cheb180", 179, True,
+                                              True, 0)):
+            cheb32[(dtype, label)] = check_cheb(
+                torch, label, (*args, c1[lo:lo + max(n_it, 1)],
+                               c2[lo:lo + max(n_it, 1)]),
+                dict(offsets=st.cfg.dia_offs, n_it=n_it, first=first,
+                     last=last, inv_theta=inv_theta), dtype)
+        del st, args
+
     # phase 4: small scenes of every general route, card vs CPU, and
     # determinism on the card: the 6x4x4 slice on dia and with bare
     # Settings() ('auto': dense), a LinearTetStrain beam on dia, dense and
@@ -838,7 +1005,89 @@ def main():
                                  "the banded route)")
     for cg, s in lat.items():
         profile_step.profile(cg, WINDOW_STEPS, "lattice", s=s)
-    del lat, banded_x
+    del lat
+
+    # phase 5h: tet100k on the sharded banded stepper at one device, f32:
+    # cg25, cg75 (the Jacobi-PCG in plain torch) and cheb180 (one
+    # cheb_dia_chunk launch per solve); banded_local_rhs once per ADMM
+    # iteration throughout. Each run against the banded route of phase 5b
+    # at the same budget (cheb180: at cg75, its matched counterpart) and
+    # at cg75, beside its own divergence from a start moved by 1e-6 m
+    sharded = {key: tet100k_sharded(*key) for key in SHARDED}
+    for (solver, budget), sp in sharded.items():
+        if not isinstance(sp, ShardedBandedStepper) or sp.backend != "pallas":
+            raise AssertionError(f"{solver}{budget}: the sharded stepper did "
+                                 "not engage its kernels")
+        if solver == "cheb":
+            say(f"cheb bounds sharded {solver}{budget}",
+                lmin=sp.cheb_bounds[0], lmax=sp.cheb_bounds[1])
+    sh_runs = {}
+    launches["banded_local"] = launches["cheb"] = 0
+    for (solver, budget), sp in sharded.items():
+        reset_launches()
+        med, windows = drive(torch, sp)
+        counts = {k.__name__: k.launches for k in KERNELS}
+        sh_runs[(solver, budget)] = (med, windows, counts)
+        launches["banded_local"] += pbl.banded_local_rhs.launches
+        launches["cheb"] += pchb.cheb_dia_chunk.launches
+    sens = {}
+    for key in SHARDED:
+        p = tet100k_sharded(*key)
+        x0 = p.state["x"]
+        p.state["x"] = x0 + torch.as_tensor(
+            1e-6 * np.random.default_rng(1).standard_normal(tuple(x0.shape)),
+            dtype=x0.dtype, device=x0.device)
+        p.run(steps)
+        sens[key] = float(np.abs(p.x - sharded[key].x).max())
+        del p
+    bad = []
+    for (solver, budget), (med, windows, counts) in sh_runs.items():
+        sp = sharded[(solver, budget)]
+        x, rest = sp.x, sp.base.x
+        anchored = np.flatnonzero(rest[:, 0] < 1e-9)
+        drift = float(np.abs(x[anchored] - rest[anchored]).max())
+        sag = float((x[:, 1] - rest[:, 1]).min())
+        fin = bool(np.isfinite(x).all())
+        trusted = banded_x[budget if solver == "cg" else 75]
+        vs_trusted = float(np.abs(x - trusted).max())
+        per_step = {k: v / steps for k, v in counts.items() if v}
+        say(f"tet100k sharded {solver}{budget} f32", ms_per_step_median=med,
+            windows_ms=[round(w, 4) for w in windows],
+            spread_ms=max(windows) - min(windows), steps=steps,
+            launches_per_step=per_step, anchor_drift_m=drift, min_dy_m=sag,
+            max_abs_dx_vs_banded_trusted_m=vs_trusted,
+            trusted=f"banded cg{budget if solver == 'cg' else 75}",
+            max_abs_dx_vs_banded_cg75_m=float(
+                np.abs(x - banded_x[75]).max()),
+            perturbed_start_divergence_m=sens[(solver, budget)], finite=fin)
+        say(f"sharded routes {solver}{budget} f32 (this call)",
+            banded_ms_per_step=banded_ms[budget if solver == "cg" else 75],
+            sharded_ms_per_step=med)
+        if solver == "cheb":
+            local_ms = ADMM_ITERS * local32[torch.float32][1]
+            solve_ms = ADMM_ITERS * cheb32[(torch.float32,
+                                             "whole cheb180")][1]
+            say(f"attribution sharded {solver}{budget}",
+                banded_local_ms=local_ms, cheb_dia_ms=solve_ms,
+                rest_ms=med - local_ms - solve_ms)
+        want = {k.__name__: 0 for k in KERNELS}
+        want["banded_local_rhs"] = steps * ADMM_ITERS
+        if solver == "cheb":
+            want["cheb_dia_chunk"] = steps * ADMM_ITERS
+        if counts != want:
+            bad.append(f"{solver}{budget}: launches {counts}, expected {want}")
+        if not (fin and drift < 1e-4 and sag < 0
+                and vs_trusted <= max(1e-3, 10.0 * sens[(solver, budget)])):
+            bad.append(f"{solver}{budget}: bad trajectory ({vs_trusted} m "
+                       "from the banded route)")
+    if bad:
+        raise AssertionError("sharded routes: " + "; ".join(bad))
+    # the cg rows over one step: each holds ~25,000 (cg25) to ~72,000
+    # (cg75) launches, and a trace that loses a record is taken again
+    for (solver, budget), sp in sharded.items():
+        profile_step.profile(budget, WINDOW_STEPS if solver == "cheb" else 1,
+                             "sharded", s=sp, solver=solver)
+    del sharded, banded_x
 
     # phase 5c: cloth100k on the general and the cloth route, f32
     gen = {cg: cloth100k(cg, torch.float32, fast=False)
@@ -1197,6 +1446,10 @@ def main():
               launches["lattice"], *lattice32),
         entry("banded_rollout[arap]", "banded_step.cu", "banded_step.py:1090",
               launches["banded_arap"], *bandedarap32),
+        entry("banded_local_rhs", "banded_local.cu", "banded_local.py:335",
+              launches["banded_local"], *local32[torch.float32]),
+        entry("cheb_dia_chunk", "cheb_dia.cu", "cheb_dia.py:112",
+              launches["cheb"], *cheb32[(torch.float32, "whole cheb180")]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

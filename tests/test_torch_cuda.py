@@ -1,6 +1,8 @@
 """Hand-written kernels against their plain twins on a CUDA device: those of
 the ell routes, the element steps of the unfused pipeline and of
-LinearTetStrain, the lattice kernel and the banded kernel's arap mode. Every case is marked `cuda` and skips without a card. This
+LinearTetStrain, the lattice kernel, the banded kernel's arap mode, and
+the sharded banded stepper's local phase (banded_local_rhs) and Chebyshev
+chunk (cheb_dia_chunk). Every case is marked `cuda` and skips without a card. This
 file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed (tests/conftest.py sets JAX up, hence --noconftest):
 
@@ -13,7 +15,12 @@ so its window compares at chip_smoke.py's 1e-8 (f64), as do the lattice
 kernel's and the banded arap mode's. The element steps
 (nh_local_step, tri_local_step, arap_local_step_fused, arap_local_step)
 are built without FMA contraction and use correctly rounded sqrt and
-division, as their twins do on the card: bitwise."""
+division, as their twins do on the card: bitwise. banded_local_rhs runs
+the banded kernel's element and vertex phases (1e-12 relative in f64,
+1e-4 in f32: a last-bit difference may move a Newton tie); cheb_dia_chunk
+repeats its twin's arithmetic in its order (1e-12 / 1e-5 relative)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -21,10 +28,15 @@ import torch
 
 from admm_elastic_tpu_torch.core import solver
 from admm_elastic_tpu_torch.core.lattice import LatticeStepper
-from admm_elastic_tpu_torch.ops.kernels import (banded_step, cg_ell, cg_step,
-                                                lattice_step, nh_local,
-                                                tet_local, tri_local)
-from admm_elastic_tpu_torch.utils.scenes import beam_system, small_delaunay
+from admm_elastic_tpu_torch.ops.kernels import (_build, banded_local,
+                                                banded_step, cg_ell, cg_step,
+                                                cheb_dia, lattice_step,
+                                                nh_local, tet_local,
+                                                tri_local)
+from admm_elastic_tpu_torch.parallel.cheb import (cheb_coefficients,
+                                                  dia_operator_bounds)
+from admm_elastic_tpu_torch.utils.scenes import (beam_system, jittered_system,
+                                                 small_delaunay)
 
 DTYPES = [torch.float64, torch.float32]
 
@@ -174,3 +186,101 @@ def test_banded_arap_kernel_matches_twin():
                                                 10)
     assert float((got["x"] - want["x"]).abs().max()) < 1e-8
     assert torch.equal(got["warm"], st.state["warm"])  # arap leaves it
+
+
+def _rel(got, want):
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-300)
+               for g, w in zip(got, want))
+
+
+def _local_inputs(model, dtype, dev):
+    """The jittered 4 x 3 x 3 beam's banded stepper (anchors, floor,
+    sphere, cylinder; arap: a LinearTetStrain beam) with x moved by
+    0.02 m N(0,1) and random duals, so that every branch runs."""
+    if model == "arap":
+        st = beam_system((4, 3, 3), 0.25, 2.0, 25, dtype, "cuda", fast=True,
+                         arap=True)._stepper
+    else:
+        st = jittered_system((4, 3, 3), 25, dtype, "cuda")._stepper
+        if model == "stvk":
+            st.cfg = dataclasses.replace(st.cfg, model="stvk")
+    rng = np.random.default_rng(5)
+
+    def noise(shape, scale):
+        return torch.as_tensor(scale * rng.standard_normal(shape),
+                               dtype=dtype, device=dev)
+
+    x = st.state["x"] + noise(st.state["x"].shape, 0.02)
+    E = st.n_elements
+    return st, (x, noise(x.shape, 0.01), noise(x.shape, 0.01),
+                noise((9, E), 0.01), st.state["warm"] + 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["nh", "stvk", "arap"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_banded_local_kernel_matches_twin(dtype, model):
+    dev = _cuda()
+    st, ins = _local_inputs(model, dtype, dev)
+    n0 = banded_local.banded_local_rhs.launches
+    got = banded_local.banded_local_rhs(*ins, st.planes, st.cfg)
+    again = banded_local.banded_local_rhs(*ins, st.planes, st.cfg)
+    assert banded_local.banded_local_rhs.launches == n0 + 2
+    want = banded_local.banded_local_rhs_reference(*ins, st.planes, st.cfg)
+    assert _rel(got, want) < (1e-12 if dtype == torch.float64 else 1e-4)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+        assert bool(torch.isfinite(g).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_it,first,last", [
+    (0, True, False), (1, False, False), (7, False, True), (40, True, True)])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_cheb_dia_kernel_matches_twin(dtype, n_it, first, last):
+    """The chunk on the jittered 4 x 3 x 3 beam's A_hat: init-only, a
+    middle chunk, a last chunk and a whole 41-iteration solve."""
+    dev = _cuda()
+    st = jittered_system((4, 3, 3), 25, dtype, "cuda")._stepper
+    dia, offs = st.planes["dia"], st.cfg.dia_offs
+    inv_theta, c1, c2 = cheb_coefficients(
+        41, *dia_operator_bounds(dia.double().cpu().numpy(), offs))
+    rng = np.random.default_rng(n_it)
+    b, x, z, d = (torch.as_tensor(rng.standard_normal(st.state["x"].shape),
+                                  dtype=dtype, device=dev) for _ in range(4))
+    c1, c2 = (torch.as_tensor(c if n_it else np.zeros(1), dtype=dtype,
+                              device=dev) for c in (c1[:max(n_it, 1)],
+                                                    c2[:max(n_it, 1)]))
+    args = (b, x, z, d, st.planes["invd"], dia, c1, c2)
+    kw = dict(offsets=offs, n_it=n_it, first=first, last=last,
+              inv_theta=inv_theta)
+    n0 = cheb_dia.cheb_dia_chunk.launches
+    got = cheb_dia.cheb_dia_chunk(*args, **kw)
+    again = cheb_dia.cheb_dia_chunk(*args, **kw)
+    assert cheb_dia.cheb_dia_chunk.launches == n0 + 2
+    want = cheb_dia.cheb_dia_chunk_reference(*args, **kw)
+    assert _rel(got, want) < (1e-12 if dtype == torch.float64 else 1e-5)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_without_their_build(monkeypatch):
+    """No fallback: on a CUDA tensor a wrapper whose library cannot be
+    built raises; it never runs its twin instead."""
+    dev = _cuda()
+    st, ins = _local_inputs("nh", torch.float32, dev)
+
+    def missing():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_build, "load_library", missing)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        banded_local.banded_local_rhs(*ins, st.planes, st.cfg)
+    x = ins[0]
+    c = torch.zeros(1, dtype=x.dtype, device=dev)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cheb_dia.cheb_dia_chunk(x, x, x, x, st.planes["invd"],
+                                st.planes["dia"], c, c,
+                                offsets=st.cfg.dia_offs, n_it=0, first=True,
+                                last=True, inv_theta=1.0)

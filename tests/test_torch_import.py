@@ -3,8 +3,9 @@ and NeoHookean on the default dense mode), a LinearTetStrain beam (dia, and
 cg with over-relaxation), a beam lattice on the lattice route (cg) and the
 banded route's arap mode (dia), a cloth (general and cloth routes) and a Delaunay
 tet mesh (the ell route with each CG backend, and the banded route's ELL
-matvec) with jax made unimportable, and no source file of the package
-imports jax or the JAX package."""
+matvec), and the sharded banded stepper (cg and cheb solves) with jax
+made unimportable, and no source file of the package imports jax or the
+JAX package."""
 
 import ast
 import os
@@ -97,6 +98,11 @@ for fast, backend in ((False, "xla"), (False, "fused"), (False, "kernel"),
     assert d._solver_mode == "ell" and (d._stepper is not None) == fast
     d.run(2)
     assert np.isfinite(d.x).all() and d.x[:, 1].min() < d._x[:, 1].min()
+from admm_elastic_tpu_torch.parallel import sharded_banded_from_system
+for solver in ("cg", "cheb"):
+    sp, _ = sharded_banded_from_system(s, solver=solver, cheb_iters=8)
+    sp.run(2)
+    assert np.isfinite(sp.x).all() and sp.x[:, 1].min() < 0
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print("OK")

@@ -191,3 +191,47 @@ def test_local_step_counts_are_per_element(kernel, planes, vectors, floats):
     (o1, b1), (o2, b2) = counts(40, 0), counts(80, 1)
     assert o2 == 2 * o1 and o1 > 100 * 40
     assert b1 == 40 * floats * 8 and b2 == 2 * b1
+
+
+def test_cheb_dia_counts_one_iteration():
+    """One more Chebyshev iteration adds the dia matvec (6n per diagonal:
+    a product and a sum per value), 3n for x += d, 6n for z -= D^-1 A d
+    and 9n for d = c1 d + c2 z; a first chunk reads b but not z and d."""
+    from admm_elastic_tpu_torch.utils.opcount import cheb_dia_counts
+    from admm_elastic_tpu_torch.utils.scenes import jittered_system
+
+    st = jittered_system((4, 3, 3), device="cpu")._stepper
+    x, dia, offs = st.state["x"], st.planes["dia"], st.cfg.dia_offs
+    c = torch.full((4,), 0.5, dtype=x.dtype)
+    n, D = x.shape[0], len(offs)
+
+    def counts(n_it, first):
+        return cheb_dia_counts(x, x, x, x, st.planes["invd"], dia, c, c,
+                               offsets=offs, n_it=n_it, first=first,
+                               last=True, inv_theta=0.7)
+
+    (o2, b2), (o3, b3) = counts(2, True), counts(3, True)
+    assert o3 - o2 == 6 * n * D + 18 * n
+    assert b3 - b2 == 2 * 8  # one more c1 and c2
+    # b, x, invd, dia, c1, c2 read; x, z, d written
+    assert b2 == 8 * (3 * n + 3 * n + n + D * n + 2 * 2 + 9 * n)
+    _, b_mid = counts(2, False)  # z and d in place of b
+    assert b_mid == b2 + 8 * 3 * n
+
+
+def test_banded_local_counts_bytes():
+    """banded_local_rhs reads x, au, cu (n,3), u (9,E), warm (3,E) and the
+    nine planes it uses, and writes b, au', cu', u', warm'."""
+    from admm_elastic_tpu_torch.ops.kernels import banded_local
+    from admm_elastic_tpu_torch.utils.opcount import (banded_local_counts,
+                                                      nbytes)
+    from admm_elastic_tpu_torch.utils.scenes import jittered_system
+
+    st = jittered_system((4, 3, 3), device="cpu")._stepper
+    s = st.state
+    ins = (s["x"], s["au"], s["cu"], s["u"], s["warm"])
+    ops, n_bytes = banded_local_counts(*ins, st.planes, st.cfg)
+    n, E = st.n_nodes, st.n_elements
+    planes = nbytes([st.planes[k] for k in banded_local.PLANES])
+    assert n_bytes == 2 * 8 * (9 * n + 12 * E) + planes
+    assert ops > 1000 * E  # the SVD and the Newton prox per element
