@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def _assemble_A_hat_csr(n, masses, dt, force_params):
@@ -140,15 +139,15 @@ def assemble_transpose_incidence(n, force_params, order, pad_to: int = 8):
 
 
 def dia_apply(x: torch.Tensor, offsets, dia_vals: torch.Tensor) -> torch.Tensor:
-    """A_hat @ x via diagonals: (n,3) -> (n,3). Reads past either end are 0."""
+    """A_hat @ x via diagonals: (n,3) -> (n,3). Terms past either end are
+    skipped, as the kernels skip them: diagonal d adds to rows lo..hi only,
+    the rows i with 0 <= i + off_d < n."""
     n = x.shape[0]
     out = torch.zeros_like(x)
     for d, off in enumerate(offsets):
-        if off >= 0:
-            shifted = F.pad(x[off:], (0, 0, 0, min(off, n)))
-        else:
-            shifted = F.pad(x[: max(n + off, 0)], (0, 0, min(-off, n), 0))
-        out = out + dia_vals[d][:, None] * shifted
+        lo, hi = max(0, -off), min(n, n - off)
+        if lo < hi:
+            out[lo:hi] += dia_vals[d, lo:hi, None] * x[lo + off:hi + off]
     return out
 
 

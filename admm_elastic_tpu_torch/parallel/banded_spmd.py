@@ -81,13 +81,14 @@ class ShardedBandedStepper:
 
     `state` holds the base's keys: x, v, au (anchor dual), cu (collision
     dual) (n,3); u (9,E) and warm (3,E) element duals; t. `axis`,
-    `mg_cycles` and `system` are the JAX signature's: at one device, with
-    no multigrid and no `refresh_params`, they select nothing.
+    `mg_cycles` and `system` keep the JAX signature and are ignored: at
+    one device there is no mesh axis to shard over, and the multigrid
+    (ROADMAP A6) and `refresh_params` (ROADMAP 2e) that read the others
+    are not ported.
     """
 
     model_name = "banded_spmd"
-    #: kept for the JAX stepper's API: `run` steps one at a time (there is
-    #: no compiled window to amortize in eager PyTorch)
+    #: steps per window of `run`, as the JAX stepper's scanned windows
     ROLLOUT_WINDOW = 10
 
     def __init__(self, base: BandedStepper, mesh=None, axis: str = "elem",
@@ -199,9 +200,14 @@ class ShardedBandedStepper:
                                   c1, c2, **kw)
         return x
 
-    def step(self):
+    def _advance(self, st, n_steps):
+        """n_steps timesteps from the state dict st; returns the new one."""
+        for _ in range(n_steps):
+            st = self._timestep(st)
+        return st
+
+    def _timestep(self, st):
         cfg, planes = self.cfg, self.base.planes
-        st = self.state
         x, v = st["x"], st["v"]
         dt, dt2, inv_dt, dtg = self._scalars
         mass = planes["mass"][:, None]
@@ -217,13 +223,21 @@ class ShardedBandedStepper:
         for _ in range(self.admm_iters):
             b, au, cu, u, warm = local(x, au, cu, u, warm, planes, cfg)
             x = solve(x, mxbar + dt2 * b)
-        self.state = {"x": x, "v": (x - x_pre) * inv_dt, "u": u,
-                      "warm": warm, "au": au, "cu": cu,
-                      "t": st["t"] + cfg.dt}
+        return {"x": x, "v": (x - x_pre) * inv_dt, "u": u, "warm": warm,
+                "au": au, "cu": cu, "t": st["t"] + cfg.dt}
+
+    def step(self):
+        self.state = self._timestep(self.state)
         return True
 
     def run(self, n_steps: int):
-        for _ in range(int(n_steps)):
+        """n_steps timesteps: ROLLOUT_WINDOW-step windows, each writing the
+        state back once at its end as the JAX stepper's scanned window
+        does, then the remainder one step at a time."""
+        full, rem = divmod(int(n_steps), self.ROLLOUT_WINDOW)
+        for _ in range(full):
+            self.state = self._advance(self.state, self.ROLLOUT_WINDOW)
+        for _ in range(rem):
             self.step()
         return True
 

@@ -129,9 +129,9 @@ def cheb_dia_counts(b, x, z, d, invd, dia, c1, c2, *, offsets, n_it, first,
                     last, inv_theta):
     """(operations, bytes) of one `cheb_dia_chunk`: what it reads (b with
     `first`, else z and d; n_it coefficients each) once, x, z, d written
-    once; the matrix counts once however often the iterations read it. The
-    twin's matvec also multiplies the zero fill past either end, which
-    the kernel skips (a few per cent of the matvec at tet100k)."""
+    once; the matrix counts once however often the iterations read it.
+    The matvec counts only the terms inside the matrix, as the kernel
+    computes only those (`dia_apply`)."""
     ops, out = count_ops(cheb_dia.cheb_dia_chunk_reference, b, x, z, d, invd,
                          dia, c1, c2, offsets=offsets, n_it=n_it, first=first,
                          last=last, inv_theta=inv_theta)

@@ -193,42 +193,58 @@ def separated(F9):
 
 
 def check_element(torch, label, kernel, twin, ins, dtype, tol, tol_on,
-                  mask=None, **kw):
-    """An element-step kernel against its plain twin on the same inputs
-    (cast to dtype): every output within tol ('abs' or 'rel' to the largest
-    twin value) over the elements of `mask` (all by default), finite, and
-    repeated bitwise; 'bitwise_vs_twin' says whether kernel and twin agree
-    to the last bit. Times the kernel over batches of 20 launches and the
-    twin, and bounds it by its twin's operations and bytes. Returns (error,
-    ms, plain_ms, bound_ms, bound_by)."""
+                  mask=None, counts=None, gates=None, info=None, reps=10,
+                  batch=20, plain_reps=5, **kw):
+    """A kernel against its plain twin on the same inputs (cast to dtype):
+    every output within tol ('abs' or 'rel' to the largest twin value),
+    over the element columns of `mask` or, with no mask, over every value;
+    finite; repeated bitwise; and every extra predicate of `gates` (name ->
+    fn(got, want)) true. 'bitwise_vs_twin' says whether kernel and twin
+    agree to the last bit. Times the kernel (reps samples of `batch`
+    launches) and the twin, and bounds it by `counts(*ins, **kw)`
+    (operations, bytes), by default its twin's. Returns (error, ms,
+    plain_ms, bound_ms, bound_by)."""
     ins = [t.to(dtype) for t in ins]
     got = kernel(*ins, **kw)
     again = kernel(*ins, **kw)
     want = twin(*ins, **kw)
     torch.cuda.synchronize()
-    E = ins[0].shape[1]
-    m = np.ones(E, bool) if mask is None else mask
     err, rel = 0.0, 0.0
     for g, w in zip(got, want):
-        d = (g - w).abs().amax(dim=0).double().cpu().numpy()[m]
-        scale = float(w.abs().amax(dim=0).double().cpu().numpy()[m].max())
-        err = max(err, float(d.max()))
-        rel = max(rel, float(d.max()) / scale)
+        if mask is None:
+            d, scale = float((g - w).abs().max()), float(w.abs().max())
+        else:
+            d = float((g - w).abs().amax(dim=0).double().cpu().numpy()[mask]
+                      .max())
+            scale = float(w.abs().amax(dim=0).double().cpu().numpy()[mask]
+                          .max())
+        err = max(err, d)
+        rel = max(rel, d / max(scale, 1e-300))
     fin = all(bool(torch.isfinite(g).all()) for g in got)
     bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
     repeat = all(torch.equal(g, a) for g, a in zip(got, again))
-    ok = fin and repeat and (err if tol_on == "abs" else rel) <= tol
-    ms = cuda_ms(torch, lambda: kernel(*ins, **kw), 10, batch=20)
-    plain_ms = cuda_ms(torch, lambda: twin(*ins, **kw), 5)
-    n_ops, n_bytes = twin_counts(twin, *ins, **kw)
+    gated = {k: bool(fn(got, want)) for k, fn in (gates or {}).items()}
+    ok = (fin and repeat and all(gated.values())
+          and (err if tol_on == "abs" else rel) <= tol)
+    ms = cuda_ms(torch, lambda: kernel(*ins, **kw), reps, batch=batch)
+    plain_ms = cuda_ms(torch, lambda: twin(*ins, **kw), plain_reps)
+    if counts is None:
+        n_ops, n_bytes = twin_counts(twin, *ins, **kw)
+    else:
+        n_ops, n_bytes = counts(*ins, **kw)
     bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
-    say(f"kernel {label} {str(dtype)[6:]}", E=E, checked=int(m.sum()),
-        max_abs_err=err, max_rel_err=rel, tol=tol, tol_on=tol_on,
-        bitwise_vs_twin=bitwise, bitwise_repeat=repeat, finite=fin, ms=ms,
+    if info is None:
+        E = ins[0].shape[1]
+        info = dict(E=E, checked=E if mask is None else int(mask.sum()))
+    say(f"kernel {label} {str(dtype)[6:]}", **info, max_abs_err=err,
+        max_rel_err=rel, tol=tol, tol_on=tol_on, bitwise_vs_twin=bitwise,
+        bitwise_repeat=repeat, finite=fin, **gated, ms=ms,
         plain_ms=plain_ms, operations=n_ops, bytes=n_bytes,
         bound_ms=bound_ms, bound_by=bound_by, ok=ok)
     if not ok:
-        raise AssertionError(f"{label} disagrees with its twin in {dtype}")
+        raise AssertionError(f"{label} disagrees with its twin in {dtype}"
+                             + (f" at {info['case']}" if "case" in info
+                                else ""))
     return err, ms, plain_ms, bound_ms, bound_by
 
 
@@ -483,77 +499,37 @@ def local_inputs(torch, st, rng, jitter):
 
 
 def check_local(torch, label, ins, planes, cfg, dtype, released=None):
-    """banded_local_rhs against its plain twin on the same inputs: every
+    """banded_local_rhs against its plain twin (`check_element`): every
     output within 1e-12 (f64) or 1e-4 (f32) relative to its largest twin
-    value (a last-bit difference may move a Newton tie in f32), finite,
-    repeated bitwise; a released anchor's dual exactly 0. Times the call
-    over batches of 20 launches and the twin, and bounds it. Returns
-    (error, ms, plain_ms, bound_ms, bound_by)."""
-    got = pbl.banded_local_rhs(*ins, planes, cfg)
-    again = pbl.banded_local_rhs(*ins, planes, cfg)
-    want = pbl.banded_local_rhs_reference(*ins, planes, cfg)
-    torch.cuda.synchronize()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    rel = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-300)
-              for g, w in zip(got, want))
-    fin = all(bool(torch.isfinite(g).all()) for g in got)
-    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
-    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
-    tol = 1e-12 if dtype == torch.float64 else 1e-4
-    gated = (released is None
-             or (float(got[1][released].abs().max()) == 0.0
-                 and float(want[1][released].abs().max()) == 0.0))
-    ok = fin and repeat and gated and rel <= tol
-    ms = cuda_ms(torch, lambda: pbl.banded_local_rhs(*ins, planes, cfg), 10,
-                 batch=20)
-    plain_ms = cuda_ms(torch, lambda: pbl.banded_local_rhs_reference(
-        *ins, planes, cfg), 5)
-    n_ops, n_bytes = banded_local_counts(*ins, planes, cfg)
-    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
-    say(f"kernel banded_local_rhs {str(dtype)[6:]} {label}",
-        n=ins[0].shape[0], E=ins[3].shape[1], model=cfg.model,
-        shapes=len(cfg.coll_shapes), max_abs_err=err, max_rel_err=rel,
-        tol=tol, tol_on="rel", bitwise_vs_twin=bitwise,
-        bitwise_repeat=repeat, finite=fin, released_anchor_dual_zero=gated,
-        ms=ms, plain_ms=plain_ms, operations=n_ops, bytes=n_bytes,
-        bound_ms=bound_ms, bound_by=bound_by, ok=ok)
-    if not ok:
-        raise AssertionError(f"banded_local_rhs disagrees at {label}, {dtype}")
-    return err, ms, plain_ms, bound_ms, bound_by
+    value (a last-bit difference may move a Newton tie in f32); a released
+    anchor's dual exactly 0 in both."""
+    gates = {} if released is None else {
+        "released_anchor_dual_zero": lambda got, want: (
+            float(got[1][released].abs().max()) == 0.0
+            and float(want[1][released].abs().max()) == 0.0)}
+    return check_element(
+        torch, "banded_local_rhs", pbl.banded_local_rhs,
+        pbl.banded_local_rhs_reference, ins, dtype,
+        1e-12 if dtype == torch.float64 else 1e-4, "rel",
+        counts=banded_local_counts, gates=gates,
+        info=dict(case=label, n=ins[0].shape[0], E=ins[3].shape[1],
+                  model=cfg.model, shapes=len(cfg.coll_shapes)),
+        planes=planes, cfg=cfg)
 
 
-def check_cheb(torch, label, args, kw, dtype, reps=10):
-    """cheb_dia_chunk against its plain twin: x, z, d within 1e-10 (f64)
-    or 1e-4 (f32) relative to the largest twin value, finite, repeated
-    bitwise. Times one launch per event pair and the twin, and bounds it.
-    Returns (error, ms, plain_ms, bound_ms, bound_by)."""
-    got = pchb.cheb_dia_chunk(*args, **kw)
-    again = pchb.cheb_dia_chunk(*args, **kw)
-    want = pchb.cheb_dia_chunk_reference(*args, **kw)
-    torch.cuda.synchronize()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    rel = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-300)
-              for g, w in zip(got, want))
-    fin = all(bool(torch.isfinite(g).all()) for g in got)
-    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
-    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
-    tol = 1e-10 if dtype == torch.float64 else 1e-4
-    ok = fin and repeat and rel <= tol
-    ms = cuda_ms(torch, lambda: pchb.cheb_dia_chunk(*args, **kw), reps)
-    plain_ms = cuda_ms(torch, lambda: pchb.cheb_dia_chunk_reference(
-        *args, **kw), 3)
-    n_ops, n_bytes = cheb_dia_counts(*args, **kw)
-    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
-    say(f"kernel cheb_dia_chunk {str(dtype)[6:]} {label}",
-        n=args[0].shape[0], diagonals=len(kw["offsets"]), n_it=kw["n_it"],
-        first=kw["first"], last=kw["last"], max_abs_err=err, max_rel_err=rel,
-        tol=tol, tol_on="rel", bitwise_vs_twin=bitwise,
-        bitwise_repeat=repeat, finite=fin, ms=ms, plain_ms=plain_ms,
-        operations=n_ops, bytes=n_bytes, bound_ms=bound_ms,
-        bound_by=bound_by, ok=ok)
-    if not ok:
-        raise AssertionError(f"cheb_dia_chunk disagrees at {label}, {dtype}")
-    return err, ms, plain_ms, bound_ms, bound_by
+def check_cheb(torch, label, args, kw, dtype):
+    """cheb_dia_chunk against its plain twin (`check_element`): x, z, d
+    within 1e-10 (f64) or 1e-4 (f32) relative to the largest twin value;
+    timed one launch per event pair."""
+    return check_element(
+        torch, "cheb_dia_chunk", pchb.cheb_dia_chunk,
+        pchb.cheb_dia_chunk_reference, args, dtype,
+        1e-10 if dtype == torch.float64 else 1e-4, "rel",
+        counts=cheb_dia_counts,
+        info=dict(case=label, n=args[0].shape[0],
+                  diagonals=len(kw["offsets"]), n_it=kw["n_it"],
+                  first=kw["first"], last=kw["last"]),
+        batch=1, plain_reps=3, **kw)
 
 
 def cheb_problem(torch, st, rng, budget=180):

@@ -121,8 +121,9 @@ def test_banded_ell_rollout_counts_one_cg_iteration():
 
 def test_lattice_rollout_counts():
     """One more CG iteration per ADMM iteration adds the dia matvec (a
-    product and a sum per diagonal: 6nD) and the 36n + 6 vector and scalar
-    operations of a Jacobi-PCG iteration, per ADMM iteration; and the
+    product and a sum per term inside the matrix: 6(n - |off|) per
+    diagonal) and the 36n + 6 vector and scalar operations of a Jacobi-PCG
+    iteration, per ADMM iteration; and the
     element phase does no work on a group's zero selector coefficients."""
     import dataclasses
 
@@ -143,8 +144,9 @@ def test_lattice_rollout_counts():
 
     o3, b3 = counts(cfg)
     o4, b4 = counts(dataclasses.replace(cfg, cg_iters=4))
-    n, D = st.n_nodes, len(cfg.dia_offs)
-    assert o4 - o3 == cfg.admm_iters * (6 * n * D + 36 * n + 6)
+    n = st.n_nodes
+    matvec = sum(6 * (n - abs(off)) for off in cfg.dia_offs)
+    assert o4 - o3 == cfg.admm_iters * (matvec + 36 * n + 6)
     assert b3 == b4 > 0
     idx, grp, _ = lattice_step.lattice_tables(cfg.dims)
     members = [torch.as_tensor(np.flatnonzero(grp == g)) for g in range(10)]
@@ -194,9 +196,11 @@ def test_local_step_counts_are_per_element(kernel, planes, vectors, floats):
 
 
 def test_cheb_dia_counts_one_iteration():
-    """One more Chebyshev iteration adds the dia matvec (6n per diagonal:
-    a product and a sum per value), 3n for x += d, 6n for z -= D^-1 A d
-    and 9n for d = c1 d + c2 z; a first chunk reads b but not z and d."""
+    """One more Chebyshev iteration adds the dia matvec (a product and a
+    sum per term inside the matrix: 6(n - |off|) per diagonal, as the
+    kernel skips the terms past either end), 3n for x += d, 6n for
+    z -= D^-1 A d and 9n for d = c1 d + c2 z; a first chunk reads b but
+    not z and d."""
     from admm_elastic_tpu_torch.utils.opcount import cheb_dia_counts
     from admm_elastic_tpu_torch.utils.scenes import jittered_system
 
@@ -211,7 +215,9 @@ def test_cheb_dia_counts_one_iteration():
                                last=True, inv_theta=0.7)
 
     (o2, b2), (o3, b3) = counts(2, True), counts(3, True)
-    assert o3 - o2 == 6 * n * D + 18 * n
+    matvec = sum(6 * (n - abs(off)) for off in offs)
+    assert matvec < 6 * n * D  # the beam's offsets reach past both ends
+    assert o3 - o2 == matvec + 18 * n
     assert b3 - b2 == 2 * 8  # one more c1 and c2
     # b, x, invd, dia, c1, c2 read; x, z, d written
     assert b2 == 8 * (3 * n + 3 * n + n + D * n + 2 * 2 + 9 * n)

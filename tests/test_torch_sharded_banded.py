@@ -191,6 +191,18 @@ def test_repeats_bitwise(solver):
         assert torch.equal(a.state[k], b.state[k]), k
 
 
+def test_run_windows_match_single_steps():
+    """run(n) steps in ROLLOUT_WINDOW windows and then the remainder: two
+    windows of 2 and one step give the five single steps bitwise."""
+    a, b = _port("cg"), _port("cg")
+    a.ROLLOUT_WINDOW = 2
+    a.run(5)
+    for _ in range(5):
+        b.step()
+    for k in ("x", "v", "au", "cu", "u", "warm", "t"):
+        assert torch.equal(a.state[k], b.state[k]), k
+
+
 def test_detach_then_base_steps_on():
     spmd, ref = _pair("nh", "xla")
     spmd.run(2)
