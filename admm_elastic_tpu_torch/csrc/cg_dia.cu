@@ -6,35 +6,94 @@
 //
 // Solves A_hat X = B for X, B of shape (n,3) stored row-major. The matvec
 // is y[i] = sum_d dia[d,i] * x[i + off_d], diagonals summed in offset
-// order; reads past either end give 0 (dia.cuh).
+// order; reads past either end of the matrix give 0, as in dia.cuh's
+// dia_row (whose copy here reads the CTA's window of the vectors).
 //
-// What bounds it on this card: launches and L2 bytes. At the 100k-tet
-// beam (n = 22,386, 19 diagonals) one iteration moves about 2.5 MB in f32
-// (19 diagonal rows + the vectors), all of it L2-resident, and does ~1.6
-// Mflop: microseconds of work, so each iteration costs what its three
-// launches cost.
+// What bounds it on this card: latency, not bytes. At the 100k-tet beam
+// (n = 22,386, 19 diagonals) one iteration moves about 2.5 MB in f32 (19
+// diagonal rows + the vectors) and does ~1.6 Mflop: microseconds of work
+// behind two global reductions. The host loop it replaces paid three
+// launches an iteration (1 + 3 n_iters in all, ~5.5 us each).
 //
-// Design: one C entry point runs the whole solve from a host loop inside
-// this library (pcg_chain.cuh): 1 + 3 * n_iters launches on the caller's
-// stream, with no scalar ever read back to the host, fixed-order partial
-// sums and no atomics.
+// Design: ONE launch on one 16-CTA thread-block cluster (cluster_pcg.cuh):
+// every CTA keeps its slab of rows, a window of the vectors over the
+// band's reach (H = 567 rows at tet100k) and, where they fit (f32 at
+// tet100k: 19 x 1,400 rows), its diagonals in shared memory; the owners
+// push the band's edge rows of r and the dots' partials to the other CTAs
+// with remote stores, counted on mbarriers. Where the window does not fit
+// (f64 past ~25,000 rows of tet100k's band, f32 past ~60,000) the vectors
+// live in global memory and each stage ends with a cluster barrier: one
+// cluster's 16 SMs then move what the chain's 132 moved (PERF.md records
+// where one cluster stops paying). Fixed-order sums, no atomics.
 
+#include "cluster_pcg.cuh"
 #include "dia.cuh"
-#include "pcg_chain.cuh"
 
 namespace admm {
 namespace cg {
 
+// The dia row of the cluster solve: the CTA's diagonals (and the offsets)
+// staged into shared memory where they fit, else read from dia (D,n).
+template <typename T>
+struct DiaRows {
+  const T* __restrict__ dia;
+  dia::Offsets offs;
+  int D, n;
+
+  struct View {
+    const T* w;  // the slab's diagonal d at w[d * stride + li]
+    int stride;
+    const int* offs;
+  };
+
+  __device__ View stage(int lo, int rows, T* smem) const {
+    __shared__ int offs_s[dia::MAX_DIAGONALS];
+    for (int d = threadIdx.x; d < D; d += blockDim.x) offs_s[d] = offs.v[d];
+    if (smem == nullptr) return {dia + lo, n, offs_s};
+    for (int q = threadIdx.x; q < D * rows; q += blockDim.x) {
+      const int d = q / rows, li = q - d * rows;
+      smem[q] = dia[static_cast<size_t>(d) * n + lo + li];
+    }
+    return {smem, rows, offs_s};
+  }
+
+  template <typename Col>
+  __device__ __forceinline__ void operator()(const View& v, int i, int li,
+                                             const Col& col,
+                                             T out[3]) const {
+    T a0 = T(0), a1 = T(0), a2 = T(0);
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const int j = i + v.offs[d];
+      if (j >= 0 && j < n) {
+        const T w = v.w[static_cast<size_t>(d) * v.stride + li];
+        T c[3];
+        col(j, c);
+        a0 = a0 + w * c[0];
+        a1 = a1 + w * c[1];
+        a2 = a2 + w * c[2];
+      }
+    }
+    out[0] = a0;
+    out[1] = a1;
+    out[2] = a2;
+  }
+};
+
 template <typename T>
 int solve(const T* b, const T* x0, const T* diag, const T* dia_vals,
-          const int* offsets, int D, int n, int n_iters, T* x, T* r, T* p,
-          T* Ap, T* invd, T* partials, void* stream) {
+          const int* offsets, int D, int H, int n, int n_iters, T* x,
+          T* scratch, void* stream) {
   if (D < 1 || D > dia::MAX_DIAGONALS)
     return static_cast<int>(cudaErrorInvalidValue);
-  dia::Row<T> row{dia_vals, {}, D, n};
-  for (int d = 0; d < D; ++d) row.offs.v[d] = offsets[d];
-  return chain::solve<T>(row, b, x0, diag, n, n_iters, x, r, p, Ap, invd,
-                         partials, stream);
+  DiaRows<T> row{dia_vals, {}, D, n};
+  for (int d = 0; d < D; ++d) {
+    row.offs.v[d] = offsets[d];
+    if (offsets[d] > H || -offsets[d] > H)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return cluster_pcg::solve<T>(row, H, D, b, x0, diag, n, n_iters, x,
+                               scratch, stream);
 }
 
 }  // namespace cg
@@ -42,27 +101,45 @@ int solve(const T* b, const T* x0, const T* diag, const T* dia_vals,
 
 extern "C" {
 
-// offsets is a host array of D ints; invd (n) and partials
-// (cg_partials(n)) are scratch. Returns the first nonzero cudaError_t of
-// the launches, or 0.
+// offsets is a host array of D ints, H at least their largest magnitude;
+// scratch holds cg_cluster_plan's scratch count (nullptr when it is 0).
+// Returns the first nonzero cudaError_t of the checks and the launch
+// (cudaErrorInvalidClusterSize if the card cannot place the cluster), or
+// 0.
 int cg_dia_solve_f32(const float* b, const float* x0, const float* diag,
-                     const float* dia, const int* offsets, int D, int n,
-                     int n_iters, float* x, float* r, float* p, float* Ap,
-                     float* invd, float* partials, void* stream) {
-  return admm::cg::solve<float>(b, x0, diag, dia, offsets, D, n, n_iters, x,
-                                r, p, Ap, invd, partials, stream);
+                     const float* dia, const int* offsets, int D, int H,
+                     int n, int n_iters, float* x, float* scratch,
+                     void* stream) {
+  return admm::cg::solve<float>(b, x0, diag, dia, offsets, D, H, n, n_iters,
+                                x, scratch, stream);
 }
 
 int cg_dia_solve_f64(const double* b, const double* x0, const double* diag,
-                     const double* dia, const int* offsets, int D, int n,
-                     int n_iters, double* x, double* r, double* p, double* Ap,
-                     double* invd, double* partials, void* stream) {
-  return admm::cg::solve<double>(b, x0, diag, dia, offsets, D, n, n_iters, x,
-                                 r, p, Ap, invd, partials, stream);
+                     const double* dia, const int* offsets, int D, int H,
+                     int n, int n_iters, double* x, double* scratch,
+                     void* stream) {
+  return admm::cg::solve<double>(b, x0, diag, dia, offsets, D, H, n,
+                                 n_iters, x, scratch, stream);
 }
 
-// Length of the partials scratch of cg_dia_solve, cg_ell_solve and
-// cg_update for n rows.
-int cg_partials(int n) { return 3 * admm::chain::blocks_for(n); }
+// The layout of a cluster solve of n rows whose rows reach H rows away
+// (cg_dia_solve: mat_per_row = D; cg_ell_solve: 0) on the current device:
+// out = slab rows, window rows, vectors in shared memory (0/1), matrix
+// rows in shared memory (0/1), dynamic shared memory a CTA in bytes,
+// elements of global scratch. Returns a cudaError_t.
+int cg_cluster_plan(int n, int H, int mat_per_row, int elem_bytes,
+                    long long* out) {
+  admm::cluster_pcg::Plan p;
+  const int err = admm::cluster_pcg::plan_for_device(n, H, mat_per_row,
+                                                     elem_bytes, &p);
+  if (err != 0) return err;
+  out[0] = p.slab;
+  out[1] = p.window;
+  out[2] = p.vec_smem;
+  out[3] = p.mat_smem;
+  out[4] = p.smem_bytes;
+  out[5] = p.scratch;
+  return 0;
+}
 
 }  // extern "C"

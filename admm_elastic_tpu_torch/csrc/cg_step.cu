@@ -69,4 +69,8 @@ int cg_update_f64(const double* x, const double* r, const double* p,
                                     p_out, rz_out, partials, stream);
 }
 
+// Length of cg_update's partials scratch for n rows: the p.Ap and the
+// new rz partials, one of each per block.
+int cg_partials(int n) { return 2 * admm::chain::blocks_for(n); }
+
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Sparse-DIAgonal matvec rows and fixed-order partial sums: the device
-// functions shared by the Jacobi-PCG kernels (cg_dia.cu) and the whole-
-// timestep kernels (banded_step.cu, cloth_step.cu).
+// functions shared by the whole-timestep kernels (banded_step.cu,
+// cloth_step.cu) and the CG chain (pcg_chain.cuh); the cluster solve
+// (cg_dia.cu) takes its offset table and reads its rows as dia_row does.
 #pragma once
 
 #include "common.cuh"
@@ -35,18 +36,6 @@ __device__ __forceinline__ void dia_row(const T* __restrict__ dia,
   out[1] = a1;
   out[2] = a2;
 }
-
-// dia_row as a row functor (pcg_chain.cuh, coop_pcg.cuh).
-template <typename T>
-struct Row {
-  const T* dia;  // (D,n)
-  Offsets offs;
-  int D, n;
-  __device__ __forceinline__ void operator()(int i, const T* x,
-                                             T out[3]) const {
-    dia_row(dia, offs, D, n, i, x, out);
-  }
-};
 
 // out = row i of A x for a symmetric A stored at offsets >= 0 only
 // (dia[d,i] = A[i, i+off_d]), in the cloth Pallas kernel's order: per

@@ -1,6 +1,6 @@
-// ELL (ELLPACK) matvec rows: the row functor shared by the Jacobi-PCG
-// kernel for any mesh (cg_ell.cu) and the banded whole-timestep kernel's
-// ELL mode (banded_step.cu).
+// ELL (ELLPACK) matvec rows: the row of the banded whole-timestep
+// kernel's ELL mode (banded_step.cu); the cluster solve (cg_ell.cu) reads
+// its rows in the same slot order.
 #pragma once
 
 #include "common.cuh"
@@ -29,18 +29,6 @@ __device__ __forceinline__ void ell_row(const int* __restrict__ idx,
   out[1] = a1;
   out[2] = a2;
 }
-
-// ell_row as a row functor (pcg_chain.cuh).
-template <typename T>
-struct Row {
-  const int* idx;
-  const T* vals;
-  int K;
-  __device__ __forceinline__ void operator()(int i, const T* x,
-                                             T out[3]) const {
-    ell_row(idx, vals, K, i, x, out);
-  }
-};
 
 }  // namespace ell
 }  // namespace admm

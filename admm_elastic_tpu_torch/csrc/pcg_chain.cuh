@@ -1,22 +1,21 @@
-// Jacobi-PCG as a chain of plain launches: the kernels shared by the
-// whole-solve entry points (cg_dia.cu, cg_ell.cu: one host loop, 1 + 3k
-// launches, no read-back) and the single fused update (cg_step.cu).
+// Jacobi-PCG vector updates as a chain of plain launches: the kernels of
+// the single fused update (cg_step.cu; the whole solves, cg_dia.cu and
+// cg_ell.cu, run on one cluster instead: cluster_pcg.cuh).
 //
 // Vectors are (n,3) row-major; the three columns are one system, so alpha
 // and beta are single scalars over all 3n values, with the pAp > 0 and
 // rz > 0 guards of the reference. Blocks cannot sync with each other
-// without a cooperative launch, so each iteration is split where a global
+// without a cooperative launch, so the update is split where a global
 // reduction is needed:
-//   matvec_dot : Ap = A p, per-block partial sums of p.Ap
+//   dot        : per-block partial sums of p.Ap
 //   update     : every block sums the pAp partials itself (same fixed
 //                order in every block), alpha; x += alpha p;
 //                r -= alpha Ap; partial sums of r.(D^-1 r)
-//   direction  : every block sums both rz partial sets (old, new), beta;
+//   direction  : every block sums the new rz partials, beta;
 //                p = D^-1 r + beta p
-// The matvec is a row functor, row(i, y, out) = row i of A y (dia.cuh,
-// ell.cuh). All reductions are fixed-order trees, never atomics: two runs
-// are bitwise equal. Input and output vectors of update and direction may
-// be the same buffer (each thread reads its own entries before it writes
+// All reductions are fixed-order trees, never atomics: two runs are
+// bitwise equal. Input and output vectors of update and direction may be
+// the same buffer (each thread reads its own entries before it writes
 // them), so those pointers carry no __restrict__.
 #pragma once
 
@@ -30,58 +29,8 @@ constexpr int THREADS = 256;
 inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
 
 // Internal linkage: every source that includes this header gets its own
-// copies of the kernels and of the solve loop.
+// copies of the kernels.
 namespace {
-
-// r = b - A x0; x = x0; invd = 1 / diag; p = invd r; partials of r.p
-template <typename T, typename Row>
-__global__ void __launch_bounds__(THREADS)
-    init_kernel(const Row row, const T* __restrict__ b,
-                const T* __restrict__ x0, const T* __restrict__ diag, int n,
-                T* __restrict__ x, T* __restrict__ r, T* __restrict__ p,
-                T* __restrict__ invd_out, T* __restrict__ rz_part) {
-  __shared__ T sh[THREADS];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  T local = T(0);
-  if (i < n) {
-    T ax[3];
-    row(i, x0, ax);
-    const T invd = T(1) / diag[i];
-    invd_out[i] = invd;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const T ri = b[3 * i + c] - ax[c];
-      const T zi = invd * ri;
-      r[3 * i + c] = ri;
-      p[3 * i + c] = zi;
-      x[3 * i + c] = x0[3 * i + c];
-      local = local + ri * zi;
-    }
-  }
-  const T tot = block_sum(local, sh);
-  if (threadIdx.x == 0) rz_part[blockIdx.x] = tot;
-}
-
-// Ap = A p; partials of p.Ap
-template <typename T, typename Row>
-__global__ void __launch_bounds__(THREADS)
-    matvec_dot_kernel(const Row row, const T* __restrict__ p, int n,
-                      T* __restrict__ Ap, T* __restrict__ pap_part) {
-  __shared__ T sh[THREADS];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  T local = T(0);
-  if (i < n) {
-    T ap[3];
-    row(i, p, ap);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      Ap[3 * i + c] = ap[c];
-      local = local + p[3 * i + c] * ap[c];
-    }
-  }
-  const T tot = block_sum(local, sh);
-  if (threadIdx.x == 0) pap_part[blockIdx.x] = tot;
-}
 
 // partials of p.Ap, for an Ap computed outside (the fused update)
 template <typename T>
@@ -149,42 +98,6 @@ __global__ void __launch_bounds__(THREADS)
   }
   if (rz_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
     *rz_out = rz_new;
-}
-
-// A whole fixed-iteration solve from a host loop. Scratch: r, p, Ap (3n
-// each), invd (n), partials (3 * blocks_for(n)): pAp, rz[0], rz[1]; the rz
-// partials ping-pong between two arrays, so no kernel reads a value another
-// block of the same launch writes. Returns the first nonzero cudaError_t.
-template <typename T, typename Row>
-int solve(const Row& row, const T* b, const T* x0, const T* diag, int n,
-          int n_iters, T* x, T* r, T* p, T* Ap, T* invd, T* partials,
-          void* stream) {
-  if (n < 1 || n_iters < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = blocks_for(n);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  T* pap = partials;
-  T* rz[2] = {partials + nb, partials + 2 * nb};
-  cudaError_t err;
-
-  init_kernel<T, Row><<<nb, THREADS, 0, st>>>(row, b, x0, diag, n, x, r, p,
-                                              invd, rz[0]);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  for (int it = 0; it < n_iters; ++it) {
-    const T* rz_old = rz[it & 1];
-    T* rz_new = rz[(it + 1) & 1];
-    matvec_dot_kernel<T, Row><<<nb, THREADS, 0, st>>>(row, p, n, Ap, pap);
-    if ((err = cudaGetLastError()) != cudaSuccess)
-      return static_cast<int>(err);
-    update_kernel<T><<<nb, THREADS, 0, st>>>(p, Ap, invd, pap, nb, rz_old, nb,
-                                             n, x, r, x, r, rz_new);
-    if ((err = cudaGetLastError()) != cudaSuccess)
-      return static_cast<int>(err);
-    direction_kernel<T><<<nb, THREADS, 0, st>>>(r, invd, rz_old, nb, rz_new,
-                                                nb, n, p, p, nullptr);
-    if ((err = cudaGetLastError()) != cudaSuccess)
-      return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaSuccess);
 }
 
 }  // namespace

@@ -108,8 +108,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     **{f"nh_local_step_fused_{t}": (_I, [_P] * 12 + [_I] * 3 + [_P])
        for t in ("f32", "f64")},
-    **{f"cg_{m}_solve_{t}": (_I, [_P] * 5 + [_I] * 3 + [_P] * 7)
+    # b, x0, diag, the matrix (2), then D or K, H, n, n_iters, then x,
+    # scratch and the stream
+    **{f"cg_{m}_solve_{t}": (_I, [_P] * 5 + [_I] * 4 + [_P] * 3)
        for m in ("dia", "ell") for t in ("f32", "f64")},
+    "cg_cluster_plan": (_I, [_I] * 4 + [_P]),
     **{f"cg_update_{t}": (_I, [_P] * 6 + [_I] + [_P] * 6)
        for t in ("f32", "f64")},
     "cg_partials": (_I, [_I]),

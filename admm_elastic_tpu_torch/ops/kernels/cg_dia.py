@@ -1,5 +1,5 @@
 """Fixed-iteration Jacobi-PCG with a sparse-DIAgonal matvec: hand-written
-CUDA kernels + plain twin.
+CUDA kernel + plain twin.
 
 Counterpart of `admm_elastic_tpu/ops/pallas/cg_dia.py` (`cg_dia_solve`).
 Solves A_hat X = B, X and B of shape (n,3), A_hat given by its diagonals
@@ -8,9 +8,9 @@ for the Jacobi preconditioner. Out-of-range diagonal entries are zero
 (`core.solver.assemble_A_hat_dia` ensures it).
 
 `cg_dia_solve` runs the whole solve through `csrc/cg_dia.cu` for CUDA
-tensors (one C call, 1 + 3*n_iters launches, no host read-back) and
-`cg_dia_solve_reference` for CPU tensors. It never falls back from one to
-the other.
+tensors (one launch on one thread-block cluster, `csrc/cluster_pcg.cuh`)
+and `cg_dia_solve_reference` for CPU tensors. It never falls back from one
+to the other.
 """
 
 from __future__ import annotations
@@ -20,17 +20,18 @@ import ctypes
 import torch
 
 from ...core.solver import dia_apply, pcg_solve_fixed
-from . import _build
+from .cg_step import cluster_dot, cluster_solve
 
-MAX_DIAGONALS = 48  # the kernel's offset table (csrc/cg_dia.cu)
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+MAX_DIAGONALS = 48  # the kernel's offset table (csrc/dia.cuh)
 
 
 def cg_dia_solve_reference(b, x0, diag, dia_vals, offsets, n_iters):
-    """Plain PyTorch version: pcg_solve_fixed around dia_apply."""
+    """Plain PyTorch version: pcg_solve_fixed around dia_apply, with its
+    dots in the kernel's order (`cluster_dot`), so the kernel repeats it
+    bitwise."""
     x, _ = pcg_solve_fixed(
-        lambda y: dia_apply(y, offsets, dia_vals), b, x0, diag, n_iters
-    )
+        lambda y: dia_apply(y, offsets, dia_vals), b, x0, diag, n_iters,
+        dot=cluster_dot)
     return x
 
 
@@ -60,24 +61,17 @@ def cg_dia_solve(b, x0, diag, dia_vals, offsets, n_iters):
     """Solve A x = b with n_iters Jacobi-PCG iterations. b, x0: (n,3);
     diag: (n,); dia_vals: (D,n); offsets: tuple of D ints."""
     offsets = tuple(int(o) for o in offsets)
-    n = _check(b, x0, diag, dia_vals, offsets)
+    _check(b, x0, diag, dia_vals, offsets)
     if b.device.type == "cpu":
         return cg_dia_solve_reference(b, x0, diag, dia_vals, offsets,
                                       int(n_iters))
     if b.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {b.device}")
-    lib = _build.load_library()
-    fn = getattr(lib, "cg_dia_solve_" + _SUFFIX[b.dtype])
-    x, r, p, Ap = (torch.empty_like(b) for _ in range(4))
-    invd = torch.empty_like(diag)
-    partials = torch.empty(lib.cg_partials(n), dtype=b.dtype,
-                           device=b.device)
     offs = (ctypes.c_int * len(offsets))(*offsets)
-    err = fn(b.data_ptr(), x0.data_ptr(), diag.data_ptr(), dia_vals.data_ptr(),
-             ctypes.addressof(offs), len(offsets), n, int(n_iters),
-             x.data_ptr(), r.data_ptr(), p.data_ptr(), Ap.data_ptr(),
-             invd.data_ptr(), partials.data_ptr(), _build.stream_ptr(b))
-    _build.check(err, "cg_dia_solve")
+    ptrs = [t.data_ptr() for t in (b, x0, diag, dia_vals)]
+    x = cluster_solve("cg_dia_solve", b, [*ptrs, ctypes.addressof(offs)],
+                      len(offsets), max(abs(o) for o in offsets),
+                      len(offsets), n_iters)
     cg_dia_solve.launches += 1
     return x
 

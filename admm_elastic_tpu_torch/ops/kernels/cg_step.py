@@ -12,9 +12,16 @@ as a 0-dim tensor on the same device, never read by the host.
 `cg_update` runs `csrc/cg_step.cu` for CUDA tensors (one C call, three
 launches) and `cg_update_reference` for CPU tensors. It never falls back
 from one to the other.
+
+The whole solves (`cg_dia_solve`, `cg_ell_solve`) run on one thread-block
+cluster (`csrc/cluster_pcg.cuh`); `cluster_dot` is their order of sums,
+`cluster_plan` their layout and `cluster_solve` their launch.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +30,10 @@ from . import _build
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 THREADS = 256  # the block of the chain kernels (csrc/pcg_chain.cuh)
+# the cluster solves (csrc/cluster_pcg.cuh): CTAs of the cluster (fixed at
+# compile time) and threads of each
+CLUSTER = 16
+CLUSTER_THREADS = 1024
 
 
 def _halving_tree(v):
@@ -52,6 +63,80 @@ def chain_dot(a, b):
     for j in range(1, m):
         acc = acc + lanes[j]
     return _halving_tree(acc[None, :])[0]
+
+
+def cluster_dot(a, b):
+    """sum(a * b) over (n,3) in the order of the cluster solves' sums
+    (csrc/cluster_pcg.cuh), so a twin that uses it repeats them bitwise:
+    per row the three products in order; the rows cut into CLUSTER slabs
+    of ceil(n / CLUSTER); in a slab, thread t adds rows t, t +
+    CLUSTER_THREADS, ... in turn; the threads' sums by the halving tree
+    within each warp of 32, then over the 32 warps; the slabs' sums in
+    rank order."""
+    prod = a * b
+    rows = (prod[:, 0] + prod[:, 1]) + prod[:, 2]
+    n = rows.shape[0]
+    S = -(-n // CLUSTER)
+    m = -(-S // CLUSTER_THREADS)
+    slabs = F.pad(rows, (0, CLUSTER * S - n)).reshape(CLUSTER, S)
+    turns = F.pad(slabs, (0, m * CLUSTER_THREADS - S)).reshape(
+        CLUSTER, m, CLUSTER_THREADS)
+    acc = torch.zeros_like(turns[:, 0])
+    for k in range(m):
+        acc = acc + turns[:, k]
+    warps = _halving_tree(acc.reshape(-1, 32)).reshape(CLUSTER, -1)
+    ctas = _halving_tree(warps)
+    total = torch.zeros_like(ctas[0])
+    for r in range(CLUSTER):
+        total = total + ctas[r]
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device, n, reach, mat_per_row, elem):
+    lib = _build.load_library()
+    out = (ctypes.c_longlong * 6)()
+    with torch.cuda.device(device):
+        _build.check(lib.cg_cluster_plan(n, reach, mat_per_row, elem,
+                                         ctypes.addressof(out)),
+                     "cg_cluster_plan")
+    return {"cluster": CLUSTER, "threads": CLUSTER_THREADS,
+            "slab_rows": out[0], "window_rows": out[1],
+            "vectors_in_smem": bool(out[2]), "matrix_in_smem": bool(out[3]),
+            "smem_bytes": out[4], "scratch": out[5]}
+
+
+def cluster_plan(n, dtype, reach, mat_per_row, device=None) -> dict:
+    """The layout of a cluster solve of n rows, each reaching `reach` rows
+    away, on a CUDA device (the current one by default): rows a CTA owns,
+    rows of its window of the vectors, whether those (and its matrix
+    rows: `mat_per_row` values each, the dia solve's D; 0 for ELL) are in
+    shared memory, the dynamic shared memory a CTA, and the elements of
+    global scratch the solve needs (0 when the vectors are in shared
+    memory). Asked of the library once for each device, size and dtype."""
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    elem = torch.empty((), dtype=dtype).element_size()
+    return dict(_plan(device.index, int(n), int(reach), int(mat_per_row),
+                      elem))
+
+
+def cluster_solve(name, b, ptrs, width, reach, mat_per_row, n_iters):
+    """Launch the cluster solve `name` (cg_dia_solve, cg_ell_solve) for
+    b (n,3) on a CUDA device: `ptrs` are the C entry's five leading
+    pointers, `width` its D or K, `reach` how far a row reaches. Returns
+    x; raises on any CUDA error, among them a cluster the card cannot
+    place."""
+    n = b.shape[0]
+    plan = cluster_plan(n, b.dtype, reach, mat_per_row, b.device)
+    x = torch.empty_like(b)
+    scratch = b.new_empty(plan["scratch"]) if plan["scratch"] else None
+    fn = getattr(_build.load_library(), f"{name}_{_SUFFIX[b.dtype]}")
+    err = fn(*ptrs, width, reach, n, int(n_iters), x.data_ptr(),
+             None if scratch is None else scratch.data_ptr(),
+             _build.stream_ptr(b))
+    _build.check(err, name)
+    return x
 
 
 def cg_update_reference(x, r, p, rz, Ap, inv_diag):

@@ -14,8 +14,9 @@ each input read once and each output written once.
 bound_ms = max(bytes / memory rate, operations / peak rate) is the least
 time the card could take for the same work (`roofline_ms`).
 `twin_counts` gives (operations, bytes) of a kernel on its inputs from its
-twin (the element steps', by their `_reference` twins; `cg_update_counts`
-and `cg_ell_counts` name the CG kernels; `banded_local_counts` and
+twin (the element steps', by their `_reference` twins; `cg_update_counts`,
+`cg_dia_counts` and `cg_ell_counts` name the CG kernels, the solves'
+with one plain sum a dot; `banded_local_counts` and
 `cheb_dia_counts` the sharded stepper's), and `rollout_counts` those of the
 whole-timestep kernels (banded in dia or ELL mode, cloth, lattice). The
 lattice kernel's twin skips a group's zero selector coefficients as the
@@ -27,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..core.solver import dia_apply, pcg_solve_fixed
 from ..ops.kernels import banded_local, cg_ell, cg_step, cheb_dia
 
 _ELEMENTWISE = frozenset((
@@ -102,11 +104,30 @@ def cg_update_counts(x, r, p, rz, Ap, inv_diag):
                        inv_diag)
 
 
+def _solve_counts(A_apply, b, x0, diag, n_iters, matrix):
+    """(operations, bytes) of a fixed-iteration Jacobi-PCG solve: its
+    arithmetic with each dot one product and one sum of 3n values (the
+    order a kernel adds them in is not work), b, x0, diag and the matrix
+    read once, x written once."""
+    ops, x = count_ops(lambda: pcg_solve_fixed(A_apply, b, x0, diag,
+                                               n_iters)[0])
+    return ops, nbytes(b, x0, diag, matrix, x)
+
+
+def cg_dia_counts(b, x0, diag, dia_vals, offsets, n_iters):
+    """(operations, bytes) of a `cg_dia_solve` of n_iters iterations: the
+    diagonals count once however often the iterations read them, and the
+    matvec only its terms inside the matrix (`dia_apply`)."""
+    return _solve_counts(lambda y: dia_apply(y, offsets, dia_vals), b, x0,
+                         diag, n_iters, dia_vals)
+
+
 def cg_ell_counts(b, x0, diag, ell_idx, ell_vals, n_iters):
     """(operations, bytes) of a `cg_ell_solve` of n_iters iterations: the
     ELL arrays count once however often the iterations read them."""
-    return twin_counts(cg_ell.cg_ell_solve_reference, b, x0, diag, ell_idx,
-                       ell_vals, n_iters)
+    return _solve_counts(
+        lambda y: cg_ell.ell_apply_by_slot(y, ell_idx, ell_vals), b, x0,
+        diag, n_iters, (ell_idx, ell_vals))
 
 
 def rollout_counts(reference, keys, state, planes, cfg, n_steps):

@@ -40,8 +40,9 @@ import time
 import numpy as np
 import torch
 
-from ..ops.kernels import (banded_local, banded_step, cheb_dia, cloth_step,
-                           lattice_step, nh_local, tet_local, tri_local)
+from ..ops.kernels import (banded_local, banded_step, cg_dia, cg_ell,
+                           cheb_dia, cloth_step, lattice_step, nh_local,
+                           tet_local, tri_local)
 from . import scenes
 
 
@@ -74,7 +75,7 @@ _OWN = tuple(f"void admm::{ns}::{k}_kernel"
     "void admm::banded::rollout_kernel", "void admm::cloth::rollout_kernel",
     "void admm::lattice::rollout_kernel",
     "void admm::banded_local::vertex_kernel",
-    "void admm::cheb::chunk_kernel")
+    "void admm::cheb::chunk_kernel", "void admm::cluster_pcg::solve_kernel")
 
 
 def _own_launches():
@@ -84,7 +85,29 @@ def _own_launches():
         tet_local.arap_local_step_fused, tet_local.arap_local_step,
         banded_step.banded_rollout, cloth_step.cloth_rollout,
         lattice_step.lattice_rollout, banded_local.banded_local_rhs,
-        cheb_dia.cheb_dia_chunk))
+        cheb_dia.cheb_dia_chunk, cg_dia.cg_dia_solve, cg_ell.cg_ell_solve))
+
+
+def trace_calls(fn, calls=3):
+    """Device operations per call of fn() (a kernel wrapper on its inputs)
+    from a trace of `calls` calls after one untraced call, and the
+    operations' names. A trace with fewer records than calls lost some and
+    is taken again, up to ATTEMPTS times; None if none was whole."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(ATTEMPTS):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(dev) >= calls:
+            return {"device_ops_per_call": len(dev) / calls,
+                    "names": sorted({name.split("(")[0] for name in dev})}
+    return None
 
 
 def profile(cg, steps, route="general", s=None, scene="tet100k",

@@ -43,7 +43,13 @@ topology: the Delaunay tetrahedralisation of a jittered 37 x 22 x 20 grid
 of points (16,280 nodes, 100,852 tets), whose A_hat has 73 diagonals in its
 numbering, so it runs on the ell solver (`cg_backend` xla, fused or
 kernel) or, with `fast=True`, on the banded route with the ELL matvec.
-`small_delaunay` is the 7 x 5 x 4 mesh of tests/test_uell.py."""
+`small_delaunay` is the 7 x 5 x 4 mesh of tests/test_uell.py.
+
+`banded_spd` is a random banded SPD system of any size in both the dia and
+the ELL form, for the CG solves at sizes no mesh gives (fewer rows than a
+cluster has CTAs, a last slab cut short, slabs too large for shared
+memory); `renumbered_ell` gives an ELL system a random numbering, whose
+rows reach across all of n."""
 
 from __future__ import annotations
 
@@ -53,11 +59,14 @@ import numpy as np
 import torch
 
 from ..core.banded import BandedStepper
+from ..core.solver import assemble_A_hat_dia, ell_apply
 from ..core.system import Settings, System
 from ..geometry import extract_hinges, make_beam_tets, make_plane_grid
 from ..models import (Bend, Collision, Cylinder, ExplicitForce, Floor,
                       HyperElasticTet, LimitedTriangleStrain, LinearTetStrain,
                       Sphere, StaticAnchor, WindForce)
+
+DT = 0.04  # every scene's timestep
 
 
 def beam_system(dims, size, total_mass, cg, dtype=torch.float32,
@@ -270,3 +279,104 @@ def small_delaunay(cg=25, dtype=torch.float64, device="cuda", fast=True,
     pts, tets = delaunay_mesh()
     return delaunay_system(pts, tets, 2.0, 1e4, 1e-3, cg, dtype, device,
                            fast, cg_backend)
+
+
+def banded_spd(n, offsets=(1, 3, 7), dtype=torch.float64, device="cuda",
+               seed=0) -> dict:
+    """A random symmetric, diagonally dominant (so SPD) system of n rows
+    (np.random.default_rng(seed)): the upper `offsets`' entries U(0.1, 1)
+    with random signs, mirrored below; each main-diagonal entry 1 plus its
+    row's absolute sum. Returns the solve's inputs: b and x0 N(0,1)
+    (n,3), diag, the dia form (dia_vals (D,n) over the sorted offsets,
+    zero past either end) and the ELL form (ell_idx, ell_vals (n,D): the
+    same terms in offset order; a term outside the matrix holds the row's
+    own index and 0, as core.solver.assemble_A_hat_ell pads)."""
+    rng = np.random.default_rng(seed)
+    offs = tuple(sorted({0, *offsets, *(-o for o in offsets)}))
+    dia = np.zeros((len(offs), n))
+    for o in offsets:
+        m = max(n - o, 0)
+        up = rng.uniform(0.1, 1.0, m) * rng.choice([-1.0, 1.0], m)
+        dia[offs.index(o), :m] = up          # A[i, i+o]
+        dia[offs.index(-o), n - m:] = up     # A[i+o, i]
+    dia[offs.index(0)] = 1.0 + np.abs(dia).sum(0)
+    rows = np.arange(n)
+    cols = rows[:, None] + np.array(offs)[None, :]
+    inside = (cols >= 0) & (cols < n)
+    ell_idx = np.where(inside, cols, rows[:, None]).astype(np.int32)
+    ell_vals = np.where(inside, dia.T, 0.0)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+
+    return {"b": t(rng.standard_normal((n, 3))),
+            "x0": t(rng.standard_normal((n, 3))),
+            "diag": t(dia[offs.index(0)]), "dia_vals": t(dia),
+            "offsets": offs, "ell_idx": t(ell_idx, torch.int32),
+            "ell_vals": t(ell_vals)}
+
+
+def renumbered_ell(b, x0, diag, ell_idx, ell_vals, seed=0):
+    """The same ELL system with its unknowns renumbered by a random
+    permutation (np.random.default_rng(seed)), as a mesh numbered without
+    regard to its band gives: row i of the result is row perm[i] of the
+    input, its slots in the input's order. Returns (b, x0, diag, ell_idx,
+    ell_vals, perm); its solution is the input's at [perm]."""
+    n = b.shape[0]
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(n),
+                           device=b.device)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n, device=b.device)
+    idx = inv[ell_idx[perm].long()].to(torch.int32).contiguous()
+    return (b[perm].contiguous(), x0[perm].contiguous(),
+            diag[perm].contiguous(), idx, ell_vals[perm].contiguous(), perm)
+
+
+def dia_solve_inputs(s, dtype) -> tuple:
+    """A dia System's first global solve from rest, as ADMM poses it: b =
+    M x_rest + M dt^2 g, warm-started at x_rest. Returns the inputs of
+    `cg_dia_solve` but its budget: (b, x0, diag, dia_vals, offsets)."""
+    sv, dt = s.params["_solver"], s.settings.timestep_s
+    x0 = s.state["x"].to(dtype)
+    b = (s._masses_dev[:, None] * x0).to(dtype)
+    b[:, 1] -= (s._masses_dev * 9.8 * dt * dt).to(dtype)
+    return b, x0, sv["diag"].to(dtype), sv["dia_vals"].to(dtype), \
+        s._dia_offsets
+
+
+def ell_solve_inputs(s, dtype) -> tuple:
+    """An ell System's A_hat and its first global solve from rest, as ADMM
+    poses it: b = A x_rest + M dt^2 g, warm-started at x_rest. Returns
+    (b, x0, diag, ell_idx, ell_vals)."""
+    sv, dt = s.params["_solver"], s.settings.timestep_s
+    idx, vals = sv["ell_idx"], sv["ell_vals"].to(dtype)
+    x0 = s.state["x"].to(dtype)
+    b = ell_apply(x0, idx, vals)
+    b[:, 1] -= (s._masses_dev * 9.8 * dt * dt).to(dtype)
+    return b, x0, sv["diag"].to(dtype), idx, vals
+
+
+def long_beam_dia_inputs(cells_x, dtype=torch.float32, device="cuda"):
+    """tet100k's beam made cells_x / 40 times longer (cells_x x 25 x 20
+    cells of 0.05 m, 50 kg a 40 cells, the same 19 offsets) as a dia
+    solve: its A_hat from the host assembly, as System.initialize makes
+    it, and the first solve from rest. Returns (b, x0, diag, dia_vals,
+    offsets)."""
+    beam = make_beam_tets(cells_x, 25, 20, size=0.05)
+    n = beam.n_vertices
+    m = np.full(n, 50.0 * cells_x / 40 / n)
+    anchor = StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9))
+    tet = HyperElasticTet(beam.tets, 1e5, 1e5, max_iters=5,
+                          backend="pallas")
+    cparams = {"a": anchor.build(beam.vertices, m, DT)[0],
+               "t": tet.build(beam.vertices, m, DT)[0]}
+    offs, dia, diag = assemble_A_hat_dia(n, m, DT, cparams)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    x0, mt = t(beam.vertices), t(m)
+    b = mt[:, None] * x0
+    b[:, 1] -= mt * 9.8 * DT * DT
+    return b, x0, t(diag), t(dia).contiguous(), offs

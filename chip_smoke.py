@@ -28,6 +28,13 @@ and arap100k on the banded route's arap mode against its general route;
 and the beam on the sharded banded stepper at one device (cg25, cg75 in
 plain torch, cheb180 through one cheb_dia_chunk launch per solve; one
 banded_local_rhs call per ADMM iteration) against the banded route.
+The two whole-solve kernels (cg_dia_solve, cg_ell_solve: one launch on a
+16-CTA thread-block cluster each) are also held to their twins on
+delaunay100k renumbered at random (phase 3f) and on banded systems of
+1,003 and 11 rows, and timed at 4 and 16 times tet100k's rows, beside the
+per-iteration floor and the cost of each synchronisation they are built
+from (phase 3n, the latter by a microbenchmark built beside the kernels,
+`csrc/probes/sync_probe.cu`).
 Every phase prints one line of numbers. Any failure raises: the script
 then exits non-zero and prints no result line. It needs CUDA (it never
 falls back to the CPU) and imports nothing of JAX.
@@ -76,10 +83,10 @@ from admm_elastic_tpu_torch.parallel.cheb import (  # noqa: E402
     cheb_coefficients, dia_operator_bounds)
 from admm_elastic_tpu_torch.utils import profile_step, scenes  # noqa: E402
 from admm_elastic_tpu_torch.utils.opcount import (  # noqa: E402
-    banded_local_counts, cg_ell_counts, cg_update_counts, cheb_dia_counts,
-    count_ops, nbytes, rollout_counts, roofline_ms, twin_counts)
+    banded_local_counts, cg_dia_counts, cg_ell_counts, cg_update_counts,
+    cheb_dia_counts, nbytes, rollout_counts, roofline_ms, twin_counts)
 from admm_elastic_tpu_torch.utils.scenes import (  # noqa: E402
-    arap100k, beam_system, cloth100k, delaunay100k, small_cloth,
+    arap100k, banded_spd, beam_system, cloth100k, delaunay100k, small_cloth,
     small_delaunay, tet100k, tet100k_sharded)
 DT = 0.04  # the workload's timestep and ADMM iterations
 ADMM_ITERS = 10  # (admm_elastic_tpu_torch/utils/scenes.py)
@@ -280,46 +287,126 @@ def check_arap(torch, xg, p, dtype):
     return fused, step
 
 
-def check_cg(torch, pcg, s, dtype, n_iters):
-    sv = s.params["_solver"]
-    x0 = s.state["x"].to(dtype)
-    b = (s._masses_dev[:, None] * x0).to(dtype)
-    b[:, 1] -= (s._masses_dev * 9.8 * DT * DT).to(dtype)
-    args = (b, x0, sv["diag"].to(dtype), sv["dia_vals"].to(dtype),
-            s._dia_offsets, n_iters)
-    got = pcg.cg_dia_solve(*args)
-    want = pcg.cg_dia_solve_reference(*args)
-    again = pcg.cg_dia_solve(*args)
+def check_solve(torch, label, mod, args, tol, reps=20, plain_reps=5):
+    """A cluster solve (mod: cg_dia or cg_ell) against its plain twin on
+    the same inputs (args: the solve's, n_iters last): relative error
+    within tol, a bitwise repeat, and one device operation a solve in a
+    `profile_step` trace (the chain it replaced made 1 + 3 n_iters).
+    Prints the cluster's layout and whether the twin's bits came back.
+    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    kind = mod.__name__.rsplit(".", 1)[1]
+    solve, twin = getattr(mod, f"{kind}_solve"), getattr(mod,
+                                                        f"{kind}_solve_"
+                                                        "reference")
+    b, n_iters = args[0], args[-1]
+    width = len(args[4]) if kind == "cg_dia" else 0
+    reach = (max(abs(o) for o in args[4]) if kind == "cg_dia"
+             else pell.bandwidth(args[3]))
+    plan = pstep.cluster_plan(b.shape[0], b.dtype, reach, width)
+    got = solve(*args)
+    again = solve(*args)
+    want = twin(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
-    tol = 1e-10 if dtype == torch.float64 else 1e-4
-    ok = (rel <= tol and bool(torch.isfinite(got).all())
-          and bool(torch.equal(got, again)))
-    ms = cuda_ms(torch, lambda: pcg.cg_dia_solve(*args), 20)
-    plain_ms = cuda_ms(torch, lambda: pcg.cg_dia_solve_reference(*args), 5)
-    n_ops, _ = count_ops(pcg.cg_dia_solve_reference, *args)
-    bound_ms, bound_by = roofline_ms(nbytes(args, got), n_ops)
-    say(f"kernel cg_dia {str(dtype)[6:]}", n=b.shape[0],
-        diagonals=len(s._dia_offsets), n_iters=n_iters, max_abs_err=err,
-        rel_err=rel, tol=tol, bitwise_repeat=bool(torch.equal(got, again)),
-        ms=ms, plain_ms=plain_ms, operations=n_ops, bound_ms=bound_ms,
-        bound_by=bound_by, ok=ok)
-    if not ok:
-        raise AssertionError(f"cg_dia_solve disagrees in {dtype} at {n_iters}")
+    rel = err / max(float(want.abs().max()), 1e-300)
+    bit = bool(torch.equal(got, again))
+    ok = rel <= tol and bit and bool(torch.isfinite(got).all())
+    ms = cuda_ms(torch, lambda: solve(*args), reps)
+    plain_ms = cuda_ms(torch, lambda: twin(*args), plain_reps)
+    counts = cg_dia_counts if kind == "cg_dia" else cg_ell_counts
+    n_ops, n_bytes = counts(*args)
+    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
+    trace = profile_step.trace_calls(lambda: solve(*args))
+    ops = None if trace is None else trace["device_ops_per_call"]
+    say(f"kernel {kind} {label} {str(b.dtype)[6:]}", n=b.shape[0],
+        width=width or args[3].shape[1], n_iters=n_iters,
+        reach=reach, cluster=plan["cluster"], threads=plan["threads"],
+        layout="window" if plan["vectors_in_smem"] else "shared",
+        slab_rows=plan["slab_rows"], window_rows=plan["window_rows"],
+        smem_bytes_per_cta=plan["smem_bytes"],
+        vectors_in_smem=plan["vectors_in_smem"],
+        matrix_in_smem=plan["matrix_in_smem"], max_abs_err=err, rel_err=rel,
+        tol=tol, bitwise_vs_twin=bool(torch.equal(got, want)),
+        bitwise_repeat=bit, ms=ms, plain_ms=plain_ms, operations=n_ops,
+        bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
+        device_ops_per_solve=ops,
+        device_op_names=None if trace is None else trace["names"], ok=ok)
+    if trace is None:
+        raise AssertionError(f"{kind} {label}: no whole trace in "
+                             f"{profile_step.ATTEMPTS} attempts; the device "
+                             "ops a solve are not measured")
+    if not ok or ops != 1.0:
+        raise AssertionError(f"{kind} {label} disagrees in {b.dtype} at "
+                             f"{n_iters} (device ops a solve: {ops})")
     return err, ms, plain_ms, bound_ms, bound_by
 
 
-def ell_problem(torch, s, dtype):
-    """delaunay100k's A_hat in ELL form and its first global solve from
-    rest, as ADMM poses it: b = A x_rest + M dt^2 g, warm-started at
-    x_rest. Returns (b, x0, diag, ell_idx, ell_vals)."""
-    sv = s.params["_solver"]
-    idx, vals = sv["ell_idx"], sv["ell_vals"].to(dtype)
-    x0 = s.state["x"].to(dtype)
-    b = ell_apply(x0, idx, vals)
-    b[:, 1] -= (s._masses_dev * 9.8 * DT * DT).to(dtype)
-    return b, x0, sv["diag"].to(dtype), idx, vals
+def cluster_floor(torch):
+    """The per-iteration floor of the cluster solve: a 16-row system (one
+    row a CTA), 1,000 iterations less 0, in us, in the layout the solves
+    run when their windows fit in shared memory (st.async pushes counted
+    on mbarriers). An iteration is two stages; a stage holds, besides its
+    end, one or two CTA barriers, a warp-tree sum and a few loads."""
+    p = banded_spd(16, dtype=torch.float32, device="cuda")
+    args = (p["b"], p["x0"], p["diag"], p["dia_vals"], p["offsets"])
+    ms = [cuda_ms(torch, lambda: pcg.cg_dia_solve(*args, k), 10)
+          for k in (1000, 0)]
+    say("cluster floor n=16 f32", ms_1000_iterations=ms[0],
+        ms_0_iterations=ms[1], us_per_iteration=ms[0] - ms[1],
+        us_per_stage=(ms[0] - ms[1]) / 2)
+    return ms[0] - ms[1]
+
+
+# the rounds of the synchronisation microbenchmark
+# (admm_elastic_tpu_torch/csrc/probes/sync_probe.cu)
+SYNC_PROBES = ("cluster barrier", "CTA barrier", "st.async exchange",
+               "stage end, mbarrier", "stage end, cluster barrier")
+
+
+def start_probe_build():
+    """Start nvcc on the synchronisation microbenchmark, a library of its
+    own beside the kernels' (it is not part of the port). Returns a
+    function that waits for it and loads it with ctypes."""
+    import ctypes
+
+    src = os.path.join(_build.CSRC, "probes", "sync_probe.cu")
+    out_dir = _build.BUILD_ROOT.parent / "probes"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "libsync_probe.so"
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+         str(_build.CSRC), "-o", str(lib), src],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{out}{err}")
+        dll = ctypes.CDLL(str(lib))
+        dll.cluster_sync_probe.restype = ctypes.c_int
+        dll.cluster_sync_probe.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.c_void_p] * 2
+        return dll
+    return finish
+
+
+def sync_costs(torch, probe, rounds=10000):
+    """The cluster solve's synchronisation alone (probe: the loaded
+    microbenchmark): us a round of each mode on 16 CTAs, (N rounds - 0) /
+    N by CUDA events. Returns {mode name: us}."""
+    out = {}
+    buf = torch.empty(16, dtype=torch.float32, device="cuda")
+
+    def run(mode, k):
+        _build.check(probe.cluster_sync_probe(
+            mode, k, buf.data_ptr(), _build.stream_ptr(buf)),
+            "cluster_sync_probe")
+    for mode, name in enumerate(SYNC_PROBES):
+        ms = [cuda_ms(torch, lambda: run(mode, k), 5) for k in (rounds, 0)]
+        out[name] = 1e3 * (ms[0] - ms[1]) / rounds
+        say(f"cluster sync, {name}", cluster=16, rounds=rounds,
+            us_per_round=out[name])
+    return out
 
 
 def check_cg_update(torch, prob, dtype):
@@ -368,35 +455,6 @@ def check_cg_update(torch, prob, dtype):
         bound_ms=bound_ms, bound_by=bound_by, ok=ok)
     if not ok:
         raise AssertionError(f"cg_update disagrees in {dtype}")
-    return err, ms, plain_ms, bound_ms, bound_by
-
-
-def check_cg_ell(torch, prob, dtype, n_iters):
-    """cg_ell_solve against its plain version, which sums in the kernel's
-    order: relative error within 1e-12 (f64) or 1e-4 (f32), bitwise
-    repeat."""
-    args = (*prob, n_iters)
-    got = pell.cg_ell_solve(*args)
-    again = pell.cg_ell_solve(*args)
-    want = pell.cg_ell_solve_reference(*args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
-    tol = 1e-12 if dtype == torch.float64 else 1e-4
-    bit = bool(torch.equal(got, again))
-    ok = rel <= tol and bit and bool(torch.isfinite(got).all())
-    ms = cuda_ms(torch, lambda: pell.cg_ell_solve(*args), 20)
-    plain_ms = cuda_ms(torch, lambda: pell.cg_ell_solve_reference(*args), 5)
-    n_ops, n_bytes = cg_ell_counts(*args)
-    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
-    say(f"kernel cg_ell {str(dtype)[6:]}", n=prob[0].shape[0],
-        ell_width=prob[3].shape[1], n_iters=n_iters, max_abs_err=err,
-        rel_err=rel, tol=tol, bitwise_vs_twin=bool(torch.equal(got, want)),
-        bitwise_repeat=bit, ms=ms, plain_ms=plain_ms,
-        operations=n_ops, bytes=n_bytes, bound_ms=bound_ms,
-        bound_by=bound_by, ok=ok)
-    if not ok:
-        raise AssertionError(f"cg_ell_solve disagrees in {dtype} at {n_iters}")
     return err, ms, plain_ms, bound_ms, bound_by
 
 
@@ -650,9 +708,12 @@ def main():
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    # phase 2: build the kernels from the checkout's sources
+    # phase 2: build the kernels from the checkout's sources, and the
+    # synchronisation microbenchmark beside them
+    probe_lib = start_probe_build()
     lib_path, build_s = _build.build()
     _build.load_library()
+    probe_lib = probe_lib()
     say("build", seconds=round(build_s, 3), library=os.path.relpath(lib_path, HERE))
     entry, spills = "?", ""
     for line in _build.build_log().splitlines():
@@ -677,7 +738,10 @@ def main():
     cg_ms = {}
     for dtype in (torch.float64, torch.float32):
         for k in (25, 75):
-            cg_ms[(dtype, k)] = check_cg(torch, pcg, ref64, dtype, k)
+            cg_ms[(dtype, k)] = check_solve(
+                torch, "tet100k", pcg,
+                (*scenes.dia_solve_inputs(ref64, dtype), k),
+                1e-10 if dtype == torch.float64 else 1e-4)
     del ref64, ins, xg, p
 
     # phase 3i: the ARAP entries at arap100k's elements
@@ -716,17 +780,57 @@ def main():
 
     # phase 3e: the fused CG update at delaunay100k's shapes
     d64 = delaunay100k(25, torch.float64, fast=False)
-    probs = {dt: ell_problem(torch, d64, dt)
+    probs = {dt: scenes.ell_solve_inputs(d64, dt)
              for dt in (torch.float64, torch.float32)}
     check_cg_update(torch, probs[torch.float64], torch.float64)
     upd32 = check_cg_update(torch, probs[torch.float32], torch.float32)
 
-    # phase 3f: the ELL CG kernel on delaunay100k's own A_hat
+    # phase 3f: the ELL CG kernel on delaunay100k's own A_hat, in its grid
+    # numbering (a row reaches 920 rows: the windows fit in shared memory)
+    # and renumbered at random, as a mesh numbered without regard to its
+    # band is (a row reaches across all of n: the shared layout)
     ell_ms = {}
     for dtype in (torch.float64, torch.float32):
+        renumbered = scenes.renumbered_ell(*probs[dtype], seed=0)[:5]
         for k in DELAUNAY_BUDGETS:
-            ell_ms[(dtype, k)] = check_cg_ell(torch, probs[dtype], dtype, k)
+            tol = 1e-12 if dtype == torch.float64 else 1e-4
+            ell_ms[(dtype, k)] = check_solve(
+                torch, "delaunay100k", pell, (*probs[dtype], k), tol)
+            check_solve(torch, "delaunay100k renumbered", pell,
+                        (*renumbered, k), tol)
+        del renumbered
     del d64, probs
+
+    # phase 3n: both cluster solves on banded SPD systems of 1,003 rows (the
+    # last slab cut short) and 11 (fewer rows than CTAs); the per-iteration
+    # floor; the synchronisation alone; and tet100k's beam made 4 and 16
+    # times longer (the shared layout), to see where one cluster stops
+    # paying against the chain's ~5.5 us a launch, 3 an iteration
+    for n in (1003, 11):
+        for dtype in (torch.float64, torch.float32):
+            sp = banded_spd(n, dtype=dtype, device="cuda", seed=n)
+            for k in (25, 75):
+                for mod, tol, mat in ((pcg, 1e-10, ("dia_vals", "offsets")),
+                                      (pell, 1e-12, ("ell_idx", "ell_vals"))):
+                    check_solve(torch, f"banded_spd n={n}", mod,
+                                (sp["b"], sp["x0"], sp["diag"],
+                                 *(sp[m] for m in mat), k),
+                                tol if dtype == torch.float64 else 1e-4,
+                                reps=5, plain_reps=2)
+    cluster_floor(torch)
+    sync_costs(torch, probe_lib)
+    for cells in (160, 640):
+        args = (*scenes.long_beam_dia_inputs(cells), 25)
+        if cells == 160:
+            check_solve(torch, f"beam {cells}x25x20", pcg, args, 1e-4,
+                        reps=10, plain_reps=2)
+        ms = cuda_ms(torch, lambda: pcg.cg_dia_solve(*args), 10)
+        say(f"cluster at scale, beam {cells}x25x20 f32 cg25",
+            n=args[0].shape[0], ms=ms, us_per_iteration=1e3 * ms / 25,
+            **pstep.cluster_plan(args[0].shape[0], torch.float32,
+                                 max(abs(o) for o in args[4]),
+                                 len(args[4])))
+        del args
 
     # phase 3g: the banded kernel's ELL matvec. The small mesh's f32 window
     # takes 1e-3: its Newton ties move x by ~3e-4 relative in 10 steps
@@ -923,9 +1027,11 @@ def main():
                                  f"{drift}, min dy {sag})")
     # phase 5f's trusted route, at the same 32 steps (profiling steps on)
     banded_x = {cg: s.x for cg, s in fast.items()}
+    tet75_x = per_budget[75][3].x  # phase 5e's trusted route
     for cg, s in fast.items():
         profile_step.profile(cg, WINDOW_STEPS, "fast", s=s)
-    tet75_x = per_budget[75][3].x  # phase 5e's trusted route
+    for cg, run in per_budget.items():
+        profile_step.profile(cg, WINDOW_STEPS, "general", s=run[3])
     banded_ms = {cg: run[0] for cg, run in fast_budget.items()}
     del systems, fast, per_budget, fast_budget
 
@@ -1200,7 +1306,7 @@ def main():
     say("delaunay100k routes f32 (this call, ms/step)",
         **{f"{route}_cg{cg}": run[0] for (route, cg), run in d_runs.items()})
     for route, cg in (("banded", 25), ("banded", 75), ("kernel", 25),
-                      ("fused", 25), ("xla", 25)):
+                      ("kernel", 75), ("fused", 25), ("xla", 25)):
         profile_step.profile(cg, WINDOW_STEPS,
                              "fast" if route == "banded" else "general",
                              s=d_routes[(route, cg)], scene="delaunay100k")

@@ -8,9 +8,12 @@ PyTorch is installed (tests/conftest.py sets JAX up, hence --noconftest):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-The twins of cg_update and cg_ell_solve add in the kernels' order
-(`chain_dot`, `ell_apply_by_slot`), so the kernels must repeat them
-bitwise; the banded kernel's CG reduces in another order than its twin,
+The twins of cg_update, cg_dia_solve and cg_ell_solve add in the
+kernels' order (`chain_dot`, `cluster_dot`, `dia_apply`,
+`ell_apply_by_slot`), so the kernels must repeat them bitwise, the two
+cluster solves at any n (`scenes.banded_spd`: fewer rows than CTAs, a
+last slab cut short, windows too large for shared memory, a random
+numbering); the banded kernel's CG reduces in another order than its twin,
 so its window compares at chip_smoke.py's 1e-8 (f64), as do the lattice
 kernel's and the banded arap mode's. The element steps
 (nh_local_step, tri_local_step, arap_local_step_fused, arap_local_step)
@@ -29,13 +32,15 @@ import torch
 from admm_elastic_tpu_torch.core import solver
 from admm_elastic_tpu_torch.core.lattice import LatticeStepper
 from admm_elastic_tpu_torch.ops.kernels import (_build, banded_local,
-                                                banded_step, cg_ell, cg_step,
-                                                cheb_dia, lattice_step,
-                                                nh_local, tet_local,
-                                                tri_local)
+                                                banded_step, cg_dia, cg_ell,
+                                                cg_step, cheb_dia,
+                                                lattice_step, nh_local,
+                                                tet_local, tri_local)
 from admm_elastic_tpu_torch.parallel.cheb import (cheb_coefficients,
                                                   dia_operator_bounds)
-from admm_elastic_tpu_torch.utils.scenes import (beam_system, jittered_system,
+from admm_elastic_tpu_torch.utils import scenes
+from admm_elastic_tpu_torch.utils.scenes import (banded_spd, beam_system,
+                                                 jittered_system,
                                                  small_delaunay)
 
 DTYPES = [torch.float64, torch.float32]
@@ -85,6 +90,84 @@ def test_cg_ell_kernel_is_its_twin(dtype, n_iters):
     assert torch.equal(got, cg_ell.cg_ell_solve(*args))
     assert torch.equal(got, cg_ell.cg_ell_solve_reference(*args))
     assert float((got - args[1]).abs().max()) > 1e-4  # the solve moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_iters", [25, 75])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_cg_dia_kernel_is_its_twin(dtype, n_iters):
+    """The 6 x 4 x 4 beam's first global solve (175 rows: the last slab
+    cut short), one launch, bitwise to the twin and to itself."""
+    _cuda()
+    s = beam_system((6, 4, 4), 0.05, 1.0, 25, dtype, "cuda")
+    sv, x0, m = s.params["_solver"], s.state["x"], s._masses_dev
+    b = m[:, None] * x0
+    b[:, 1] -= m * 9.8 * 0.04 ** 2
+    args = (b, x0, sv["diag"], sv["dia_vals"], s._dia_offsets, n_iters)
+    n0 = cg_dia.cg_dia_solve.launches
+    got = cg_dia.cg_dia_solve(*args)
+    assert cg_dia.cg_dia_solve.launches == n0 + 1
+    assert torch.equal(got, cg_dia.cg_dia_solve(*args))
+    assert torch.equal(got, cg_dia.cg_dia_solve_reference(*args))
+    assert not torch.equal(got, x0)
+
+
+def _band_args(s, kind, n_iters):
+    if kind == "dia":
+        return (s["b"], s["x0"], s["diag"], s["dia_vals"], s["offsets"],
+                n_iters)
+    return (s["b"], s["x0"], s["diag"], s["ell_idx"], s["ell_vals"], n_iters)
+
+
+SOLVES = {"dia": cg_dia, "ell": cg_ell}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 37, 1003, 40000])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_cluster_solves_at_any_n(dtype, n):
+    """Both solves on a banded SPD system at n below the cluster size, not
+    a multiple of it, and 40,000 rows (f64: the windows do not fit in
+    shared memory): bitwise to their twins, to each other and to themselves;
+    0 iterations return x0."""
+    dev = _cuda()
+    s = banded_spd(n, dtype=dtype, device=dev, seed=n)
+    out = {}
+    for kind, mod in SOLVES.items():
+        solve = getattr(mod, f"cg_{kind}_solve")
+        for k in (0, 25):
+            args = _band_args(s, kind, k)
+            got = solve(*args)
+            assert torch.equal(got, solve(*args))
+            assert torch.equal(got, getattr(
+                mod, f"cg_{kind}_solve_reference")(*args))
+            out[(kind, k)] = got
+        assert torch.equal(out[(kind, 0)], s["x0"])
+    assert torch.equal(out[("dia", 25)], out[("ell", 25)])
+    assert bool(torch.isfinite(out[("dia", 25)]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_cluster_solve_in_the_shared_layout(dtype):
+    """A 20,000-row band renumbered at random: its rows reach across the
+    matrix, no window fits in shared memory, and the ELL solve keeps one p
+    in global memory (the shared layout), bitwise to its twin and to
+    itself, and at [perm] within 1e-4 (f32) or 1e-10 (f64) of the same
+    system in its band numbering."""
+    dev = _cuda()
+    s = banded_spd(20000, dtype=dtype, device=dev, seed=5)
+    args = _band_args(s, "ell", 25)
+    *renumbered, perm = scenes.renumbered_ell(*args[:5], seed=5)
+    plan = cg_step.cluster_plan(20000, dtype, cg_ell.bandwidth(renumbered[3]),
+                                0)
+    assert not plan["vectors_in_smem"] and plan["scratch"] > 0
+    got = cg_ell.cg_ell_solve(*renumbered, 25)
+    assert torch.equal(got, cg_ell.cg_ell_solve(*renumbered, 25))
+    assert torch.equal(got, cg_ell.cg_ell_solve_reference(*renumbered, 25))
+    want = cg_ell.cg_ell_solve(*args)[perm]
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < (1e-10 if dtype == torch.float64 else 1e-4)
 
 
 @pytest.mark.cuda

@@ -4,9 +4,10 @@ diagonals): host assembly and grid detection array-equal; the ELL matvec,
 the tolerance PCG, the fused CG update and its fixed-iteration solve, and
 the ELL CG kernel's plain twin within 1e-12 of the JAX functions (the
 Pallas kernels in interpret mode). Only summation orders differ (the
-twins add in the CUDA kernels' order). CG amplifies such differences: on
-this A_hat they stay below 2e-14 relative for 20 fixed iterations and
-reach ~5e-12 at 25, so the fixed-budget comparisons run 1 and 20.
+twins add in the CUDA kernels' order: `chain_dot`, `cluster_dot`). CG
+amplifies such differences: on this A_hat they stay below 2e-14 relative
+for 20 fixed iterations and reach ~5e-12 at 25, so the fixed-budget
+comparisons run 1 and 20.
 
 The hand-written kernels are held to these twins on the card by
 tests/test_torch_cuda.py."""
@@ -26,9 +27,11 @@ from admm_elastic_tpu_torch.core import lattice as plattice
 from admm_elastic_tpu_torch.core import solver as psolver
 from admm_elastic_tpu_torch.geometry import make_beam_tets, make_plane_grid
 from admm_elastic_tpu_torch.models import HyperElasticTet, StaticAnchor
+from admm_elastic_tpu_torch.ops.kernels import cg_dia as pcg_dia
 from admm_elastic_tpu_torch.ops.kernels import cg_ell as pcg_ell
 from admm_elastic_tpu_torch.ops.kernels import cg_step as pcg_step
-from admm_elastic_tpu_torch.utils.scenes import delaunay_mesh
+from admm_elastic_tpu_torch.utils.scenes import (banded_spd, delaunay_mesh,
+                                                 renumbered_ell)
 
 torch.set_num_threads(1)
 
@@ -181,6 +184,63 @@ def test_cg_ell_twin_matches_pallas_interpret(problem, n_iters):
                       interpret=True)
     assert _rel(got, want) < TOL
     assert np.abs(got - p["x0"]).max() > 1e-4
+
+
+def test_cg_ell_twin_zero_iterations_give_x0(problem):
+    """0 iterations give x0 itself."""
+    p = problem
+    args = _t(p["b"], p["x0"], p["diag"], p["idx"], p["vals"])
+    assert torch.equal(pcg_ell.cg_ell_solve_reference(*args, 0), args[1])
+
+
+def test_renumbered_system_has_the_solution_renumbered(problem):
+    """`scenes.renumbered_ell` is the same system in another numbering:
+    its solution is the input's at [perm] (TOL: the sums' order moves with
+    the rows), and its rows reach across the matrix."""
+    p = problem
+    args = _t(p["b"], p["x0"], p["diag"], p["idx"], p["vals"])
+    *renumbered, perm = renumbered_ell(*args, seed=3)
+    want = pcg_ell.cg_ell_solve(*args, 20)[perm]
+    got = pcg_ell.cg_ell_solve(*renumbered, 20)
+    assert _rel(got.numpy(), want.numpy()) < TOL
+    assert pcg_ell.bandwidth(renumbered[3]) > p["n"] // 2
+
+
+@pytest.mark.parametrize("n", [11, 37, 1003])
+def test_cg_ell_twin_is_the_dia_twin_on_a_band(n):
+    """On a banded system given in both forms (`scenes.banded_spd`) the
+    two twins add the same terms in the same order: bitwise equal, for n
+    below the cluster size and not a multiple of it."""
+    s = banded_spd(n, device="cpu", seed=n)
+    for k in (0, 1, 25):
+        got = pcg_ell.cg_ell_solve(s["b"], s["x0"], s["diag"], s["ell_idx"],
+                                   s["ell_vals"], k)
+        want = pcg_dia.cg_dia_solve(s["b"], s["x0"], s["diag"],
+                                    s["dia_vals"], s["offsets"], k)
+        assert torch.equal(got, want)
+    assert float((got - s["x0"]).abs().max()) > 1e-3  # the solve moved
+
+
+def test_bandwidth_is_the_reach_of_a_row(problem):
+    """The ELL kernel's window size: the largest |column - row|, kept
+    until the index tensor changes."""
+    idx = torch.as_tensor(problem["idx"])
+    want = int(np.abs(problem["idx"] - np.arange(problem["n"])[:, None]).max())
+    assert pcg_ell.bandwidth(idx) == want > 0
+    idx[0, 0] = problem["n"] - 1
+    assert pcg_ell.bandwidth(idx) == problem["n"] - 1
+
+
+def test_slot_major_is_kept_until_the_matrix_changes(problem):
+    """The kernel's (K,n) copy of an ELL array: made once, made again
+    after the array changes in place."""
+    vals = torch.as_tensor(problem["vals"]).clone()
+    first = pcg_ell.slot_major(vals)
+    assert torch.equal(first, vals.t()) and first.is_contiguous()
+    assert pcg_ell.slot_major(vals) is first
+    vals[0, 0] += 1.0
+    again = pcg_ell.slot_major(vals)
+    assert again is not first and torch.equal(again, vals.t())
 
 
 def test_wrappers_check_and_route(problem):
