@@ -1,12 +1,13 @@
 """The banded whole-timestep route: `BandedStepper` and `banded_from_system`.
 
 Counterpart of `admm_elastic_tpu/core/banded.py` with a NeoHookean, StVK
-or corotational (ARAP) tet force, in dia mode and in ell mode (its uell matvec: a tet mesh of any
-topology). One kernel launch (`ops/kernels/
-banded_step.py`) runs a whole window of timesteps: gravity kick, every ADMM
-iteration's local steps and dual updates, anchors, collisions and the
-fixed-budget Jacobi-PCG solves. Trajectories match the general `System`
-route to round-off (tests/test_torch_banded.py).
+or corotational (ARAP) tet force, in dia mode and in ell mode (its uell
+matvec: a tet mesh of any topology). One submission (a CUDA graph of the
+window's kernels, `ops/kernels/banded_step.py`) runs a whole window of
+timesteps: gravity kick, every ADMM iteration's local steps and dual
+updates, anchors, collisions and the fixed-budget Jacobi-PCG solve on one
+thread-block cluster. Trajectories match the general `System` route to
+round-off (tests/test_torch_banded.py).
 
 The JAX stepper packs the mesh for the TPU: (Nr,128) lane planes, tets
 sorted and packed into 128-lane sub-blocks with distinct scatter lanes
@@ -33,7 +34,9 @@ import torch
 
 from ..models import (Collision, Cylinder, ExplicitForce, Floor,
                       HyperElasticTet, LinearTetStrain, Sphere, StaticAnchor)
-from ..ops.kernels.banded_step import BandedConfig, banded_rollout
+from ..ops.kernels._graph import WindowGraphs
+from ..ops.kernels.banded_step import (STATE, BandedConfig, BandedWindow,
+                                       banded_rollout)
 from .solver import assemble_transpose_incidence
 
 
@@ -119,6 +122,8 @@ class BandedStepper:
             "cu": self._dev(np.zeros((n, 3))),
             "t": torch.zeros((), dtype=dtype, device=self.device),
         }
+        self._graphs = WindowGraphs(BandedWindow, banded_rollout,
+                                    (1, self.ROLLOUT_WINDOW))
 
     def _dev(self, a, dtype=None):
         return torch.as_tensor(np.array(a, order="C"),
@@ -135,27 +140,35 @@ class BandedStepper:
         return self.state["v"].cpu().numpy()
 
     def set_positions(self, value):
-        """Overwrite positions, (n,3)."""
-        self.state["x"] = self._dev(np.asarray(value, np.float64)
-                                    .reshape(self.n_nodes, 3))
+        """Overwrite positions, (n,3): copied into the state's own
+        buffer, which the captured windows hold."""
+        self.state["x"].copy_(self._dev(np.asarray(value, np.float64)
+                                        .reshape(self.n_nodes, 3)))
 
     def set_velocities(self, value):
-        self.state["v"] = self._dev(np.asarray(value, np.float64)
-                                    .reshape(self.n_nodes, 3))
+        self.state["v"].copy_(self._dev(np.asarray(value, np.float64)
+                                        .reshape(self.n_nodes, 3)))
 
     # ---------------------------------------------------------- stepping
 
     def _advance(self, n_steps):
-        new = banded_rollout(self.state, self.planes, self.cfg, n_steps)
-        new["t"] = self.state["t"] + n_steps * self.cfg.dt
-        self.state = new
+        """n_steps timesteps: on a card in place, as one graph replay of
+        the window's kernels (captured on first use, `WindowGraphs`); on
+        the CPU by the kernels' plain twin."""
+        state = {k: self.state[k] for k in STATE}
+        if self.device.type == "cuda":
+            self._graphs.advance(state, self.planes, self.cfg, n_steps)
+        else:
+            self.state.update(banded_rollout(state, self.planes, self.cfg,
+                                             n_steps))
+        self.state["t"] = self.state["t"] + n_steps * self.cfg.dt
 
     def step(self):
         self._advance(1)
         return True
 
     def run(self, n_steps: int):
-        """n_steps timesteps: ROLLOUT_WINDOW-step launches, then the
+        """n_steps timesteps: ROLLOUT_WINDOW-step windows, then the
         remainder as single steps."""
         full, rem = divmod(int(n_steps), self.ROLLOUT_WINDOW)
         for _ in range(full):

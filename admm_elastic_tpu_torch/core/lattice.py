@@ -5,8 +5,8 @@ Counterpart of `admm_elastic_tpu/core/lattice.py`. A `make_beam_tets` beam
 of uniform cube cells, in any vertex numbering, with one tet force of
 uniform material (NeoHookean, StVK or ARAP), StaticAnchors of one weight,
 an optional Floor and gravity kicks runs whole windows of timesteps in one
-kernel launch (`ops/kernels/lattice_step.py`, `csrc/lattice_step.cu`): the
-tets' vertices and the RHS gather follow from the cell index by
+submission (a CUDA graph of the window's kernels,
+`ops/kernels/lattice_step.py`, `csrc/lattice_step.cu`): the tets' vertices and the RHS gather follow from the cell index by
 arithmetic, with no index arrays. The stepper works in the lattice's
 canonical numbering; `lattice_from_system` returns the map from the
 caller's numbering (`System._to_canon`).
@@ -26,8 +26,10 @@ from ..geometry.primitives import make_beam_tets
 from ..models import (Collision, ExplicitForce, Floor, HyperElasticTet,
                       LinearTetStrain, StaticAnchor, WindForce)
 from ..models.tet import build_tet_basis
-from ..ops.kernels.lattice_step import (_CORNER_DIJK, _EVEN, _ODD,
-                                        LatticeConfig, lattice_rollout)
+from ..ops.kernels._graph import WindowGraphs
+from ..ops.kernels.lattice_step import (_CORNER_DIJK, _EVEN, _ODD, STATE,
+                                        LatticeConfig, LatticeWindow,
+                                        lattice_rollout)
 from .solver import assemble_A_hat_dia
 
 
@@ -143,6 +145,8 @@ class LatticeStepper:
             "cu": self._dev(np.zeros((n, 3))),
             "t": torch.zeros((), dtype=dtype, device=self.device),
         }
+        self._graphs = WindowGraphs(LatticeWindow, lattice_rollout,
+                                    (1, self.ROLLOUT_WINDOW))
 
     def _dev(self, a):
         return torch.as_tensor(np.array(a, np.float64, order="C"),
@@ -160,28 +164,36 @@ class LatticeStepper:
         return self.state["v"].cpu().numpy()
 
     def set_positions(self, value):
-        """Overwrite positions, (n,3) in the canonical numbering."""
-        self.state["x"] = self._dev(np.asarray(value, np.float64)
-                                    .reshape(self.n_nodes, 3))
+        """Overwrite positions, (n,3) in the canonical numbering: copied into the state's own
+        buffer, which the captured windows hold."""
+        self.state["x"].copy_(self._dev(np.asarray(value, np.float64)
+                                        .reshape(self.n_nodes, 3)))
 
     def set_velocities(self, value):
-        self.state["v"] = self._dev(np.asarray(value, np.float64)
-                                    .reshape(self.n_nodes, 3))
+        self.state["v"].copy_(self._dev(np.asarray(value, np.float64)
+                                        .reshape(self.n_nodes, 3)))
 
     # ---------------------------------------------------------- stepping
 
     def _advance(self, n_steps):
-        new = lattice_rollout(self.state, self.planes, self.cfg, n_steps)
-        new["t"] = self.state["t"] + n_steps * self.dt
-        self.state = new
+        """n_steps timesteps: on a card in place, as one graph replay of
+        the window's kernels (captured on first use, `WindowGraphs`); on
+        the CPU by the kernels' plain twin."""
+        state = {k: self.state[k] for k in STATE}
+        if self.device.type == "cuda":
+            self._graphs.advance(state, self.planes, self.cfg, n_steps)
+        else:
+            self.state.update(lattice_rollout(state, self.planes, self.cfg,
+                                              n_steps))
+        self.state["t"] = self.state["t"] + n_steps * self.dt
 
     def step(self):
-        """One timestep (one 1-step launch)."""
+        """One timestep (a 1-step window)."""
         self._advance(1)
         return True
 
     def run(self, n_steps: int):
-        """n_steps timesteps: ROLLOUT_WINDOW-step launches, then the
+        """n_steps timesteps: ROLLOUT_WINDOW-step windows, then the
         remainder as single steps."""
         full, rem = divmod(int(n_steps), self.ROLLOUT_WINDOW)
         for _ in range(full):

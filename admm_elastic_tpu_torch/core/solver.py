@@ -237,19 +237,19 @@ def pcg_solve(A_apply, b, x0, diag, tol, max_iters):
     return x, it
 
 
-def pcg_solve_fixed(A_apply, b, x0, diag, n_iters: int, dot=None):
+def pcg_solve_fixed(A_apply, b, x0, diag, n_iters: int):
     """Jacobi-PCG with a fixed iteration count and no residual test. The
     three columns of (n,3) form one system: alpha and beta are single
     scalars over all 3n values. alpha, beta and rz stay tensors, so no
-    scalar is read back to the host. `dot(a, b)` sums a*b over all 3n
-    values (default torch.sum; a kernel's twin passes the kernel's order).
-    Returns (x, n_iters)."""
-    return pcg_fixed_inv(A_apply, b, x0, 1.0 / diag, n_iters, dot), n_iters
+    scalar is read back to the host. Returns (x, n_iters)."""
+    return pcg_fixed_inv(A_apply, b, x0, 1.0 / diag, n_iters), n_iters
 
 
 def pcg_fixed_inv(A_apply, b, x0, inv_diag, n_iters: int, dot=None):
     """`pcg_solve_fixed` given the preconditioner's inverse diagonal (n,)
-    itself, as the banded steppers store it; returns x."""
+    itself, as the banded steppers store it; returns x. `dot(a, b)` sums
+    a*b over all 3n values (default torch.sum; a kernel's twin passes the
+    kernel's order)."""
     if dot is None:
         def dot(a, b):
             return torch.sum(a * b)

@@ -1,81 +1,72 @@
-// Whole ADMM timesteps in one persistent cooperative kernel, for Hopper.
+// Whole ADMM timesteps of a tet mesh as a window of plain launches and
+// cluster solves, for Hopper.
 //
 // Replaces: admm_elastic_tpu/ops/pallas/banded_step.py, _banded_call
 // (kernel _make_banded_kernel), with model nh, stvk or arap and A_hat as
 // diagonals (dia mode) or as ELL rows (its uell mode: a tet mesh of any
 // topology): explicit gravity kick, every ADMM iteration's hyperelastic or
-// corotational local steps, dual updates, anchor and collision projections, right-hand
-// side, and a whole fixed-budget Jacobi-PCG solve, for n_steps timesteps
-// per launch.
+// corotational local steps, dual updates, anchor and collision
+// projections, right-hand side, and a whole fixed-budget Jacobi-PCG solve,
+// for n_steps timesteps per call.
 //
 // Layout, with no padding and no lane packing: vertex arrays (n,3)
 // row-major; element planes (P,E) in the tet force's own element order;
 // the element->vertex map idx (4,E); the vertex->(element,corner) incidence
 // inc (n,S), row-major, whose slots hold 4e+k in ascending order and then a
 // sentinel >= 4E (core/solver.assemble_transpose_incidence). The matrix:
-// dia (D,n) at offsets offs (dia.cuh), or ell_idx/ell_vals (n,K) row-major
-// (ell.cuh); the Pallas kernel's uell slot and fold planes, lane dilution
-// and hub splits are TPU layout and are not carried over.
+// dia (D,n) at offsets offs, or the ELL arrays slot-major, (K,n) each
+// (cg_ell.cu); the Pallas kernel's uell slot and fold planes, lane
+// dilution and hub splits are TPU layout and are not carried over.
 //
-// One timestep (barriers are grid-wide, cooperative_groups grid.sync()):
-//   prologue, per vertex: v += dt g where m > 0; x_pre = x; x += dt v;
-//     M xbar = m x                                                  barrier
+// One timestep, each line a launch on the caller's stream, in order:
+//   kick, per vertex (window.cuh): v += dt g where m > 0; x_pre = x;
+//     x += dt v; M xbar = m x
 //   admm_iters times:
-//     element phase, one thread per element: F = u + sum_k cp x[idx_k],
+//     element kernel, one thread per element: F = u + sum_k cp x[idx_k],
 //       oriented SVD; nh/stvk: warm-start guards, Newton prox, warm';
 //       arap: z = (k U diag(1,1,+-1) V^T + w2 F) / (w2 + k); u' = F - z,
-//       rows[3k+a] = sum_b cp[4b+k] w2 (F - 2u')[3a+b]            barrier
-//     vertex phase, one thread per vertex: b = its incidence rows summed
+//       rows[3k+a] = sum_b cp[4b+k] w2 (F - 2u')[3a+b]
+//     vertex kernel, one thread per vertex: b = its incidence rows summed
 //       in slot order (fixed order, no atomics); anchor dual (zero where
 //       the anchor weight is 0) and its RHS; collision shapes projected
-//       in declaration order, dual and RHS; r = M xbar + dt^2 b - A x;
-//       p = D^-1 r; per-block partials of r.p                      barrier
-//     cg_iters times (coop_pcg.cuh: the three stages of cg_dia.cu, the
-//     barriers in place of its launches; every block sums the partials
-//     itself in one fixed order, so all blocks hold the same scalars):
-//       Ap = A p, partials of p.Ap                                  barrier
-//       alpha = rz / pAp; x += alpha p; r -= alpha Ap; partials of
-//       (r D^-1) r                                                  barrier
-//       beta = rz' / rz; p = D^-1 r + beta p                        barrier
-//   epilogue, per vertex: v = (x - x_pre) (1/dt)
+//       in declaration order, dual and RHS; rhs = M xbar + dt^2 b
+//     the cluster solve of A x = rhs from x, in place (cg_dia.cu or
+//       cg_ell.cu on cluster_pcg.cuh, D^-1 = invd as given): it forms
+//       r = rhs - A x itself, then cg_iters iterations on one 16-CTA
+//       cluster
+//   end, per vertex: v = (x - x_pre) (1/dt)
 // The arithmetic follows the Pallas kernel's evaluation order; the plain
-// PyTorch twin (ops/kernels/banded_step.py) follows the same order. The
-// element phase and the vertex phase's RHS (element_step, vertex_rhs) live
-// in banded_phases.cuh, shared with the sharded stepper's local phase
-// (banded_local.cu).
+// PyTorch twin (ops/kernels/banded_step.py) follows the same order, its
+// solve the cluster solve's (core/solver.pcg_fixed_inv with
+// cg_step.cluster_dot). The element and vertex phases (element_step,
+// vertex_rhs) live in banded_phases.cuh, shared with the sharded
+// stepper's local phase (banded_local.cu).
 //
 // What bounds it on this card: at the 100k-tet beam (E = 100,000, n =
 // 22,386, 19 diagonals) the whole working set is ~24 MB in f32 and ~45 MB
 // in f64, both L2-resident (50 MB), so device memory is not the limit; at
 // delaunay100k (E = 100,852, n = 16,280, K = 32) it is ~27 MB in f32. The
 // element phase is ALU- and latency-bound (a few thousand dependent flops
-// per element, as nh_local.cu); the rest is the chain of 2 + 3k grid
-// barriers per ADMM iteration (k = cg_iters), each costing a few
-// microseconds, with a few microseconds of work between them.
+// per element, as nh_local.cu) and wants the whole card; the solve is a
+// chain of short dependent iterations that one cluster runs without a
+// grid barrier (cluster_pcg.cuh: ~8.6 us an iteration at tet100k, where
+// the cooperative kernel this replaces paid three grid barriers, ~14.7
+// us).
 //
-// Design: one launch per rollout window, grid = SMs x the occupancy the
-// register count allows (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// so every block is resident and grid.sync() is legal; a refused launch
-// returns its cudaError_t. Every phase is a grid-stride loop, and a vertex
-// keeps the same thread in every vertex phase, so the epilogue and the
-// next prologue need no barrier between them. No thread returns early:
-// every thread reaches every barrier. Buffers written during the launch
-// are never read through the non-coherent (const __restrict__) path.
-// ptxas registers and spills: printed by chip_smoke.py from the build log
-// (see PERF.md).
-
-#include <cooperative_groups.h>
+// Design: 2 + 3 admm_iters plain launches a timestep, from one host call a
+// window; the caller captures a window in a CUDA graph once and replays
+// it (ops/kernels/banded_step.py), so a window is one submission. The
+// state is advanced in place; no kernel reads, through a const
+// __restrict__ pointer, a buffer that it writes.
 
 #include "banded_phases.cuh"
-#include "coop_pcg.cuh"
-#include "ell.cuh"
+#include "dia.cuh"
+#include "window.cuh"
 
 namespace admm {
 namespace banded {
 
-namespace cgr = cooperative_groups;
-
-constexpr int THREADS = 128;
+using window::THREADS;
 
 template <typename T>
 struct Args {
@@ -94,178 +85,108 @@ struct Args {
   const T* __restrict__ lam;
   const T* __restrict__ kp;
   // vertex planes
-  const T* __restrict__ mass;
-  const T* __restrict__ invd;
   const T* __restrict__ aw2;
   const T* __restrict__ ancz;   // (n,3)
-  const T* __restrict__ dia;    // (D,n), dia mode
-  const int* __restrict__ ell_idx;  // (n,K), ELL mode
-  const T* __restrict__ ell_vals;   // (n,K), ELL mode
   const int* __restrict__ inc;  // (n,S)
   // scratch
-  T* xpre;
   T* mxbar;
   T* rows;  // (12,E)
-  T* r;
-  T* p;
-  T* ap;
-  T* part;  // 2 * gridDim.x
-  int n, E, D, K, S, n_shapes, newton_iters, cg_iters, admm_iters, n_steps;
+  T* rhs;   // (n,3)
+  int n, E, S, n_shapes, newton_iters;
   T sc[N_SCALARS];
   int shape_kind[MAX_SHAPES];
   T shape_prm[MAX_SHAPES][SHAPE_PRM];
-  dia::Offsets offs;
 };
 
-// Vertex i: RHS, anchor and collision duals (vertex_rhs), r = M xbar +
-// dt^2 b - A x and p = D^-1 r. Returns this vertex's share of r.p.
-template <typename T, typename Row>
-__device__ __forceinline__ T vertex_step(const Args<T>& a, const Row& row,
-                                         int i) {
-  const size_t si = static_cast<size_t>(i);
+template <typename T, int MODEL>
+__global__ void __launch_bounds__(THREADS)
+    element_kernel(const __grid_constant__ Args<T> a) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < a.E) element_step<T, MODEL>(a, e);
+}
+
+// Vertex i: RHS, anchor and collision duals (vertex_rhs), then rhs = M
+// xbar + dt^2 b.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    vertex_kernel(const __grid_constant__ Args<T> a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
   T b[3];
   vertex_rhs(a, i, b);
-  T ax[3];
-  row(i, static_cast<const T*>(a.x), ax);
-  const T invd = a.invd[i];
-  T local = T(0);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const T rr = a.mxbar[3 * si + c] + a.sc[DT2] * b[c] - ax[c];
-    const T pp = invd * rr;
-    a.r[3 * si + c] = rr;
-    a.p[3 * si + c] = pp;
-    local = local + rr * pp;
-  }
-  return local;
-}
-
-template <typename T, int MODEL, bool ELL>
-__global__ void __launch_bounds__(THREADS) rollout_kernel(const Args<T> a) {
-  cgr::grid_group grid = cgr::this_grid();
-  __shared__ T sh[THREADS];
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int gstride = gridDim.x * blockDim.x;
-  const coop::PcgVecs<T> pcg_vecs{a.x, a.r, a.p, a.ap, a.invd, a.part, a.n};
-  const auto row = [&a](int i, const T* y, T out[3]) {
-    if constexpr (ELL)
-      ell::ell_row(a.ell_idx, a.ell_vals, a.K, i, y, out);
-    else
-      dia::dia_row(a.dia, a.offs, a.D, a.n, i, y, out);
-  };
-
-  for (int step = 0; step < a.n_steps; ++step) {
-    for (int i = gtid; i < a.n; i += gstride) {
-      const T m = a.mass[i];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const size_t q = 3 * static_cast<size_t>(i) + c;
-        const T vc = a.v[q] + (m > T(0) ? a.sc[DTG0 + c] : T(0));
-        a.v[q] = vc;
-        const T xs = a.x[q];
-        a.xpre[q] = xs;
-        const T xn = xs + a.sc[DT] * vc;
-        a.x[q] = xn;
-        a.mxbar[q] = m * xn;
-      }
-    }
-    grid.sync();
-
-    for (int it = 0; it < a.admm_iters; ++it) {
-      for (int e = gtid; e < a.E; e += gstride) element_step<T, MODEL>(a, e);
-      grid.sync();
-
-      T local = T(0);
-      for (int i = gtid; i < a.n; i += gstride)
-        local = local + vertex_step(a, row, i);
-      coop::pcg(grid, pcg_vecs, a.cg_iters, local, row, sh);
-    }
-
-    for (int i = gtid; i < a.n; i += gstride) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const size_t q = 3 * static_cast<size_t>(i) + c;
-        a.v[q] = (a.x[q] - a.xpre[q]) * a.sc[INV_DT];
-      }
-    }
+    const size_t q = 3 * static_cast<size_t>(i) + c;
+    a.rhs[q] = a.mxbar[q] + a.sc[DT2] * b[c];
   }
 }
 
-template <typename T, bool ELL>
-void* kernel_of(int model) {
-  return model == 0   ? (void*)rollout_kernel<T, 0, ELL>
-         : model == 1 ? (void*)rollout_kernel<T, 1, ELL>
-                      : (void*)rollout_kernel<T, 2, ELL>;
-}
-
 template <typename T>
-void* kernel_for(int model, int ell) {
-  return ell ? kernel_of<T, true>(model) : kernel_of<T, false>(model);
-}
-
-// Blocks of the cooperative grid on the current device, or -cudaError_t.
-template <typename T>
-int grid_blocks(int model, int ell) {
-  if (model < 0 || model > 2)
-    return -static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_for<T>(model, ell), THREADS, 0);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
-  return sms * per_sm;
+void* element_kernel_of(int model) {
+  return model == 0   ? (void*)element_kernel<T, 0>
+         : model == 1 ? (void*)element_kernel<T, 1>
+                      : (void*)element_kernel<T, 2>;
 }
 
 template <typename T>
 int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
            const T* cp, const T* w2, const T* mu, const T* lam, const T* kp,
            const T* mass, const T* invd, const T* aw2, const T* ancz,
-           const int* inc, const T* dia_vals, const int* ell_idx,
-           const T* ell_vals, T* xpre, T* mxbar, T* rows, T* r, T* p, T* ap,
-           T* part, const int* offsets, const int* shape_kinds,
+           const int* inc, const T* dia_vals, const int* ell_idx_t,
+           const T* ell_vals_t, T* xpre, T* mxbar, T* rows, T* rhs,
+           T* scratch, const int* offsets, const int* shape_kinds,
            const double* shape_prm, const double* scalars, int n, int E,
-           int D, int K, int S, int n_shapes, int model, int newton_iters,
-           int cg_iters, int admm_iters, int n_steps, int part_len,
+           int D, int K, int H, int S, int n_shapes, int model,
+           int newton_iters, int cg_iters, int admm_iters, int n_steps,
            void* stream) {
   // exactly one matrix: D diagonals (K = 0) or K ELL slots (D = 0)
-  const int ell = K > 0;
   const bool matrix_ok =
-      ell ? (D == 0 && ell_idx != nullptr && ell_vals != nullptr)
-          : (D >= 1 && D <= dia::MAX_DIAGONALS && dia_vals != nullptr);
-  if (n < 1 || E < 1 || !matrix_ok || K < 0 || S < 1 ||
+      K > 0 ? (D == 0 && ell_idx_t != nullptr && ell_vals_t != nullptr)
+            : (D >= 1 && D <= dia::MAX_DIAGONALS && dia_vals != nullptr);
+  if (n < 1 || E < 1 || !matrix_ok || K < 0 || H < 0 || S < 1 ||
       n_shapes < 0 || n_shapes > MAX_SHAPES || model < 0 || model > 2 ||
       newton_iters < 0 || cg_iters < 0 || admm_iters < 0 || n_steps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = grid_blocks<T>(model, ell);
-  if (blocks < 0) return -blocks;
-  if (part_len < 2 * blocks) return static_cast<int>(cudaErrorInvalidValue);
   Args<T> a{};
   a.x = x; a.v = v; a.u = u; a.warm = warm; a.au = au; a.cu = cu;
   a.idx = idx; a.cp = cp; a.w2 = w2; a.mu = mu; a.lam = lam; a.kp = kp;
-  a.mass = mass; a.invd = invd; a.aw2 = aw2; a.ancz = ancz;
-  a.dia = dia_vals; a.ell_idx = ell_idx; a.ell_vals = ell_vals; a.inc = inc;
-  a.xpre = xpre; a.mxbar = mxbar; a.rows = rows; a.r = r; a.p = p;
-  a.ap = ap; a.part = part;
-  a.n = n; a.E = E; a.D = D; a.K = K; a.S = S; a.n_shapes = n_shapes;
-  a.newton_iters = newton_iters; a.cg_iters = cg_iters;
-  a.admm_iters = admm_iters; a.n_steps = n_steps;
+  a.aw2 = aw2; a.ancz = ancz; a.inc = inc;
+  a.mxbar = mxbar; a.rows = rows; a.rhs = rhs;
+  a.n = n; a.E = E; a.S = S; a.n_shapes = n_shapes;
+  a.newton_iters = newton_iters;
   for (int q = 0; q < N_SCALARS; ++q) a.sc[q] = static_cast<T>(scalars[q]);
   for (int q = 0; q < n_shapes; ++q) {
     a.shape_kind[q] = shape_kinds[q];
     for (int j = 0; j < SHAPE_PRM; ++j)
       a.shape_prm[q][j] = static_cast<T>(shape_prm[q * SHAPE_PRM + j]);
   }
-  for (int d = 0; d < D; ++d) a.offs.v[d] = offsets[d];
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 vb = window::blocks_for(n), eb = window::blocks_for(E);
   void* kargs[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel_for<T>(model, ell), dim3(blocks), dim3(THREADS), kargs, 0,
-      static_cast<cudaStream_t>(stream));
-  if (err == cudaSuccess) err = cudaGetLastError();
-  return static_cast<int>(err);
+  void* element = element_kernel_of<T>(model);
+  window::clear_errors();
+  for (int step = 0; step < n_steps; ++step) {
+    window::kick_kernel<T><<<vb, THREADS, 0, st>>>(
+        x, v, xpre, mxbar, mass, a.sc[DT], a.sc[DTG0], a.sc[DTG1],
+        a.sc[DTG2], n);
+    int err = window::launched();
+    for (int it = 0; it < admm_iters && err == 0; ++it) {
+      err = static_cast<int>(
+          cudaLaunchKernel(element, eb, dim3(THREADS), kargs, 0, st));
+      if (err == 0)
+        err = static_cast<int>(cudaLaunchKernel(
+            (void*)vertex_kernel<T>, vb, dim3(THREADS), kargs, 0, st));
+      if (err == 0)
+        err = window::solve(rhs, x, invd, dia_vals, offsets, D, ell_idx_t,
+                            ell_vals_t, K, H, n, cg_iters, scratch, st);
+    }
+    if (err != 0) return window::failed(err);
+    window::end_kernel<T><<<vb, THREADS, 0, st>>>(x, v, xpre, a.sc[INV_DT],
+                                                 n);
+    err = window::launched();
+    if (err != 0) return window::failed(err);
+  }
+  return 0;
 }
 
 }  // namespace banded
@@ -276,33 +197,35 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
       T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx, const T* cp,   \
       const T* w2, const T* mu, const T* lam, const T* kp, const T* mass,     \
       const T* invd, const T* aw2, const T* ancz, const int* inc,             \
-      const T* dia_vals, const int* ell_idx, const T* ell_vals, T* xpre,      \
-      T* mxbar, T* rows, T* r, T* p, T* ap, T* part, const int* offsets,      \
+      const T* dia_vals, const int* ell_idx_t, const T* ell_vals_t, T* xpre,  \
+      T* mxbar, T* rows, T* rhs, T* scratch, const int* offsets,              \
       const int* shape_kinds, const double* shape_prm, const double* scalars, \
-      int n, int E, int D, int K, int S, int n_shapes, int model,             \
+      int n, int E, int D, int K, int H, int S, int n_shapes, int model,      \
       int newton_iters, int cg_iters, int admm_iters, int n_steps,            \
-      int part_len, void* stream) {                                           \
+      void* stream) {                                                         \
     return admm::banded::launch<T>(                                           \
         x, v, u, warm, au, cu, idx, cp, w2, mu, lam, kp, mass, invd, aw2,     \
-        ancz, inc, dia_vals, ell_idx, ell_vals, xpre, mxbar, rows, r, p, ap,  \
-        part, offsets, shape_kinds, shape_prm, scalars, n, E, D, K, S,        \
+        ancz, inc, dia_vals, ell_idx_t, ell_vals_t, xpre, mxbar, rows, rhs,   \
+        scratch, offsets, shape_kinds, shape_prm, scalars, n, E, D, K, H, S,  \
         n_shapes, model, newton_iters, cg_iters, admm_iters, n_steps,         \
-        part_len, stream);                                                    \
-  }                                                                           \
-  int banded_rollout_grid_##SUFFIX(int model, int ell) {                      \
-    return admm::banded::grid_blocks<T>(model, ell);                          \
+        stream);                                                              \
   }
 
 extern "C" {
 
 // model: 0 = NeoHookean, 1 = StVK, 2 = ARAP (mu, lam and newton_iters
 // unused). The matrix is dia_vals at D offsets (K = 0, ELL pointers null)
-// or ell_idx/ell_vals with K slots (D = 0, dia_vals null). The state (x,
-// v, u, warm, au, cu) is advanced n_steps timesteps in place. offsets, shape_kinds, shape_prm
-// (n_shapes x 5) and scalars (7: dt, dt^2, 1/dt, dt g xyz, collision
-// weight^2, formed in double) are host arrays. part holds part_len >=
-// 2 x banded_rollout_grid_*(model) values. Returns the cudaError_t of the
-// launch, or 0.
+// or the slot-major ell_idx_t/ell_vals_t (K,n) with K slots (D = 0,
+// dia_vals null); H: how far a row reaches (the largest |offset|, or
+// cg_ell's bandwidth). The state (x, v, u, warm, au, cu) is advanced
+// n_steps timesteps in place; xpre, mxbar, rhs (n,3) and rows (12,E) are
+// scratch, and scratch holds the cluster solve's global scratch
+// (cg_cluster_plan; nullptr when it is 0). offsets, shape_kinds,
+// shape_prm (n_shapes x 5) and scalars (7: dt, dt^2, 1/dt, dt g xyz,
+// collision weight^2, formed in double) are host arrays. Every launch
+// goes to `stream` (a CUDA graph capture takes them all; the solve's
+// set-up, cg_dia_prepare_* / cg_ell_prepare_*, must run before). Returns
+// the first nonzero cudaError_t of the launches, or 0.
 ADMM_BANDED_ENTRY(float, f32)
 ADMM_BANDED_ENTRY(double, f64)
 

@@ -82,8 +82,8 @@ struct DiaRows {
 
 template <typename T>
 int solve(const T* b, const T* x0, const T* diag, const T* dia_vals,
-          const int* offsets, int D, int H, int n, int n_iters, T* x,
-          T* scratch, void* stream) {
+          const int* offsets, int D, int H, int n, int n_iters, int diag_inv,
+          T* x, T* scratch, void* stream) {
   if (D < 1 || D > dia::MAX_DIAGONALS)
     return static_cast<int>(cudaErrorInvalidValue);
   DiaRows<T> row{dia_vals, {}, D, n};
@@ -92,8 +92,8 @@ int solve(const T* b, const T* x0, const T* diag, const T* dia_vals,
     if (offsets[d] > H || -offsets[d] > H)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return cluster_pcg::solve<T>(row, H, D, b, x0, diag, n, n_iters, x,
-                               scratch, stream);
+  return cluster_pcg::solve<T>(row, H, D, b, x0, diag, diag_inv, n,
+                               n_iters, x, scratch, stream);
 }
 
 }  // namespace cg
@@ -102,25 +102,27 @@ int solve(const T* b, const T* x0, const T* diag, const T* dia_vals,
 extern "C" {
 
 // offsets is a host array of D ints, H at least their largest magnitude;
+// diag is A's diagonal, or with diag_inv = 1 its inverse; x may be x0;
 // scratch holds cg_cluster_plan's scratch count (nullptr when it is 0).
 // Returns the first nonzero cudaError_t of the checks and the launch
 // (cudaErrorInvalidClusterSize if the card cannot place the cluster), or
 // 0.
-int cg_dia_solve_f32(const float* b, const float* x0, const float* diag,
-                     const float* dia, const int* offsets, int D, int H,
-                     int n, int n_iters, float* x, float* scratch,
-                     void* stream) {
-  return admm::cg::solve<float>(b, x0, diag, dia, offsets, D, H, n, n_iters,
-                                x, scratch, stream);
-}
+#define ADMM_CG_DIA_ENTRY(T, SUFFIX)                                          \
+  int cg_dia_solve_##SUFFIX(const T* b, const T* x0, const T* diag,         \
+                            const T* dia, const int* offsets, int D, int H,  \
+                            int n, int n_iters, int diag_inv, T* x,          \
+                            T* scratch, void* stream) {                      \
+    return admm::cg::solve<T>(b, x0, diag, dia, offsets, D, H, n, n_iters,   \
+                              diag_inv, x, scratch, stream);                 \
+  }                                                                          \
+  int cg_dia_prepare_##SUFFIX(int D, int H, int n) {                         \
+    return admm::cluster_pcg::prepare<T, admm::cg::DiaRows<T>>(H, D, n);     \
+  }
 
-int cg_dia_solve_f64(const double* b, const double* x0, const double* diag,
-                     const double* dia, const int* offsets, int D, int H,
-                     int n, int n_iters, double* x, double* scratch,
-                     void* stream) {
-  return admm::cg::solve<double>(b, x0, diag, dia, offsets, D, H, n,
-                                 n_iters, x, scratch, stream);
-}
+// cg_dia_prepare_*: the set-up of a solve of n rows, D diagonals reaching
+// H, without a launch (before a CUDA graph captures such solves).
+ADMM_CG_DIA_ENTRY(float, f32)
+ADMM_CG_DIA_ENTRY(double, f64)
 
 // The layout of a cluster solve of n rows whose rows reach H rows away
 // (cg_dia_solve: mat_per_row = D; cg_ell_solve: 0) on the current device:

@@ -79,12 +79,12 @@ struct EllRows {
 
 template <typename T>
 int ell_solve(const T* b, const T* x0, const T* diag, const int* idx_t,
-              const T* vals_t, int K, int H, int n, int n_iters, T* x,
-              T* scratch, void* stream) {
+              const T* vals_t, int K, int H, int n, int n_iters, int diag_inv,
+              T* x, T* scratch, void* stream) {
   if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
   const EllRows<T> row{idx_t, vals_t, K, n};
-  return cluster_pcg::solve<T>(row, H, 0, b, x0, diag, n, n_iters, x,
-                               scratch, stream);
+  return cluster_pcg::solve<T>(row, H, 0, b, x0, diag, diag_inv, n,
+                               n_iters, x, scratch, stream);
 }
 
 }  // namespace cg
@@ -93,22 +93,23 @@ int ell_solve(const T* b, const T* x0, const T* diag, const int* idx_t,
 extern "C" {
 
 // idx_t, vals_t: the ELL arrays slot-major, (K,n); H: the largest
-// |idx_t[k,i] - i| (a row's columns must lie within H of it); scratch as
-// for cg_dia_solve. Returns the first nonzero cudaError_t, or 0.
-int cg_ell_solve_f32(const float* b, const float* x0, const float* diag,
-                     const int* idx_t, const float* vals_t, int K, int H,
-                     int n, int n_iters, float* x, float* scratch,
-                     void* stream) {
-  return admm::cg::ell_solve<float>(b, x0, diag, idx_t, vals_t, K, H, n,
-                                    n_iters, x, scratch, stream);
-}
+// |idx_t[k,i] - i| (a row's columns must lie within H of it); diag, x and
+// scratch as for cg_dia_solve. Returns the first nonzero cudaError_t, or
+// 0. cg_ell_prepare_*: the set-up of a solve of n rows reaching H,
+// without a launch.
+#define ADMM_CG_ELL_ENTRY(T, SUFFIX)                                          \
+  int cg_ell_solve_##SUFFIX(const T* b, const T* x0, const T* diag,         \
+                            const int* idx_t, const T* vals_t, int K, int H, \
+                            int n, int n_iters, int diag_inv, T* x,          \
+                            T* scratch, void* stream) {                      \
+    return admm::cg::ell_solve<T>(b, x0, diag, idx_t, vals_t, K, H, n,       \
+                                  n_iters, diag_inv, x, scratch, stream);    \
+  }                                                                          \
+  int cg_ell_prepare_##SUFFIX(int H, int n) {                                \
+    return admm::cluster_pcg::prepare<T, admm::cg::EllRows<T>>(H, 0, n);     \
+  }
 
-int cg_ell_solve_f64(const double* b, const double* x0, const double* diag,
-                     const int* idx_t, const double* vals_t, int K, int H,
-                     int n, int n_iters, double* x, double* scratch,
-                     void* stream) {
-  return admm::cg::ell_solve<double>(b, x0, diag, idx_t, vals_t, K, H, n,
-                                     n_iters, x, scratch, stream);
-}
+ADMM_CG_ELL_ENTRY(float, f32)
+ADMM_CG_ELL_ENTRY(double, f64)
 
 }  // extern "C"

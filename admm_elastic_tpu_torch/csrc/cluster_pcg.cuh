@@ -71,6 +71,9 @@
 
 #include <atomic>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <set>
 
 #include "common.cuh"
 
@@ -305,12 +308,16 @@ __device__ __forceinline__ T slot_total(const T* slot) {
 // row(view, i, li, col, out) writes row i (the slab's li-th) of A y, where
 // col(j, c) writes y's row j to c[0..2].
 // WINDOW: the layout in shared memory (else SHARED, in `scratch`).
+// diag_inv: diag holds D^-1 itself (else A's diagonal, inverted here).
+// x_out may be x0 (the whole-timestep steppers solve in place): x0 is
+// read before the first stage end only, which no CTA passes before every
+// CTA has read its rows, and x_out is written after the last.
 template <typename T, typename Row, bool WINDOW>
 __global__ void __launch_bounds__(THREADS, 1)
-    solve_kernel(const Row row, const T* __restrict__ b,
-                 const T* __restrict__ x0, const T* __restrict__ diag, int n,
-                 int H, int iters, T* __restrict__ x_out, T* scratch, int S,
-                 int W, int mat_smem) {
+    solve_kernel(const Row row, const T* __restrict__ b, const T* x0,
+                 const T* __restrict__ diag, int diag_inv, int n, int H,
+                 int iters, T* x_out, T* scratch, int S, int W,
+                 int mat_smem) {
   extern __shared__ __align__(16) unsigned char dyn_raw[];
   // every rank's partials: [0] r.(D^-1 r), [1] p.Ap
   __shared__ T slots[2][CLUSTER];
@@ -344,7 +351,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   T* xs = WINDOW ? dyn + 7 * w : scratch + 8 * gn + 3 * lo;  // slab x
   T* aps = WINDOW ? xs + 3 * s : scratch + 11 * gn + 3 * lo;  // slab Ap
   const int off = lo - wlo;  // a slab row's place in the window
-  for (int q = tid; q < wn; q += THREADS) rd[4 * q + 3] = T(1) / diag[wlo + q];
+  for (int q = tid; q < wn; q += THREADS)
+    rd[4 * q + 3] = diag_inv ? diag[wlo + q] : T(1) / diag[wlo + q];
   cl.sync();  // every CTA has started before any writes to another
 
   // WINDOW: the slab's rows of (r, D^-1) that other CTAs' windows hold,
@@ -493,17 +501,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   cl.sync();
 }
 
-// Launch one cluster. The kernel's attributes are set, and the card asked
-// whether it can place the cluster, on the first launch of an
-// instantiation at a device and shared-memory size, not on every solve;
-// a cluster the card cannot place is refused (cudaErrorInvalidClusterSize),
-// never run smaller.
+// The launch of one cluster of solve_kernel<T, Row, WINDOW>, with
+// `smem` bytes of dynamic shared memory a CTA.
 template <typename T, typename Row, bool WINDOW>
-cudaError_t launch_kernel(const Row& row, const Plan& pl, int H,
-                          const T* b, const T* x0, const T* diag, int n,
-                          int iters, T* x, T* scratch, cudaStream_t st) {
-  auto kern = solve_kernel<T, Row, WINDOW>;
-  cudaLaunchAttribute attr[1];
+cudaLaunchConfig_t cluster_config(int smem, cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CLUSTER;
   attr[0].val.clusterDim.y = 1;
@@ -511,52 +513,112 @@ cudaError_t launch_kernel(const Row& row, const Plan& pl, int H,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CLUSTER);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = pl.smem_bytes;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  static std::atomic<long long> ready{-1};  // device << 32 | smem bytes
+  return cfg;
+}
+
+// Set the kernel's attributes and ask the card whether it can place the
+// cluster, once for each device and shared-memory size of an
+// instantiation (a cluster the card cannot place is refused,
+// cudaErrorInvalidClusterSize, never run smaller). The dynamic shared
+// memory a kernel may take is one attribute a device, so it only grows:
+// every size set up before stays launchable. A launch inside a CUDA graph
+// capture finds its set-up done (prepare).
+template <typename T, typename Row, bool WINDOW>
+cudaError_t ready(int smem) {
+  static std::set<long long> done;  // device << 32 | smem bytes
+  static std::map<int, int> allowed;  // device -> the attribute's value
+  static std::mutex mu;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  const long long key = (static_cast<long long>(dev) << 32) | pl.smem_bytes;
-  if (ready.load(std::memory_order_acquire) != key) {
-    const void* fn = (const void*)kern;
-    e = cudaFuncSetAttribute(fn,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem_bytes);
-    int clusters = 0;
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
-    if (e != cudaSuccess) return e;
-    if (clusters < 1) return cudaErrorInvalidClusterSize;
-    ready.store(key, std::memory_order_release);
+  const long long key = (static_cast<long long>(dev) << 32) | smem;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count(key)) return cudaSuccess;
+  const void* fn = (const void*)solve_kernel<T, Row, WINDOW>;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1);
+  int& cap = allowed[dev];
+  if (e == cudaSuccess && smem > cap) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e == cudaSuccess) cap = smem;
   }
-  return cudaLaunchKernelEx(&cfg, kern, row, b, x0, diag, n, H, iters, x,
-                            scratch, pl.slab, pl.window, pl.mat_smem);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config<T, Row, WINDOW>(smem, nullptr, attr);
+  int clusters = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorInvalidClusterSize;
+  done.insert(key);
+  return cudaSuccess;
 }
 
-// The whole solve: its plan, then one launch in the plan's layout.
-// scratch: the plan's elements of global scratch (nullptr when 0).
-template <typename T, typename Row>
-int solve(const Row& row, int H, int mat_per_row, const T* b, const T* x0,
-          const T* diag, int n, int iters, T* x, T* scratch, void* stream) {
+// The solve's plan on the current device (plan_for_device), checked
+// against the scratch given.
+inline int checked_plan(int n, int H, int mat_per_row, int elem, int iters,
+                        bool has_scratch, Plan* pl) {
   if (n < 1 || iters < 0 || H < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Plan pl;
-  const int err = plan_for_device(n, H, mat_per_row, sizeof(T), &pl);
+  const int err = plan_for_device(n, H, mat_per_row, elem, pl);
   if (err != 0) return err;
-  if (!pl.vec_smem && scratch == nullptr)
+  if (!pl->vec_smem && !has_scratch)
     return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// The set-up of a solve of n rows reaching H (its plan, the kernel's
+// attributes, the cluster check), without a launch: what must run
+// before a CUDA graph captures the solve.
+template <typename T, typename Row>
+int prepare(int H, int mat_per_row, int n) {
+  Plan pl;
+  const int err = checked_plan(n, H, mat_per_row, sizeof(T), 0, true, &pl);
+  if (err != 0) return err;
+  return static_cast<int>(pl.vec_smem ? ready<T, Row, true>(pl.smem_bytes)
+                                      : ready<T, Row, false>(pl.smem_bytes));
+}
+
+template <typename T, typename Row, bool WINDOW>
+cudaError_t launch_kernel(const Row& row, const Plan& pl, int H,
+                          const T* b, const T* x0, const T* diag,
+                          int diag_inv, int n, int iters, T* x, T* scratch,
+                          cudaStream_t st) {
+  const cudaError_t e = ready<T, Row, WINDOW>(pl.smem_bytes);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config<T, Row, WINDOW>(pl.smem_bytes, st, attr);
+  return cudaLaunchKernelEx(&cfg, solve_kernel<T, Row, WINDOW>, row, b, x0,
+                            diag, diag_inv, n, H, iters, x, scratch, pl.slab,
+                            pl.window, pl.mat_smem);
+}
+
+// The whole solve: its plan, then one launch in the plan's layout. diag:
+// the diagonal of A, or with diag_inv = 1 its inverse (D^-1 as given);
+// x may be x0. scratch: the plan's elements of global scratch (nullptr
+// when 0).
+template <typename T, typename Row>
+int solve(const Row& row, int H, int mat_per_row, const T* b, const T* x0,
+          const T* diag, int diag_inv, int n, int iters, T* x, T* scratch,
+          void* stream) {
+  Plan pl;
+  const int err = checked_plan(n, H, mat_per_row, sizeof(T), iters,
+                               scratch != nullptr, &pl);
+  if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      pl.vec_smem ? launch_kernel<T, Row, true>(row, pl, H, b, x0, diag, n,
-                                                iters, x, scratch, st)
-                  : launch_kernel<T, Row, false>(row, pl, H, b, x0, diag, n,
-                                                 iters, x, scratch, st);
+      pl.vec_smem
+          ? launch_kernel<T, Row, true>(row, pl, H, b, x0, diag, diag_inv, n,
+                                        iters, x, scratch, st)
+          : launch_kernel<T, Row, false>(row, pl, H, b, x0, diag, diag_inv,
+                                         n, iters, x, scratch, st);
+  if (e != cudaSuccess) cudaGetLastError();  // returned here, not left behind
   return static_cast<int>(e);
 }
 

@@ -1,17 +1,17 @@
-// Whole ADMM timesteps on a uniform beam lattice in one persistent
-// cooperative kernel, for Hopper.
+// Whole ADMM timesteps on a uniform beam lattice as a window of plain
+// launches and cluster solves, for Hopper.
 //
 // Replaces: admm_elastic_tpu/ops/pallas/lattice_step.py, _lattice_call
 // (kernel _make_lattice_kernel): explicit gravity kick, every ADMM
 // iteration's NeoHookean, StVK or ARAP local steps on the ten (parity,
 // slot) tet groups of a make_beam_tets lattice, dual updates, the anchor
 // dual, one optional Floor, right-hand side, and a whole fixed-budget
-// Jacobi-PCG solve on A's diagonals, for n_steps timesteps per launch.
+// Jacobi-PCG solve on A's diagonals, for n_steps timesteps per call.
 //
 // Layout, with no padding and no lane planes: vertex arrays (n,3)
 // row-major in the lattice's canonical numbering; tet planes (P,E) in
 // make_beam_tets order (tet e = 5 c + slot of valid cell c). Where the
-// banded kernel reads idx (4,E) and an incidence table, this kernel does
+// banded route reads idx (4,E) and an incidence table, these kernels do
 // index arithmetic: a tet's cell (i, j, k) gives its parity, its group
 // g = 5 parity + slot and its vertices base + off(corner); a vertex finds
 // the tets it belongs to as (its (i, j, k) - the corner's (di, dj, dk)),
@@ -22,56 +22,49 @@
 // are TPU layout and are dropped; its phantom cells (i = nx, j = ny or
 // k = nz, computed there and masked out of b) are not computed at all.
 //
-// One timestep (barriers are grid-wide, cooperative_groups grid.sync()):
-//   prologue, per vertex: v += dt g where m > 0; x_pre = x; x += dt v;
-//     M xbar = m x                                                  barrier
+// One timestep, each line a launch on the caller's stream, in order:
+//   kick, per vertex (window.cuh): v += dt g where m > 0; x_pre = x;
+//     x += dt v; M xbar = m x
 //   admm_iters times:
-//     element phase, one thread per tet of a valid cell:
+//     element kernel, one thread per tet of a valid cell:
 //       F = u + sum_k cp_g[b,k] x[base + off_k] (zero coefficients
 //       skipped), oriented SVD; nh/stvk: warm-start guards, Newton prox,
 //       z = U sigma V^T; arap: z = (U diag(1,1,+-1) V^T + F)/2 (the
 //       lattice kernel's own mix, lattice_step.py:251); u' = F - z;
 //       rows[3k+j] = sum over cp_g[r,k] != 0 of cp_g[r,k] w2_g
-//       (F - 2u')[3j+r]                                            barrier
-//     vertex phase, one thread per vertex: b = its rows in group-major,
+//       (F - 2u')[3j+r]
+//     vertex kernel, one thread per vertex: b = its rows in group-major,
 //       corner-minor order (the Pallas kernel's accumulation; fixed
 //       order, no atomics); anchor dual u' = (u + x) - z where the anchor
 //       weight is > 0, else 0, and b += w2 (z - u'); the floor's
 //       z = (x + u) with y raised to the floor, u' = (u + x) - z,
-//       b += w2_floor (z - u'); r = M xbar + dt^2 b - A x; p = D^-1 r;
-//       per-block partials of r.p                                  barrier
-//     cg_iters times the three stages of coop_pcg.cuh with dia_row
-//   epilogue, per vertex: v = (x - x_pre) (1/dt)
+//       b += w2_floor (z - u'); rhs = M xbar + dt^2 b
+//     the cluster solve of A x = rhs from x, in place, on the diagonals
+//       (cg_dia.cu on cluster_pcg.cuh, D^-1 = invd as given)
+//   end, per vertex: v = (x - x_pre) (1/dt)
 // The plain PyTorch twin (ops/kernels/lattice_step.py) follows the same
-// order of arithmetic.
+// order of arithmetic, its solve the cluster solve's.
 //
 // What bounds it on this card: at the 100k-tet beam (E = 100,000, n =
-// 22,386, 19 diagonals) the working set is ~20-25 MB in f32, L2-resident
-// (50 MB), so device memory is not the limit; the element phase is
-// ALU- and latency-bound (a few thousand dependent flops per tet), and the
-// rest is the chain of 2 + 3k grid barriers per ADMM iteration (k =
-// cg_iters), each a few microseconds, as in banded_step.cu.
+// 22,386, 19 diagonals reaching 568 rows in the canonical numbering) the
+// working set is ~20-25 MB in f32, L2-resident (50 MB), so device memory
+// is not the limit; the element phase is ALU- and latency-bound (a few
+// thousand dependent flops per tet), and the solve a chain of short
+// iterations on one cluster, as in banded_step.cu.
 //
-// Design: the skeleton of banded_step.cu. One launch per rollout window,
-// grid = SMs x the occupancy the register count allows, so every block is
-// resident and grid.sync() is legal; a refused launch returns its
-// cudaError_t. Every phase is a grid-stride loop, and a vertex keeps the
-// same thread in every vertex phase. No thread returns early. Buffers
-// written during the launch are never read through the non-coherent
-// (const __restrict__) path. The model is a template parameter, the floor
-// a flag.
-
-#include <cooperative_groups.h>
+// Design: banded_step.cu's. 2 + 3 admm_iters plain launches a timestep,
+// from one host call a window, captured once in a CUDA graph by the
+// caller and replayed (ops/kernels/lattice_step.py). The state is
+// advanced in place. The model is a template parameter, the floor a flag.
 
 #include "arap.cuh"
-#include "coop_pcg.cuh"
+#include "dia.cuh"
+#include "window.cuh"
 
 namespace admm {
 namespace lattice {
 
-namespace cgr = cooperative_groups;
-
-constexpr int THREADS = 128;
+using window::THREADS;
 constexpr int GROUPS = 10;
 // scalars[]: dt, dt^2, 1/dt, dt g (3), floor y, floor weight^2, mu, lam,
 // kprox
@@ -97,24 +90,15 @@ struct Args {
   T* au;    // anchor dual (n,3)
   T* cu;    // floor dual (n,3)
   // vertex planes
-  const T* __restrict__ mass;
-  const T* __restrict__ invd;
   const T* __restrict__ aw2;
   const T* __restrict__ ancz;  // (n,3)
-  const T* __restrict__ dia;   // (D,n)
   // scratch
-  T* xpre;
   T* mxbar;
   T* rows;  // (12,E)
-  T* r;
-  T* p;
-  T* ap;
-  T* part;  // 2 * gridDim.x
-  int nx, ny, nz, n, E, D, floor, newton_iters, cg_iters, admm_iters,
-      n_steps;
+  T* rhs;   // (n,3)
+  int nx, ny, nz, n, E, floor, newton_iters;
   T sc[N_SCALARS];
   Tables<T> tab;
-  dia::Offsets offs;
 };
 
 // (di, dj, dk) of cell corner c: (0,0,0) (1,0,0) (1,1,0) (0,1,0), then the
@@ -215,11 +199,10 @@ __device__ __forceinline__ void element_step(const Args<T>& a,
     }
 }
 
-// Vertex i: RHS, anchor and floor duals, r = M xbar + dt^2 b - A x and
-// p = D^-1 r. Returns this vertex's share of r.p.
+// Vertex i: RHS, anchor and floor duals, then rhs = M xbar + dt^2 b.
 template <typename T>
-__device__ __forceinline__ T vertex_step(const Args<T>& a,
-                                         const Tables<T>& tb, int i) {
+__device__ __forceinline__ void vertex_step(const Args<T>& a,
+                                            const Tables<T>& tb, int i) {
   const size_t si = static_cast<size_t>(i);
   const size_t sE = static_cast<size_t>(a.E);
   const int gy = a.ny + 1, gz = a.nz + 1;
@@ -266,134 +249,72 @@ __device__ __forceinline__ T vertex_step(const Args<T>& a,
       b[c] = b[c] + a.sc[FLOOR_W2] * (z[c] - un);
     }
   }
-  T ax[3];
-  dia::dia_row(a.dia, a.offs, a.D, a.n, i, static_cast<const T*>(a.x), ax);
-  const T invd = a.invd[i];
-  T local = T(0);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const T rr = a.mxbar[3 * si + c] + a.sc[DT2] * b[c] - ax[c];
-    const T pp = invd * rr;
-    a.r[3 * si + c] = rr;
-    a.p[3 * si + c] = pp;
-    local = local + rr * pp;
-  }
-  return local;
+  for (int c = 0; c < 3; ++c)
+    a.rhs[3 * si + c] = a.mxbar[3 * si + c] + a.sc[DT2] * b[c];
+}
+
+// The group tables, into every block's shared memory.
+template <typename T>
+__device__ __forceinline__ void load_tables(const Tables<T>& src,
+                                            Tables<T>& tb) {
+  const T* from = &src.cp[0][0];
+  T* to = &tb.cp[0][0];
+  for (int q = threadIdx.x; q < GROUPS * 13; q += blockDim.x)
+    to[q] = from[q];  // cp then w2, contiguous
+  for (int q = threadIdx.x; q < GROUPS * 4; q += blockDim.x)
+    (&tb.corner[0][0])[q] = (&src.corner[0][0])[q];
+  __syncthreads();
 }
 
 template <typename T, int MODEL>
 __global__ void __launch_bounds__(THREADS)
-    rollout_kernel(const __grid_constant__ Args<T> a) {
-  cgr::grid_group grid = cgr::this_grid();
-  __shared__ T sh[THREADS];
+    element_kernel(const __grid_constant__ Args<T> a) {
   __shared__ Tables<T> tb;
-  {
-    const T* src = &a.tab.cp[0][0];
-    T* dst = &tb.cp[0][0];
-    for (int q = threadIdx.x; q < GROUPS * 13; q += blockDim.x)
-      dst[q] = src[q];  // cp then w2, contiguous
-    for (int q = threadIdx.x; q < GROUPS * 4; q += blockDim.x)
-      (&tb.corner[0][0])[q] = (&a.tab.corner[0][0])[q];
-    __syncthreads();
-  }
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int gstride = gridDim.x * blockDim.x;
-  const coop::PcgVecs<T> pcg_vecs{a.x, a.r, a.p, a.ap, a.invd, a.part, a.n};
-  const auto row = [&a](int i, const T* y, T out[3]) {
-    dia::dia_row(a.dia, a.offs, a.D, a.n, i, y, out);
-  };
-
-  for (int step = 0; step < a.n_steps; ++step) {
-    for (int i = gtid; i < a.n; i += gstride) {
-      const T m = a.mass[i];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const size_t q = 3 * static_cast<size_t>(i) + c;
-        const T vc = a.v[q] + (m > T(0) ? a.sc[DTG0 + c] : T(0));
-        a.v[q] = vc;
-        const T xs = a.x[q];
-        a.xpre[q] = xs;
-        const T xn = xs + a.sc[DT] * vc;
-        a.x[q] = xn;
-        a.mxbar[q] = m * xn;
-      }
-    }
-    grid.sync();
-
-    for (int it = 0; it < a.admm_iters; ++it) {
-      for (int e = gtid; e < a.E; e += gstride)
-        element_step<T, MODEL>(a, tb, e);
-      grid.sync();
-
-      T local = T(0);
-      for (int i = gtid; i < a.n; i += gstride)
-        local = local + vertex_step(a, tb, i);
-      coop::pcg(grid, pcg_vecs, a.cg_iters, local, row, sh);
-    }
-
-    for (int i = gtid; i < a.n; i += gstride) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const size_t q = 3 * static_cast<size_t>(i) + c;
-        a.v[q] = (a.x[q] - a.xpre[q]) * a.sc[INV_DT];
-      }
-    }
-  }
+  load_tables(a.tab, tb);
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < a.E) element_step<T, MODEL>(a, tb, e);
 }
 
 template <typename T>
-void* kernel_for(int model) {
-  return model == 0   ? (void*)rollout_kernel<T, 0>
-         : model == 1 ? (void*)rollout_kernel<T, 1>
-                      : (void*)rollout_kernel<T, 2>;
+__global__ void __launch_bounds__(THREADS)
+    vertex_kernel(const __grid_constant__ Args<T> a) {
+  __shared__ Tables<T> tb;
+  load_tables(a.tab, tb);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < a.n) vertex_step(a, tb, i);
 }
 
-// Blocks of the cooperative grid on the current device, or -cudaError_t.
 template <typename T>
-int grid_blocks(int model) {
-  if (model < 0 || model > 2)
-    return -static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_for<T>(model), THREADS, 0);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
-  return sms * per_sm;
+void* element_kernel_of(int model) {
+  return model == 0   ? (void*)element_kernel<T, 0>
+         : model == 1 ? (void*)element_kernel<T, 1>
+                      : (void*)element_kernel<T, 2>;
 }
 
 template <typename T>
 int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const T* mass,
            const T* invd, const T* aw2, const T* ancz, const T* dia_vals,
-           T* xpre, T* mxbar, T* rows, T* r, T* p, T* ap, T* part,
+           T* xpre, T* mxbar, T* rows, T* rhs, T* scratch,
            const int* offsets, const double* cp, const double* w2,
            const int* corner, const double* scalars, int nx, int ny, int nz,
-           int D, int model, int floor, int newton_iters, int cg_iters,
-           int admm_iters, int n_steps, int part_len, void* stream) {
+           int D, int H, int model, int floor, int newton_iters,
+           int cg_iters, int admm_iters, int n_steps, void* stream) {
   if (nx < 1 || ny < 1 || nz < 1 || D < 1 || D > dia::MAX_DIAGONALS ||
-      model < 0 || model > 2 || newton_iters < 0 || cg_iters < 0 ||
+      H < 0 || model < 0 || model > 2 || newton_iters < 0 || cg_iters < 0 ||
       admm_iters < 0 || n_steps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int q = 0; q < GROUPS * 4; ++q)
     if (corner[q] < 0 || corner[q] > 7)
       return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = grid_blocks<T>(model);
-  if (blocks < 0) return -blocks;
-  if (part_len < 2 * blocks) return static_cast<int>(cudaErrorInvalidValue);
   Args<T> a{};
   a.x = x; a.v = v; a.u = u; a.warm = warm; a.au = au; a.cu = cu;
-  a.mass = mass; a.invd = invd; a.aw2 = aw2; a.ancz = ancz; a.dia = dia_vals;
-  a.xpre = xpre; a.mxbar = mxbar; a.rows = rows; a.r = r; a.p = p;
-  a.ap = ap; a.part = part;
+  a.aw2 = aw2; a.ancz = ancz; a.mxbar = mxbar; a.rows = rows; a.rhs = rhs;
   a.nx = nx; a.ny = ny; a.nz = nz;
   a.n = (nx + 1) * (ny + 1) * (nz + 1);
   a.E = 5 * nx * ny * nz;
-  a.D = D; a.floor = floor != 0;
-  a.newton_iters = newton_iters; a.cg_iters = cg_iters;
-  a.admm_iters = admm_iters; a.n_steps = n_steps;
+  a.floor = floor != 0;
+  a.newton_iters = newton_iters;
   for (int q = 0; q < N_SCALARS; ++q) a.sc[q] = static_cast<T>(scalars[q]);
   for (int g = 0; g < GROUPS; ++g) {
     for (int q = 0; q < 12; ++q)
@@ -401,13 +322,35 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const T* mass,
     a.tab.w2[g] = static_cast<T>(w2[g]);
     for (int kk = 0; kk < 4; ++kk) a.tab.corner[g][kk] = corner[4 * g + kk];
   }
-  for (int d = 0; d < D; ++d) a.offs.v[d] = offsets[d];
+  const int n = a.n;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 vb = window::blocks_for(n), eb = window::blocks_for(a.E);
   void* kargs[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel_for<T>(model), dim3(blocks), dim3(THREADS), kargs, 0,
-      static_cast<cudaStream_t>(stream));
-  if (err == cudaSuccess) err = cudaGetLastError();
-  return static_cast<int>(err);
+  void* element = element_kernel_of<T>(model);
+  window::clear_errors();
+  for (int step = 0; step < n_steps; ++step) {
+    window::kick_kernel<T><<<vb, THREADS, 0, st>>>(
+        x, v, xpre, mxbar, mass, a.sc[DT], a.sc[DTG0], a.sc[DTG1],
+        a.sc[DTG2], n);
+    int err = window::launched();
+    for (int it = 0; it < admm_iters && err == 0; ++it) {
+      err = static_cast<int>(
+          cudaLaunchKernel(element, eb, dim3(THREADS), kargs, 0, st));
+      if (err == 0)
+        err = static_cast<int>(cudaLaunchKernel(
+            (void*)vertex_kernel<T>, vb, dim3(THREADS), kargs, 0, st));
+      if (err == 0)
+        err = window::solve(rhs, x, invd, dia_vals, offsets, D, nullptr,
+                            static_cast<const T*>(nullptr), 0, H, n,
+                            cg_iters, scratch, st);
+    }
+    if (err != 0) return window::failed(err);
+    window::end_kernel<T><<<vb, THREADS, 0, st>>>(x, v, xpre, a.sc[INV_DT],
+                                                 n);
+    err = window::launched();
+    if (err != 0) return window::failed(err);
+  }
+  return 0;
 }
 
 }  // namespace lattice
@@ -417,30 +360,29 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const T* mass,
   int lattice_rollout_##SUFFIX(                                              \
       T* x, T* v, T* u, T* warm, T* au, T* cu, const T* mass, const T* invd, \
       const T* aw2, const T* ancz, const T* dia_vals, T* xpre, T* mxbar,     \
-      T* rows, T* r, T* p, T* ap, T* part, const int* offsets,               \
-      const double* cp, const double* w2, const int* corner,                 \
-      const double* scalars, int nx, int ny, int nz, int D, int model,       \
-      int floor, int newton_iters, int cg_iters, int admm_iters,             \
-      int n_steps, int part_len, void* stream) {                             \
+      T* rows, T* rhs, T* scratch, const int* offsets, const double* cp,     \
+      const double* w2, const int* corner, const double* scalars, int nx,    \
+      int ny, int nz, int D, int H, int model, int floor, int newton_iters,  \
+      int cg_iters, int admm_iters, int n_steps, void* stream) {             \
     return admm::lattice::launch<T>(                                         \
         x, v, u, warm, au, cu, mass, invd, aw2, ancz, dia_vals, xpre, mxbar, \
-        rows, r, p, ap, part, offsets, cp, w2, corner, scalars, nx, ny, nz,  \
-        D, model, floor, newton_iters, cg_iters, admm_iters, n_steps,        \
-        part_len, stream);                                                   \
-  }                                                                          \
-  int lattice_rollout_grid_##SUFFIX(int model) {                             \
-    return admm::lattice::grid_blocks<T>(model);                             \
+        rows, rhs, scratch, offsets, cp, w2, corner, scalars, nx, ny, nz, D, \
+        H, model, floor, newton_iters, cg_iters, admm_iters, n_steps,        \
+        stream);                                                             \
   }
 
 extern "C" {
 
 // model: 0 = NeoHookean, 1 = StVK, 2 = ARAP. The state (x, v, u, warm,
 // au, cu) of an (nx, ny, nz)-cell lattice is advanced n_steps timesteps in
-// place. offsets (D), cp (10 x 12), w2 (10), corner (10 x 4, cell corners
-// 0..7) and scalars (11: dt, dt^2, 1/dt, dt g xyz, floor y, floor
-// weight^2, mu, lam, kprox, formed in double) are host arrays. part holds
-// part_len >= 2 x lattice_rollout_grid_*(model) values. Returns the
-// cudaError_t of the launch, or 0.
+// place; xpre, mxbar, rhs (n,3) and rows (12,E) are scratch, and scratch
+// holds the cluster solve's (cg_cluster_plan; nullptr when it is 0). H:
+// the largest |offset|. offsets (D), cp (10 x 12), w2 (10), corner (10 x
+// 4, cell corners 0..7) and scalars (11: dt, dt^2, 1/dt, dt g xyz, floor
+// y, floor weight^2, mu, lam, kprox, formed in double) are host arrays.
+// Every launch goes to `stream` (the solve's set-up, cg_dia_prepare_*,
+// must run before a CUDA graph captures them). Returns the first nonzero
+// cudaError_t of the launches, or 0.
 ADMM_LATTICE_ENTRY(float, f32)
 ADMM_LATTICE_ENTRY(double, f64)
 

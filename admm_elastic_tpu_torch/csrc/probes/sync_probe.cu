@@ -16,8 +16,23 @@
 //      cluster.sync() (a stage end of the solve's SHARED layout).
 // The time of a round is (time of N rounds - time of 0 rounds) / N, by
 // CUDA events (chip_smoke.py, phase 3n).
+//
+// The grid barrier the cooperative whole-timestep kernels paid three times
+// a CG iteration (coop_pcg.cuh), alone, on a cooperative grid of `blocks`
+// CTAs of 128 threads (the caller gives the rollout kernels' grid: SMs x
+// their resident blocks an SM). A round of
+//   0: grid.sync();
+//   1: a whole CG stage end without its work: every CTA's block_sum of one
+//      value a thread, its partial written, grid.sync(), and every CTA
+//      re-reading all partials and summing them (dia::sum_partials).
+// And whether the card takes one launch that is both cooperative and
+// clustered (cudaLaunchKernelEx with cudaLaunchAttributeCooperative and
+// cudaLaunchAttributeClusterDimension, 128-thread CTAs): the design that
+// would keep a window in one launch and run each solve on one cluster of
+// it.
 
 #include "../cluster_pcg.cuh"
+#include "../dia.cuh"
 
 namespace admm {
 namespace cluster_pcg {
@@ -92,6 +107,52 @@ cudaError_t launch_probe(int iters, float* out, cudaStream_t st) {
 }
 
 }  // namespace cluster_pcg
+
+namespace grid_probe {
+
+namespace cgr = cooperative_groups;
+
+constexpr int THREADS = 128;
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS) probe_kernel(int iters,
+                                                        float* part) {
+  cgr::grid_group grid = cgr::this_grid();
+  __shared__ float sh[THREADS];
+  float acc = static_cast<float>(threadIdx.x);
+  for (int k = 0; k < iters; ++k) {
+    if (MODE == 0) {
+      grid.sync();
+    } else {
+      // the partials ping-pong between two halves, as coop_pcg.cuh's do
+      float* half = part + (k & 1) * gridDim.x;
+      const float tot = block_sum(acc, sh);
+      if (threadIdx.x == 0) half[blockIdx.x] = tot;
+      grid.sync();
+      acc = dia::sum_partials(half, gridDim.x, sh) * 1e-30f;
+    }
+  }
+  if (threadIdx.x == 0) part[blockIdx.x] = acc;
+}
+
+template <int MODE>
+cudaError_t launch_probe(int iters, int blocks, float* part,
+                         cudaStream_t st) {
+  void* args[] = {&iters, &part};
+  return cudaLaunchCooperativeKernel((const void*)probe_kernel<MODE>,
+                                     dim3(blocks), dim3(THREADS), args, 0,
+                                     st);
+}
+
+__global__ void __launch_bounds__(THREADS) coop_cluster_kernel(float* out) {
+  cgr::grid_group grid = cgr::this_grid();
+  cgr::cluster_group cl = cgr::this_cluster();
+  cl.sync();
+  grid.sync();
+  if (threadIdx.x == 0) out[blockIdx.x] = static_cast<float>(cl.block_rank());
+}
+
+}  // namespace grid_probe
 }  // namespace admm
 
 extern "C" {
@@ -110,6 +171,63 @@ int cluster_sync_probe(int mode, int iters, float* out, void* stream) {
     case 4: return static_cast<int>(launch_probe<4>(iters, out, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// One cooperative launch of `iters` rounds of grid mode `mode` on
+// `blocks` CTAs of 128 threads; part: 2 x blocks floats of scratch.
+// Returns a cudaError_t (cudaErrorCooperativeLaunchTooLarge when the grid
+// is not resident).
+int grid_sync_probe(int mode, int iters, int blocks, float* part,
+                    void* stream) {
+  using namespace admm::grid_probe;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (iters < 0 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case 0: return static_cast<int>(launch_probe<0>(iters, blocks, part, st));
+    case 1: return static_cast<int>(launch_probe<1>(iters, blocks, part, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Resident 128-thread CTAs an SM of grid mode `mode`'s kernel, or
+// -cudaError_t.
+int grid_probe_occupancy(int mode) {
+  using namespace admm::grid_probe;
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm,
+      mode == 0 ? (const void*)probe_kernel<0> : (const void*)probe_kernel<1>,
+      THREADS, 0);
+  return e == cudaSuccess ? per_sm : -static_cast<int>(e);
+}
+
+// One launch of `blocks` 128-thread CTAs, cooperative and in clusters of
+// `cluster` CTAs; out: `blocks` floats. Returns the cudaError_t of the
+// launch and of its completion: 0 when the card takes such a launch.
+int coop_cluster_probe(int blocks, int cluster, float* out, void* stream) {
+  using namespace admm::grid_probe;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)coop_cluster_kernel,
+      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  e = cudaLaunchKernelEx(&cfg, coop_cluster_kernel, out);
+  if (e == cudaSuccess) e = cudaStreamSynchronize(st);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

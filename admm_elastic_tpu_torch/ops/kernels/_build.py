@@ -108,10 +108,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     **{f"nh_local_step_fused_{t}": (_I, [_P] * 12 + [_I] * 3 + [_P])
        for t in ("f32", "f64")},
-    # b, x0, diag, the matrix (2), then D or K, H, n, n_iters, then x,
-    # scratch and the stream
-    **{f"cg_{m}_solve_{t}": (_I, [_P] * 5 + [_I] * 4 + [_P] * 3)
+    # b, x0, diag, the matrix (2), then D or K, H, n, n_iters, diag_inv,
+    # then x, scratch and the stream
+    **{f"cg_{m}_solve_{t}": (_I, [_P] * 5 + [_I] * 5 + [_P] * 3)
        for m in ("dia", "ell") for t in ("f32", "f64")},
+    # D, H, n; H, n
+    **{f"cg_dia_prepare_{t}": (_I, [_I] * 3) for t in ("f32", "f64")},
+    **{f"cg_ell_prepare_{t}": (_I, [_I] * 2) for t in ("f32", "f64")},
     "cg_cluster_plan": (_I, [_I] * 4 + [_P]),
     **{f"cg_update_{t}": (_I, [_P] * 6 + [_I] + [_P] * 6)
        for t in ("f32", "f64")},
@@ -126,25 +129,23 @@ _SIGNATURES = {
        for t in ("f32", "f64")},
     **{f"arap_local_step_{t}": (_I, [_P] * 6 + [_I] + [_P])
        for t in ("f32", "f64")},
-    # state 6, element planes 6, vertex planes 5, matrix 3 (dia, ell_idx,
-    # ell_vals), scratch 7, host arrays 4, then n, E, D, K, S, n_shapes,
-    # model, newton_iters, cg_iters, admm_iters, n_steps, part_len, and the
+    # state 6, element planes 6, vertex planes 5, matrix 3 (dia, ell_idx_t,
+    # ell_vals_t), scratch 5, host arrays 4, then n, E, D, K, H, S,
+    # n_shapes, model, newton_iters, cg_iters, admm_iters, n_steps, and the
     # stream
-    **{f"banded_rollout_{t}": (_I, [_P] * 31 + [_I] * 12 + [_P])
+    **{f"banded_rollout_{t}": (_I, [_P] * 29 + [_I] * 12 + [_P])
        for t in ("f32", "f64")},
-    **{f"banded_rollout_grid_{t}": (_I, [_I, _I]) for t in ("f32", "f64")},
     # state 5, element planes 7, vertex planes 7, scratch 8, host arrays 2,
     # then n, Et, Eh, Ew, D, S, Sw, limiting, cg_iters, admm_iters,
     # n_steps, part_len, and the stream
     **{f"cloth_rollout_{t}": (_I, [_P] * 29 + [_I] * 12 + [_P])
        for t in ("f32", "f64")},
     **{f"cloth_rollout_grid_{t}": (_I, []) for t in ("f32", "f64")},
-    # state 6, vertex planes 5, scratch 7, host arrays 5, then nx, ny, nz,
-    # D, model, floor, newton_iters, cg_iters, admm_iters, n_steps,
-    # part_len, and the stream
-    **{f"lattice_rollout_{t}": (_I, [_P] * 23 + [_I] * 11 + [_P])
+    # state 6, vertex planes 5, scratch 5, host arrays 5, then nx, ny, nz,
+    # D, H, model, floor, newton_iters, cg_iters, admm_iters, n_steps, and
+    # the stream
+    **{f"lattice_rollout_{t}": (_I, [_P] * 21 + [_I] * 11 + [_P])
        for t in ("f32", "f64")},
-    **{f"lattice_rollout_grid_{t}": (_I, [_I]) for t in ("f32", "f64")},
     # state in 5, element planes 6, vertex planes 3, outputs 6 (b, au, cu,
     # u, warm, rows scratch), host arrays 3, then n, E, S, n_shapes, model,
     # newton_iters, and the stream

@@ -15,8 +15,9 @@ optional analytic collision shapes and a gravity kick:
                    vertex phase: b = incidence sum of the rows (slot order);
                      anchor dual (0 where the anchor weight is 0) and RHS;
                      collisions in declaration order, dual and RHS;
-                     r = M xbar + dt^2 b - A x; p = D^-1 r
-                   cg_iters Jacobi-PCG iterations (pAp > 0, rz > 0 guards)
+                     rhs = M xbar + dt^2 b
+                   global solve: x = A^-1 rhs by cg_iters Jacobi-PCG
+                     iterations from x (pAp > 0, rz > 0 guards)
     epilogue       v = (x - x_pre) (1/dt)
 
 State (`STATE`): x, v, anchor dual au, collision dual cu (n,3); tet dual u
@@ -30,31 +31,38 @@ matrix (`MATRIX_PLANES`): dia (D,n) diagonals of A at
 `BandedConfig.ell_width` = K > 0 (`core.solver.assemble_A_hat_ell`). No
 padding anywhere.
 
-`banded_rollout` launches the cooperative kernel (`csrc/banded_step.cu`,
-one launch per call) for CUDA tensors and runs `banded_rollout_reference`,
-a step-by-step transcription of the same math in the Pallas kernel's
-evaluation order, for CPU tensors. It never falls back from one to the
-other. Both return a new state dict and leave their inputs untouched.
+`banded_rollout` runs the window's kernels (`csrc/banded_step.cu`: per
+timestep a kick, per ADMM iteration an element kernel, a vertex kernel and
+one cluster solve, `csrc/cluster_pcg.cuh`, then an end kernel) for CUDA
+tensors and `banded_rollout_reference`, a step-by-step transcription of
+the same math in the Pallas kernel's evaluation order (its solve the
+cluster solve's: `core.solver.pcg_fixed_inv` with `cg_step.cluster_dot`,
+the ELL matvec slot by slot), for CPU tensors. It never falls back from
+one to the other. Both return a new state dict and leave their inputs
+untouched. `BandedWindow` is a window on a state's own buffers, which a
+stepper advances in place through one CUDA graph a window length
+(`_graph.WindowGraphs`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import torch
 
-from ...core.solver import dia_apply, ell_apply
+from ...core.solver import dia_apply, pcg_fixed_inv
 from . import _build
 from .cg_dia import MAX_DIAGONALS
+from .cg_ell import bandwidth, ell_apply_by_slot, slot_major
+from .cg_step import cluster_dot, cluster_prepare
 from .nh_local import _newton_hyper, _svd_columns, _warm_guard
 
 STATE = ("x", "v", "u", "warm", "au", "cu")
 PLANES = ("idx", "cp", "w2", "mu", "lam", "k", "mass", "invd", "aw2", "ancz",
           "inc")
 MATRIX_PLANES = {"dia": ("dia",), "ell": ("ell_idx", "ell_vals")}
-MAX_SHAPES = 16  # the kernel's collision table (csrc/banded_step.cu)
+MAX_SHAPES = 16  # the kernels' collision table (csrc/banded_phases.cuh)
 _SHAPE_KINDS = {"floor": 0, "sphere": 1, "cylinder": 2}
 _SHAPE_ARITY = {"floor": 1, "sphere": 4, "cylinder": 3}
 _MODELS = {"nh": 0, "stvk": 1, "arap": 2}
@@ -215,9 +223,11 @@ def _vertex_rhs(x, au, cu, rows, planes, cfg):
     return b, au, cu
 
 
-def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps):
-    """Plain PyTorch version of the kernel: the same phases in the same
-    order, one torch op at a time."""
+def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps,
+                             dot=cluster_dot):
+    """Plain PyTorch version of the kernels: the same phases in the same
+    order, one torch op at a time. `dot` sums the solve's dots (by
+    default in the cluster solve's order; None: torch.sum)."""
     x, v, u, warm, au, cu = (state[k] for k in STATE)
     dtype, dev = x.dtype, x.device
     dt, dt2, inv_dt, *rest = (torch.tensor(q, dtype=dtype, device=dev)
@@ -225,11 +235,10 @@ def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps):
     dtg = torch.stack(rest[:3])
     eps = torch.finfo(dtype).eps
     mass = planes["mass"][:, None]
-    invd = planes["invd"][:, None]
 
     def A(y):
         if cfg.matrix == "ell":
-            return ell_apply(y, planes["ell_idx"], planes["ell_vals"])
+            return ell_apply_by_slot(y, planes["ell_idx"], planes["ell_vals"])
         return dia_apply(y, cfg.dia_offs, planes["dia"])
 
     for _ in range(n_steps):
@@ -240,19 +249,8 @@ def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps):
         for _ in range(cfg.admm_iters):
             u, warm, rows = _element_phase(x, u, warm, planes, cfg, eps)
             b, au, cu = _vertex_rhs(x, au, cu, rows, planes, cfg)
-            r = mxbar + dt2 * b - A(x)
-            p = invd * r
-            rz = torch.sum(r * p)
-            for _ in range(cfg.cg_iters):
-                Ap = A(p)
-                pAp = torch.sum(p * Ap)
-                alpha = rz / torch.where(pAp > 0, pAp, 1.0)
-                x = x + alpha * p
-                r = r - alpha * Ap
-                rz_new = torch.sum(r * invd * r)
-                beta = rz_new / torch.where(rz > 0, rz, 1.0)
-                p = invd * r + beta * p
-                rz = rz_new
+            x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
+                              cfg.cg_iters, dot)
         v = (x - x_pre) * inv_dt
     return {"x": x, "v": v, "u": u, "warm": warm, "au": au, "cu": cu}
 
@@ -286,56 +284,78 @@ def _check(state, planes, cfg):
     return n, E, S
 
 
-@functools.cache
-def _grid_blocks(suffix, model, ell, device_index) -> int:
-    """Blocks of the cooperative grid: SMs x resident blocks per SM."""
-    with torch.cuda.device(device_index):
-        blocks = getattr(_build.load_library(),
-                         "banded_rollout_grid_" + suffix)(model, ell)
-    if blocks <= 0:
-        _build.check(-blocks, "banded_rollout grid size")
-    return blocks
+class BandedWindow:
+    """The kernels of a rollout window on one state's own buffers, on a
+    CUDA device: `launch(n_steps)` enqueues n_steps timesteps on the
+    current stream and advances `state` in place. Holds the window's
+    scratch, the matrix as the cluster solve reads it (ELL: slot-major)
+    and the solve's set-up, done here, before any CUDA graph captures a
+    launch."""
+
+    def __init__(self, state, planes, cfg: BandedConfig):
+        self.n, self.E, self.S = _check(state, planes, cfg)
+        self.state, self.planes, self.cfg = state, planes, cfg
+        x = state["x"]
+        self.xpre, self.mxbar, self.rhs = (torch.empty_like(x)
+                                           for _ in range(3))
+        self.rows = x.new_empty((12, self.E))
+        if cfg.matrix == "ell":
+            self.matrix = (None, slot_major(planes["ell_idx"]),
+                           slot_major(planes["ell_vals"]))
+            self.reach = bandwidth(planes["ell_idx"])
+        else:
+            self.matrix = (planes["dia"], None, None)
+            self.reach = max(abs(o) for o in cfg.dia_offs)
+        self.scratch = cluster_prepare(x, self.n, self.reach,
+                                       len(cfg.dia_offs), cfg.matrix == "ell")
+        kinds, table = cfg.shape_table()
+        ns = max(len(kinds), 1)
+        # the host arrays the C entry reads at each call
+        self._host = (
+            (ctypes.c_int * max(len(cfg.dia_offs), 1))(*cfg.dia_offs),
+            (ctypes.c_int * ns)(*kinds),
+            (ctypes.c_double * (5 * ns))(*[q for row in table for q in row]),
+            (ctypes.c_double * 7)(*cfg.scalars()))
+        self._fn = getattr(_build.load_library(),
+                           "banded_rollout_" + _SUFFIX[x.dtype])
+
+    def ops(self, n_steps):
+        """Launches of an n_steps window."""
+        return n_steps * (2 + 3 * self.cfg.admm_iters)
+
+    def launch(self, n_steps):
+        cfg, x = self.cfg, self.state["x"]
+        ptr = [None if t is None else t.data_ptr() for t in self.matrix]
+        with torch.cuda.device(x.device):
+            err = self._fn(
+                *(self.state[k].data_ptr() for k in STATE),
+                *(self.planes[k].data_ptr() for k in PLANES), *ptr,
+                *(t.data_ptr() for t in (self.xpre, self.mxbar, self.rows,
+                                         self.rhs)),
+                None if self.scratch is None else self.scratch.data_ptr(),
+                *(ctypes.addressof(a) for a in self._host),
+                self.n, self.E, len(cfg.dia_offs), cfg.ell_width, self.reach,
+                self.S, len(cfg.coll_shapes), _MODELS[cfg.model],
+                cfg.newton_iters, cfg.cg_iters, cfg.admm_iters,
+                int(n_steps), _build.stream_ptr(x))
+        _build.check(err, "banded_rollout")
 
 
 def banded_rollout(state, planes, cfg: BandedConfig, n_steps):
     """Advance `n_steps` timesteps; returns the new state dict."""
-    n, E, S = _check(state, planes, cfg)
+    _check(state, planes, cfg)
     x = state["x"]
     if x.device.type == "cpu":
         return banded_rollout_reference(state, planes, cfg, int(n_steps))
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
-    suffix, model = _SUFFIX[x.dtype], _MODELS[cfg.model]
-    ell = int(cfg.matrix == "ell")
-    blocks = _grid_blocks(suffix, model, ell, x.device.index)
     out = {k: state[k].clone() for k in STATE}
-    xpre, mxbar, r, p, ap = (torch.empty_like(x) for _ in range(5))
-    rows = x.new_empty((12, E))
-    part = x.new_empty(2 * blocks)
-    kinds, table = cfg.shape_table()
-    ns = len(kinds)
-    offs = (ctypes.c_int * max(len(cfg.dia_offs), 1))(*cfg.dia_offs)
-    # dia, ell_idx, ell_vals: the other mode's pointers are null
-    matrix = [planes[k].data_ptr() if k in MATRIX_PLANES[cfg.matrix]
-              else None for k in ("dia", "ell_idx", "ell_vals")]
-    c_kinds = (ctypes.c_int * max(ns, 1))(*kinds)
-    c_table = (ctypes.c_double * (5 * max(ns, 1)))(
-        *[q for row in table for q in row])
-    c_scal = (ctypes.c_double * 7)(*cfg.scalars())
-    fn = getattr(_build.load_library(), "banded_rollout_" + suffix)
-    with torch.cuda.device(x.device):
-        err = fn(*(out[k].data_ptr() for k in STATE),
-                 *(planes[k].data_ptr() for k in PLANES), *matrix,
-                 *(t.data_ptr() for t in (xpre, mxbar, rows, r, p, ap, part)),
-                 *(ctypes.addressof(a) for a in (offs, c_kinds, c_table,
-                                                 c_scal)),
-                 n, E, len(cfg.dia_offs), cfg.ell_width, S, ns, model,
-                 cfg.newton_iters,
-                 cfg.cg_iters, cfg.admm_iters, int(n_steps), part.numel(),
-                 _build.stream_ptr(x))
-    _build.check(err, "banded_rollout")
+    window = BandedWindow(out, planes, cfg)
+    window.launch(int(n_steps))
     banded_rollout.launches += 1
+    banded_rollout.ops += window.ops(int(n_steps))
     return out
 
 
 banded_rollout.launches = 0
+banded_rollout.ops = 0

@@ -19,20 +19,20 @@ import ctypes
 
 import torch
 
-from ...core.solver import dia_apply, pcg_solve_fixed
+from ...core.solver import dia_apply, pcg_fixed_inv
 from .cg_step import cluster_dot, cluster_solve
 
 MAX_DIAGONALS = 48  # the kernel's offset table (csrc/dia.cuh)
 
 
-def cg_dia_solve_reference(b, x0, diag, dia_vals, offsets, n_iters):
-    """Plain PyTorch version: pcg_solve_fixed around dia_apply, with its
+def cg_dia_solve_reference(b, x0, diag, dia_vals, offsets, n_iters,
+                           inverse=False):
+    """Plain PyTorch version: pcg_fixed_inv around dia_apply, with its
     dots in the kernel's order (`cluster_dot`), so the kernel repeats it
-    bitwise."""
-    x, _ = pcg_solve_fixed(
-        lambda y: dia_apply(y, offsets, dia_vals), b, x0, diag, n_iters,
-        dot=cluster_dot)
-    return x
+    bitwise. inverse: diag holds D^-1 itself."""
+    inv = diag if inverse else 1.0 / diag
+    return pcg_fixed_inv(lambda y: dia_apply(y, offsets, dia_vals), b, x0,
+                         inv, n_iters, dot=cluster_dot)
 
 
 def _check(b, x0, diag, dia_vals, offsets):
@@ -57,21 +57,22 @@ def _check(b, x0, diag, dia_vals, offsets):
     return n
 
 
-def cg_dia_solve(b, x0, diag, dia_vals, offsets, n_iters):
+def cg_dia_solve(b, x0, diag, dia_vals, offsets, n_iters, inverse=False):
     """Solve A x = b with n_iters Jacobi-PCG iterations. b, x0: (n,3);
-    diag: (n,); dia_vals: (D,n); offsets: tuple of D ints."""
+    diag: (n,) A's diagonal, or with inverse=True its inverse D^-1;
+    dia_vals: (D,n); offsets: tuple of D ints."""
     offsets = tuple(int(o) for o in offsets)
     _check(b, x0, diag, dia_vals, offsets)
     if b.device.type == "cpu":
         return cg_dia_solve_reference(b, x0, diag, dia_vals, offsets,
-                                      int(n_iters))
+                                      int(n_iters), inverse)
     if b.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {b.device}")
     offs = (ctypes.c_int * len(offsets))(*offsets)
     ptrs = [t.data_ptr() for t in (b, x0, diag, dia_vals)]
     x = cluster_solve("cg_dia_solve", b, [*ptrs, ctypes.addressof(offs)],
                       len(offsets), max(abs(o) for o in offsets),
-                      len(offsets), n_iters)
+                      len(offsets), n_iters, inverse)
     cg_dia_solve.launches += 1
     return x
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.solver import pcg_solve_fixed
+from ...core.solver import pcg_fixed_inv
 from .cg_step import cluster_dot, cluster_solve
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -29,19 +29,19 @@ def ell_apply_by_slot(x, ell_idx, ell_vals):
     slot order, as the kernels' rows add them (csrc/cg_ell.cu,
     csrc/ell.cuh)."""
     out = torch.zeros_like(x)
-    for k in range(ell_idx.shape[1]):
-        out = out + ell_vals[:, k, None] * x[ell_idx[:, k]]
+    for term in (ell_vals[:, :, None] * x[ell_idx]).unbind(1):
+        out = out + term
     return out
 
 
-def cg_ell_solve_reference(b, x0, diag, ell_idx, ell_vals, n_iters):
-    """Plain PyTorch version: pcg_solve_fixed around the ELL matvec, with
+def cg_ell_solve_reference(b, x0, diag, ell_idx, ell_vals, n_iters,
+                           inverse=False):
+    """Plain PyTorch version: pcg_fixed_inv around the ELL matvec, with
     every sum in the kernel's order (`cluster_dot`), so the kernel repeats
-    it bitwise."""
-    x, _ = pcg_solve_fixed(
-        lambda y: ell_apply_by_slot(y, ell_idx, ell_vals), b, x0, diag,
-        n_iters, dot=cluster_dot)
-    return x
+    it bitwise. inverse: diag holds D^-1 itself."""
+    inv = diag if inverse else 1.0 / diag
+    return pcg_fixed_inv(lambda y: ell_apply_by_slot(y, ell_idx, ell_vals),
+                         b, x0, inv, n_iters, dot=cluster_dot)
 
 
 def _check(b, x0, diag, ell_idx, ell_vals):
@@ -92,19 +92,20 @@ def slot_major(t):
     return _kept(t, "_slot_major", lambda a: a.t().contiguous())
 
 
-def cg_ell_solve(b, x0, diag, ell_idx, ell_vals, n_iters):
+def cg_ell_solve(b, x0, diag, ell_idx, ell_vals, n_iters, inverse=False):
     """Solve A x = b with n_iters Jacobi-PCG iterations. b, x0: (n,3);
-    diag: (n,); ell_idx: (n,K) int32; ell_vals: (n,K)."""
+    diag: (n,) A's diagonal, or with inverse=True its inverse D^-1;
+    ell_idx: (n,K) int32; ell_vals: (n,K)."""
     _check(b, x0, diag, ell_idx, ell_vals)
     if b.device.type == "cpu":
         return cg_ell_solve_reference(b, x0, diag, ell_idx, ell_vals,
-                                      int(n_iters))
+                                      int(n_iters), inverse)
     if b.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {b.device}")
     ptrs = [t.data_ptr() for t in (b, x0, diag, slot_major(ell_idx),
                                    slot_major(ell_vals))]
     x = cluster_solve("cg_ell_solve", b, ptrs, ell_idx.shape[1],
-                      bandwidth(ell_idx), 0, n_iters)
+                      bandwidth(ell_idx), 0, n_iters, inverse)
     cg_ell_solve.launches += 1
     return x
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -42,7 +43,8 @@ def _halving_tree(v):
     w = v.shape[1]
     while w > 1:
         w //= 2
-        v = v[:, :w] + v[:, w:2 * w]
+        lo, hi = v.split(w, dim=1)
+        v = lo + hi
     return v[:, 0]
 
 
@@ -73,23 +75,25 @@ def cluster_dot(a, b):
     CLUSTER_THREADS, ... in turn; the threads' sums by the halving tree
     within each warp of 32, then over the 32 warps; the slabs' sums in
     rank order."""
-    prod = a * b
-    rows = (prod[:, 0] + prod[:, 1]) + prod[:, 2]
+    p0, p1, p2 = (a * b).unbind(1)
+    rows = (p0 + p1) + p2
     n = rows.shape[0]
     S = -(-n // CLUSTER)
     m = -(-S // CLUSTER_THREADS)
-    slabs = F.pad(rows, (0, CLUSTER * S - n)).reshape(CLUSTER, S)
-    turns = F.pad(slabs, (0, m * CLUSTER_THREADS - S)).reshape(
+    slabs = F.pad(rows, (0, CLUSTER * S - n)).view(CLUSTER, S)
+    turns = F.pad(slabs, (0, m * CLUSTER_THREADS - S)).view(
         CLUSTER, m, CLUSTER_THREADS)
-    acc = torch.zeros_like(turns[:, 0])
-    for k in range(m):
-        acc = acc + turns[:, k]
-    warps = _halving_tree(acc.reshape(-1, 32)).reshape(CLUSTER, -1)
-    ctas = _halving_tree(warps)
-    total = torch.zeros_like(ctas[0])
-    for r in range(CLUSTER):
-        total = total + ctas[r]
-    return total
+    acc = turns.new_zeros(())
+    for turn in turns.unbind(1):
+        acc = acc + turn
+    warps = _halving_tree(acc.view(-1, 32)).view(CLUSTER, -1)
+    # the ranks in order, one scalar add at a time in the working
+    # precision (a Python float is a double)
+    scalar = np.float32 if rows.dtype == torch.float32 else float
+    total = scalar(0)
+    for cta in _halving_tree(warps).tolist():
+        total = total + scalar(cta)
+    return torch.tensor(total, dtype=rows.dtype, device=rows.device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,22 +125,42 @@ def cluster_plan(n, dtype, reach, mat_per_row, device=None) -> dict:
                       elem))
 
 
-def cluster_solve(name, b, ptrs, width, reach, mat_per_row, n_iters):
+def cluster_solve(name, b, ptrs, width, reach, mat_per_row, n_iters,
+                  inverse=False):
     """Launch the cluster solve `name` (cg_dia_solve, cg_ell_solve) for
     b (n,3) on a CUDA device: `ptrs` are the C entry's five leading
-    pointers, `width` its D or K, `reach` how far a row reaches. Returns
-    x; raises on any CUDA error, among them a cluster the card cannot
-    place."""
+    pointers (the third A's diagonal, or with inverse=True D^-1), `width`
+    its D or K, `reach` how far a row reaches. Returns x; raises on any
+    CUDA error, among them a cluster the card cannot place."""
     n = b.shape[0]
     plan = cluster_plan(n, b.dtype, reach, mat_per_row, b.device)
     x = torch.empty_like(b)
     scratch = b.new_empty(plan["scratch"]) if plan["scratch"] else None
     fn = getattr(_build.load_library(), f"{name}_{_SUFFIX[b.dtype]}")
-    err = fn(*ptrs, width, reach, n, int(n_iters), x.data_ptr(),
+    err = fn(*ptrs, width, reach, n, int(n_iters), int(inverse),
+             x.data_ptr(),
              None if scratch is None else scratch.data_ptr(),
              _build.stream_ptr(b))
     _build.check(err, name)
     return x
+
+
+def cluster_prepare(like, n, reach, width, ell=False):
+    """The set-up of the cluster solves of n rows reaching `reach`, dtype
+    and device of `like`, D = `width` diagonals (or ELL rows, ell=True):
+    the kernel's attributes and the check that the card can place the
+    cluster, which a CUDA graph capture must find done. Returns the
+    solve's global scratch (None when its plan keeps the vectors in
+    shared memory)."""
+    plan = cluster_plan(n, like.dtype, reach, 0 if ell else width,
+                        like.device)
+    lib, suffix = _build.load_library(), _SUFFIX[like.dtype]
+    with torch.cuda.device(like.device):
+        err = (getattr(lib, f"cg_ell_prepare_{suffix}")(reach, n) if ell
+               else getattr(lib, f"cg_dia_prepare_{suffix}")(width, reach,
+                                                             n))
+    _build.check(err, "cluster solve set-up")
+    return like.new_empty(plan["scratch"]) if plan["scratch"] else None
 
 
 def cg_update_reference(x, r, p, rz, Ap, inv_diag):

@@ -20,9 +20,9 @@ Floor and a gravity kick:
                      anchor dual u' = (u + x) - z_anchor where the anchor
                      weight is > 0, else 0, b += w2 (z_anchor - u'); the
                      floor's z = max(x + u, y_floor), u' = (u + x) - z,
-                     b += w2_floor (z - u'); r = M xbar + dt^2 b - A x;
-                     p = D^-1 r
-                   cg_iters Jacobi-PCG iterations (pAp > 0, rz > 0 guards)
+                     b += w2_floor (z - u'); rhs = M xbar + dt^2 b
+                   global solve: x = A^-1 rhs by cg_iters Jacobi-PCG
+                     iterations from x (pAp > 0, rz > 0 guards)
     epilogue       v = (x - x_pre) (1/dt)
 
 Tets are numbered as `make_beam_tets` numbers them: tet e = 5 c + slot of
@@ -42,11 +42,17 @@ shifts are TPU layout and are not carried over. Nor are its phantom cells
 (the i = nx, j = ny, k = nz faces, which it computes and masks out of b):
 only valid cells are stepped.
 
-`lattice_rollout` launches the cooperative kernel (`csrc/lattice_step.cu`,
-one launch per call) for CUDA tensors and runs `lattice_rollout_reference`,
-a step-by-step transcription of the same math in the kernel's order of
-arithmetic, for CPU tensors. It never falls back from one to the other.
-Both return a new state dict and leave their inputs untouched.
+`lattice_rollout` runs the window's kernels (`csrc/lattice_step.cu`: per
+timestep a kick, per ADMM iteration an element kernel, a vertex kernel and
+one cluster solve on the diagonals, `csrc/cg_dia.cu`, then an end kernel)
+for CUDA tensors and `lattice_rollout_reference`, a step-by-step
+transcription of the same math in the kernels' order of arithmetic (its
+solve the cluster solve's: `core.solver.pcg_fixed_inv` with
+`cg_step.cluster_dot`), for CPU tensors. It never falls back from one to
+the other. Both return a new state dict and leave their inputs untouched.
+`LatticeWindow` is a window on a state's own buffers, which a stepper
+advances in place through one CUDA graph a window length
+(`_graph.WindowGraphs`).
 """
 
 from __future__ import annotations
@@ -58,9 +64,10 @@ import functools
 import numpy as np
 import torch
 
-from ...core.solver import dia_apply
+from ...core.solver import dia_apply, pcg_fixed_inv
 from . import _build
 from .cg_dia import MAX_DIAGONALS
+from .cg_step import cluster_dot, cluster_prepare
 from .nh_local import _newton_hyper, _svd_columns, _warm_guard
 
 STATE = ("x", "v", "u", "warm", "au", "cu")
@@ -232,16 +239,17 @@ def _element_phase(x, u, warm, cfg, idx, members):
     return torch.stack(up), warm, rows
 
 
-def lattice_rollout_reference(state, planes, cfg: LatticeConfig, n_steps):
-    """Plain PyTorch version of the kernel: the same phases in the same
-    order, one torch op at a time."""
+def lattice_rollout_reference(state, planes, cfg: LatticeConfig, n_steps,
+                              dot=cluster_dot):
+    """Plain PyTorch version of the kernels: the same phases in the same
+    order, one torch op at a time. `dot` sums the solve's dots (by
+    default in the cluster solve's order; None: torch.sum)."""
     x, v, u, warm, au, cu = (state[k] for k in STATE)
     dtype, dev = x.dtype, x.device
     (dt, dt2, inv_dt, g0, g1, g2, floor_y, floor_w2,
      *_) = (torch.tensor(q, dtype=dtype, device=dev) for q in cfg.scalars())
     dtg = torch.stack([g0, g1, g2])
     mass = planes["mass"][:, None]
-    invd = planes["invd"][:, None]
     aw2 = planes["aw2"][:, None]
     ancz = planes["ancz"]
     idx, grp, inc = lattice_tables(tuple(cfg.dims))
@@ -275,19 +283,8 @@ def lattice_rollout_reference(state, planes, cfg: LatticeConfig, n_steps):
                                  z[:, 2]], dim=1)
                 cu = (cu + x) - z
                 b = b + floor_w2 * (z - cu)
-            r = mxbar + dt2 * b - A(x)
-            p = invd * r
-            rz = torch.sum(r * p)
-            for _ in range(cfg.cg_iters):
-                Ap = A(p)
-                pAp = torch.sum(p * Ap)
-                alpha = rz / torch.where(pAp > 0, pAp, 1.0)
-                x = x + alpha * p
-                r = r - alpha * Ap
-                rz_new = torch.sum(r * invd * r)
-                beta = rz_new / torch.where(rz > 0, rz, 1.0)
-                p = invd * r + beta * p
-                rz = rz_new
+            x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
+                              cfg.cg_iters, dot)
         v = (x - x_pre) * inv_dt
     return {"x": x, "v": v, "u": u, "warm": warm, "au": au, "cu": cu}
 
@@ -312,52 +309,72 @@ def _check(state, planes, cfg):
     return n, E
 
 
-@functools.cache
-def _grid_blocks(suffix, model, device_index) -> int:
-    """Blocks of the cooperative grid: SMs x resident blocks per SM."""
-    with torch.cuda.device(device_index):
-        blocks = getattr(_build.load_library(),
-                         "lattice_rollout_grid_" + suffix)(model)
-    if blocks <= 0:
-        _build.check(-blocks, "lattice_rollout grid size")
-    return blocks
+class LatticeWindow:
+    """The kernels of a rollout window on one state's own buffers, on a
+    CUDA device: `launch(n_steps)` enqueues n_steps timesteps on the
+    current stream and advances `state` in place. Holds the window's
+    scratch and the cluster solve's set-up, done here, before any CUDA
+    graph captures a launch."""
+
+    def __init__(self, state, planes, cfg: LatticeConfig):
+        self.n, self.E = _check(state, planes, cfg)
+        self.state, self.planes, self.cfg = state, planes, cfg
+        x = state["x"]
+        self.xpre, self.mxbar, self.rhs = (torch.empty_like(x)
+                                           for _ in range(3))
+        self.rows = x.new_empty((12, self.E))
+        self.reach = max(abs(o) for o in cfg.dia_offs)
+        self.scratch = cluster_prepare(x, self.n, self.reach,
+                                       len(cfg.dia_offs))
+        scal = cfg.scalars()
+        # the host arrays the C entry reads at each call
+        self._host = (
+            (ctypes.c_int * len(cfg.dia_offs))(*cfg.dia_offs),
+            (ctypes.c_double * (12 * N_GROUPS))(*(q for g in cfg.cp
+                                                  for q in g)),
+            (ctypes.c_double * N_GROUPS)(*cfg.w2),
+            (ctypes.c_int * (4 * N_GROUPS))(*(c for g in GROUP_CORNERS
+                                              for c in g)),
+            (ctypes.c_double * len(scal))(*scal))
+        self._fn = getattr(_build.load_library(),
+                           "lattice_rollout_" + _SUFFIX[x.dtype])
+
+    def ops(self, n_steps):
+        """Launches of an n_steps window."""
+        return n_steps * (2 + 3 * self.cfg.admm_iters)
+
+    def launch(self, n_steps):
+        cfg, x = self.cfg, self.state["x"]
+        with torch.cuda.device(x.device):
+            err = self._fn(
+                *(self.state[k].data_ptr() for k in STATE),
+                *(self.planes[k].data_ptr() for k in PLANES),
+                *(t.data_ptr() for t in (self.xpre, self.mxbar, self.rows,
+                                         self.rhs)),
+                None if self.scratch is None else self.scratch.data_ptr(),
+                *(ctypes.addressof(a) for a in self._host),
+                *cfg.dims, len(cfg.dia_offs), self.reach, _MODELS[cfg.model],
+                int(cfg.floor_y is not None), cfg.newton_iters,
+                cfg.cg_iters, cfg.admm_iters, int(n_steps),
+                _build.stream_ptr(x))
+        _build.check(err, "lattice_rollout")
 
 
 def lattice_rollout(state, planes, cfg: LatticeConfig, n_steps):
     """Advance `n_steps` timesteps; returns the new state dict."""
-    n, E = _check(state, planes, cfg)
+    _check(state, planes, cfg)
     x = state["x"]
     if x.device.type == "cpu":
         return lattice_rollout_reference(state, planes, cfg, int(n_steps))
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
-    suffix, model = _SUFFIX[x.dtype], _MODELS[cfg.model]
-    blocks = _grid_blocks(suffix, model, x.device.index)
     out = {k: state[k].clone() for k in STATE}
-    xpre, mxbar, r, p, ap = (torch.empty_like(x) for _ in range(5))
-    rows = x.new_empty((12, E))
-    part = x.new_empty(2 * blocks)
-    offs = (ctypes.c_int * len(cfg.dia_offs))(*cfg.dia_offs)
-    c_cp = (ctypes.c_double * (12 * N_GROUPS))(*(q for g in cfg.cp for q in g))
-    c_w2 = (ctypes.c_double * N_GROUPS)(*cfg.w2)
-    c_corner = (ctypes.c_int * (4 * N_GROUPS))(
-        *(c for g in GROUP_CORNERS for c in g))
-    scal = cfg.scalars()
-    c_scal = (ctypes.c_double * len(scal))(*scal)
-    fn = getattr(_build.load_library(), "lattice_rollout_" + suffix)
-    with torch.cuda.device(x.device):
-        err = fn(*(out[k].data_ptr() for k in STATE),
-                 *(planes[k].data_ptr() for k in PLANES),
-                 *(t.data_ptr() for t in (xpre, mxbar, rows, r, p, ap, part)),
-                 *(ctypes.addressof(a) for a in (offs, c_cp, c_w2, c_corner,
-                                                 c_scal)),
-                 *cfg.dims, len(cfg.dia_offs), model,
-                 int(cfg.floor_y is not None), cfg.newton_iters,
-                 cfg.cg_iters, cfg.admm_iters, int(n_steps), part.numel(),
-                 _build.stream_ptr(x))
-    _build.check(err, "lattice_rollout")
+    window = LatticeWindow(out, planes, cfg)
+    window.launch(int(n_steps))
     lattice_rollout.launches += 1
+    lattice_rollout.ops += window.ops(int(n_steps))
     return out
 
 
 lattice_rollout.launches = 0
+lattice_rollout.ops = 0

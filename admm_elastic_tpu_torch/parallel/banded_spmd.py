@@ -10,9 +10,12 @@ its own elements and the global solve could exchange only halo rows:
     admm_iters x local phase (`ops/kernels/banded_local.py`, B11): element
                    prox, dual update, RHS rows, anchors and collisions
                  global solve of A x = M xbar + dt^2 b, warm-started at x:
-                   'cg'   fixed-budget Jacobi-PCG in plain torch (the JAX
-                          stepper's JAX-level PCG, pAp > 0 and rz > 0
-                          guards);
+                   'cg'   fixed-budget Jacobi-PCG (pAp > 0 and rz > 0
+                          guards), summed in the order of the banded
+                          route's solve (`cg_step.cluster_dot`): with the
+                          'pallas' backend the banded route's own cluster
+                          solve (`cg_dia_solve` / `cg_ell_solve`, one
+                          launch a solve), else plain torch;
                    'cheb' the dot-free Chebyshev recurrence
                           (`parallel/cheb.py`): on a dia matrix with the
                           'pallas' backend one `cheb_dia_chunk` launch per
@@ -41,9 +44,12 @@ import numpy as np
 import torch
 
 from ..core.banded import BandedStepper, banded_from_system
-from ..core.solver import dia_apply, ell_apply, pcg_fixed_inv
+from ..core.solver import dia_apply, pcg_fixed_inv
 from ..ops.kernels.banded_local import (banded_local_rhs,
                                         banded_local_rhs_reference)
+from ..ops.kernels.cg_dia import cg_dia_solve
+from ..ops.kernels.cg_ell import cg_ell_solve, ell_apply_by_slot
+from ..ops.kernels.cg_step import cluster_dot
 from ..ops.kernels.cheb_dia import cheb_dia_chunk, cheb_recurrence
 from .cheb import cheb_coefficients, dia_operator_bounds, ell_operator_bounds
 
@@ -173,16 +179,25 @@ class ShardedBandedStepper:
     # --------------------------------------------------------- stepping
 
     def _matvec(self, y):
+        """A y, its terms added in the banded route's order."""
         p, cfg = self.base.planes, self.cfg
         if cfg.matrix == "ell":
-            return ell_apply(y, p["ell_idx"], p["ell_vals"])
+            return ell_apply_by_slot(y, p["ell_idx"], p["ell_vals"])
         return dia_apply(y, cfg.dia_offs, p["dia"])
 
     def _cg(self, x, rhs):
         """Jacobi-PCG with the JAX stepper's guards (banded_spmd.py:
-        785-806)."""
-        return pcg_fixed_inv(self._matvec, rhs, x, self.base.planes["invd"],
-                             self.cg_iters)
+        785-806), in the banded route's order of sums: its cluster solve
+        with the pallas backend, else plain torch."""
+        p, cfg = self.base.planes, self.cfg
+        if self.backend == "xla":
+            return pcg_fixed_inv(self._matvec, rhs, x, p["invd"],
+                                 self.cg_iters, dot=cluster_dot)
+        if cfg.matrix == "ell":
+            return cg_ell_solve(rhs, x, p["invd"], p["ell_idx"],
+                                p["ell_vals"], self.cg_iters, inverse=True)
+        return cg_dia_solve(rhs, x, p["invd"], p["dia"], cfg.dia_offs,
+                            self.cg_iters, inverse=True)
 
     def _cheb(self, x, rhs):
         """The Chebyshev solve of cheb_iters iterations: one cheb_dia_chunk

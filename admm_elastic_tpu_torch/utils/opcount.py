@@ -25,6 +25,8 @@ kernel does, so its count is the arithmetic of the nonzero ones.
 
 from __future__ import annotations
 
+import inspect
+
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -133,8 +135,13 @@ def cg_ell_counts(b, x0, diag, ell_idx, ell_vals, n_iters):
 def rollout_counts(reference, keys, state, planes, cfg, n_steps):
     """(operations, bytes) of a whole-timestep kernel (banded_rollout,
     cloth_rollout or lattice_rollout, given its twin and state keys) for
-    n_steps: the state and planes read once, the new state written once."""
-    ops, out = count_ops(reference, state, planes, cfg, n_steps)
+    n_steps: the state and planes read once, the new state written once.
+    A twin that sums its solve's dots in a kernel's order (a `dot`
+    argument) is counted with plain sums: a dot is one product and one sum
+    of 3n values, as in the solves' counts."""
+    kw = ({"dot": None} if "dot" in inspect.signature(reference).parameters
+          else {})
+    ops, out = count_ops(reference, state, planes, cfg, n_steps, **kw)
     return ops, nbytes(({k: state[k] for k in keys}, planes), out)
 
 

@@ -9,8 +9,9 @@ steps of the 100k-tet beam, the cloth100k sheet or the delaunay100k mesh
 
 `--route general` (the default) steps the general route; `--route fast`
 steps the scene's whole-timestep route (`lattice_fast_path=True`: the
-banded kernel for tet100k and delaunay100k, the cloth kernel for
-cloth100k), where `steps` = 10 is one kernel launch; `--route lattice`
+banded window for tet100k and delaunay100k, the cloth kernel for
+cloth100k), where `steps` = 10 is one submission (one kernel launch, or
+one CUDA graph of 2 + 3 admm_iters launches a step); `--route lattice`
 steps tet100k on the lattice kernel (the cg global mode with
 `lattice_fast_path=True`); `--route sharded` steps tet100k on the sharded
 banded stepper at one device (`scenes.tet100k_sharded`) with `--solver`
@@ -35,6 +36,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import time
 
 import numpy as np
@@ -69,45 +71,65 @@ def _window_ms(s, steps):
 SCENES = ("tet100k", "cloth100k", "delaunay100k")
 ATTEMPTS = 5
 # the entry kernels of the port's wrappers, one per call (banded_local_rhs
-# launches an element kernel and then this vertex kernel)
+# launches an element kernel and then this vertex kernel), and every
+# kernel of the banded and lattice windows
 _OWN = tuple(f"void admm::{ns}::{k}_kernel"
              for ns in ("nh", "tri", "arap") for k in ("fused", "step")) + (
-    "void admm::banded::rollout_kernel", "void admm::cloth::rollout_kernel",
-    "void admm::lattice::rollout_kernel",
+    "void admm::banded::", "void admm::cloth::rollout_kernel",
+    "void admm::lattice::", "void admm::window::",
     "void admm::banded_local::vertex_kernel",
     "void admm::cheb::chunk_kernel", "void admm::cluster_pcg::solve_kernel")
 
 
 def _own_launches():
+    """Launches of the port's own kernels so far: one a call of each
+    wrapper, and each launch a banded or lattice window holds."""
     return sum(k.launches for k in (
         nh_local.nh_local_step_fused, nh_local.nh_local_step,
         tri_local.tri_local_step_fused, tri_local.tri_local_step,
         tet_local.arap_local_step_fused, tet_local.arap_local_step,
-        banded_step.banded_rollout, cloth_step.cloth_rollout,
-        lattice_step.lattice_rollout, banded_local.banded_local_rhs,
-        cheb_dia.cheb_dia_chunk, cg_dia.cg_dia_solve, cg_ell.cg_ell_solve))
+        cloth_step.cloth_rollout, banded_local.banded_local_rhs,
+        cheb_dia.cheb_dia_chunk, cg_dia.cg_dia_solve, cg_ell.cg_ell_solve)
+    ) + banded_step.banded_rollout.ops + lattice_step.lattice_rollout.ops
 
 
-def trace_calls(fn, calls=3):
-    """Device operations per call of fn() (a kernel wrapper on its inputs)
-    from a trace of `calls` calls after one untraced call, and the
-    operations' names. A trace with fewer records than calls lost some and
-    is taken again, up to ATTEMPTS times; None if none was whole."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
+# CUgraphNodeType (cuda.h)
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+               5: "empty", 6: "event wait", 7: "event record"}
 
+
+def call_ops(fn) -> dict:
+    """Device operations that one call of fn() (a kernel wrapper on its
+    inputs) enqueues, and their kinds: the nodes of a CUDA graph that
+    captures the call, after one call outside the capture. Unlike a trace,
+    this cannot lose a record."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(ATTEMPTS):
-        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        dev = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        if len(dev) >= calls:
-            return {"device_ops_per_call": len(dev) / calls,
-                    "names": sorted({name.split("(")[0] for name in dev})}
-    return None
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    driver = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+
+    def check(res, what):
+        if res != 0:
+            raise RuntimeError(f"{what}: CUresult {res}")
+
+    count = ctypes.c_size_t(0)
+    check(driver.cuGraphGetNodes(handle, None, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(driver.cuGraphGetNodes(handle, nodes, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(driver.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                        ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        kinds.append(_NODE_KINDS.get(kind.value, str(kind.value)))
+    return {"device_ops_per_call": float(count.value),
+            "kinds": sorted(set(kinds))}
 
 
 def profile(cg, steps, route="general", s=None, scene="tet100k",

@@ -10,7 +10,8 @@ run, then drives the port's main paths (System -> initialize -> step/run,
 f32) and times them in this one process: on the 100,000-tet NeoHookean beam
 (dia global solver) the general route (nh_local + cg_dia kernels) and the
 banded whole-timestep route (`lattice_fast_path=True`, one banded_rollout
-launch per 10-step window); on the cloth100k sheet (101,250 triangles,
+submission per 10-step window: a CUDA graph of its element, vertex and
+cluster-solve launches); on the cloth100k sheet (101,250 triangles,
 bend hinges, anchors, gravity, wind; dia) the general route (tri_local +
 cg_dia kernels) and the cloth whole-timestep route (one cloth_rollout
 launch per 10-step window); on the delaunay100k mesh (100,852 tets of
@@ -23,18 +24,22 @@ kernel, A_inv @ b), the beam as LinearTetStrain (arap100k) on dia
 (arap_local_step), and cloth100k on the matrix-free cg mode
 (tri_local_step, plain PyTorch PCG); the beam on the lattice
 whole-timestep route (the cg global mode with `lattice_fast_path=True`,
-one lattice_rollout launch per 10-step window) against the banded route;
+one lattice_rollout submission per 10-step window) against the banded
+route;
 and arap100k on the banded route's arap mode against its general route;
-and the beam on the sharded banded stepper at one device (cg25, cg75 in
-plain torch, cheb180 through one cheb_dia_chunk launch per solve; one
-banded_local_rhs call per ADMM iteration) against the banded route.
+and the beam on the sharded banded stepper at one device (cg25, cg75
+through one cg_dia_solve launch per solve, cheb180 through one
+cheb_dia_chunk launch per solve; one banded_local_rhs call per ADMM
+iteration) against the banded route.
 The two whole-solve kernels (cg_dia_solve, cg_ell_solve: one launch on a
 16-CTA thread-block cluster each) are also held to their twins on
 delaunay100k renumbered at random (phase 3f) and on banded systems of
 1,003 and 11 rows, and timed at 4 and 16 times tet100k's rows, beside the
 per-iteration floor and the cost of each synchronisation they are built
 from (phase 3n, the latter by a microbenchmark built beside the kernels,
-`csrc/probes/sync_probe.cu`).
+`csrc/probes/sync_probe.cu`, which also times the grid barrier the
+cooperative kernels pay and asks whether the card takes a launch both
+cooperative and clustered).
 Every phase prints one line of numbers. Any failure raises: the script
 then exits non-zero and prints no result line. It needs CUDA (it never
 falls back to the CPU) and imports nothing of JAX.
@@ -291,7 +296,8 @@ def check_solve(torch, label, mod, args, tol, reps=20, plain_reps=5):
     """A cluster solve (mod: cg_dia or cg_ell) against its plain twin on
     the same inputs (args: the solve's, n_iters last): relative error
     within tol, a bitwise repeat, and one device operation a solve in a
-    `profile_step` trace (the chain it replaced made 1 + 3 n_iters).
+    CUDA graph that captures it (`profile_step.call_ops`; the chain it
+    replaced made 1 + 3 n_iters).
     Prints the cluster's layout and whether the twin's bits came back.
     Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
     kind = mod.__name__.rsplit(".", 1)[1]
@@ -316,8 +322,8 @@ def check_solve(torch, label, mod, args, tol, reps=20, plain_reps=5):
     counts = cg_dia_counts if kind == "cg_dia" else cg_ell_counts
     n_ops, n_bytes = counts(*args)
     bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
-    trace = profile_step.trace_calls(lambda: solve(*args))
-    ops = None if trace is None else trace["device_ops_per_call"]
+    graph = profile_step.call_ops(lambda: solve(*args))
+    ops = graph["device_ops_per_call"]
     say(f"kernel {kind} {label} {str(b.dtype)[6:]}", n=b.shape[0],
         width=width or args[3].shape[1], n_iters=n_iters,
         reach=reach, cluster=plan["cluster"], threads=plan["threads"],
@@ -329,12 +335,7 @@ def check_solve(torch, label, mod, args, tol, reps=20, plain_reps=5):
         tol=tol, bitwise_vs_twin=bool(torch.equal(got, want)),
         bitwise_repeat=bit, ms=ms, plain_ms=plain_ms, operations=n_ops,
         bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
-        device_ops_per_solve=ops,
-        device_op_names=None if trace is None else trace["names"], ok=ok)
-    if trace is None:
-        raise AssertionError(f"{kind} {label}: no whole trace in "
-                             f"{profile_step.ATTEMPTS} attempts; the device "
-                             "ops a solve are not measured")
+        device_ops_per_solve=ops, device_op_kinds=graph["kinds"], ok=ok)
     if not ok or ops != 1.0:
         raise AssertionError(f"{kind} {label} disagrees in {b.dtype} at "
                              f"{n_iters} (device ops a solve: {ops})")
@@ -383,9 +384,13 @@ def start_probe_build():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{out}{err}")
         dll = ctypes.CDLL(str(lib))
-        dll.cluster_sync_probe.restype = ctypes.c_int
-        dll.cluster_sync_probe.argtypes = [ctypes.c_int] * 2 + [
-            ctypes.c_void_p] * 2
+        i, p = ctypes.c_int, ctypes.c_void_p
+        for name, args in (("cluster_sync_probe", [i, i, p, p]),
+                           ("grid_sync_probe", [i, i, i, p, p]),
+                           ("grid_probe_occupancy", [i]),
+                           ("coop_cluster_probe", [i, i, p, p])):
+            getattr(dll, name).restype = i
+            getattr(dll, name).argtypes = args
         return dll
     return finish
 
@@ -406,6 +411,52 @@ def sync_costs(torch, probe, rounds=10000):
         out[name] = 1e3 * (ms[0] - ms[1]) / rounds
         say(f"cluster sync, {name}", cluster=16, rounds=rounds,
             us_per_round=out[name])
+    return out
+
+
+# the grid of the cooperative rollout kernel that banded_step.cu and
+# lattice_step.cu ran before their windows were split at the solve:
+# rollout_kernel<float, 0, false> held this many 128-thread blocks an SM
+# (660 on the H100's 132 SMs, by the parent's banded_rollout_grid_f32)
+ROLLOUT_BLOCKS_PER_SM = 5
+GRID_PROBES = ("grid barrier", "grid stage end")
+
+
+def grid_costs(torch, probe, rounds=2000):
+    """What the cooperative kernels' CG paid for a stage, alone (probe:
+    the loaded microbenchmark): us a round of grid.sync() and of a whole
+    stage end (block sums, partials, grid.sync(), every block re-reading
+    them) on the rollout kernel's grid and on the cloth kernel's (the
+    cooperative kernel that keeps those stages), (N - 0 rounds) / N by
+    CUDA events. Then whether the card takes a launch that is both
+    cooperative and clustered. Returns {(grid, mode): us}."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cloth = _build.load_library().cloth_rollout_grid_f32()
+    grids = {"rollout": sms * ROLLOUT_BLOCKS_PER_SM, "cloth": cloth}
+    out = {}
+    for grid, blocks in grids.items():
+        part = torch.empty(2 * blocks, dtype=torch.float32, device="cuda")
+
+        def run(mode, k):
+            _build.check(probe.grid_sync_probe(
+                mode, k, blocks, part.data_ptr(), _build.stream_ptr(part)),
+                "grid_sync_probe")
+        for mode, name in enumerate(GRID_PROBES):
+            ms = [cuda_ms(torch, lambda: run(mode, k), 5)
+                  for k in (rounds, 0)]
+            out[(grid, name)] = 1e3 * (ms[0] - ms[1]) / rounds
+            say(f"grid sync, {name}", grid=grid, blocks=blocks,
+                blocks_per_sm=blocks / sms,
+                probe_blocks_per_sm=probe.grid_probe_occupancy(mode),
+                rounds=rounds, us_per_round=out[(grid, name)])
+    buf = torch.empty(128, dtype=torch.float32, device="cuda")
+    for cluster in (16, 8):
+        err = probe.coop_cluster_probe(128, cluster, buf.data_ptr(),
+                                       _build.stream_ptr(buf))
+        msg = _build.load_library().admm_cuda_error_string(err).decode()
+        say("cooperative launch with a cluster dimension", blocks=128,
+            threads=128, cluster=cluster, cuda_error=err,
+            accepted=err == 0, message=msg.replace(" ", "_"))
     return out
 
 
@@ -467,43 +518,95 @@ ROLLOUTS = {
 }
 
 
-def rollout_errors(torch, kind, st, cfg, steps):
+# the windows whose twins sum in their kernels' order (the cluster solve's,
+# cg_step.cluster_dot): held to them bitwise
+BITWISE = ("banded", "lattice")
+
+
+def rollout_errors(torch, kind, st, cfg, steps, planes=None):
     """Kernel and twin from the same state; (x abs err, x rel err, v abs
-    err, bitwise repeat, finite)."""
+    err, bitwise repeat, finite, bitwise against the twin)."""
     run, reference, keys = ROLLOUTS[kind]
-    got = run(st.state, st.planes, cfg, steps)
-    again = run(st.state, st.planes, cfg, steps)
-    want = reference(st.state, st.planes, cfg, steps)
+    planes = st.planes if planes is None else planes
+    got = run(st.state, planes, cfg, steps)
+    again = run(st.state, planes, cfg, steps)
+    want = reference(st.state, planes, cfg, steps)
     torch.cuda.synchronize()
     ex = float((got["x"] - want["x"]).abs().max())
     ev = float((got["v"] - want["v"]).abs().max())
     rel = ex / float(want["x"].abs().max())
     bit = all(torch.equal(got[k], again[k]) for k in keys)
     fin = all(bool(torch.isfinite(got[k]).all()) for k in keys)
-    return ex, rel, ev, bit, fin
+    twin = all(torch.equal(got[k], want[k]) for k in keys)
+    return ex, rel, ev, bit, fin, twin
 
 
 def check_rollout_small(torch, kind, st, dtype, tol_1it, tol_f32=1e-4,
-                        name=""):
+                        name="", planes=None):
     """1 step of 1 ADMM iteration, then a 10-step window: x within tol_1it
-    and 1e-8 (f64) or tol_f32 relative (f32)."""
+    and 1e-8 (f64) or tol_f32 relative (f32); the banded and lattice
+    windows bitwise."""
     f64 = dtype == torch.float64
     ok = True
     for tag, cfg, steps, tol in (
             ("1 iteration", dataclasses.replace(st.cfg, admm_iters=1), 1,
              tol_1it if f64 else 1e-4),
             ("10-step window", st.cfg, 10, 1e-8 if f64 else tol_f32)):
-        ex, rel, ev, bit, fin = rollout_errors(torch, kind, st, cfg, steps)
+        ex, rel, ev, bit, fin, twin = rollout_errors(torch, kind, st, cfg,
+                                                     steps, planes)
         err = ex if f64 else rel
-        good = err <= tol and bit and fin
+        good = err <= tol and bit and fin and (twin or kind not in BITWISE)
         say(f"kernel {kind}{name} {str(dtype)[6:]} small {tag}", n=st.n_nodes,
             elements=st.n_elements, max_abs_err_x=ex, rel_err_x=rel,
             max_abs_err_v=ev, tol=tol, tol_on="abs x" if f64 else "rel x",
-            bitwise_repeat=bit, finite=fin, ok=good)
+            bitwise_vs_twin=twin, bitwise_repeat=bit, finite=fin, ok=good)
         ok = ok and good
     if not ok:
         raise AssertionError(f"{kind}{name} rollout disagrees in {dtype} "
                              "(small)")
+
+
+def check_graph(torch, kind, st, label):
+    """A stepper's windows as CUDA graph replays (a step, then a 10-step
+    run: one submission each) against the same windows launched eagerly
+    from the same state, and again after positions and velocities are set
+    once the graphs are captured: bitwise."""
+    run, _, keys = ROLLOUTS[kind]
+    start = {k: st.state[k].clone() for k in keys}
+    n0 = run.launches
+    st.step()
+    st.run(10)
+    submissions = run.launches - n0
+    want = run(run(start, st.planes, st.cfg, 1), st.planes, st.cfg, 10)
+    replay = all(torch.equal(st.state[k], want[k]) for k in keys)
+    x = st.x + 1e-3 * np.random.default_rng(2).standard_normal(st.x.shape)
+    st.set_positions(x)
+    st.set_velocities(np.zeros_like(x))
+    start = {k: st.state[k].clone() for k in keys}
+    st.run(10)
+    want = run(start, st.planes, st.cfg, 10)
+    setters = (bool(np.array_equal(start["x"].cpu().numpy(),
+                                   x.astype(start["x"].cpu().numpy().dtype)))
+               and all(torch.equal(st.state[k], want[k]) for k in keys))
+    ok = replay and setters and submissions == 2
+    say(f"graph {kind} {label}", submissions_for_2_windows=submissions,
+        replay_bitwise_vs_eager=replay, setters_after_capture=setters,
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"{kind} {label}: graph replay or setters")
+
+
+def rollout_times(torch, kind, st):
+    """A whole-timestep kernel's time per 1-step and per 10-step launch
+    from a stepper's state, and the bound of one step: (ms, window ms,
+    operations, bytes, bound ms, bound by)."""
+    run, reference, keys = ROLLOUTS[kind]
+    ms = cuda_ms(torch, lambda: run(st.state, st.planes, st.cfg, 1), 5)
+    window_ms = cuda_ms(torch, lambda: run(st.state, st.planes, st.cfg, 10),
+                        3)
+    n_ops, n_bytes = rollout_counts(reference, keys, st.state, st.planes,
+                                    st.cfg, 1)
+    return (ms, window_ms, n_ops, n_bytes, *roofline_ms(n_bytes, n_ops))
 
 
 def check_rollout_full(torch, kind, st, label, dtype, tol):
@@ -511,24 +614,21 @@ def check_rollout_full(torch, kind, st, label, dtype, tol):
     relative in f32); the kernel's time per 1-step and per 10-step
     launch, the twin's per step, and the bound of one step."""
     run, reference, keys = ROLLOUTS[kind]
-    ex, rel, ev, bit, fin = rollout_errors(torch, kind, st, st.cfg, 1)
+    ex, rel, ev, bit, fin, twin = rollout_errors(torch, kind, st, st.cfg, 1)
     err = ex if dtype == torch.float64 else rel
-    ok = err <= tol and bit and fin
-    ms = cuda_ms(torch, lambda: run(st.state, st.planes, st.cfg, 1), 5)
-    window_ms = cuda_ms(torch, lambda: run(st.state, st.planes, st.cfg, 10),
-                        3)
+    ok = err <= tol and bit and fin and (twin or kind not in BITWISE)
+    ms, window_ms, n_ops, n_bytes, bound_ms, bound_by = rollout_times(
+        torch, kind, st)
     plain_ms = cuda_ms(torch, lambda: reference(st.state, st.planes, st.cfg,
                                                 1), 1, warmup=0)
-    n_ops, n_bytes = rollout_counts(reference, keys, st.state, st.planes,
-                                    st.cfg, 1)
-    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
     say(f"kernel {kind} {str(dtype)[6:]} {label}", n=st.n_nodes,
         elements=st.n_elements, matrix=getattr(st.cfg, "matrix", "dia"),
         diagonals=len(st.cfg.dia_offs),
         ell_width=getattr(st.cfg, "ell_width", 0),
         max_abs_err_x=ex, rel_err_x=rel, max_abs_err_v=ev, tol=tol,
-        bitwise_repeat=bit, finite=fin, ms_per_1step_launch=ms,
-        ms_per_10step_launch=window_ms, ms_per_step_in_window=window_ms / 10,
+        bitwise_vs_twin=twin, bitwise_repeat=bit, finite=fin,
+        ms_per_1step_launch=ms, ms_per_10step_launch=window_ms,
+        ms_per_step_in_window=window_ms / 10,
         plain_ms_per_step=plain_ms, operations=n_ops, bytes=n_bytes,
         bound_ms=bound_ms, bound_by=bound_by, ok=ok)
     if not ok:
@@ -684,6 +784,44 @@ def small_lattice(model, dtype, floor=False):
                           device="cuda")
 
 
+def window_layout(torch, st, label):
+    """Raise unless a stepper's solve keeps its vectors in shared memory
+    (the cluster solve's WINDOW layout) on this card."""
+    offs = st.cfg.dia_offs
+    plan = pstep.cluster_plan(st.n_nodes, st.state["x"].dtype,
+                              max(abs(o) for o in offs), len(offs))
+    say(f"solve layout {label}", n=st.n_nodes, reach=max(abs(o) for o in offs),
+        window=plan["vectors_in_smem"], matrix_in_smem=plan["matrix_in_smem"],
+        smem_bytes=plan["smem_bytes"])
+    if not plan["vectors_in_smem"]:
+        raise AssertionError(f"{label}: the solve takes the SHARED layout")
+
+
+def check_window_ops(out, label):
+    """A whole-timestep window's trace (profile_step's dict): 2 + 3
+    admm_iters kernels a step, none a grid barrier (kick, then per ADMM
+    iteration an element kernel, a vertex kernel and one cluster solve,
+    then the end), and the clock's one add a window."""
+    want = 2 + 3 * ADMM_ITERS + 1 / WINDOW_STEPS
+    got = out["device_ops_per_step"]
+    say(f"device ops {label}", device_ops_per_step=got, expected=want,
+        lost_kernel_records=out["lost_kernel_records"])
+    if got is not None and out["lost_kernel_records"] == 0 and abs(
+            got - want) > 1e-9:
+        raise AssertionError(f"{label}: {got} device ops a step, expected "
+                             f"{want}")
+
+
+class _with_cfg:
+    """A stepper's state and planes under another config (a mode the
+    stepper was not built with), for the window checks."""
+
+    def __init__(self, st, **cfg):
+        self.state, self.planes = st.state, st.planes
+        self.cfg = dataclasses.replace(st.cfg, **cfg)
+        self.n_nodes, self.n_elements = st.n_nodes, st.n_elements
+
+
 def off_path(*kernels):
     """Raise if any of these kernels launched since the last reset."""
     bad = [k.__name__ for k in kernels if k.launches]
@@ -751,14 +889,25 @@ def main():
     arapf32, arap32 = check_arap(torch, xg, p, torch.float32)
     del a64, xg, p
 
-    # phase 3b: the banded whole-timestep kernel against its plain version
+    # phase 3b: the banded whole-timestep window against its plain version
+    # (bitwise): the jittered beam (floor, sphere, cylinder) in every mode
+    # with vertex 0's anchor released, and at tet100k; then its CUDA graph
+    # against eager launches, and the setters after capture
     for dtype in (torch.float64, torch.float32):
-        check_rollout_small(torch, "banded",
-                            scenes.jittered_system(dtype=dtype)._stepper,
-                            dtype, 1e-11)
-    check_rollout_full(torch, "banded",
-                       tet100k(75, torch.float64, fast=True)._stepper,
-                       "tet100k cg75", torch.float64, 1e-8)
+        st = scenes.jittered_system(dtype=dtype)._stepper
+        check_rollout_small(torch, "banded", st, dtype, 1e-11)
+        released = dict(st.planes, aw2=st.planes["aw2"].clone())
+        released["aw2"][0] = 0.0
+        for model in ("nh", "stvk", "arap"):
+            check_rollout_small(
+                torch, "banded", _with_cfg(st, model=model), dtype, 1e-11,
+                name=f" {model} anchor 0 released", planes=released)
+        check_graph(torch, "banded", st, f"jittered 8x6x5 {str(dtype)[6:]}")
+    st = tet100k(75, torch.float64, fast=True)._stepper
+    window_layout(torch, st, "banded tet100k float64")
+    check_rollout_full(torch, "banded", st, "tet100k cg75", torch.float64,
+                       1e-8)
+    del st
     banded32 = check_rollout_full(
         torch, "banded", tet100k(75, torch.float32, fast=True)._stepper,
         "tet100k cg75", torch.float32, 1e-4)
@@ -777,6 +926,13 @@ def main():
     cloth32 = check_rollout_full(torch, "cloth",
                                  cloth100k(25, torch.float32)._stepper,
                                  "cloth100k cg25", torch.float32, 1e-4)
+    # its time and bound at cg300, the Jacobi budget matched at 225 x 225
+    # (held to the twin at cg25 above)
+    ms, window_ms, n_ops, n_bytes, bound_ms, bound_by = rollout_times(
+        torch, "cloth", cloth100k(300, torch.float32)._stepper)
+    say("kernel cloth float32 cloth100k cg300", ms_per_1step_launch=ms,
+        ms_per_10step_launch=window_ms, ms_per_step_in_window=window_ms / 10,
+        operations=n_ops, bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by)
 
     # phase 3e: the fused CG update at delaunay100k's shapes
     d64 = delaunay100k(25, torch.float64, fast=False)
@@ -819,6 +975,7 @@ def main():
                                 reps=5, plain_reps=2)
     cluster_floor(torch)
     sync_costs(torch, probe_lib)
+    grid_costs(torch, probe_lib)
     for cells in (160, 640):
         args = (*scenes.long_beam_dia_inputs(cells), 25)
         if cells == 160:
@@ -832,12 +989,13 @@ def main():
                                  len(args[4])))
         del args
 
-    # phase 3g: the banded kernel's ELL matvec. The small mesh's f32 window
-    # takes 1e-3: its Newton ties move x by ~3e-4 relative in 10 steps
+    # phase 3g: the banded window's ELL rows (bitwise; the small mesh's f32
+    # window keeps its 1e-3 against the twin: its Newton ties move x by
+    # ~3e-4 relative in 10 steps if a bit differs), and its graph
     for dtype in (torch.float64, torch.float32):
-        check_rollout_small(torch, "banded",
-                            small_delaunay(dtype=dtype)._stepper, dtype,
-                            1e-11, tol_f32=1e-3)
+        st = small_delaunay(dtype=dtype)._stepper
+        check_rollout_small(torch, "banded", st, dtype, 1e-11, tol_f32=1e-3)
+        check_graph(torch, "banded", st, f"ell 140 nodes {str(dtype)[6:]}")
     bandedell32 = check_rollout_full(
         torch, "banded", delaunay100k(25, torch.float32)._stepper,
         "delaunay100k cg25", torch.float32, 1e-4)
@@ -852,14 +1010,17 @@ def main():
             check_rollout_small(torch, "lattice",
                                 small_lattice(model, dtype, floor), dtype,
                                 1e-11, name=tag)
-    check_rollout_full(
-        torch, "lattice",
-        tet100k(75, torch.float64, fast=True, global_solver="cg")._stepper,
-        "tet100k cg75", torch.float64, 1e-8)
-    lattice32 = check_rollout_full(
-        torch, "lattice",
-        tet100k(75, torch.float32, fast=True, global_solver="cg")._stepper,
-        "tet100k cg75", torch.float32, 1e-4)
+        check_graph(torch, "lattice", small_lattice("nh", dtype, True),
+                    f"8x6x5 floor {str(dtype)[6:]}")
+    lattice_full = {}
+    for dtype in (torch.float64, torch.float32):
+        st = tet100k(75, dtype, fast=True, global_solver="cg")._stepper
+        window_layout(torch, st, f"lattice tet100k {str(dtype)[6:]}")
+        lattice_full[dtype] = check_rollout_full(
+            torch, "lattice", st, "tet100k cg75", dtype,
+            1e-8 if dtype == torch.float64 else 1e-4)
+    lattice32 = lattice_full[torch.float32]
+    del st
 
     # phase 3k: the banded kernel's arap mode on a small beam and at
     # arap100k (cg75)
@@ -1009,18 +1170,19 @@ def main():
         drift = float(np.abs(x[anchored] - s._x[anchored]).max())
         sag = float((x[:, 1] - s._x[:, 1]).min())
         vs_general = float(np.abs(x - gen.x).max())
-        want = WARMUP_STEPS + WINDOWS  # single warm-up steps, one per window
+        # one submission (a graph replay) a single warm-up step and a window
+        want = WARMUP_STEPS + WINDOWS
         say(f"tet100k fast cg{cg} f32", ms_per_step_median=med,
             windows_ms=[round(w, 4) for w in windows],
             spread_ms=max(windows) - min(windows), steps=steps,
-            banded_launches=n_launch, expected_launches=want,
+            submissions=n_launch, expected_submissions=want,
             anchor_drift_m=drift, min_dy_m=sag,
             max_abs_dx_vs_general_m=vs_general,
             finite=bool(np.isfinite(x).all()))
         say(f"routes cg{cg} f32 (this call)",
             general_ms_per_step=per_budget[cg][0], fast_ms_per_step=med)
         if n_launch != want:
-            raise AssertionError(f"fast cg{cg}: {n_launch} banded launches, "
+            raise AssertionError(f"fast cg{cg}: {n_launch} window submissions, "
                                  f"expected {want}")
         if not (np.isfinite(x).all() and drift < 1e-4 and sag < 0):
             raise AssertionError(f"fast cg{cg}: bad trajectory (drift "
@@ -1029,7 +1191,8 @@ def main():
     banded_x = {cg: s.x for cg, s in fast.items()}
     tet75_x = per_budget[75][3].x  # phase 5e's trusted route
     for cg, s in fast.items():
-        profile_step.profile(cg, WINDOW_STEPS, "fast", s=s)
+        check_window_ops(profile_step.profile(cg, WINDOW_STEPS, "fast", s=s),
+                         f"tet100k banded cg{cg}")
     for cg, run in per_budget.items():
         profile_step.profile(cg, WINDOW_STEPS, "general", s=run[3])
     banded_ms = {cg: run[0] for cg, run in fast_budget.items()}
@@ -1069,7 +1232,7 @@ def main():
         say(f"tet100k lattice cg{cg} f32", ms_per_step_median=med,
             windows_ms=[round(w, 4) for w in windows],
             spread_ms=max(windows) - min(windows), steps=steps,
-            lattice_launches=n_launch, expected_launches=want,
+            submissions=n_launch, expected_submissions=want,
             anchor_drift_m=drift, min_dy_m=sag,
             max_abs_dx_vs_banded_same_budget_m=vs_same,
             max_abs_dx_vs_banded_cg75_m=float(
@@ -1078,7 +1241,7 @@ def main():
         say(f"lattice routes cg{cg} f32 (this call)",
             banded_ms_per_step=banded_ms[cg], lattice_ms_per_step=med)
         if n_launch != want:
-            raise AssertionError(f"lattice cg{cg}: {n_launch} launches, "
+            raise AssertionError(f"lattice cg{cg}: {n_launch} window submissions, "
                                  f"expected {want}")
         if not (fin and drift < 1e-4 and sag < 0
                 and vs_same <= max(1e-3, 10.0 * sens[cg])):
@@ -1086,12 +1249,14 @@ def main():
                                  f"{drift}, min dy {sag}, {vs_same} m from "
                                  "the banded route)")
     for cg, s in lat.items():
-        profile_step.profile(cg, WINDOW_STEPS, "lattice", s=s)
+        check_window_ops(profile_step.profile(cg, WINDOW_STEPS, "lattice",
+                                              s=s), f"tet100k lattice cg{cg}")
     del lat
 
     # phase 5h: tet100k on the sharded banded stepper at one device, f32:
-    # cg25, cg75 (the Jacobi-PCG in plain torch) and cheb180 (one
-    # cheb_dia_chunk launch per solve); banded_local_rhs once per ADMM
+    # cg25, cg75 (one cg_dia_solve launch per solve, the banded route's
+    # cluster solve) and cheb180 (one cheb_dia_chunk launch per solve);
+    # banded_local_rhs once per ADMM
     # iteration throughout. Each run against the banded route of phase 5b
     # at the same budget (cheb180: at cg75, its matched counterpart) and
     # at cg75, beside its own divergence from a start moved by 1e-6 m
@@ -1154,8 +1319,8 @@ def main():
                 rest_ms=med - local_ms - solve_ms)
         want = {k.__name__: 0 for k in KERNELS}
         want["banded_local_rhs"] = steps * ADMM_ITERS
-        if solver == "cheb":
-            want["cheb_dia_chunk"] = steps * ADMM_ITERS
+        want["cheb_dia_chunk" if solver == "cheb"
+             else "cg_dia_solve"] = steps * ADMM_ITERS
         if counts != want:
             bad.append(f"{solver}{budget}: launches {counts}, expected {want}")
         if not (fin and drift < 1e-4 and sag < 0
@@ -1164,11 +1329,9 @@ def main():
                        "from the banded route)")
     if bad:
         raise AssertionError("sharded routes: " + "; ".join(bad))
-    # the cg rows over one step: each holds ~25,000 (cg25) to ~72,000
-    # (cg75) launches, and a trace that loses a record is taken again
     for (solver, budget), sp in sharded.items():
-        profile_step.profile(budget, WINDOW_STEPS if solver == "cheb" else 1,
-                             "sharded", s=sp, solver=solver)
+        profile_step.profile(budget, WINDOW_STEPS, "sharded", s=sp,
+                             solver=solver)
     del sharded, banded_x
 
     # phase 5c: cloth100k on the general and the cloth route, f32
@@ -1307,9 +1470,11 @@ def main():
         **{f"{route}_cg{cg}": run[0] for (route, cg), run in d_runs.items()})
     for route, cg in (("banded", 25), ("banded", 75), ("kernel", 25),
                       ("kernel", 75), ("fused", 25), ("xla", 25)):
-        profile_step.profile(cg, WINDOW_STEPS,
-                             "fast" if route == "banded" else "general",
-                             s=d_routes[(route, cg)], scene="delaunay100k")
+        out = profile_step.profile(
+            cg, WINDOW_STEPS, "fast" if route == "banded" else "general",
+            s=d_routes[(route, cg)], scene="delaunay100k")
+        if route == "banded":
+            check_window_ops(out, f"delaunay100k banded-ELL cg{cg}")
 
     def launches_of(route, name):
         return sum(run[2][name] for (r, _), run in d_runs.items()
@@ -1470,7 +1635,7 @@ def main():
         say(f"arap100k banded cg{cg} f32", ms_per_step_median=med,
             windows_ms=[round(w, 4) for w in windows],
             spread_ms=max(windows) - min(windows), steps=steps,
-            banded_launches=n_launch, expected_launches=want,
+            submissions=n_launch, expected_submissions=want,
             anchor_drift_m=drift, min_dy_m=sag,
             max_abs_dx_vs_general_same_budget_m=vs_same,
             max_abs_dx_vs_general_cg75_m=float(
@@ -1481,13 +1646,15 @@ def main():
             banded_ms_per_step=med)
         if n_launch != want:
             raise AssertionError(f"arap100k banded cg{cg}: {n_launch} "
-                                 f"launches, expected {want}")
+                                 f"window submissions, expected {want}")
         if not (fin and drift < 1e-4 and sag < 0
                 and vs_same <= max(1e-3, 10.0 * sens[cg])):
             raise AssertionError(f"arap100k banded cg{cg}: bad trajectory "
                                  f"({vs_same} m from the general route)")
     for cg, s in afast.items():
-        profile_step.profile(cg, WINDOW_STEPS, "fast", s=s, scene="arap100k")
+        check_window_ops(profile_step.profile(cg, WINDOW_STEPS, "fast", s=s,
+                                              scene="arap100k"),
+                         f"arap100k banded cg{cg}")
     del afast, general_arap_x
 
     def entry(name, source, replaces, n, err, ms, plain_ms, bound_ms,

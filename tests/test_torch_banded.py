@@ -195,6 +195,45 @@ def test_wrapper_routing_and_checks():
         dataclasses.replace(st.cfg, coll_shapes=(("floor", (0.0,)),) * 17)
 
 
+@pytest.mark.parametrize("matrix", ["dia", "ell"])
+def test_twin_solve_is_the_cluster_solves_twin(matrix):
+    """The twin's global solve is `pcg_fixed_inv` with the cluster
+    solve's order of sums (`cluster_dot`; ELL rows slot by slot), from x,
+    with D^-1 as stored: one step of one ADMM iteration on a small beam
+    (dia) and on the 140-node Delaunay mesh (ELL), bitwise. A plain
+    torch.sum in its place moves x."""
+    from admm_elastic_tpu_torch.core.solver import dia_apply, pcg_fixed_inv
+    from admm_elastic_tpu_torch.ops.kernels.cg_ell import ell_apply_by_slot
+    from admm_elastic_tpu_torch.ops.kernels.cg_step import cluster_dot
+    from admm_elastic_tpu_torch.utils.scenes import small_delaunay
+
+    if matrix == "dia":
+        st = _stepper(build(pt, jittered_beam(seed=4), fast=True))
+    else:
+        st = small_delaunay(25, torch.float64, "cpu", fast=True)._stepper
+    cfg, p = dataclasses.replace(st.cfg, admm_iters=1), st.planes
+    got = pbs.banded_rollout_reference(st.state, p, cfg, 1)
+
+    def A(y):
+        if matrix == "ell":
+            return ell_apply_by_slot(y, p["ell_idx"], p["ell_vals"])
+        return dia_apply(y, cfg.dia_offs, p["dia"])
+
+    dt, g = cfg.dt, torch.tensor(cfg.scalars()[3:6], dtype=torch.float64)
+    v = st.state["v"] + torch.where(p["mass"][:, None] > 0, g, 0.0)
+    x = st.state["x"] + torch.tensor(dt, dtype=torch.float64) * v
+    u, warm, rows = pbs._element_phase(x, st.state["u"], st.state["warm"],
+                                       p, cfg, torch.finfo(x.dtype).eps)
+    b, _, _ = pbs._vertex_rhs(x, st.state["au"], st.state["cu"], rows, p,
+                              cfg)
+    rhs = p["mass"][:, None] * x + torch.tensor(dt * dt,
+                                               dtype=torch.float64) * b
+    want = pcg_fixed_inv(A, rhs, x, p["invd"], cfg.cg_iters, cluster_dot)
+    assert torch.equal(got["x"], want)
+    plain = pcg_fixed_inv(A, rhs, x, p["invd"], cfg.cg_iters)
+    assert not torch.equal(got["x"], plain)
+
+
 def test_collision_projections_agree():
     """The banded twin's projection (r rsqrt(d^2)) against
     Collision.project (d / |d|) on points in and around every shape."""

@@ -1,7 +1,7 @@
 """Hand-written kernels against their plain twins on a CUDA device: those of
 the ell routes, the element steps of the unfused pipeline and of
-LinearTetStrain, the lattice kernel, the banded kernel's arap mode, and
-the sharded banded stepper's local phase (banded_local_rhs) and Chebyshev
+LinearTetStrain, the banded and lattice whole-timestep windows, and the
+sharded banded stepper's local phase (banded_local_rhs) and Chebyshev
 chunk (cheb_dia_chunk). Every case is marked `cuda` and skips without a card. This
 file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed (tests/conftest.py sets JAX up, hence --noconftest):
@@ -13,9 +13,10 @@ kernels' order (`chain_dot`, `cluster_dot`, `dia_apply`,
 `ell_apply_by_slot`), so the kernels must repeat them bitwise, the two
 cluster solves at any n (`scenes.banded_spd`: fewer rows than CTAs, a
 last slab cut short, windows too large for shared memory, a random
-numbering); the banded kernel's CG reduces in another order than its twin,
-so its window compares at chip_smoke.py's 1e-8 (f64), as do the lattice
-kernel's and the banded arap mode's. The element steps
+numbering). The banded and lattice windows (element kernel, vertex
+kernel, the cluster solve, every ADMM iteration) repeat their twins
+bitwise too, in every mode, and a stepper's CUDA graph replays the same
+bits as the window's eager launches. The element steps
 (nh_local_step, tri_local_step, arap_local_step_fused, arap_local_step)
 are built without FMA contraction and use correctly rounded sqrt and
 division, as their twins do on the card: bitwise. banded_local_rhs runs
@@ -148,6 +149,25 @@ def test_cluster_solves_at_any_n(dtype, n):
 
 
 @pytest.mark.cuda
+def test_cluster_solve_set_up_outlives_smaller_ones():
+    """A solve set up at 1,003 rows, then one of 37 rows (less shared
+    memory a CTA), then the first again, eagerly and inside a CUDA graph
+    capture: a size once set up stays launchable."""
+    dev = _cuda()
+    big, small = (_band_args(banded_spd(n, dtype=torch.float64, device=dev,
+                                        seed=n), "dia", 25)
+                  for n in (1003, 37))
+    want = cg_dia.cg_dia_solve(*big)
+    cg_dia.cg_dia_solve(*small)
+    assert torch.equal(cg_dia.cg_dia_solve(*big), want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cg_dia.cg_dia_solve(*big)
+    graph.replay()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
 def test_cluster_solve_in_the_shared_layout(dtype):
     """A 20,000-row band renumbered at random: its rows reach across the
@@ -170,16 +190,52 @@ def test_cluster_solve_in_the_shared_layout(dtype):
     assert rel < (1e-10 if dtype == torch.float64 else 1e-4)
 
 
+def _window_is_its_twin(run, twin, keys, st, planes, cfg, steps):
+    """A window (run: banded_rollout or lattice_rollout) from the
+    stepper's state, twice, and its twin: bitwise, finite. Returns the
+    window's state."""
+    n0 = run.launches
+    got = run(st.state, planes, cfg, steps)
+    again = run(st.state, planes, cfg, steps)
+    assert run.launches == n0 + 2
+    want = twin(st.state, planes, cfg, steps)
+    for k in keys:
+        assert bool(torch.isfinite(got[k]).all()), k
+        assert torch.equal(got[k], again[k]), k
+        assert torch.equal(got[k], want[k]), k
+    return got
+
+
 @pytest.mark.cuda
-def test_banded_ell_kernel_matches_twin():
+@pytest.mark.parametrize("model", ["nh", "stvk", "arap"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_banded_window_is_its_twin(dtype, model):
+    """The jittered 8 x 6 x 5 beam (floor, sphere, cylinder) with vertex
+    0's anchor released, one 10-step window of every mode: bitwise; the
+    released anchor's dual stays exactly 0."""
     _cuda()
-    st = small_delaunay(25, torch.float64, "cuda", fast=True)._stepper
+    st = jittered_system(dtype=dtype)._stepper
+    planes = dict(st.planes, aw2=st.planes["aw2"].clone())
+    planes["aw2"][0] = 0.0
+    cfg = dataclasses.replace(st.cfg, model=model)
+    got = _window_is_its_twin(banded_step.banded_rollout,
+                              banded_step.banded_rollout_reference,
+                              banded_step.STATE, st, planes, cfg, 10)
+    assert torch.count_nonzero(got["au"][0]) == 0
+    assert torch.count_nonzero(got["cu"]) > 0, "shapes engaged"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_banded_ell_kernel_matches_twin(dtype):
+    """The 140-node Delaunay mesh on the ELL rows: one 10-step window,
+    bitwise."""
+    _cuda()
+    st = small_delaunay(25, dtype, "cuda", fast=True)._stepper
     assert st.cfg.matrix == "ell"
-    got = banded_step.banded_rollout(st.state, st.planes, st.cfg, 10)
-    want = banded_step.banded_rollout_reference(st.state, st.planes, st.cfg,
-                                                10)
-    assert float((got["x"] - want["x"]).abs().max()) < 1e-8
-    assert np.isfinite(got["x"].cpu().numpy()).all()
+    _window_is_its_twin(banded_step.banded_rollout,
+                        banded_step.banded_rollout_reference,
+                        banded_step.STATE, st, st.planes, st.cfg, 10)
 
 
 def _element_inputs(planes, vectors, dtype, device, seed=0, E=4096):
@@ -232,43 +288,93 @@ LATTICES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", list(LATTICES))
-def test_lattice_kernel_matches_twin(name):
-    """One 10-step launch on a 4 x 3 x 3 beam against the twin on the card
-    (1e-8, f64), repeated bitwise."""
-    dev = _cuda()
+def _small_lattice(name, dtype, dev):
     kw = {"mu": 1e4, "lam": 1e4, **LATTICES[name]}
     beam_n = 5 * 4 * 4
-    st = LatticeStepper(4, 3, 3, 0.25, np.full(beam_n, 1.0 / beam_n),
-                        kw.pop("mu"), kw.pop("lam"), np.arange(12),
-                        admm_iters=6, cg_iters=25, dtype=torch.float64,
-                        device=dev, **kw)
-    n0 = lattice_step.lattice_rollout.launches
-    got = lattice_step.lattice_rollout(st.state, st.planes, st.cfg, 10)
-    again = lattice_step.lattice_rollout(st.state, st.planes, st.cfg, 10)
-    assert lattice_step.lattice_rollout.launches == n0 + 2
-    want = lattice_step.lattice_rollout_reference(st.state, st.planes,
-                                                  st.cfg, 10)
-    assert float((got["x"] - want["x"]).abs().max()) < 1e-8
-    for k in lattice_step.STATE:
-        assert torch.equal(got[k], again[k]), k
-        assert bool(torch.isfinite(got[k]).all()), k
+    return LatticeStepper(4, 3, 3, 0.25, np.full(beam_n, 1.0 / beam_n),
+                          kw.pop("mu"), kw.pop("lam"), np.arange(12),
+                          admm_iters=6, cg_iters=25, dtype=dtype,
+                          device=dev, **kw)
 
 
 @pytest.mark.cuda
-def test_banded_arap_kernel_matches_twin():
-    """The arap mode on a 4 x 3 x 3 beam (dia): one 10-step launch against
-    the twin on the card (1e-8, f64)."""
+@pytest.mark.parametrize("name", list(LATTICES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_lattice_kernel_matches_twin(name, dtype):
+    """One 10-step window on a 4 x 3 x 3 beam against the twin on the
+    card: bitwise, repeated bitwise."""
     dev = _cuda()
-    st = beam_system((4, 3, 3), 0.25, 2.0, 25, torch.float64, "cuda",
+    st = _small_lattice(name, dtype, dev)
+    _window_is_its_twin(lattice_step.lattice_rollout,
+                        lattice_step.lattice_rollout_reference,
+                        lattice_step.STATE, st, st.planes, st.cfg, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_banded_arap_kernel_matches_twin(dtype):
+    """The arap mode on a 4 x 3 x 3 beam (dia): one 10-step window,
+    bitwise; the warm start untouched."""
+    dev = _cuda()
+    st = beam_system((4, 3, 3), 0.25, 2.0, 25, dtype, "cuda",
                      fast=True, arap=True)._stepper
     assert st.cfg.model == "arap" and st.device == dev
-    got = banded_step.banded_rollout(st.state, st.planes, st.cfg, 10)
-    want = banded_step.banded_rollout_reference(st.state, st.planes, st.cfg,
-                                                10)
-    assert float((got["x"] - want["x"]).abs().max()) < 1e-8
+    got = _window_is_its_twin(banded_step.banded_rollout,
+                              banded_step.banded_rollout_reference,
+                              banded_step.STATE, st, st.planes, st.cfg, 10)
     assert torch.equal(got["warm"], st.state["warm"])  # arap leaves it
+
+
+STEPPERS = {
+    "banded": (lambda dt: jittered_system(dtype=dt)._stepper,
+               banded_step.banded_rollout, banded_step.STATE),
+    "banded ell": (lambda dt: small_delaunay(25, dt, "cuda",
+                                             fast=True)._stepper,
+                   banded_step.banded_rollout, banded_step.STATE),
+    "lattice": (lambda dt: _small_lattice("floor", dt, "cuda"),
+                lattice_step.lattice_rollout, lattice_step.STATE),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STEPPERS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_graph_replay_is_eager_launches(name, dtype):
+    """A stepper's step and 10-step run (one CUDA graph replay each, one
+    submission a window) against the same windows launched eagerly from
+    the same state: bitwise."""
+    _cuda()
+    make, run, keys = STEPPERS[name]
+    st = make(dtype)
+    start = {k: st.state[k].clone() for k in keys}
+    n0 = run.launches
+    st.step()
+    st.run(10)
+    assert run.launches == n0 + 2
+    want = run(run(start, st.planes, st.cfg, 1), st.planes, st.cfg, 10)
+    for k in keys:
+        assert torch.equal(st.state[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STEPPERS))
+def test_setters_take_effect_after_capture(name):
+    """Positions and velocities set after the windows were captured are
+    the ones the next replay steps from."""
+    _cuda()
+    make, run, keys = STEPPERS[name]
+    st = make(torch.float64)
+    st.run(10)  # captures the 1- and 10-step windows
+    x = st.x + 0.01 * np.random.default_rng(0).standard_normal(st.x.shape)
+    v = np.full_like(x, 0.05)
+    st.set_positions(x)
+    st.set_velocities(v)
+    assert np.array_equal(st.x, x) and np.array_equal(st.v, v)
+    start = {k: st.state[k].clone() for k in keys}
+    st.run(10)
+    want = run(start, st.planes, st.cfg, 10)
+    for k in keys:
+        assert torch.equal(st.state[k], want[k]), k
 
 
 def _rel(got, want):
@@ -360,6 +466,10 @@ def test_wrappers_raise_without_their_build(monkeypatch):
     monkeypatch.setattr(_build, "load_library", missing)
     with pytest.raises(RuntimeError, match="nvcc"):
         banded_local.banded_local_rhs(*ins, st.planes, st.cfg)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        banded_step.banded_rollout(st.state, st.planes, st.cfg, 1)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        st.step()  # the stepper's window: no twin on a CUDA tensor
     x = ins[0]
     c = torch.zeros(1, dtype=x.dtype, device=dev)
     with pytest.raises(RuntimeError, match="nvcc"):

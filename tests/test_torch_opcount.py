@@ -96,8 +96,9 @@ def test_cg_update_counts_bytes():
 
 def test_banded_ell_rollout_counts_one_cg_iteration():
     """In ELL mode one more CG iteration per ADMM iteration adds the ELL
-    matvec (a product and a sum per slot: 6nK) and the 36n + 6 vector and
-    scalar operations of a Jacobi-PCG iteration, per ADMM iteration."""
+    matvec (a product and a sum per slot: 6nK) and the 33n + 6 vector and
+    scalar operations of a Jacobi-PCG iteration (`pcg_fixed_inv`, which
+    forms D^-1 r once), per ADMM iteration."""
     import dataclasses
 
     from admm_elastic_tpu_torch.ops.kernels import banded_step
@@ -115,15 +116,16 @@ def test_banded_ell_rollout_counts_one_cg_iteration():
     o3, b3 = counts(cfg)
     o4, b4 = counts(dataclasses.replace(cfg, cg_iters=4))
     n, K = st.n_nodes, cfg.ell_width
-    assert o4 - o3 == cfg.admm_iters * (6 * n * K + 36 * n + 6)
+    assert o4 - o3 == cfg.admm_iters * (6 * n * K + 33 * n + 6)
     assert b3 == b4 > 0
 
 
 def test_lattice_rollout_counts():
     """One more CG iteration per ADMM iteration adds the dia matvec (a
     product and a sum per term inside the matrix: 6(n - |off|) per
-    diagonal) and the 36n + 6 vector and scalar operations of a Jacobi-PCG
-    iteration, per ADMM iteration; and the
+    diagonal) and the 33n + 6 vector and scalar operations of a Jacobi-PCG
+    iteration (`pcg_fixed_inv`, which forms D^-1 r once), per ADMM
+    iteration; and the
     element phase does no work on a group's zero selector coefficients."""
     import dataclasses
 
@@ -146,7 +148,7 @@ def test_lattice_rollout_counts():
     o4, b4 = counts(dataclasses.replace(cfg, cg_iters=4))
     n = st.n_nodes
     matvec = sum(6 * (n - abs(off)) for off in cfg.dia_offs)
-    assert o4 - o3 == cfg.admm_iters * (matvec + 36 * n + 6)
+    assert o4 - o3 == cfg.admm_iters * (matvec + 33 * n + 6)
     assert b3 == b4 > 0
     idx, grp, _ = lattice_step.lattice_tables(cfg.dims)
     members = [torch.as_tensor(np.flatnonzero(grp == g)) for g in range(10)]
