@@ -1,12 +1,14 @@
 """The cloth whole-timestep route: `ClothStepper` and `cloth_from_system`.
 
 Counterpart of `admm_elastic_tpu/core/cloth.py` in Jacobi-PCG mode. One
-kernel launch (`ops/kernels/cloth_step.py`) runs a whole window of
-timesteps of a {LimitedTriangleStrain, Bend, StaticAnchor, gravity,
-WindForce} cloth on the dia solver: explicit kicks, every ADMM iteration's
-triangle and hinge local steps, dual updates, anchors and the fixed-budget
-Jacobi-PCG solves. Trajectories match the general `System` route to
-round-off (tests/test_torch_cloth.py).
+submission (a CUDA graph of the window's kernels,
+`ops/kernels/cloth_step.py`) runs a whole window of timesteps of a
+{LimitedTriangleStrain, Bend, StaticAnchor, gravity, WindForce} cloth on
+the dia solver: explicit kicks, every ADMM iteration's triangle and hinge
+local steps, dual updates, anchors and the fixed-budget Jacobi-PCG solve
+on one thread-block cluster, the general route's dia solve. Trajectories
+match the general `System` route to round-off
+(tests/test_torch_cloth.py).
 
 Qualification is the JAX package's: faces and hinges are grouped by their
 vertex-offset stencils from each element's minimum index
@@ -29,8 +31,9 @@ import torch
 
 from ..models import (Bend, ExplicitForce, LimitedTriangleStrain,
                       StaticAnchor, WindForce)
-from ..ops.kernels.cloth_step import (BEND_TAB, TRI_TAB, ClothConfig,
-                                      cloth_rollout)
+from ..ops.kernels._graph import WindowGraphs
+from ..ops.kernels.cloth_step import (BEND_TAB, STATE, TRI_TAB, ClothConfig,
+                                      ClothWindow, cloth_rollout)
 from .lattice import detect_grid_numbering
 from .solver import assemble_A_hat_dia
 
@@ -38,7 +41,9 @@ from .solver import assemble_A_hat_dia
 # editor-reordered face lists up to 4 + 12)
 MAX_GROUPS = 16
 MAX_WIND_GROUPS = 4
-MAX_DIAGONALS = 24  # non-negative offsets of the symmetric dia planes
+# non-negative offsets of the JAX kernel's symmetric dia planes: a matrix
+# with more takes the general route there, and so here
+MAX_DIAGONALS = 24
 
 
 def group_constant_offsets(indices):
@@ -284,8 +289,8 @@ class ClothStepper:
                 raise ValueError("wind triangles not groupable")
             wind_dir = tuple(float(q) for q in wdir)
 
-        # ---- the general route's global matrix, stored as its diagonals
-        # at offsets >= 0 (dia[d,i] = A[i, i+off])
+        # ---- the general route's global matrix, as its diagonals at
+        # their signed offsets (dia[d,i] = A[i, i+off])
         anchor_idx = np.asarray(anchor_idx, np.int64).reshape(-1)
         fp = {"tri": pt}
         if pb is not None:
@@ -298,12 +303,11 @@ class ClothStepper:
         if out is None:
             raise ValueError("mesh is not dia-structured (not a grid?)")
         all_offs, dia_vals, diag = out
-        pos = [d for d, o in enumerate(all_offs) if o >= 0]
-        if len(pos) > MAX_DIAGONALS:
+        if sum(o >= 0 for o in all_offs) > MAX_DIAGONALS:
             raise ValueError("too many diagonals for the cloth kernel")
 
         self.cfg = ClothConfig(
-            dia_offs=tuple(all_offs[d] for d in pos), cg_iters=int(cg_iters),
+            dia_offs=tuple(int(o) for o in all_offs), cg_iters=int(cg_iters),
             admm_iters=int(admm_iters), dt=float(dt),
             gravity=tuple(float(g) for g in gravity), wind_dir=wind_dir,
             limiting=bool(tri_force.strain_limiting),
@@ -352,7 +356,7 @@ class ClothStepper:
             "invd": self._dev(1.0 / diag),
             "aw2": self._dev(aw2),
             "ancz": self._dev(v),
-            "dia": self._dev(dia_vals[pos]),
+            "dia": self._dev(dia_vals),
             "inc": self._dev(inc, torch.int32),
             "winc": self._dev(winc, torch.int32),
         }
@@ -364,6 +368,8 @@ class ClothStepper:
             "au": self._dev(np.zeros((n, 3))),
             "t": torch.zeros((), dtype=dtype, device=self.device),
         }
+        self._graphs = WindowGraphs(ClothWindow, cloth_rollout,
+                                    (1, self.ROLLOUT_WINDOW))
 
     def _dev(self, a, dtype=None):
         return torch.as_tensor(np.array(a, order="C"),
@@ -380,27 +386,35 @@ class ClothStepper:
         return self.state["v"].cpu().numpy()
 
     def set_positions(self, value):
-        """Overwrite positions, (n,3)."""
-        self.state["x"] = self._dev(np.asarray(value, np.float64)
-                                    .reshape(self.n_nodes, 3))
+        """Overwrite positions, (n,3): copied into the state's own
+        buffer, which the captured windows hold."""
+        self.state["x"].copy_(self._dev(np.asarray(value, np.float64)
+                                        .reshape(self.n_nodes, 3)))
 
     def set_velocities(self, value):
-        self.state["v"] = self._dev(np.asarray(value, np.float64)
-                                    .reshape(self.n_nodes, 3))
+        self.state["v"].copy_(self._dev(np.asarray(value, np.float64)
+                                        .reshape(self.n_nodes, 3)))
 
     # ---------------------------------------------------------- stepping
 
     def _advance(self, n_steps):
-        new = cloth_rollout(self.state, self.planes, self.cfg, n_steps)
-        new["t"] = self.state["t"] + n_steps * self.cfg.dt
-        self.state = new
+        """n_steps timesteps: on a card in place, as one graph replay of
+        the window's kernels (captured on first use, `WindowGraphs`); on
+        the CPU by the kernels' plain twin."""
+        state = {k: self.state[k] for k in STATE}
+        if self.device.type == "cuda":
+            self._graphs.advance(state, self.planes, self.cfg, n_steps)
+        else:
+            self.state.update(cloth_rollout(state, self.planes, self.cfg,
+                                            n_steps))
+        self.state["t"] = self.state["t"] + n_steps * self.cfg.dt
 
     def step(self):
         self._advance(1)
         return True
 
     def run(self, n_steps: int):
-        """n_steps timesteps: ROLLOUT_WINDOW-step launches, then the
+        """n_steps timesteps: ROLLOUT_WINDOW-step windows, then the
         remainder as single steps."""
         full, rem = divmod(int(n_steps), self.ROLLOUT_WINDOW)
         for _ in range(full):

@@ -6,8 +6,8 @@
 //
 // Solves A_hat X = B for X, B of shape (n,3) stored row-major. The matvec
 // is y[i] = sum_d dia[d,i] * x[i + off_d], diagonals summed in offset
-// order; reads past either end of the matrix give 0, as in dia.cuh's
-// dia_row (whose copy here reads the CTA's window of the vectors).
+// order; reads past either end of the matrix give 0 (dia.cuh's Rows,
+// which reads the CTA's window of the vectors).
 //
 // What bounds it on this card: latency, not bytes. At the 100k-tet beam
 // (n = 22,386, 19 diagonals) one iteration moves about 2.5 MB in f32 (19
@@ -32,53 +32,8 @@
 namespace admm {
 namespace cg {
 
-// The dia row of the cluster solve: the CTA's diagonals (and the offsets)
-// staged into shared memory where they fit, else read from dia (D,n).
 template <typename T>
-struct DiaRows {
-  const T* __restrict__ dia;
-  dia::Offsets offs;
-  int D, n;
-
-  struct View {
-    const T* w;  // the slab's diagonal d at w[d * stride + li]
-    int stride;
-    const int* offs;
-  };
-
-  __device__ View stage(int lo, int rows, T* smem) const {
-    __shared__ int offs_s[dia::MAX_DIAGONALS];
-    for (int d = threadIdx.x; d < D; d += blockDim.x) offs_s[d] = offs.v[d];
-    if (smem == nullptr) return {dia + lo, n, offs_s};
-    for (int q = threadIdx.x; q < D * rows; q += blockDim.x) {
-      const int d = q / rows, li = q - d * rows;
-      smem[q] = dia[static_cast<size_t>(d) * n + lo + li];
-    }
-    return {smem, rows, offs_s};
-  }
-
-  template <typename Col>
-  __device__ __forceinline__ void operator()(const View& v, int i, int li,
-                                             const Col& col,
-                                             T out[3]) const {
-    T a0 = T(0), a1 = T(0), a2 = T(0);
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const int j = i + v.offs[d];
-      if (j >= 0 && j < n) {
-        const T w = v.w[static_cast<size_t>(d) * v.stride + li];
-        T c[3];
-        col(j, c);
-        a0 = a0 + w * c[0];
-        a1 = a1 + w * c[1];
-        a2 = a2 + w * c[2];
-      }
-    }
-    out[0] = a0;
-    out[1] = a1;
-    out[2] = a2;
-  }
-};
+using DiaRows = dia::Rows<T>;
 
 template <typename T>
 int solve(const T* b, const T* x0, const T* diag, const T* dia_vals,

@@ -1,12 +1,12 @@
-// Whole cloth ADMM timesteps in one persistent cooperative kernel, for
-// Hopper.
+// Whole cloth ADMM timesteps as a window of plain launches and cluster
+// solves, for Hopper.
 //
 // Replaces: admm_elastic_tpu/ops/pallas/cloth_step.py, _cloth_call
 // (kernel _make_cloth_kernel), in Jacobi-PCG mode without the in-kernel
 // multigrid and residuals: gravity and Wejchert-Haumann wind kicks, every
 // ADMM iteration's triangle-strain and bend local steps, dual updates, the
 // anchor dual and right-hand side, and a whole fixed-budget Jacobi-PCG
-// solve with the symmetric-dia matvec, for n_steps timesteps per launch.
+// solve, for n_steps timesteps per call.
 //
 // Layout, with no padding and no lane planes: vertex arrays (n,3)
 // row-major; element planes (P,E), elements sorted by stencil group, each
@@ -14,53 +14,55 @@
 // double on the host, as the Pallas kernel bakes them); the vertex ->
 // RHS-row incidence inc (n,S) in (group, corner) order with a sentinel
 // >= R after the real slots, and the vertex -> wind-triangle incidence
-// winc (n,Sw) with sentinel >= Ew (ops/kernels/cloth_step.py).
+// winc (n,Sw) with sentinel >= Ew (ops/kernels/cloth_step.py). The matrix
+// is A's diagonals at their signed offsets, (D,n), the form the general
+// route's dia solve takes; the Pallas kernel's symmetric half storage
+// (offsets >= 0, each term mirrored) is TPU layout and is not kept.
 //
-// One timestep (barriers are grid-wide, cooperative_groups grid.sync()):
-//   with wind: barrier (steps after the first); per wind triangle: the drag
-//     from x and the gravity-kicked v of its corners                barrier
-//   prologue, per vertex: v += dt g where m > 0, then its wind triangles'
-//     forces in incidence order; x_pre = x; x += dt v; M xbar = m x barrier
+// One timestep, each line a launch on the caller's stream, in order:
+//   wind (when Ew > 0), per wind triangle: the drag from x and the
+//     gravity-kicked v of its corners
+//   kick, per vertex: v += dt g where m > 0, then its wind triangles'
+//     forces in incidence order; x_pre = x; x += dt v; M xbar = m x
 //   admm_iters times:
-//     element phase, one thread per triangle or hinge: F, the strain-
+//     element kernel, one thread per triangle or hinge: F, the strain-
 //       limited projection (tri.cuh) or the alpha-weighted flat projection
 //       (cloth_step.py:340-420), u' = F - z, RHS rows w2 D^T (F - 2u')
-//                                                                   barrier
-//     vertex phase, one thread per vertex: b = its incidence rows summed
+//     vertex kernel, one thread per vertex: b = its incidence rows summed
 //       in slot order (fixed order, no atomics); anchor dual (zero where
-//       the anchor weight is 0) and RHS; r = M xbar + dt^2 b - A x;
-//       p = D^-1 r; per-block partials of r.p                      barrier
-//     cg_iters times the three stages of coop_pcg.cuh with the
-//       symmetric-dia row (dia.cuh dia_row_sym)                  3 barriers
-//   epilogue, per vertex: v = (x - x_pre) (1/dt)
-// The arithmetic follows the Pallas kernel's evaluation order; the plain
-// PyTorch twin (ops/kernels/cloth_step.py) follows the same order.
+//       the anchor weight is 0) and RHS; rhs = M xbar + dt^2 b
+//     the cluster solve of A x = rhs from x, in place (cg_dia.cu on
+//       cluster_pcg.cuh, D^-1 = invd as given): it forms r = rhs - A x
+//       itself, then cg_iters iterations on one 16-CTA cluster
+//   end, per vertex (window.cuh): v = (x - x_pre) (1/dt)
+// The arithmetic of the local steps follows the Pallas kernel's
+// evaluation order; the plain PyTorch twin (ops/kernels/cloth_step.py)
+// follows the same order, its solve the cluster solve's
+// (core/solver.pcg_fixed_inv with cg_step.cluster_dot).
 //
 // What bounds it on this card: at the cloth100k sheet (n = 51,076,
-// 101,250 triangles, 151,425 hinges, 7 diagonals of which 4 are stored)
-// the working set is ~35 MB in f32, L2-sized (50 MB), so device memory is
-// not the limit; the element phase is a few hundred flops per element, and the
-// rest is the chain of 2 + 3k grid barriers per ADMM iteration (k =
-// cg_iters), each costing a few microseconds, with a few microseconds of
-// work between them.
+// 101,250 triangles, 151,425 hinges, 7 diagonals reaching 227 rows) the
+// working set is ~35 MB in f32, L2-sized (50 MB), so device memory is not
+// the limit; the element phase is a few hundred flops per element, and
+// the solve a chain of short dependent iterations that one cluster runs
+// without a grid barrier (the cooperative kernel this replaces paid three
+// a CG iteration).
 //
-// Design: the skeleton of banded_step.cu. One launch per rollout window,
-// grid = SMs x the occupancy the register count allows, so every block is
-// resident and grid.sync() is legal; a refused launch returns its
-// cudaError_t. Every phase is a grid-stride loop, and a vertex keeps the
-// same thread in every vertex phase. No thread returns early. Buffers
-// written during the launch are never read through the non-coherent
-// (const __restrict__) path.
+// Design: banded_step.cu's. 3 + 3 admm_iters plain launches a timestep
+// (2 + 3 admm_iters without wind), from one host call a window; the
+// caller captures a window in a CUDA graph once and replays it
+// (ops/kernels/cloth_step.py), so a window is one submission. The state
+// is advanced in place; no kernel reads, through a const __restrict__
+// pointer, a buffer that it writes.
 
-#include "coop_pcg.cuh"
+#include "dia.cuh"
 #include "tri.cuh"
+#include "window.cuh"
 
 namespace admm {
 namespace cloth {
 
-namespace cgr = cooperative_groups;
-
-constexpr int THREADS = 128;
+using window::THREADS;
 constexpr int TRI_TAB = 11;   // cp (6), w2, k, 1/(w2+k), lmin, lmax
 constexpr int BEND_TAB = 10;  // arow (3), arow/2 (3), 2/|arow|^2, w2, k,
                               // 1/(w2+k)
@@ -88,10 +90,8 @@ struct Args {
   const int* __restrict__ widx;  // (3,Ew)
   // vertex planes
   const T* __restrict__ mass;
-  const T* __restrict__ invd;
   const T* __restrict__ aw2;
   const T* __restrict__ ancz;   // (n,3)
-  const T* __restrict__ dia;    // (D,n), offsets >= 0
   const int* __restrict__ inc;  // (n,S)
   const int* __restrict__ winc; // (n,Sw)
   // scratch
@@ -99,13 +99,9 @@ struct Args {
   T* mxbar;
   T* rows;  // (3,R), R = 3 Et + 4 Eh
   T* wf;    // (3,Ew)
-  T* r;
-  T* p;
-  T* ap;
-  T* part;  // 2 * gridDim.x
-  int n, Et, Eh, Ew, D, S, Sw, limiting, cg_iters, admm_iters, n_steps;
+  T* rhs;   // (n,3)
+  int n, Et, Eh, Ew, S, Sw, limiting;
   T sc[N_SCALARS];
-  dia::Offsets offs;
 };
 
 // Wind triangle w: the drag force shared by its 3 corners
@@ -242,10 +238,9 @@ __device__ __forceinline__ void bend_step(const Args<T>& a, int h) {
   }
 }
 
-// Vertex i: RHS, anchor dual, r = M xbar + dt^2 b - A x and p = D^-1 r.
-// Returns this vertex's share of r.p.
+// Vertex i: RHS, anchor dual, then rhs = M xbar + dt^2 b.
 template <typename T>
-__device__ __forceinline__ T vertex_step(const Args<T>& a, int i) {
+__device__ __forceinline__ void vertex_step(const Args<T>& a, int i) {
   const size_t si = static_cast<size_t>(i);
   const int total = 3 * a.Et + 4 * a.Eh;
   T b[3] = {T(0), T(0), T(0)};
@@ -265,106 +260,65 @@ __device__ __forceinline__ T vertex_step(const Args<T>& a, int i) {
     const T aun = aw2 > T(0) ? a.au[3 * si + c] + dlt : T(0);
     a.au[3 * si + c] = aun;
     b[c] = b[c] + aw2 * (anc - aun);
+    a.rhs[3 * si + c] = a.mxbar[3 * si + c] + a.sc[DT2] * b[c];
   }
-  T ax[3];
-  dia::dia_row_sym(a.dia, a.offs, a.D, a.n, i, static_cast<const T*>(a.x),
-                   ax);
-  const T invd = a.invd[i];
-  T local = T(0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    wind_kernel(const __grid_constant__ Args<T> a) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w < a.Ew) wind_step(a, w);
+}
+
+// Vertex i: v += dt g where m > 0, then its wind triangles' forces in
+// incidence order; x_pre = x; x += dt v; M xbar = m x.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    kick_kernel(const __grid_constant__ Args<T> a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const size_t si = static_cast<size_t>(i);
+  const T m = a.mass[i];
+  T vc[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    vc[c] = a.v[3 * si + c] + (m > T(0) ? a.sc[DTG0 + c] : T(0));
+  for (int j = 0; j < a.Sw; ++j) {
+    const int w = a.winc[si * a.Sw + j];
+    if (w >= a.Ew) break;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      vc[c] = vc[c] + a.wf[static_cast<size_t>(c) * a.Ew + w];
+  }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const T rr = a.mxbar[3 * si + c] + a.sc[DT2] * b[c] - ax[c];
-    const T pp = invd * rr;
-    a.r[3 * si + c] = rr;
-    a.p[3 * si + c] = pp;
-    local = local + rr * pp;
-  }
-  return local;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) rollout_kernel(const Args<T> a) {
-  cgr::grid_group grid = cgr::this_grid();
-  __shared__ T sh[THREADS];
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int gstride = gridDim.x * blockDim.x;
-  const coop::PcgVecs<T> pcg_vecs{a.x, a.r, a.p, a.ap, a.invd, a.part, a.n};
-  const auto row = [&a](int i, const T* y, T out[3]) {
-    dia::dia_row_sym(a.dia, a.offs, a.D, a.n, i, y, out);
-  };
-  const int n_elem = a.Et + a.Eh;
-
-  for (int step = 0; step < a.n_steps; ++step) {
-    if (a.Ew > 0) {
-      // wind reads other vertices' x and v: the previous epilogue first
-      if (step > 0) grid.sync();
-      for (int w = gtid; w < a.Ew; w += gstride) wind_step(a, w);
-      grid.sync();
-    }
-    for (int i = gtid; i < a.n; i += gstride) {
-      const size_t si = static_cast<size_t>(i);
-      const T m = a.mass[i];
-      T vc[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        vc[c] = a.v[3 * si + c] + (m > T(0) ? a.sc[DTG0 + c] : T(0));
-      for (int j = 0; j < a.Sw; ++j) {
-        const int w = a.winc[si * a.Sw + j];
-        if (w >= a.Ew) break;
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          vc[c] = vc[c] + a.wf[static_cast<size_t>(c) * a.Ew + w];
-      }
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const size_t q = 3 * si + c;
-        a.v[q] = vc[c];
-        const T xs = a.x[q];
-        a.xpre[q] = xs;
-        const T xn = xs + a.sc[DT] * vc[c];
-        a.x[q] = xn;
-        a.mxbar[q] = m * xn;
-      }
-    }
-    grid.sync();
-
-    for (int it = 0; it < a.admm_iters; ++it) {
-      for (int e = gtid; e < n_elem; e += gstride) {
-        if (e < a.Et)
-          tri_step(a, e);
-        else
-          bend_step(a, e - a.Et);
-      }
-      grid.sync();
-
-      T local = T(0);
-      for (int i = gtid; i < a.n; i += gstride) local = local + vertex_step(a, i);
-      coop::pcg(grid, pcg_vecs, a.cg_iters, local, row, sh);
-    }
-
-    for (int i = gtid; i < a.n; i += gstride) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const size_t q = 3 * static_cast<size_t>(i) + c;
-        a.v[q] = (a.x[q] - a.xpre[q]) * a.sc[INV_DT];
-      }
-    }
+    const size_t q = 3 * si + c;
+    a.v[q] = vc[c];
+    const T xs = a.x[q];
+    a.xpre[q] = xs;
+    const T xn = xs + a.sc[DT] * vc[c];
+    a.x[q] = xn;
+    a.mxbar[q] = m * xn;
   }
 }
 
-// Blocks of the cooperative grid on the current device, or -cudaError_t.
+// Element e: triangle e (e < Et) or hinge e - Et.
 template <typename T>
-int grid_blocks() {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rollout_kernel<T>, THREADS, 0);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
-  return sms * per_sm;
+__global__ void __launch_bounds__(THREADS)
+    element_kernel(const __grid_constant__ Args<T> a) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < a.Et)
+    tri_step(a, e);
+  else if (e < a.Et + a.Eh)
+    bend_step(a, e - a.Et);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    vertex_kernel(const __grid_constant__ Args<T> a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < a.n) vertex_step(a, i);
 }
 
 template <typename T>
@@ -372,36 +326,53 @@ int launch(T* x, T* v, T* tu, T* hu, T* au, const int* tidx, const int* tgrp,
            const T* ttab, const int* hidx, const int* hgrp, const T* htab,
            const int* widx, const T* mass, const T* invd, const T* aw2,
            const T* ancz, const T* dia_vals, const int* inc, const int* winc,
-           T* xpre, T* mxbar, T* rows, T* wf, T* r, T* p, T* ap, T* part,
+           T* xpre, T* mxbar, T* rows, T* wf, T* rhs, T* scratch,
            const int* offsets, const double* scalars, int n, int Et, int Eh,
-           int Ew, int D, int S, int Sw, int limiting, int cg_iters,
-           int admm_iters, int n_steps, int part_len, void* stream) {
+           int Ew, int D, int H, int S, int Sw, int limiting, int cg_iters,
+           int admm_iters, int n_steps, void* stream) {
   if (n < 1 || Et < 1 || Eh < 0 || Ew < 0 || D < 1 ||
-      D > dia::MAX_DIAGONALS || S < 1 || Sw < 1 || cg_iters < 0 ||
+      D > dia::MAX_DIAGONALS || H < 0 || S < 1 || Sw < 1 || cg_iters < 0 ||
       admm_iters < 0 || n_steps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = grid_blocks<T>();
-  if (blocks < 0) return -blocks;
-  if (part_len < 2 * blocks) return static_cast<int>(cudaErrorInvalidValue);
   Args<T> a{};
   a.x = x; a.v = v; a.tu = tu; a.hu = hu; a.au = au;
   a.tidx = tidx; a.tgrp = tgrp; a.ttab = ttab;
   a.hidx = hidx; a.hgrp = hgrp; a.htab = htab; a.widx = widx;
-  a.mass = mass; a.invd = invd; a.aw2 = aw2; a.ancz = ancz;
-  a.dia = dia_vals; a.inc = inc; a.winc = winc;
-  a.xpre = xpre; a.mxbar = mxbar; a.rows = rows; a.wf = wf;
-  a.r = r; a.p = p; a.ap = ap; a.part = part;
-  a.n = n; a.Et = Et; a.Eh = Eh; a.Ew = Ew; a.D = D; a.S = S; a.Sw = Sw;
-  a.limiting = limiting; a.cg_iters = cg_iters; a.admm_iters = admm_iters;
-  a.n_steps = n_steps;
+  a.mass = mass; a.aw2 = aw2; a.ancz = ancz; a.inc = inc; a.winc = winc;
+  a.xpre = xpre; a.mxbar = mxbar; a.rows = rows; a.wf = wf; a.rhs = rhs;
+  a.n = n; a.Et = Et; a.Eh = Eh; a.Ew = Ew; a.S = S; a.Sw = Sw;
+  a.limiting = limiting;
   for (int q = 0; q < N_SCALARS; ++q) a.sc[q] = static_cast<T>(scalars[q]);
-  for (int d = 0; d < D; ++d) a.offs.v[d] = offsets[d];
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 vb = window::blocks_for(n), eb = window::blocks_for(Et + Eh);
   void* kargs[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (void*)rollout_kernel<T>, dim3(blocks), dim3(THREADS), kargs, 0,
-      static_cast<cudaStream_t>(stream));
-  if (err == cudaSuccess) err = cudaGetLastError();
-  return static_cast<int>(err);
+  window::clear_errors();
+  for (int step = 0; step < n_steps; ++step) {
+    int err = 0;
+    if (Ew > 0)
+      err = static_cast<int>(cudaLaunchKernel(
+          (void*)wind_kernel<T>, window::blocks_for(Ew), dim3(THREADS),
+          kargs, 0, st));
+    if (err == 0)
+      err = static_cast<int>(cudaLaunchKernel(
+          (void*)kick_kernel<T>, vb, dim3(THREADS), kargs, 0, st));
+    for (int it = 0; it < admm_iters && err == 0; ++it) {
+      err = static_cast<int>(cudaLaunchKernel(
+          (void*)element_kernel<T>, eb, dim3(THREADS), kargs, 0, st));
+      if (err == 0)
+        err = static_cast<int>(cudaLaunchKernel(
+            (void*)vertex_kernel<T>, vb, dim3(THREADS), kargs, 0, st));
+      if (err == 0)
+        err = window::solve(rhs, x, invd, dia_vals, offsets, D, nullptr,
+                            nullptr, 0, H, n, cg_iters, scratch, st);
+    }
+    if (err != 0) return window::failed(err);
+    window::end_kernel<T><<<vb, THREADS, 0, st>>>(x, v, xpre, a.sc[INV_DT],
+                                                 n);
+    err = window::launched();
+    if (err != 0) return window::failed(err);
+  }
+  return 0;
 }
 
 }  // namespace cloth
@@ -413,25 +384,29 @@ int launch(T* x, T* v, T* tu, T* hu, T* au, const int* tidx, const int* tgrp,
       const T* ttab, const int* hidx, const int* hgrp, const T* htab,         \
       const int* widx, const T* mass, const T* invd, const T* aw2,            \
       const T* ancz, const T* dia_vals, const int* inc, const int* winc,      \
-      T* xpre, T* mxbar, T* rows, T* wf, T* r, T* p, T* ap, T* part,          \
+      T* xpre, T* mxbar, T* rows, T* wf, T* rhs, T* scratch,                  \
       const int* offsets, const double* scalars, int n, int Et, int Eh,       \
-      int Ew, int D, int S, int Sw, int limiting, int cg_iters,               \
-      int admm_iters, int n_steps, int part_len, void* stream) {              \
+      int Ew, int D, int H, int S, int Sw, int limiting, int cg_iters,        \
+      int admm_iters, int n_steps, void* stream) {                            \
     return admm::cloth::launch<T>(                                            \
         x, v, tu, hu, au, tidx, tgrp, ttab, hidx, hgrp, htab, widx, mass,     \
-        invd, aw2, ancz, dia_vals, inc, winc, xpre, mxbar, rows, wf, r, p,    \
-        ap, part, offsets, scalars, n, Et, Eh, Ew, D, S, Sw, limiting,        \
-        cg_iters, admm_iters, n_steps, part_len, stream);                     \
-  }                                                                           \
-  int cloth_rollout_grid_##SUFFIX() { return admm::cloth::grid_blocks<T>(); }
+        invd, aw2, ancz, dia_vals, inc, winc, xpre, mxbar, rows, wf, rhs,     \
+        scratch, offsets, scalars, n, Et, Eh, Ew, D, H, S, Sw, limiting,      \
+        cg_iters, admm_iters, n_steps, stream);                               \
+  }
 
 extern "C" {
 
 // The state (x, v, tu, hu, au) is advanced n_steps timesteps in place.
-// offsets (D) and scalars (11: dt, dt^2, 1/dt, dt g xyz, the wind's
-// -1000 0.33 dt, 1/3, the wind direction xyz, formed in double) are host
-// arrays. part holds part_len >= 2 x cloth_rollout_grid_*() values.
-// Returns the cudaError_t of the launch, or 0.
+// dia_vals (D,n) holds A's diagonals at the D signed offsets, H at least
+// their largest magnitude; xpre, mxbar, rhs (n,3), rows (3, 3 Et + 4 Eh)
+// and wf (3,Ew) are scratch, and scratch holds the cluster solve's global
+// scratch (cg_cluster_plan; nullptr when it is 0). offsets (D) and
+// scalars (11: dt, dt^2, 1/dt, dt g xyz, the wind's -1000 0.33 dt, 1/3,
+// the wind direction xyz, formed in double) are host arrays. Every launch
+// goes to `stream` (a CUDA graph capture takes them all; the solve's
+// set-up, cg_dia_prepare_*, must run before). Returns the first nonzero
+// cudaError_t of the launches, or 0.
 ADMM_CLOTH_ENTRY(float, f32)
 ADMM_CLOTH_ENTRY(double, f64)
 

@@ -74,6 +74,8 @@
 #include <map>
 #include <mutex>
 #include <set>
+#include <tuple>
+#include <utility>
 
 #include "common.cuh"
 
@@ -101,44 +103,53 @@ struct Plan {
   long long scratch;  // elements of global scratch (0 with WINDOW)
 };
 
-// A WINDOW CTA's shared memory, in elements of T: the window's rows of
-// (r, D^-1), four values a row so that a run of rows is a 16-byte-aligned
-// block, and of p (3 W); then the slab's x and Ap (3 S each); rounded up
-// to 4 values, so that the matrix rows after it start 16-byte aligned.
-__host__ __device__ inline long long region(long long window,
-                                            long long slab) {
-  return (7 * window + 6 * slab + 3) / 4 * 4;
-}
+// What a CTA of a solve keeps in shared memory in the WINDOW layout, in
+// elements of T: per row of its window and per row of its slab; and
+// what the SHARED layout keeps in global scratch per row of the matrix.
+struct Vectors {
+  int per_window, per_slab, scratch_per_row;
+};
 
-// The SHARED layout's global scratch, in elements of T: (r, D^-1) of all
-// rows, four values a row so that a row is one aligned load (first, so
-// 16-byte aligned), room for p at four values a row, then x and Ap (3 n
-// each).
-inline long long shared_scratch(long long n) { return 14 * n; }
+// The PCG's: the window's rows of (r, D^-1), four values a row so that a
+// run of rows is a 16-byte-aligned block, and of p (3); the slab's x and
+// Ap (3 each). SHARED: (r, D^-1) of all rows, four values a row so that a
+// row is one aligned load (first, so 16-byte aligned), room for p at four
+// values a row, then x and Ap (3 n each).
+constexpr Vectors PCG_VECTORS = {7, 6, 14};
+
+// A WINDOW CTA's shared memory for its vectors, in elements of T, rounded
+// up to 4 values, so that the matrix rows after it start 16-byte aligned.
+__host__ __device__ inline long long region(long long window, long long slab,
+                                            int per_window = 7,
+                                            int per_slab = 6) {
+  return (per_window * window + per_slab * slab + 3) / 4 * 4;
+}
 
 // H: how far a row reaches; mat_per_row: elements of T the row type keeps
 // per slab row in shared memory when they fit (dia: D; ell: 0); limit: the
-// dynamic shared memory a CTA may use.
-inline Plan make_plan(int n, int H, int mat_per_row, int elem, int limit) {
+// dynamic shared memory a CTA may use; v: the solve's vectors.
+inline Plan make_plan(int n, int H, int mat_per_row, int elem, int limit,
+                      Vectors v = PCG_VECTORS) {
   Plan p;
   p.slab = (n + CLUSTER - 1) / CLUSTER;
   const long long reach = static_cast<long long>(p.slab) + 2LL * H;
   const int window = static_cast<int>(reach < n ? reach : n);
-  const long long vec = region(window, p.slab) * elem;
+  const long long vec =
+      region(window, p.slab, v.per_window, v.per_slab) * elem;
   const long long mat = static_cast<long long>(mat_per_row) * p.slab * elem;
   p.vec_smem = vec <= limit;
   p.window = p.vec_smem ? window : p.slab;
   const long long used = p.vec_smem ? vec : 0;
   p.mat_smem = mat_per_row > 0 && used + mat <= limit;
   p.smem_bytes = static_cast<int>(used + (p.mat_smem ? mat : 0));
-  p.scratch = p.vec_smem ? 0 : shared_scratch(n);
+  p.scratch = p.vec_smem ? 0 : static_cast<long long>(v.scratch_per_row) * n;
   return p;
 }
 
 // The plan on the current device, whose opt-in shared memory a CTA is
 // asked once a device.
 inline int plan_for_device(int n, int H, int mat_per_row, int elem,
-                           Plan* out) {
+                           Plan* out, Vectors v = PCG_VECTORS) {
   if (n < 1 || H < 0) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int MAX_DEVICES = 64;
   static std::atomic<int> optin[MAX_DEVICES];  // 0: not asked yet
@@ -154,7 +165,7 @@ inline int plan_for_device(int n, int H, int mat_per_row, int elem,
     if (e != cudaSuccess) return static_cast<int>(e);
     optin[dev].store(limit, std::memory_order_relaxed);
   }
-  *out = make_plan(n, H, mat_per_row, elem, limit - STATIC_SMEM);
+  *out = make_plan(n, H, mat_per_row, elem, limit - STATIC_SMEM, v);
   return 0;
 }
 
@@ -501,11 +512,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   cl.sync();
 }
 
-// The launch of one cluster of solve_kernel<T, Row, WINDOW>, with
-// `smem` bytes of dynamic shared memory a CTA.
-template <typename T, typename Row, bool WINDOW>
-cudaLaunchConfig_t cluster_config(int smem, cudaStream_t st,
-                                  cudaLaunchAttribute* attr) {
+// The launch of one cluster of a solve kernel, with `smem` bytes of
+// dynamic shared memory a CTA.
+inline cudaLaunchConfig_t cluster_config(int smem, cudaStream_t st,
+                                         cudaLaunchAttribute* attr) {
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CLUSTER;
   attr[0].val.clusterDim.y = 1;
@@ -520,36 +530,34 @@ cudaLaunchConfig_t cluster_config(int smem, cudaStream_t st,
   return cfg;
 }
 
-// Set the kernel's attributes and ask the card whether it can place the
-// cluster, once for each device and shared-memory size of an
-// instantiation (a cluster the card cannot place is refused,
+// Set a cluster kernel's attributes and ask the card whether it can
+// place the cluster, once for each kernel, device and shared-memory size
+// (a cluster the card cannot place is refused,
 // cudaErrorInvalidClusterSize, never run smaller). The dynamic shared
 // memory a kernel may take is one attribute a device, so it only grows:
 // every size set up before stays launchable. A launch inside a CUDA graph
 // capture finds its set-up done (prepare).
-template <typename T, typename Row, bool WINDOW>
-cudaError_t ready(int smem) {
-  static std::set<long long> done;  // device << 32 | smem bytes
-  static std::map<int, int> allowed;  // device -> the attribute's value
+inline cudaError_t ready(const void* fn, int smem) {
+  static std::set<std::tuple<const void*, int, int>> done;  // fn, dev, smem
+  static std::map<std::pair<const void*, int>, int> allowed;  // the
+                                                              // attribute
   static std::mutex mu;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  const long long key = (static_cast<long long>(dev) << 32) | smem;
+  const auto key = std::make_tuple(fn, dev, smem);
   std::lock_guard<std::mutex> lock(mu);
   if (done.count(key)) return cudaSuccess;
-  const void* fn = (const void*)solve_kernel<T, Row, WINDOW>;
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
                            1);
-  int& cap = allowed[dev];
+  int& cap = allowed[std::make_pair(fn, dev)];
   if (e == cudaSuccess && smem > cap) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e == cudaSuccess) cap = smem;
   }
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config<T, Row, WINDOW>(smem, nullptr, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(smem, nullptr, attr);
   int clusters = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
@@ -557,6 +565,11 @@ cudaError_t ready(int smem) {
   if (clusters < 1) return cudaErrorInvalidClusterSize;
   done.insert(key);
   return cudaSuccess;
+}
+
+template <typename T, typename Row, bool WINDOW>
+cudaError_t ready(int smem) {
+  return ready((const void*)solve_kernel<T, Row, WINDOW>, smem);
 }
 
 // The solve's plan on the current device (plan_for_device), checked
@@ -592,8 +605,7 @@ cudaError_t launch_kernel(const Row& row, const Plan& pl, int H,
   const cudaError_t e = ready<T, Row, WINDOW>(pl.smem_bytes);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config<T, Row, WINDOW>(pl.smem_bytes, st, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(pl.smem_bytes, st, attr);
   return cudaLaunchKernelEx(&cfg, solve_kernel<T, Row, WINDOW>, row, b, x0,
                             diag, diag_inv, n, H, iters, x, scratch, pl.slab,
                             pl.window, pl.mat_smem);

@@ -1,7 +1,6 @@
-// Sparse-DIAgonal matvec rows and fixed-order partial sums: the device
-// functions shared by the whole-timestep kernels (banded_step.cu,
-// cloth_step.cu) and the CG chain (pcg_chain.cuh); the cluster solve
-// (cg_dia.cu) takes its offset table and reads its rows as dia_row does.
+// Sparse-DIAgonal matvec rows and fixed-order partial sums: the dia row of
+// the cluster solves (cg_dia.cu, cheb_dia.cu) and the block partials of
+// the CG chain (pcg_chain.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -15,66 +14,59 @@ struct Offsets {
   int v[MAX_DIAGONALS];
 };
 
-// out = row i of A x for x of shape (n,3) row-major: y[i] = sum_d
-// dia[d,i] * x[i + off_d], diagonals summed in offset order; reads past
-// either end give 0.
+// The dia row of the cluster solves (cg_dia.cu, cheb_dia.cu): row i of
+// A y, y[i] = sum_d dia[d,i] * y[i + off_d], diagonals summed in offset
+// order, terms past either end of the matrix skipped (as
+// core/solver.dia_apply skips them). stage() copies the offsets, and the
+// CTA's slab of the diagonals where they fit, into shared memory, else
+// reads them from dia (D,n).
 template <typename T>
-__device__ __forceinline__ void dia_row(const T* __restrict__ dia,
-                                        const Offsets& offs, int D, int n,
-                                        int i, const T* x, T out[3]) {
-  T a0 = T(0), a1 = T(0), a2 = T(0);
-  for (int d = 0; d < D; ++d) {
-    const int j = i + offs.v[d];
-    if (j >= 0 && j < n) {
-      const T w = dia[static_cast<size_t>(d) * n + i];
-      a0 = a0 + w * x[3 * j];
-      a1 = a1 + w * x[3 * j + 1];
-      a2 = a2 + w * x[3 * j + 2];
-    }
-  }
-  out[0] = a0;
-  out[1] = a1;
-  out[2] = a2;
-}
+struct Rows {
+  const T* __restrict__ dia;
+  Offsets offs;
+  int D, n;
 
-// out = row i of A x for a symmetric A stored at offsets >= 0 only
-// (dia[d,i] = A[i, i+off_d]), in the cloth Pallas kernel's order: per
-// diagonal, the upper term dia[d,i] x[i+off], then the mirrored lower
-// term dia[d,i-off] x[i-off]; terms outside the matrix are skipped.
-template <typename T>
-__device__ __forceinline__ void dia_row_sym(const T* __restrict__ dia,
-                                            const Offsets& offs, int D, int n,
-                                            int i, const T* x, T out[3]) {
-  T a0 = T(0), a1 = T(0), a2 = T(0);
-  for (int d = 0; d < D; ++d) {
-    const int off = offs.v[d];
-    const T* row = dia + static_cast<size_t>(d) * n;
-    if (off == 0) {
-      const T w = row[i];
-      a0 = a0 + w * x[3 * i];
-      a1 = a1 + w * x[3 * i + 1];
-      a2 = a2 + w * x[3 * i + 2];
-      continue;
+  struct View {
+    const T* w;  // the slab's diagonal d at w[d * stride + li]
+    int stride;
+    const int* offs;
+  };
+
+  __device__ View stage(int lo, int rows, T* smem) const {
+    __shared__ int offs_s[MAX_DIAGONALS];
+    for (int d = threadIdx.x; d < D; d += blockDim.x) offs_s[d] = offs.v[d];
+    if (smem == nullptr) return {dia + lo, n, offs_s};
+    for (int q = threadIdx.x; q < D * rows; q += blockDim.x) {
+      const int d = q / rows, li = q - d * rows;
+      smem[q] = dia[static_cast<size_t>(d) * n + lo + li];
     }
-    const int j = i + off;
-    if (j < n) {
-      const T w = row[i];
-      a0 = a0 + w * x[3 * j];
-      a1 = a1 + w * x[3 * j + 1];
-      a2 = a2 + w * x[3 * j + 2];
-    }
-    const int l = i - off;
-    if (l >= 0) {
-      const T w = row[l];
-      a0 = a0 + w * x[3 * l];
-      a1 = a1 + w * x[3 * l + 1];
-      a2 = a2 + w * x[3 * l + 2];
-    }
+    return {smem, rows, offs_s};
   }
-  out[0] = a0;
-  out[1] = a1;
-  out[2] = a2;
-}
+
+  // out = row i (the slab's li-th) of A y, where col(j, c) writes y's row
+  // j to c[0..2].
+  template <typename Col>
+  __device__ __forceinline__ void operator()(const View& v, int i, int li,
+                                             const Col& col,
+                                             T out[3]) const {
+    T a0 = T(0), a1 = T(0), a2 = T(0);
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const int j = i + v.offs[d];
+      if (j >= 0 && j < n) {
+        const T w = v.w[static_cast<size_t>(d) * v.stride + li];
+        T c[3];
+        col(j, c);
+        a0 = a0 + w * c[0];
+        a1 = a1 + w * c[1];
+        a2 = a2 + w * c[2];
+      }
+    }
+    out[0] = a0;
+    out[1] = a1;
+    out[2] = a2;
+  }
+};
 
 // Sum of `count` per-block partials, in the same order in every block.
 template <typename T>

@@ -17,10 +17,11 @@
 // The time of a round is (time of N rounds - time of 0 rounds) / N, by
 // CUDA events (chip_smoke.py, phase 3n).
 //
-// The grid barrier the cooperative whole-timestep kernels paid three times
-// a CG iteration (coop_pcg.cuh), alone, on a cooperative grid of `blocks`
-// CTAs of 128 threads (the caller gives the rollout kernels' grid: SMs x
-// their resident blocks an SM). A round of
+// The grid barrier that cooperative whole-timestep kernels pay three times
+// a CG iteration (the design the windows of banded_step.cu, lattice_step.cu
+// and cloth_step.cu replaced), alone, on a cooperative grid of `blocks`
+// CTAs of 128 threads (the caller gives such a kernel's grid: SMs x its
+// resident blocks an SM). A round of
 //   0: grid.sync();
 //   1: a whole CG stage end without its work: every CTA's block_sum of one
 //      value a thread, its partial written, grid.sync(), and every CTA
@@ -124,7 +125,8 @@ __global__ void __launch_bounds__(THREADS) probe_kernel(int iters,
     if (MODE == 0) {
       grid.sync();
     } else {
-      // the partials ping-pong between two halves, as coop_pcg.cuh's do
+      // the partials ping-pong between two halves, as a cooperative CG's
+      // must
       float* half = part + (k & 1) * gridDim.x;
       const float tot = block_sum(acc, sh);
       if (threadIdx.x == 0) half[blockIdx.x] = tot;

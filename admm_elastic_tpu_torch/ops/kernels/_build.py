@@ -135,12 +135,11 @@ _SIGNATURES = {
     # stream
     **{f"banded_rollout_{t}": (_I, [_P] * 29 + [_I] * 12 + [_P])
        for t in ("f32", "f64")},
-    # state 5, element planes 7, vertex planes 7, scratch 8, host arrays 2,
-    # then n, Et, Eh, Ew, D, S, Sw, limiting, cg_iters, admm_iters,
-    # n_steps, part_len, and the stream
-    **{f"cloth_rollout_{t}": (_I, [_P] * 29 + [_I] * 12 + [_P])
+    # state 5, element planes 7, vertex planes 7, scratch 6 (xpre, mxbar,
+    # rows, wf, rhs, the solve's), host arrays 2, then n, Et, Eh, Ew, D,
+    # H, S, Sw, limiting, cg_iters, admm_iters, n_steps, and the stream
+    **{f"cloth_rollout_{t}": (_I, [_P] * 27 + [_I] * 12 + [_P])
        for t in ("f32", "f64")},
-    **{f"cloth_rollout_grid_{t}": (_I, []) for t in ("f32", "f64")},
     # state 6, vertex planes 5, scratch 5, host arrays 5, then nx, ny, nz,
     # D, H, model, floor, newton_iters, cg_iters, admm_iters, n_steps, and
     # the stream
@@ -156,6 +155,8 @@ _SIGNATURES = {
     **{f"cheb_dia_chunk_{t}": (_I, [_P] * 13 + [_I] * 5
                                 + [ctypes.c_double, _P])
        for t in ("f32", "f64")},
+    # n, H, D, elem_bytes, out
+    "cheb_dia_plan": (_I, [_I] * 4 + [_P]),
     "admm_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

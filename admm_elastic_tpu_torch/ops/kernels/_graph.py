@@ -1,7 +1,8 @@
 """A whole-timestep window as one CUDA graph.
 
-The banded and lattice windows are 2 + 3 admm_iters launches a timestep
-(`csrc/banded_step.cu`, `csrc/lattice_step.cu`). `WindowGraphs` captures a
+The banded, lattice and cloth windows are 2 + 3 admm_iters launches a
+timestep, the cloth's one more with wind (`csrc/banded_step.cu`,
+`csrc/lattice_step.cu`, `csrc/cloth_step.cu`). `WindowGraphs` captures a
 window's launches once for each window length and replays the graph
 after, so a window is one submission to the card, as the Pallas kernel's
 one launch per window is. A graph holds the addresses of the buffers it

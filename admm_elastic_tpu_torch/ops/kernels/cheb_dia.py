@@ -16,9 +16,11 @@ coefficients carry the spectral bounds. At one device a whole solve of k
 Chebyshev iterations is one call with n_it = k - 1 and first = last =
 True; a chunked solve threads (x, z, d) through calls.
 
-`cheb_dia_chunk` launches `csrc/cheb_dia.cu` (one persistent cooperative
-launch per call) for CUDA tensors and runs `cheb_dia_chunk_reference` for
-CPU tensors. It never falls back from one to the other.
+`cheb_dia_chunk` launches `csrc/cheb_dia.cu` (one launch per call on one
+16-CTA thread-block cluster, the cluster solve's slabs and pushes,
+`csrc/cluster_pcg.cuh`; `cheb_plan` gives its layout) for CUDA tensors
+and runs `cheb_dia_chunk_reference` for CPU tensors. It never falls back
+from one to the other.
 `cheb_recurrence` is the same recurrence over any matvec; the sharded
 stepper's plain path runs it over the dia or the ELL matvec.
 """
@@ -26,6 +28,7 @@ stepper's plain path runs it over the dia or the ELL matvec.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -88,6 +91,29 @@ def _check(b, x, z, d, invd, dia, c1, c2, offsets, n_it):
     return n
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(device, n, reach, D, elem):
+    out = (ctypes.c_longlong * 5)()
+    with torch.cuda.device(device):
+        _build.check(_build.load_library().cheb_dia_plan(
+            n, reach, D, elem, ctypes.addressof(out)), "cheb_dia_plan")
+    return {"slab_rows": out[0], "window_rows": out[1],
+            "vectors_in_smem": bool(out[2]), "matrix_in_smem": bool(out[3]),
+            "smem_bytes": out[4]}
+
+
+def cheb_plan(n, dtype, offsets, device=None) -> dict:
+    """The layout of a chunk of n rows on the diagonals at `offsets` on a
+    CUDA device (the current one by default): rows a CTA owns, rows of
+    its window of d, whether those (WINDOW; else SHARED) and its slab's
+    diagonals are in shared memory, and its dynamic shared memory."""
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    elem = torch.empty((), dtype=dtype).element_size()
+    return dict(_plan(device.index, int(n), max(abs(int(o)) for o in offsets),
+                      len(offsets), elem))
+
+
 def cheb_dia_chunk(b, x, z, d, invd, dia, c1, c2, *, offsets, n_it, first,
                    last, inv_theta):
     """Run n_it Chebyshev iterations in one launch; returns new (x, z, d).
@@ -102,7 +128,8 @@ def cheb_dia_chunk(b, x, z, d, invd, dia, c1, c2, *, offsets, n_it, first,
             first=first, last=last, inv_theta=inv_theta)
     if b.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {b.device}")
-    # d is double-buffered in the kernel; the final d lands in d_out
+    # d is double-buffered (in global memory in the SHARED layout); the
+    # final d lands in d_out
     x_out, z_out, d_out, d_tmp = (torch.empty_like(b) for _ in range(4))
     offs = (ctypes.c_int * len(offsets))(*offsets)
     fn = getattr(_build.load_library(),

@@ -1,4 +1,5 @@
-"""Whole cloth timesteps in one launch: hand-written CUDA kernel + plain twin.
+"""Whole cloth timesteps as a window of launches: hand-written CUDA kernels
++ plain twin.
 
 Counterpart of `admm_elastic_tpu/ops/pallas/cloth_step.py` (`cloth_rollout`
 / `_cloth_call`) in Jacobi-PCG mode, without the in-kernel multigrid and
@@ -17,16 +18,20 @@ optional Wejchert-Haumann WindForce:
                      w2 D^T (F - 2u') (= w2 D^T (z - u'))
                    vertex phase: b = incidence sum of the rows (group,
                      corner order); anchor dual (0 where the anchor weight
-                     is 0) and RHS; r = M xbar + dt^2 b - A x; p = D^-1 r
-                   cg_iters Jacobi-PCG iterations (pAp > 0, rz > 0 guards)
-                     with the symmetric-dia matvec
+                     is 0) and RHS; rhs = M xbar + dt^2 b
+                   global solve: x = A^-1 rhs by cg_iters Jacobi-PCG
+                     iterations from x (pAp > 0, rz > 0 guards)
     epilogue       v = (x - x_pre) (1/dt)
 
 The JAX kernel works on (N,128)-lane planes with constant-offset static
-shifts, a packed 16-row scratch and DMA-streamed group duals. None of that
-is kept: elements are read by index from per-element arrays, and every
-sum into a vertex is a fixed-order incidence sum, so the Pallas kernel's
-group-by-group, corner-by-corner accumulation order is kept exactly.
+shifts, a packed 16-row scratch, DMA-streamed group duals and A stored
+as its diagonals at offsets >= 0 (each term mirrored). None of that is
+kept: elements are read by index from per-element arrays, every sum into
+a vertex is a fixed-order incidence sum, so the Pallas kernel's
+group-by-group, corner-by-corner accumulation order is kept exactly, and
+A is its diagonals at their signed offsets, as the general route's dia
+solve takes them (its matvec adds them in offset order: round-off
+against the Pallas kernel's mirrored order).
 
 State (`STATE`): x, v, anchor dual au (n,3); triangle dual tu (6,Et),
 plane 2a+b = F_{a,b}; hinge dual hu (9,Eh), plane 3r+j = row r, component
@@ -35,30 +40,37 @@ vertices, elements sorted by group; tgrp (Et,), hgrp (Eh,) int32 group of
 each element; ttab (Gt, TRI_TAB) and htab (Gb, BEND_TAB) the group
 constants (formed in double on the host, as the Pallas kernel bakes them);
 mass, invd = 1/diag(A), aw2 = anchor weight^2 (n,); ancz (n,3) anchor
-targets; dia (D,n) the diagonals of A at the non-negative offsets
-`ClothConfig.dia_offs` (dia[d,i] = A[i, i+off]); inc (n,S) int32 vertex ->
-RHS row slot, in (group, corner) order, sentinel R = 3 Et + 4 Eh after the
-real slots, where triangle slot k Et + t is corner k of triangle t and
-hinge slot 3 Et + k Eh + h corner k of hinge h; winc (n,Sw) int32 vertex
--> wind triangle in (wind group, corner) order, sentinel Ew. No padding.
+targets; dia (D,n) the diagonals of A at `ClothConfig.dia_offs` (dia[d,i]
+= A[i, i+off]); inc (n,S) int32 vertex -> RHS row slot, in (group,
+corner) order, sentinel R = 3 Et + 4 Eh after the real slots, where
+triangle slot k Et + t is corner k of triangle t and hinge slot 3 Et +
+k Eh + h corner k of hinge h; winc (n,Sw) int32 vertex -> wind triangle
+in (wind group, corner) order, sentinel Ew. No padding.
 
-`cloth_rollout` launches the cooperative kernel (`csrc/cloth_step.cu`, one
-launch per call) for CUDA tensors and runs `cloth_rollout_reference`, a
-step-by-step transcription of the same math in the Pallas kernel's
-evaluation order, for CPU tensors. It never falls back from one to the
-other. Both return a new state dict and leave their inputs untouched.
+`cloth_rollout` runs the window's kernels (`csrc/cloth_step.cu`: per
+timestep a wind kernel (with wind) and a kick, per ADMM iteration an
+element kernel, a vertex kernel and one cluster solve,
+`csrc/cluster_pcg.cuh`, then an end kernel) for CUDA tensors and
+`cloth_rollout_reference`, a step-by-step transcription of the same math
+in the Pallas kernel's evaluation order (its solve the cluster solve's:
+`core.solver.pcg_fixed_inv` with `cg_step.cluster_dot`), for CPU tensors.
+It never falls back from one to the other. Both return a new state dict
+and leave their inputs untouched. `ClothWindow` is a window on a state's
+own buffers, which a stepper advances in place through one CUDA graph a
+window length (`_graph.WindowGraphs`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import torch
 
+from ...core.solver import dia_apply, pcg_fixed_inv
 from . import _build
 from .cg_dia import MAX_DIAGONALS
+from .cg_step import cluster_dot, cluster_prepare
 from .tri_local import _tri_body
 
 STATE = ("x", "v", "tu", "hu", "au")
@@ -93,8 +105,6 @@ class ClothConfig:
         if not 1 <= len(self.dia_offs) <= MAX_DIAGONALS:
             raise ValueError(f"{len(self.dia_offs)} diagonals; the kernel "
                              f"takes 1..{MAX_DIAGONALS}")
-        if min(self.dia_offs) < 0:
-            raise ValueError("the symmetric dia matvec stores offsets >= 0")
         if min(self.cg_iters, self.admm_iters) < 0:
             raise ValueError("iteration counts must be >= 0")
 
@@ -106,24 +116,6 @@ class ClothConfig:
         return (dt, dt * dt, 1.0 / dt, *(dt * float(g) for g in self.gravity),
                 -WIND_ALPHA * 0.33 * dt, 1.0 / 3.0,
                 *(float(w) for w in self.wind_dir))
-
-
-def sym_dia_apply(y, offs, dia):
-    """A y for the symmetric A stored at offsets >= 0 (dia[d,i] = A[i,
-    i+off]), in the Pallas kernel's order: per diagonal, the upper term,
-    then the mirrored lower term."""
-    n = y.shape[0]
-    out = torch.zeros_like(y)
-    for d, off in enumerate(offs):
-        w = dia[d][:, None]
-        if off == 0:
-            out = out + w * y
-        elif off < n:
-            upper = out[: n - off] + w[: n - off] * y[off:]
-            out = torch.cat([upper, out[n - off:]])
-            lower = out[off:] + w[: n - off] * y[: n - off]
-            out = torch.cat([out[:off], lower])
-    return out
 
 
 def _slot_lists(inc, sentinel):
@@ -219,9 +211,11 @@ def _bend_phase(x, hu, hidx, hc):
     return torch.stack(un), rows
 
 
-def cloth_rollout_reference(state, planes, cfg: ClothConfig, n_steps):
-    """Plain PyTorch version of the kernel: the same phases in the same
-    order, one torch op at a time."""
+def cloth_rollout_reference(state, planes, cfg: ClothConfig, n_steps,
+                            dot=cluster_dot):
+    """Plain PyTorch version of the kernels: the same phases in the same
+    order, one torch op at a time. `dot` sums the solve's dots (by
+    default in the cluster solve's order; None: torch.sum)."""
     x, v, tu, hu, au = (state[k] for k in STATE)
     dtype, dev = x.dtype, x.device
     s = [torch.tensor(q, dtype=dtype, device=dev) for q in cfg.scalars()]
@@ -229,7 +223,6 @@ def cloth_rollout_reference(state, planes, cfg: ClothConfig, n_steps):
     dtg = torch.stack(s[3:6])
     sc = {"wind_c": s[6], "third": s[7], "wind_dir": s[8:11]}
     mass = planes["mass"][:, None]
-    invd = planes["invd"][:, None]
     aw2 = planes["aw2"][:, None]
     ancz = planes["ancz"]
     tidx, hidx, widx = (planes[k].long() for k in ("tidx", "hidx", "widx"))
@@ -240,7 +233,7 @@ def cloth_rollout_reference(state, planes, cfg: ClothConfig, n_steps):
     winc = _slot_lists(planes["winc"].long(), Ew)
 
     def A(y):
-        return sym_dia_apply(y, cfg.dia_offs, planes["dia"])
+        return dia_apply(y, cfg.dia_offs, planes["dia"])
 
     for _ in range(n_steps):
         vk = v + torch.where(mass > 0, dtg, 0.0)
@@ -259,19 +252,8 @@ def cloth_rollout_reference(state, planes, cfg: ClothConfig, n_steps):
             b = _slot_sum(torch.zeros_like(x), torch.cat(rows), inc)
             au = torch.where(aw2 > 0, au + (x - ancz), 0.0)
             b = b + aw2 * (ancz - au)
-            r = mxbar + dt2 * b - A(x)
-            p = invd * r
-            rz = torch.sum(r * p)
-            for _ in range(cfg.cg_iters):
-                Ap = A(p)
-                pAp = torch.sum(p * Ap)
-                alpha = rz / torch.where(pAp > 0, pAp, 1.0)
-                x = x + alpha * p
-                r = r - alpha * Ap
-                rz_new = torch.sum(r * invd * r)
-                beta = rz_new / torch.where(rz > 0, rz, 1.0)
-                p = invd * r + beta * p
-                rz = rz_new
+            x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
+                              cfg.cg_iters, dot)
         v = (x - x_pre) * inv_dt
     return {"x": x, "v": v, "tu": tu, "hu": hu, "au": au}
 
@@ -307,47 +289,68 @@ def _check(state, planes, cfg):
     return n, Et, Eh, Ew, S, Sw
 
 
-@functools.cache
-def _grid_blocks(suffix, device_index) -> int:
-    """Blocks of the cooperative grid: SMs x resident blocks per SM."""
-    with torch.cuda.device(device_index):
-        blocks = getattr(_build.load_library(), "cloth_rollout_grid_" + suffix)()
-    if blocks <= 0:
-        _build.check(-blocks, "cloth_rollout grid size")
-    return blocks
+class ClothWindow:
+    """The kernels of a rollout window on one state's own buffers, on a
+    CUDA device: `launch(n_steps)` enqueues n_steps timesteps on the
+    current stream and advances `state` in place. Holds the window's
+    scratch and the solve's set-up, done here, before any CUDA graph
+    captures a launch."""
+
+    def __init__(self, state, planes, cfg: ClothConfig):
+        (self.n, self.Et, self.Eh, self.Ew, self.S,
+         self.Sw) = _check(state, planes, cfg)
+        self.state, self.planes, self.cfg = state, planes, cfg
+        x = state["x"]
+        self.xpre, self.mxbar, self.rhs = (torch.empty_like(x)
+                                           for _ in range(3))
+        self.rows = x.new_empty((3, 3 * self.Et + 4 * self.Eh))
+        self.wf = x.new_empty((3, self.Ew))
+        self.reach = max(abs(o) for o in cfg.dia_offs)
+        self.scratch = cluster_prepare(x, self.n, self.reach,
+                                       len(cfg.dia_offs))
+        scal = cfg.scalars()
+        # the host arrays the C entry reads at each call
+        self._host = ((ctypes.c_int * len(cfg.dia_offs))(*cfg.dia_offs),
+                      (ctypes.c_double * len(scal))(*scal))
+        self._fn = getattr(_build.load_library(),
+                           "cloth_rollout_" + _SUFFIX[x.dtype])
+
+    def ops(self, n_steps):
+        """Launches of an n_steps window."""
+        return n_steps * ((3 if self.Ew else 2) + 3 * self.cfg.admm_iters)
+
+    def launch(self, n_steps):
+        cfg, x = self.cfg, self.state["x"]
+        with torch.cuda.device(x.device):
+            err = self._fn(
+                *(self.state[k].data_ptr() for k in STATE),
+                *(self.planes[k].data_ptr() for k in PLANES),
+                *(t.data_ptr() for t in (self.xpre, self.mxbar, self.rows,
+                                         self.wf, self.rhs)),
+                None if self.scratch is None else self.scratch.data_ptr(),
+                *(ctypes.addressof(a) for a in self._host),
+                self.n, self.Et, self.Eh, self.Ew, len(cfg.dia_offs),
+                self.reach, self.S, self.Sw, int(bool(cfg.limiting)),
+                cfg.cg_iters, cfg.admm_iters, int(n_steps),
+                _build.stream_ptr(x))
+        _build.check(err, "cloth_rollout")
 
 
 def cloth_rollout(state, planes, cfg: ClothConfig, n_steps):
     """Advance `n_steps` timesteps; returns the new state dict."""
-    n, Et, Eh, Ew, S, Sw = _check(state, planes, cfg)
+    _check(state, planes, cfg)
     x = state["x"]
     if x.device.type == "cpu":
         return cloth_rollout_reference(state, planes, cfg, int(n_steps))
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
-    suffix = _SUFFIX[x.dtype]
-    blocks = _grid_blocks(suffix, x.device.index)
     out = {k: state[k].clone() for k in STATE}
-    xpre, mxbar, r, p, ap = (torch.empty_like(x) for _ in range(5))
-    rows = x.new_empty((3, 3 * Et + 4 * Eh))
-    wf = x.new_empty((3, Ew))
-    part = x.new_empty(2 * blocks)
-    offs = (ctypes.c_int * len(cfg.dia_offs))(*cfg.dia_offs)
-    scal = cfg.scalars()
-    c_scal = (ctypes.c_double * len(scal))(*scal)
-    fn = getattr(_build.load_library(), "cloth_rollout_" + suffix)
-    with torch.cuda.device(x.device):
-        err = fn(*(out[k].data_ptr() for k in STATE),
-                 *(planes[k].data_ptr() for k in PLANES),
-                 *(t.data_ptr() for t in (xpre, mxbar, rows, wf, r, p, ap,
-                                          part)),
-                 ctypes.addressof(offs), ctypes.addressof(c_scal),
-                 n, Et, Eh, Ew, len(cfg.dia_offs), S, Sw,
-                 int(bool(cfg.limiting)), cfg.cg_iters, cfg.admm_iters,
-                 int(n_steps), part.numel(), _build.stream_ptr(x))
-    _build.check(err, "cloth_rollout")
+    window = ClothWindow(out, planes, cfg)
+    window.launch(int(n_steps))
     cloth_rollout.launches += 1
+    cloth_rollout.ops += window.ops(int(n_steps))
     return out
 
 
 cloth_rollout.launches = 0
+cloth_rollout.ops = 0

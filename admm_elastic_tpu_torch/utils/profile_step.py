@@ -9,9 +9,10 @@ steps of the 100k-tet beam, the cloth100k sheet or the delaunay100k mesh
 
 `--route general` (the default) steps the general route; `--route fast`
 steps the scene's whole-timestep route (`lattice_fast_path=True`: the
-banded window for tet100k and delaunay100k, the cloth kernel for
-cloth100k), where `steps` = 10 is one submission (one kernel launch, or
-one CUDA graph of 2 + 3 admm_iters launches a step); `--route lattice`
+banded window for tet100k and delaunay100k, the cloth window for
+cloth100k), where `steps` = 10 is one submission (one CUDA graph of 2 + 3
+admm_iters launches a step, 3 + 3 admm_iters for the cloth with wind);
+`--route lattice`
 steps tet100k on the lattice kernel (the cg global mode with
 `lattice_fast_path=True`); `--route sharded` steps tet100k on the sharded
 banded stepper at one device (`scenes.tet100k_sharded`) with `--solver`
@@ -72,10 +73,10 @@ SCENES = ("tet100k", "cloth100k", "delaunay100k")
 ATTEMPTS = 5
 # the entry kernels of the port's wrappers, one per call (banded_local_rhs
 # launches an element kernel and then this vertex kernel), and every
-# kernel of the banded and lattice windows
+# kernel of the banded, lattice and cloth windows
 _OWN = tuple(f"void admm::{ns}::{k}_kernel"
              for ns in ("nh", "tri", "arap") for k in ("fused", "step")) + (
-    "void admm::banded::", "void admm::cloth::rollout_kernel",
+    "void admm::banded::", "void admm::cloth::",
     "void admm::lattice::", "void admm::window::",
     "void admm::banded_local::vertex_kernel",
     "void admm::cheb::chunk_kernel", "void admm::cluster_pcg::solve_kernel")
@@ -83,14 +84,16 @@ _OWN = tuple(f"void admm::{ns}::{k}_kernel"
 
 def _own_launches():
     """Launches of the port's own kernels so far: one a call of each
-    wrapper, and each launch a banded or lattice window holds."""
+    wrapper, and each launch a banded, lattice or cloth window holds."""
     return sum(k.launches for k in (
         nh_local.nh_local_step_fused, nh_local.nh_local_step,
         tri_local.tri_local_step_fused, tri_local.tri_local_step,
         tet_local.arap_local_step_fused, tet_local.arap_local_step,
-        cloth_step.cloth_rollout, banded_local.banded_local_rhs,
-        cheb_dia.cheb_dia_chunk, cg_dia.cg_dia_solve, cg_ell.cg_ell_solve)
-    ) + banded_step.banded_rollout.ops + lattice_step.lattice_rollout.ops
+        banded_local.banded_local_rhs, cheb_dia.cheb_dia_chunk,
+        cg_dia.cg_dia_solve, cg_ell.cg_ell_solve)) + sum(
+        k.ops for k in (banded_step.banded_rollout,
+                        lattice_step.lattice_rollout,
+                        cloth_step.cloth_rollout))
 
 
 # CUgraphNodeType (cuda.h)

@@ -4,20 +4,25 @@ on the same card, each in a process of its own.
 
     python admm_elastic_tpu_torch/utils/time_rollouts.py --root DIR \\
         --label NAME [--out JSONL] [--save DIR] [--cg 25 75]
+        [--scenes NAME ...]
 
 For each scene and CG budget (f32) it builds the System with that
 checkout's `utils/scenes.py` and steps it as `chip_smoke.py` drives a
 route: 2 single steps, then 3 windows of 10 steps, each timed on the host
 clock around work that ends in a synchronize. It prints one JSON line a
 scene and budget: the median ms/step, the windows, the spread, and
-whether the positions are finite. The scenes: tet100k on the banded route
-(`lattice_fast_path=True`, dia) and on the lattice route (the cg global
-mode), arap100k on the banded route's arap mode, delaunay100k on the
-banded route's ELL mode, and tet100k's beam made 4 times longer (160 x 25
-x 20 cells, 87,906 nodes, 200 kg) on the banded route. With `--save` the
-positions after the 32 steps go to DIR/LABEL_SCENE_cgN.npy, so that two
-checkouts' trajectories can be held against each other. Needs a CUDA
-device.
+whether the positions are finite. The scenes, at the `--cg` budgets:
+tet100k on the banded route (`lattice_fast_path=True`, dia) and on the
+lattice route (the cg global mode), arap100k on the banded route's arap
+mode, delaunay100k on the banded route's ELL mode, and tet100k's beam
+made 4 times longer (160 x 25 x 20 cells, 87,906 nodes, 200 kg) on the
+banded route; and at budgets of their own: cloth100k on the cloth route
+(cg25, and cg300, its matched Jacobi budget) and tet100k on the sharded
+banded stepper at one device with the Chebyshev solve (cheb180).
+`--scenes` keeps the scenes whose names start with one of its words.
+With `--save` the positions after the 32 steps go to
+DIR/LABEL_SCENE_cgN.npy, so that two checkouts' trajectories can be held
+against each other. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,21 +37,28 @@ import time
 WARMUP, WINDOWS, STEPS = 2, 3, 10
 
 
-def _scenes(scenes, torch):
+def _scenes(scenes, torch, budgets):
+    """name: (build(cg), budgets)."""
     f32 = torch.float32
     return {
-        "tet100k banded": lambda cg: scenes.tet100k(cg, f32, fast=True),
-        "tet100k lattice": lambda cg: scenes.tet100k(
-            cg, f32, fast=True, global_solver="cg"),
-        "arap100k banded": lambda cg: scenes.arap100k(cg, f32, fast=True),
-        "delaunay100k banded-ELL": lambda cg: scenes.delaunay100k(
-            cg, f32, fast=True),
-        "beam 160x25x20 banded": lambda cg: scenes.beam_system(
-            (160, 25, 20), 0.05, 200.0, cg, f32, fast=True),
+        "tet100k banded": (lambda cg: scenes.tet100k(cg, f32, fast=True),
+                           budgets),
+        "tet100k lattice": (lambda cg: scenes.tet100k(
+            cg, f32, fast=True, global_solver="cg"), budgets),
+        "arap100k banded": (lambda cg: scenes.arap100k(cg, f32, fast=True),
+                            budgets),
+        "delaunay100k banded-ELL": (lambda cg: scenes.delaunay100k(
+            cg, f32, fast=True), budgets),
+        "beam 160x25x20 banded": (lambda cg: scenes.beam_system(
+            (160, 25, 20), 0.05, 200.0, cg, f32, fast=True), budgets),
+        "cloth100k cloth": (lambda cg: scenes.cloth100k(cg, f32, fast=True),
+                            (25, 300)),
+        "tet100k sharded cheb": (lambda cg: scenes.tet100k_sharded(
+            "cheb", cg, f32), (180,)),
     }
 
 
-def time_root(root, label, out_path, save, budgets):
+def time_root(root, label, out_path, save, budgets, only=None):
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -57,10 +69,13 @@ def time_root(root, label, out_path, save, budgets):
     assert os.path.abspath(pkg.__file__).startswith(os.path.abspath(root))
     card = torch.cuda.get_device_name(0)
     lines = []
-    for name, build in _scenes(scenes, torch).items():
-        for cg in budgets:
+    for name, (build, cgs) in _scenes(scenes, torch, budgets).items():
+        if only and not any(name.startswith(w) for w in only):
+            continue
+        for cg in cgs:
             s = build(cg)
-            route = type(s._stepper).__name__ if s._stepper else "general"
+            stepper = getattr(s, "_stepper", s)  # a System or a stepper
+            route = type(stepper).__name__ if stepper else "general"
             for _ in range(WARMUP):
                 s.step()
             torch.cuda.synchronize()
@@ -100,8 +115,11 @@ def main():
     ap.add_argument("--out", help="append the JSON lines to this file")
     ap.add_argument("--save", help="save each run's final positions here")
     ap.add_argument("--cg", type=int, nargs="+", default=[25, 75])
+    ap.add_argument("--scenes", nargs="+",
+                    help="time only the scenes whose names start with one "
+                         "of these words")
     a = ap.parse_args()
-    time_root(a.root, a.label or a.root, a.out, a.save, a.cg)
+    time_root(a.root, a.label or a.root, a.out, a.save, a.cg, a.scenes)
 
 
 if __name__ == "__main__":

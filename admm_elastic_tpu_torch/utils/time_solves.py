@@ -1,7 +1,7 @@
-"""Times the two whole-solve kernels, cg_dia_solve and cg_ell_solve, of
-the port found under a given root, on inputs saved once, so that two
-checkouts (a commit and its parent) are timed on the same bits, one
-after the other on the same card.
+"""Times the whole-solve kernels, cg_dia_solve and cg_ell_solve, and the
+Chebyshev chunk cheb_dia_chunk, of the port found under a given root, on
+inputs saved once, so that two checkouts (a commit and its parent) are
+timed on the same bits, one after the other on the same card.
 
     python admm_elastic_tpu_torch/utils/time_solves.py --make FILE
     python admm_elastic_tpu_torch/utils/time_solves.py --inputs FILE \\
@@ -10,11 +10,14 @@ after the other on the same card.
 `--make` builds the inputs with this checkout's scenes (f32 unless said):
 tet100k's first dia solve, delaunay100k's first ELL solve in its grid
 numbering and renumbered at random (`scenes.renumbered_ell`, seed 0; also
-f64), and tet100k's beam made 4 times longer (160 x 25 x 20 cells, dia),
-and saves them to FILE. `--inputs` loads them and imports
-`admm_elastic_tpu_torch` from DIR (any checkout whose solves take these
-arguments), then for each input at 25 and 75 iterations prints one JSON
-line: the device ms a solve (CUDA events around 20 back-to-back calls,
+f64), tet100k's beam made 4 times longer (160 x 25 x 20 cells, dia),
+cloth100k's first dia solve (also at 300 iterations, its matched Jacobi
+budget), and tet100k's whole cheb180 Chebyshev solve (one chunk of 179
+iterations, first and last, from the operator's bounds), and saves them
+to FILE. `--inputs` loads them and imports `admm_elastic_tpu_torch` from
+DIR (any checkout whose kernels take these arguments), then for each
+input and budget (the solves at 25 and 75 iterations) prints one JSON
+line: the device ms a call (CUDA events around 20 back-to-back calls,
 the median of 3 such windows), the host us a call (the same calls' wall
 time before the closing synchronize, over 20; the host's work, as long
 as it does not wait for the card), and the relative error against that
@@ -34,11 +37,26 @@ import time
 def make(path):
     import torch
 
+    from admm_elastic_tpu_torch.parallel.cheb import (cheb_coefficients,
+                                                      dia_operator_bounds)
     from admm_elastic_tpu_torch.utils import scenes
 
     out = {}
     s = scenes.tet100k(25, torch.float64)
     out["tet100k dia f32"] = ("dia", scenes.dia_solve_inputs(
+        s, torch.float32))
+    b, x0, diag, dia, offs = scenes.dia_solve_inputs(s, torch.float32)
+    inv_theta, c1, c2 = cheb_coefficients(180, *dia_operator_bounds(
+        dia.double().cpu().numpy(), offs))
+    c1, c2 = (torch.as_tensor(c, dtype=torch.float32, device=b.device)
+              for c in (c1, c2))
+    out["tet100k cheb180 f32"] = ("cheb", (
+        b, x0, b, b, 1.0 / diag, dia, c1, c2,
+        {"offsets": tuple(int(o) for o in offs),
+         "inv_theta": float(inv_theta)}))
+    del s
+    s = scenes.cloth100k(25, torch.float64, fast=False)
+    out["cloth100k dia f32"] = ("dia", scenes.dia_solve_inputs(
         s, torch.float32))
     del s
     s = scenes.delaunay100k(25, torch.float64, fast=False)
@@ -63,19 +81,37 @@ def time_root(inputs, root, label, out_path, reps=20, windows=3):
     import torch
 
     import admm_elastic_tpu_torch as pkg
-    from admm_elastic_tpu_torch.ops.kernels import cg_dia, cg_ell
+    from admm_elastic_tpu_torch.ops.kernels import cg_dia, cg_ell, cheb_dia
 
     assert os.path.abspath(pkg.__file__).startswith(os.path.abspath(root))
     data = torch.load(inputs)
     lines = []
     for name, (kind, args) in data.items():
         args = tuple(a.cuda() if torch.is_tensor(a) else a for a in args)
-        mod = cg_dia if kind == "dia" else cg_ell
-        solve = getattr(mod, f"cg_{kind}_solve")
-        twin = getattr(mod, f"cg_{kind}_solve_reference")
-        for k in (25, 75):
-            got = solve(*args, k)
-            want = twin(*args, k)
+        if kind == "cheb":
+            *args, kw = args
+            budgets = (len(args[6]) + 1,)
+
+            def solve(*a, k=None, _kw=kw):
+                return cheb_dia.cheb_dia_chunk(
+                    *a, n_it=k - 1, first=True, last=True, **_kw)[0]
+
+            def twin(*a, k=None, _kw=kw):
+                return cheb_dia.cheb_dia_chunk_reference(
+                    *a, n_it=k - 1, first=True, last=True, **_kw)[0]
+        else:
+            mod = cg_dia if kind == "dia" else cg_ell
+            budgets = (25, 75, 300) if name.startswith("cloth") else (25, 75)
+
+            def solve(*a, k=None, _f=getattr(mod, f"cg_{kind}_solve")):
+                return _f(*a, k)
+
+            def twin(*a, k=None,
+                     _f=getattr(mod, f"cg_{kind}_solve_reference")):
+                return _f(*a, k)
+        for k in budgets:
+            got = solve(*args, k=k)
+            want = twin(*args, k=k)
             rel = float((got - want).abs().max() / want.abs().max())
             dev_ms, host_us = [], []
             for _ in range(windows):
@@ -85,13 +121,15 @@ def time_root(inputs, root, label, out_path, reps=20, windows=3):
                 t0 = time.perf_counter()
                 e0.record()
                 for _ in range(reps):
-                    solve(*args, k)
+                    solve(*args, k=k)
                 e1.record()
                 host_us.append(1e6 * (time.perf_counter() - t0) / reps)
                 torch.cuda.synchronize()
                 dev_ms.append(e0.elapsed_time(e1) / reps)
             line = {"label": label, "input": name, "n": args[0].shape[0],
-                    "n_iters": k, "ms": statistics.median(dev_ms),
+                    "n_iters": k, "device": torch.cuda.get_device_name(0),
+                    "bitwise_vs_own_twin": bool(torch.equal(got, want)),
+                    "ms": statistics.median(dev_ms),
                     "ms_windows": dev_ms,
                     "host_us_per_call": statistics.median(host_us),
                     "us_per_iteration": 1e3 * statistics.median(dev_ms) / k,

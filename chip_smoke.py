@@ -14,7 +14,8 @@ submission per 10-step window: a CUDA graph of its element, vertex and
 cluster-solve launches); on the cloth100k sheet (101,250 triangles,
 bend hinges, anchors, gravity, wind; dia) the general route (tri_local +
 cg_dia kernels) and the cloth whole-timestep route (one cloth_rollout
-launch per 10-step window); on the delaunay100k mesh (100,852 tets of
+submission per 10-step window: a CUDA graph of its wind, kick, element,
+vertex and cluster-solve launches); on the delaunay100k mesh (100,852 tets of
 arbitrary topology, ell global solver) the general route with each CG
 backend (xla: plain PyTorch PCG; fused: cg_update kernel; kernel: cg_ell
 kernel; all with nh_local) and the banded route with its ELL matvec; and
@@ -29,17 +30,18 @@ route;
 and arap100k on the banded route's arap mode against its general route;
 and the beam on the sharded banded stepper at one device (cg25, cg75
 through one cg_dia_solve launch per solve, cheb180 through one
-cheb_dia_chunk launch per solve; one banded_local_rhs call per ADMM
-iteration) against the banded route.
+cheb_dia_chunk launch per solve, on one thread-block cluster; one
+banded_local_rhs call per ADMM iteration) against the banded route.
 The two whole-solve kernels (cg_dia_solve, cg_ell_solve: one launch on a
 16-CTA thread-block cluster each) are also held to their twins on
 delaunay100k renumbered at random (phase 3f) and on banded systems of
 1,003 and 11 rows, and timed at 4 and 16 times tet100k's rows, beside the
 per-iteration floor and the cost of each synchronisation they are built
 from (phase 3n, the latter by a microbenchmark built beside the kernels,
-`csrc/probes/sync_probe.cu`, which also times the grid barrier the
-cooperative kernels pay and asks whether the card takes a launch both
-cooperative and clustered).
+`csrc/probes/sync_probe.cu`, which also times the grid barrier that
+cooperative kernels pay, on the grid of the rollout kernels the windows
+replaced, and asks whether the card takes a launch both cooperative and
+clustered).
 Every phase prints one line of numbers. Any failure raises: the script
 then exits non-zero and prints no result line. It needs CUDA (it never
 falls back to the CPU) and imports nothing of JAX.
@@ -423,16 +425,14 @@ GRID_PROBES = ("grid barrier", "grid stage end")
 
 
 def grid_costs(torch, probe, rounds=2000):
-    """What the cooperative kernels' CG paid for a stage, alone (probe:
-    the loaded microbenchmark): us a round of grid.sync() and of a whole
-    stage end (block sums, partials, grid.sync(), every block re-reading
-    them) on the rollout kernel's grid and on the cloth kernel's (the
-    cooperative kernel that keeps those stages), (N - 0 rounds) / N by
-    CUDA events. Then whether the card takes a launch that is both
-    cooperative and clustered. Returns {(grid, mode): us}."""
+    """What a cooperative kernel's CG paid for a stage, alone (probe: the
+    loaded microbenchmark): us a round of grid.sync() and of a whole stage
+    end (block sums, partials, grid.sync(), every block re-reading them)
+    on the grid of the rollout kernels the windows replaced, (N - 0
+    rounds) / N by CUDA events. Then whether the card takes a launch that
+    is both cooperative and clustered. Returns {(grid, mode): us}."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cloth = _build.load_library().cloth_rollout_grid_f32()
-    grids = {"rollout": sms * ROLLOUT_BLOCKS_PER_SM, "cloth": cloth}
+    grids = {"rollout": sms * ROLLOUT_BLOCKS_PER_SM}
     out = {}
     for grid, blocks in grids.items():
         part = torch.empty(2 * blocks, dtype=torch.float32, device="cuda")
@@ -520,7 +520,7 @@ ROLLOUTS = {
 
 # the windows whose twins sum in their kernels' order (the cluster solve's,
 # cg_step.cluster_dot): held to them bitwise
-BITWISE = ("banded", "lattice")
+BITWISE = ("banded", "lattice", "cloth")
 
 
 def rollout_errors(torch, kind, st, cfg, steps, planes=None):
@@ -544,8 +544,8 @@ def rollout_errors(torch, kind, st, cfg, steps, planes=None):
 def check_rollout_small(torch, kind, st, dtype, tol_1it, tol_f32=1e-4,
                         name="", planes=None):
     """1 step of 1 ADMM iteration, then a 10-step window: x within tol_1it
-    and 1e-8 (f64) or tol_f32 relative (f32); the banded and lattice
-    windows bitwise."""
+    and 1e-8 (f64) or tol_f32 relative (f32); the windows of BITWISE
+    bitwise (the tolerance is then moot)."""
     f64 = dtype == torch.float64
     ok = True
     for tag, cfg, steps, tol in (
@@ -555,10 +555,12 @@ def check_rollout_small(torch, kind, st, dtype, tol_1it, tol_f32=1e-4,
         ex, rel, ev, bit, fin, twin = rollout_errors(torch, kind, st, cfg,
                                                      steps, planes)
         err = ex if f64 else rel
-        good = err <= tol and bit and fin and (twin or kind not in BITWISE)
+        exact = kind in BITWISE
+        good = bit and fin and (twin if exact else err <= tol)
         say(f"kernel {kind}{name} {str(dtype)[6:]} small {tag}", n=st.n_nodes,
             elements=st.n_elements, max_abs_err_x=ex, rel_err_x=rel,
-            max_abs_err_v=ev, tol=tol, tol_on="abs x" if f64 else "rel x",
+            max_abs_err_v=ev, tol="bitwise" if exact else tol,
+            tol_on="abs x" if f64 else "rel x",
             bitwise_vs_twin=twin, bitwise_repeat=bit, finite=fin, ok=good)
         ok = ok and good
     if not ok:
@@ -616,7 +618,8 @@ def check_rollout_full(torch, kind, st, label, dtype, tol):
     run, reference, keys = ROLLOUTS[kind]
     ex, rel, ev, bit, fin, twin = rollout_errors(torch, kind, st, st.cfg, 1)
     err = ex if dtype == torch.float64 else rel
-    ok = err <= tol and bit and fin and (twin or kind not in BITWISE)
+    exact = kind in BITWISE
+    ok = bit and fin and (twin if exact else err <= tol)
     ms, window_ms, n_ops, n_bytes, bound_ms, bound_by = rollout_times(
         torch, kind, st)
     plain_ms = cuda_ms(torch, lambda: reference(st.state, st.planes, st.cfg,
@@ -625,9 +628,9 @@ def check_rollout_full(torch, kind, st, label, dtype, tol):
         elements=st.n_elements, matrix=getattr(st.cfg, "matrix", "dia"),
         diagonals=len(st.cfg.dia_offs),
         ell_width=getattr(st.cfg, "ell_width", 0),
-        max_abs_err_x=ex, rel_err_x=rel, max_abs_err_v=ev, tol=tol,
-        bitwise_vs_twin=twin, bitwise_repeat=bit, finite=fin,
-        ms_per_1step_launch=ms, ms_per_10step_launch=window_ms,
+        max_abs_err_x=ex, rel_err_x=rel, max_abs_err_v=ev,
+        tol="bitwise" if exact else tol, bitwise_vs_twin=twin,
+        bitwise_repeat=bit, finite=fin, ms_per_1step_launch=ms, ms_per_10step_launch=window_ms,
         ms_per_step_in_window=window_ms / 10,
         plain_ms_per_step=plain_ms, operations=n_ops, bytes=n_bytes,
         bound_ms=bound_ms, bound_by=bound_by, ok=ok)
@@ -677,16 +680,21 @@ def check_local(torch, label, ins, planes, cfg, dtype, released=None):
 
 def check_cheb(torch, label, args, kw, dtype):
     """cheb_dia_chunk against its plain twin (`check_element`): x, z, d
-    within 1e-10 (f64) or 1e-4 (f32) relative to the largest twin value;
-    timed one launch per event pair."""
+    bitwise (the kernel repeats the twin's arithmetic in its order, in
+    either layout of its cluster); timed one launch per event pair."""
+    plan = pchb.cheb_plan(args[0].shape[0], dtype, kw["offsets"])
     return check_element(
         torch, "cheb_dia_chunk", pchb.cheb_dia_chunk,
-        pchb.cheb_dia_chunk_reference, args, dtype,
-        1e-10 if dtype == torch.float64 else 1e-4, "rel",
+        pchb.cheb_dia_chunk_reference, args, dtype, 0.0, "abs",
         counts=cheb_dia_counts,
         info=dict(case=label, n=args[0].shape[0],
                   diagonals=len(kw["offsets"]), n_it=kw["n_it"],
-                  first=kw["first"], last=kw["last"]),
+                  first=kw["first"], last=kw["last"],
+                  layout="window" if plan["vectors_in_smem"] else "shared",
+                  slab_rows=plan["slab_rows"],
+                  window_rows=plan["window_rows"],
+                  matrix_in_smem=plan["matrix_in_smem"],
+                  smem_bytes_per_cta=plan["smem_bytes"]),
         batch=1, plain_reps=3, **kw)
 
 
@@ -707,6 +715,23 @@ def cheb_problem(torch, st, rng, budget=180):
     c1, c2 = (torch.as_tensor(c, dtype=x.dtype, device=x.device)
               for c in (c1, c2))
     return (b, x, z, d, st.planes["invd"], dia), (inv_theta, c1, c2), bounds
+
+
+def wide_cheb_problem(torch, dtype, n=20000, budget=40):
+    """A chunk whose band reaches past its windows (the SHARED layout):
+    `banded_spd` of n rows on offsets (1, 3, 7, 9000), its whole solve of
+    `budget` iterations from the operator's bounds. Returns (args, kw)."""
+    sp = banded_spd(n, offsets=(1, 3, 7, 9000), dtype=dtype, device="cuda")
+    offs = sp["offsets"]
+    inv_theta, c1, c2 = cheb_coefficients(budget, *dia_operator_bounds(
+        sp["dia_vals"].double().cpu().numpy(), offs))
+    c1, c2 = (torch.as_tensor(c, dtype=dtype, device="cuda")
+              for c in (c1, c2))
+    z, d = (torch.zeros_like(sp["b"]) for _ in range(2))
+    args = (sp["b"], sp["x0"], z, d, 1.0 / sp["diag"], sp["dia_vals"], c1,
+            c2)
+    return args, dict(offsets=offs, n_it=budget - 1, first=True, last=True,
+                      inv_theta=inv_theta)
 
 
 def tri_inputs(torch, s, rng):
@@ -784,25 +809,44 @@ def small_lattice(model, dtype, floor=False):
                           device="cuda")
 
 
-def window_layout(torch, st, label):
-    """Raise unless a stepper's solve keeps its vectors in shared memory
-    (the cluster solve's WINDOW layout) on this card."""
+def window_layout(torch, st, label, window=True):
+    """Raise unless a stepper's solve takes the cluster solve's WINDOW
+    layout (its vectors in shared memory) on this card, or with
+    window=False the SHARED one."""
     offs = st.cfg.dia_offs
     plan = pstep.cluster_plan(st.n_nodes, st.state["x"].dtype,
                               max(abs(o) for o in offs), len(offs))
     say(f"solve layout {label}", n=st.n_nodes, reach=max(abs(o) for o in offs),
         window=plan["vectors_in_smem"], matrix_in_smem=plan["matrix_in_smem"],
         smem_bytes=plan["smem_bytes"])
-    if not plan["vectors_in_smem"]:
-        raise AssertionError(f"{label}: the solve takes the SHARED layout")
+    if plan["vectors_in_smem"] != window:
+        raise AssertionError(f"{label}: the solve takes the "
+                             f"{'SHARED' if window else 'WINDOW'} layout")
 
 
-def check_window_ops(out, label):
-    """A whole-timestep window's trace (profile_step's dict): 2 + 3
-    admm_iters kernels a step, none a grid barrier (kick, then per ADMM
-    iteration an element kernel, a vertex kernel and one cluster solve,
-    then the end), and the clock's one add a window."""
-    want = 2 + 3 * ADMM_ITERS + 1 / WINDOW_STEPS
+def window_device_ops(torch, st, label, want):
+    """The device operations of a 1-step cloth window on a copy of a
+    stepper's state (the nodes of a CUDA graph that captures its launches,
+    `profile_step.call_ops`): `want`, every one a kernel, none a grid
+    barrier (no kernel of the window is cooperative)."""
+    state = {k: st.state[k].clone() for k in pcs.STATE}
+    window = pcs.ClothWindow(state, st.planes, st.cfg)
+    graph = profile_step.call_ops(lambda: window.launch(1))
+    got = graph["device_ops_per_call"]
+    say(f"device ops cloth {label}", device_ops_per_step=got, expected=want,
+        kinds=graph["kinds"], grid_stages_per_step=0)
+    if got != want or graph["kinds"] != ["kernel"]:
+        raise AssertionError(f"cloth {label}: {got} device ops a step "
+                             f"({graph['kinds']}), expected {want}")
+
+
+def check_window_ops(out, label, per_step=2 + 3 * ADMM_ITERS):
+    """A whole-timestep window's trace (profile_step's dict): per_step
+    kernels a step, none a grid barrier (by default 2 + 3 admm_iters: a
+    kick, then per ADMM iteration an element kernel, a vertex kernel and
+    one cluster solve, then the end; the cloth adds its wind kernel), and
+    the clock's one add a window."""
+    want = per_step + 1 / WINDOW_STEPS
     got = out["device_ops_per_step"]
     say(f"device ops {label}", device_ops_per_step=got, expected=want,
         lost_kernel_records=out["lost_kernel_records"])
@@ -919,13 +963,38 @@ def main():
     tri32, tristep32 = check_tri(torch, ins, torch.float32)
     del cloth64, ins
 
-    # phase 3d: the cloth whole-timestep kernel against its plain version
+    # phase 3d: the cloth whole-timestep window against its plain version
+    # (bitwise): the 8 x 6 sheet (wind, bend, anchors; strain limiting on
+    # and off; vertex 0's anchor released), its CUDA graph against eager
+    # launches and the setters after capture; cloth100k at cg25 in f32
+    # (the solve's WINDOW layout) and for one step in f64 (SHARED); its
+    # device ops a step (3 + 3 admm_iters: wind, kick, then per ADMM
+    # iteration an element kernel, a vertex kernel and one cluster solve,
+    # then the end)
     for dtype in (torch.float64, torch.float32):
-        check_rollout_small(torch, "cloth", small_cloth(dtype)._stepper,
-                            dtype, 1e-12)
-    cloth32 = check_rollout_full(torch, "cloth",
-                                 cloth100k(25, torch.float32)._stepper,
-                                 "cloth100k cg25", torch.float32, 1e-4)
+        st = small_cloth(dtype)._stepper
+        check_rollout_small(torch, "cloth", st, dtype, 1e-12)
+        released = dict(st.planes, aw2=st.planes["aw2"].clone())
+        anchored = int(torch.nonzero(released["aw2"])[0])
+        released["aw2"][anchored] = 0.0
+        check_rollout_small(torch, "cloth", _with_cfg(st, limiting=False),
+                            dtype, 1e-12,
+                            name=f" unlimited anchor {anchored} released",
+                            planes=released)
+        check_graph(torch, "cloth", st, f"8x6 sheet {str(dtype)[6:]}")
+        window_device_ops(torch, st, f"8x6 {str(dtype)[6:]}",
+                          3 + 3 * ADMM_ITERS)
+    st = cloth100k(25, torch.float32)._stepper
+    window_layout(torch, st, "cloth cloth100k float32")
+    window_device_ops(torch, st, "cloth100k float32", 3 + 3 * ADMM_ITERS)
+    cloth32 = check_rollout_full(torch, "cloth", st, "cloth100k cg25",
+                                 torch.float32, 0.0)
+    del st
+    st = cloth100k(25, torch.float64)._stepper
+    window_layout(torch, st, "cloth cloth100k float64", window=False)
+    check_rollout_full(torch, "cloth", st, "cloth100k cg25", torch.float64,
+                       0.0)
+    del st
     # its time and bound at cg300, the Jacobi budget matched at 225 x 225
     # (held to the twin at cg25 above)
     ms, window_ms, n_ops, n_bytes, bound_ms, bound_by = rollout_times(
@@ -1057,10 +1126,12 @@ def main():
                                      st.planes, st.cfg, dtype)
         del st
 
-    # phase 3m: the Chebyshev chunk (cheb_dia_chunk) against its plain
-    # version on tet100k's own A_hat: the init-only first chunk, a middle
-    # chunk of 20 iterations, and the whole cheb180 solve of one launch
-    # (n_it = 179, first = last = True)
+    # phase 3m: the Chebyshev chunk (cheb_dia_chunk, one launch on a
+    # 16-CTA cluster) against its plain version on tet100k's own A_hat,
+    # bitwise: the init-only first chunk, a middle chunk of 20 iterations,
+    # and the whole cheb180 solve of one launch (n_it = 179, first = last
+    # = True); f32 in the WINDOW layout, f64 in the SHARED one. Then the
+    # chunk on a band wider than its windows (the SHARED layout in f32)
     cheb32 = {}
     for dtype in (torch.float64, torch.float32):
         st = tet100k(25, dtype, fast=True)._stepper
@@ -1077,6 +1148,9 @@ def main():
                 dict(offsets=st.cfg.dia_offs, n_it=n_it, first=first,
                      last=last, inv_theta=inv_theta), dtype)
         del st, args
+    for dtype in (torch.float32, torch.float64):
+        args, kw = wide_cheb_problem(torch, dtype)
+        check_cheb(torch, "banded_spd n=20000 reach 9000", args, kw, dtype)
 
     # phase 4: small scenes of every general route, card vs CPU, and
     # determinism on the card: the 6x4x4 slice on dia and with bare
@@ -1353,8 +1427,9 @@ def main():
     reset_launches()
     cloth_runs = {}
     for cg, s in cloth.items():
-        n0 = pcs.cloth_rollout.launches
-        cloth_runs[cg] = (*drive(torch, s), pcs.cloth_rollout.launches - n0)
+        n0 = (pcs.cloth_rollout.launches, pcs.cloth_rollout.ops)
+        cloth_runs[cg] = (*drive(torch, s), pcs.cloth_rollout.launches - n0[0],
+                          pcs.cloth_rollout.ops - n0[1])
     launches["cloth"] = pcs.cloth_rollout.launches
     off_path(pnh.nh_local_step_fused, pcg.cg_dia_solve, pbs.banded_rollout,
              ptri.tri_local_step_fused, plat.lattice_rollout)
@@ -1374,7 +1449,7 @@ def main():
     for cg in CLOTH_BUDGETS:
         g, c = gen[cg], cloth[cg]
         gmed, gwin, gcounts = gen_runs[cg]
-        cmed, cwin, n_launch = cloth_runs[cg]
+        cmed, cwin, n_launch, n_ops = cloth_runs[cg]
         gfin, gdrift, gsag = cloth_trajectory(g)
         cfin, cdrift, csag = cloth_trajectory(c)
         vs_general = float(np.abs(c.x - g.x).max())
@@ -1388,6 +1463,8 @@ def main():
             windows_ms=[round(w, 4) for w in cwin],
             spread_ms=max(cwin) - min(cwin), steps=steps,
             cloth_launches=n_launch, expected_launches=want,
+            device_ops_per_window=n_ops / n_launch,
+            device_ops_per_step=n_ops / steps,
             anchor_drift_m=cdrift, min_dy_m=csag,
             max_abs_dx_vs_general_m=vs_general,
             general_vs_perturbed_general_m=sens[cg], finite=cfin)
@@ -1396,19 +1473,24 @@ def main():
         if gcounts != (steps * ADMM_ITERS, steps * ADMM_ITERS):
             raise AssertionError(f"cloth cg{cg}: general-route launches "
                                  f"{gcounts}, expected {steps * ADMM_ITERS}")
-        if n_launch != want:
-            raise AssertionError(f"cloth cg{cg}: {n_launch} cloth launches, "
-                                 f"expected {want}")
+        if n_launch != want or n_ops != steps * (3 + 3 * ADMM_ITERS):
+            raise AssertionError(f"cloth cg{cg}: {n_launch} cloth "
+                                 f"submissions of {n_ops} launches, "
+                                 f"expected {want} of "
+                                 f"{steps * (3 + 3 * ADMM_ITERS)}")
         if not (gfin and cfin and max(gdrift, cdrift) < 1e-4
                 and max(gsag, csag) < 0
                 and vs_general <= max(1e-3, 10.0 * sens[cg])):
             raise AssertionError(f"cloth cg{cg}: bad trajectory")
-    # the one-launch route first: the general route's traces hold tens of
+    # the cloth route first: the general route's traces hold tens of
     # thousands of launches
-    for route, runs in (("fast", cloth), ("general", gen)):
-        for cg, s in runs.items():
-            profile_step.profile(cg, WINDOW_STEPS, route, s=s,
-                                 scene="cloth100k")
+    for cg, s in cloth.items():
+        check_window_ops(profile_step.profile(cg, WINDOW_STEPS, "fast", s=s,
+                                              scene="cloth100k"),
+                         f"cloth100k cloth cg{cg}", 3 + 3 * ADMM_ITERS)
+    for cg, s in gen.items():
+        profile_step.profile(cg, WINDOW_STEPS, "general", s=s,
+                             scene="cloth100k")
 
     # phase 5d: delaunay100k on the banded route (ELL matvec) and on the
     # general ell route with each CG backend, f32

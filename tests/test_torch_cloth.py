@@ -9,11 +9,16 @@ make_plane_grid cloths of tests/test_cloth_fast.py, f64. Tolerances:
 - port general vs JAX general, 5 steps: 1e-8 on x and v (the slice
   parity bound of tests/test_torch_system.py; the two packages sum the
   einsums and the RHS in different orders);
-- port cloth vs port general: 1e-12 on x (the same projection code, the
-  Pallas kernel's summation order against the general route's: round-off,
-  as tests/test_cloth_fast.py holds the JAX routes);
+- port cloth vs port general: 1e-12 on x (the same projection code and
+  the same dia matrix, the Pallas kernel's summation order of the RHS
+  against the general route's, and the cluster solve's order of the dots
+  against torch.sum: round-off, as tests/test_cloth_fast.py holds the JAX
+  routes);
 - port cloth twin vs the JAX cloth kernel after a 10-step window: 1e-8 on
-  x and v."""
+  x and v (the JAX kernel's matvec mirrors a half-stored A, the port's
+  adds A's diagonals in offset order);
+- the twin's solve against `pcg_fixed_inv` with `cluster_dot` over the
+  System's own diagonals: bitwise."""
 
 import jax
 import jax.numpy as jnp
@@ -25,8 +30,9 @@ import admm_elastic_tpu as aet
 import admm_elastic_tpu_torch as pt
 from admm_elastic_tpu.core.cloth import ClothStepper as JaxClothStepper
 from admm_elastic_tpu_torch.core.cloth import ClothStepper
-from admm_elastic_tpu_torch.core.solver import dia_apply
+from admm_elastic_tpu_torch.core.solver import dia_apply, pcg_fixed_inv
 from admm_elastic_tpu_torch.ops.kernels import cloth_step as pcs
+from admm_elastic_tpu_torch.ops.kernels.cg_step import cluster_dot
 from admm_elastic_tpu_torch.utils import cloth_from_reference, from_reference
 
 torch.set_num_threads(1)
@@ -176,7 +182,10 @@ def test_groups_match_jax():
     assert [g[1] for g in st.groups] == [g[1] for g in js.groups]
     assert [g[0] for g in st.groups] == [g[0] for g in js.groups]
     assert st.wind_groups == [w[0] for w in js.wind_groups]
-    assert st.cfg.dia_offs == js.dia_offs
+    # the JAX kernel stores A's diagonals at offsets >= 0 only; the port
+    # keeps all of them, at their signed offsets
+    assert tuple(o for o in st.cfg.dia_offs if o >= 0) == js.dia_offs
+    assert st.cfg.dia_offs == tuple(-o for o in reversed(st.cfg.dia_offs))
 
 
 @pytest.mark.parametrize("bad", [
@@ -278,16 +287,92 @@ def test_wrapper_routing_and_checks():
         pcs.cloth_rollout(bad, st.planes, st.cfg, 1)
 
 
+def _sym_dia_apply(y, offs, half):
+    """A y for a symmetric A stored at offsets >= 0 only (half[d,i] = A[i,
+    i+off]), the JAX cloth kernel's storage, in its order: per diagonal,
+    the upper term, then the mirrored lower term."""
+    n = y.shape[0]
+    out = torch.zeros_like(y)
+    for d, off in enumerate(offs):
+        w = half[d][:, None]
+        if off == 0:
+            out = out + w * y
+        elif off < n:
+            out[: n - off] = out[: n - off] + w[: n - off] * y[off:]
+            out[off:] = out[off:] + w[: n - off] * y[: n - off]
+    return out
+
+
 def test_sym_dia_apply_matches_full_dia():
-    """The symmetric half-storage matvec against the full dia matvec of
-    the general route on the same A_hat."""
+    """The cloth route's matrix, all of A's diagonals at their signed
+    offsets, against the JAX kernel's symmetric half storage (its offsets
+    >= 0, each term mirrored): the same A y to round-off."""
     s = cloth(pt, True)
     st = _stepper(s)
+    offs, dia = st.cfg.dia_offs, st.planes["dia"]
+    half = [d for d, o in enumerate(offs) if o >= 0]
     y = torch.as_tensor(np.random.default_rng(3).normal(size=(s.n_nodes, 3)))
-    got = pcs.sym_dia_apply(y, st.cfg.dia_offs, st.planes["dia"])
-    want = dia_apply(y, s._dia_offsets, s.params["_solver"]["dia_vals"])
+    want = _sym_dia_apply(y, [offs[d] for d in half], dia[half])
+    got = dia_apply(y, offs, dia)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                atol=1e-12)
+    assert not torch.equal(got, want)  # the two orders differ in the bits
+
+
+def test_cloth_matrix_is_the_general_routes():
+    """The cloth route keeps the general route's own diagonals, offsets
+    and D^-1, bitwise."""
+    s = cloth(pt, False)
+    st = _stepper(cloth(pt, True))
+    sv = s.params["_solver"]
+    assert st.cfg.dia_offs == tuple(s._dia_offsets)
+    assert torch.equal(st.planes["dia"], sv["dia_vals"])
+    assert torch.equal(st.planes["invd"], 1.0 / sv["diag"])
+
+
+def test_cloth_twin_solve_is_cluster_pcg(monkeypatch):
+    """Each ADMM iteration's solve in the twin is `pcg_fixed_inv` with
+    `cluster_dot` over the System's own diagonals, from x, D^-1 as stored:
+    bitwise."""
+    s = cloth(pt, False, nx=5, ny=4)
+    sv = s.params["_solver"]
+    st = _stepper(cloth(pt, True, nx=5, ny=4))
+    calls = []
+
+    def spy(A, b, x0, inv, n_iters, dot):
+        x = pcg_fixed_inv(A, b, x0, inv, n_iters, dot)
+        calls.append((b, x0, inv, n_iters, dot, x))
+        return x
+
+    monkeypatch.setattr(pcs, "pcg_fixed_inv", spy)
+    state = {k: st.state[k] for k in pcs.STATE}
+    out = pcs.cloth_rollout_reference(state, st.planes, st.cfg, 2)
+    assert len(calls) == 2 * st.cfg.admm_iters
+    for b, x0, inv, n_iters, dot, x in calls:
+        assert dot is cluster_dot and n_iters == st.cfg.cg_iters == 30
+        want = pcg_fixed_inv(
+            lambda y: dia_apply(y, s._dia_offsets, sv["dia_vals"]), b, x0,
+            1.0 / sv["diag"], n_iters, cluster_dot)
+        assert torch.equal(x, want)
+    assert torch.equal(out["x"], calls[-1][-1])
+
+
+def test_setters_take_effect_between_windows():
+    """Positions and velocities set between windows are the ones the next
+    window steps from (the stepper copies them into its state)."""
+    st = _stepper(cloth(pt, True, nx=5, ny=4, wind=False, iters=3, cg=5))
+    st.run(10)
+    x = st.x + 0.01 * np.random.default_rng(0).standard_normal(st.x.shape)
+    v = np.full_like(x, 0.05)
+    st.set_positions(x)
+    st.set_velocities(v)
+    assert np.array_equal(st.x, x) and np.array_equal(st.v, v)
+    start = {k: st.state[k].clone() for k in pcs.STATE}
+    st.run(10)
+    want = pcs.cloth_rollout_reference(start, st.planes, st.cfg, 10)
+    for k in pcs.STATE:
+        assert torch.equal(st.state[k], want[k]), k
+    assert np.isfinite(st.x).all() and np.abs(st.x - x).max() > 1e-3
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -1,7 +1,7 @@
 """Hand-written kernels against their plain twins on a CUDA device: those of
 the ell routes, the element steps of the unfused pipeline and of
-LinearTetStrain, the banded and lattice whole-timestep windows, and the
-sharded banded stepper's local phase (banded_local_rhs) and Chebyshev
+LinearTetStrain, the banded, lattice and cloth whole-timestep windows, and
+the sharded banded stepper's local phase (banded_local_rhs) and Chebyshev
 chunk (cheb_dia_chunk). Every case is marked `cuda` and skips without a card. This
 file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed (tests/conftest.py sets JAX up, hence --noconftest):
@@ -13,16 +13,17 @@ kernels' order (`chain_dot`, `cluster_dot`, `dia_apply`,
 `ell_apply_by_slot`), so the kernels must repeat them bitwise, the two
 cluster solves at any n (`scenes.banded_spd`: fewer rows than CTAs, a
 last slab cut short, windows too large for shared memory, a random
-numbering). The banded and lattice windows (element kernel, vertex
-kernel, the cluster solve, every ADMM iteration) repeat their twins
-bitwise too, in every mode, and a stepper's CUDA graph replays the same
-bits as the window's eager launches. The element steps
+numbering). The banded, lattice and cloth windows (element kernel,
+vertex kernel, the cluster solve, every ADMM iteration) repeat their
+twins bitwise too, in every mode, and a stepper's CUDA graph replays the
+same bits as the window's eager launches. The element steps
 (nh_local_step, tri_local_step, arap_local_step_fused, arap_local_step)
 are built without FMA contraction and use correctly rounded sqrt and
 division, as their twins do on the card: bitwise. banded_local_rhs runs
 the banded kernel's element and vertex phases (1e-12 relative in f64,
 1e-4 in f32: a last-bit difference may move a Newton tie); cheb_dia_chunk
-repeats its twin's arithmetic in its order (1e-12 / 1e-5 relative)."""
+repeats its twin's arithmetic in its order, bitwise in both layouts of its
+cluster."""
 
 import dataclasses
 
@@ -35,14 +36,16 @@ from admm_elastic_tpu_torch.core.lattice import LatticeStepper
 from admm_elastic_tpu_torch.ops.kernels import (_build, banded_local,
                                                 banded_step, cg_dia, cg_ell,
                                                 cg_step, cheb_dia,
-                                                lattice_step, nh_local,
-                                                tet_local, tri_local)
+                                                cloth_step, lattice_step,
+                                                nh_local, tet_local,
+                                                tri_local)
 from admm_elastic_tpu_torch.parallel.cheb import (cheb_coefficients,
                                                   dia_operator_bounds)
 from admm_elastic_tpu_torch.utils import scenes
 from admm_elastic_tpu_torch.utils.scenes import (banded_spd, beam_system,
+                                                 cloth_system,
                                                  jittered_system,
-                                                 small_delaunay)
+                                                 small_cloth, small_delaunay)
 
 DTYPES = [torch.float64, torch.float32]
 
@@ -191,7 +194,8 @@ def test_cluster_solve_in_the_shared_layout(dtype):
 
 
 def _window_is_its_twin(run, twin, keys, st, planes, cfg, steps):
-    """A window (run: banded_rollout or lattice_rollout) from the
+    """A window (run: banded_rollout, lattice_rollout or cloth_rollout) from
+    the
     stepper's state, twice, and its twin: bitwise, finite. Returns the
     window's state."""
     n0 = run.launches
@@ -325,9 +329,54 @@ def test_banded_arap_kernel_matches_twin(dtype):
     assert torch.equal(got["warm"], st.state["warm"])  # arap leaves it
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("limiting", [True, False], ids=["limited", "free"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_cloth_window_is_its_twin(dtype, limiting):
+    """The 8 x 6 sheet (wind, bend, anchors) with one anchor released, one
+    10-step window with strain limiting on and off: bitwise, its 3 + 3
+    admm_iters launches a step; the released anchor's dual stays exactly
+    0."""
+    _cuda()
+    st = small_cloth(dtype)._stepper
+    assert st.n_elements[1] > 0 and st.planes["widx"].shape[1] > 0
+    planes = dict(st.planes, aw2=st.planes["aw2"].clone())
+    released = int(torch.nonzero(planes["aw2"])[0])
+    planes["aw2"][released] = 0.0
+    cfg = dataclasses.replace(st.cfg, limiting=limiting)
+    ops = cloth_step.cloth_rollout.ops
+    got = _window_is_its_twin(cloth_step.cloth_rollout,
+                              cloth_step.cloth_rollout_reference,
+                              cloth_step.STATE, st, planes, cfg, 10)
+    assert cloth_step.cloth_rollout.ops == ops + 2 * 10 * (
+        3 + 3 * cfg.admm_iters)
+    assert torch.count_nonzero(got["au"][released]) == 0
+    assert torch.count_nonzero(got["au"]) > 0
+
+
+@pytest.mark.cuda
+def test_cloth_capture_after_a_smaller_one():
+    """A 60 x 60 cloth's windows captured after the 8 x 6 sheet's (whose
+    solve takes less shared memory a CTA), then the small one's replayed
+    again: both bitwise to eager launches (the solve's shared-memory
+    attribute only grows)."""
+    _cuda()
+    small = small_cloth(torch.float64)._stepper
+    big = cloth_system(60, 60, 25, torch.float64, "cuda")._stepper
+    run = cloth_step.cloth_rollout
+    for st in (small, big, small):
+        start = {k: st.state[k].clone() for k in cloth_step.STATE}
+        st.run(10)
+        want = run(start, st.planes, st.cfg, 10)
+        for k in cloth_step.STATE:
+            assert torch.equal(st.state[k], want[k]), k
+
+
 STEPPERS = {
     "banded": (lambda dt: jittered_system(dtype=dt)._stepper,
                banded_step.banded_rollout, banded_step.STATE),
+    "cloth": (lambda dt: small_cloth(dt)._stepper,
+              cloth_step.cloth_rollout, cloth_step.STATE),
     "banded ell": (lambda dt: small_delaunay(25, dt, "cuda",
                                              fast=True)._stepper,
                    banded_step.banded_rollout, banded_step.STATE),
@@ -428,7 +477,8 @@ def test_banded_local_kernel_matches_twin(dtype, model):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
 def test_cheb_dia_kernel_matches_twin(dtype, n_it, first, last):
     """The chunk on the jittered 4 x 3 x 3 beam's A_hat: init-only, a
-    middle chunk, a last chunk and a whole 41-iteration solve."""
+    middle chunk, a last chunk and a whole 41-iteration solve; bitwise to
+    its twin and to itself (the WINDOW layout)."""
     dev = _cuda()
     st = jittered_system((4, 3, 3), 25, dtype, "cuda")._stepper
     dia, offs = st.planes["dia"], st.cfg.dia_offs
@@ -448,9 +498,72 @@ def test_cheb_dia_kernel_matches_twin(dtype, n_it, first, last):
     again = cheb_dia.cheb_dia_chunk(*args, **kw)
     assert cheb_dia.cheb_dia_chunk.launches == n0 + 2
     want = cheb_dia.cheb_dia_chunk_reference(*args, **kw)
-    assert _rel(got, want) < (1e-12 if dtype == torch.float64 else 1e-5)
-    for g, a in zip(got, again):
+    plan = cheb_dia.cheb_plan(b.shape[0], dtype, offs)
+    assert plan["vectors_in_smem"]
+    for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
+        assert torch.equal(g, w)
+
+
+def _band(*offsets):
+    """The diagonals of `banded_spd(n, offsets)`."""
+    return tuple(sorted({0, *offsets, *(-o for o in offsets)}))
+
+
+def _wide_cheb_chunk(n, offsets, dtype, dev, n_it, first, last):
+    """A chunk on `banded_spd(n, offsets)` from its 40-iteration schedule:
+    bitwise to its twin and to itself."""
+    s = banded_spd(n, offsets=offsets, dtype=dtype, device=dev)
+    offs = s["offsets"]
+    inv_theta, c1, c2 = cheb_coefficients(
+        40, *dia_operator_bounds(s["dia_vals"].double().cpu().numpy(), offs))
+    rng = np.random.default_rng(n_it)
+    z, d = (torch.as_tensor(rng.standard_normal((n, 3)), dtype=dtype,
+                            device=dev) for _ in range(2))
+    c1, c2 = (torch.as_tensor(c[:max(n_it, 1)], dtype=dtype, device=dev)
+              for c in (c1, c2))
+    args = (s["b"], s["x0"], z, d, 1.0 / s["diag"], s["dia_vals"], c1, c2)
+    kw = dict(offsets=offs, n_it=n_it, first=first, last=last,
+              inv_theta=inv_theta)
+    got = cheb_dia.cheb_dia_chunk(*args, **kw)
+    again = cheb_dia.cheb_dia_chunk(*args, **kw)
+    want = cheb_dia.cheb_dia_chunk_reference(*args, **kw)
+    for g, a, w in zip(got, again, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, a)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_it,first,last", [
+    (0, True, False), (7, False, False), (39, True, True)])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_cheb_dia_kernel_in_the_shared_layout(dtype, n_it, first, last):
+    """The chunk on a 20,000-row band reaching 9,000 rows (no window fits
+    in shared memory: d in global memory, a cluster barrier an iteration):
+    init-only, a middle chunk and a whole 40-iteration solve, bitwise to
+    its twin and to itself."""
+    dev = _cuda()
+    plan = cheb_dia.cheb_plan(20000, dtype, _band(1, 3, 7, 9000))
+    assert not plan["vectors_in_smem"] and plan["matrix_in_smem"]
+    _wide_cheb_chunk(20000, (1, 3, 7, 9000), dtype, dev, n_it, first, last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offsets,dtype,window", [
+    (40000, (1, 3, 7, 600), torch.float32, True),
+    (60000, (1, 3, 7, 9000), torch.float64, False)],
+    ids=["window", "shared"])
+def test_cheb_dia_kernel_with_the_matrix_in_global_memory(n, offsets, dtype,
+                                                          window):
+    """Slabs whose diagonals do not fit in shared memory beside the
+    vectors, in either layout: a whole 40-iteration solve and a middle
+    chunk, bitwise to the twin and to itself."""
+    dev = _cuda()
+    plan = cheb_dia.cheb_plan(n, dtype, _band(*offsets))
+    assert plan["vectors_in_smem"] == window and not plan["matrix_in_smem"]
+    for n_it, first, last in ((39, True, True), (7, False, False)):
+        _wide_cheb_chunk(n, offsets, dtype, dev, n_it, first, last)
 
 
 @pytest.mark.cuda

@@ -53,9 +53,9 @@ def test_tri_local_counts_are_per_element():
 
 def test_cloth_rollout_counts_one_cg_iteration():
     """One more CG iteration per ADMM iteration adds exactly the work of
-    one Jacobi-PCG iteration with the symmetric-dia matvec, per ADMM
-    iteration: the matvec (6n for the main diagonal, 12(n - off) for each
-    other stored one), 36n vector ops and 6 scalar ones."""
+    one Jacobi-PCG iteration (`pcg_fixed_inv`) with the dia matvec, per
+    ADMM iteration: the matvec (a product and a sum, 6(n - |off|), for
+    each diagonal), 33n vector ops and 6 scalar ones."""
     import dataclasses
 
     from admm_elastic_tpu_torch.ops.kernels import cloth_step
@@ -72,9 +72,8 @@ def test_cloth_rollout_counts_one_cg_iteration():
     o3, b3 = counts(cfg)
     o4, b4 = counts(dataclasses.replace(cfg, cg_iters=4))
     n = st.n_nodes
-    matvec = sum(6 * n if off == 0 else 12 * (n - off)
-                 for off in cfg.dia_offs)
-    assert o4 - o3 == cfg.admm_iters * (matvec + 36 * n + 6)
+    matvec = sum(6 * (n - abs(off)) for off in cfg.dia_offs)
+    assert o4 - o3 == cfg.admm_iters * (matvec + 33 * n + 6)
     assert b3 == b4 > 0
 
 
