@@ -5,9 +5,12 @@ or corotational (ARAP) tet force, in dia mode and in ell mode (its uell
 matvec: a tet mesh of any topology). One submission (a CUDA graph of the
 window's kernels, `ops/kernels/banded_step.py`) runs a whole window of
 timesteps: gravity kick, every ADMM iteration's local steps and dual
-updates, anchors, collisions and the fixed-budget Jacobi-PCG solve on one
-thread-block cluster. Trajectories match the general `System` route to
-round-off (tests/test_torch_banded.py).
+updates, anchors, collisions and the fixed-budget PCG solve on one
+thread-block cluster, preconditioned by Jacobi or, under
+`preconditioner="amg"` on a grid mesh in nested numbering (dia mode), by
+the geometric multigrid V-cycle (`core/mg.py`, `ops/kernels/mg.py`).
+Trajectories match the general `System` route to round-off
+(tests/test_torch_banded.py).
 
 The JAX stepper packs the mesh for the TPU: (Nr,128) lane planes, tets
 sorted and packed into 128-lane sub-blocks with distinct scatter lanes
@@ -23,7 +26,7 @@ planes over a diluted, spatially ordered vertex layout, hub splits, an
 rejects still takes this kernel here, with the same physics.
 
 Out of this slice (raise or do not qualify, see ROADMAP.md): in-kernel
-residuals, in-kernel multigrid (geometric and algebraic) and scenario
+residuals, the in-kernel algebraic multigrid of the ell mode and scenario
 sweeps (B2).
 """
 
@@ -37,7 +40,9 @@ from ..models import (Collision, Cylinder, ExplicitForce, Floor,
 from ..ops.kernels._graph import WindowGraphs
 from ..ops.kernels.banded_step import (STATE, BandedConfig, BandedWindow,
                                        banded_rollout)
-from .solver import assemble_transpose_incidence
+from ..ops.kernels.mg import MGConfig, planes_from
+from .mg import build_grid_mg
+from .solver import _assemble_A_hat_csr, assemble_transpose_incidence
 
 
 class BandedStepper:
@@ -48,10 +53,12 @@ class BandedStepper:
     or one `LinearTetStrain` (model 'arap', per-element k),
     StaticAnchors with per-node weights, an optional Collision of
     floor/sphere/cylinder shapes, all-node gravity kicks and `cg_iters`
-    fixed Jacobi-PCG iterations per global solve. Arrays are numpy, in the
+    fixed PCG iterations per global solve. Arrays are numpy, in the
     System's vertex and element numbering. A_hat is given by its diagonals
     (dia_offs, dia_vals) or, with `ell=(idx, vals)` ((n,K) each) and
-    dia_offs = (), dia_vals = None, in ELL form.
+    dia_offs = (), dia_vals = None, in ELL form. The preconditioner is
+    Jacobi, or with `mg` (a `core.mg.build_grid_mg` result; dia only) the
+    multigrid V-cycle.
     """
 
     ROLLOUT_WINDOW = 10
@@ -62,7 +69,7 @@ class BandedStepper:
                  dia_offs, dia_vals, diag, *,
                  gravity=(0.0, -9.8, 0.0), dt=0.04, admm_iters=10,
                  cg_iters=25, dtype=torch.float32, device="cuda",
-                 coll_shapes=(), coll_w2=0.0, ell=None):
+                 coll_shapes=(), coll_w2=0.0, ell=None, mg=None):
         v = np.asarray(vertices, np.float64)
         n = len(v)
         idx = np.asarray(tet_idx, np.int64).reshape(-1, 4)
@@ -79,6 +86,7 @@ class BandedStepper:
                               for k, prm in coll_shapes),
             coll_w2=float(coll_w2),
             ell_width=0 if ell is None else int(np.shape(ell[0])[1]),
+            mg=None if mg is None else MGConfig.of(mg),
         )
 
         coeff = np.asarray(tet_coeff, np.float64).reshape(E, 3, 4)
@@ -113,6 +121,9 @@ class BandedStepper:
         else:
             self.planes["ell_idx"] = self._dev(ell[0], torch.int32)
             self.planes["ell_vals"] = self._dev(ell[1])
+        if mg is not None:
+            self.planes.update(planes_from(mg, dtype, self.device))
+            self.mg_levels = mg["levels"]
         self.state = {
             "x": self._dev(v),
             "v": self._dev(np.zeros((n, 3))),
@@ -191,6 +202,12 @@ def banded_from_system(system):
     keeps it on the general route; acceleration and residuals raise
     there.) A `(first, rest)` cg_fixed_iters raises: the kernel takes one
     budget (the JAX stepper's int() of a tuple fails as well).
+
+    Under preconditioner="amg" the dia mode builds the geometric multigrid
+    (`core.mg.build_grid_mg`, default budget 8) and returns None where the
+    mesh is not a full grid in nested numbering; the ell mode, where the
+    JAX package builds its algebraic multigrid (core/uamg.py), raises
+    NotImplementedError (ROADMAP A6).
     """
     s = system.settings
     if system._solver_mode not in ("dia", "ell"):
@@ -249,11 +266,30 @@ def banded_from_system(system):
         else:
             shapes.append(("cylinder", (q.center[0], q.center[1], q.radius)))
     sv = host["_solver"]
+    amg = s.preconditioner == "amg"
     if system._solver_mode == "ell":
+        if amg:
+            raise NotImplementedError(
+                "preconditioner='amg' on the banded kernel's ell mode runs "
+                "the JAX package's in-kernel algebraic multigrid "
+                "(core/uamg.py), which is not ported (ROADMAP A6); use "
+                "global_solver='dia' on a grid mesh for the geometric "
+                "multigrid")
         matrix = dict(dia_offs=(), dia_vals=None,
                       ell=(sv["ell_idx"], sv["ell_vals"]))
     else:
         matrix = dict(dia_offs=system._dia_offsets, dia_vals=sv["dia_vals"])
+        if amg:
+            cparams = {k: host[k] for k in system._constraint_names}
+            A = _assemble_A_hat_csr(system.n_nodes, system._m, s.timestep_s,
+                                    cparams)
+            matrix["mg"] = build_grid_mg(A, system._x)
+            if matrix["mg"] is None:
+                return None  # System.initialize raises JAX's ValueError
+            if s.verbose:
+                lv = matrix["mg"]["levels"]
+                print("Solver: in-kernel multigrid engaged "
+                      f"({lv[0]} -> {lv[1]} -> {lv[2]})")
     return BandedStepper(
         system._x, system._m, p["indices"], p["coeff"], p["w2"], mu, lam,
         p["k"], model, newton_iters,
@@ -262,7 +298,8 @@ def banded_from_system(system):
         np.concatenate(anchor_pos or [np.zeros((0, 3))]),
         diag=sv["diag"], **matrix, gravity=tuple(gravity), dt=s.timestep_s,
         admm_iters=s.admm_iters,
-        cg_iters=25 if s.cg_fixed_iters is None else int(s.cg_fixed_iters),
+        cg_iters=((8 if amg else 25) if s.cg_fixed_iters is None
+                  else int(s.cg_fixed_iters)),
         dtype=s.dtype, device=s.device, coll_shapes=shapes,
         coll_w2=(coll.weight_value ** 2 if coll is not None else 0.0),
     )

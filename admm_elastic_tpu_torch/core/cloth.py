@@ -1,12 +1,15 @@
 """The cloth whole-timestep route: `ClothStepper` and `cloth_from_system`.
 
-Counterpart of `admm_elastic_tpu/core/cloth.py` in Jacobi-PCG mode. One
+Counterpart of `admm_elastic_tpu/core/cloth.py`, with the Jacobi-PCG and
+the in-kernel 2D geometric multigrid (`preconditioner="amg"`,
+`ClothStepper(multigrid=True)`: `core/mg.py` on the first stride ladder of
+`MG_LADDERS` whose coarsest level fits) as the solve's preconditioner. One
 submission (a CUDA graph of the window's kernels,
 `ops/kernels/cloth_step.py`) runs a whole window of timesteps of a
 {LimitedTriangleStrain, Bend, StaticAnchor, gravity, WindForce} cloth on
 the dia solver: explicit kicks, every ADMM iteration's triangle and hinge
-local steps, dual updates, anchors and the fixed-budget Jacobi-PCG solve
-on one thread-block cluster, the general route's dia solve. Trajectories
+local steps, dual updates, anchors and the fixed-budget PCG solve
+on one thread-block cluster on the general route's dia matrix. Trajectories
 match the general `System` route to round-off
 (tests/test_torch_cloth.py).
 
@@ -20,8 +23,8 @@ Pallas kernel accumulates them) and the per-group constants.
 
 Out of this slice (raise, see ROADMAP.md): the kernel on a sheet that
 qualifies only after the JAX package's scrambled-grid or sym-plane
-renumbering (the detectors are here, to tell when that happens), the
-in-kernel 2D multigrid (`preconditioner="amg"`) and in-kernel residuals.
+renumbering (the detectors are here, to tell when that happens) and
+in-kernel residuals.
 """
 
 from __future__ import annotations
@@ -34,8 +37,10 @@ from ..models import (Bend, ExplicitForce, LimitedTriangleStrain,
 from ..ops.kernels._graph import WindowGraphs
 from ..ops.kernels.cloth_step import (BEND_TAB, STATE, TRI_TAB, ClothConfig,
                                       ClothWindow, cloth_rollout)
+from ..ops.kernels.mg import MGConfig, planes_from
 from .lattice import detect_grid_numbering
-from .solver import assemble_A_hat_dia
+from .mg import LANES, build_grid_mg
+from .solver import _assemble_A_hat_csr, assemble_A_hat_dia
 
 # group budget of the JAX kernel (sym-plane: 4 tri + 6 hinge stencils;
 # editor-reordered face lists up to 4 + 12)
@@ -44,6 +49,11 @@ MAX_WIND_GROUPS = 4
 # non-negative offsets of the JAX kernel's symmetric dia planes: a matrix
 # with more takes the general route there, and so here
 MAX_DIAGONALS = 24
+# the in-kernel multigrid's stride ladders, tried in the JAX package's
+# order of preference (tools/cloth_mg_study.py), and the cap on its
+# coarsest level: MG_MAX_NP2 x 128 dofs
+MG_LADDERS = ((2, 4), (2, 8), (4, 8), (4, 16))
+MG_MAX_NP2 = 8
 
 
 def group_constant_offsets(indices):
@@ -188,6 +198,18 @@ def detect_symplane_positions(vertices, rel_tol=1e-5):
     return cid
 
 
+def ladder_mg(A, vertices):
+    """The cloth kernel's multigrid of CSR A on a grid sheet: that of the
+    first ladder of MG_LADDERS whose coarsest level has at most
+    MG_MAX_NP2 x 128 dofs (`core.mg.build_grid_mg`), or None."""
+    for ladder in MG_LADDERS:
+        mg = build_grid_mg(A, vertices, ladder,
+                           max_coarse=MG_MAX_NP2 * LANES)
+        if mg is not None:
+            return mg
+    return None
+
+
 def _ordered_incidence(n, verts, keys):
     """(n, S) int32 vertex -> slot table: slot m belongs to vertex
     verts[m]; each vertex's slots are sorted by keys[m], then padded with
@@ -222,9 +244,11 @@ class ClothStepper:
     stiffness/limits per stencil group), an optional Bend (uniform alpha
     per group), StaticAnchors (one weight), all-node gravity kicks, an
     optional WindForce over groupable triangles, and the dia global solve
-    with `cg_iters` fixed Jacobi-PCG iterations. `wind` is (direction,
-    triangles) or None. Arrays are numpy, in the System's numbering.
-    Raises ValueError when the mesh does not qualify."""
+    with `cg_iters` fixed PCG iterations, preconditioned by Jacobi or,
+    with multigrid=True, by the V-cycle of the first ladder of MG_LADDERS
+    whose coarsest level has at most MG_MAX_NP2 x 128 dofs. `wind` is
+    (direction, triangles) or None. Arrays are numpy, in the System's
+    numbering. Raises ValueError when the mesh does not qualify."""
 
     model = "cloth"
     ROLLOUT_WINDOW = 10
@@ -232,7 +256,7 @@ class ClothStepper:
     def __init__(self, vertices, masses, tri_force, bend_force, anchor_idx,
                  anchor_weight=1000.0, gravity=(0.0, -9.8, 0.0), wind=None,
                  dt=0.04, admm_iters=10, cg_iters=25, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", multigrid=False):
         v = np.asarray(vertices, np.float64)
         n = len(v)
         self.n_nodes = n
@@ -305,12 +329,21 @@ class ClothStepper:
         all_offs, dia_vals, diag = out
         if sum(o >= 0 for o in all_offs) > MAX_DIAGONALS:
             raise ValueError("too many diagonals for the cloth kernel")
+        mg = None
+        if multigrid:
+            mg = ladder_mg(_assemble_A_hat_csr(n, masses, dt, fp), v)
+            if mg is None:
+                raise ValueError(
+                    "in-kernel multigrid: no stride ladder fits this "
+                    "grid (not a full grid in nested numbering?)")
+            self.mg_levels = mg["levels"]
 
         self.cfg = ClothConfig(
             dia_offs=tuple(int(o) for o in all_offs), cg_iters=int(cg_iters),
             admm_iters=int(admm_iters), dt=float(dt),
             gravity=tuple(float(g) for g in gravity), wind_dir=wind_dir,
             limiting=bool(tri_force.strain_limiting),
+            mg=None if mg is None else MGConfig.of(mg),
         )
         self.groups = [("tri", offs) for offs, _, _ in gt] + [
             ("bend", offs) for offs, _, _ in gh]
@@ -360,6 +393,8 @@ class ClothStepper:
             "inc": self._dev(inc, torch.int32),
             "winc": self._dev(winc, torch.int32),
         }
+        if mg is not None:
+            self.planes.update(planes_from(mg, dtype, self.device))
         self.state = {
             "x": self._dev(v),
             "v": self._dev(np.zeros((n, 3))),
@@ -433,8 +468,9 @@ def cloth_from_system(system):
     with uniform constants, at most one Bend (same condition on hinges),
     StaticAnchors with one shared weight, all-node ExplicitForce kicks, at
     most one WindForce over groupable triangles, and a dia-structured
-    A_hat. (Relaxation, residuals and the multigrid never reach here:
-    System.initialize rejects them.) Where the sheet does not qualify in
+    A_hat; under preconditioner="amg" the multigrid builds (default budget
+    10). (Relaxation and residuals never reach here: System.initialize
+    rejects them.) Where the sheet does not qualify in
     its own numbering, the JAX package tries its grid and sym-plane
     renumberings (`detect_grid_numbering`, `detect_symplane_numbering`,
     `detect_symplane_positions`) and runs the kernel on the first that
@@ -492,6 +528,7 @@ def cloth_from_system(system):
                                   for a in anchors])
                   if anchors else np.zeros(0, np.int64))
     verts, n = system._x, system.n_nodes
+    mg = s.preconditioner == "amg"
 
     def build(cid):
         """The stepper with vertex permutation cid (None: the System's
@@ -521,9 +558,9 @@ def cloth_from_system(system):
                 wind=((wind.direction, remap(wind.tris)) if wind is not None
                       else None),
                 dt=s.timestep_s, admm_iters=s.admm_iters,
-                cg_iters=(25 if s.cg_fixed_iters is None
+                cg_iters=((10 if mg else 25) if s.cg_fixed_iters is None
                           else int(s.cg_fixed_iters)),
-                dtype=s.dtype, device=s.device)
+                dtype=s.dtype, device=s.device, multigrid=mg)
         except ValueError:
             return None
 

@@ -250,12 +250,20 @@ def pcg_fixed_inv(A_apply, b, x0, inv_diag, n_iters: int, dot=None):
     itself, as the banded steppers store it; returns x. `dot(a, b)` sums
     a*b over all 3n values (default torch.sum; a kernel's twin passes the
     kernel's order)."""
+    return pcg_fixed_precond(A_apply, b, x0, lambda r: inv_diag[:, None] * r,
+                             n_iters, dot)
+
+
+def pcg_fixed_precond(A_apply, b, x0, precond, n_iters: int, dot=None):
+    """n_iters PCG iterations from x0 with z = precond(r) (Jacobi:
+    `pcg_fixed_inv`; the multigrid V-cycle: `ops.kernels.mg`), the
+    pAp > 0 and rz > 0 guards; returns x. `dot` as in `pcg_fixed_inv`."""
     if dot is None:
         def dot(a, b):
             return torch.sum(a * b)
 
     r = b - A_apply(x0)
-    z = inv_diag[:, None] * r
+    z = precond(r)
     p = z
     rz = dot(r, z)
     x = x0
@@ -265,7 +273,7 @@ def pcg_fixed_inv(A_apply, b, x0, inv_diag, n_iters: int, dot=None):
         alpha = rz / torch.where(pAp > 0, pAp, 1.0)
         x = x + alpha * p
         r = r - alpha * Ap
-        z = inv_diag[:, None] * r
+        z = precond(r)
         rz_new = dot(r, z)
         beta = rz_new / torch.where(rz > 0, rz, 1.0)
         p = z + beta * p

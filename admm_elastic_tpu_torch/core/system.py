@@ -38,7 +38,10 @@ kernel (`core/banded.py`, dia or ELL matvec), uniform beam lattices on the
 lattice kernel (`core/lattice.py`), grid cloth on the cloth kernel
 (`core/cloth.py`); any other scene steps the general route. Over-
 relaxation disables the fast paths (the kernels run the plain iteration),
-as in the JAX package.
+as in the JAX package. `preconditioner="amg"` runs the banded or cloth
+kernel's in-kernel geometric multigrid (`core/mg.py`) in place of the
+Jacobi preconditioner, and raises where the JAX package raises or runs an
+algebraic multigrid instead.
 
 Ported so far: every global mode, with kernel-backed hyperelastic and
 corotational tets and triangle strain, bend hinges, anchors, collisions,
@@ -78,6 +81,14 @@ from .solver import (
 
 GLOBAL_SOLVERS = ("auto", "dense", "cg", "ell", "dia")
 CG_BACKENDS = ("xla", "fused", "kernel")
+# where the JAX package runs its general-path algebraic multigrid
+# (core/amg.py; system.py:456-457, 486-497)
+_GENERAL_AMG = (
+    "preconditioner='amg' here runs the JAX package's general-path "
+    "algebraic multigrid (core/amg.py, the ell + xla PCG), which is not "
+    "ported (ROADMAP A6); the port runs 'amg' as the in-kernel geometric "
+    "multigrid: lattice_fast_path=True with global_solver='dia' on a full "
+    "tet or triangle grid in nested numbering")
 
 
 @dataclasses.dataclass
@@ -89,63 +100,72 @@ class Settings:
     verbose: int = 1
     #: float32 on the card; float64 for parity runs against the reference
     dtype: torch.dtype = torch.float32
-    #: where the state lives and the step runs; never changed silently
-    device: str = "cuda"
     #: 'auto' resolves as in the JAX package: 'dense' for n <=
     #: dense_max_nodes, else 'dia'. 'dia' falls back to 'ell' when A_hat
     #: has more than MAX_DIAGONALS diagonals; 'ell' takes any topology;
     #: 'cg' is matrix-free
     global_solver: str = "auto"
     dense_max_nodes: int = 4096
-    #: 'dense': rounds of x += A_inv (b - A_hat x) after the product with
-    #: the stored inverse (A_hat applied in ELL form), to recover accuracy
-    #: a float32 inverse loses
-    dense_refine_steps: int = 0
     #: relative residual tolerance and iteration cap of the
     #: tolerance-driven PCG, which 'ell' and 'cg' run when cg_fixed_iters
     #: is None
     cg_tol: float = 1e-10
     cg_max_iters: int = 250
-    #: CG iterations per global solve; None means 25 under 'dia' and the
-    #: tolerance-driven PCG under 'ell' and 'cg'. A tuple (first, rest)
+    #: CG iterations per global solve; None means 25 under 'dia' (8 on the
+    #: banded and 10 on the cloth kernel under preconditioner='amg') and
+    #: the tolerance-driven PCG under 'ell' and 'cg'. A tuple (first, rest)
     #: gives ADMM iteration 0, whose warm start is stale by the whole
     #: explicit kick, a deeper solve than the others
     cg_fixed_iters: int | tuple | None = None
     #: default backend for constraint batches built by the scene layer:
     #: 'xla' or 'pallas' (the scene layer is not ported yet, ROADMAP A7)
     local_backend: str = "xla"
-    #: global-step PCG preconditioner: only 'jacobi' is ported ('amg', the
-    #: in-kernel multigrid of the whole-timestep kernels, raises)
-    preconditioner: str = "jacobi"
     #: 'ell' with a fixed budget: 'xla' (plain PyTorch PCG), 'fused' (ELL
     #: matvec + one cg_update kernel per iteration) or 'kernel' (the whole
     #: solve in the cg_ell kernel). Ignored under 'dia', as in JAX
     cg_backend: str = "xla"
+    #: 'dense': rounds of x += A_inv (b - A_hat x) after the product with
+    #: the stored inverse (A_hat applied in ELL form), to recover accuracy
+    #: a float32 inverse loses
+    dense_refine_steps: int = 0
+    #: global-step PCG preconditioner: 'jacobi' (diagonal) or 'amg'. 'amg'
+    #: takes lattice_fast_path=True with global_solver='dia': the in-kernel
+    #: geometric multigrid V-cycle of the banded kernel on a full tet grid
+    #: or of the cloth kernel on a full triangle grid, both in nested
+    #: numbering (core/mg.py). Where the JAX package runs its algebraic
+    #: multigrid instead (the banded kernel's ell mode, the general route's
+    #: ell + xla PCG) the port raises (ROADMAP A6)
+    preconditioner: str = "jacobi"
+    # not ported yet (ROADMAP 2d): JAX's defaults; any other value raises
+    collect_residuals: bool | str = False
+    residual_tol: float | None = None
     #: True runs whole timesteps in one kernel launch per rollout window
     #: where the scene qualifies, trying the JAX package's chain in order:
     #: the banded kernel (core/banded.py; a tet scene under 'dia' or
     #: 'ell', nh/stvk or arap), the lattice kernel (core/lattice.py; a
     #: uniform make_beam_tets beam in any vertex numbering under any mode,
     #: one uniform tet force, StaticAnchors of one weight, at most one
-    #: Floor, gravity kicks), the cloth kernel (core/cloth.py; grid cloth).
-    #: A scene that none takes steps the general route, with JAX's note at
-    #: verbose >= 1. It raises only where the JAX package would engage a
-    #: kernel or mode the port lacks: the cloth kernel after a grid or
-    #: sym-plane renumbering, and a (first, rest) cg_fixed_iters on a
-    #: kernel (which the JAX steppers reject too)
+    #: Floor, gravity kicks; skipped under preconditioner='amg'), the
+    #: cloth kernel (core/cloth.py; grid cloth). A scene that none takes
+    #: steps the general route, with JAX's note at verbose >= 1. It raises
+    #: only where the JAX package would engage a kernel or mode the port
+    #: lacks: the cloth kernel after a grid or sym-plane renumbering, and a
+    #: (first, rest) cg_fixed_iters on a kernel (which the JAX steppers
+    #: reject too)
     lattice_fast_path: bool = False
     #: 'auto': a mesh that 'dia' rejects but whose positions form a regular
     #: grid is renumbered by the JAX package; the port raises there
     #: (ROADMAP 5c). 'none': straight to 'ell'
     reorder: str = "auto"
-    # Settings of the JAX package that the port does not implement yet.
-    # They keep the reference's defaults; any other value raises.
     relaxation: float = 1.0
+    #: not ported yet (ROADMAP A7): any value but None raises
     acceleration: str | None = None
-    residual_tol: float | None = None
-    collect_residuals: bool | str = False
     #: Anderson history depth m; inert while `acceleration` raises
     anderson_m: int = 5
+    #: where the state lives and the step runs; never changed silently.
+    #: Not a JAX setting, so it comes last: positional arguments mean what
+    #: they mean in the JAX package
+    device: str = "cuda"
 
     def parse_args(self, argv):
         """CLI parity with the reference: -dt, -v, -it, -help
@@ -173,9 +193,9 @@ class Settings:
     def unsupported(self) -> list[str]:
         """Names of the settings that ask for an unported feature."""
         out = []
-        if self.preconditioner != "jacobi":
+        if self.preconditioner not in ("jacobi", "amg"):
             out.append(f"preconditioner={self.preconditioner!r} (only "
-                       "'jacobi'; the in-kernel multigrid is ROADMAP B2/B9)")
+                       "'jacobi' and 'amg')")
         if self.acceleration is not None:
             out.append(f"acceleration={self.acceleration!r}")
         if self.residual_tol is not None:
@@ -291,6 +311,22 @@ class System:
         self._constraint_names = [f.name for f in self.forces]
         cparams = self._cparams(params)
         params["_solver"] = self._assemble_solver(cparams)
+        if s.preconditioner == "amg":
+            mode = self._solver_mode
+            # the JAX package's homes of the multigrid (system.py:438-457):
+            # the banded and cloth kernels' in-kernel multigrid, tried when
+            # the fast path routes, or the general route's algebraic one
+            in_kernel = s.lattice_fast_path and mode in ("dia", "ell")
+            if not in_kernel and (mode != "ell" or s.cg_backend != "xla"):
+                raise ValueError(
+                    "preconditioner='amg' needs global_solver='ell' with "
+                    "cg_backend='xla' (general path), or "
+                    "lattice_fast_path=True with global_solver='dia' "
+                    "(in-kernel geometric MG on grid meshes) or 'ell' "
+                    "(in-kernel algebraic MG, any topology)"
+                )
+            if not in_kernel:
+                raise NotImplementedError(_GENERAL_AMG)
 
         dtype = s.dtype
         self._params_host = params
@@ -324,6 +360,15 @@ class System:
                       "disabled (the general route honors it)")
         elif s.lattice_fast_path:
             self._route_fast_path()
+        if s.preconditioner == "amg" and self._stepper is None:
+            # an in-kernel candidate that did not engage: the JAX package
+            # falls back to its general-path algebraic multigrid
+            # (system.py:483-497), so 'amg' never runs on a Jacobi budget
+            if s.cg_backend != "xla":
+                raise ValueError(
+                    "preconditioner='amg' fallback needs cg_backend='xla'"
+                )
+            raise NotImplementedError(_GENERAL_AMG)
 
         if s.verbose >= 1:
             shape = {"dia": lambda: f"{len(self._dia_offsets)} diagonals",
@@ -386,14 +431,27 @@ class System:
     def _route_fast_path(self):
         """Engage a whole-timestep kernel, tried in the JAX package's order
         (system.py:899-942): the banded kernel (dia and ell modes), then
-        the lattice kernel, then the cloth kernel. A scene that none takes
-        steps the general route, with JAX's note. Sets `_stepper` and
-        `_to_canon` (the caller's vertex id -> the stepper's)."""
+        the lattice kernel (not under preconditioner='amg': it has no
+        multigrid), then the cloth kernel. A scene that none takes steps
+        the general route, with JAX's note; under 'amg' with 'dia' it
+        raises JAX's ValueError. Sets `_stepper` and `_to_canon` (the
+        caller's vertex id -> the stepper's)."""
+        amg = self.settings.preconditioner == "amg"
         stepper, to_canon = banded_from_system(self), np.arange(self.n_nodes)
-        if stepper is None:
+        if stepper is None and not amg:
             stepper, to_canon = lattice_from_system(self) or (None, to_canon)
         if stepper is None:
             stepper = cloth_from_system(self)
+        if stepper is None and amg and self._solver_mode == "dia":
+            raise ValueError(
+                "preconditioner='amg' with global_solver='dia' needs "
+                "a whole-timestep kernel with in-kernel multigrid — "
+                "the banded kernel on a full tet grid, or the cloth "
+                "kernel on a full triangle grid, both in nested "
+                "numbering (core/mg.py) — and the scene did not "
+                "qualify; use global_solver='ell' for the "
+                "general-path AMG instead"
+            )
         if stepper is None:
             if self.settings.verbose >= 1:
                 print("Solver: scene does not qualify for a whole-timestep "

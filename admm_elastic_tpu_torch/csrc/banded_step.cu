@@ -6,8 +6,10 @@
 // diagonals (dia mode) or as ELL rows (its uell mode: a tet mesh of any
 // topology): explicit gravity kick, every ADMM iteration's hyperelastic or
 // corotational local steps, dual updates, anchor and collision
-// projections, right-hand side, and a whole fixed-budget Jacobi-PCG solve,
-// for n_steps timesteps per call.
+// projections, right-hand side, and a whole fixed-budget PCG solve, for
+// n_steps timesteps per call; its preconditioner Jacobi, or in the dia
+// mode the in-kernel geometric multigrid V-cycle (mg_meta,
+// banded_step.py:600-739 and :924-951; mg_vcycle.cuh).
 //
 // Layout, with no padding and no lane packing: vertex arrays (n,3)
 // row-major; element planes (P,E) in the tet force's own element order;
@@ -33,7 +35,8 @@
 //     the cluster solve of A x = rhs from x, in place (cg_dia.cu or
 //       cg_ell.cu on cluster_pcg.cuh, D^-1 = invd as given): it forms
 //       r = rhs - A x itself, then cg_iters iterations on one 16-CTA
-//       cluster
+//       cluster; under the multigrid, cg_dia.cu's multigrid mode
+//       (mg_vcycle.cuh), the V-cycle in place of D^-1
 //   end, per vertex: v = (x - x_pre) (1/dt)
 // The arithmetic follows the Pallas kernel's evaluation order; the plain
 // PyTorch twin (ops/kernels/banded_step.py) follows the same order, its
@@ -135,7 +138,8 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
            const int* inc, const T* dia_vals, const int* ell_idx_t,
            const T* ell_vals_t, T* xpre, T* mxbar, T* rows, T* rhs,
            T* scratch, const int* offsets, const int* shape_kinds,
-           const double* shape_prm, const double* scalars, int n, int E,
+           const double* shape_prm, const double* scalars, const void* mg,
+           int n, int E,
            int D, int K, int H, int S, int n_shapes, int model,
            int newton_iters, int cg_iters, int admm_iters, int n_steps,
            void* stream) {
@@ -143,6 +147,8 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
   const bool matrix_ok =
       K > 0 ? (D == 0 && ell_idx_t != nullptr && ell_vals_t != nullptr)
             : (D >= 1 && D <= dia::MAX_DIAGONALS && dia_vals != nullptr);
+  // the multigrid mode solves on the dia rows only
+  if (mg != nullptr && K != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n < 1 || E < 1 || !matrix_ok || K < 0 || H < 0 || S < 1 ||
       n_shapes < 0 || n_shapes > MAX_SHAPES || model < 0 || model > 2 ||
       newton_iters < 0 || cg_iters < 0 || admm_iters < 0 || n_steps < 0)
@@ -177,8 +183,12 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
         err = static_cast<int>(cudaLaunchKernel(
             (void*)vertex_kernel<T>, vb, dim3(THREADS), kargs, 0, st));
       if (err == 0)
-        err = window::solve(rhs, x, invd, dia_vals, offsets, D, ell_idx_t,
-                            ell_vals_t, K, H, n, cg_iters, scratch, st);
+        err = mg != nullptr
+                  ? window::mg_solve(rhs, x, dia_vals, offsets, D, n,
+                                     cg_iters, mg, scratch, st)
+                  : window::solve(rhs, x, invd, dia_vals, offsets, D,
+                                  ell_idx_t, ell_vals_t, K, H, n, cg_iters,
+                                  scratch, st);
     }
     if (err != 0) return window::failed(err);
     window::end_kernel<T><<<vb, THREADS, 0, st>>>(x, v, xpre, a.sc[INV_DT],
@@ -200,14 +210,14 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
       const T* dia_vals, const int* ell_idx_t, const T* ell_vals_t, T* xpre,  \
       T* mxbar, T* rows, T* rhs, T* scratch, const int* offsets,              \
       const int* shape_kinds, const double* shape_prm, const double* scalars, \
-      int n, int E, int D, int K, int H, int S, int n_shapes, int model,      \
-      int newton_iters, int cg_iters, int admm_iters, int n_steps,            \
+      const void* mg, int n, int E, int D, int K, int H, int S, int n_shapes, \
+      int model, int newton_iters, int cg_iters, int admm_iters, int n_steps, \
       void* stream) {                                                         \
     return admm::banded::launch<T>(                                           \
         x, v, u, warm, au, cu, idx, cp, w2, mu, lam, kp, mass, invd, aw2,     \
         ancz, inc, dia_vals, ell_idx_t, ell_vals_t, xpre, mxbar, rows, rhs,   \
-        scratch, offsets, shape_kinds, shape_prm, scalars, n, E, D, K, H, S,  \
-        n_shapes, model, newton_iters, cg_iters, admm_iters, n_steps,         \
+        scratch, offsets, shape_kinds, shape_prm, scalars, mg, n, E, D, K, H, \
+        S, n_shapes, model, newton_iters, cg_iters, admm_iters, n_steps,      \
         stream);                                                              \
   }
 
@@ -222,9 +232,13 @@ extern "C" {
 // scratch, and scratch holds the cluster solve's global scratch
 // (cg_cluster_plan; nullptr when it is 0). offsets, shape_kinds,
 // shape_prm (n_shapes x 5) and scalars (7: dt, dt^2, 1/dt, dt g xyz,
-// collision weight^2, formed in double) are host arrays. Every launch
+// collision weight^2, formed in double) are host arrays. mg: null for the
+// Jacobi-PCG solve, else an mg::Host (mg_vcycle.cuh) whose V-cycle
+// preconditions the solve on the dia rows (K = 0; scratch then holds
+// mg_dia_plan's count). Every launch
 // goes to `stream` (a CUDA graph capture takes them all; the solve's
-// set-up, cg_dia_prepare_* / cg_ell_prepare_*, must run before). Returns
+// set-up, cg_dia_prepare_* / cg_ell_prepare_* / mg_dia_prepare_*, must run
+// before). Returns
 // the first nonzero cudaError_t of the launches, or 0.
 ADMM_BANDED_ENTRY(float, f32)
 ADMM_BANDED_ENTRY(double, f64)

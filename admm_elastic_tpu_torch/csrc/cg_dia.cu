@@ -25,9 +25,15 @@
 // live in global memory and each stage ends with a cluster barrier: one
 // cluster's 16 SMs then move what the chain's 132 moved (PERF.md records
 // where one cluster stops paying). Fixed-order sums, no atomics.
+//
+// The same rows also serve the multigrid mode (mg_dia_solve_*, the PCG
+// with the geometric V-cycle of mg_vcycle.cuh as its preconditioner): the
+// global solve of the banded and cloth windows under
+// preconditioner="amg".
 
 #include "cluster_pcg.cuh"
 #include "dia.cuh"
+#include "mg_vcycle.cuh"
 
 namespace admm {
 namespace cg {
@@ -49,6 +55,20 @@ int solve(const T* b, const T* x0, const T* diag, const T* dia_vals,
   }
   return cluster_pcg::solve<T>(row, H, D, b, x0, diag, diag_inv, n,
                                n_iters, x, scratch, stream);
+}
+
+// The multigrid mode (mg_vcycle.cuh): the same dia rows, the V-cycle as
+// the preconditioner.
+template <typename T>
+int mg_solve(const T* b, const T* x0, const T* dia_vals, const int* offsets,
+             int D, int n, int n_iters, const void* mg, T* x, T* scratch,
+             void* stream) {
+  if (D < 1 || D > dia::MAX_DIAGONALS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DiaRows<T> row{dia_vals, {}, D, n};
+  for (int d = 0; d < D; ++d) row.offs.v[d] = offsets[d];
+  return admm::mg::solve<T>(row, D, mg, b, x0, n, n_iters, x, scratch,
+                           stream);
 }
 
 }  // namespace cg
@@ -78,6 +98,39 @@ extern "C" {
 // H, without a launch (before a CUDA graph captures such solves).
 ADMM_CG_DIA_ENTRY(float, f32)
 ADMM_CG_DIA_ENTRY(double, f64)
+
+// The multigrid mode: n_iters V-cycle PCG iterations from x0 (x may be
+// x0); mg points to an mg::Host (ops/kernels/mg.py MGHost) whose planes
+// are of the solve's type; scratch holds mg_dia_plan's scratch count.
+// mg_dia_prepare_*: the set-up of such a solve, without a launch.
+#define ADMM_MG_DIA_ENTRY(T, SUFFIX)                                          \
+  int mg_dia_solve_##SUFFIX(const T* b, const T* x0, const T* dia,          \
+                            const int* offsets, int D, int n, int n_iters,   \
+                            const void* mg, T* x, T* scratch,                \
+                            void* stream) {                                  \
+    return admm::cg::mg_solve<T>(b, x0, dia, offsets, D, n, n_iters, mg, x,  \
+                                 scratch, stream);                           \
+  }                                                                          \
+  int mg_dia_prepare_##SUFFIX(int D, int n, int nc2) {                       \
+    return admm::mg::prepare<T, admm::cg::DiaRows<T>>(D, n, nc2);            \
+  }
+
+ADMM_MG_DIA_ENTRY(float, f32)
+ADMM_MG_DIA_ENTRY(double, f64)
+
+// The multigrid solve's layout for n rows, D fine diagonals and nc2
+// coarsest dofs on the current device: out = dynamic shared memory a CTA
+// in bytes, fine diagonals in shared memory (0/1), elements of global
+// scratch. Returns a cudaError_t.
+int mg_dia_plan(int n, int D, int nc2, int elem_bytes, long long* out) {
+  admm::mg::Plan p;
+  const int err = admm::mg::plan_for_device(n, D, nc2, elem_bytes, &p);
+  if (err != 0) return err;
+  out[0] = p.smem_bytes;
+  out[1] = p.mat_smem;
+  out[2] = p.scratch;
+  return 0;
+}
 
 // The layout of a cluster solve of n rows whose rows reach H rows away
 // (cg_dia_solve: mat_per_row = D; cg_ell_solve: 0) on the current device:

@@ -2,11 +2,12 @@
 // solves, for Hopper.
 //
 // Replaces: admm_elastic_tpu/ops/pallas/cloth_step.py, _cloth_call
-// (kernel _make_cloth_kernel), in Jacobi-PCG mode without the in-kernel
-// multigrid and residuals: gravity and Wejchert-Haumann wind kicks, every
-// ADMM iteration's triangle-strain and bend local steps, dual updates, the
-// anchor dual and right-hand side, and a whole fixed-budget Jacobi-PCG
-// solve, for n_steps timesteps per call.
+// (kernel _make_cloth_kernel), without the in-kernel residuals: gravity
+// and Wejchert-Haumann wind kicks, every ADMM iteration's triangle-strain
+// and bend local steps, dual updates, the anchor dual and right-hand side,
+// and a whole fixed-budget PCG solve, for n_steps timesteps per call; its
+// preconditioner Jacobi or the in-kernel 2D geometric multigrid V-cycle
+// (mg_meta, cloth_step.py:457-595 and :627-673; mg_vcycle.cuh).
 //
 // Layout, with no padding and no lane planes: vertex arrays (n,3)
 // row-major; element planes (P,E), elements sorted by stencil group, each
@@ -33,7 +34,8 @@
 //       the anchor weight is 0) and RHS; rhs = M xbar + dt^2 b
 //     the cluster solve of A x = rhs from x, in place (cg_dia.cu on
 //       cluster_pcg.cuh, D^-1 = invd as given): it forms r = rhs - A x
-//       itself, then cg_iters iterations on one 16-CTA cluster
+//       itself, then cg_iters iterations on one 16-CTA cluster; under
+//       the multigrid, cg_dia.cu's multigrid mode (mg_vcycle.cuh)
 //   end, per vertex (window.cuh): v = (x - x_pre) (1/dt)
 // The arithmetic of the local steps follows the Pallas kernel's
 // evaluation order; the plain PyTorch twin (ops/kernels/cloth_step.py)
@@ -327,9 +329,9 @@ int launch(T* x, T* v, T* tu, T* hu, T* au, const int* tidx, const int* tgrp,
            const int* widx, const T* mass, const T* invd, const T* aw2,
            const T* ancz, const T* dia_vals, const int* inc, const int* winc,
            T* xpre, T* mxbar, T* rows, T* wf, T* rhs, T* scratch,
-           const int* offsets, const double* scalars, int n, int Et, int Eh,
-           int Ew, int D, int H, int S, int Sw, int limiting, int cg_iters,
-           int admm_iters, int n_steps, void* stream) {
+           const int* offsets, const double* scalars, const void* mg, int n,
+           int Et, int Eh, int Ew, int D, int H, int S, int Sw, int limiting,
+           int cg_iters, int admm_iters, int n_steps, void* stream) {
   if (n < 1 || Et < 1 || Eh < 0 || Ew < 0 || D < 1 ||
       D > dia::MAX_DIAGONALS || H < 0 || S < 1 || Sw < 1 || cg_iters < 0 ||
       admm_iters < 0 || n_steps < 0)
@@ -363,8 +365,12 @@ int launch(T* x, T* v, T* tu, T* hu, T* au, const int* tidx, const int* tgrp,
         err = static_cast<int>(cudaLaunchKernel(
             (void*)vertex_kernel<T>, vb, dim3(THREADS), kargs, 0, st));
       if (err == 0)
-        err = window::solve(rhs, x, invd, dia_vals, offsets, D, nullptr,
-                            nullptr, 0, H, n, cg_iters, scratch, st);
+        err = mg != nullptr
+                  ? window::mg_solve(rhs, x, dia_vals, offsets, D, n,
+                                     cg_iters, mg, scratch, st)
+                  : window::solve(rhs, x, invd, dia_vals, offsets, D,
+                                  nullptr, nullptr, 0, H, n, cg_iters,
+                                  scratch, st);
     }
     if (err != 0) return window::failed(err);
     window::end_kernel<T><<<vb, THREADS, 0, st>>>(x, v, xpre, a.sc[INV_DT],
@@ -385,13 +391,13 @@ int launch(T* x, T* v, T* tu, T* hu, T* au, const int* tidx, const int* tgrp,
       const int* widx, const T* mass, const T* invd, const T* aw2,            \
       const T* ancz, const T* dia_vals, const int* inc, const int* winc,      \
       T* xpre, T* mxbar, T* rows, T* wf, T* rhs, T* scratch,                  \
-      const int* offsets, const double* scalars, int n, int Et, int Eh,       \
-      int Ew, int D, int H, int S, int Sw, int limiting, int cg_iters,        \
-      int admm_iters, int n_steps, void* stream) {                            \
+      const int* offsets, const double* scalars, const void* mg, int n,       \
+      int Et, int Eh, int Ew, int D, int H, int S, int Sw, int limiting,      \
+      int cg_iters, int admm_iters, int n_steps, void* stream) {              \
     return admm::cloth::launch<T>(                                            \
         x, v, tu, hu, au, tidx, tgrp, ttab, hidx, hgrp, htab, widx, mass,     \
         invd, aw2, ancz, dia_vals, inc, winc, xpre, mxbar, rows, wf, rhs,     \
-        scratch, offsets, scalars, n, Et, Eh, Ew, D, H, S, Sw, limiting,      \
+        scratch, offsets, scalars, mg, n, Et, Eh, Ew, D, H, S, Sw, limiting,  \
         cg_iters, admm_iters, n_steps, stream);                               \
   }
 
@@ -403,10 +409,12 @@ extern "C" {
 // and wf (3,Ew) are scratch, and scratch holds the cluster solve's global
 // scratch (cg_cluster_plan; nullptr when it is 0). offsets (D) and
 // scalars (11: dt, dt^2, 1/dt, dt g xyz, the wind's -1000 0.33 dt, 1/3,
-// the wind direction xyz, formed in double) are host arrays. Every launch
+// the wind direction xyz, formed in double) are host arrays. mg: null for
+// the Jacobi-PCG solve, else an mg::Host (mg_vcycle.cuh) whose V-cycle
+// preconditions it (scratch then holds mg_dia_plan's count). Every launch
 // goes to `stream` (a CUDA graph capture takes them all; the solve's
-// set-up, cg_dia_prepare_*, must run before). Returns the first nonzero
-// cudaError_t of the launches, or 0.
+// set-up, cg_dia_prepare_* or mg_dia_prepare_*, must run before). Returns
+// the first nonzero cudaError_t of the launches, or 0.
 ADMM_CLOTH_ENTRY(float, f32)
 ADMM_CLOTH_ENTRY(double, f64)
 

@@ -1,8 +1,8 @@
-// What the whole-timestep windows (banded_step.cu, lattice_step.cu) share:
-// the per-vertex kernels that open and close a timestep, and the cluster
-// solves they hand each ADMM iteration's global solve to (cg_dia.cu,
-// cg_ell.cu; C entry points of the same library, so each solve kernel is
-// instantiated once).
+// What the whole-timestep windows (banded_step.cu, lattice_step.cu,
+// cloth_step.cu) share: the per-vertex kernels that open and close a
+// timestep, and the cluster solves they hand each ADMM iteration's global
+// solve to (cg_dia.cu, cg_ell.cu, and cg_dia.cu's multigrid mode; C entry
+// points of the same library, so each solve kernel is instantiated once).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,6 +24,13 @@ int cg_ell_solve_f64(const double* b, const double* x0, const double* diag,
                      const int* idx_t, const double* vals_t, int K, int H,
                      int n, int n_iters, int diag_inv, double* x,
                      double* scratch, void* stream);
+int mg_dia_solve_f32(const float* b, const float* x0, const float* dia,
+                     const int* offsets, int D, int n, int n_iters,
+                     const void* mg, float* x, float* scratch, void* stream);
+int mg_dia_solve_f64(const double* b, const double* x0, const double* dia,
+                     const int* offsets, int D, int n, int n_iters,
+                     const void* mg, double* x, double* scratch,
+                     void* stream);
 }
 
 namespace admm {
@@ -93,6 +100,23 @@ inline int solve(const double* rhs, double* x, const double* invd,
                                   n, n_iters, 1, x, scratch, st)
                : cg_dia_solve_f64(rhs, x, invd, dia, offsets, D, H, n,
                                   n_iters, 1, x, scratch, st);
+}
+
+// The global solve under preconditioner="amg", in place: n_iters PCG
+// iterations preconditioned by the geometric V-cycle (mg_vcycle.cuh) of
+// the multigrid `mg` (an mg::Host), on dia rows, on one cluster.
+inline int mg_solve(const float* rhs, float* x, const float* dia,
+                    const int* offsets, int D, int n, int n_iters,
+                    const void* mg, float* scratch, cudaStream_t st) {
+  return mg_dia_solve_f32(rhs, x, dia, offsets, D, n, n_iters, mg, x,
+                          scratch, st);
+}
+
+inline int mg_solve(const double* rhs, double* x, const double* dia,
+                    const int* offsets, int D, int n, int n_iters,
+                    const void* mg, double* scratch, cudaStream_t st) {
+  return mg_dia_solve_f64(rhs, x, dia, offsets, D, n, n_iters, mg, x,
+                          scratch, st);
 }
 
 // A launch's error, or the one it left behind. A window's host call

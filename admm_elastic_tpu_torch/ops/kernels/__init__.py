@@ -17,6 +17,7 @@ from .tet_local import (arap_local_step, arap_local_step_fused,
 from .cloth_step import cloth_rollout, cloth_rollout_reference
 from .banded_local import banded_local_rhs, banded_local_rhs_reference
 from .cheb_dia import cheb_dia_chunk, cheb_dia_chunk_reference
+from .mg import mg_dia_solve, mg_dia_solve_reference
 
 __all__ = [
     "nh_local_step_fused", "nh_local_step_fused_reference",
@@ -32,4 +33,5 @@ __all__ = [
     "cloth_rollout", "cloth_rollout_reference",
     "banded_local_rhs", "banded_local_rhs_reference",
     "cheb_dia_chunk", "cheb_dia_chunk_reference",
+    "mg_dia_solve", "mg_dia_solve_reference",
 ]

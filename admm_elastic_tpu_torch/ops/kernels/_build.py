@@ -116,6 +116,14 @@ _SIGNATURES = {
     **{f"cg_dia_prepare_{t}": (_I, [_I] * 3) for t in ("f32", "f64")},
     **{f"cg_ell_prepare_{t}": (_I, [_I] * 2) for t in ("f32", "f64")},
     "cg_cluster_plan": (_I, [_I] * 4 + [_P]),
+    # b, x0, dia, offsets, then D, n, n_iters, then the multigrid (an
+    # MGHost), x, scratch and the stream
+    **{f"mg_dia_solve_{t}": (_I, [_P] * 4 + [_I] * 3 + [_P] * 4)
+       for t in ("f32", "f64")},
+    # D, n, nc2
+    **{f"mg_dia_prepare_{t}": (_I, [_I] * 3) for t in ("f32", "f64")},
+    # n, D, nc2, elem_bytes, out
+    "mg_dia_plan": (_I, [_I] * 4 + [_P]),
     **{f"cg_update_{t}": (_I, [_P] * 6 + [_I] + [_P] * 6)
        for t in ("f32", "f64")},
     "cg_partials": (_I, [_I]),
@@ -130,15 +138,16 @@ _SIGNATURES = {
     **{f"arap_local_step_{t}": (_I, [_P] * 6 + [_I] + [_P])
        for t in ("f32", "f64")},
     # state 6, element planes 6, vertex planes 5, matrix 3 (dia, ell_idx_t,
-    # ell_vals_t), scratch 5, host arrays 4, then n, E, D, K, H, S,
-    # n_shapes, model, newton_iters, cg_iters, admm_iters, n_steps, and the
-    # stream
-    **{f"banded_rollout_{t}": (_I, [_P] * 29 + [_I] * 12 + [_P])
+    # ell_vals_t), scratch 5, host arrays 4, the multigrid (or null), then
+    # n, E, D, K, H, S, n_shapes, model, newton_iters, cg_iters,
+    # admm_iters, n_steps, and the stream
+    **{f"banded_rollout_{t}": (_I, [_P] * 30 + [_I] * 12 + [_P])
        for t in ("f32", "f64")},
     # state 5, element planes 7, vertex planes 7, scratch 6 (xpre, mxbar,
-    # rows, wf, rhs, the solve's), host arrays 2, then n, Et, Eh, Ew, D,
-    # H, S, Sw, limiting, cg_iters, admm_iters, n_steps, and the stream
-    **{f"cloth_rollout_{t}": (_I, [_P] * 27 + [_I] * 12 + [_P])
+    # rows, wf, rhs, the solve's), host arrays 2, the multigrid (or null),
+    # then n, Et, Eh, Ew, D, H, S, Sw, limiting, cg_iters, admm_iters,
+    # n_steps, and the stream
+    **{f"cloth_rollout_{t}": (_I, [_P] * 28 + [_I] * 12 + [_P])
        for t in ("f32", "f64")},
     # state 6, vertex planes 5, scratch 5, host arrays 5, then nx, ny, nz,
     # D, H, model, floor, newton_iters, cg_iters, admm_iters, n_steps, and

@@ -16,8 +16,10 @@ optional analytic collision shapes and a gravity kick:
                      anchor dual (0 where the anchor weight is 0) and RHS;
                      collisions in declaration order, dual and RHS;
                      rhs = M xbar + dt^2 b
-                   global solve: x = A^-1 rhs by cg_iters Jacobi-PCG
-                     iterations from x (pAp > 0, rz > 0 guards)
+                   global solve: x = A^-1 rhs by cg_iters PCG iterations
+                     from x (pAp > 0, rz > 0 guards), preconditioned by
+                     Jacobi or, with `BandedConfig.mg` (dia only), by the
+                     geometric multigrid V-cycle (`mg.py`)
     epilogue       v = (x - x_pre) (1/dt)
 
 State (`STATE`): x, v, anchor dual au, collision dual cu (n,3); tet dual u
@@ -28,16 +30,18 @@ Planes (`PLANES`): idx (4,E) int32 corner vertices; cp (12,E) selector planes; w
 4E after the real slots (`core.solver.assemble_transpose_incidence`); the
 matrix (`MATRIX_PLANES`): dia (D,n) diagonals of A at
 `BandedConfig.dia_offs`, or ell_idx (n,K) int32 and ell_vals (n,K) when
-`BandedConfig.ell_width` = K > 0 (`core.solver.assemble_A_hat_ell`). No
-padding anywhere.
+`BandedConfig.ell_width` = K > 0 (`core.solver.assemble_A_hat_ell`);
+with `BandedConfig.mg` the multigrid's planes (`mg.PLANES`). No padding
+anywhere.
 
 `banded_rollout` runs the window's kernels (`csrc/banded_step.cu`: per
 timestep a kick, per ADMM iteration an element kernel, a vertex kernel and
-one cluster solve, `csrc/cluster_pcg.cuh`, then an end kernel) for CUDA
-tensors and `banded_rollout_reference`, a step-by-step transcription of
-the same math in the Pallas kernel's evaluation order (its solve the
-cluster solve's: `core.solver.pcg_fixed_inv` with `cg_step.cluster_dot`,
-the ELL matvec slot by slot), for CPU tensors. It never falls back from
+one cluster solve, `csrc/cluster_pcg.cuh` or its multigrid mode
+`csrc/mg_vcycle.cuh`, then an end kernel) for CUDA tensors and
+`banded_rollout_reference`, a step-by-step transcription of the same math
+in the Pallas kernel's evaluation order (its solve the cluster solve's:
+`core.solver.pcg_fixed_inv` with `cg_step.cluster_dot`, the ELL matvec
+slot by slot, or `mg.pcg_fixed_mg`), for CPU tensors. It never falls back from
 one to the other. Both return a new state dict and leave their inputs
 untouched. `BandedWindow` is a window on a state's own buffers, which a
 stepper advances in place through one CUDA graph a window length
@@ -56,6 +60,7 @@ from . import _build
 from .cg_dia import MAX_DIAGONALS
 from .cg_ell import bandwidth, ell_apply_by_slot, slot_major
 from .cg_step import cluster_dot, cluster_prepare
+from .mg import MGConfig, check_planes, host_struct, mg_prepare, pcg_fixed_mg
 from .nh_local import _newton_hyper, _svd_columns, _warm_guard
 
 STATE = ("x", "v", "u", "warm", "au", "cu")
@@ -76,7 +81,8 @@ class BandedConfig:
     coll_shapes: ('floor', (y,)) | ('sphere', (cx, cy, cz, r)) |
     ('cylinder', (cx, cy, r)), projected in this order with the shared
     weight^2 coll_w2. ell_width: K of an ELL matrix, with dia_offs = ();
-    0 for a dia matrix."""
+    0 for a dia matrix. mg: the multigrid's offsets (dia only), whose
+    V-cycle then preconditions the solve; None for Jacobi."""
 
     dia_offs: tuple
     model: str
@@ -88,6 +94,7 @@ class BandedConfig:
     coll_shapes: tuple = ()
     coll_w2: float = 0.0
     ell_width: int = 0
+    mg: MGConfig | None = None
 
     def __post_init__(self):
         if self.model not in _MODELS:
@@ -99,6 +106,8 @@ class BandedConfig:
         elif not 1 <= len(self.dia_offs) <= MAX_DIAGONALS:
             raise ValueError(f"{len(self.dia_offs)} diagonals; the kernel "
                              f"takes 1..{MAX_DIAGONALS}")
+        if self.mg is not None and self.ell_width:
+            raise ValueError("the multigrid takes a dia matrix")
         if len(self.coll_shapes) > MAX_SHAPES:
             raise ValueError(f"{len(self.coll_shapes)} collision shapes; the "
                              f"kernel takes at most {MAX_SHAPES}")
@@ -249,8 +258,12 @@ def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps,
         for _ in range(cfg.admm_iters):
             u, warm, rows = _element_phase(x, u, warm, planes, cfg, eps)
             b, au, cu = _vertex_rhs(x, au, cu, rows, planes, cfg)
-            x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
-                              cfg.cg_iters, dot)
+            if cfg.mg is None:
+                x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
+                                  cfg.cg_iters, dot)
+            else:
+                x = pcg_fixed_mg(A, mxbar + dt2 * b, x, planes, cfg.mg,
+                                 cfg.cg_iters, dot)
         v = (x - x_pre) * inv_dt
     return {"x": x, "v": v, "u": u, "warm": warm, "au": au, "cu": cu}
 
@@ -281,6 +294,8 @@ def _check(state, planes, cfg):
         if t.device != x.device or t.dtype != dtype:
             raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
                              f"{dtype} on {x.device}")
+    if cfg.mg is not None:
+        check_planes(planes, cfg.mg, n, x)
     return n, E, S
 
 
@@ -288,9 +303,9 @@ class BandedWindow:
     """The kernels of a rollout window on one state's own buffers, on a
     CUDA device: `launch(n_steps)` enqueues n_steps timesteps on the
     current stream and advances `state` in place. Holds the window's
-    scratch, the matrix as the cluster solve reads it (ELL: slot-major)
-    and the solve's set-up, done here, before any CUDA graph captures a
-    launch."""
+    scratch, the matrix as the cluster solve reads it (ELL: slot-major),
+    the multigrid's C description, and the solve's set-up, done here,
+    before any CUDA graph captures a launch."""
 
     def __init__(self, state, planes, cfg: BandedConfig):
         self.n, self.E, self.S = _check(state, planes, cfg)
@@ -306,8 +321,15 @@ class BandedWindow:
         else:
             self.matrix = (planes["dia"], None, None)
             self.reach = max(abs(o) for o in cfg.dia_offs)
-        self.scratch = cluster_prepare(x, self.n, self.reach,
-                                       len(cfg.dia_offs), cfg.matrix == "ell")
+        if cfg.mg is None:
+            self.mg = None
+            self.scratch = cluster_prepare(x, self.n, self.reach,
+                                           len(cfg.dia_offs),
+                                           cfg.matrix == "ell")
+        else:
+            self.mg = host_struct(planes, cfg.mg)
+            self.scratch = mg_prepare(x, self.n, len(cfg.dia_offs),
+                                      planes["mg_rp2"].shape[0])
         kinds, table = cfg.shape_table()
         ns = max(len(kinds), 1)
         # the host arrays the C entry reads at each call
@@ -334,6 +356,7 @@ class BandedWindow:
                                          self.rhs)),
                 None if self.scratch is None else self.scratch.data_ptr(),
                 *(ctypes.addressof(a) for a in self._host),
+                None if self.mg is None else ctypes.addressof(self.mg),
                 self.n, self.E, len(cfg.dia_offs), cfg.ell_width, self.reach,
                 self.S, len(cfg.coll_shapes), _MODELS[cfg.model],
                 cfg.newton_iters, cfg.cg_iters, cfg.admm_iters,

@@ -2,8 +2,8 @@
 + plain twin.
 
 Counterpart of `admm_elastic_tpu/ops/pallas/cloth_step.py` (`cloth_rollout`
-/ `_cloth_call`) in Jacobi-PCG mode, without the in-kernel multigrid and
-residuals. One call advances `n_steps` timesteps of a cloth with
+/ `_cloth_call`) in its Jacobi-PCG and multigrid modes, without the
+in-kernel residuals. One call advances `n_steps` timesteps of a cloth with
 LimitedTriangleStrain, an optional Bend, StaticAnchors, gravity and an
 optional Wejchert-Haumann WindForce:
 
@@ -19,8 +19,10 @@ optional Wejchert-Haumann WindForce:
                    vertex phase: b = incidence sum of the rows (group,
                      corner order); anchor dual (0 where the anchor weight
                      is 0) and RHS; rhs = M xbar + dt^2 b
-                   global solve: x = A^-1 rhs by cg_iters Jacobi-PCG
-                     iterations from x (pAp > 0, rz > 0 guards)
+                   global solve: x = A^-1 rhs by cg_iters PCG iterations
+                     from x (pAp > 0, rz > 0 guards), preconditioned by
+                     Jacobi or, with `ClothConfig.mg`, by the 2D geometric
+                     multigrid V-cycle (`mg.py`)
     epilogue       v = (x - x_pre) (1/dt)
 
 The JAX kernel works on (N,128)-lane planes with constant-offset static
@@ -45,15 +47,19 @@ targets; dia (D,n) the diagonals of A at `ClothConfig.dia_offs` (dia[d,i]
 corner) order, sentinel R = 3 Et + 4 Eh after the real slots, where
 triangle slot k Et + t is corner k of triangle t and hinge slot 3 Et +
 k Eh + h corner k of hinge h; winc (n,Sw) int32 vertex -> wind triangle
-in (wind group, corner) order, sentinel Ew. No padding.
+in (wind group, corner) order, sentinel Ew; with `ClothConfig.mg` the
+multigrid's planes (`mg.PLANES`). No padding.
 
 `cloth_rollout` runs the window's kernels (`csrc/cloth_step.cu`: per
 timestep a wind kernel (with wind) and a kick, per ADMM iteration an
 element kernel, a vertex kernel and one cluster solve,
-`csrc/cluster_pcg.cuh`, then an end kernel) for CUDA tensors and
-`cloth_rollout_reference`, a step-by-step transcription of the same math
-in the Pallas kernel's evaluation order (its solve the cluster solve's:
-`core.solver.pcg_fixed_inv` with `cg_step.cluster_dot`), for CPU tensors.
+`csrc/cluster_pcg.cuh` or its multigrid mode `csrc/mg_vcycle.cuh`, then an
+end kernel) for CUDA tensors and `cloth_rollout_reference`, a step-by-step
+transcription of the same math in the Pallas kernel's evaluation order
+(its solve the cluster solve's: `core.solver.pcg_fixed_inv` with
+`cg_step.cluster_dot`, or `mg.pcg_fixed_mg`), for CPU tensors. The
+V-cycle's fine matvec is the full diagonals', where JAX's mirrors half of
+them (cloth_step.py:481-492): round-off.
 It never falls back from one to the other. Both return a new state dict
 and leave their inputs untouched. `ClothWindow` is a window on a state's
 own buffers, which a stepper advances in place through one CUDA graph a
@@ -71,6 +77,7 @@ from ...core.solver import dia_apply, pcg_fixed_inv
 from . import _build
 from .cg_dia import MAX_DIAGONALS
 from .cg_step import cluster_dot, cluster_prepare
+from .mg import MGConfig, check_planes, host_struct, mg_prepare, pcg_fixed_mg
 from .tri_local import _tri_body
 
 STATE = ("x", "v", "tu", "hu", "au")
@@ -91,7 +98,9 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 @dataclasses.dataclass(frozen=True)
 class ClothConfig:
-    """The static part of a rollout: what the JAX kernel bakes in."""
+    """The static part of a rollout: what the JAX kernel bakes in. mg: the
+    multigrid's offsets, whose V-cycle then preconditions the solve; None
+    for Jacobi."""
 
     dia_offs: tuple
     cg_iters: int
@@ -100,6 +109,7 @@ class ClothConfig:
     gravity: tuple = (0.0, -9.8, 0.0)
     wind_dir: tuple = (0.0, 0.0, 0.0)
     limiting: bool = True
+    mg: MGConfig | None = None
 
     def __post_init__(self):
         if not 1 <= len(self.dia_offs) <= MAX_DIAGONALS:
@@ -252,8 +262,12 @@ def cloth_rollout_reference(state, planes, cfg: ClothConfig, n_steps,
             b = _slot_sum(torch.zeros_like(x), torch.cat(rows), inc)
             au = torch.where(aw2 > 0, au + (x - ancz), 0.0)
             b = b + aw2 * (ancz - au)
-            x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
-                              cfg.cg_iters, dot)
+            if cfg.mg is None:
+                x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
+                                  cfg.cg_iters, dot)
+            else:
+                x = pcg_fixed_mg(A, mxbar + dt2 * b, x, planes, cfg.mg,
+                                 cfg.cg_iters, dot)
         v = (x - x_pre) * inv_dt
     return {"x": x, "v": v, "tu": tu, "hu": hu, "au": au}
 
@@ -286,6 +300,8 @@ def _check(state, planes, cfg):
         if t.device != x.device or t.dtype != dtype:
             raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
                              f"{dtype} on {x.device}")
+    if cfg.mg is not None:
+        check_planes(planes, cfg.mg, n, x)
     return n, Et, Eh, Ew, S, Sw
 
 
@@ -293,8 +309,8 @@ class ClothWindow:
     """The kernels of a rollout window on one state's own buffers, on a
     CUDA device: `launch(n_steps)` enqueues n_steps timesteps on the
     current stream and advances `state` in place. Holds the window's
-    scratch and the solve's set-up, done here, before any CUDA graph
-    captures a launch."""
+    scratch, the multigrid's C description and the solve's set-up, done
+    here, before any CUDA graph captures a launch."""
 
     def __init__(self, state, planes, cfg: ClothConfig):
         (self.n, self.Et, self.Eh, self.Ew, self.S,
@@ -306,8 +322,14 @@ class ClothWindow:
         self.rows = x.new_empty((3, 3 * self.Et + 4 * self.Eh))
         self.wf = x.new_empty((3, self.Ew))
         self.reach = max(abs(o) for o in cfg.dia_offs)
-        self.scratch = cluster_prepare(x, self.n, self.reach,
-                                       len(cfg.dia_offs))
+        if cfg.mg is None:
+            self.mg = None
+            self.scratch = cluster_prepare(x, self.n, self.reach,
+                                           len(cfg.dia_offs))
+        else:
+            self.mg = host_struct(planes, cfg.mg)
+            self.scratch = mg_prepare(x, self.n, len(cfg.dia_offs),
+                                      planes["mg_rp2"].shape[0])
         scal = cfg.scalars()
         # the host arrays the C entry reads at each call
         self._host = ((ctypes.c_int * len(cfg.dia_offs))(*cfg.dia_offs),
@@ -329,6 +351,7 @@ class ClothWindow:
                                          self.wf, self.rhs)),
                 None if self.scratch is None else self.scratch.data_ptr(),
                 *(ctypes.addressof(a) for a in self._host),
+                None if self.mg is None else ctypes.addressof(self.mg),
                 self.n, self.Et, self.Eh, self.Ew, len(cfg.dia_offs),
                 self.reach, self.S, self.Sw, int(bool(cfg.limiting)),
                 cfg.cg_iters, cfg.admm_iters, int(n_steps),

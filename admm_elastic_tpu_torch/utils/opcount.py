@@ -7,6 +7,10 @@ and one per input element of every sum. Data movement (indexing, copies,
 stacking, padding, reshapes) counts nothing. The twins evaluate every
 branch the kernels evaluate (both sides of each select, every Newton
 candidate), so the count is the work the kernel does on those inputs.
+A multigrid V-cycle is the exception: its twin (`mg.vcycle`) computes the
+coarse levels over every fine row, 0 off each level's representatives, as
+the kernel does, so `count_ops` counts each V-cycle by the work the
+function needs (`vcycle_ops`) instead.
 
 `nbytes(*trees)` sums the sizes of the tensors in dicts, lists or tuples:
 each input read once and each output written once.
@@ -15,23 +19,26 @@ bound_ms = max(bytes / memory rate, operations / peak rate) is the least
 time the card could take for the same work (`roofline_ms`).
 `twin_counts` gives (operations, bytes) of a kernel on its inputs from its
 twin (the element steps', by their `_reference` twins; `cg_update_counts`,
-`cg_dia_counts` and `cg_ell_counts` name the CG kernels, the solves'
-with one plain sum a dot; `banded_local_counts` and
+`cg_dia_counts`, `cg_ell_counts` and `mg_dia_counts` name the CG kernels,
+the solves' with one plain sum a dot (the multigrid mode's V-cycle
+included); `banded_local_counts` and
 `cheb_dia_counts` the sharded stepper's), and `rollout_counts` those of the
-whole-timestep kernels (banded in dia or ELL mode, cloth, lattice). The
+whole-timestep kernels (banded in dia or ELL mode, cloth, lattice; the
+banded and cloth ones in their multigrid mode too). The
 lattice kernel's twin skips a group's zero selector coefficients as the
 kernel does, so its count is the arithmetic of the nonzero ones.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.solver import dia_apply, pcg_solve_fixed
-from ..ops.kernels import banded_local, cg_ell, cg_step, cheb_dia
+from ..ops.kernels import banded_local, cg_ell, cg_step, cheb_dia, mg
 
 _ELEMENTWISE = frozenset((
     "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "rsqrt", "log",
@@ -51,9 +58,12 @@ class _Counter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.ops = 0
+        self.paused = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        if self.paused:
+            return out
         name = func.overloadpacket.__name__.rstrip("_")
         if name == "mul" and any(a is not None and not isinstance(a, torch.Tensor)
                                  and a == 1 for a in args):
@@ -66,10 +76,71 @@ class _Counter(TorchDispatchMode):
 
 
 def count_ops(fn, *args, **kwargs) -> tuple[int, object]:
-    """(operations, fn's result) of fn(*args, **kwargs)."""
-    with _Counter() as c:
+    """(operations, fn's result) of fn(*args, **kwargs); each V-cycle that
+    fn reaches through `mg.vcycle` counts as `vcycle_ops` says."""
+    with _Counter() as c, _needed_vcycles(c):
         out = fn(*args, **kwargs)
     return c.ops, out
+
+
+@contextlib.contextmanager
+def _paused(counter):
+    counter.paused = True
+    try:
+        yield
+    finally:
+        counter.paused = False
+
+
+def mg_level_ops(planes, n) -> int:
+    """Operations one V-cycle needs on one column of n fine rows, besides
+    its two fine matvecs: 5n on the fine rows (z = om0 r, r - A z, and
+    r - A z, om0 times it and its sum at the end), and the coarse levels
+    at their representatives only (the n1 rows where om1 is not 0, the nc2
+    rows of rp2). A restriction or level-1 row with m nonzero
+    coefficients is m products and m - 1 sums; a prolongation one product
+    and one sum per nonzero coefficient; the coarsest product nc2 rows of
+    nc2 products and nc2 - 1 sums. With T0, L, T1 the nonzero coefficients
+    of R0, A1 and R1 at those rows:
+        R0 2 T0 - n1, z1 = om1 r1 n1, A1 z1 2 L - n1, r1 - A1 z1 n1,
+        R1 2 T1 - nc2, A2^-1 nc2 (2 nc2 - 1), z1 + P1 z2 2 T1,
+        z1 + om1 (r1 - A1 z1) 2 L - n1 + 3 n1, z + P0 z1 2 T0."""
+    reps1 = planes["mg_om1"] != 0
+    rp2 = planes["mg_rp2"].long()
+    n1, nc2 = int(reps1.sum()), int(rp2.numel())
+    t0, l1, t1 = (int(torch.count_nonzero(planes[k][:, rows]))
+                  for k, rows in (("mg_t0", reps1), ("mg_l1", reps1),
+                                  ("mg_t1", rp2)))
+    return 5 * n + 4 * (t0 + l1 + t1) + 2 * n1 + 2 * nc2 * (nc2 - 1)
+
+
+def vcycle_ops(r, A, planes) -> int:
+    """Operations one V-cycle (`mg.vcycle`) on r (n,k) needs: its two fine
+    matvecs as A counts them, and k columns of `mg_level_ops`."""
+    matvec, _ = count_ops(A, r)
+    return 2 * matvec + r.shape[1] * mg_level_ops(planes, r.shape[0])
+
+
+@contextlib.contextmanager
+def _needed_vcycles(counter):
+    """While counting, `mg.vcycle` computes as before, uncounted, and adds
+    its two fine matvecs (run once more to be counted as A counts them)
+    and `mg_level_ops` for each column."""
+    twin = mg.vcycle
+
+    def vcycle(r, A, planes, cfg):
+        with _paused(counter):
+            z = twin(r, A, planes, cfg)
+            level = r.shape[1] * mg_level_ops(planes, r.shape[0])
+        A(r), A(r)
+        counter.ops += level
+        return z
+
+    mg.vcycle = vcycle
+    try:
+        yield
+    finally:
+        mg.vcycle = twin
 
 
 def nbytes(*trees) -> int:
@@ -130,6 +201,18 @@ def cg_ell_counts(b, x0, diag, ell_idx, ell_vals, n_iters):
     return _solve_counts(
         lambda y: cg_ell.ell_apply_by_slot(y, ell_idx, ell_vals), b, x0,
         diag, n_iters, (ell_idx, ell_vals))
+
+
+def mg_dia_counts(b, x0, dia_vals, offsets, planes, cfg, n_iters):
+    """(operations, bytes) of an `mg_dia_solve` of n_iters iterations: the
+    V-cycle PCG's arithmetic with each dot one product and one sum of 3n
+    values and each V-cycle what it needs (`vcycle_ops`); b, x0, the
+    diagonals and the multigrid's planes read once however often the
+    iterations read them, x written once."""
+    ops, x = count_ops(mg.pcg_fixed_mg,
+                       lambda y: dia_apply(y, offsets, dia_vals), b, x0,
+                       planes, cfg, n_iters)
+    return ops, nbytes(b, x0, dia_vals, [planes[k] for k in mg.PLANES], x)
 
 
 def rollout_counts(reference, keys, state, planes, cfg, n_steps):

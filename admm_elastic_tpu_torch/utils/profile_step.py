@@ -5,7 +5,7 @@ steps of the 100k-tet beam, the cloth100k sheet or the delaunay100k mesh
     python -m admm_elastic_tpu_torch.utils.profile_step [--cg 25 75]
         [--steps 10] [--route general|fast|lattice|sharded]
         [--solver cg|cheb] [--scene tet100k|cloth100k|delaunay100k]
-        [--cg-backend xla|fused|kernel]
+        [--cg-backend xla|fused|kernel] [--amg]
 
 `--route general` (the default) steps the general route; `--route fast`
 steps the scene's whole-timestep route (`lattice_fast_path=True`: the
@@ -18,6 +18,9 @@ steps tet100k on the lattice kernel (the cg global mode with
 banded stepper at one device (`scenes.tet100k_sharded`) with `--solver`
 cg or cheb, whose budgets `--cg` then gives. `--cg-backend` picks
 delaunay100k's ell CG on the general route (the other scenes run dia).
+`--amg` steps tet100k or cloth100k on its whole-timestep route with the
+in-kernel multigrid (`preconditioner="amg"`), `--cg` V-cycle PCG
+iterations a solve.
 For each CG budget it times `steps` steps twice in one process, each
 window closed by `torch.cuda.synchronize()`: first without the profiler,
 then under it, tracing the device only. It prints one line: both windows' wall ms/step,
@@ -44,7 +47,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import (banded_local, banded_step, cg_dia, cg_ell,
-                           cheb_dia, cloth_step, lattice_step, nh_local,
+                           cheb_dia, cloth_step, lattice_step, mg, nh_local,
                            tet_local, tri_local)
 from . import scenes
 
@@ -79,7 +82,8 @@ _OWN = tuple(f"void admm::{ns}::{k}_kernel"
     "void admm::banded::", "void admm::cloth::",
     "void admm::lattice::", "void admm::window::",
     "void admm::banded_local::vertex_kernel",
-    "void admm::cheb::chunk_kernel", "void admm::cluster_pcg::solve_kernel")
+    "void admm::cheb::chunk_kernel", "void admm::cluster_pcg::solve_kernel",
+    "void admm::mg::solve_kernel")
 
 
 def _own_launches():
@@ -90,7 +94,7 @@ def _own_launches():
         tri_local.tri_local_step_fused, tri_local.tri_local_step,
         tet_local.arap_local_step_fused, tet_local.arap_local_step,
         banded_local.banded_local_rhs, cheb_dia.cheb_dia_chunk,
-        cg_dia.cg_dia_solve, cg_ell.cg_ell_solve)) + sum(
+        cg_dia.cg_dia_solve, cg_ell.cg_ell_solve, mg.mg_dia_solve)) + sum(
         k.ops for k in (banded_step.banded_rollout,
                         lattice_step.lattice_rollout,
                         cloth_step.cloth_rollout))
@@ -136,9 +140,10 @@ def call_ops(fn) -> dict:
 
 
 def profile(cg, steps, route="general", s=None, scene="tet100k",
-            cg_backend="xla", solver="cg") -> dict:
+            cg_backend="xla", solver="cg", amg=False) -> dict:
     """Profile `steps` steps of the scene (or of the given System or
-    stepper `s`) and print and return the numbers."""
+    stepper `s`) and print and return the numbers. amg: the scene on its
+    whole-timestep route with the in-kernel multigrid."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     if s is None and route == "sharded":
@@ -148,6 +153,11 @@ def profile(cg, steps, route="general", s=None, scene="tet100k",
         s.run(2)
     elif s is None:
         kw = {"cg_backend": cg_backend} if scene == "delaunay100k" else {}
+        if amg:
+            if scene == "delaunay100k" or route != "fast":
+                raise ValueError("--amg steps tet100k or cloth100k on "
+                                 "--route fast")
+            kw["amg"] = True
         if route == "lattice":
             if scene != "tet100k":
                 raise ValueError("--route lattice steps tet100k")
@@ -186,6 +196,9 @@ def profile(cg, steps, route="general", s=None, scene="tet100k",
            "device_ops_per_step": len(dev) / steps if dev else None,
            "traced_windows": attempt, "lost_kernel_records": max(lost, 0)}
     label, budget = route, f"cg{cg}"
+    if getattr(getattr(getattr(s, "_stepper", None), "cfg", None), "mg",
+               None) is not None:
+        budget = f"mg{cg}"
     if route == "general" and s._solver_mode == "ell":
         label = f"general {s.settings.cg_backend}"
     elif route == "sharded":
@@ -210,12 +223,15 @@ def main():
     ap.add_argument("--scene", choices=SCENES, default="tet100k")
     ap.add_argument("--cg-backend", choices=("xla", "fused", "kernel"),
                     default="xla")
+    ap.add_argument("--amg", action="store_true",
+                    help="the in-kernel multigrid (with --route fast)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     print(torch.cuda.get_device_name(0), flush=True)
     outs = [profile(cg, args.steps, args.route, scene=args.scene,
-                    cg_backend=args.cg_backend, solver=args.solver)
+                    cg_backend=args.cg_backend, solver=args.solver,
+                    amg=args.amg)
             for cg in args.cg]
     if any(o["device_busy_ms_per_step"] is None for o in outs):
         raise SystemExit("profile_step: the profiler recorded no device "

@@ -10,7 +10,9 @@ iterations) on the dia solver, dt 0.04, 10 ADMM iterations; with
 --global-solver dense`, dense_max_nodes raised past its 22,386 nodes); with
 `fast=True, global_solver="cg"` on the lattice whole-timestep route (the
 banded kernel takes only the dia and ell modes, so the JAX package's chain
-reaches the lattice kernel).
+reaches the lattice kernel); with `amg=True` on the banded route with the
+in-kernel geometric multigrid (`bench.py --preset tet100k --amg`).
+`small_mg_beam` is the 6 x 5 x 4 beam of the multigrid tests.
 
 `arap100k`: tet100k's beam, anchors, gravity, masses and Settings with a
 kernel-backed LinearTetStrain (stiffness 1e5) in place of the NeoHookean
@@ -26,7 +28,9 @@ kernel's arap mode.
 Bend, 26 StaticAnchors on the top edge, gravity and WindForce, dia solver;
 with `fast=True` on the cloth whole-timestep route, with
 `global_solver="cg"` (and fast=False) on the matrix-free CG of the unfused
-pipeline. `small_cloth` is the 8 x 6 sheet of the cloth parity tests.
+pipeline; with `amg=True` on the cloth route with the in-kernel 2D
+multigrid (bench.py build_cloth100k(amg=True), its matched row). `small_cloth`
+is the 8 x 6 sheet of the cloth parity tests.
 
 `tet100k_sharded`: tet100k's scene on the sharded banded stepper at one
 device (`parallel/banded_spmd.py`): `tet100k(budget, fast=True)`, then
@@ -95,13 +99,18 @@ def beam_system(dims, size, total_mass, cg, dtype=torch.float32,
 
 
 def tet100k(cg, dtype=torch.float32, fast=False,
-            global_solver="dia") -> System:
+            global_solver="dia", amg=False) -> System:
     """The repo's headline workload (bench.py build_tet100k): 40 x 25 x 20
     cells x 5 = 100,000 tets, 22,386 nodes, 50 kg, cell size 0.05 m.
     global_solver="dense" raises dense_max_nodes past n, as bench.py does
-    (the inverse is 2.0 GB in f32); cg is then unused."""
+    (the inverse is 2.0 GB in f32); cg is then unused. amg=True is
+    `bench.py --amg` (build_tet100k(amg=True)): the banded route with the
+    in-kernel multigrid, cg V-cycle PCG iterations a solve (bench's 6)."""
+    if amg:
+        fast, global_solver = True, "dia"
     return beam_system((40, 25, 20), 0.05, 50.0, cg, dtype, fast=fast,
-                       global_solver=global_solver, dense_max_nodes=1 << 30)
+                       global_solver=global_solver, dense_max_nodes=1 << 30,
+                       preconditioner="amg" if amg else "jacobi")
 
 
 def tet100k_sharded(solver="cg", budget=75, dtype=torch.float32):
@@ -150,11 +159,22 @@ def cloth_system(nx, ny, cg, dtype=torch.float32, device="cuda", fast=True,
 
 
 def cloth100k(cg, dtype=torch.float32, fast=True,
-              global_solver="dia") -> System:
+              global_solver="dia", amg=False) -> System:
     """bench.py build_cloth100k: 225 x 225 quads, 51,076 nodes, 101,250
-    triangles, 151,425 hinges, 26 anchors, wind (4, 0, 1)."""
-    return cloth_system(225, 225, cg, dtype, fast=fast,
-                        global_solver=global_solver)
+    triangles, 151,425 hinges, 26 anchors, wind (4, 0, 1). amg=True is
+    build_cloth100k(amg=True): the cloth route with the in-kernel 2D
+    multigrid (ladder (2, 8)), cg V-cycle PCG iterations a solve (bench's
+    8)."""
+    return cloth_system(225, 225, cg, dtype, fast=fast or amg,
+                        global_solver=global_solver,
+                        preconditioner="amg" if amg else "jacobi")
+
+
+def small_mg_beam(dtype=torch.float64, device="cuda", cg=8) -> System:
+    """tet100k's physics on a 6 x 5 x 4 beam (210 nodes) on the banded
+    route with the in-kernel multigrid (levels 210 -> 36 -> 8)."""
+    return beam_system((6, 5, 4), 0.05, 50.0, cg, dtype, device, fast=True,
+                       preconditioner="amg")
 
 
 def small_cloth(dtype=torch.float64, device="cuda", fast=True,
@@ -380,3 +400,39 @@ def long_beam_dia_inputs(cells_x, dtype=torch.float32, device="cuda"):
     b = mt[:, None] * x0
     b[:, 1] -= mt * 9.8 * DT * DT
     return b, x0, t(diag), t(dia).contiguous(), offs
+
+
+def grid_mg_problem(nx, ny, dtype=torch.float64, device="cuda",
+                    seed=0) -> dict:
+    """A multigrid solve on an (nx+1) x (ny+1) planar grid: A = 4.5 I
+    minus its 4 neighbours in the x-major numbering (the band's rows wrap
+    at the grid's edges; SPD by diagonal dominance), its multigrid by the
+    cloth kernel's ladder search (`core.cloth.ladder_mg`), b and x0
+    N(0,1) (np.random.default_rng(seed)). Returns the arguments of
+    `ops.kernels.mg.mg_dia_solve` but the budget: b, x0, dia_vals,
+    offsets, planes, cfg."""
+    import scipy.sparse as sp
+
+    from ..core.cloth import ladder_mg
+    from ..ops.kernels.mg import MGConfig, planes_from
+
+    gx, gy = np.meshgrid(np.arange(nx + 1), np.arange(ny + 1))
+    verts = 0.1 * np.stack([gx.ravel(), gy.ravel(), 0 * gx.ravel()], 1)
+    n = len(verts)
+    offs = (-(nx + 1), -1, 0, 1, nx + 1)
+    A = sp.diags([-1.0, -1.0, 4.5, -1.0, -1.0], offs, shape=(n, n)).tocsr()
+    mg = ladder_mg(A, verts)
+    dia = np.zeros((len(offs), n))
+    for d, o in enumerate(offs):
+        lo, hi = max(0, -o), min(n, n - o)
+        dia[d, lo:hi] = A.diagonal(o)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    return {"b": t(rng.standard_normal((n, 3))),
+            "x0": t(rng.standard_normal((n, 3))), "dia_vals": t(dia),
+            "offsets": offs, "planes": planes_from(mg, dtype, device),
+            "cfg": MGConfig.of(mg)}

@@ -18,11 +18,20 @@ mode, delaunay100k on the banded route's ELL mode, and tet100k's beam
 made 4 times longer (160 x 25 x 20 cells, 87,906 nodes, 200 kg) on the
 banded route; and at budgets of their own: cloth100k on the cloth route
 (cg25, and cg300, its matched Jacobi budget) and tet100k on the sharded
-banded stepper at one device with the Chebyshev solve (cheb180).
+banded stepper at one device with the Chebyshev solve (cheb180); with
+the in-kernel multigrid (`preconditioner="amg"`), tet100k on the banded
+route at mg6 and mg8 and cloth100k on the cloth route at mg8.
 `--scenes` keeps the scenes whose names start with one of its words.
 With `--save` the positions after the 32 steps go to
-DIR/LABEL_SCENE_cgN.npy, so that two checkouts' trajectories can be held
-against each other. Needs a CUDA device.
+DIR/LABEL_SCENE_cgN.npy (a label holds no "_"), so that two checkouts'
+trajectories can be held against each other:
+
+    python admm_elastic_tpu_torch/utils/time_rollouts.py --compare DIR
+
+prints, for each scene and budget saved in DIR, whether each label's
+positions equal the first label's (in sorted order) bit for bit, then
+ALL_BITWISE or NOT_BITWISE, and exits 1 unless all are. Timing needs a
+CUDA device; the comparison does not.
 """
 
 from __future__ import annotations
@@ -55,6 +64,10 @@ def _scenes(scenes, torch, budgets):
                             (25, 300)),
         "tet100k sharded cheb": (lambda cg: scenes.tet100k_sharded(
             "cheb", cg, f32), (180,)),
+        "mg tet100k banded": (lambda cg: scenes.tet100k(cg, f32, amg=True),
+                              (6, 8)),
+        "mg cloth100k cloth": (lambda cg: scenes.cloth100k(cg, f32,
+                                                           amg=True), (8,)),
     }
 
 
@@ -107,6 +120,28 @@ def time_root(root, label, out_path, save, budgets, only=None):
                 f.write(json.dumps(line) + "\n")
 
 
+def compare(save) -> bool:
+    """Whether every label's saved positions in `save` equal, scene by
+    scene, the first label's bit for bit; prints a line a pair."""
+    import numpy as np
+
+    runs = {}
+    for f in sorted(os.listdir(save)):
+        if f.endswith(".npy"):
+            label, tag = f[:-4].split("_", 1)
+            runs.setdefault(tag, {})[label] = np.load(os.path.join(save, f))
+    same = bool(runs)
+    for tag, by_label in sorted(runs.items()):
+        (first, x0), *rest = sorted(by_label.items())
+        for label, x in rest:
+            eq = x.shape == x0.shape and x.tobytes() == x0.tobytes()
+            err = float(np.abs(x - x0).max()) if x.shape == x0.shape else None
+            print(f"{tag} {label} vs {first}: bitwise={eq} max_abs={err}")
+            same = same and eq
+    print("ALL_BITWISE" if same else "NOT_BITWISE")
+    return same
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=".",
@@ -118,7 +153,12 @@ def main():
     ap.add_argument("--scenes", nargs="+",
                     help="time only the scenes whose names start with one "
                          "of these words")
+    ap.add_argument("--compare", metavar="DIR",
+                    help="hold the positions saved in DIR against each "
+                         "other instead of timing")
     a = ap.parse_args()
+    if a.compare:
+        sys.exit(0 if compare(a.compare) else 1)
     time_root(a.root, a.label or a.root, a.out, a.save, a.cg, a.scenes)
 
 

@@ -31,7 +31,13 @@ and arap100k on the banded route's arap mode against its general route;
 and the beam on the sharded banded stepper at one device (cg25, cg75
 through one cg_dia_solve launch per solve, cheb180 through one
 cheb_dia_chunk launch per solve, on one thread-block cluster; one
-banded_local_rhs call per ADMM iteration) against the banded route.
+banded_local_rhs call per ADMM iteration) against the banded route;
+and the in-kernel geometric multigrid (`preconditioner="amg"`): the
+multigrid mode of the cluster solve (mg_dia_solve, `csrc/mg_vcycle.cuh`)
+and of the banded and cloth windows against their twins (phase 3o), then
+tet100k on the banded route at mg6 and mg8 and cloth100k on the cloth
+route at mg8 against the matched Jacobi routes of the same call (phase
+5i).
 The two whole-solve kernels (cg_dia_solve, cg_ell_solve: one launch on a
 16-CTA thread-block cluster each) are also held to their twins on
 delaunay100k renumbered at random (phase 3f) and on banded systems of
@@ -85,16 +91,18 @@ from admm_elastic_tpu_torch.ops.kernels import tet_local as ptet  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import tri_local as ptri  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import banded_local as pbl  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import cheb_dia as pchb  # noqa: E402
+from admm_elastic_tpu_torch.ops.kernels import mg as pmg  # noqa: E402
 from admm_elastic_tpu_torch.parallel import ShardedBandedStepper  # noqa: E402
 from admm_elastic_tpu_torch.parallel.cheb import (  # noqa: E402
     cheb_coefficients, dia_operator_bounds)
 from admm_elastic_tpu_torch.utils import profile_step, scenes  # noqa: E402
 from admm_elastic_tpu_torch.utils.opcount import (  # noqa: E402
     banded_local_counts, cg_dia_counts, cg_ell_counts, cg_update_counts,
-    cheb_dia_counts, nbytes, rollout_counts, roofline_ms, twin_counts)
+    cheb_dia_counts, mg_dia_counts, nbytes, rollout_counts, roofline_ms,
+    twin_counts)
 from admm_elastic_tpu_torch.utils.scenes import (  # noqa: E402
     arap100k, banded_spd, beam_system, cloth100k, delaunay100k, small_cloth,
-    small_delaunay, tet100k, tet100k_sharded)
+    small_delaunay, small_mg_beam, tet100k, tet100k_sharded)
 DT = 0.04  # the workload's timestep and ADMM iterations
 ADMM_ITERS = 10  # (admm_elastic_tpu_torch/utils/scenes.py)
 WARMUP_STEPS = 2
@@ -107,11 +115,25 @@ KERNELS = (pnh.nh_local_step_fused, pcg.cg_dia_solve, pbs.banded_rollout,
            ptri.tri_local_step_fused, pcs.cloth_rollout, pstep.cg_update,
            pell.cg_ell_solve, pnh.nh_local_step, ptri.tri_local_step,
            ptet.arap_local_step_fused, ptet.arap_local_step,
-           plat.lattice_rollout, pbl.banded_local_rhs, pchb.cheb_dia_chunk)
+           plat.lattice_rollout, pbl.banded_local_rhs, pchb.cheb_dia_chunk,
+           pmg.mg_dia_solve)
 # the sharded banded stepper at tet100k (phase 5h): solver, budget; cheb180
 # is the Chebyshev budget matched at 100k tets (f64 study, worst residual
 # ratio 1.027 against an exact solve, as cg75's 1.022)
 SHARDED = (("cg", 25), ("cg", 75), ("cheb", 180))
+# the multigrid routes (phase 5i): scene, V-cycle PCG iterations a solve.
+# tet100k at mg6 is bench.py --amg (its matched row); mg8 the JAX
+# package's default budget there; cloth100k at mg8 is bench's matched
+# cloth100k row (bench.py:229-232)
+MG_ROUTES = (("tet100k", 6), ("tet100k", 8), ("cloth100k", 8))
+# the most a multigrid route may lie from the 4 times deeper Jacobi route
+# after 32 steps in f32 (m), set from this phase's readings on the H100:
+# at tet100k mg6 / mg8 3.9e-5 / 2.8e-5 (banded cg75 itself 3.3e-5 from
+# cg300), at cloth100k mg8 1.1e-3 from cg1200 (cloth cg300 1.3e-2); the
+# scene's Jacobi route at cg8 is printed beside each as the control the
+# limit must reject (0.22 m and 2.5 m there)
+MG_DX_LIMIT_M = {"tet100k": 1e-4, "cloth100k": 3e-3}
+MG_CONTROL_CG = 8
 
 
 def reset_launches():
@@ -341,6 +363,51 @@ def check_solve(torch, label, mod, args, tol, reps=20, plain_reps=5):
     if not ok or ops != 1.0:
         raise AssertionError(f"{kind} {label} disagrees in {b.dtype} at "
                              f"{n_iters} (device ops a solve: {ops})")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def check_mg_solve(torch, label, st):
+    """The multigrid mode of the cluster solve (mg_dia_solve) on a
+    multigrid stepper's own matrix and planes at its budget, from its
+    first solve from rest as ADMM poses it (b = M x + M dt^2 g, warm
+    start x): bitwise against its twin, a bitwise repeat, one device
+    operation a solve. Returns (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)."""
+    x0, cfg = st.state["x"], st.cfg
+    m = st.planes["mass"]
+    b = m[:, None] * x0
+    b[:, 1] -= m * 9.8 * DT * DT
+    args = (b, x0, st.planes["dia"], cfg.dia_offs, st.planes, cfg.mg,
+            cfg.cg_iters)
+    got = pmg.mg_dia_solve(*args)
+    again = pmg.mg_dia_solve(*args)
+    want = pmg.mg_dia_solve_reference(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    twin = bool(torch.equal(got, want))
+    bit = bool(torch.equal(got, again))
+    fin = bool(torch.isfinite(got).all())
+    ms = cuda_ms(torch, lambda: pmg.mg_dia_solve(*args), 10)
+    plain_ms = cuda_ms(torch, lambda: pmg.mg_dia_solve_reference(*args), 2)
+    n_ops, n_bytes = mg_dia_counts(*args)
+    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
+    ops = profile_step.call_ops(
+        lambda: pmg.mg_dia_solve(*args))["device_ops_per_call"]
+    plan = pmg.mg_plan(b.shape[0], len(cfg.dia_offs),
+                       st.planes["mg_rp2"].shape[0], b.dtype)
+    ok = twin and bit and fin and ops == 1.0
+    say(f"kernel mg_dia_solve {label} {str(b.dtype)[6:]}", n=b.shape[0],
+        levels=st.mg_levels, diagonals=len(cfg.dia_offs),
+        level1_diagonals=len(cfg.mg.l1_offs),
+        corners=(len(cfg.mg.t0_offs), len(cfg.mg.t1_offs)),
+        n_iters=cfg.cg_iters, smem_bytes_per_cta=plan["smem_bytes"],
+        matrix_in_smem=plan["matrix_in_smem"], max_abs_err=err,
+        tol="bitwise", bitwise_vs_twin=twin, bitwise_repeat=bit, finite=fin,
+        ms=ms, plain_ms=plain_ms, operations=n_ops, bytes=n_bytes,
+        bound_ms=bound_ms, bound_by=bound_by, device_ops_per_solve=ops,
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"mg_dia_solve {label} disagrees in {b.dtype}")
     return err, ms, plain_ms, bound_ms, bound_by
 
 
@@ -596,6 +663,27 @@ def check_graph(torch, kind, st, label):
         ok=ok)
     if not ok:
         raise AssertionError(f"{kind} {label}: graph replay or setters")
+
+
+def check_steps(torch, kind, st, label, steps=20):
+    """A stepper's windows as graph replays, one step at a time, each held
+    bitwise to the twin run from the same state: a fault that shows only
+    now and then (a race) shows here as a step that disagrees."""
+    run, reference, keys = ROLLOUTS[kind]
+    bad = []
+    for step in range(1, steps + 1):
+        start = {k: st.state[k].clone() for k in keys}
+        st.step()
+        want = reference(start, st.planes, st.cfg, 1)
+        if not all(torch.equal(st.state[k], want[k]) for k in keys):
+            bad.append(step)
+            for k in keys:  # go on from the twin's state
+                st.state[k].copy_(want[k])
+    say(f"steps {kind} {label}", steps=steps, bitwise_vs_twin_each_step=not
+        bad, steps_that_disagree=bad, ok=not bad)
+    if bad:
+        raise AssertionError(f"{kind} {label}: steps {bad} disagree with the "
+                             "twin")
 
 
 def rollout_times(torch, kind, st):
@@ -1003,6 +1091,37 @@ def main():
         ms_per_10step_launch=window_ms, ms_per_step_in_window=window_ms / 10,
         operations=n_ops, bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by)
 
+    # phase 3o: the multigrid mode (preconditioner="amg"): the cluster
+    # solve's (mg_dia_solve, csrc/mg_vcycle.cuh) and the banded and cloth
+    # windows' against their twins, bitwise: the 6 x 5 x 4 beam and the
+    # 8 x 6 sheet in f64 and f32 (the solve; 1 ADMM iteration and a
+    # 10-step window; the CUDA graphs against eager launches and the
+    # setters after capture), then tet100k's and cloth100k's own A and
+    # rhs in f32 (the solve at mg8, its time and bound; one step of each
+    # window, its times and bound a step; 20 steps of its graph, each
+    # held to the twin)
+    for dtype in (torch.float64, torch.float32):
+        for label, kind, st in (
+                ("beam 6x5x4", "banded", small_mg_beam(dtype)._stepper),
+                ("sheet 8x6", "cloth",
+                 small_cloth(dtype, preconditioner="amg")._stepper)):
+            check_mg_solve(torch, label, st)
+            check_rollout_small(torch, kind, st, dtype, 0.0,
+                                name=f" mg {label}")
+            check_graph(torch, kind, st, f"mg {label} {str(dtype)[6:]}")
+    mg_full = {}
+    for label, kind, make in (
+            ("tet100k mg8", "banded",
+             lambda: tet100k(8, torch.float32, amg=True)),
+            ("cloth100k mg8", "cloth",
+             lambda: cloth100k(8, torch.float32, amg=True))):
+        st = make()._stepper
+        check_mg_solve(torch, label, st)
+        mg_full[label] = check_rollout_full(torch, kind, st, label,
+                                            torch.float32, 0.0)
+        check_steps(torch, kind, st, label)
+        del st
+
     # phase 3e: the fused CG update at delaunay100k's shapes
     d64 = delaunay100k(25, torch.float64, fast=False)
     probs = {dt: scenes.ell_solve_inputs(d64, dt)
@@ -1406,6 +1525,7 @@ def main():
     for (solver, budget), sp in sharded.items():
         profile_step.profile(budget, WINDOW_STEPS, "sharded", s=sp,
                              solver=solver)
+    tet75_ref = banded_x[75]  # phase 5i's trusted route
     del sharded, banded_x
 
     # phase 5c: cloth100k on the general and the cloth route, f32
@@ -1482,6 +1602,7 @@ def main():
                 and max(gsag, csag) < 0
                 and vs_general <= max(1e-3, 10.0 * sens[cg])):
             raise AssertionError(f"cloth cg{cg}: bad trajectory")
+    cloth300_x = cloth[300].x  # phase 5i's trusted route
     # the cloth route first: the general route's traces hold tens of
     # thousands of launches
     for cg, s in cloth.items():
@@ -1491,6 +1612,108 @@ def main():
     for cg, s in gen.items():
         profile_step.profile(cg, WINDOW_STEPS, "general", s=s,
                              scene="cloth100k")
+
+    del gen, cloth
+
+    # phase 5i: the multigrid routes at full width, f32: tet100k on the
+    # banded route at mg6 (bench.py --amg) and mg8, cloth100k on the cloth
+    # route at mg8 (bench's matched cloth100k row), each after 32 steps
+    # against the matched Jacobi route of this call (banded cg75, phase 5b;
+    # cloth cg300, phase 5c) and against a Jacobi route 4 times deeper
+    # (banded cg300, cloth cg1200), beside its own divergence from a start
+    # moved by 1e-6 m and the Jacobi route at cg8 (the control); then device operations a step and the idle share. The
+    # routes are different approximations of one exact solve: a multigrid
+    # route must lie within its scene's MG_DX_LIMIT_M of the deep route.
+    # In f32 cloth100k's cg300 lies ~1 cm from cg1200 after 32 steps, so
+    # the deep route is the yardstick
+    mg_routes = {(scene, cg): (tet100k if scene == "tet100k" else cloth100k)(
+        cg, torch.float32, amg=True) for scene, cg in MG_ROUTES}
+    reset_launches()
+    mg_runs = {}
+    for (scene, cg), s in mg_routes.items():
+        if s._stepper is None or s._stepper.cfg.mg is None:
+            raise AssertionError(f"{scene} mg{cg}: the multigrid route did "
+                                 "not engage")
+        run = pbs.banded_rollout if scene == "tet100k" else pcs.cloth_rollout
+        n0 = (run.launches, run.ops)
+        mg_runs[(scene, cg)] = (*drive(torch, s), run.launches - n0[0],
+                                run.ops - n0[1])
+    launches["banded_mg"] = pbs.banded_rollout.launches
+    launches["cloth_mg"] = pcs.cloth_rollout.launches
+    off_path(*(k for k in KERNELS
+               if k not in (pbs.banded_rollout, pcs.cloth_rollout)))
+    sens = {}
+    for scene, cg in MG_ROUTES:
+        p = (tet100k if scene == "tet100k" else cloth100k)(
+            cg, torch.float32, amg=True)
+        p.x = p._x + 1e-6 * np.random.default_rng(1).standard_normal(
+            p._x.shape)
+        p.run(steps)
+        sens[(scene, cg)] = float(np.abs(p.x - mg_routes[(scene, cg)].x).max())
+        del p
+    trusted = {"tet100k": ("banded cg75", tet75_ref, banded_ms[75]),
+               "cloth100k": ("cloth cg300", cloth300_x, cloth_runs[300][0])}
+    deep = {}
+    for scene, name, make in (
+            ("tet100k", "banded cg300",
+             lambda: tet100k(300, torch.float32, fast=True)),
+            ("cloth100k", "cloth cg1200",
+             lambda: cloth100k(1200, torch.float32))):
+        p = make()
+        p.run(steps)
+        deep[scene] = (name, p.x)
+        del p
+    control = {}
+    for scene in deep:
+        p = (tet100k(MG_CONTROL_CG, torch.float32, fast=True)
+             if scene == "tet100k" else cloth100k(MG_CONTROL_CG,
+                                                  torch.float32))
+        p.run(steps)
+        control[scene] = float(np.abs(p.x - deep[scene][1]).max())
+        del p
+    bad = []
+    for (scene, cg), (med, windows, n_launch, n_ops) in mg_runs.items():
+        s = mg_routes[(scene, cg)]
+        fin, drift, sag = (beam_trajectory if scene == "tet100k"
+                           else cloth_trajectory)(s)
+        name, ref_x, ref_ms = trusted[scene]
+        dx = float(np.abs(s.x - ref_x).max())
+        deep_name, deep_x = deep[scene]
+        dx_deep = float(np.abs(s.x - deep_x).max())
+        jacobi_deep = float(np.abs(ref_x - deep_x).max())
+        per_step = (2 if scene == "tet100k" else 3) + 3 * ADMM_ITERS
+        want = WARMUP_STEPS + WINDOWS
+        say(f"{scene} mg{cg} f32", ms_per_step_median=med,
+            windows_ms=[round(w, 4) for w in windows],
+            spread_ms=max(windows) - min(windows), steps=steps,
+            levels=s._stepper.mg_levels, submissions=n_launch,
+            expected_submissions=want, device_ops_per_step=n_ops / steps,
+            anchor_drift_m=drift, min_dy_m=sag,
+            max_abs_dx_vs_matched_jacobi_m=dx, trusted=name,
+            max_abs_dx_vs_deep_jacobi_m=dx_deep, deep=deep_name,
+            matched_jacobi_vs_deep_m=jacobi_deep,
+            control=f"jacobi cg{MG_CONTROL_CG}",
+            control_vs_deep_m=control[scene],
+            limit_m=MG_DX_LIMIT_M[scene],
+            perturbed_start_divergence_m=sens[(scene, cg)], finite=fin)
+        say(f"mg routes {scene} mg{cg} f32 (this call)",
+            jacobi_matched_ms_per_step=ref_ms, jacobi_matched=name,
+            mg_ms_per_step=med)
+        if n_launch != want or n_ops != steps * per_step:
+            bad.append(f"{scene} mg{cg}: {n_launch} submissions of {n_ops} "
+                       f"launches, expected {want} of {steps * per_step}")
+        if not (fin and drift < 1e-4 and sag < 0
+                and dx_deep <= MG_DX_LIMIT_M[scene]):
+            bad.append(f"{scene} mg{cg}: bad trajectory ({dx_deep} m from "
+                       f"{deep_name}, over {MG_DX_LIMIT_M[scene]} m)")
+    if bad:
+        raise AssertionError("multigrid routes: " + "; ".join(bad))
+    for (scene, cg), s in mg_routes.items():
+        check_window_ops(profile_step.profile(cg, WINDOW_STEPS, "fast", s=s,
+                                              scene=scene),
+                         f"{scene} mg{cg}",
+                         (2 if scene == "tet100k" else 3) + 3 * ADMM_ITERS)
+    del mg_routes, tet75_ref, cloth300_x, deep
 
     # phase 5d: delaunay100k on the banded route (ELL matvec) and on the
     # general ell route with each CG backend, f32
@@ -1781,6 +2004,10 @@ def main():
               launches["banded_local"], *local32[torch.float32]),
         entry("cheb_dia_chunk", "cheb_dia.cu", "cheb_dia.py:112",
               launches["cheb"], *cheb32[(torch.float32, "whole cheb180")]),
+        entry("banded_rollout[mg]", "mg_vcycle.cuh", "banded_step.py:1090",
+              launches["banded_mg"], *mg_full["tet100k mg8"]),
+        entry("cloth_rollout[mg]", "mg_vcycle.cuh", "cloth_step.py:746",
+              launches["cloth_mg"], *mg_full["cloth100k mg8"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -190,13 +190,14 @@ def test_groups_match_jax():
 
 @pytest.mark.parametrize("bad", [
     dict(scramble=7),
-    dict(preconditioner="amg"),
+    dict(scramble=7, preconditioner="amg"),
     dict(cg=(30, 10)),
     dict(stiff=100.0 * (0.5 + np.random.RandomState(1).rand(96))),
 ], ids=["scrambled", "amg", "cg-schedule", "per-element-stiffness"])
 def test_out_of_slice_cloths_raise(bad):
-    """JAX renumbers a scrambled grid onto its cloth kernel, which the port
-    does not do: it raises. Per-element constants qualify for no kernel in
+    """JAX renumbers a scrambled grid onto its cloth kernel (under 'amg'
+    too, with its multigrid), which the port does not do: it raises.
+    Per-element constants qualify for no kernel in
     either numbering, so JAX steps its general route, and so does the
     port, bitwise as with the fast path off."""
     if "stiff" in bad:
@@ -218,7 +219,10 @@ def test_routing():
     faces = pt.geometry.make_plane_grid(2, 2).faces
     with pytest.raises(NotImplementedError, match="xla"):
         pt.models.LimitedTriangleStrain(faces, 1.0)  # backend='xla'
-    with pytest.raises(NotImplementedError, match="amg"):
+    # 'amg' engages the cloth kernel's multigrid; without the fast path
+    # it raises JAX's ValueError (tests/test_torch_mg.py holds the rest)
+    assert cloth(pt, True, preconditioner="amg")._stepper.cfg.mg is not None
+    with pytest.raises(ValueError, match="amg"):
         cloth(pt, False, preconditioner="amg")
     # cg_backend is ignored under dia, as in the JAX package
     s = cloth(pt, True, cg_backend="fused")

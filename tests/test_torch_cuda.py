@@ -23,7 +23,9 @@ division, as their twins do on the card: bitwise. banded_local_rhs runs
 the banded kernel's element and vertex phases (1e-12 relative in f64,
 1e-4 in f32: a last-bit difference may move a Newton tie); cheb_dia_chunk
 repeats its twin's arithmetic in its order, bitwise in both layouts of its
-cluster."""
+cluster. The multigrid mode of the cluster solve (mg_dia_solve, the
+V-cycle of csrc/mg_vcycle.cuh) and the banded and cloth windows in that
+mode repeat their twins (ops/kernels/mg.py) bitwise too."""
 
 import dataclasses
 
@@ -36,7 +38,7 @@ from admm_elastic_tpu_torch.core.lattice import LatticeStepper
 from admm_elastic_tpu_torch.ops.kernels import (_build, banded_local,
                                                 banded_step, cg_dia, cg_ell,
                                                 cg_step, cheb_dia,
-                                                cloth_step, lattice_step,
+                                                cloth_step, lattice_step, mg,
                                                 nh_local, tet_local,
                                                 tri_local)
 from admm_elastic_tpu_torch.parallel.cheb import (cheb_coefficients,
@@ -44,8 +46,10 @@ from admm_elastic_tpu_torch.parallel.cheb import (cheb_coefficients,
 from admm_elastic_tpu_torch.utils import scenes
 from admm_elastic_tpu_torch.utils.scenes import (banded_spd, beam_system,
                                                  cloth_system,
+                                                 grid_mg_problem,
                                                  jittered_system,
-                                                 small_cloth, small_delaunay)
+                                                 small_cloth, small_delaunay,
+                                                 small_mg_beam)
 
 DTYPES = [torch.float64, torch.float32]
 
@@ -377,6 +381,10 @@ STEPPERS = {
                banded_step.banded_rollout, banded_step.STATE),
     "cloth": (lambda dt: small_cloth(dt)._stepper,
               cloth_step.cloth_rollout, cloth_step.STATE),
+    "banded mg": (lambda dt: small_mg_beam(dt)._stepper,
+                  banded_step.banded_rollout, banded_step.STATE),
+    "cloth mg": (lambda dt: small_cloth(dt, preconditioner="amg")._stepper,
+                 cloth_step.cloth_rollout, cloth_step.STATE),
     "banded ell": (lambda dt: small_delaunay(25, dt, "cuda",
                                              fast=True)._stepper,
                    banded_step.banded_rollout, banded_step.STATE),
@@ -590,3 +598,95 @@ def test_wrappers_raise_without_their_build(monkeypatch):
                                 st.planes["dia"], c, c,
                                 offsets=st.cfg.dia_offs, n_it=0, first=True,
                                 last=True, inv_theta=1.0)
+
+
+def _stepper_mg_problem(st, dtype):
+    """A multigrid stepper's matrix and planes, b N(0,1), x0 its state."""
+    b = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (st.n_nodes, 3)), dtype=dtype, device="cuda")
+    return {"b": b, "x0": st.state["x"], "dia_vals": st.planes["dia"],
+            "offsets": st.cfg.dia_offs, "planes": st.planes,
+            "cfg": st.cfg.mg}
+
+
+MG_PROBLEMS = {
+    "beam": lambda dt: _stepper_mg_problem(small_mg_beam(dt)._stepper, dt),
+    "sheet": lambda dt: _stepper_mg_problem(
+        small_cloth(dt, preconditioner="amg")._stepper, dt),
+    "grid 20x15": lambda dt: grid_mg_problem(20, 15, dt),
+    # 90,601 rows, ladder (4, 16) (16 corners a transfer); in f64 the
+    # slab's diagonals do not fit in shared memory
+    "grid 300x300": lambda dt: grid_mg_problem(300, 300, dt),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_iters", [0, 8])
+@pytest.mark.parametrize("name", list(MG_PROBLEMS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_mg_solve_kernel_is_its_twin(dtype, name, n_iters):
+    """The multigrid mode of the cluster solve against its twin: bitwise,
+    twice the same, 0 iterations give x0 back."""
+    _cuda()
+    p = MG_PROBLEMS[name](dtype)
+    args = (p["b"], p["x0"], p["dia_vals"], p["offsets"], p["planes"],
+            p["cfg"], n_iters)
+    n0 = mg.mg_dia_solve.launches
+    got = mg.mg_dia_solve(*args)
+    again = mg.mg_dia_solve(*args)
+    assert mg.mg_dia_solve.launches == n0 + 2
+    want = mg.mg_dia_solve_reference(*args)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again) and torch.equal(got, want)
+    if n_iters == 0:
+        assert torch.equal(got, p["x0"])
+    plan = mg.mg_plan(p["b"].shape[0], len(p["offsets"]),
+                      p["planes"]["mg_rp2"].shape[0], dtype)
+    assert plan["matrix_in_smem"] == (name != "grid 300x300"
+                                      or dtype == torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_banded_mg_window_is_its_twin(dtype):
+    """The 6 x 5 x 4 beam on the banded window's multigrid mode, one
+    10-step window: bitwise."""
+    _cuda()
+    st = small_mg_beam(dtype)._stepper
+    assert st.cfg.mg is not None
+    _window_is_its_twin(banded_step.banded_rollout,
+                        banded_step.banded_rollout_reference,
+                        banded_step.STATE, st, st.planes, st.cfg, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_cloth_mg_window_is_its_twin(dtype):
+    """The 8 x 6 sheet on the cloth window's multigrid mode, one 10-step
+    window: bitwise."""
+    _cuda()
+    st = small_cloth(dtype, preconditioner="amg")._stepper
+    assert st.cfg.mg is not None
+    _window_is_its_twin(cloth_step.cloth_rollout,
+                        cloth_step.cloth_rollout_reference,
+                        cloth_step.STATE, st, st.planes, st.cfg, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tet100k", "cloth100k"])
+def test_mg_windows_every_step_is_the_twins(name):
+    """tet100k and cloth100k at mg8 in f32, 20 graph replays of one step,
+    each held bitwise to the twin from the same state: a race shows as a
+    step that now and then disagrees (the solve once read its staged
+    matrix rows before every thread of its CTA had written them)."""
+    _cuda()
+    make = scenes.tet100k if name == "tet100k" else scenes.cloth100k
+    st = make(8, torch.float32, amg=True)._stepper
+    run = (banded_step if name == "tet100k" else cloth_step)
+    for step in range(20):
+        start = {k: st.state[k].clone() for k in run.STATE}
+        st.step()
+        want = (run.banded_rollout_reference if name == "tet100k"
+                else run.cloth_rollout_reference)(start, st.planes, st.cfg, 1)
+        for k in run.STATE:
+            assert torch.equal(st.state[k], want[k]), (step, k)

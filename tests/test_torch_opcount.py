@@ -242,3 +242,73 @@ def test_banded_local_counts_bytes():
     planes = nbytes([st.planes[k] for k in banded_local.PLANES])
     assert n_bytes == 2 * 8 * (9 * n + 12 * E) + planes
     assert ops > 1000 * E  # the SVD and the Newton prox per element
+
+
+def test_mg_dia_counts_one_iteration():
+    """One more V-cycle PCG iteration adds the fine matvec (a product and a
+    sum per term inside the matrix), 30n + 6 vector and scalar operations
+    (Jacobi's 33n + 6 less z = D^-1 r) and one V-cycle as the function
+    needs it (`vcycle_ops`: fewer operations than the twin, which computes
+    the coarse levels over every fine row), in the solve and once per ADMM
+    iteration in the banded window's multigrid mode; the solve reads b,
+    x0, the diagonals and the multigrid's planes once and writes x."""
+    import dataclasses
+
+    from admm_elastic_tpu_torch.core.solver import dia_apply
+    from admm_elastic_tpu_torch.ops.kernels import banded_step, mg
+    from admm_elastic_tpu_torch.utils.opcount import (mg_dia_counts, nbytes,
+                                                      rollout_counts,
+                                                      vcycle_ops)
+    from admm_elastic_tpu_torch.utils.scenes import small_mg_beam
+
+    st = small_mg_beam(device="cpu")._stepper
+    x, dia, offs, cfg = (st.state["x"], st.planes["dia"], st.cfg.dia_offs,
+                         st.cfg)
+    n = x.shape[0]
+    (o3, b3), (o4, b4) = (mg_dia_counts(x, x, dia, offs, st.planes, cfg.mg,
+                                        k) for k in (3, 4))
+    def A(y):
+        return dia_apply(y, offs, dia)
+
+    vcycle = vcycle_ops(x, A, st.planes)
+    twin, _ = count_ops(mg.vcycle, x, A, st.planes, cfg.mg)
+    matvec = sum(6 * (n - abs(off)) for off in offs)
+    assert 2 * matvec < vcycle < twin
+    assert o4 - o3 == matvec + 30 * n + 6 + vcycle
+    planes = nbytes([st.planes[k] for k in mg.PLANES])
+    assert b3 == b4 == 8 * (9 * n + dia.numel()) + planes
+
+    def counts(k):
+        c = dataclasses.replace(cfg, cg_iters=k, admm_iters=2)
+        return rollout_counts(banded_step.banded_rollout_reference,
+                              banded_step.STATE, st.state, st.planes, c, 1)
+
+    (r3, _), (r4, _) = counts(3), counts(4)
+    assert r4 - r3 == 2 * (o4 - o3)
+
+
+def test_vcycle_counts_the_representatives():
+    """A V-cycle's coarse work is counted at each level's representatives
+    (the builder's level sizes) and at the nonzero coefficients there: on
+    the 6x5x4 beam's hierarchy, with the coarsest product nc2 (2 nc2 - 1)
+    a column."""
+    from admm_elastic_tpu_torch.utils.opcount import mg_level_ops
+    from admm_elastic_tpu_torch.utils.scenes import small_mg_beam
+
+    st = small_mg_beam(device="cpu")._stepper
+    planes, (n, n1, nc2) = st.planes, st.mg_levels
+    assert int((planes["mg_om1"] != 0).sum()) == n1
+    rows1 = planes["mg_om1"] != 0
+    rp2 = planes["mg_rp2"].long()
+    nnz = {k: sum(int(planes[k][c, i] != 0) for c in range(planes[k].shape[0])
+                  for i in (rows1.nonzero().flatten().tolist()
+                            if k != "mg_t1" else rp2.tolist()))
+           for k in ("mg_t0", "mg_l1", "mg_t1")}
+    restrict0 = 2 * nnz["mg_t0"] - n1
+    a1 = 2 * nnz["mg_l1"] - n1
+    restrict1 = 2 * nnz["mg_t1"] - nc2
+    coarse = nc2 * (2 * nc2 - 1)
+    want = (5 * n + restrict0 + n1 + a1 + n1 + restrict1 + coarse
+            + 2 * nnz["mg_t1"] + a1 + 3 * n1 + 2 * nnz["mg_t0"])
+    assert mg_level_ops(planes, n) == want
+    assert nnz["mg_t1"] < planes["mg_t1"].numel()

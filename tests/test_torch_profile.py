@@ -85,3 +85,36 @@ def test_profile_retraces_and_reports(system, monkeypatch, capsys, windows,
             busy_us / 1e3 / steps)
         assert out["device_ops_per_step"] == records / steps
         assert "not measured" not in line
+
+
+def test_profile_counts_the_multigrid_solve(monkeypatch, capsys):
+    """A multigrid window's solve kernel is one of the port's own: a trace
+    that holds its record is not taken again, and the line names the
+    budget mgN."""
+    from admm_elastic_tpu_torch.ops.kernels import banded_step
+
+    class Tracer:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            banded_step.banded_rollout.ops += 1
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [_event("void admm::mg::solve_kernel<float, "
+                           "admm::dia::Rows<float> >", 0.0, 5.0)]
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(banded_step.banded_rollout, "ops", 0)
+    monkeypatch.setattr(torch.profiler, "profile", Tracer)
+    s = SimpleNamespace(run=lambda steps: time.sleep(1e-4),
+                        _solver_mode="dia",
+                        _stepper=SimpleNamespace(cfg=SimpleNamespace(
+                            mg=object())))
+    out = profile_step.profile(8, 1, "fast", s=s)
+    assert out["traced_windows"] == 1 and out["lost_kernel_records"] == 0
+    assert capsys.readouterr().out.startswith("[profile tet100k fast mg8]")

@@ -202,3 +202,17 @@ def test_cg_schedule_on_a_kernel_raises_in_both(name):
         scene(pkg, s, **kw)
         with pytest.raises(err):
             s.initialize()
+
+
+def test_settings_fields_in_jax_order():
+    """JAX's Settings fields, in JAX's order, then the port's `device`:
+    positional arguments mean the same in both packages."""
+    import dataclasses
+
+    jax_names = [f.name for f in dataclasses.fields(aet.Settings)]
+    names = [f.name for f in dataclasses.fields(pt.Settings)]
+    assert names == jax_names + ["device"]
+    mine = pt.Settings(0.04, 10, 1, torch.float64, "dia")
+    ref = aet.Settings(0.04, 10, 1, jnp.float64, "dia")
+    assert mine.global_solver == ref.global_solver == "dia"
+    assert mine.device == "cuda"

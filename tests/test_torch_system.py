@@ -114,12 +114,12 @@ def test_anchors_hold_and_callbacks_run():
     dict(acceleration="anderson"),
     dict(residual_tol=1e-6),
     dict(collect_residuals=True),
-    dict(global_solver="dense", preconditioner="amg"),
+    dict(global_solver="ell", preconditioner="amg"),
 ])
 def test_out_of_slice_settings_raise(bad):
     """Every global mode and relaxation are ported; Anderson acceleration,
-    residual collection and the multigrid preconditioner are not, in any
-    mode."""
+    residual collection and the general route's algebraic multigrid
+    (preconditioner='amg' under 'ell') are not."""
     with pytest.raises(NotImplementedError):
         _build(pt, 25, **bad)
 
