@@ -25,12 +25,17 @@ planes over a diluted, spatially ordered vertex layout, hub splits, an
 85 MB VMEM budget) is TPU layout and is dropped, so a mesh that packing
 rejects still takes this kernel here, with the same physics.
 
-Out of this slice (raise or do not qualify, see ROADMAP.md): in-kernel
-residuals, the in-kernel algebraic multigrid of the ell mode and scenario
-sweeps (B2).
+With `collect_residuals` ("primal" or True) the window's kernels also
+compute each ADMM iteration's primal (and dual) residual, read after each
+window into `last_primal` / `last_dual` (n_steps, admm_iters).
+
+Out of this slice (raise or do not qualify, see ROADMAP.md): the in-kernel
+algebraic multigrid of the ell mode and scenario sweeps (B2).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -40,9 +45,25 @@ from ..models import (Collision, Cylinder, ExplicitForce, Floor,
 from ..ops.kernels._graph import WindowGraphs
 from ..ops.kernels.banded_step import (STATE, BandedConfig, BandedWindow,
                                        banded_rollout)
+from ..ops.kernels import residuals
 from ..ops.kernels.mg import MGConfig, planes_from
 from .mg import build_grid_mg
 from .solver import _assemble_A_hat_csr, assemble_transpose_incidence
+
+
+def collect_mode(collect_residuals):
+    """A stepper's collect_residuals (False, "primal" or True) -> its
+    kernels' collect mode (None, "primal" or "full")."""
+    if collect_residuals is True:
+        return "full"
+    return "primal" if collect_residuals else None
+
+
+def host_residuals(out):
+    """(last_primal, last_dual) of a window's result: host copies, taken
+    after the window, or None."""
+    return tuple(None if k not in out else out[k].cpu().numpy()
+                 for k in ("primal", "dual"))
 
 
 class BandedStepper:
@@ -58,7 +79,9 @@ class BandedStepper:
     (dia_offs, dia_vals) or, with `ell=(idx, vals)` ((n,K) each) and
     dia_offs = (), dia_vals = None, in ELL form. The preconditioner is
     Jacobi, or with `mg` (a `core.mg.build_grid_mg` result; dia only) the
-    multigrid V-cycle.
+    multigrid V-cycle. collect_residuals: False, "primal" or True, as the
+    JAX stepper's; the residuals of the last step() or run() window are
+    host arrays (n_steps, admm_iters) in last_primal (and last_dual).
     """
 
     ROLLOUT_WINDOW = 10
@@ -69,7 +92,8 @@ class BandedStepper:
                  dia_offs, dia_vals, diag, *,
                  gravity=(0.0, -9.8, 0.0), dt=0.04, admm_iters=10,
                  cg_iters=25, dtype=torch.float32, device="cuda",
-                 coll_shapes=(), coll_w2=0.0, ell=None, mg=None):
+                 coll_shapes=(), coll_w2=0.0, ell=None, mg=None,
+                 collect_residuals=False):
         v = np.asarray(vertices, np.float64)
         n = len(v)
         idx = np.asarray(tet_idx, np.int64).reshape(-1, 4)
@@ -88,6 +112,12 @@ class BandedStepper:
             ell_width=0 if ell is None else int(np.shape(ell[0])[1]),
             mg=None if mg is None else MGConfig.of(mg),
         )
+        self.collect_residuals = collect_residuals
+        #: (n_steps, admm_iters) primal residuals of the last step()/run()
+        #: window when collect_residuals is on (a host copy)
+        self.last_primal = None
+        #: (n_steps, admm_iters) dual residuals (collect_residuals=True)
+        self.last_dual = None
 
         coeff = np.asarray(tet_coeff, np.float64).reshape(E, 3, 4)
         aw2 = np.zeros(n)
@@ -140,6 +170,16 @@ class BandedStepper:
         return torch.as_tensor(np.array(a, order="C"),
                                dtype=dtype or self.dtype, device=self.device)
 
+    @property
+    def collect_residuals(self):
+        return {None: False, "primal": "primal", "full": True}[
+            self.cfg.collect]
+
+    @collect_residuals.setter
+    def collect_residuals(self, value):
+        # a new cfg: the windows are captured anew, never replayed
+        self.cfg = dataclasses.replace(self.cfg, collect=collect_mode(value))
+
     # ------------------------------------------------------------ access
 
     @property
@@ -169,10 +209,13 @@ class BandedStepper:
         state = {k: self.state[k] for k in STATE}
         if self.device.type == "cuda":
             self._graphs.advance(state, self.planes, self.cfg, n_steps)
+            out = residuals.attach({}, self.cfg.collect,
+                                   self._graphs.window.residuals(n_steps))
         else:
-            self.state.update(banded_rollout(state, self.planes, self.cfg,
-                                             n_steps))
+            out = banded_rollout(state, self.planes, self.cfg, n_steps)
+            self.state.update({k: out[k] for k in STATE})
         self.state["t"] = self.state["t"] + n_steps * self.cfg.dt
+        self.last_primal, self.last_dual = host_residuals(out)
 
     def step(self):
         self._advance(1)
@@ -198,10 +241,11 @@ def banded_from_system(system):
     global mode, one HyperElasticTet (nh or stvk) or LinearTetStrain (the
     kernel's arap mode), StaticAnchors with any weights, at most one
     Collision over all nodes holding only Floor/Sphere/Cylinder, all-node
-    ExplicitForce kicks. (Relaxation never reaches here: System.initialize
-    keeps it on the general route; acceleration and residuals raise
-    there.) A `(first, rest)` cg_fixed_iters raises: the kernel takes one
-    budget (the JAX stepper's int() of a tuple fails as well).
+    ExplicitForce kicks, no residual_tol, collect_residuals False,
+    "primal" or True (the kernel emits them). (Relaxation never reaches
+    here: System.initialize keeps it on the general route; acceleration
+    raises there.) A `(first, rest)` cg_fixed_iters raises: the kernel
+    takes one budget (the JAX stepper's int() of a tuple fails as well).
 
     Under preconditioner="amg" the dia mode builds the geometric multigrid
     (`core.mg.build_grid_mg`, default budget 8) and returns None where the
@@ -210,6 +254,11 @@ def banded_from_system(system):
     NotImplementedError (ROADMAP A6).
     """
     s = system.settings
+    # the residual-driven early exit needs the general route
+    # (banded.py:584-589)
+    if s.collect_residuals not in (False, None, True, "primal") or (
+            s.residual_tol is not None):
+        return None
     if system._solver_mode not in ("dia", "ell"):
         return None
     tet, anchors, coll = None, [], None
@@ -302,4 +351,5 @@ def banded_from_system(system):
                   else int(s.cg_fixed_iters)),
         dtype=s.dtype, device=s.device, coll_shapes=shapes,
         coll_w2=(coll.weight_value ** 2 if coll is not None else 0.0),
+        collect_residuals=s.collect_residuals,
     )

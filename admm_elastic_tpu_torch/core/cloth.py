@@ -21,10 +21,13 @@ The kernel itself reads elements by index, so the groups only fix the
 order of each vertex's sums (group by group, corner by corner, as the
 Pallas kernel accumulates them) and the per-group constants.
 
+With `collect_residuals` ("primal" or True) the window's kernels also
+compute each ADMM iteration's primal (and dual) residual, read after each
+window into `last_primal` / `last_dual` (n_steps, admm_iters).
+
 Out of this slice (raise, see ROADMAP.md): the kernel on a sheet that
 qualifies only after the JAX package's scrambled-grid or sym-plane
-renumbering (the detectors are here, to tell when that happens) and
-in-kernel residuals.
+renumbering (the detectors are here, to tell when that happens).
 """
 
 from __future__ import annotations
@@ -34,10 +37,12 @@ import torch
 
 from ..models import (Bend, ExplicitForce, LimitedTriangleStrain,
                       StaticAnchor, WindForce)
+from ..ops.kernels import residuals
 from ..ops.kernels._graph import WindowGraphs
 from ..ops.kernels.cloth_step import (BEND_TAB, STATE, TRI_TAB, ClothConfig,
                                       ClothWindow, cloth_rollout)
 from ..ops.kernels.mg import MGConfig, planes_from
+from .banded import BandedStepper, collect_mode, host_residuals
 from .lattice import detect_grid_numbering
 from .mg import LANES, build_grid_mg
 from .solver import _assemble_A_hat_csr, assemble_A_hat_dia
@@ -248,7 +253,8 @@ class ClothStepper:
     with multigrid=True, by the V-cycle of the first ladder of MG_LADDERS
     whose coarsest level has at most MG_MAX_NP2 x 128 dofs. `wind` is
     (direction, triangles) or None. Arrays are numpy, in the System's
-    numbering. Raises ValueError when the mesh does not qualify."""
+    numbering. Raises ValueError when the mesh does not qualify.
+    collect_residuals, last_primal and last_dual: as BandedStepper's."""
 
     model = "cloth"
     ROLLOUT_WINDOW = 10
@@ -256,7 +262,7 @@ class ClothStepper:
     def __init__(self, vertices, masses, tri_force, bend_force, anchor_idx,
                  anchor_weight=1000.0, gravity=(0.0, -9.8, 0.0), wind=None,
                  dt=0.04, admm_iters=10, cg_iters=25, dtype=torch.float32,
-                 device="cuda", multigrid=False):
+                 device="cuda", multigrid=False, collect_residuals=False):
         v = np.asarray(vertices, np.float64)
         n = len(v)
         self.n_nodes = n
@@ -344,7 +350,11 @@ class ClothStepper:
             gravity=tuple(float(g) for g in gravity), wind_dir=wind_dir,
             limiting=bool(tri_force.strain_limiting),
             mg=None if mg is None else MGConfig.of(mg),
+            collect=collect_mode(collect_residuals),
         )
+        #: (n_steps, admm_iters) residuals of the last step()/run() window
+        #: when collect_residuals is on (host copies)
+        self.last_primal = self.last_dual = None
         self.groups = [("tri", offs) for offs, _, _ in gt] + [
             ("bend", offs) for offs, _, _ in gh]
         self.wind_groups = [offs for offs, _, _ in gw]
@@ -410,6 +420,8 @@ class ClothStepper:
         return torch.as_tensor(np.array(a, order="C"),
                                dtype=dtype or self.dtype, device=self.device)
 
+    collect_residuals = BandedStepper.collect_residuals
+
     # ------------------------------------------------------------ access
 
     @property
@@ -439,10 +451,13 @@ class ClothStepper:
         state = {k: self.state[k] for k in STATE}
         if self.device.type == "cuda":
             self._graphs.advance(state, self.planes, self.cfg, n_steps)
+            out = residuals.attach({}, self.cfg.collect,
+                                   self._graphs.window.residuals(n_steps))
         else:
-            self.state.update(cloth_rollout(state, self.planes, self.cfg,
-                                            n_steps))
+            out = cloth_rollout(state, self.planes, self.cfg, n_steps)
+            self.state.update({k: out[k] for k in STATE})
         self.state["t"] = self.state["t"] + n_steps * self.cfg.dt
+        self.last_primal, self.last_dual = host_residuals(out)
 
     def step(self):
         self._advance(1)
@@ -469,8 +484,9 @@ def cloth_from_system(system):
     StaticAnchors with one shared weight, all-node ExplicitForce kicks, at
     most one WindForce over groupable triangles, and a dia-structured
     A_hat; under preconditioner="amg" the multigrid builds (default budget
-    10). (Relaxation and residuals never reach here: System.initialize
-    rejects them.) Where the sheet does not qualify in
+    10); no residual_tol, collect_residuals False, "primal" or True (the
+    kernel emits them). (Relaxation never reaches here: System.initialize
+    keeps it on the general route.) Where the sheet does not qualify in
     its own numbering, the JAX package tries its grid and sym-plane
     renumberings (`detect_grid_numbering`, `detect_symplane_numbering`,
     `detect_symplane_positions`) and runs the kernel on the first that
@@ -478,6 +494,11 @@ def cloth_from_system(system):
     (the general route) where none qualifies. A `(first, rest)`
     cg_fixed_iters raises, as the JAX stepper's int() of a tuple fails."""
     s = system.settings
+    # the residual-driven early exit needs the general route
+    # (cloth.py:518-523)
+    if s.collect_residuals not in (False, None, True, "primal") or (
+            s.residual_tol is not None):
+        return None
     tri, bend, anchors = None, None, []
     for f in system.forces:
         if type(f) is LimitedTriangleStrain:
@@ -560,7 +581,8 @@ def cloth_from_system(system):
                 dt=s.timestep_s, admm_iters=s.admm_iters,
                 cg_iters=((10 if mg else 25) if s.cg_fixed_iters is None
                           else int(s.cg_fixed_iters)),
-                dtype=s.dtype, device=s.device, multigrid=mg)
+                dtype=s.dtype, device=s.device, multigrid=mg,
+                collect_residuals=s.collect_residuals)
         except ValueError:
             return None
 

@@ -45,9 +45,10 @@ algebraic multigrid instead.
 
 Ported so far: every global mode, with kernel-backed hyperelastic and
 corotational tets and triangle strain, bend hinges, anchors, collisions,
-gravity and wind, relaxation, on the general route and the three
-whole-timestep routes. Every other setting raises NotImplementedError
-rather than running something else.
+gravity and wind, relaxation, the per-iteration residuals
+(`collect_residuals`, `residual_tol`, `last_aux`), on the general route
+and the three whole-timestep routes. Every other setting raises
+NotImplementedError rather than running something else.
 """
 
 from __future__ import annotations
@@ -136,8 +137,16 @@ class Settings:
     #: multigrid instead (the banded kernel's ell mode, the general route's
     #: ell + xla PCG) the port raises (ROADMAP A6)
     preconditioner: str = "jacobi"
-    # not ported yet (ROADMAP 2d): JAX's defaults; any other value raises
+    #: per-ADMM-iteration residuals in `System.last_aux` (step: (iters,),
+    #: run: (n_steps, iters)): "primal" the primal residual ||W(Dx - z)||,
+    #: True also the dual residual ||dt^2 D^T W^2 (z - z_prev)||. The
+    #: banded and cloth whole-timestep kernels compute them in their own
+    #: kernels; the lattice kernel does not, so the scene steps elsewhere
     collect_residuals: bool | str = False
+    #: stop the ADMM iterations of a step (on the device: later iterations
+    #: change nothing) once the primal residual is at or under it. The
+    #: whole-timestep kernels run every iteration, so the scene steps the
+    #: general route
     residual_tol: float | None = None
     #: True runs whole timesteps in one kernel launch per rollout window
     #: where the scene qualifies, trying the JAX package's chain in order:
@@ -198,11 +207,6 @@ class Settings:
                        "'jacobi' and 'amg')")
         if self.acceleration is not None:
             out.append(f"acceleration={self.acceleration!r}")
-        if self.residual_tol is not None:
-            out.append(f"residual_tol={self.residual_tol}")
-        if self.collect_residuals:
-            out.append(f"collect_residuals={self.collect_residuals!r} "
-                       "(ROADMAP A2 item 2d; in-kernel residuals B2)")
         return out
 
     def check(self) -> None:
@@ -213,6 +217,25 @@ class Settings:
                 ("reorder", self.reorder, ("auto", "none"))):
             if value not in allowed:
                 raise ValueError(f"unknown {name} {value!r}; one of {allowed}")
+        # the JAX package's checks of its step (system.py:562-568)
+        if self.acceleration not in (None, "anderson"):
+            raise ValueError(f"unknown acceleration {self.acceleration!r}")
+        if self.acceleration is not None and self.residual_tol is not None:
+            raise ValueError(
+                "acceleration and residual_tol cannot be combined"
+            )
+
+
+def _keep_if(done, old, new):
+    """The carry `old` where the 0-dim bool `done` holds, else `new`, over
+    nested tuples, dicts and None (torch.where per tensor)."""
+    if isinstance(old, tuple):
+        return tuple(_keep_if(done, o, n) for o, n in zip(old, new))
+    if isinstance(old, dict):
+        return {k: _keep_if(done, old[k], new[k]) for k in old}
+    if old is None:
+        return None
+    return torch.where(done, old, new)
 
 
 def _to_device(tree, dtype, device):
@@ -351,7 +374,8 @@ class System:
             "forces": _to_device(state_forces, dtype, device),
         }
         # the zero row that the incidence's padding slots gather
-        self._sentinel = torch.zeros((1, 3), dtype=dtype, device=device)
+        # (3 columns, or 6 with the dual residual's rows)
+        self._sentinel = torch.zeros((1, 6), dtype=dtype, device=device)
 
         if s.lattice_fast_path and s.relaxation != 1.0:
             # the whole-timestep kernels run the plain iteration only
@@ -511,10 +535,26 @@ class System:
         return pcg_solve_fixed(A, b, x, sv["diag"], k)[0]
 
     def _step(self, state, params):
-        dt = self.settings.timestep_s
+        """One timestep from `state`; returns (new state, aux). aux holds
+        the per-ADMM-iteration residuals, as the JAX package's step:
+        "primal_residual" ||W (D x - z)|| by the dual-update identity D x
+        - z = u' - u, and "dual_residual" ||dt^2 D^T W^2 (z - z_prev)||
+        with z_prev starting at D x0 (System.cpp:64-65), each (admm_iters,)
+        when collected, else (0,); the dual stays 0 unless
+        collect_residuals is True. Under residual_tol every iteration after
+        the one whose primal residual is at or under it is frozen on the
+        device (x, duals, force state and residuals keep their values), so
+        no iteration reads a value back to the host."""
+        s = self.settings
+        dt = s.timestep_s
         dt2 = dt * dt
-        relax = float(self.settings.relaxation)
+        relax = float(s.relaxation)
         masses = self._masses_dev
+        mode = self._solver_mode
+        gathered = mode in ("dia", "ell")
+        collect_dual = s.collect_residuals is True
+        early_tol = s.residual_tol
+        collect = bool(s.collect_residuals) or early_tol is not None
         x0, v = state["x"], state["v"]
         for e in self.explicit_forces:
             v = e.apply(dt, x0, v, masses, params[e.name])
@@ -526,73 +566,165 @@ class System:
         sv = params["_solver"]
         # the fused kernels consume x directly; the other modes and the
         # relaxation blend run the unfused per-force pipeline
-        fused = self._solver_mode in ("dia", "ell") and relax == 1.0
+        fused = gathered and relax == 1.0
         # z_prev of over-relaxation starts at D x0 (System.cpp:43)
         zprev = ({f.name: f.compute_Dx(params[f.name], x0)
                   for f in self.forces} if relax != 1.0 else None)
+        # the dual residual's carry: under dia and ell T z = sum_f D^T W^2 z
+        # per vertex, from the RHS's own incidence gather of 6-wide rows;
+        # else each force's z, whose difference is gathered on its own
+        rc = None
+        if collect_dual:
+            z0 = {f.name: f.compute_Dx(params[f.name], x0)
+                  for f in self.forces}
+            rc = (self._gather([f.rhs_contribution(params[f.name],
+                                                   z0[f.name],
+                                                   torch.zeros_like(z0[f.name]))
+                                for f in self.forces], 3)
+                  if gathered else z0)
+        iters = s.admm_iters
+        rp = x0.new_zeros((iters if collect else 0,))
+        rd = x0.new_zeros((iters if collect else 0,))
+        if early_tol is not None:
+            done = torch.zeros((), dtype=torch.bool, device=x0.device)
 
         curr_x = xbar
-        for i in range(self.settings.admm_iters):
-            contribs = []
+        for i in range(iters):
+            contribs, z, new_u, new_fstate = [], {}, dict(u), dict(fstate)
+            new_zprev = dict(zprev) if zprev is not None else None
             for f in self.forces:
                 p = params[f.name]
                 if fused and getattr(f, "supports_fused_local_rhs", False):
-                    _, u[f.name], fstate[f.name], c = f.fused_local_rhs(
-                        p, curr_x, u[f.name], fstate[f.name]
-                    )
+                    z[f.name], new_u[f.name], new_fstate[f.name], c = \
+                        f.fused_local_rhs(p, curr_x, u[f.name],
+                                          fstate[f.name], with_z=collect_dual)
                 else:
                     h = f.compute_Dx(p, curr_x)
                     if zprev is not None:
                         h = relax * h + (1.0 - relax) * zprev[f.name]
-                    z, u[f.name], fstate[f.name] = f.project_with_dual(
-                        h, u[f.name], p, fstate[f.name]
-                    )
+                    z[f.name], new_u[f.name], new_fstate[f.name] = \
+                        f.project_with_dual(h, u[f.name], p, fstate[f.name])
                     if zprev is not None:
-                        zprev[f.name] = z
-                    c = f.rhs_contribution(p, z, u[f.name])
+                        new_zprev[f.name] = z[f.name]
+                    c = (f.rhs_contribution6 if collect_dual and gathered
+                         else f.rhs_contribution)(p, z[f.name], new_u[f.name])
                 contribs.append(c)
-            contribs.append(self._sentinel)
             # scatter-free RHS: per-element rows gathered through the
             # vertex incidence (fixed-order sum, no atomics)
-            out = transpose_gather_apply(torch.cat(contribs, dim=0),
-                                         sv["inc_idx"])
-            b = Mxbar + dt2 * out
-            curr_x = self._solve(i, b, curr_x, params)
+            out = self._gather(contribs, 6 if collect_dual and gathered
+                               else 3)
+            b = Mxbar + dt2 * out[:, :3]
+            new_x = self._solve(i, b, curr_x, params)
+            new_rc = rc
+            residuals = []
+            if collect:
+                # ||W (Dx - z)||^2 = sum_f w^2 ||u' - u||^2 (System.cpp:64)
+                residuals.append((rp, torch.sqrt(sum(
+                    (f.primal_piece(params[f.name], new_u[f.name], u[f.name])
+                     for f in self.forces), x0.new_zeros(())))))
+            if collect_dual:
+                # ||dt^2 D^T W^2 (z - z_prev)|| (System.cpp:65)
+                if gathered:
+                    new_rc = out[:, 3:]
+                    dual = dt2 * torch.linalg.norm(new_rc - rc)
+                else:
+                    new_rc = z
+                    dual = torch.linalg.norm(dt2 * self._gather(
+                        [f.rhs_contribution(params[f.name], z[f.name],
+                                            rc[f.name])
+                         for f in self.forces], 3))
+                residuals.append((rd, dual))
+            if early_tol is None:
+                for res, value in residuals:
+                    res[i] = value
+                curr_x, u, fstate, zprev, rc = (new_x, new_u, new_fstate,
+                                                new_zprev, new_rc)
+                continue
+            # the masked early exit (system.py:806-827): once done, an
+            # iteration keeps every value of the carry, its residuals 0
+            for res, value in residuals:
+                res[i] = torch.where(done, res[i], value)
+            curr_x, u, fstate, zprev, rc = _keep_if(
+                done, (curr_x, u, fstate, zprev, rc),
+                (new_x, new_u, new_fstate, new_zprev, new_rc))
+            done = done | (rp[i] <= early_tol)
 
-        return {
+        new_state = {
             "x": curr_x,
             "v": (curr_x - x0) / dt,
             "t": state["t"] + dt,
             "u": u,
             "forces": fstate,
         }
+        return new_state, {"primal_residual": rp, "dual_residual": rd}
+
+    def _gather(self, rows, width):
+        """Per-vertex sums of the forces' rows (one (E*K, width) block per
+        force, in the incidence's order) through the vertex incidence, with
+        the zero sentinel row appended: a fixed-order sum, no atomics."""
+        rows = [*rows, self._sentinel[:, :width]]
+        return transpose_gather_apply(torch.cat(rows, dim=0),
+                                      self.params["_solver"]["inc_idx"])
 
     # ----------------------------------------------------------- stepping
 
     def step(self):
-        """One timestep; runs host callbacks first (System.cpp:29)."""
+        """One timestep; runs host callbacks first (System.cpp:29). Sets
+        `last_aux`: the step's residuals, (admm_iters,) each (see _step);
+        on a whole-timestep stepper only when it collects them."""
         if not self.initialized:
             raise RuntimeError("call initialize() first")
         for cb in self.pre_step_callbacks:
             cb(self)
         if self._stepper is not None:
             self._stepper.step()
+            self._stepper_aux(lambda r: r[0])
         else:
-            self.state = self._step(self.state, self.params)
+            self.state, self.last_aux = self._step(self.state, self.params)
         self.elapsed_s += self.settings.timestep_s
         return True
 
+    def make_rollout(self, n_steps: int):
+        """n_steps timesteps of the general route with no callbacks:
+        returns rollout(state, params) -> (state, aux), aux's residuals
+        stacked (n_steps, admm_iters)."""
+        def rollout(state, params):
+            auxes = []
+            for _ in range(n_steps):
+                state, aux = self._step(state, params)
+                auxes.append(aux)
+            return state, {k: torch.stack([a[k] for a in auxes])
+                           if auxes else state["x"].new_zeros((0, 0))
+                           for k in ("primal_residual", "dual_residual")}
+
+        return rollout
+
     def run(self, n_steps: int):
-        """Advance n_steps with no per-step callbacks."""
+        """Advance n_steps with no per-step callbacks. Sets `last_aux`: on
+        the general route the steps' residuals stacked (n_steps,
+        admm_iters); on a collecting stepper its last window's."""
         if not self.initialized:
             raise RuntimeError("call initialize() first")
         if self._stepper is not None:
             self._stepper.run(n_steps)
+            self._stepper_aux(lambda r: r)
         else:
-            for _ in range(n_steps):
-                self.state = self._step(self.state, self.params)
+            self.state, self.last_aux = self.make_rollout(n_steps)(
+                self.state, self.params)
         self.elapsed_s += n_steps * self.settings.timestep_s
         return True
+
+    def _stepper_aux(self, pick):
+        """last_aux from a stepper's last_primal / last_dual, as the JAX
+        package sets it (system.py:844-853, 877-887): nothing when the
+        stepper collects no residuals."""
+        primal = getattr(self._stepper, "last_primal", None)
+        if primal is None:
+            return
+        self.last_aux = {"primal_residual": pick(primal)}
+        dual = getattr(self._stepper, "last_dual", None)
+        if dual is not None:
+            self.last_aux["dual_residual"] = pick(dual)
 
     # ------------------------------------------------------------- access
 

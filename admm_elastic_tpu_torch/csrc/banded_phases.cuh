@@ -10,9 +10,19 @@
 // (3,E), au, cu (n,3); rows (12,E); vertex planes aw2 (n,), ancz (n,3),
 // inc (n,S); E, S, newton_iters, n_shapes, shape_kind, shape_prm and the
 // scalars sc[] (COLL_W2 read here).
+//
+// Residual collection is a compile-time mode, COLLECT (residuals.cuh):
+// NONE computes nothing more than the phases themselves; PRIMAL
+// returns each element's and vertex's piece of the squared primal residual
+// ||W (D x - z)||^2 (banded_step.py:390-398, 464-466, 509-511); FULL also
+// forms the dual residual's rows (element: zrows (12,E), the rows of w2 D^T
+// z) and its vertex sums T z (vertex: tz (n,3) holds the previous
+// iteration's T z and takes this one's), as banded_step.py:405-441,
+// 464-465, 509-510.
 #pragma once
 
 #include "arap.cuh"
+#include "residuals.cuh"
 
 namespace admm {
 namespace banded {
@@ -23,9 +33,26 @@ enum ShapeKind { FLOOR = 0, SPHERE = 1, CYLINDER = 2 };
 // scalars[]: dt, dt^2, 1/dt, dt g (3), collision weight^2
 enum Scalar { DT = 0, DT2, INV_DT, DTG0, DTG1, DTG2, COLL_W2, N_SCALARS };
 
-// Element e: local step, dual update and its 12 RHS rows.
-template <typename T, int MODEL, typename A>
-__device__ __forceinline__ void element_step(const A& a, int e) {
+// rows[3k+j] of element e = sum_b cp[4b+k] y[3j+b], from y already scaled
+// by w2, the terms added in order of b.
+template <typename T>
+__device__ __forceinline__ void tet_rows(const T c[12], const T y[9],
+                                         T* rows, size_t sE, int e) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      T acc = c[k] * y[3 * j];
+      acc = acc + c[4 + k] * y[3 * j + 1];
+      acc = acc + c[8 + k] * y[3 * j + 2];
+      rows[(3 * k + j) * sE + e] = acc;
+    }
+}
+
+// Element e: local step, dual update and its 12 RHS rows. Returns its piece
+// of the squared primal residual, w2 ||u' - u||^2 (0 without COLLECT).
+template <typename T, int MODEL, int COLLECT = residuals::NONE, typename A>
+__device__ __forceinline__ T element_step(const A& a, int e) {
   const size_t sE = static_cast<size_t>(a.E);
   T xg[4][3];
 #pragma unroll
@@ -38,12 +65,13 @@ __device__ __forceinline__ void element_step(const A& a, int e) {
 #pragma unroll
   for (int q = 0; q < 12; ++q) c[q] = a.cp[q * sE + e];
   // f[3a+b] = u[3a+b] + sum_k cp[4b+k] x[idx_k, a]
-  T f[9];
+  T f[9], uo[9];
 #pragma unroll
   for (int ia = 0; ia < 3; ++ia)
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
       T acc = a.u[(3 * ia + b) * sE + e];
+      uo[3 * ia + b] = acc;
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc = acc + c[4 * b + k] * xg[k][ia];
       f[3 * ia + b] = acc;
@@ -79,22 +107,58 @@ __device__ __forceinline__ void element_step(const A& a, int e) {
                         U[1][r] * sig[1] * V[1][cc] +
                         U[2][r] * sig[2] * V[2][cc];
   }
-  T zu[9];
+  T zu[9], r2 = T(0);
 #pragma unroll
   for (int q = 0; q < 9; ++q) {
     const T up = f[q] - z[q];
     a.u[q * sE + e] = up;
     zu[q] = w2e * (f[q] - T(2) * up);  // z - u' = F - 2u'
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      T acc = c[k] * zu[3 * j];
-      acc = acc + c[4 + k] * zu[3 * j + 1];
-      acc = acc + c[8 + k] * zu[3 * j + 2];
-      a.rows[(3 * k + j) * sE + e] = acc;
+    if constexpr (COLLECT != residuals::NONE) {
+      const T du = up - uo[q];  // = D x - z
+      r2 = r2 + du * du;
     }
+  }
+  tet_rows<T>(c, zu, a.rows, sE, e);
+  if constexpr (COLLECT == residuals::FULL) {
+    T zz[9];
+#pragma unroll
+    for (int q = 0; q < 9; ++q) zz[q] = w2e * z[q];
+    tet_rows<T>(c, zz, a.zrows, sE, e);
+  }
+  return w2e * r2;
+}
+
+// The dual residual's seed, element e: the rows of w2 D^T D x_pre, the
+// image of z_prev = D x_pre at a step's first ADMM iteration
+// (System.cpp:43). Formed directly, as the general route forms it
+// (system.py:604-616), rather than by the Pallas kernel's identity
+// (A_hat - M) x_pre / dt^2 (banded_step.py:890-902), which subtracts two
+// nearly equal terms and in f32 loses most of the seed's digits.
+template <typename T, typename A>
+__device__ __forceinline__ void seed_rows(const A& a, int e) {
+  const size_t sE = static_cast<size_t>(a.E);
+  T xg[4][3];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const size_t vtx = static_cast<size_t>(a.idx[k * sE + e]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) xg[k][c] = a.xpre[3 * vtx + c];
+  }
+  T c[12];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) c[q] = a.cp[q * sE + e];
+  const T w2e = a.w2[e];
+  T zz[9];
+#pragma unroll
+  for (int ia = 0; ia < 3; ++ia)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      T acc = c[4 * b] * xg[0][ia];
+#pragma unroll
+      for (int k = 1; k < 4; ++k) acc = acc + c[4 * b + k] * xg[k][ia];
+      zz[3 * ia + b] = w2e * acc;
+    }
+  tet_rows<T>(c, zz, a.zrows, sE, e);
 }
 
 // Collision shapes in declaration order (banded_step.py:478-503).
@@ -126,27 +190,43 @@ __device__ __forceinline__ void project(const A& a, T z[3]) {
   }
 }
 
-// Vertex i: its RHS b = the incidence sum of the element rows (slot
-// order, no atomics), the anchor dual (zero where the anchor weight is 0)
-// and its RHS, the collision shapes in declaration order, their dual and
-// RHS. Updates a.au and a.cu in place and returns b.
+// The incidence sum of vertex i's element rows (rows (12,E)), in slot
+// order, no atomics.
 template <typename T, typename A>
-__device__ __forceinline__ void vertex_rhs(const A& a, int i, T b[3]) {
+__device__ __forceinline__ void gather_rows(const A& a, const T* rows, int i,
+                                            T out[3]) {
   const size_t si = static_cast<size_t>(i);
   const int total = 4 * a.E;
   const size_t sE = static_cast<size_t>(a.E);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) b[c] = T(0);
+  for (int c = 0; c < 3; ++c) out[c] = T(0);
   for (int j = 0; j < a.S; ++j) {
     const int slot = a.inc[si * a.S + j];
     if (slot >= total) break;  // the sentinels follow the real slots
     const size_t e = static_cast<size_t>(slot >> 2);
     const int k = slot & 3;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) b[c] = b[c] + a.rows[(3 * k + c) * sE + e];
+    for (int c = 0; c < 3; ++c) out[c] = out[c] + rows[(3 * k + c) * sE + e];
   }
+}
+
+// Vertex i: its RHS b = the incidence sum of the element rows (slot
+// order, no atomics), the anchor dual (zero where the anchor weight is 0)
+// and its RHS, the collision shapes in declaration order, their dual and
+// RHS. Updates a.au and a.cu in place and returns b. Returns the vertex's
+// piece of the squared primal residual, aw2 ||x - ancz||^2 + cw2 ||x -
+// zc||^2 (0 without COLLECT); under FULL, T z = the incidence sum of zrows
+// + aw2 ancz + cw2 zc replaces a.tz[i], and dual takes ||T z - T z_prev||^2.
+template <typename T, int COLLECT = residuals::NONE, typename A>
+__device__ __forceinline__ T vertex_rhs(const A& a, int i, T b[3],
+                                        T* dual = nullptr) {
+  const size_t si = static_cast<size_t>(i);
+  gather_rows(a, static_cast<const T*>(a.rows), i, b);
+  T tz[3];
+  if constexpr (COLLECT == residuals::FULL)
+    gather_rows(a, static_cast<const T*>(a.zrows), i, tz);
   const T aw2 = a.aw2[i];
-  T xi[3];
+  T xi[3], r2 = T(0);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     xi[c] = a.x[3 * si + c];
@@ -156,18 +236,54 @@ __device__ __forceinline__ void vertex_rhs(const A& a, int i, T b[3]) {
     const T aun = aw2 > T(0) ? a.au[3 * si + c] + dlt : T(0);
     a.au[3 * si + c] = aun;
     b[c] = b[c] + aw2 * (anc - aun);
+    if constexpr (COLLECT != residuals::NONE) r2 = r2 + dlt * dlt;
+    if constexpr (COLLECT == residuals::FULL) tz[c] = tz[c] + aw2 * anc;
   }
+  r2 = aw2 * r2;
   if (a.n_shapes > 0) {
-    T z[3];
+    T z[3], rc = T(0);
 #pragma unroll
     for (int c = 0; c < 3; ++c) z[c] = xi[c] + a.cu[3 * si + c];
     project(a, z);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const T un = a.cu[3 * si + c] + (xi[c] - z[c]);
+      const T dlt = xi[c] - z[c];
+      const T un = a.cu[3 * si + c] + dlt;
       a.cu[3 * si + c] = un;
       b[c] = b[c] + a.sc[COLL_W2] * (z[c] - un);
+      if constexpr (COLLECT != residuals::NONE) rc = rc + dlt * dlt;
+      if constexpr (COLLECT == residuals::FULL)
+        tz[c] = tz[c] + a.sc[COLL_W2] * z[c];
     }
+    r2 = r2 + a.sc[COLL_W2] * rc;
+  }
+  if constexpr (COLLECT == residuals::FULL) {
+    T d2 = T(0);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const T d = tz[c] - a.tz[3 * si + c];
+      d2 = d2 + d * d;
+      a.tz[3 * si + c] = tz[c];
+    }
+    *dual = d2;
+  }
+  return r2;
+}
+
+// The dual residual's seed at vertex i: T z_prev = the incidence sum of the
+// seed rows + aw2 x_pre (+ cw2 x_pre with collision shapes), into a.tz.
+template <typename T, typename A>
+__device__ __forceinline__ void seed_vertex(const A& a, int i) {
+  const size_t si = static_cast<size_t>(i);
+  T tz[3];
+  gather_rows(a, static_cast<const T*>(a.zrows), i, tz);
+  const T aw2 = a.aw2[i];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const T xp = a.xpre[3 * si + c];
+    T t = tz[c] + aw2 * xp;
+    if (a.n_shapes > 0) t = t + a.sc[COLL_W2] * xp;
+    a.tz[3 * si + c] = t;
   }
 }
 

@@ -38,6 +38,16 @@
 //       cluster; under the multigrid, cg_dia.cu's multigrid mode
 //       (mg_vcycle.cuh), the V-cycle in place of D^-1
 //   end, per vertex: v = (x - x_pre) (1/dt)
+// With residual collection (collect, banded_step.py:152-157, 187-190,
+// 270-275, 390-441, 464-466, 509-520, 890-915; residuals.cuh), the element
+// and vertex kernels are their PRIMAL or FULL instantiations, which also
+// write each block's partial of the squared primal residual (and under
+// FULL the dual residual's rows zrows, its vertex sums T z and their
+// partials); FULL opens a timestep with two more launches, the seed T
+// z_prev = the incidence sum of w2 D^T D x_pre rows + aw2 x_pre (+ cw2
+// x_pre), and every collecting timestep ends with finalize_kernel, which
+// writes its admm_iters residuals. Collecting only reads the state: x and
+// every dual are the same bits with it on or off.
 // The arithmetic follows the Pallas kernel's evaluation order; the plain
 // PyTorch twin (ops/kernels/banded_step.py) follows the same order, its
 // solve the cluster solve's (core/solver.pcg_fixed_inv with
@@ -92,43 +102,102 @@ struct Args {
   const T* __restrict__ ancz;   // (n,3)
   const int* __restrict__ inc;  // (n,S)
   // scratch
+  T* xpre;
   T* mxbar;
   T* rows;  // (12,E)
   T* rhs;   // (n,3)
+  // residual collection: the dual residual's rows (12,E) and T z (n,3);
+  // the partials of ADMM iteration `it`: primal part[it * (eb + vb) +
+  // block] (the element blocks', then the vertex blocks'), dual
+  // dpart[it * vb + block]
+  T* zrows;
+  T* tz;
+  T* part;
+  T* dpart;
+  int it, eb, vb;
   int n, E, S, n_shapes, newton_iters;
   T sc[N_SCALARS];
   int shape_kind[MAX_SHAPES];
   T shape_prm[MAX_SHAPES][SHAPE_PRM];
 };
 
-template <typename T, int MODEL>
+static_assert(THREADS == residuals::THREADS, "one block size");
+
+template <typename T, int MODEL, int COLLECT>
 __global__ void __launch_bounds__(THREADS)
     element_kernel(const __grid_constant__ Args<T> a) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < a.E) element_step<T, MODEL>(a, e);
+  if constexpr (COLLECT == residuals::NONE) {
+    if (e < a.E) element_step<T, MODEL>(a, e);
+  } else {
+    const T r2 = e < a.E ? element_step<T, MODEL, COLLECT>(a, e) : T(0);
+    residuals::block_partial(
+        r2, a.part + static_cast<size_t>(a.it) * (a.eb + a.vb) + blockIdx.x);
+  }
 }
 
 // Vertex i: RHS, anchor and collision duals (vertex_rhs), then rhs = M
 // xbar + dt^2 b.
-template <typename T>
+template <typename T, int COLLECT>
 __global__ void __launch_bounds__(THREADS)
     vertex_kernel(const __grid_constant__ Args<T> a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  T b[3];
-  vertex_rhs(a, i, b);
+  T b[3], r2 = T(0), d2 = T(0);
+  if (i < a.n) {
+    r2 = vertex_rhs<T, COLLECT>(a, i, b, &d2);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const size_t q = 3 * static_cast<size_t>(i) + c;
-    a.rhs[q] = a.mxbar[q] + a.sc[DT2] * b[c];
+    for (int c = 0; c < 3; ++c) {
+      const size_t q = 3 * static_cast<size_t>(i) + c;
+      a.rhs[q] = a.mxbar[q] + a.sc[DT2] * b[c];
+    }
   }
+  if constexpr (COLLECT != residuals::NONE)
+    residuals::block_partial(r2, a.part +
+                                     static_cast<size_t>(a.it) *
+                                         (a.eb + a.vb) +
+                                     a.eb + blockIdx.x);
+  if constexpr (COLLECT == residuals::FULL)
+    residuals::block_partial(
+        d2, a.dpart + static_cast<size_t>(a.it) * a.vb + blockIdx.x);
+}
+
+// The dual residual's seed (FULL): the rows of w2 D^T D x_pre, then per
+// vertex T z_prev.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    seed_element_kernel(const __grid_constant__ Args<T> a) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < a.E) seed_rows<T>(a, e);
 }
 
 template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    seed_vertex_kernel(const __grid_constant__ Args<T> a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < a.n) seed_vertex<T>(a, i);
+}
+
+template <typename T, int COLLECT>
 void* element_kernel_of(int model) {
-  return model == 0   ? (void*)element_kernel<T, 0>
-         : model == 1 ? (void*)element_kernel<T, 1>
-                      : (void*)element_kernel<T, 2>;
+  return model == 0   ? (void*)element_kernel<T, 0, COLLECT>
+         : model == 1 ? (void*)element_kernel<T, 1, COLLECT>
+                      : (void*)element_kernel<T, 2, COLLECT>;
+}
+
+template <typename T>
+void* element_kernel_of(int model, int collect) {
+  return collect == residuals::NONE
+             ? element_kernel_of<T, residuals::NONE>(model)
+         : collect == residuals::PRIMAL
+             ? element_kernel_of<T, residuals::PRIMAL>(model)
+             : element_kernel_of<T, residuals::FULL>(model);
+}
+
+template <typename T>
+void* vertex_kernel_of(int collect) {
+  return collect == residuals::NONE     ? (void*)vertex_kernel<T, 0>
+         : collect == residuals::PRIMAL ? (void*)vertex_kernel<T, 1>
+                                        : (void*)vertex_kernel<T, 2>;
 }
 
 template <typename T>
@@ -137,12 +206,13 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
            const T* mass, const T* invd, const T* aw2, const T* ancz,
            const int* inc, const T* dia_vals, const int* ell_idx_t,
            const T* ell_vals_t, T* xpre, T* mxbar, T* rows, T* rhs,
-           T* scratch, const int* offsets, const int* shape_kinds,
+           T* scratch, T* zrows, T* tz, T* part, T* dpart, T* res_p,
+           T* res_d, const int* offsets, const int* shape_kinds,
            const double* shape_prm, const double* scalars, const void* mg,
            int n, int E,
            int D, int K, int H, int S, int n_shapes, int model,
            int newton_iters, int cg_iters, int admm_iters, int n_steps,
-           void* stream) {
+           int collect, void* stream) {
   // exactly one matrix: D diagonals (K = 0) or K ELL slots (D = 0)
   const bool matrix_ok =
       K > 0 ? (D == 0 && ell_idx_t != nullptr && ell_vals_t != nullptr)
@@ -153,11 +223,19 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
       n_shapes < 0 || n_shapes > MAX_SHAPES || model < 0 || model > 2 ||
       newton_iters < 0 || cg_iters < 0 || admm_iters < 0 || n_steps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  // what each residual mode writes
+  if (collect < residuals::NONE || collect > residuals::FULL ||
+      (collect != residuals::NONE && (part == nullptr || res_p == nullptr)) ||
+      (collect == residuals::FULL &&
+       (zrows == nullptr || tz == nullptr || dpart == nullptr ||
+        res_d == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args<T> a{};
   a.x = x; a.v = v; a.u = u; a.warm = warm; a.au = au; a.cu = cu;
   a.idx = idx; a.cp = cp; a.w2 = w2; a.mu = mu; a.lam = lam; a.kp = kp;
   a.aw2 = aw2; a.ancz = ancz; a.inc = inc;
-  a.mxbar = mxbar; a.rows = rows; a.rhs = rhs;
+  a.xpre = xpre; a.mxbar = mxbar; a.rows = rows; a.rhs = rhs;
+  a.zrows = zrows; a.tz = tz; a.part = part; a.dpart = dpart;
   a.n = n; a.E = E; a.S = S; a.n_shapes = n_shapes;
   a.newton_iters = newton_iters;
   for (int q = 0; q < N_SCALARS; ++q) a.sc[q] = static_cast<T>(scalars[q]);
@@ -168,20 +246,33 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 vb = window::blocks_for(n), eb = window::blocks_for(E);
+  a.eb = static_cast<int>(eb.x);
+  a.vb = static_cast<int>(vb.x);
+  // each launch takes a copy of a: `it` is set before the ADMM
+  // iteration's launches
   void* kargs[] = {&a};
-  void* element = element_kernel_of<T>(model);
+  void* element = element_kernel_of<T>(model, collect);
+  void* vertex = vertex_kernel_of<T>(collect);
   window::clear_errors();
   for (int step = 0; step < n_steps; ++step) {
     window::kick_kernel<T><<<vb, THREADS, 0, st>>>(
         x, v, xpre, mxbar, mass, a.sc[DT], a.sc[DTG0], a.sc[DTG1],
         a.sc[DTG2], n);
     int err = window::launched();
+    if (err == 0 && collect == residuals::FULL) {
+      err = static_cast<int>(cudaLaunchKernel(
+          (void*)seed_element_kernel<T>, eb, dim3(THREADS), kargs, 0, st));
+      if (err == 0)
+        err = static_cast<int>(cudaLaunchKernel(
+            (void*)seed_vertex_kernel<T>, vb, dim3(THREADS), kargs, 0, st));
+    }
     for (int it = 0; it < admm_iters && err == 0; ++it) {
+      a.it = it;
       err = static_cast<int>(
           cudaLaunchKernel(element, eb, dim3(THREADS), kargs, 0, st));
       if (err == 0)
-        err = static_cast<int>(cudaLaunchKernel(
-            (void*)vertex_kernel<T>, vb, dim3(THREADS), kargs, 0, st));
+        err = static_cast<int>(
+            cudaLaunchKernel(vertex, vb, dim3(THREADS), kargs, 0, st));
       if (err == 0)
         err = mg != nullptr
                   ? window::mg_solve(rhs, x, dia_vals, offsets, D, n,
@@ -194,6 +285,14 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
     window::end_kernel<T><<<vb, THREADS, 0, st>>>(x, v, xpre, a.sc[INV_DT],
                                                  n);
     err = window::launched();
+    if (err == 0 && collect != residuals::NONE) {
+      const size_t at = static_cast<size_t>(step) * admm_iters;
+      const bool full = collect == residuals::FULL;
+      residuals::finalize_kernel<T><<<1, THREADS, 0, st>>>(
+          part, a.eb + a.vb, full ? dpart : nullptr, a.vb, admm_iters,
+          a.sc[DT2], 0, res_p + at, full ? res_d + at : nullptr);
+      err = window::launched();
+    }
     if (err != 0) return window::failed(err);
   }
   return 0;
@@ -208,17 +307,18 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
       const T* w2, const T* mu, const T* lam, const T* kp, const T* mass,     \
       const T* invd, const T* aw2, const T* ancz, const int* inc,             \
       const T* dia_vals, const int* ell_idx_t, const T* ell_vals_t, T* xpre,  \
-      T* mxbar, T* rows, T* rhs, T* scratch, const int* offsets,              \
+      T* mxbar, T* rows, T* rhs, T* scratch, T* zrows, T* tz, T* part,        \
+      T* dpart, T* res_p, T* res_d, const int* offsets,                       \
       const int* shape_kinds, const double* shape_prm, const double* scalars, \
       const void* mg, int n, int E, int D, int K, int H, int S, int n_shapes, \
       int model, int newton_iters, int cg_iters, int admm_iters, int n_steps, \
-      void* stream) {                                                         \
+      int collect, void* stream) {                                            \
     return admm::banded::launch<T>(                                           \
         x, v, u, warm, au, cu, idx, cp, w2, mu, lam, kp, mass, invd, aw2,     \
         ancz, inc, dia_vals, ell_idx_t, ell_vals_t, xpre, mxbar, rows, rhs,   \
-        scratch, offsets, shape_kinds, shape_prm, scalars, mg, n, E, D, K, H, \
-        S, n_shapes, model, newton_iters, cg_iters, admm_iters, n_steps,      \
-        stream);                                                              \
+        scratch, zrows, tz, part, dpart, res_p, res_d, offsets, shape_kinds,  \
+        shape_prm, scalars, mg, n, E, D, K, H, S, n_shapes, model,            \
+        newton_iters, cg_iters, admm_iters, n_steps, collect, stream);        \
   }
 
 extern "C" {
@@ -235,7 +335,11 @@ extern "C" {
 // collision weight^2, formed in double) are host arrays. mg: null for the
 // Jacobi-PCG solve, else an mg::Host (mg_vcycle.cuh) whose V-cycle
 // preconditions the solve on the dia rows (K = 0; scratch then holds
-// mg_dia_plan's count). Every launch
+// mg_dia_plan's count). collect: 0 none, 1 the primal residuals, 2 also
+// the dual ones, written to res_p and res_d (n_steps, admm_iters); zrows
+// (12,E), tz (n,3), part (admm_iters, eb + vb) and dpart (admm_iters, vb),
+// with eb and vb the element and vertex blocks of 128 threads, are their
+// scratch (null where the mode needs none). Every launch
 // goes to `stream` (a CUDA graph capture takes them all; the solve's
 // set-up, cg_dia_prepare_* / cg_ell_prepare_* / mg_dia_prepare_*, must run
 // before). Returns

@@ -2,7 +2,9 @@
 //
 // Replaces, in admm_elastic_tpu/ops/pallas/nh_local.py:
 //   nh_local_step_fused (kernel _make_hyper_fused_kernel), which forms Dx
-//     from gathered positions and emits the RHS rows (the dia/ell route);
+//     from gathered positions and emits the RHS rows (the dia/ell route),
+//     and with emit_z the rows of w2 D^T z beside them (the dual
+//     residual's, nh_local.py:333-343, 406-414);
 //   nh_local_step (kernel _make_hyper_kernel), which takes Dx (the unfused
 //     pipeline: dense and cg global modes, over-relaxation).
 // The SVD, Newton prox and warm-start guards are the shared device
@@ -13,7 +15,9 @@
 // proximal objective (fixed iterations, backtracking ladder + gradient
 // candidates, sigma floor) -> z = U diag(sigma*) V^T, u' = u + Dx - z, warm
 // start sigma*, and (fused only) the RHS rows contrib[3k+j] = w2 * sum_r
-// cp[4r+k] * (z - u')[3j+r].
+// cp[4r+k] * (z - u')[3j+r]; with emit_z also contribz[3k+j] = w2 * sum_r
+// cp[4r+k] * z[3j+r], a compile-time mode (EMIT_Z): the instantiation
+// without it does none of that work.
 //
 // What bounds it on this card: registers and the ALU. The fused entry
 // reads 12+9+3+12+4 values per element and writes 9+9+3+12 (about 290
@@ -74,15 +78,15 @@ __device__ __forceinline__ void element(const T dx[9], const T uu[9],
     }
 }
 
-template <typename T, int MODEL>
+template <typename T, int MODEL, bool EMIT_Z>
 __global__ void __launch_bounds__(128)
     fused_kernel(const T* __restrict__ xg, const T* __restrict__ u,
                  const T* __restrict__ warm, const T* __restrict__ cp,
                  const T* __restrict__ mu_, const T* __restrict__ lam_,
                  const T* __restrict__ k_, const T* __restrict__ w2_,
                  T* __restrict__ z_out, T* __restrict__ u_out,
-                 T* __restrict__ warm_out, T* __restrict__ contrib, int E,
-                 int iters) {
+                 T* __restrict__ warm_out, T* __restrict__ contrib,
+                 T* __restrict__ contribz, int E, int iters) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   const size_t sE = static_cast<size_t>(E);
@@ -127,6 +131,13 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
       for (int r = 1; r < 3; ++r) acc = acc + c[4 * r + kk] * zu[3 * j + r];
       contrib[(3 * kk + j) * sE + e] = w2e * acc;
+      if constexpr (EMIT_Z) {
+        T accz = c[kk] * z[3 * j];
+#pragma unroll
+        for (int r = 1; r < 3; ++r)
+          accz = accz + c[4 * r + kk] * z[3 * j + r];
+        contribz[(3 * kk + j) * sE + e] = w2e * accz;
+      }
     }
 }
 
@@ -160,19 +171,35 @@ constexpr int kThreads = 128;
 
 inline int blocks_for(int E) { return (E + kThreads - 1) / kThreads; }
 
+template <typename T, int MODEL>
+void fused_of(bool emit_z, const T* xg, const T* u, const T* warm,
+              const T* cp, const T* mu, const T* lam, const T* k,
+              const T* w2, T* z, T* u_out, T* warm_out, T* contrib,
+              T* contribz, int E, int iters, cudaStream_t st) {
+  if (emit_z)
+    fused_kernel<T, MODEL, true><<<blocks_for(E), kThreads, 0, st>>>(
+        xg, u, warm, cp, mu, lam, k, w2, z, u_out, warm_out, contrib,
+        contribz, E, iters);
+  else
+    fused_kernel<T, MODEL, false><<<blocks_for(E), kThreads, 0, st>>>(
+        xg, u, warm, cp, mu, lam, k, w2, z, u_out, warm_out, contrib,
+        contribz, E, iters);
+}
+
 template <typename T>
 int launch_fused(const T* xg, const T* u, const T* warm, const T* cp,
                  const T* mu, const T* lam, const T* k, const T* w2, T* z,
-                 T* u_out, T* warm_out, T* contrib, int E, int iters,
-                 int model, void* stream) {
+                 T* u_out, T* warm_out, T* contrib, T* contribz, int E,
+                 int iters, int model, void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool emit_z = contribz != nullptr;
   if (model == 0)
-    fused_kernel<T, 0><<<blocks_for(E), kThreads, 0, st>>>(
-        xg, u, warm, cp, mu, lam, k, w2, z, u_out, warm_out, contrib, E, iters);
+    fused_of<T, 0>(emit_z, xg, u, warm, cp, mu, lam, k, w2, z, u_out,
+                   warm_out, contrib, contribz, E, iters, st);
   else
-    fused_kernel<T, 1><<<blocks_for(E), kThreads, 0, st>>>(
-        xg, u, warm, cp, mu, lam, k, w2, z, u_out, warm_out, contrib, E, iters);
+    fused_of<T, 1>(emit_z, xg, u, warm, cp, mu, lam, k, w2, z, u_out,
+                   warm_out, contrib, contribz, E, iters, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -196,16 +223,18 @@ int launch_step(const T* dx, const T* u, const T* warm, const T* mu,
 
 extern "C" {
 
-// model: 0 = NeoHookean, 1 = StVK. Each returns the cudaError_t of the
+// model: 0 = NeoHookean, 1 = StVK. contribz: the emit_z rows (12,E), or
+// null for the entry without them. Each returns the cudaError_t of the
 // launch.
 int nh_local_step_fused_f32(const float* xg, const float* u, const float* warm,
                             const float* cp, const float* mu, const float* lam,
                             const float* k, const float* w2, float* z,
                             float* u_out, float* warm_out, float* contrib,
-                            int E, int iters, int model, void* stream) {
+                            float* contribz, int E, int iters, int model,
+                            void* stream) {
   return admm::nh::launch_fused<float>(xg, u, warm, cp, mu, lam, k, w2, z,
-                                       u_out, warm_out, contrib, E, iters,
-                                       model, stream);
+                                       u_out, warm_out, contrib, contribz, E,
+                                       iters, model, stream);
 }
 
 int nh_local_step_fused_f64(const double* xg, const double* u,
@@ -213,10 +242,11 @@ int nh_local_step_fused_f64(const double* xg, const double* u,
                             const double* mu, const double* lam,
                             const double* k, const double* w2, double* z,
                             double* u_out, double* warm_out, double* contrib,
-                            int E, int iters, int model, void* stream) {
+                            double* contribz, int E, int iters, int model,
+                            void* stream) {
   return admm::nh::launch_fused<double>(xg, u, warm, cp, mu, lam, k, w2, z,
-                                        u_out, warm_out, contrib, E, iters,
-                                        model, stream);
+                                        u_out, warm_out, contrib, contribz, E,
+                                        iters, model, stream);
 }
 
 int nh_local_step_f32(const float* dx, const float* u, const float* warm,

@@ -1,9 +1,10 @@
 // Triangle-strain (cloth) local step for Hopper: two entries.
 //
 // Replaces, in admm_elastic_tpu/ops/pallas/tri_local.py:
-//   tri_local_step_fused (kernel _make_tri_fused_kernel, without emit_z),
-//     which forms F from gathered positions and emits the RHS rows (the dia
-//     route);
+//   tri_local_step_fused (kernel _make_tri_fused_kernel), which forms F
+//     from gathered positions and emits the RHS rows (the dia route), and
+//     with emit_z the rows of w2 D^T z beside them (the dual residual's,
+//     tri_local.py:158, 188-196);
 //   tri_local_step (kernel _make_tri_kernel), which takes Dx (the unfused
 //     pipeline: dense and cg global modes, over-relaxation).
 // The projection is the shared device code of tri.cuh.
@@ -11,7 +12,9 @@
 // Per element: F = Dx + u (3x2; Dx = sum_k cp*xg in the fused entry) ->
 // closed-form 3x2 SVD -> z = (k U V^T + w2 F) / (w2 + k), column norms
 // clamped into [lmin, lmax] -> u' = F - z, and (fused only) the RHS rows
-// contrib[3k+j] = w2 * sum_r cp[3r+k] * (z - u')[2j+r].
+// contrib[3k+j] = w2 * sum_r cp[3r+k] * (z - u')[2j+r]; with emit_z (a
+// compile-time mode, EMIT_Z) also contribz[3k+j] = w2 * sum_r cp[3r+k] *
+// z[2j+r].
 //
 // What bounds it on this card: bytes. The fused entry reads 9 + 6 + 6 + 4
 // values per element and writes 6 + 6 + 9 (184 bytes in f32, ~18.6 MB at
@@ -30,14 +33,14 @@
 namespace admm {
 namespace tri {
 
-template <typename T>
+template <typename T, bool EMIT_Z>
 __global__ void __launch_bounds__(128)
     fused_kernel(const T* __restrict__ xg, const T* __restrict__ u,
                  const T* __restrict__ cp, const T* __restrict__ w2_,
                  const T* __restrict__ k_, const T* __restrict__ lmin_,
                  const T* __restrict__ lmax_, T* __restrict__ z_out,
-                 T* __restrict__ u_out, T* __restrict__ contrib, int E,
-                 int limiting) {
+                 T* __restrict__ u_out, T* __restrict__ contrib,
+                 T* __restrict__ contribz, int E, int limiting) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   const size_t sE = static_cast<size_t>(E);
@@ -73,9 +76,13 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
   for (int kk = 0; kk < 3; ++kk)
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
+    for (int j = 0; j < 3; ++j) {
       contrib[(3 * kk + j) * sE + e] =
           w2 * (c[kk] * zu[2 * j] + c[3 + kk] * zu[2 * j + 1]);
+      if constexpr (EMIT_Z)
+        contribz[(3 * kk + j) * sE + e] =
+            w2 * (c[kk] * z[2 * j] + c[3 + kk] * z[2 * j + 1]);
+    }
 }
 
 template <typename T>
@@ -109,11 +116,18 @@ inline int blocks_for(int E) { return (E + kThreads - 1) / kThreads; }
 template <typename T>
 int launch_fused(const T* xg, const T* u, const T* cp, const T* w2,
                  const T* k, const T* lmin, const T* lmax, T* z, T* u_out,
-                 T* contrib, int E, int limiting, void* stream) {
+                 T* contrib, T* contribz, int E, int limiting,
+                 void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
-  fused_kernel<T><<<blocks_for(E), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      xg, u, cp, w2, k, lmin, lmax, z, u_out, contrib, E, limiting);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (contribz != nullptr)
+    fused_kernel<T, true><<<blocks_for(E), kThreads, 0, st>>>(
+        xg, u, cp, w2, k, lmin, lmax, z, u_out, contrib, contribz, E,
+        limiting);
+  else
+    fused_kernel<T, false><<<blocks_for(E), kThreads, 0, st>>>(
+        xg, u, cp, w2, k, lmin, lmax, z, u_out, contrib, contribz, E,
+        limiting);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -133,25 +147,28 @@ int launch_step(const T* dx, const T* u, const T* w2, const T* k,
 
 extern "C" {
 
-// limiting: 0 or 1 (strain limiting on). Each returns the cudaError_t of
-// the launch.
+// limiting: 0 or 1 (strain limiting on). contribz: the emit_z rows (9,E),
+// or null for the entry without them. Each returns the cudaError_t of the
+// launch.
 int tri_local_step_fused_f32(const float* xg, const float* u, const float* cp,
                              const float* w2, const float* k,
                              const float* lmin, const float* lmax, float* z,
-                             float* u_out, float* contrib, int E,
-                             int limiting, void* stream) {
+                             float* u_out, float* contrib, float* contribz,
+                             int E, int limiting, void* stream) {
   return admm::tri::launch_fused<float>(xg, u, cp, w2, k, lmin, lmax, z,
-                                        u_out, contrib, E, limiting, stream);
+                                        u_out, contrib, contribz, E, limiting,
+                                        stream);
 }
 
 int tri_local_step_fused_f64(const double* xg, const double* u,
                              const double* cp, const double* w2,
                              const double* k, const double* lmin,
                              const double* lmax, double* z, double* u_out,
-                             double* contrib, int E, int limiting,
-                             void* stream) {
+                             double* contrib, double* contribz, int E,
+                             int limiting, void* stream) {
   return admm::tri::launch_fused<double>(xg, u, cp, w2, k, lmin, lmax, z,
-                                         u_out, contrib, E, limiting, stream);
+                                         u_out, contrib, contribz, E,
+                                         limiting, stream);
 }
 
 int tri_local_step_f32(const float* dx, const float* u, const float* w2,

@@ -20,6 +20,13 @@ import numpy as np
 import torch
 
 
+def flat_rows(blocks):
+    """A fused kernel's row planes -> flat rows: plane 3k+j of element e ->
+    row K e + k, column j; a second (emit_z) block fills columns 3:6."""
+    flat = [c.T.reshape(-1, 3) for c in blocks]
+    return flat[0] if len(flat) == 1 else torch.cat(flat, dim=1)
+
+
 class ForceBatch(abc.ABC):
     """Abstract constraint batch. Subclasses define R (row-groups per element)
     and K (stencil vertices per element)."""
@@ -68,6 +75,24 @@ class ForceBatch(abc.ABC):
         w = params["weight"]
         c = torch.einsum("erk,e,erj->ekj", params["coeff"], w * w, z - u)
         return c.reshape(-1, 3)
+
+    def rhs_contribution6(self, params, z, u):
+        """(E*K, 6): columns 0:3 the rows of D^T W^2 (z - u) (as
+        rhs_contribution), columns 3:6 the rows of D^T W^2 z, whose
+        incidence sum T z gives the dual residual dt^2 ||T z_i - T
+        z_{i-1}|| from the same gather as the RHS."""
+        return torch.cat([self.rhs_contribution(params, z, u),
+                          self.rhs_contribution(params, z,
+                                                torch.zeros_like(z))], dim=1)
+
+    def scatter_rhs(self, params, z, u, n_vertices):
+        """D^T W^2 (z - u) summed per vertex, (n_vertices, 3): the rows of
+        rhs_contribution added to their vertices one force at a time (the
+        JAX package's segment-sum form; the System sums every force's rows
+        at once through its incidence gather)."""
+        rows = self.rhs_contribution(params, z, u)
+        out = rows.new_zeros((n_vertices, 3))
+        return out.index_add_(0, params["indices"].reshape(-1).long(), rows)
 
     def primal_piece(self, params, u_new, u_old):
         """||W (Dx - z)||^2 for this batch via the dual-update identity

@@ -21,7 +21,7 @@ import torch
 
 from ..ops.kernels.nh_local import nh_local_step, nh_local_step_fused
 from ..ops.kernels.tet_local import arap_local_step, arap_local_step_fused
-from .base import ForceBatch
+from .base import ForceBatch, flat_rows
 
 _D4 = np.array(
     [[-1.0, -1.0, -1.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]
@@ -155,19 +155,17 @@ class HyperElasticTet(_TetPlanes):
         state = {"sigma": np.ones((3, self.n_elements))}
         return params, state
 
-    def fused_local_rhs(self, params, x, u, state):
+    def fused_local_rhs(self, params, x, u, state, with_z=False):
         """One kernel for the per-iteration element pipeline: gathered
         positions in; z, u', warm start and the flat D^T W^2 (z-u') rows
-        (E*4, 3) out."""
-        E = params["indices"].shape[0]
-        z9, unew9, warm_new, contrib = nh_local_step_fused(
+        (E*4, 3) out; with_z, (E*4, 6) rows whose columns 3:6 are D^T W^2
+        z (the kernel's emit_z block), as rhs_contribution6."""
+        z9, unew9, warm_new, *rows = nh_local_step_fused(
             self._gathered(params, x), u, state["sigma"], params["coeff_p"],
             params["mu"], params["lam"], params["k"], params["w2"],
-            iters=self.max_iters, model=self.model,
+            iters=self.max_iters, model=self.model, emit_z=with_z,
         )
-        # contrib[3k+j, e] -> row 4e+k, column j
-        flat = contrib.T.reshape(E * 4, 3)
-        return z9, unew9, {**state, "sigma": warm_new}, flat
+        return z9, unew9, {**state, "sigma": warm_new}, flat_rows(rows)
 
     def project_with_dual(self, Dx, u, params, state):
         """The unfused element step from Dx planes: (z9, u9', state with
@@ -212,16 +210,14 @@ class LinearTetStrain(_TetPlanes):
         params["coeff_p"] = _coeff_planes(params)
         return params, {}
 
-    def fused_local_rhs(self, params, x, u, state):
+    def fused_local_rhs(self, params, x, u, state, with_z=False):
         """One kernel for the per-iteration element pipeline: gathered
-        positions in; z, u' and the flat D^T W^2 (z-u') rows (E*4, 3)
-        out."""
-        E = params["indices"].shape[0]
-        z9, unew9, contrib = arap_local_step_fused(
+        positions in; z, u' and the flat D^T W^2 (z-u') rows (E*4, 3) out
+        (with_z: (E*4, 6), as HyperElasticTet's)."""
+        z9, unew9, *rows = arap_local_step_fused(
             self._gathered(params, x), u, params["coeff_p"], params["w2"],
-            params["k"])
-        # contrib[3k+j, e] -> row 4e+k, column j
-        return z9, unew9, state, contrib.T.reshape(E * 4, 3)
+            params["k"], emit_z=with_z)
+        return z9, unew9, state, flat_rows(rows)
 
     def project_with_dual(self, Dx, u, params, state):
         """The unfused element step from Dx planes: (z9, u9', state)."""

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels.tri_local import tri_local_step, tri_local_step_fused
-from .base import ForceBatch
+from .base import ForceBatch, flat_rows
 
 _D3 = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
 
@@ -117,20 +117,20 @@ class LimitedTriangleStrain(ForceBatch):
 
     supports_fused_local_rhs = True
 
-    def fused_local_rhs(self, params, x, u, state):
+    def fused_local_rhs(self, params, x, u, state, with_z=False):
         """One kernel for the per-iteration element pipeline: gathered
-        positions in; z, u' and the flat D^T W^2 (z-u') rows (E*3, 3)
-        out."""
+        positions in; z, u' and the flat D^T W^2 (z-u') rows (E*3, 3) out;
+        with_z, (E*3, 6) rows whose columns 3:6 are D^T W^2 z (the kernel's
+        emit_z block), as rhs_contribution6."""
         E = params["indices"].shape[0]
         # xg[3k+a, e] = x[face[e,k], a]
         xg = x[params["indices"]].reshape(E, 9).T.contiguous()
-        z6, unew6, contrib = tri_local_step_fused(
+        z6, unew6, *rows = tri_local_step_fused(
             xg, u, params["coeff_p"], params["w2"], params["k"],
             params["limit_min"], params["limit_max"],
-            limiting=self.strain_limiting,
+            limiting=self.strain_limiting, emit_z=with_z,
         )
-        # contrib[3k+j, e] -> row 3e+k, column j
-        return z6, unew6, state, contrib.T.reshape(E * 3, 3)
+        return z6, unew6, state, flat_rows(rows)
 
     def compute_Dx(self, params, x):
         """Dx planes (6, E): plane 2a+b = sum_k coeff[e,b,k] x[face[e,k], a]."""

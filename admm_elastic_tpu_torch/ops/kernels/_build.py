@@ -106,7 +106,9 @@ def build() -> tuple[Path, float]:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points (restype, argtypes): pointers and the stream as void*
 _SIGNATURES = {
-    **{f"nh_local_step_fused_{t}": (_I, [_P] * 12 + [_I] * 3 + [_P])
+    # the fused element steps' last output pointer is the emit_z block,
+    # null when it is not asked for
+    **{f"nh_local_step_fused_{t}": (_I, [_P] * 13 + [_I] * 3 + [_P])
        for t in ("f32", "f64")},
     # b, x0, diag, the matrix (2), then D or K, H, n, n_iters, diag_inv,
     # then x, scratch and the stream
@@ -129,25 +131,26 @@ _SIGNATURES = {
     "cg_partials": (_I, [_I]),
     **{f"nh_local_step_{t}": (_I, [_P] * 9 + [_I] * 3 + [_P])
        for t in ("f32", "f64")},
-    **{f"tri_local_step_fused_{t}": (_I, [_P] * 10 + [_I] * 2 + [_P])
+    **{f"tri_local_step_fused_{t}": (_I, [_P] * 11 + [_I] * 2 + [_P])
        for t in ("f32", "f64")},
     **{f"tri_local_step_{t}": (_I, [_P] * 8 + [_I] * 2 + [_P])
        for t in ("f32", "f64")},
-    **{f"arap_local_step_fused_{t}": (_I, [_P] * 8 + [_I] + [_P])
+    **{f"arap_local_step_fused_{t}": (_I, [_P] * 9 + [_I] + [_P])
        for t in ("f32", "f64")},
     **{f"arap_local_step_{t}": (_I, [_P] * 6 + [_I] + [_P])
        for t in ("f32", "f64")},
     # state 6, element planes 6, vertex planes 5, matrix 3 (dia, ell_idx_t,
-    # ell_vals_t), scratch 5, host arrays 4, the multigrid (or null), then
-    # n, E, D, K, H, S, n_shapes, model, newton_iters, cg_iters,
-    # admm_iters, n_steps, and the stream
-    **{f"banded_rollout_{t}": (_I, [_P] * 30 + [_I] * 12 + [_P])
+    # ell_vals_t), scratch 5, residual scratch 4 (zrows, tz, part, dpart)
+    # and results 2, host arrays 4, the multigrid (or null), then n, E, D,
+    # K, H, S, n_shapes, model, newton_iters, cg_iters, admm_iters,
+    # n_steps, collect, and the stream
+    **{f"banded_rollout_{t}": (_I, [_P] * 36 + [_I] * 13 + [_P])
        for t in ("f32", "f64")},
     # state 5, element planes 7, vertex planes 7, scratch 6 (xpre, mxbar,
-    # rows, wf, rhs, the solve's), host arrays 2, the multigrid (or null),
-    # then n, Et, Eh, Ew, D, H, S, Sw, limiting, cg_iters, admm_iters,
-    # n_steps, and the stream
-    **{f"cloth_rollout_{t}": (_I, [_P] * 28 + [_I] * 12 + [_P])
+    # rows, wf, rhs, the solve's), residual scratch 4 and results 2, host
+    # arrays 2, the multigrid (or null), then n, Et, Eh, Ew, D, H, S, Sw,
+    # limiting, cg_iters, admm_iters, n_steps, collect, and the stream
+    **{f"cloth_rollout_{t}": (_I, [_P] * 34 + [_I] * 13 + [_P])
        for t in ("f32", "f64")},
     # state 6, vertex planes 5, scratch 5, host arrays 5, then nx, ny, nz,
     # D, H, model, floor, newton_iters, cg_iters, admm_iters, n_steps, and
@@ -155,9 +158,10 @@ _SIGNATURES = {
     **{f"lattice_rollout_{t}": (_I, [_P] * 21 + [_I] * 11 + [_P])
        for t in ("f32", "f64")},
     # state in 5, element planes 6, vertex planes 3, outputs 6 (b, au, cu,
-    # u, warm, rows scratch), host arrays 3, then n, E, S, n_shapes, model,
-    # newton_iters, and the stream
-    **{f"banded_local_rhs_{t}": (_I, [_P] * 23 + [_I] * 6 + [_P])
+    # u, warm, rows scratch), the residual's partials and r2 (or null),
+    # host arrays 3, then n, E, S, n_shapes, model, newton_iters, collect,
+    # and the stream
+    **{f"banded_local_rhs_{t}": (_I, [_P] * 25 + [_I] * 7 + [_P])
        for t in ("f32", "f64")},
     # b, x, z, d, invd, dia, c1, c2, x/z/d out, d scratch, offsets, then n,
     # D, n_it, first, last, inv_theta, and the stream
@@ -228,11 +232,12 @@ def check_inputs(planes, vectors):
 
 def launch(name, ins, outs, *ints):
     """Launch the C entry `name`_f32/_f64 on CUDA tensors: the pointers of
-    ins and outs, then ints and the current stream. Raises on any CUDA
-    error of the launch."""
+    ins and outs (None passes a null pointer), then ints and the current
+    stream. Raises on any CUDA error of the launch."""
     t0 = ins[0]
     if t0.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {t0.device}")
     fn = getattr(load_library(), f"{name}_{SUFFIX[t0.dtype]}")
-    err = fn(*(t.data_ptr() for t in (*ins, *outs)), *ints, stream_ptr(t0))
+    err = fn(*(None if t is None else t.data_ptr() for t in (*ins, *outs)),
+             *ints, stream_ptr(t0))
     check(err, name)

@@ -33,6 +33,12 @@ class WindowGraphs:
         self._lengths = tuple(lengths)
         self._window, self._key, self._graphs = None, None, {}
 
+    @property
+    def window(self):
+        """The window the graphs were captured on (None before the first
+        advance): its scratch and result buffers, which replays write."""
+        return self._window
+
     def _capture(self, n_steps, device):
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(device), torch.cuda.graph(graph):
@@ -56,4 +62,7 @@ class WindowGraphs:
         with torch.cuda.device(device):
             self._graphs[n_steps].replay()
         self._counter.launches += 1
+        if getattr(cfg, "collect", None):
+            # a window in a residual mode (banded, cloth)
+            self._counter.residual_launches += 1
         self._counter.ops += self._window.ops(n_steps)

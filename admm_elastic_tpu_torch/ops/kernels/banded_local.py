@@ -15,7 +15,9 @@ computes
                    aw2 (ancz - au'); the collision shapes in declaration
                    order, cu', b += cw2 (z - cu')
 
-and returns (b, au', cu', u', warm'). These are the phases of the banded
+and returns (b, au', cu', u', warm'), with `collect` also r2, the squared
+primal residual ||W (D x - z)||^2 of the iteration (0-dim; the sharded
+stepper's "primal" residual is its square root). These are the phases of the banded
 whole-timestep kernel (`banded_step.py`, shared in
 `csrc/banded_phases.cuh` and in the twin's `_element_phase` and
 `_vertex_rhs`), so b sums in the same order: the anchor term before the
@@ -27,10 +29,10 @@ padding: the JAX kernel's chunk planes, windows and lane permutations are
 TPU layout.
 
 `banded_local_rhs` launches `csrc/banded_local.cu` (two launches: element
-kernel, then vertex kernel) for CUDA tensors and runs
+kernel, then vertex kernel; with collect a third, one block that sums the
+residual's block partials, `residuals.py`) for CUDA tensors and runs
 `banded_local_rhs_reference` for CPU tensors. It never falls back from one
-to the other. Neither changes its inputs. The JAX kernel's primal
-residual (`collect=True`) is not ported: it raises (ROADMAP 2d).
+to the other. Neither changes its inputs.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, residuals
 from .banded_step import (_MODELS, BandedConfig, _element_phase,
                           _vertex_rhs)
 
@@ -48,13 +50,21 @@ PLANES = ("idx", "cp", "w2", "mu", "lam", "k", "aw2", "ancz", "inc")
 
 
 def banded_local_rhs_reference(x, au, cu, u, warm, planes,
-                               cfg: BandedConfig):
+                               cfg: BandedConfig, collect=False):
     """Plain PyTorch version: the banded twin's element phase and vertex
-    RHS."""
-    u, warm, rows = _element_phase(x, u, warm, planes, cfg,
-                                   torch.finfo(x.dtype).eps)
-    b, au, cu = _vertex_rhs(x, au, cu, rows, planes, cfg)
-    return b, au, cu, u, warm
+    RHS (and with collect their primal residual pieces, summed in the
+    kernels' order)."""
+    eps = torch.finfo(x.dtype).eps
+    if not collect:
+        u, warm, rows = _element_phase(x, u, warm, planes, cfg, eps)
+        b, au, cu = _vertex_rhs(x, au, cu, rows, planes, cfg)
+        return b, au, cu, u, warm
+    u, warm, rows, ep, _ = _element_phase(x, u, warm, planes, cfg, eps,
+                                          "primal")
+    b, au, cu, vp, _, _ = _vertex_rhs(x, au, cu, rows, planes, cfg, "primal")
+    r2 = residuals.sum_partials(torch.cat(
+        [residuals.block_partials(ep), residuals.block_partials(vp)]))
+    return b, au, cu, u, warm, r2
 
 
 def _check(x, au, cu, u, warm, planes):
@@ -84,19 +94,20 @@ def _check(x, au, cu, u, warm, planes):
 def banded_local_rhs(x, au, cu, u, warm, planes, cfg: BandedConfig,
                      collect=False):
     """One ADMM iteration's local phase; returns new (b, au', cu', u',
-    warm')."""
-    if collect:
-        raise NotImplementedError(
-            "banded_local_rhs(collect=True): the primal residual output is "
-            "not ported (ROADMAP 2d)")
+    warm'), and with collect r2 after them."""
     n, E, S = _check(x, au, cu, u, warm, planes)
     if x.device.type == "cpu":
-        return banded_local_rhs_reference(x, au, cu, u, warm, planes, cfg)
+        return banded_local_rhs_reference(x, au, cu, u, warm, planes, cfg,
+                                          collect)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     b, au_out, cu_out = (torch.empty_like(x) for _ in range(3))
     u_out, warm_out = torch.empty_like(u), torch.empty_like(warm)
     rows = x.new_empty((12, E))
+    part = (x.new_empty((-(-E // residuals.THREADS)
+                         - (-n // residuals.THREADS),))
+            if collect else None)
+    r2 = x.new_empty(()) if collect else None
     kinds, table = cfg.shape_table()
     ns = len(kinds)
     c_kinds = (ctypes.c_int * max(ns, 1))(*kinds)
@@ -110,12 +121,17 @@ def banded_local_rhs(x, au, cu, u, warm, planes, cfg: BandedConfig,
                  *(planes[k].data_ptr() for k in PLANES),
                  *(t.data_ptr() for t in (b, au_out, cu_out, u_out, warm_out,
                                           rows)),
+                 *(None if t is None else t.data_ptr() for t in (part, r2)),
                  *(ctypes.addressof(a) for a in (c_kinds, c_table, c_scal)),
                  n, E, S, ns, _MODELS[cfg.model], cfg.newton_iters,
-                 _build.stream_ptr(x))
+                 int(bool(collect)), _build.stream_ptr(x))
     _build.check(err, "banded_local_rhs")
     banded_local_rhs.launches += 1
-    return b, au_out, cu_out, u_out, warm_out
+    banded_local_rhs.residual_launches += bool(collect)
+    out = (b, au_out, cu_out, u_out, warm_out)
+    return out + (r2,) if collect else out
 
 
 banded_local_rhs.launches = 0
+#: the calls in its collect mode (a count within `launches`)
+banded_local_rhs.residual_launches = 0

@@ -61,7 +61,9 @@ from .cg_dia import MAX_DIAGONALS
 from .cg_ell import bandwidth, ell_apply_by_slot, slot_major
 from .cg_step import cluster_dot, cluster_prepare
 from .mg import MGConfig, check_planes, host_struct, mg_prepare, pcg_fixed_mg
+from . import residuals
 from .nh_local import _newton_hyper, _svd_columns, _warm_guard
+from .residuals import squares
 
 STATE = ("x", "v", "u", "warm", "au", "cu")
 PLANES = ("idx", "cp", "w2", "mu", "lam", "k", "mass", "invd", "aw2", "ancz",
@@ -82,7 +84,9 @@ class BandedConfig:
     ('cylinder', (cx, cy, r)), projected in this order with the shared
     weight^2 coll_w2. ell_width: K of an ELL matrix, with dia_offs = ();
     0 for a dia matrix. mg: the multigrid's offsets (dia only), whose
-    V-cycle then preconditions the solve; None for Jacobi."""
+    V-cycle then preconditions the solve; None for Jacobi. collect: None,
+    "primal" (each ADMM iteration's primal residual) or "full" (and its
+    dual residual), the JAX kernel's collect / collect_dual."""
 
     dia_offs: tuple
     model: str
@@ -95,8 +99,11 @@ class BandedConfig:
     coll_w2: float = 0.0
     ell_width: int = 0
     mg: MGConfig | None = None
+    collect: str | None = None
 
     def __post_init__(self):
+        if self.collect not in residuals.MODES:
+            raise ValueError(f"collect: one of {tuple(residuals.MODES)}")
         if self.model not in _MODELS:
             raise ValueError(f"unknown banded model {self.model!r}")
         if self.ell_width:
@@ -172,8 +179,19 @@ def _project(z, cfg: BandedConfig):
     return torch.stack([zx, zy, zz], dim=1)
 
 
-def _element_phase(x, u, warm, planes, cfg, eps):
-    """Local step of every element: (u', warm', rows (12,E))."""
+def _rows(cp, y):
+    """rows[3k+j] = sum_b cp[4b+k] y[3j+b] (y already scaled by w2), the
+    terms in order of b: (12,E)."""
+    return torch.stack([cp[k] * y[3 * j] + cp[4 + k] * y[3 * j + 1]
+                        + cp[8 + k] * y[3 * j + 2]
+                        for k in range(4) for j in range(3)])
+
+
+def _element_phase(x, u, warm, planes, cfg, eps, collect=None):
+    """Local step of every element: (u', warm', rows (12,E)), and with
+    `collect` (the twin of banded_phases.cuh's element_step) each
+    element's piece of the squared primal residual w2 ||u' - u||^2 (E,)
+    and, "full", the rows of w2 D^T z (12,E) (else None)."""
     cp = [planes["cp"][q] for q in range(12)]
     xg = x[planes["idx"].long()]  # (4,E,3)
     f = []
@@ -194,49 +212,111 @@ def _element_phase(x, u, warm, planes, cfg, eps):
         sig = _newton_hyper(s, _warm_guard(warm), planes["mu"], planes["lam"],
                             kp, cfg.newton_iters, cfg.model)
         warm = torch.stack(sig)
-    up, zu = [], []
+    up, zu, zs = [], [], []
     for r in range(3):
         for c in range(3):
             z = (U[0][r] * sig[0] * V[0][c] + U[1][r] * sig[1] * V[1][c]
                  + U[2][r] * sig[2] * V[2][c])
             if cfg.model == "arap":
                 z = (kp * z + w2 * f[3 * r + c]) * mix
+            zs.append(z)
             up.append(f[3 * r + c] - z)
             zu.append(w2 * (f[3 * r + c] - 2.0 * up[-1]))  # z - u' = F - 2u'
-    rows = [cp[k] * zu[3 * j] + cp[4 + k] * zu[3 * j + 1]
-            + cp[8 + k] * zu[3 * j + 2] for k in range(4) for j in range(3)]
-    return torch.stack(up), warm, torch.stack(rows)
+    up_t = torch.stack(up)
+    if collect is None:
+        return up_t, warm, _rows(cp, zu)
+    pieces = w2 * squares((up_t - u).T)  # D x - z = u' - u
+    zrows = (_rows(cp, [w2 * z for z in zs]) if collect == "full"
+             else None)
+    return up_t, warm, _rows(cp, zu), pieces, zrows
 
 
-def _vertex_rhs(x, au, cu, rows, planes, cfg):
+def _seed_rows(x_pre, planes):
+    """The dual residual's seed rows, w2 D^T D x_pre (12,E): the twin of
+    banded_phases.cuh's seed_rows."""
+    cp = [planes["cp"][q] for q in range(12)]
+    xg = x_pre[planes["idx"].long()]
+    w2 = planes["w2"]
+    zz = []
+    for a in range(3):
+        for b in range(3):
+            acc = cp[4 * b] * xg[0, :, a]
+            for k in range(1, 4):
+                acc = acc + cp[4 * b + k] * xg[k, :, a]
+            zz.append(w2 * acc)
+    return _rows(cp, zz)
+
+
+def seed_tz(x_pre, planes, cfg):
+    """T z_prev of a step's first ADMM iteration, z_prev = D x_pre
+    (System.cpp:43): the incidence sum of w2 D^T D x_pre, + aw2 x_pre, +
+    cw2 x_pre with collision shapes (n,3), as banded_phases.cuh's seed
+    kernels form it."""
+    tz = (_gather_rows(_seed_rows(x_pre, planes), planes["inc"].long())
+          + planes["aw2"][:, None] * x_pre)
+    if cfg.coll_shapes:
+        tz = tz + torch.tensor(cfg.scalars()[-1], dtype=x_pre.dtype,
+                               device=x_pre.device) * x_pre
+    return tz
+
+
+def _gather_rows(rows, inc):
+    """The incidence sum of each vertex's element rows (12,E), in slot
+    order (row 4e+k, column a; the zero sentinel row at 4E): (n,3)."""
+    E = rows.shape[1]
+    flat = rows.reshape(4, 3, E).permute(2, 0, 1).reshape(4 * E, 3)
+    flat = torch.cat([flat, flat.new_zeros((1, 3))])
+    out = flat.new_zeros((inc.shape[0], 3))
+    for j in range(inc.shape[1]):  # slot order
+        out = out + flat[inc[:, j]]
+    return out
+
+
+def _vertex_rhs(x, au, cu, rows, planes, cfg, collect=None, zrows=None,
+                tz_prev=None):
     """The vertex phase's RHS: b = the incidence sum of the element rows
     (slot order; row 4e+k, column a, and the zero sentinel row at 4E), the
     anchor dual (0 where the anchor weight is 0) and its RHS, the
     collision shapes in declaration order, their dual and RHS. Returns
-    (b, au', cu')."""
-    E = rows.shape[1]
+    (b, au', cu'), and with `collect` (the twin of banded_phases.cuh's
+    vertex_rhs) also each vertex's piece of the squared primal residual
+    (n,), then under "full" T z (n,3) and each vertex's piece of ||T z -
+    T z_prev||^2 (n,) (else None, None)."""
     aw2, ancz = planes["aw2"][:, None], planes["ancz"]
     inc = planes["inc"].long()
-    flat = rows.reshape(4, 3, E).permute(2, 0, 1).reshape(4 * E, 3)
-    flat = torch.cat([flat, flat.new_zeros((1, 3))])
-    b = torch.zeros_like(x)
-    for j in range(inc.shape[1]):  # slot order
-        b = b + flat[inc[:, j]]
-    au = torch.where(aw2 > 0, au + (x - ancz), 0.0)
+    b = _gather_rows(rows, inc)
+    dlt = x - ancz
+    au = torch.where(aw2 > 0, au + dlt, 0.0)
     b = b + aw2 * (ancz - au)
+    full = collect == "full"
+    if full:
+        tz = _gather_rows(zrows, inc) + aw2 * ancz
+    if collect is not None:
+        pieces = aw2[:, 0] * squares(dlt)
     if cfg.coll_shapes:
         cw2 = torch.tensor(cfg.scalars()[-1], dtype=x.dtype, device=x.device)
         z = _project(x + cu, cfg)
         cu = cu + (x - z)
         b = b + cw2 * (z - cu)
-    return b, au, cu
+        if collect is not None:
+            pieces = pieces + cw2 * squares(x - z)
+        if full:
+            tz = tz + cw2 * z
+    if collect is None:
+        return b, au, cu
+    if not full:
+        return b, au, cu, pieces, None, None
+    return b, au, cu, pieces, tz, squares(tz - tz_prev)
 
 
 def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps,
                              dot=cluster_dot):
     """Plain PyTorch version of the kernels: the same phases in the same
     order, one torch op at a time. `dot` sums the solve's dots (by
-    default in the cluster solve's order; None: torch.sum)."""
+    default in the cluster solve's order; None: torch.sum). With
+    cfg.collect the result also holds "primal" (and, "full", "dual"):
+    (n_steps, admm_iters) residuals, summed in the kernels' order
+    (`residuals.py`)."""
     x, v, u, warm, au, cu = (state[k] for k in STATE)
     dtype, dev = x.dtype, x.device
     dt, dt2, inv_dt, *rest = (torch.tensor(q, dtype=dtype, device=dev)
@@ -244,6 +324,8 @@ def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps,
     dtg = torch.stack(rest[:3])
     eps = torch.finfo(dtype).eps
     mass = planes["mass"][:, None]
+    collect = cfg.collect
+    res_p, res_d = [], []
 
     def A(y):
         if cfg.matrix == "ell":
@@ -255,9 +337,23 @@ def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps,
         x_pre = x
         x = x_pre + dt * v
         mxbar = mass * x
+        if collect == "full":
+            tz = seed_tz(x_pre, planes, cfg)
+        step_p, step_d = [], []
         for _ in range(cfg.admm_iters):
-            u, warm, rows = _element_phase(x, u, warm, planes, cfg, eps)
-            b, au, cu = _vertex_rhs(x, au, cu, rows, planes, cfg)
+            if collect is None:
+                u, warm, rows = _element_phase(x, u, warm, planes, cfg, eps)
+                b, au, cu = _vertex_rhs(x, au, cu, rows, planes, cfg)
+            else:
+                u, warm, rows, ep, zrows = _element_phase(
+                    x, u, warm, planes, cfg, eps, collect)
+                b, au, cu, vp, tz_new, dp = _vertex_rhs(
+                    x, au, cu, rows, planes, cfg, collect, zrows,
+                    tz if collect == "full" else None)
+                step_p.append(residuals.primal(ep, vp))
+                if collect == "full":
+                    step_d.append(residuals.dual(dt2, dp))
+                    tz = tz_new
             if cfg.mg is None:
                 x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
                                   cfg.cg_iters, dot)
@@ -265,7 +361,26 @@ def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps,
                 x = pcg_fixed_mg(A, mxbar + dt2 * b, x, planes, cfg.mg,
                                  cfg.cg_iters, dot)
         v = (x - x_pre) * inv_dt
-    return {"x": x, "v": v, "u": u, "warm": warm, "au": au, "cu": cu}
+        res_p.append(step_p)
+        res_d.append(step_d)
+    out = {"x": x, "v": v, "u": u, "warm": warm, "au": au, "cu": cu}
+    return _with_residuals(out, collect, res_p, res_d, n_steps, cfg, x)
+
+
+def _with_residuals(out, collect, res_p, res_d, n_steps, cfg, x):
+    """The twins' state dict with their residuals stacked (n_steps,
+    admm_iters) under "primal" (and "dual")."""
+    if collect is None:
+        return out
+
+    def stack(rs):
+        return (torch.stack([torch.stack(r) for r in rs]) if cfg.admm_iters
+                else x.new_zeros((n_steps, 0)))
+
+    out["primal"] = stack(res_p)
+    if collect == "full":
+        out["dual"] = stack(res_d)
+    return out
 
 
 def _check(state, planes, cfg):
@@ -314,6 +429,16 @@ class BandedWindow:
         self.xpre, self.mxbar, self.rhs = (torch.empty_like(x)
                                            for _ in range(3))
         self.rows = x.new_empty((12, self.E))
+        # residual collection's scratch, and its results for each window
+        # length (`residuals(n)`)
+        eb, vb = (-(-m // residuals.THREADS) for m in (self.E, self.n))
+        full = cfg.collect == "full"
+        self.zrows = x.new_empty((12, self.E)) if full else None
+        self.tz = torch.empty_like(x) if full else None
+        self.part = (x.new_empty((cfg.admm_iters, eb + vb))
+                     if cfg.collect else None)
+        self.dpart = x.new_empty((cfg.admm_iters, vb)) if full else None
+        self._res = {}
         if cfg.matrix == "ell":
             self.matrix = (None, slot_major(planes["ell_idx"]),
                            slot_major(planes["ell_vals"]))
@@ -343,10 +468,23 @@ class BandedWindow:
 
     def ops(self, n_steps):
         """Launches of an n_steps window."""
-        return n_steps * (2 + 3 * self.cfg.admm_iters)
+        return n_steps * (2 + 3 * self.cfg.admm_iters
+                          + residuals.extra_ops(self.cfg.collect))
+
+    def residuals(self, n_steps):
+        """The (2, n_steps, admm_iters) buffer an n_steps window writes its
+        primal ([0]) and dual ([1]) residuals to; None without collect."""
+        if not self.cfg.collect:
+            return None
+        if n_steps not in self._res:
+            # made at a graph's capture, no launch of its own
+            self._res[n_steps] = self.state["x"].new_empty(
+                (2, n_steps, self.cfg.admm_iters))
+        return self._res[n_steps]
 
     def launch(self, n_steps):
         cfg, x = self.cfg, self.state["x"]
+        res = self.residuals(n_steps)
         ptr = [None if t is None else t.data_ptr() for t in self.matrix]
         with torch.cuda.device(x.device):
             err = self._fn(
@@ -354,18 +492,24 @@ class BandedWindow:
                 *(self.planes[k].data_ptr() for k in PLANES), *ptr,
                 *(t.data_ptr() for t in (self.xpre, self.mxbar, self.rows,
                                          self.rhs)),
-                None if self.scratch is None else self.scratch.data_ptr(),
+                *(None if t is None else t.data_ptr()
+                  for t in (self.scratch, self.zrows, self.tz, self.part,
+                            self.dpart)),
+                *((None, None) if res is None
+                  else (res[0].data_ptr(), res[1].data_ptr())),
                 *(ctypes.addressof(a) for a in self._host),
                 None if self.mg is None else ctypes.addressof(self.mg),
                 self.n, self.E, len(cfg.dia_offs), cfg.ell_width, self.reach,
                 self.S, len(cfg.coll_shapes), _MODELS[cfg.model],
                 cfg.newton_iters, cfg.cg_iters, cfg.admm_iters,
-                int(n_steps), _build.stream_ptr(x))
+                int(n_steps), residuals.MODES[cfg.collect],
+                _build.stream_ptr(x))
         _build.check(err, "banded_rollout")
 
 
 def banded_rollout(state, planes, cfg: BandedConfig, n_steps):
-    """Advance `n_steps` timesteps; returns the new state dict."""
+    """Advance `n_steps` timesteps; returns the new state dict (with
+    cfg.collect also its residuals, as `banded_rollout_reference`)."""
     _check(state, planes, cfg)
     x = state["x"]
     if x.device.type == "cpu":
@@ -376,9 +520,12 @@ def banded_rollout(state, planes, cfg: BandedConfig, n_steps):
     window = BandedWindow(out, planes, cfg)
     window.launch(int(n_steps))
     banded_rollout.launches += 1
+    banded_rollout.residual_launches += bool(cfg.collect)
     banded_rollout.ops += window.ops(int(n_steps))
-    return out
+    return residuals.attach(out, cfg.collect, window.residuals(int(n_steps)))
 
 
 banded_rollout.launches = 0
+#: the windows submitted in a residual mode (a count within `launches`)
+banded_rollout.residual_launches = 0
 banded_rollout.ops = 0

@@ -2,8 +2,9 @@
 + plain twin.
 
 Counterpart of `admm_elastic_tpu/ops/pallas/cloth_step.py` (`cloth_rollout`
-/ `_cloth_call`) in its Jacobi-PCG and multigrid modes, without the
-in-kernel residuals. One call advances `n_steps` timesteps of a cloth with
+/ `_cloth_call`) in its Jacobi-PCG and multigrid modes, with its in-kernel
+residuals (`ClothConfig.collect`, summed in the order of
+`residuals.py`). One call advances `n_steps` timesteps of a cloth with
 LimitedTriangleStrain, an optional Bend, StaticAnchors, gravity and an
 optional Wejchert-Haumann WindForce:
 
@@ -77,7 +78,10 @@ from ...core.solver import dia_apply, pcg_fixed_inv
 from . import _build
 from .cg_dia import MAX_DIAGONALS
 from .cg_step import cluster_dot, cluster_prepare
+from .banded_step import BandedWindow, _with_residuals
 from .mg import MGConfig, check_planes, host_struct, mg_prepare, pcg_fixed_mg
+from . import residuals
+from .residuals import squares
 from .tri_local import _tri_body
 
 STATE = ("x", "v", "tu", "hu", "au")
@@ -100,7 +104,7 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 class ClothConfig:
     """The static part of a rollout: what the JAX kernel bakes in. mg: the
     multigrid's offsets, whose V-cycle then preconditions the solve; None
-    for Jacobi."""
+    for Jacobi. collect: None, "primal" or "full", as BandedConfig's."""
 
     dia_offs: tuple
     cg_iters: int
@@ -110,8 +114,11 @@ class ClothConfig:
     wind_dir: tuple = (0.0, 0.0, 0.0)
     limiting: bool = True
     mg: MGConfig | None = None
+    collect: str | None = None
 
     def __post_init__(self):
+        if self.collect not in residuals.MODES:
+            raise ValueError(f"collect: one of {tuple(residuals.MODES)}")
         if not 1 <= len(self.dia_offs) <= MAX_DIAGONALS:
             raise ValueError(f"{len(self.dia_offs)} diagonals; the kernel "
                              f"takes 1..{MAX_DIAGONALS}")
@@ -170,8 +177,30 @@ def _wind_forces(x, vk, widx, sc):
     return torch.stack([scale * nhat[a] for a in range(3)], dim=1)
 
 
-def _tri_phase(x, tu, tidx, tc, limiting):
-    """Triangle local steps: (tu', rows (3 corners, Et, 3))."""
+def _tri_rows(cp, y):
+    """Triangle rows (3 corners, Et, 3): cp[k] y[2j] + cp[3+k] y[2j+1], y
+    already scaled by w2."""
+    return torch.stack([
+        torch.stack([cp[kk] * y[2 * j] + cp[3 + kk] * y[2 * j + 1]
+                     for j in range(3)], dim=1)
+        for kk in range(3)])
+
+
+def _bend_rows(y):
+    """Hinge rows (4 corners, Eh, 3) by the D^T columns: corner 0 += row 0,
+    corner 1 += row 2, corner 2 -= all three rows, corner 3 += row 1."""
+    return torch.stack([
+        torch.stack([y[j] for j in range(3)], dim=1),
+        torch.stack([y[6 + j] for j in range(3)], dim=1),
+        torch.stack([-((y[j] + y[3 + j]) + y[6 + j]) for j in range(3)],
+                    dim=1),
+        torch.stack([y[3 + j] for j in range(3)], dim=1)])
+
+
+def _tri_phase(x, tu, tidx, tc, limiting, collect=None):
+    """Triangle local steps: (tu', rows (3 corners, Et, 3)), and with
+    `collect` each triangle's piece w2 ||u' - u||^2 of the squared primal
+    residual and ("full") its rows of w2 D^T z (else None)."""
     xg = [x[tidx[k]] for k in range(3)]
     cp, w2, k, denom, lmin, lmax = tc[:6], tc[6], tc[7], tc[8], tc[9], tc[10]
     f = []
@@ -182,18 +211,18 @@ def _tri_phase(x, tu, tidx, tc, limiting):
                 acc = acc + cp[3 * b + kk] * xg[kk][:, a]
             f.append(acc)
     z = _tri_body(f, w2, k, denom, lmin, lmax, limiting)
-    un = [f[p] - z[p] for p in range(6)]
+    un = torch.stack([f[p] - z[p] for p in range(6)])
     zu = [w2 * (f[p] - 2.0 * un[p]) for p in range(6)]
-    rows = torch.stack([
-        torch.stack([cp[kk] * zu[2 * j] + cp[3 + kk] * zu[2 * j + 1]
-                     for j in range(3)], dim=1)
-        for kk in range(3)])
-    return torch.stack(un), rows
+    if collect is None:
+        return un, _tri_rows(cp, zu)
+    zrows = (_tri_rows(cp, [w2 * z[p] for p in range(6)])
+             if collect == "full" else None)
+    return un, _tri_rows(cp, zu), w2 * squares((un - tu).T), zrows
 
 
-def _bend_phase(x, hu, hidx, hc):
+def _bend_phase(x, hu, hidx, hc, collect=None):
     """Hinge local steps (cloth_step.py:340-420): (hu', rows (4 corners,
-    Eh, 3))."""
+    Eh, 3)), and with `collect` as `_tri_phase`."""
     xg = [x[hidx[k]] for k in range(4)]
     arow, half = hc[0:3], hc[3:6]
     inv_denom, w2, k, mix = hc[6], hc[7], hc[8], hc[9]
@@ -201,31 +230,67 @@ def _bend_phase(x, hu, hidx, hc):
     for r, (ca, cb) in enumerate(BEND_ROWS):
         for j in range(3):
             F[3 * r + j] = (hu[3 * r + j] + xg[ca][:, j]) - xg[cb][:, j]
-    un = [None] * 9
+    un, zs = [None] * 9, [None] * 9
     for j in range(3):
         lam = inv_denom * (arow[0] * F[j] + arow[1] * F[3 + j]
                            + arow[2] * F[6 + j])
         for r in range(3):
             fp = F[3 * r + j]
-            z = (k * (fp - half[r] * lam) + w2 * fp) * mix
-            un[3 * r + j] = fp - z
+            zs[3 * r + j] = (k * (fp - half[r] * lam) + w2 * fp) * mix
+            un[3 * r + j] = fp - zs[3 * r + j]
     zu = [w2 * (F[p] - 2.0 * un[p]) for p in range(9)]
-    # D^T columns: corner 0 += row 0, corner 1 += row 2, corner 2 -= all
-    # three rows, corner 3 += row 1
-    rows = torch.stack([
-        torch.stack([zu[j] for j in range(3)], dim=1),
-        torch.stack([zu[6 + j] for j in range(3)], dim=1),
-        torch.stack([-((zu[j] + zu[3 + j]) + zu[6 + j]) for j in range(3)],
-                    dim=1),
-        torch.stack([zu[3 + j] for j in range(3)], dim=1)])
-    return torch.stack(un), rows
+    un = torch.stack(un)
+    if collect is None:
+        return un, _bend_rows(zu)
+    zrows = (_bend_rows([w2 * zs[p] for p in range(9)])
+             if collect == "full" else None)
+    return un, _bend_rows(zu), w2 * squares((un - hu).T), zrows
+
+
+def _seed_rows(x_pre, tidx, tc, hidx, hc):
+    """The dual residual's seed rows, w2 D^T D x_pre: the triangles'
+    (3 Et, 3) and the hinges' (4 Eh, 3), as cloth_step.cu's seed_rows."""
+    xg = [x_pre[tidx[k]] for k in range(3)]
+    cp, w2 = tc[:6], tc[6]
+    zz = []
+    for a in range(3):
+        for b in range(2):
+            acc = cp[3 * b] * xg[0][:, a]
+            acc = acc + cp[3 * b + 1] * xg[1][:, a]
+            acc = acc + cp[3 * b + 2] * xg[2][:, a]
+            zz.append(w2 * acc)
+    rows = [_tri_rows(cp, zz).reshape(-1, 3)]
+    if hidx.shape[1]:
+        xh = [x_pre[hidx[k]] for k in range(4)]
+        hz = [None] * 9
+        for r, (ca, cb) in enumerate(BEND_ROWS):
+            for j in range(3):
+                hz[3 * r + j] = hc[7] * (xh[ca][:, j] - xh[cb][:, j])
+        rows.append(_bend_rows(hz).reshape(-1, 3))
+    return torch.cat(rows)
+
+
+def seed_tz(x_pre, planes):
+    """T z_prev of a step's first ADMM iteration, z_prev = D x_pre: the
+    incidence sum of w2 D^T D x_pre + aw2 x_pre (n,3), as cloth_step.cu's
+    seed kernels form it."""
+    tidx, hidx = planes["tidx"].long(), planes["hidx"].long()
+    tc = planes["ttab"][planes["tgrp"].long()].T
+    hc = planes["htab"][planes["hgrp"].long()].T
+    inc = _slot_lists(planes["inc"].long(),
+                      3 * tidx.shape[1] + 4 * hidx.shape[1])
+    return (_slot_sum(torch.zeros_like(x_pre),
+                      _seed_rows(x_pre, tidx, tc, hidx, hc), inc)
+            + planes["aw2"][:, None] * x_pre)
 
 
 def cloth_rollout_reference(state, planes, cfg: ClothConfig, n_steps,
                             dot=cluster_dot):
     """Plain PyTorch version of the kernels: the same phases in the same
     order, one torch op at a time. `dot` sums the solve's dots (by
-    default in the cluster solve's order; None: torch.sum)."""
+    default in the cluster solve's order; None: torch.sum). With
+    cfg.collect the result also holds "primal" (and "dual"), as
+    `banded_step.banded_rollout_reference`."""
     x, v, tu, hu, au = (state[k] for k in STATE)
     dtype, dev = x.dtype, x.device
     s = [torch.tensor(q, dtype=dtype, device=dev) for q in cfg.scalars()]
@@ -241,6 +306,8 @@ def cloth_rollout_reference(state, planes, cfg: ClothConfig, n_steps,
     Et, Eh, Ew = tidx.shape[1], hidx.shape[1], widx.shape[1]
     inc = _slot_lists(planes["inc"].long(), 3 * Et + 4 * Eh)
     winc = _slot_lists(planes["winc"].long(), Ew)
+    collect = cfg.collect
+    res_p, res_d = [], []
 
     def A(y):
         return dia_apply(y, cfg.dia_offs, planes["dia"])
@@ -253,15 +320,38 @@ def cloth_rollout_reference(state, planes, cfg: ClothConfig, n_steps,
         x_pre = x
         x = x_pre + dt * v
         mxbar = mass * x
+        if collect == "full":
+            tz = seed_tz(x_pre, planes)
+        step_p, step_d = [], []
         for _ in range(cfg.admm_iters):
-            tu, trows = _tri_phase(x, tu, tidx, tc, cfg.limiting)
+            if collect is None:
+                tu, trows = _tri_phase(x, tu, tidx, tc, cfg.limiting)
+            else:
+                tu, trows, pieces, tz_rows = _tri_phase(
+                    x, tu, tidx, tc, cfg.limiting, collect)
+                zrows = [tz_rows]
             rows = [trows.reshape(3 * Et, 3)]
             if Eh:
-                hu, hrows = _bend_phase(x, hu, hidx, hc)
+                if collect is None:
+                    hu, hrows = _bend_phase(x, hu, hidx, hc)
+                else:
+                    hu, hrows, hp, hz_rows = _bend_phase(x, hu, hidx, hc,
+                                                         collect)
+                    pieces = torch.cat([pieces, hp])
+                    zrows.append(hz_rows)
                 rows.append(hrows.reshape(4 * Eh, 3))
             b = _slot_sum(torch.zeros_like(x), torch.cat(rows), inc)
-            au = torch.where(aw2 > 0, au + (x - ancz), 0.0)
+            dlt = x - ancz
+            au = torch.where(aw2 > 0, au + dlt, 0.0)
             b = b + aw2 * (ancz - au)
+            if collect is not None:
+                step_p.append(residuals.primal(pieces,
+                                               aw2[:, 0] * squares(dlt)))
+            if collect == "full":
+                tz_new = _slot_sum(torch.zeros_like(x), torch.cat(
+                    [r.reshape(-1, 3) for r in zrows]), inc) + aw2 * ancz
+                step_d.append(residuals.dual(dt2, squares(tz_new - tz)))
+                tz = tz_new
             if cfg.mg is None:
                 x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
                                   cfg.cg_iters, dot)
@@ -269,7 +359,10 @@ def cloth_rollout_reference(state, planes, cfg: ClothConfig, n_steps,
                 x = pcg_fixed_mg(A, mxbar + dt2 * b, x, planes, cfg.mg,
                                  cfg.cg_iters, dot)
         v = (x - x_pre) * inv_dt
-    return {"x": x, "v": v, "tu": tu, "hu": hu, "au": au}
+        res_p.append(step_p)
+        res_d.append(step_d)
+    out = {"x": x, "v": v, "tu": tu, "hu": hu, "au": au}
+    return _with_residuals(out, collect, res_p, res_d, n_steps, cfg, x)
 
 
 def _check(state, planes, cfg):
@@ -321,6 +414,17 @@ class ClothWindow:
                                            for _ in range(3))
         self.rows = x.new_empty((3, 3 * self.Et + 4 * self.Eh))
         self.wf = x.new_empty((3, self.Ew))
+        # residual collection's scratch, and its results for each window
+        # length (`residuals(n)`)
+        eb, vb = (-(-m // residuals.THREADS)
+                  for m in (self.Et + self.Eh, self.n))
+        full = cfg.collect == "full"
+        self.zrows = torch.empty_like(self.rows) if full else None
+        self.tz = torch.empty_like(x) if full else None
+        self.part = (x.new_empty((cfg.admm_iters, eb + vb))
+                     if cfg.collect else None)
+        self.dpart = x.new_empty((cfg.admm_iters, vb)) if full else None
+        self._res = {}
         self.reach = max(abs(o) for o in cfg.dia_offs)
         if cfg.mg is None:
             self.mg = None
@@ -339,28 +443,37 @@ class ClothWindow:
 
     def ops(self, n_steps):
         """Launches of an n_steps window."""
-        return n_steps * ((3 if self.Ew else 2) + 3 * self.cfg.admm_iters)
+        return n_steps * ((3 if self.Ew else 2) + 3 * self.cfg.admm_iters
+                          + residuals.extra_ops(self.cfg.collect))
+
+    residuals = BandedWindow.residuals
 
     def launch(self, n_steps):
         cfg, x = self.cfg, self.state["x"]
+        res = self.residuals(n_steps)
         with torch.cuda.device(x.device):
             err = self._fn(
                 *(self.state[k].data_ptr() for k in STATE),
                 *(self.planes[k].data_ptr() for k in PLANES),
                 *(t.data_ptr() for t in (self.xpre, self.mxbar, self.rows,
                                          self.wf, self.rhs)),
-                None if self.scratch is None else self.scratch.data_ptr(),
+                *(None if t is None else t.data_ptr()
+                  for t in (self.scratch, self.zrows, self.tz, self.part,
+                            self.dpart)),
+                *((None, None) if res is None
+                  else (res[0].data_ptr(), res[1].data_ptr())),
                 *(ctypes.addressof(a) for a in self._host),
                 None if self.mg is None else ctypes.addressof(self.mg),
                 self.n, self.Et, self.Eh, self.Ew, len(cfg.dia_offs),
                 self.reach, self.S, self.Sw, int(bool(cfg.limiting)),
                 cfg.cg_iters, cfg.admm_iters, int(n_steps),
-                _build.stream_ptr(x))
+                residuals.MODES[cfg.collect], _build.stream_ptr(x))
         _build.check(err, "cloth_rollout")
 
 
 def cloth_rollout(state, planes, cfg: ClothConfig, n_steps):
-    """Advance `n_steps` timesteps; returns the new state dict."""
+    """Advance `n_steps` timesteps; returns the new state dict (with
+    cfg.collect also its residuals, as `cloth_rollout_reference`)."""
     _check(state, planes, cfg)
     x = state["x"]
     if x.device.type == "cpu":
@@ -371,9 +484,12 @@ def cloth_rollout(state, planes, cfg: ClothConfig, n_steps):
     window = ClothWindow(out, planes, cfg)
     window.launch(int(n_steps))
     cloth_rollout.launches += 1
+    cloth_rollout.residual_launches += bool(cfg.collect)
     cloth_rollout.ops += window.ops(int(n_steps))
-    return out
+    return residuals.attach(out, cfg.collect, window.residuals(int(n_steps)))
 
 
 cloth_rollout.launches = 0
+#: the windows submitted in a residual mode (a count within `launches`)
+cloth_rollout.residual_launches = 0
 cloth_rollout.ops = 0

@@ -8,12 +8,15 @@ Per element:
     sigma* = argmin psi(sigma) + k/2 ||sigma - s||^2   (damped Newton)
     z      = U diag(sigma*) V^T,   u' = u + Dx - z
     contrib[3k+j] = w2 * sum_r cp[4r+k] * (z - u')[3j+r]   (fused only)
+    contribz[3k+j] = w2 * sum_r cp[4r+k] * z[3j+r]          (emit_z only)
 
 `nh_local_step_fused` takes gathered positions and emits the RHS rows (the
-dia/ell route); `nh_local_step` takes Dx (the unfused pipeline of the dense
-and cg global modes and of over-relaxation). Layout: plane-major xg12,
-cp12, contrib12 (12,E); dx9, u9, z9 (9,E); warm (3,E); mu, lam, k, w2
-(E,). No padding: E is any size.
+dia/ell route) and, with `emit_z`, the rows of w2 D^T z beside them (the
+dual residual's, `Settings(collect_residuals=True)`); `nh_local_step`
+takes Dx (the unfused pipeline of the dense and cg global modes and of
+over-relaxation). Layout: plane-major xg12, cp12, contrib12, contribz12
+(12,E); dx9, u9, z9 (9,E); warm (3,E); mu, lam, k, w2 (E,). No padding:
+E is any size.
 
 Each wrapper launches its kernel (`csrc/nh_local.cu`) for CUDA tensors and
 runs its `_reference` twin, a straight transcription of the Pallas math,
@@ -338,10 +341,25 @@ def _hyper_body(dx, uu, warm, mu, lam, k, iters, model):
     return z_planes, u_planes, torch.stack([x1, x2, x3])
 
 
+def rows_of(cp, planes, k_count, r_count, w2):
+    """The rows w2 D^T y of the fused kernels, from the plane values y
+    (plane r_count j + r) and the selector planes cp (plane k_count r +
+    k): row 3k+j = w2 * sum_r cp[k_count r + k] y[r_count j + r], the
+    terms added in order of r."""
+    out = []
+    for kk in range(k_count):
+        for j in range(3):
+            acc = cp[kk] * planes[r_count * j]
+            for r in range(1, r_count):
+                acc = acc + cp[k_count * r + kk] * planes[r_count * j + r]
+            out.append(w2 * acc)
+    return out
+
+
 def nh_local_step_fused_reference(xg12, u9, warm, cp12, mu, lam, k, w2,
-                                  iters=5, model="nh"):
+                                  iters=5, model="nh", emit_z=False):
     """Plain PyTorch version of the fused kernel, same signature and
-    outputs: (z9, u9_new, warm_new, contrib12)."""
+    outputs: (z9, u9_new, warm_new, contrib12[, contribz12])."""
     xg = [xg12[p] for p in range(12)]
     cp = [cp12[p] for p in range(12)]
     dx = []
@@ -354,16 +372,11 @@ def nh_local_step_fused_reference(xg12, u9, warm, cp12, mu, lam, k, w2,
     z_planes, u_planes, warm_new = _hyper_body(
         dx, [u9[p] for p in range(9)], warm, mu, lam, k, iters, model)
     zu = [z_planes[p] - u_planes[p] for p in range(9)]
-
-    contrib = []
-    for kk in range(4):
-        for j in range(3):
-            acc = cp[kk] * zu[3 * j]
-            for r in range(1, 3):
-                acc = acc + cp[4 * r + kk] * zu[3 * j + r]
-            contrib.append(w2 * acc)
-    return (torch.stack(z_planes), torch.stack(u_planes), warm_new,
-            torch.stack(contrib))
+    out = (torch.stack(z_planes), torch.stack(u_planes), warm_new,
+           torch.stack(rows_of(cp, zu, 4, 3, w2)))
+    if emit_z:
+        out += (torch.stack(rows_of(cp, z_planes, 4, 3, w2)),)
+    return out
 
 
 def nh_local_step_reference(dx9, u9, warm, mu, lam, k, iters=5, model="nh"):
@@ -378,28 +391,29 @@ def nh_local_step_reference(dx9, u9, warm, mu, lam, k, iters=5, model="nh"):
 def nh_local_step_fused(xg12, u9, warm, cp12, mu, lam, k, w2, iters=5,
                         model="nh", emit_z=False):
     """Fused local step + RHS contribution. Returns
-    (z9, u9_new, warm_new, contrib12)."""
-    if emit_z:
-        raise NotImplementedError(
-            "emit_z (dual-residual rows) belongs to collect_residuals, "
-            "which is not ported yet"
-        )
+    (z9, u9_new, warm_new, contrib12), and with emit_z contribz12 after
+    them (the other outputs are the same bits either way)."""
     if model not in _MODELS:
         raise ValueError(f"unknown hyperelastic model {model!r}")
     E = _build.check_inputs({"xg12": (xg12, 12), "u9": (u9, 9), "warm": (warm, 3),
                 "cp12": (cp12, 12)}, {"mu": mu, "lam": lam, "k": k, "w2": w2})
     if xg12.device.type == "cpu":
         return nh_local_step_fused_reference(xg12, u9, warm, cp12, mu, lam,
-                                             k, w2, iters=iters, model=model)
+                                             k, w2, iters=iters, model=model,
+                                             emit_z=emit_z)
     outs = (torch.empty_like(u9), torch.empty_like(u9), torch.empty_like(warm),
-            torch.empty_like(xg12))
+            torch.empty_like(xg12),
+            torch.empty_like(xg12) if emit_z else None)
     _build.launch("nh_local_step_fused", (xg12, u9, warm, cp12, mu, lam, k, w2),
             outs, E, int(iters), _MODELS[model])
     nh_local_step_fused.launches += 1
-    return outs
+    nh_local_step_fused.residual_launches += bool(emit_z)
+    return outs if emit_z else outs[:4]
 
 
 nh_local_step_fused.launches = 0
+#: the launches of its emit_z mode (a count within `launches`)
+nh_local_step_fused.residual_launches = 0
 
 
 def nh_local_step(dx9, u9, warm, mu, lam, k, iters=5, model="nh"):

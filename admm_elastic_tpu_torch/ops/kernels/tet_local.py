@@ -9,9 +9,11 @@ Per element:
                                           safe orthonormalization of F V)
     z   = (k R + w2 F) / (w2 + k),   u' = u + Dx - z
     contrib[3k+j] = w2 * sum_r cp[4r+k] * (z - u')[3j+r]   (fused only)
+    contribz[3k+j] = w2 * sum_r cp[4r+k] * z[3j+r]          (emit_z only)
 
 `arap_local_step_fused` takes gathered positions and emits the RHS rows
-(LinearTetStrain on the dia/ell route); `arap_local_step` takes Dx (the
+(LinearTetStrain on the dia/ell route), with `emit_z` also the rows of
+w2 D^T z (the dual residual's); `arap_local_step` takes Dx (the
 unfused pipeline of the dense and cg global modes and of over-relaxation).
 Layout: plane-major xg12, cp12, contrib12 (12,E); dx9, u9, z9 (9,E); w2, k
 (E,). No padding: E is any size.
@@ -28,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .nh_local import _svd_factors
+from .nh_local import _svd_factors, rows_of
 
 
 def _polar_rotation(f):
@@ -49,9 +51,9 @@ def _arap_body(dx, uu, w2, k):
     return z, [uu[p] + dx[p] - z[p] for p in range(9)]
 
 
-def arap_local_step_fused_reference(xg12, u9, cp12, w2, k):
+def arap_local_step_fused_reference(xg12, u9, cp12, w2, k, emit_z=False):
     """Plain PyTorch version of the fused kernel, same signature and
-    outputs: (z9, u9_new, contrib12)."""
+    outputs: (z9, u9_new, contrib12[, contribz12])."""
     xg = [xg12[p] for p in range(12)]
     cp = [cp12[p] for p in range(12)]
     dx = []
@@ -63,14 +65,11 @@ def arap_local_step_fused_reference(xg12, u9, cp12, w2, k):
             dx.append(acc)
     z, un = _arap_body(dx, [u9[p] for p in range(9)], w2, k)
     zu = [z[p] - un[p] for p in range(9)]
-    contrib = []
-    for kk in range(4):
-        for j in range(3):
-            acc = cp[kk] * zu[3 * j]
-            for r in range(1, 3):
-                acc = acc + cp[4 * r + kk] * zu[3 * j + r]
-            contrib.append(w2 * acc)
-    return torch.stack(z), torch.stack(un), torch.stack(contrib)
+    out = (torch.stack(z), torch.stack(un),
+           torch.stack(rows_of(cp, zu, 4, 3, w2)))
+    if emit_z:
+        out += (torch.stack(rows_of(cp, z, 4, 3, w2)),)
+    return out
 
 
 def arap_local_step_reference(dx9, u9, w2, k):
@@ -83,25 +82,25 @@ def arap_local_step_reference(dx9, u9, w2, k):
 
 def arap_local_step_fused(xg12, u9, cp12, w2, k, emit_z=False):
     """Fused ARAP local step + RHS contribution. Returns (z9, u9_new,
-    contrib12)."""
-    if emit_z:
-        raise NotImplementedError(
-            "emit_z (dual-residual rows) belongs to collect_residuals, "
-            "which is not ported yet"
-        )
+    contrib12), and with emit_z contribz12 after them."""
     E = _build.check_inputs(
         {"xg12": (xg12, 12), "u9": (u9, 9), "cp12": (cp12, 12)},
         {"w2": w2, "k": k})
     if xg12.device.type == "cpu":
-        return arap_local_step_fused_reference(xg12, u9, cp12, w2, k)
+        return arap_local_step_fused_reference(xg12, u9, cp12, w2, k,
+                                               emit_z=emit_z)
     outs = (torch.empty_like(u9), torch.empty_like(u9),
-            torch.empty_like(xg12))
+            torch.empty_like(xg12),
+            torch.empty_like(xg12) if emit_z else None)
     _build.launch("arap_local_step_fused", (xg12, u9, cp12, w2, k), outs, E)
     arap_local_step_fused.launches += 1
-    return outs
+    arap_local_step_fused.residual_launches += bool(emit_z)
+    return outs if emit_z else outs[:3]
 
 
 arap_local_step_fused.launches = 0
+#: the launches of its emit_z mode (a count within `launches`)
+arap_local_step_fused.residual_launches = 0
 
 
 def arap_local_step(dx9, u9, w2, k):

@@ -11,9 +11,11 @@ Per element:
                                             [lmin, lmax] when limiting
     u'     = F - z
     contrib[3k+j] = w2 * sum_r cp[3r+k] * (z - u')[2j+r]   (fused only)
+    contribz[3k+j] = w2 * sum_r cp[3r+k] * z[2j+r]          (emit_z only)
 
 `tri_local_step_fused` takes gathered positions and emits the RHS rows (the
-dia route); `tri_local_step` takes Dx (the unfused pipeline of the dense and
+dia route), with `emit_z` also the rows of w2 D^T z (the dual residual's);
+`tri_local_step` takes Dx (the unfused pipeline of the dense and
 cg global modes and of over-relaxation). Layout: plane-major xg9, contrib9
 (9,E) with plane 3k+a = x[face[e,k], a]; dx6, u6, z6, cp6 (6,E) with plane
 2a+b = F_{a,b} and plane 3b+k = coeff[e,b,k]; w2, k, lmin, lmax (E,). No
@@ -32,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .nh_local import rows_of
 
 def _norm3(x):
     return torch.sqrt(x[0] * x[0] + x[1] * x[1] + x[2] * x[2])
@@ -122,9 +125,9 @@ def _tri_body(f, w2, k, denom, lmin, lmax, limiting):
 
 
 def tri_local_step_fused_reference(xg9, u6, cp6, w2, k, lmin, lmax,
-                                   limiting=True):
+                                   limiting=True, emit_z=False):
     """Plain PyTorch version of the fused kernel, same signature and
-    outputs: (z6, u6_new, contrib9)."""
+    outputs: (z6, u6_new, contrib9[, contribz9])."""
     xg = [xg9[p] for p in range(9)]
     cp = [cp6[p] for p in range(6)]
     f = []
@@ -139,9 +142,11 @@ def tri_local_step_fused_reference(xg9, u6, cp6, w2, k, lmin, lmax,
     for p in range(6):
         u_new.append(f[p] - z[p])
         zu.append(z[p] - u_new[-1])  # = 2z - F
-    contrib = [w2 * (cp[kk] * zu[2 * j] + cp[3 + kk] * zu[2 * j + 1])
-               for kk in range(3) for j in range(3)]
-    return torch.stack(z), torch.stack(u_new), torch.stack(contrib)
+    out = (torch.stack(z), torch.stack(u_new),
+           torch.stack(rows_of(cp, zu, 3, 2, w2)))
+    if emit_z:
+        out += (torch.stack(rows_of(cp, z, 3, 2, w2)),)
+    return out
 
 
 def tri_local_step_reference(dx6, u6, w2, k, lmin, lmax, limiting=True):
@@ -155,25 +160,25 @@ def tri_local_step_reference(dx6, u6, w2, k, lmin, lmax, limiting=True):
 def tri_local_step_fused(xg9, u6, cp6, w2, k, lmin, lmax, limiting=True,
                          emit_z=False):
     """Fused local step + RHS contribution. Returns (z6, u6_new,
-    contrib9)."""
-    if emit_z:
-        raise NotImplementedError(
-            "emit_z (dual-residual rows) belongs to collect_residuals, "
-            "which is not ported yet"
-        )
+    contrib9), and with emit_z contribz9 after them."""
     E = _build.check_inputs({"xg9": (xg9, 9), "u6": (u6, 6), "cp6": (cp6, 6)},
                             {"w2": w2, "k": k, "lmin": lmin, "lmax": lmax})
     if xg9.device.type == "cpu":
         return tri_local_step_fused_reference(xg9, u6, cp6, w2, k, lmin, lmax,
-                                              limiting=limiting)
-    outs = (torch.empty_like(u6), torch.empty_like(u6), torch.empty_like(xg9))
+                                              limiting=limiting,
+                                              emit_z=emit_z)
+    outs = (torch.empty_like(u6), torch.empty_like(u6), torch.empty_like(xg9),
+            torch.empty_like(xg9) if emit_z else None)
     _build.launch("tri_local_step_fused", (xg9, u6, cp6, w2, k, lmin, lmax),
                   outs, E, int(bool(limiting)))
     tri_local_step_fused.launches += 1
-    return outs
+    tri_local_step_fused.residual_launches += bool(emit_z)
+    return outs if emit_z else outs[:3]
 
 
 tri_local_step_fused.launches = 0
+#: the launches of its emit_z mode (a count within `launches`)
+tri_local_step_fused.residual_launches = 0
 
 
 def tri_local_step(dx6, u6, w2, k, lmin, lmax, limiting=True):

@@ -29,8 +29,10 @@ windows, lane permutations and `_positions` are TPU layout: the stepper
 here works on its base `BandedStepper`'s arrays as they are, in the
 System's vertex numbering. More devices (the collectives over
 `torch.distributed`) are the rest of ROADMAP A9; the sharded multigrid
-solve needs A6; residual collection is 2d and `refresh_params` 2e. Those
-raise NotImplementedError.
+solve needs A6 and `refresh_params` 2e. Those raise NotImplementedError.
+A base stepper that collects "primal" residuals makes this one collect
+them too (B11's collect output, square-rooted: `last_primal`, (admm_iters,)
+of the last step); True raises the JAX stepper's ValueError.
 
 `backend`: "pallas" (the default on a CUDA base) calls the kernel
 wrappers, which launch their kernels on CUDA tensors and run their plain
@@ -108,10 +110,10 @@ class ShardedBandedStepper:
             raise NotImplementedError(
                 "solver='mg': the sharded geometric multigrid is not ported "
                 "(ROADMAP A6)")
-        if getattr(base, "collect_residuals", False):
-            raise NotImplementedError(
-                "sharded banded residual collection is not ported "
-                "(ROADMAP 2d)")
+        if base.collect_residuals is True:
+            raise ValueError(
+                "sharded banded path collects 'primal' residuals only"
+            )
         self.device = _one_device(mesh, base.device)
         self.base = base
         self.mesh = mesh
@@ -130,8 +132,9 @@ class ShardedBandedStepper:
         self.dt = cfg.dt
         self.admm_iters = cfg.admm_iters
         self.cg_iters = cfg.cg_iters
-        #: residuals are not collected (ROADMAP 2d)
-        self.collect_residuals = False
+        self.collect_residuals = bool(base.collect_residuals)
+        #: (admm_iters,) primal residuals of the last step (collect mode),
+        #: a host copy
         self.last_primal = None
         if solver == "cheb":
             p = base.planes
@@ -235,11 +238,20 @@ class ShardedBandedStepper:
         x = x_pre + dt * v
         mxbar = mass * x
         au, cu, u, warm = st["au"], st["cu"], st["u"], st["warm"]
+        r2 = []
         for _ in range(self.admm_iters):
-            b, au, cu, u, warm = local(x, au, cu, u, warm, planes, cfg)
+            b, au, cu, u, warm, *sq = local(x, au, cu, u, warm, planes, cfg,
+                                            self.collect_residuals)
+            r2 += sq
             x = solve(x, mxbar + dt2 * b)
-        return {"x": x, "v": (x - x_pre) * inv_dt, "u": u, "warm": warm,
-                "au": au, "cu": cu, "t": st["t"] + cfg.dt}
+        out = {"x": x, "v": (x - x_pre) * inv_dt, "u": u, "warm": warm,
+               "au": au, "cu": cu, "t": st["t"] + cfg.dt}
+        if self.collect_residuals:
+            # sqrt of the (at one device, un-reduced) sum of squares
+            # (banded_spmd.py:1011-1014)
+            self.last_primal = torch.sqrt(
+                torch.stack(r2) if r2 else x.new_zeros((0,))).cpu().numpy()
+        return out
 
     def step(self):
         self.state = self._timestep(self.state)
@@ -248,8 +260,11 @@ class ShardedBandedStepper:
     def run(self, n_steps: int):
         """n_steps timesteps: ROLLOUT_WINDOW-step windows, each writing the
         state back once at its end as the JAX stepper's scanned window
-        does, then the remainder one step at a time."""
+        does, then the remainder one step at a time; a collecting stepper
+        steps one at a time (last_primal is the last step's), as JAX's."""
         full, rem = divmod(int(n_steps), self.ROLLOUT_WINDOW)
+        if self.collect_residuals:
+            full, rem = 0, int(n_steps)
         for _ in range(full):
             self.state = self._advance(self.state, self.ROLLOUT_WINDOW)
         for _ in range(rem):

@@ -27,6 +27,11 @@ whole-timestep kernels (banded in dia or ELL mode, cloth, lattice; the
 banded and cloth ones in their multigrid mode too). The
 lattice kernel's twin skips a group's zero selector coefficients as the
 kernel does, so its count is the arithmetic of the nonzero ones.
+The residual modes (the element steps' `emit_z`, the windows'
+`cfg.collect`, B11's `collect`) are counted the same way, from twins that
+compute them: each element's and vertex's piece and the partial sums,
+with the partials' zero padding to whole blocks counted as sums too (at
+most THREADS - 1 additions a block row).
 """
 
 from __future__ import annotations
@@ -228,12 +233,14 @@ def rollout_counts(reference, keys, state, planes, cfg, n_steps):
     return ops, nbytes(({k: state[k] for k in keys}, planes), out)
 
 
-def banded_local_counts(x, au, cu, u, warm, planes, cfg):
+def banded_local_counts(x, au, cu, u, warm, planes, cfg, collect=False):
     """(operations, bytes) of one `banded_local_rhs`: the state and the
-    planes it reads once, its five outputs written once (the element rows
-    passed between its two kernels are not counted)."""
+    planes it reads once, its five outputs (six with collect) written once
+    (the element rows passed between its two kernels, and the residual's
+    partials, are not counted)."""
     return twin_counts(banded_local.banded_local_rhs_reference, x, au, cu, u,
-                       warm, {k: planes[k] for k in banded_local.PLANES}, cfg)
+                       warm, {k: planes[k] for k in banded_local.PLANES}, cfg,
+                       collect)
 
 
 def cheb_dia_counts(b, x, z, d, invd, dia, c1, c2, *, offsets, n_it, first,

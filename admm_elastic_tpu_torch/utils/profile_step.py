@@ -6,6 +6,7 @@ steps of the 100k-tet beam, the cloth100k sheet or the delaunay100k mesh
         [--steps 10] [--route general|fast|lattice|sharded]
         [--solver cg|cheb] [--scene tet100k|cloth100k|delaunay100k]
         [--cg-backend xla|fused|kernel] [--amg]
+        [--collect none|primal|full]
 
 `--route general` (the default) steps the general route; `--route fast`
 steps the scene's whole-timestep route (`lattice_fast_path=True`: the
@@ -20,7 +21,9 @@ cg or cheb, whose budgets `--cg` then gives. `--cg-backend` picks
 delaunay100k's ell CG on the general route (the other scenes run dia).
 `--amg` steps tet100k or cloth100k on its whole-timestep route with the
 in-kernel multigrid (`preconditioner="amg"`), `--cg` V-cycle PCG
-iterations a solve.
+iterations a solve. `--collect` turns on residual collection
+(`collect_residuals`: "primal", or both residuals with "full"; the
+sharded stepper takes "primal" only).
 For each CG budget it times `steps` steps twice in one process, each
 window closed by `torch.cuda.synchronize()`: first without the profiler,
 then under it, tracing the device only. It prints one line: both windows' wall ms/step,
@@ -139,17 +142,39 @@ def call_ops(fn) -> dict:
             "kinds": sorted(set(kinds))}
 
 
+COLLECT = {"none": False, "primal": "primal", "full": True}
+
+
+def set_collect(s, mode):
+    """Turn a System's (or a sharded stepper's) residual collection to
+    mode, a collect_residuals value (False, "primal" or True): its
+    whole-timestep stepper's, else its Settings'."""
+    from ..parallel import ShardedBandedStepper
+
+    if isinstance(s, ShardedBandedStepper):
+        s.collect_residuals = bool(mode)
+    elif s._stepper is not None:
+        s._stepper.collect_residuals = mode
+    else:
+        s.settings.collect_residuals = mode
+
+
 def profile(cg, steps, route="general", s=None, scene="tet100k",
-            cg_backend="xla", solver="cg", amg=False) -> dict:
+            cg_backend="xla", solver="cg", amg=False,
+            collect="none") -> dict:
     """Profile `steps` steps of the scene (or of the given System or
     stepper `s`) and print and return the numbers. amg: the scene on its
-    whole-timestep route with the in-kernel multigrid."""
+    whole-timestep route with the in-kernel multigrid. collect: a key of
+    COLLECT, the residuals the scene's own build collects."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     if s is None and route == "sharded":
         if scene != "tet100k":
             raise ValueError("--route sharded steps tet100k")
+        if collect == "full":
+            raise ValueError("the sharded stepper collects 'primal' only")
         s = scenes.tet100k_sharded(solver, cg)
+        set_collect(s, COLLECT[collect])
         s.run(2)
     elif s is None:
         kw = {"cg_backend": cg_backend} if scene == "delaunay100k" else {}
@@ -163,6 +188,7 @@ def profile(cg, steps, route="general", s=None, scene="tet100k",
                 raise ValueError("--route lattice steps tet100k")
             kw["global_solver"] = "cg"
         s = getattr(scenes, scene)(cg, fast=route != "general", **kw)
+        set_collect(s, COLLECT[collect])
         s.run(2)
     plain_ms = _window_ms(s, steps)
     # the tracer can drop kernel records (seen after traces of tens of
@@ -196,6 +222,8 @@ def profile(cg, steps, route="general", s=None, scene="tet100k",
            "device_ops_per_step": len(dev) / steps if dev else None,
            "traced_windows": attempt, "lost_kernel_records": max(lost, 0)}
     label, budget = route, f"cg{cg}"
+    if collect != "none":
+        label = f"{label} collect={collect}"
     if getattr(getattr(getattr(s, "_stepper", None), "cfg", None), "mg",
                None) is not None:
         budget = f"mg{cg}"
@@ -225,13 +253,15 @@ def main():
                     default="xla")
     ap.add_argument("--amg", action="store_true",
                     help="the in-kernel multigrid (with --route fast)")
+    ap.add_argument("--collect", choices=tuple(COLLECT), default="none",
+                    help="collect the residuals of each ADMM iteration")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     print(torch.cuda.get_device_name(0), flush=True)
     outs = [profile(cg, args.steps, args.route, scene=args.scene,
                     cg_backend=args.cg_backend, solver=args.solver,
-                    amg=args.amg)
+                    amg=args.amg, collect=args.collect)
             for cg in args.cg]
     if any(o["device_busy_ms_per_step"] is None for o in outs):
         raise SystemExit("profile_step: the profiler recorded no device "

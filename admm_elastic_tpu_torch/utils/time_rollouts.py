@@ -4,7 +4,7 @@ on the same card, each in a process of its own.
 
     python admm_elastic_tpu_torch/utils/time_rollouts.py --root DIR \\
         --label NAME [--out JSONL] [--save DIR] [--cg 25 75]
-        [--scenes NAME ...]
+        [--scenes NAME ...] [--collect none|primal|full]
 
 For each scene and CG budget (f32) it builds the System with that
 checkout's `utils/scenes.py` and steps it as `chip_smoke.py` drives a
@@ -22,6 +22,10 @@ banded stepper at one device with the Chebyshev solve (cheb180); with
 the in-kernel multigrid (`preconditioner="amg"`), tet100k on the banded
 route at mg6 and mg8 and cloth100k on the cloth route at mg8.
 `--scenes` keeps the scenes whose names start with one of its words.
+`--collect` turns on residual collection on every route ("primal", or
+"full": both residuals; the sharded stepper collects "primal" only, and
+its line says so); a checkout without it (before the residual modes)
+raises there.
 With `--save` the positions after the 32 steps go to
 DIR/LABEL_SCENE_cgN.npy (a label holds no "_"), so that two checkouts'
 trajectories can be held against each other:
@@ -71,7 +75,8 @@ def _scenes(scenes, torch, budgets):
     }
 
 
-def time_root(root, label, out_path, save, budgets, only=None):
+def time_root(root, label, out_path, save, budgets, only=None,
+              collect="none"):
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -89,6 +94,14 @@ def time_root(root, label, out_path, save, budgets, only=None):
             s = build(cg)
             stepper = getattr(s, "_stepper", s)  # a System or a stepper
             route = type(stepper).__name__ if stepper else "general"
+            mode = collect
+            if collect != "none":
+                from admm_elastic_tpu_torch.utils.profile_step import (
+                    COLLECT, set_collect)
+
+                if route == "ShardedBandedStepper":
+                    mode = "primal"
+                set_collect(s, COLLECT[mode])
             for _ in range(WARMUP):
                 s.step()
             torch.cuda.synchronize()
@@ -100,7 +113,8 @@ def time_root(root, label, out_path, save, budgets, only=None):
                 windows.append(1e3 * (time.perf_counter() - t0) / STEPS)
             x = s.x
             line = {"label": label, "scene": name, "cg": cg, "route": route,
-                    "device": card, "ms_per_step": statistics.median(windows),
+                    "collect": mode, "device": card,
+                    "ms_per_step": statistics.median(windows),
                     "windows_ms": windows,
                     "spread_ms": max(windows) - min(windows),
                     "steps": WARMUP + WINDOWS * STEPS,
@@ -153,13 +167,17 @@ def main():
     ap.add_argument("--scenes", nargs="+",
                     help="time only the scenes whose names start with one "
                          "of these words")
+    ap.add_argument("--collect", choices=("none", "primal", "full"),
+                    default="none",
+                    help="collect the residuals of each ADMM iteration")
     ap.add_argument("--compare", metavar="DIR",
                     help="hold the positions saved in DIR against each "
                          "other instead of timing")
     a = ap.parse_args()
     if a.compare:
         sys.exit(0 if compare(a.compare) else 1)
-    time_root(a.root, a.label or a.root, a.out, a.save, a.cg, a.scenes)
+    time_root(a.root, a.label or a.root, a.out, a.save, a.cg, a.scenes,
+              a.collect)
 
 
 if __name__ == "__main__":

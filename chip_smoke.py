@@ -48,7 +48,17 @@ from (phase 3n, the latter by a microbenchmark built beside the kernels,
 cooperative kernels pay, on the grid of the rollout kernels the windows
 replaced, and asks whether the card takes a launch both cooperative and
 clustered).
-Every phase prints one line of numbers. Any failure raises: the script
+The residual modes (`collect_residuals`): the three fused element
+kernels' emit_z block against their twins and against the launch without
+it (phase 3p), the banded and cloth windows' "primal" and "full" modes
+and B11's collect against their twins, bitwise, with the state bitwise to
+the same window without collection and graph replays equal to eager
+launches (phase 3q), then every route that collects at full width timed
+with collection off, "primal" and True beside the first and last ADMM
+iteration's residuals, the general route's against the banded route's,
+and iteration 0's dual residual by both forms of its seed (phase 5j).
+Every phase prints one line of numbers, its script time last (t=). Any
+failure raises: the script
 then exits non-zero and prints no result line. It needs CUDA (it never
 falls back to the CPU) and imports nothing of JAX.
 
@@ -139,11 +149,17 @@ MG_CONTROL_CG = 8
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+        if hasattr(k, "residual_launches"):
+            k.residual_launches = 0
+
+
+_T0 = time.perf_counter()
 
 
 def say(phase, **numbers):
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in numbers.items()),
-          flush=True)
+    """One line of a phase's numbers, the script's seconds so far last."""
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in numbers.items())
+          + f" t={time.perf_counter() - _T0:.1f}", flush=True)
 
 
 def cuda_ms(torch, fn, reps, warmup=1, batch=1):
@@ -610,7 +626,8 @@ def rollout_errors(torch, kind, st, cfg, steps, planes=None):
 
 def check_rollout_small(torch, kind, st, dtype, tol_1it, tol_f32=1e-4,
                         name="", planes=None):
-    """1 step of 1 ADMM iteration, then a 10-step window: x within tol_1it
+    """1 step of 1 ADMM iteration, then a 3-step window (the card tests,
+    tests/test_torch_cuda.py, hold 10-step windows): x within tol_1it
     and 1e-8 (f64) or tol_f32 relative (f32); the windows of BITWISE
     bitwise (the tolerance is then moot)."""
     f64 = dtype == torch.float64
@@ -618,7 +635,7 @@ def check_rollout_small(torch, kind, st, dtype, tol_1it, tol_f32=1e-4,
     for tag, cfg, steps, tol in (
             ("1 iteration", dataclasses.replace(st.cfg, admm_iters=1), 1,
              tol_1it if f64 else 1e-4),
-            ("10-step window", st.cfg, 10, 1e-8 if f64 else tol_f32)):
+            ("3-step window", st.cfg, 3, 1e-8 if f64 else tol_f32)):
         ex, rel, ev, bit, fin, twin = rollout_errors(torch, kind, st, cfg,
                                                      steps, planes)
         err = ex if f64 else rel
@@ -665,7 +682,7 @@ def check_graph(torch, kind, st, label):
         raise AssertionError(f"{kind} {label}: graph replay or setters")
 
 
-def check_steps(torch, kind, st, label, steps=20):
+def check_steps(torch, kind, st, label, steps=10):
     """A stepper's windows as graph replays, one step at a time, each held
     bitwise to the twin run from the same state: a fault that shows only
     now and then (a race) shows here as a step that disagrees."""
@@ -960,6 +977,360 @@ def off_path(*kernels):
     if bad:
         raise AssertionError(f"a route launched kernels of another: {bad}")
 
+RESIDUAL_MODES = ("primal", "full")
+
+
+def check_emit_z(torch, label, kernel, twin, ins, dtype, **kw):
+    """A fused element kernel's emit_z mode on the same inputs (cast to
+    dtype): every output, the z block included, bitwise to the twin's;
+    every other output bitwise to the launch without emit_z; finite. Times
+    both launches and bounds the emit_z one by its twin's counts. Returns
+    (error, ms, plain_ms, bound_ms, bound_by)."""
+    ins = [t.to(dtype) for t in ins]
+    got = kernel(*ins, emit_z=True, **kw)
+    base = kernel(*ins, **kw)
+    want = twin(*ins, emit_z=True, **kw)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    twin_ok = all(torch.equal(g, w) for g, w in zip(got, want))
+    same = all(torch.equal(g, b) for g, b in zip(got, base))
+    fin = all(bool(torch.isfinite(g).all()) for g in got)
+    ms = cuda_ms(torch, lambda: kernel(*ins, emit_z=True, **kw), 10,
+                 batch=20)
+    ms_off = cuda_ms(torch, lambda: kernel(*ins, **kw), 10, batch=20)
+    plain_ms = cuda_ms(torch, lambda: twin(*ins, emit_z=True, **kw), 3)
+    n_ops, n_bytes = twin_counts(twin, *ins, emit_z=True, **kw)
+    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
+    ok = twin_ok and same and fin
+    say(f"emit_z {label} {str(dtype)[6:]}", E=ins[0].shape[1],
+        max_abs_err=err, bitwise_vs_twin=twin_ok,
+        other_outputs_bitwise_vs_off=same, finite=fin, ms=ms,
+        ms_without_emit_z=ms_off, plain_ms=plain_ms, operations=n_ops,
+        bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+    if not ok:
+        raise AssertionError(f"emit_z {label} disagrees in {dtype}")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def residual_errors(torch, kind, st, collect, steps):
+    """A window in a residual mode from a stepper's state, kernel against
+    twin: (residuals and state bitwise to the twin, the state bitwise to
+    the same window with collection off, max |residual error|, finite,
+    the kernel's result)."""
+    run, reference, keys = ROLLOUTS[kind]
+    cfg = dataclasses.replace(st.cfg, collect=collect)
+    got = run(st.state, st.planes, cfg, steps)
+    off = run(st.state, st.planes, dataclasses.replace(st.cfg, collect=None),
+              steps)
+    want = reference(st.state, st.planes, cfg, steps)
+    torch.cuda.synchronize()
+    res = ["primal"] + (["dual"] if collect == "full" else [])
+    twin = all(torch.equal(got[k], want[k]) for k in (*keys, *res))
+    same = all(torch.equal(got[k], off[k]) for k in keys)
+    err = max(float((got[k] - want[k]).abs().max()) for k in res)
+    fin = all(bool(torch.isfinite(got[k]).all()) for k in res)
+    return twin, same, err, fin, got
+
+
+def check_residual_window(torch, kind, st, label, dtype):
+    """A window's residual modes on a small scene: 1 step of 1 ADMM
+    iteration and a 3-step window in "primal" and "full", residuals and
+    state bitwise to the twin and the state bitwise to the window with
+    collection off; then the stepper's graphs in each mode (a step and a
+    10-step run) against the eager windows from the same state, residuals
+    included. (tests/test_torch_cuda.py holds 10-step windows.)"""
+    for collect in RESIDUAL_MODES:
+        for tag, sub, steps in (
+                ("1 iteration", _with_cfg(st, admm_iters=1), 1),
+                ("3-step window", st, 3)):
+            twin, same, err, fin, _ = residual_errors(torch, kind, sub,
+                                                      collect, steps)
+            ok = twin and same and fin
+            say(f"residuals {kind} {label} {str(dtype)[6:]} {collect} {tag}",
+                n=st.n_nodes, bitwise_vs_twin=twin,
+                state_bitwise_vs_off=same, max_abs_err=err, finite=fin,
+                ok=ok)
+            if not ok:
+                raise AssertionError(f"{kind} {label} {collect} residuals "
+                                     f"disagree ({tag}, {dtype})")
+        run, _, keys = ROLLOUTS[kind]
+        st.collect_residuals = True if collect == "full" else "primal"
+        start = {k: st.state[k].clone() for k in keys}
+        st.step()
+        one = (st.last_primal, st.last_dual)
+        st.run(10)
+        ten = (st.last_primal, st.last_dual)
+        cfg = st.cfg
+        w1 = run(start, st.planes, cfg, 1)
+        w10 = run({k: w1[k] for k in keys}, st.planes, cfg, 10)
+        replay = (all(torch.equal(st.state[k], w10[k]) for k in keys)
+                  and _same_residuals(one, w1) and _same_residuals(ten, w10))
+        st.collect_residuals = False
+        say(f"graph residuals {kind} {label} {str(dtype)[6:]} {collect}",
+            replay_bitwise_vs_eager=replay, ok=replay)
+        if not replay:
+            raise AssertionError(f"{kind} {label} {collect}: graph replay")
+
+
+def _same_residuals(host, out):
+    """A stepper's host copies (last_primal, last_dual) against a window's
+    result: bitwise."""
+    p, d = host
+    ok = np.array_equal(p, out["primal"].cpu().numpy())
+    if "dual" in out:
+        ok = ok and np.array_equal(d, out["dual"].cpu().numpy())
+    return ok and (d is None) == ("dual" not in out)
+
+
+def check_residual_full(torch, kind, st, label):
+    """One full-width f32 step in each residual mode, kernel against twin:
+    bitwise (residuals and state), the state bitwise to the step with
+    collection off; the kernel's times a 1-step and a 10-step window and
+    the bound of one step in the "full" mode. Returns the kernels-line
+    numbers of the "full" mode (error, ms, plain_ms, bound_ms, bound_by)."""
+    run, reference, keys = ROLLOUTS[kind]
+    for collect in RESIDUAL_MODES:
+        twin, same, err, fin, _ = residual_errors(torch, kind, st, collect, 1)
+        ok = twin and same and fin
+        sub = _with_cfg(st, collect=collect)
+        ms, window_ms, n_ops, n_bytes, bound_ms, bound_by = rollout_times(
+            torch, kind, sub)
+        plain_ms = cuda_ms(torch, lambda: reference(sub.state, sub.planes,
+                                                    sub.cfg, 1), 1, warmup=0)
+        say(f"residuals {kind} f32 {label} {collect}", n=st.n_nodes,
+            bitwise_vs_twin=twin, state_bitwise_vs_off=same,
+            max_abs_err=err, finite=fin, ms_per_1step_launch=ms,
+            ms_per_10step_launch=window_ms,
+            ms_per_step_in_window=window_ms / 10,
+            plain_ms_per_step=plain_ms, operations=n_ops, bytes=n_bytes,
+            bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+        if not ok:
+            raise AssertionError(f"{kind} {label} {collect} residuals "
+                                 "disagree at full width")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def check_local_collect(torch, label, ins, planes, cfg, dtype):
+    """banded_local_rhs with collect against its twin: every output and r2
+    bitwise; the five outputs bitwise to the call without collect. Returns
+    (error, ms, plain_ms, bound_ms, bound_by)."""
+    x, au, cu, u, warm = (t.to(dtype) for t in ins)
+    args = (x, au, cu, u, warm, planes, cfg)
+    got = pbl.banded_local_rhs(*args, collect=True)
+    off = pbl.banded_local_rhs(*args)
+    want = pbl.banded_local_rhs_reference(*args, collect=True)
+    torch.cuda.synchronize()
+    twin = all(torch.equal(g, w) for g, w in zip(got, want))
+    same = all(torch.equal(g, o) for g, o in zip(got, off))
+    err = float((got[-1] - want[-1]).abs())
+    ok = twin and same and bool(torch.isfinite(got[-1]))
+    ms = cuda_ms(torch, lambda: pbl.banded_local_rhs(*args, collect=True),
+                 10, batch=10)
+    plain_ms = cuda_ms(torch, lambda: pbl.banded_local_rhs_reference(
+        *args, collect=True), 3)
+    n_ops, n_bytes = banded_local_counts(*args, collect=True)
+    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
+    say(f"local collect {label} {str(dtype)[6:]}", r2=float(got[-1]),
+        bitwise_vs_twin=twin, outputs_bitwise_vs_off=same, ms=ms,
+        plain_ms=plain_ms, operations=n_ops, bytes=n_bytes,
+        bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+    if not ok:
+        raise AssertionError(f"banded_local_rhs collect disagrees at {label}")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+# phase 5j: the routes collecting residuals at full width, f32: label,
+# System maker, the residual-mode kernel the route launches and how often
+# a step. Each runs with collection off, "primal" and True (the sharded
+# stepper "primal" only, its limit)
+RESIDUAL_ROUTES = (
+    ("tet100k banded cg25", lambda: tet100k(25, torch.float32, fast=True),
+     "banded", 1),
+    ("tet100k banded cg75", lambda: tet100k(75, torch.float32, fast=True),
+     "banded", 1),
+    ("tet100k banded mg6", lambda: tet100k(6, torch.float32, amg=True),
+     "banded", 1),
+    ("tet100k banded mg8", lambda: tet100k(8, torch.float32, amg=True),
+     "banded", 1),
+    ("tet100k general dia cg25", lambda: tet100k(25, torch.float32), "nh",
+     ADMM_ITERS),
+    ("arap100k general dia cg25", lambda: arap100k(25, torch.float32),
+     "arap", ADMM_ITERS),
+    ("cloth100k general dia cg25",
+     lambda: cloth100k(25, torch.float32, fast=False), "tri", ADMM_ITERS),
+    ("cloth100k cloth cg25", lambda: cloth100k(25, torch.float32), "cloth",
+     1),
+    ("cloth100k cloth cg300", lambda: cloth100k(300, torch.float32),
+     "cloth", 1),
+    ("cloth100k cloth mg8", lambda: cloth100k(8, torch.float32, amg=True),
+     "cloth", 1),
+    ("delaunay100k banded-ELL cg25",
+     lambda: delaunay100k(25, torch.float32), "banded", 1),
+    ("delaunay100k banded-ELL cg75",
+     lambda: delaunay100k(75, torch.float32), "banded", 1),
+    ("tet100k sharded cg75", lambda: tet100k_sharded("cg", 75), "local",
+     ADMM_ITERS),
+)
+RESIDUAL_STEPS = 32
+
+
+def step_residuals(s):
+    """One step of a route; (primal, dual or None) of its ADMM iterations,
+    host arrays."""
+    s.step()
+    if isinstance(s, ShardedBandedStepper):
+        return s.last_primal, None
+    aux = {k: np.asarray(torch.as_tensor(v).cpu())
+           for k, v in s.last_aux.items()}
+    return aux["primal_residual"], aux.get("dual_residual")
+
+
+def route_ops(s, mode, counters):
+    """Device operations a step: a window's launches (its wrapper's .ops
+    over the steps counted by `counters`), the general route's by the
+    nodes of a CUDA graph capturing one step; None for the sharded
+    stepper, whose collecting step reads its residuals back to the host."""
+    if isinstance(s, ShardedBandedStepper):
+        return None
+    if s._stepper is not None:
+        return counters
+    state = {k: (dict(v) if isinstance(v, dict) else v)
+             for k, v in s.state.items()}
+    return profile_step.call_ops(
+        lambda: s._step(state, s.params))["device_ops_per_call"]
+
+
+def residual_readings(rp, rd):
+    """Medians over the steps of the first and last ADMM iteration's
+    residuals."""
+    med = {"primal_first": float(np.median(rp[:, 0])),
+           "primal_last": float(np.median(rp[:, -1]))}
+    if rd is not None:
+        med.update(dual_first=float(np.median(rd[:, 0])),
+                   dual_last=float(np.median(rd[:, -1])))
+    return med
+
+
+def residual_routes(torch):
+    """Phase 5j. For every route of RESIDUAL_ROUTES, from its start: 32
+    single steps collecting both residuals (the sharded stepper the
+    primal), the medians of the first and last ADMM iteration's; then
+    ms/step (drive: median of 3 windows of 10) and device ops a step with
+    collection off, "primal" and True. Also the general dia route's
+    residuals at cg25 against the banded route's, beside the banded
+    route's own spread from a start moved by 1e-6 m. Returns (the launches
+    of each residual mode's kernels in the collecting runs, the readings)."""
+    launches = dict.fromkeys(("banded", "cloth", "nh", "arap", "tri",
+                              "local"), 0)
+    readings = {}
+    for label, make, kernel, per_step in RESIDUAL_ROUTES:
+        s = make()
+        sharded = isinstance(s, ShardedBandedStepper)
+        modes = (False, "primal") if sharded else (False, "primal", True)
+        profile_step.set_collect(s, "primal" if sharded else True)
+        reset_launches()
+        res = [step_residuals(s) for _ in range(RESIDUAL_STEPS)]
+        rp = np.stack([r[0] for r in res])
+        rd = None if sharded else np.stack([r[1] for r in res])
+        counts = {"banded": pbs.banded_rollout.residual_launches,
+                  "cloth": pcs.cloth_rollout.residual_launches,
+                  "nh": pnh.nh_local_step_fused.residual_launches,
+                  "arap": ptet.arap_local_step_fused.residual_launches,
+                  "tri": ptri.tri_local_step_fused.residual_launches,
+                  "local": pbl.banded_local_rhs.residual_launches}
+        # the route ran its residual mode, once a step (a window) or an
+        # ADMM iteration, and no other
+        want = dict.fromkeys(counts, 0)
+        want[kernel] = RESIDUAL_STEPS * per_step
+        if counts != want:
+            raise AssertionError(f"{label}: residual-mode launches {counts}, "
+                                 f"expected {want}")
+        for k, n in counts.items():
+            launches[k] += n
+        readings[label] = (rp, rd)
+        times = {}
+        for mode in modes:
+            profile_step.set_collect(s, mode)
+            ops0 = pbs.banded_rollout.ops + pcs.cloth_rollout.ops
+            med, windows = drive(torch, s)
+            steps = WARMUP_STEPS + WINDOWS * WINDOW_STEPS
+            ops = route_ops(s, mode, (pbs.banded_rollout.ops
+                                      + pcs.cloth_rollout.ops - ops0) / steps)
+            times[mode] = (med, max(windows) - min(windows), ops)
+        say(f"residuals {label} f32", steps=RESIDUAL_STEPS,
+            residual_mode_launches=counts[kernel],
+            **residual_readings(rp, rd),
+            finite=bool(np.isfinite(rp).all() and (
+                rd is None or np.isfinite(rd).all())),
+            **{f"ms_per_step_{m}": t[0] for m, t in zip(
+                ("off", "primal", "full"), times.values())},
+            **{f"spread_ms_{m}": t[1] for m, t in zip(
+                ("off", "primal", "full"), times.values())},
+            **{f"device_ops_per_step_{m}": t[2] for m, t in zip(
+                ("off", "primal", "full"), times.values())})
+        if not (np.isfinite(rp).all() and (rp > 0).all()):
+            raise AssertionError(f"{label}: bad primal residuals")
+        del s
+    # the general and the banded route at cg25 run the same math: their
+    # residuals agree within the f32 trajectories' own spread
+    s = tet100k(25, torch.float32, fast=True)
+    s.x = s.x + 1e-6 * np.random.default_rng(4).standard_normal(s.x.shape)
+    profile_step.set_collect(s, True)
+    res = [step_residuals(s) for _ in range(RESIDUAL_STEPS)]
+    moved = (np.stack([r[0] for r in res]), np.stack([r[1] for r in res]))
+    gen, ban = (readings["tet100k general dia cg25"],
+                readings["tet100k banded cg25"])
+
+    def rel(a, b):
+        """max |a - b| over the steps and iterations, over max |b|."""
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    say("residuals general vs banded cg25 f32",
+        primal_rel_vs_banded=rel(gen[0], ban[0]),
+        dual_rel_vs_banded=rel(gen[1], ban[1]),
+        primal_rel_banded_moved_1um=rel(moved[0], ban[0]),
+        dual_rel_banded_moved_1um=rel(moved[1], ban[1]),
+        **{f"general_{k}": v for k, v in residual_readings(*gen).items()},
+        **{f"moved_{k}": v for k, v in residual_readings(*moved).items()})
+    return launches, readings
+
+
+def seed_forms(torch, st, kind, label):
+    """Iteration 0's dual residual in f32 on the card by the two forms of
+    T z_prev: the kernels' (the incidence sum of w2 D^T D x_pre rows, +
+    aw2 x_pre) and the Pallas kernel's identity (A_hat - M) x_pre / dt^2,
+    each seed's relative error against the first form in f64 (the planes
+    cast up). A 1-step window of one ADMM iteration in "full" leaves T z_0
+    in the window's tz and x_pre in its xpre."""
+    mod, Window = ((pbs, pbs.BandedWindow) if kind == "banded"
+                   else (pcs, pcs.ClothWindow))
+    cfg = dataclasses.replace(st.cfg, admm_iters=1, collect="full")
+    state = {k: st.state[k].clone() for k in mod.STATE}
+    w = Window(state, st.planes, cfg)
+    w.launch(1)
+    rd_kernel = float(w.residuals(1)[1, 0, 0])
+    dt2 = cfg.dt ** 2
+    xpre = w.xpre
+    ident = (dia_apply(xpre, cfg.dia_offs, st.planes["dia"])
+             - st.planes["mass"][:, None] * xpre) / dt2
+
+    def seed(x, planes):
+        return (mod.seed_tz(x, planes, cfg) if kind == "banded"
+                else mod.seed_tz(x, planes))
+
+    direct = seed(xpre, st.planes)
+    planes64 = {k: (v.double() if v.is_floating_point() else v)
+                for k, v in st.planes.items()}
+    truth = seed(xpre.double(), planes64)
+
+    def err(a):
+        return float((a.double() - truth).norm() / truth.norm())
+
+    say(f"dual seed {label} f32", rd0_kernel=rd_kernel,
+        rd0_direct=dt2 * float((w.tz - direct).norm()),
+        rd0_identity=dt2 * float((w.tz - ident).norm()),
+        seed_rel_err_direct=err(direct), seed_rel_err_identity=err(ident))
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1005,6 +1376,11 @@ def main():
     check_nh(torch, ins, tet_dx(xg, p["coeff_p"]), torch.float64)
     nh32, nhstep32 = check_nh(torch, ins, tet_dx(xg, p["coeff_p"]),
                               torch.float32)
+    # phase 3p (the emit_z modes) at tet100k's elements
+    emitz = {"nh": check_emit_z(torch, "nh_local tet100k",
+                                pnh.nh_local_step_fused,
+                                pnh.nh_local_step_fused_reference, ins,
+                                torch.float32, iters=5)}
     cg_ms = {}
     for dtype in (torch.float64, torch.float32):
         for k in (25, 75):
@@ -1019,6 +1395,12 @@ def main():
     xg, p = tet_inputs(torch, a64, "c1_LinearTetStrain", rng)
     check_arap(torch, xg, p, torch.float64)
     arapf32, arap32 = check_arap(torch, xg, p, torch.float32)
+    # phase 3p at arap100k's elements
+    emitz["arap"] = check_emit_z(
+        torch, "arap_local_step_fused arap100k", ptet.arap_local_step_fused,
+        ptet.arap_local_step_fused_reference,
+        [xg, torch.zeros_like(xg[:9]), p["coeff_p"], p["w2"], p["k"]],
+        torch.float32)
     del a64, xg, p
 
     # phase 3b: the banded whole-timestep window against its plain version
@@ -1040,16 +1422,44 @@ def main():
     check_rollout_full(torch, "banded", st, "tet100k cg75", torch.float64,
                        1e-8)
     del st
-    banded32 = check_rollout_full(
-        torch, "banded", tet100k(75, torch.float32, fast=True)._stepper,
-        "tet100k cg75", torch.float32, 1e-4)
+    st = tet100k(75, torch.float32, fast=True)._stepper
+    banded32 = check_rollout_full(torch, "banded", st, "tet100k cg75",
+                                  torch.float32, 1e-4)
+    residual_banded = check_residual_full(torch, "banded", st, "tet100k cg75")
+    del st
 
     # phase 3c: the triangle-strain kernel at the cloth100k sheet's shapes
     cloth64 = cloth100k(25, torch.float64, fast=False)
     ins = tri_inputs(torch, cloth64, rng)
     check_tri(torch, ins, torch.float64)
     tri32, tristep32 = check_tri(torch, ins, torch.float32)
+    # phase 3p at the cloth100k sheet's elements
+    emitz["tri"] = check_emit_z(torch, "tri_local cloth100k",
+                                ptri.tri_local_step_fused,
+                                ptri.tri_local_step_fused_reference, ins,
+                                torch.float32)
     del cloth64, ins
+
+    # phase 3p: the three fused element kernels' emit_z mode (the rows of
+    # w2 D^T z beside the RHS rows) on a small mesh in f64: bitwise to the
+    # twins, the other outputs bitwise to the launch without it (at full
+    # width in f32 above)
+    beam = beam_system((6, 5, 4), 0.05, 50.0, 25, torch.float64)
+    xg, p = tet_inputs(torch, beam, "c1_HyperElasticTet", rng)
+    u9 = torch.zeros_like(xg[:9])
+    check_emit_z(torch, "nh_local beam 6x5x4", pnh.nh_local_step_fused,
+                 pnh.nh_local_step_fused_reference,
+                 [xg, u9, torch.ones_like(xg[:3]), p["coeff_p"], p["mu"],
+                  p["lam"], p["k"], p["w2"]], torch.float64, iters=5)
+    check_emit_z(torch, "arap_local_step_fused beam 6x5x4",
+                 ptet.arap_local_step_fused,
+                 ptet.arap_local_step_fused_reference,
+                 [xg, u9, p["coeff_p"], p["w2"], p["k"]], torch.float64)
+    check_emit_z(torch, "tri_local sheet 8x6", ptri.tri_local_step_fused,
+                 ptri.tri_local_step_fused_reference,
+                 tri_inputs(torch, small_cloth(torch.float64, fast=False),
+                            rng), torch.float64)
+    del beam, xg, p, u9
 
     # phase 3d: the cloth whole-timestep window against its plain version
     # (bitwise): the 8 x 6 sheet (wind, bend, anchors; strain limiting on
@@ -1077,6 +1487,8 @@ def main():
     window_device_ops(torch, st, "cloth100k float32", 3 + 3 * ADMM_ITERS)
     cloth32 = check_rollout_full(torch, "cloth", st, "cloth100k cg25",
                                  torch.float32, 0.0)
+    residual_full = {"cloth": check_residual_full(torch, "cloth", st,
+                                                  "cloth100k cg25")}
     del st
     st = cloth100k(25, torch.float64)._stepper
     window_layout(torch, st, "cloth cloth100k float64", window=False)
@@ -1095,10 +1507,10 @@ def main():
     # solve's (mg_dia_solve, csrc/mg_vcycle.cuh) and the banded and cloth
     # windows' against their twins, bitwise: the 6 x 5 x 4 beam and the
     # 8 x 6 sheet in f64 and f32 (the solve; 1 ADMM iteration and a
-    # 10-step window; the CUDA graphs against eager launches and the
+    # 3-step window; the CUDA graphs against eager launches and the
     # setters after capture), then tet100k's and cloth100k's own A and
     # rhs in f32 (the solve at mg8, its time and bound; one step of each
-    # window, its times and bound a step; 20 steps of its graph, each
+    # window, its times and bound a step; 10 steps of its graph, each
     # held to the twin)
     for dtype in (torch.float64, torch.float32):
         for label, kind, st in (
@@ -1120,7 +1532,36 @@ def main():
         mg_full[label] = check_rollout_full(torch, kind, st, label,
                                             torch.float32, 0.0)
         check_steps(torch, kind, st, label)
+        check_residual_full(torch, kind, st, label)
         del st
+
+    # phase 3q: the windows' residual modes ("primal", "full") against
+    # their twins on small scenes: residuals bitwise, the state bitwise to
+    # the window without collection, graph replays equal to eager launches
+    # (the banded window in dia and ELL rows, nh and arap, Jacobi and
+    # multigrid on the 6 x 5 x 4 beam; the cloth window, Jacobi and
+    # multigrid, on the 8 x 6 sheet); f64 and f32 on the beam's dia nh and
+    # the sheet's Jacobi, f32 on the others. At full width in f32 (one step
+    # each mode) beside each route's window check above and below
+    for dtype in (torch.float64, torch.float32):
+        small = [("beam 6x5x4", "banded",
+                  beam_system((6, 5, 4), 0.05, 50.0, 25, dtype,
+                              fast=True)),
+                 ("sheet 8x6", "cloth", small_cloth(dtype))]
+        if dtype == torch.float32:
+            small += [
+                ("beam 6x5x4 arap", "banded",
+                 beam_system((6, 5, 4), 0.05, 50.0, 25, dtype, fast=True,
+                             arap=True)),
+                ("beam 6x5x4 ell", "banded",
+                 beam_system((6, 5, 4), 0.05, 50.0, 25, dtype, fast=True,
+                             global_solver="ell")),
+                ("beam 6x5x4 mg", "banded", small_mg_beam(dtype)),
+                ("sheet 8x6 mg", "cloth",
+                 small_cloth(dtype, preconditioner="amg"))]
+        for label, kind, system in small:
+            check_residual_window(torch, kind, system._stepper, label, dtype)
+    del small, system
 
     # phase 3e: the fused CG update at delaunay100k's shapes
     d64 = delaunay100k(25, torch.float64, fast=False)
@@ -1184,9 +1625,11 @@ def main():
         st = small_delaunay(dtype=dtype)._stepper
         check_rollout_small(torch, "banded", st, dtype, 1e-11, tol_f32=1e-3)
         check_graph(torch, "banded", st, f"ell 140 nodes {str(dtype)[6:]}")
-    bandedell32 = check_rollout_full(
-        torch, "banded", delaunay100k(25, torch.float32)._stepper,
-        "delaunay100k cg25", torch.float32, 1e-4)
+    st = delaunay100k(25, torch.float32)._stepper
+    bandedell32 = check_rollout_full(torch, "banded", st,
+                                     "delaunay100k cg25", torch.float32, 1e-4)
+    check_residual_full(torch, "banded", st, "delaunay100k cg25")
+    del st
 
     # phase 3j: the lattice whole-timestep kernel against its plain
     # version: nh, stvk, arap and nh over a floor on a small beam, then
@@ -1220,9 +1663,11 @@ def main():
     check_rollout_full(torch, "banded",
                        arap100k(75, torch.float64, fast=True)._stepper,
                        "arap100k cg75", torch.float64, 1e-8)
-    bandedarap32 = check_rollout_full(
-        torch, "banded", arap100k(75, torch.float32, fast=True)._stepper,
-        "arap100k cg75", torch.float32, 1e-4)
+    st = arap100k(75, torch.float32, fast=True)._stepper
+    bandedarap32 = check_rollout_full(torch, "banded", st, "arap100k cg75",
+                                      torch.float32, 1e-4)
+    check_residual_full(torch, "banded", st, "arap100k cg75")
+    del st
 
     # phase 3l: the sharded stepper's local phase (banded_local_rhs)
     # against its plain version: on the jittered 8x6x5 beam (anchors, floor,
@@ -1237,12 +1682,21 @@ def main():
             check_local(torch, f"jittered 8x6x5 {model}", ins, planes,
                         dataclasses.replace(st.cfg, model=model), dtype,
                         released=0)
+        # B11's collect mode (phase 3q), bitwise
+        for model in ("nh", "arap"):
+            check_local_collect(torch, f"jittered 8x6x5 {model}", ins,
+                                planes, dataclasses.replace(st.cfg,
+                                                            model=model),
+                                dtype)
     local32 = {}
     for dtype in (torch.float64, torch.float32):
         st = tet100k(25, dtype, fast=True)._stepper
-        local32[dtype] = check_local(torch, "tet100k",
-                                     local_inputs(torch, st, rng, 0.002),
-                                     st.planes, st.cfg, dtype)
+        ins = local_inputs(torch, st, rng, 0.002)
+        local32[dtype] = check_local(torch, "tet100k", ins, st.planes,
+                                     st.cfg, dtype)
+        if dtype == torch.float32:
+            local_collect32 = check_local_collect(torch, "tet100k", ins,
+                                                  st.planes, st.cfg, dtype)
         del st
 
     # phase 3m: the Chebyshev chunk (cheb_dia_chunk, one launch on a
@@ -1962,6 +2416,14 @@ def main():
                          f"arap100k banded cg{cg}")
     del afast, general_arap_x
 
+    # phase 5j: residuals at full width on every collecting route, f32;
+    # iteration 0's dual residual by both forms of its seed
+    residual_launches, _ = residual_routes(torch)
+    seed_forms(torch, tet100k(25, torch.float32, fast=True)._stepper,
+               "banded", "tet100k")
+    seed_forms(torch, cloth100k(25, torch.float32)._stepper, "cloth",
+               "cloth100k")
+
     def entry(name, source, replaces, n, err, ms, plain_ms, bound_ms,
               bound_by):
         return {"name": name, "route": "cuda",
@@ -2008,6 +2470,21 @@ def main():
               launches["banded_mg"], *mg_full["tet100k mg8"]),
         entry("cloth_rollout[mg]", "mg_vcycle.cuh", "cloth_step.py:746",
               launches["cloth_mg"], *mg_full["cloth100k mg8"]),
+        # the residual modes (phase 5j's launches; 3p and 3q's numbers)
+        entry("nh_local_step_fused[emit_z]", "nh_local.cu",
+              "nh_local.py:442", residual_launches["nh"], *emitz["nh"]),
+        entry("arap_local_step_fused[emit_z]", "tet_local.cu",
+              "tet_local.py:265", residual_launches["arap"], *emitz["arap"]),
+        entry("tri_local_step_fused[emit_z]", "tri_local.cu",
+              "tri_local.py:245", residual_launches["tri"], *emitz["tri"]),
+        entry("banded_rollout[collect]", "banded_step.cu",
+              "banded_step.py:1090", residual_launches["banded"],
+              *residual_banded),
+        entry("banded_local_rhs[collect]", "banded_local.cu",
+              "banded_local.py:335", residual_launches["local"],
+              *local_collect32),
+        entry("cloth_rollout[collect]", "cloth_step.cu", "cloth_step.py:746",
+              residual_launches["cloth"], *residual_full["cloth"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

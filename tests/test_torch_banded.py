@@ -151,16 +151,17 @@ def test_bitwise_repeat():
 
 @pytest.mark.parametrize("bad", [
     dict(explicit_indices=[0, 3, 5]),
-    dict(collect_residuals="primal"),
+    dict(residual_tol=1e-6),
     dict(cg=(75, 25)),
 ], ids=["explicit-subset", "residuals", "cg-schedule"])
 def test_out_of_slice_scenes_raise(bad):
-    """Residuals and a (first, rest) CG schedule raise. A gravity kick over
-    a node subset qualifies for no whole-timestep kernel in the JAX package
-    (banded.py:625-626, lattice.py:354-355, and no triangles), which steps
-    its general route: so does the port, bitwise as with the fast path
-    off."""
-    if "explicit_indices" in bad:
+    """A (first, rest) CG schedule raises. A gravity kick over a node subset
+    qualifies for no whole-timestep kernel in the JAX package
+    (banded.py:625-626, lattice.py:354-355, and no triangles), and the
+    residual_tol early exit takes none either (banded.py:584-589,
+    lattice.py:306, cloth.py:518-523): the JAX package steps its general
+    route, and so does the port, bitwise as with the fast path off."""
+    if "explicit_indices" in bad or "residual_tol" in bad:
         runs = []
         for fast in (True, False):
             s = build(pt, jittered_beam(), fast=fast, **bad)

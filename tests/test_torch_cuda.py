@@ -25,7 +25,11 @@ the banded kernel's element and vertex phases (1e-12 relative in f64,
 repeats its twin's arithmetic in its order, bitwise in both layouts of its
 cluster. The multigrid mode of the cluster solve (mg_dia_solve, the
 V-cycle of csrc/mg_vcycle.cuh) and the banded and cloth windows in that
-mode repeat their twins (ops/kernels/mg.py) bitwise too."""
+mode repeat their twins (ops/kernels/mg.py) bitwise too. So do the
+residual modes: the fused element kernels' emit_z block, the windows'
+"primal" and "full" residuals (summed in the order of
+ops/kernels/residuals.py; the state the same bits as without them) and
+banded_local_rhs's collect."""
 
 import dataclasses
 
@@ -690,3 +694,169 @@ def test_mg_windows_every_step_is_the_twins(name):
                 else run.cloth_rollout_reference)(start, st.planes, st.cfg, 1)
         for k in run.STATE:
             assert torch.equal(st.state[k], want[k]), (step, k)
+
+
+# the fused element steps' emit_z mode: (kernel, twin, planes, vectors)
+EMIT_Z = {
+    "nh_local_step_fused": (nh_local.nh_local_step_fused,
+                            nh_local.nh_local_step_fused_reference,
+                            (12, 9, 3, 12), 4),
+    "arap_local_step_fused": (tet_local.arap_local_step_fused,
+                              tet_local.arap_local_step_fused_reference,
+                              (12, 9, 12), 2),
+    "tri_local_step_fused": (tri_local.tri_local_step_fused,
+                             tri_local.tri_local_step_fused_reference,
+                             (9, 6, 6), 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(EMIT_Z))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_emit_z_kernel_is_its_twin(dtype, name):
+    """The z block and every other output bitwise to the twin's, and the
+    other outputs bitwise to the launch without emit_z."""
+    dev = _cuda()
+    kernel, twin, planes, vectors = EMIT_Z[name]
+    ins = _element_inputs(planes, vectors, dtype, dev)
+    n0 = kernel.residual_launches
+    got = kernel(*ins, emit_z=True)
+    assert kernel.residual_launches == n0 + 1
+    for g, w in zip(got, twin(*ins, emit_z=True)):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
+    off = kernel(*ins)
+    assert len(got) == len(off) + 1
+    assert all(torch.equal(g, o) for g, o in zip(got, off))
+
+
+# the collecting windows: stepper maker, wrapper, twin, state keys
+COLLECTING = {
+    "banded": (lambda dt: jittered_system(dtype=dt)._stepper, banded_step),
+    "banded arap": (lambda dt: beam_system((4, 3, 3), 0.25, 2.0, 25, dt,
+                                           "cuda", fast=True,
+                                           arap=True)._stepper, banded_step),
+    "banded ell": (lambda dt: small_delaunay(25, dt, "cuda",
+                                             fast=True)._stepper,
+                   banded_step),
+    "banded mg": (lambda dt: small_mg_beam(dt)._stepper, banded_step),
+    "cloth": (lambda dt: small_cloth(dt)._stepper, cloth_step),
+    "cloth mg": (lambda dt: small_cloth(dt, preconditioner="amg")._stepper,
+                 cloth_step),
+}
+
+
+def _rollout(mod):
+    if mod is banded_step:
+        return mod.banded_rollout, mod.banded_rollout_reference
+    return mod.cloth_rollout, mod.cloth_rollout_reference
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collect", ["primal", "full"])
+@pytest.mark.parametrize("name", list(COLLECTING))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_window_residuals_are_the_twins(dtype, name, collect):
+    """A 10-step window in a residual mode: its residuals and state bitwise
+    to the twin's, its state bitwise to the window without collection."""
+    _cuda()
+    make, mod = COLLECTING[name]
+    run, twin = _rollout(mod)
+    st = make(dtype)
+    cfg = dataclasses.replace(st.cfg, collect=collect)
+    n0 = run.residual_launches
+    got = run(st.state, st.planes, cfg, 10)
+    assert run.residual_launches == n0 + 1
+    want = twin(st.state, st.planes, cfg, 10)
+    off = run(st.state, st.planes, dataclasses.replace(cfg, collect=None), 10)
+    res = ["primal"] + (["dual"] if collect == "full" else [])
+    for k in res:
+        assert got[k].shape == (10, st.cfg.admm_iters)
+        assert bool(torch.isfinite(got[k]).all()) and bool(
+            (got[k] > 0).any())
+    for k in (*mod.STATE, *res):
+        assert torch.equal(got[k], want[k]), k
+    for k in mod.STATE:
+        assert torch.equal(got[k], off[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collect", ["primal", True])
+@pytest.mark.parametrize("name", list(COLLECTING))
+def test_collecting_graph_replay_is_eager_launches(name, collect):
+    """A collecting stepper's graphs (a step, a 10-step run) against the
+    eager windows: state and the host copies of the residuals bitwise;
+    switching collection off recaptures and steps on the same state."""
+    _cuda()
+    make, mod = COLLECTING[name]
+    run, _ = _rollout(mod)
+    st = make(torch.float64)
+    st.run(10)  # windows captured without collection
+    st.collect_residuals = collect
+    start = {k: st.state[k].clone() for k in mod.STATE}
+    st.step()
+    one = (st.last_primal, st.last_dual)
+    st.run(10)
+    w1 = run(start, st.planes, st.cfg, 1)
+    w10 = run({k: w1[k] for k in mod.STATE}, st.planes, st.cfg, 10)
+    for k in mod.STATE:
+        assert torch.equal(st.state[k], w10[k]), k
+    assert np.array_equal(one[0], w1["primal"].cpu().numpy())
+    assert np.array_equal(st.last_primal, w10["primal"].cpu().numpy())
+    if collect is True:
+        assert np.array_equal(one[1], w1["dual"].cpu().numpy())
+        assert np.array_equal(st.last_dual, w10["dual"].cpu().numpy())
+    else:
+        assert st.last_dual is None
+    st.collect_residuals = False
+    start = {k: st.state[k].clone() for k in mod.STATE}
+    st.run(10)
+    want = run(start, st.planes, st.cfg, 10)
+    assert st.last_primal is None
+    for k in mod.STATE:
+        assert torch.equal(st.state[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tet100k", "cloth100k"])
+def test_collecting_windows_every_step_is_the_twins(name):
+    """tet100k and cloth100k at cg25 in f32 collecting both residuals: 20
+    graph replays of one step, each held bitwise to the twin from the
+    same state (state and residuals)."""
+    _cuda()
+    make = scenes.tet100k if name == "tet100k" else scenes.cloth100k
+    kw = {"fast": True} if name == "tet100k" else {}
+    st = make(25, torch.float32, **kw)._stepper
+    mod = banded_step if name == "tet100k" else cloth_step
+    _, twin = _rollout(mod)
+    st.collect_residuals = True
+    for step in range(20):
+        start = {k: st.state[k].clone() for k in mod.STATE}
+        st.step()
+        want = twin(start, st.planes, st.cfg, 1)
+        for k in mod.STATE:
+            assert torch.equal(st.state[k], want[k]), (step, k)
+        assert np.array_equal(st.last_primal, want["primal"].cpu().numpy())
+        assert np.array_equal(st.last_dual, want["dual"].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["nh", "stvk", "arap"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_banded_local_collect_is_its_twin(dtype, model):
+    """banded_local_rhs with collect: r2 and every output bitwise to the
+    twin; the outputs bitwise to the call without collect."""
+    dev = _cuda()
+    st, ins = _local_inputs(model, dtype, dev)
+    n0 = banded_local.banded_local_rhs.residual_launches
+    got = banded_local.banded_local_rhs(*ins, st.planes, st.cfg,
+                                        collect=True)
+    assert banded_local.banded_local_rhs.residual_launches == n0 + 1
+    want = banded_local.banded_local_rhs_reference(*ins, st.planes, st.cfg,
+                                                   collect=True)
+    off = banded_local.banded_local_rhs(*ins, st.planes, st.cfg)
+    assert got[-1].shape == () and float(got[-1]) > 0.0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, o in zip(got, off):
+        assert torch.equal(g, o)

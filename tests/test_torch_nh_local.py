@@ -229,8 +229,13 @@ def test_wrapper_checks_and_cpu_route():
     bad[0] = ins[0].T.contiguous().T
     with pytest.raises(ValueError, match="contiguous"):
         pnh.nh_local_step_fused(*bad)
-    with pytest.raises(NotImplementedError):
-        pnh.nh_local_step_fused(*ins, emit_z=True)
+    # emit_z: the same outputs, then the rows of w2 D^T z
+    *same, cz = pnh.nh_local_step_fused(*ins, iters=2, emit_z=True)
+    assert all(torch.equal(x, y) for x, y in zip(same, a))
+    E = ins[0].shape[1]
+    want = ins[7] * torch.einsum("rke,jre->kje", ins[3].reshape(3, 4, E),
+                                 a[0].reshape(3, 3, E)).reshape(12, E)
+    torch.testing.assert_close(cz, want, rtol=1e-13, atol=1e-13)
     with pytest.raises(ValueError, match="model"):
         pnh.nh_local_step_fused(*ins, model="arap")
 

@@ -232,12 +232,19 @@ def test_out_of_slice_raises():
     with pytest.raises(NotImplementedError, match="2e"):
         spmd.refresh_params()
     base.collect_residuals = True
-    with pytest.raises(NotImplementedError, match="2d"):
+    with pytest.raises(ValueError, match="'primal' residuals only"):
         ShardedBandedStepper(base)
+    base.collect_residuals = False
     st = spmd.state
-    with pytest.raises(NotImplementedError, match="2d"):
-        pbl.banded_local_rhs(st["x"], st["au"], st["cu"], st["u"],
-                             st["warm"], base.planes, base.cfg, collect=True)
+    # collect: the five outputs, then the squared primal residual
+    *outs, r2 = pbl.banded_local_rhs(st["x"], st["au"], st["cu"], st["u"],
+                                     st["warm"], base.planes, base.cfg,
+                                     collect=True)
+    for a, b in zip(outs, pbl.banded_local_rhs(
+            st["x"], st["au"], st["cu"], st["u"], st["warm"], base.planes,
+            base.cfg)):
+        assert torch.equal(a, b)
+    assert r2.shape == () and float(r2) >= 0.0
     # one device given explicitly is the base's
     one = ShardedBandedStepper(_pair("nh", "xla")[1],
                                mesh=[torch.device("cpu")])

@@ -106,19 +106,15 @@ def test_anchors_hold_and_callbacks_run():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(global_solver="cg", collect_residuals="primal"),
     # 'auto' resolves to 'dense' for this small beam
     dict(global_solver="auto", acceleration="anderson"),
     dict(lattice_fast_path=True, relaxation=1.5, acceleration="anderson"),
-    dict(relaxation=1.5, residual_tol=1e-6),
     dict(acceleration="anderson"),
-    dict(residual_tol=1e-6),
-    dict(collect_residuals=True),
     dict(global_solver="ell", preconditioner="amg"),
 ])
 def test_out_of_slice_settings_raise(bad):
-    """Every global mode and relaxation are ported; Anderson acceleration,
-    residual collection and the general route's algebraic multigrid
+    """Every global mode, relaxation and the residuals are ported; Anderson
+    acceleration and the general route's algebraic multigrid
     (preconditioner='amg' under 'ell') are not."""
     with pytest.raises(NotImplementedError):
         _build(pt, 25, **bad)

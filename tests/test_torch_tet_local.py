@@ -221,8 +221,14 @@ def test_wrappers_checks_and_cpu_route():
     bad[0] = un[0].T.contiguous().T
     with pytest.raises(ValueError, match="contiguous"):
         ptet.arap_local_step(*bad)
-    with pytest.raises(NotImplementedError):
-        ptet.arap_local_step_fused(*ins, emit_z=True)
+    # emit_z: the same outputs, then the rows of w2 D^T z
+    a = ptet.arap_local_step_fused(*ins)
+    *same, cz = ptet.arap_local_step_fused(*ins, emit_z=True)
+    assert all(torch.equal(x, y) for x, y in zip(same, a))
+    E = ins[0].shape[1]
+    want = ins[3] * torch.einsum("rke,jre->kje", ins[2].reshape(3, 4, E),
+                                 a[0].reshape(3, 3, E)).reshape(12, E)
+    torch.testing.assert_close(cz, want, rtol=1e-13, atol=1e-13)
     for fn, args in ((ptet.arap_local_step_fused, ins),
                      (ptet.arap_local_step, un)):
         with pytest.raises(RuntimeError, match="no kernel"):

@@ -238,8 +238,13 @@ def test_wrapper_checks_and_cpu_route():
     bad[0] = ins[0].T.contiguous().T
     with pytest.raises(ValueError, match="contiguous"):
         ptri.tri_local_step_fused(*bad)
-    with pytest.raises(NotImplementedError):
-        ptri.tri_local_step_fused(*ins, emit_z=True)
+    # emit_z: the same outputs, then the rows of w2 D^T z
+    *same, cz = ptri.tri_local_step_fused(*ins, limiting=False, emit_z=True)
+    assert all(torch.equal(x, y) for x, y in zip(same, a))
+    E = ins[0].shape[1]
+    want = ins[3] * torch.einsum("rke,jre->kje", ins[2].reshape(2, 3, E),
+                                 a[0].reshape(3, 2, E)).reshape(9, E)
+    torch.testing.assert_close(cz, want, rtol=1e-13, atol=1e-13)
     meta = [t.to("meta") for t in ins]
     with pytest.raises(RuntimeError, match="no kernel"):
         ptri.tri_local_step_fused(*meta)
