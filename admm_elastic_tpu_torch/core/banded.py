@@ -7,8 +7,10 @@ window's kernels, `ops/kernels/banded_step.py`) runs a whole window of
 timesteps: gravity kick, every ADMM iteration's local steps and dual
 updates, anchors, collisions and the fixed-budget PCG solve on one
 thread-block cluster, preconditioned by Jacobi or, under
-`preconditioner="amg"` on a grid mesh in nested numbering (dia mode), by
-the geometric multigrid V-cycle (`core/mg.py`, `ops/kernels/mg.py`).
+`preconditioner="amg"`, by a multigrid V-cycle: the geometric one on a
+grid mesh in nested numbering (dia mode, `core/mg.py`, `ops/kernels/mg.py`)
+or the algebraic one on a mesh of any topology (ell mode, `core/uamg.py`,
+`ops/kernels/uamg.py`).
 Trajectories match the general `System` route to round-off
 (tests/test_torch_banded.py).
 
@@ -29,8 +31,8 @@ With `collect_residuals` ("primal" or True) the window's kernels also
 compute each ADMM iteration's primal (and dual) residual, read after each
 window into `last_primal` / `last_dual` (n_steps, admm_iters).
 
-Out of this slice (raise or do not qualify, see ROADMAP.md): the in-kernel
-algebraic multigrid of the ell mode and scenario sweeps (B2).
+Out of this slice (raise or do not qualify, see ROADMAP.md): the sweep
+mode and scenario sweeps (B2).
 """
 
 from __future__ import annotations
@@ -45,9 +47,10 @@ from ..models import (Collision, Cylinder, ExplicitForce, Floor,
 from ..ops.kernels._graph import WindowGraphs
 from ..ops.kernels.banded_step import (STATE, BandedConfig, BandedWindow,
                                        banded_rollout)
-from ..ops.kernels import residuals
-from ..ops.kernels.mg import MGConfig, planes_from
+from ..ops.kernels import mg as kmg
+from ..ops.kernels import residuals, uamg as kuamg
 from .mg import build_grid_mg
+from .uamg import build_uamg
 from .solver import _assemble_A_hat_csr, assemble_transpose_incidence
 
 
@@ -78,10 +81,11 @@ class BandedStepper:
     System's vertex and element numbering. A_hat is given by its diagonals
     (dia_offs, dia_vals) or, with `ell=(idx, vals)` ((n,K) each) and
     dia_offs = (), dia_vals = None, in ELL form. The preconditioner is
-    Jacobi, or with `mg` (a `core.mg.build_grid_mg` result; dia only) the
-    multigrid V-cycle. collect_residuals: False, "primal" or True, as the
-    JAX stepper's; the residuals of the last step() or run() window are
-    host arrays (n_steps, admm_iters) in last_primal (and last_dual).
+    Jacobi, or with `mg` a multigrid V-cycle: a `core.mg.build_grid_mg`
+    result (dia) or a `core.uamg.build_uamg` result (ELL).
+    collect_residuals: False, "primal" or True, as the JAX stepper's;
+    the residuals of the last step() or run() window are host arrays
+    (n_steps, admm_iters) in last_primal (and last_dual).
     """
 
     ROLLOUT_WINDOW = 10
@@ -110,7 +114,8 @@ class BandedStepper:
                               for k, prm in coll_shapes),
             coll_w2=float(coll_w2),
             ell_width=0 if ell is None else int(np.shape(ell[0])[1]),
-            mg=None if mg is None else MGConfig.of(mg),
+            mg=(None if mg is None else kuamg.UAMGConfig.of(mg)
+                if ell is not None else kmg.MGConfig.of(mg)),
         )
         self.collect_residuals = collect_residuals
         #: (n_steps, admm_iters) primal residuals of the last step()/run()
@@ -152,7 +157,8 @@ class BandedStepper:
             self.planes["ell_idx"] = self._dev(ell[0], torch.int32)
             self.planes["ell_vals"] = self._dev(ell[1])
         if mg is not None:
-            self.planes.update(planes_from(mg, dtype, self.device))
+            self.planes.update((kmg if ell is None else kuamg).planes_from(
+                mg, dtype, self.device))
             self.mg_levels = mg["levels"]
         self.state = {
             "x": self._dev(v),
@@ -247,11 +253,12 @@ def banded_from_system(system):
     raises there.) A `(first, rest)` cg_fixed_iters raises: the kernel
     takes one budget (the JAX stepper's int() of a tuple fails as well).
 
-    Under preconditioner="amg" the dia mode builds the geometric multigrid
-    (`core.mg.build_grid_mg`, default budget 8) and returns None where the
-    mesh is not a full grid in nested numbering; the ell mode, where the
-    JAX package builds its algebraic multigrid (core/uamg.py), raises
-    NotImplementedError (ROADMAP A6).
+    Under preconditioner="amg" (default budget 8) the dia mode builds the
+    geometric multigrid (`core.mg.build_grid_mg`) and returns None where
+    the mesh is not a full grid in nested numbering; the ell mode builds
+    the algebraic multigrid (`core.uamg.build_uamg`) and returns None
+    where build_uamg raises, so System falls back to the general route's
+    AMG, as the JAX package does.
     """
     s = system.settings
     # the residual-driven early exit needs the general route
@@ -317,28 +324,29 @@ def banded_from_system(system):
     sv = host["_solver"]
     amg = s.preconditioner == "amg"
     if system._solver_mode == "ell":
-        if amg:
-            raise NotImplementedError(
-                "preconditioner='amg' on the banded kernel's ell mode runs "
-                "the JAX package's in-kernel algebraic multigrid "
-                "(core/uamg.py), which is not ported (ROADMAP A6); use "
-                "global_solver='dia' on a grid mesh for the geometric "
-                "multigrid")
         matrix = dict(dia_offs=(), dia_vals=None,
                       ell=(sv["ell_idx"], sv["ell_vals"]))
     else:
         matrix = dict(dia_offs=system._dia_offsets, dia_vals=sv["dia_vals"])
-        if amg:
-            cparams = {k: host[k] for k in system._constraint_names}
-            A = _assemble_A_hat_csr(system.n_nodes, system._m, s.timestep_s,
-                                    cparams)
+    if amg:
+        cparams = {k: host[k] for k in system._constraint_names}
+        A = _assemble_A_hat_csr(system.n_nodes, system._m, s.timestep_s,
+                                cparams)
+        if system._solver_mode == "ell":
+            try:
+                matrix["mg"] = build_uamg(A, system._x)
+            except ValueError:
+                return None  # System falls back to the general route's AMG
+            kind = "algebraic multigrid"
+        else:
             matrix["mg"] = build_grid_mg(A, system._x)
             if matrix["mg"] is None:
                 return None  # System.initialize raises JAX's ValueError
-            if s.verbose:
-                lv = matrix["mg"]["levels"]
-                print("Solver: in-kernel multigrid engaged "
-                      f"({lv[0]} -> {lv[1]} -> {lv[2]})")
+            kind = "multigrid"
+        if s.verbose:
+            lv = matrix["mg"]["levels"]
+            print(f"Solver: in-kernel {kind} engaged "
+                  f"({lv[0]} -> {lv[1]} -> {lv[2]})")
     return BandedStepper(
         system._x, system._m, p["indices"], p["coeff"], p["w2"], mu, lam,
         p["k"], model, newton_iters,

@@ -207,16 +207,23 @@ def pcg_solve(A_apply, b, x0, diag, tol, max_iters):
     """Jacobi-PCG on the (n,3) system until ||r|| <= tol ||b|| or
     max_iters iterations; returns (x, iterations).
 
-    The JAX package's XLA routine, not a kernel. Its loop test is data
-    dependent, so in eager PyTorch it reads r.r back to the host once per
-    iteration (a device synchronisation each time on a card)."""
+    The JAX package's XLA routine, not a kernel."""
     inv_diag = 1.0 / diag
+    return pcg_solve_precond(A_apply, lambda r: inv_diag[:, None] * r, b,
+                             x0, tol, max_iters)
 
+
+def pcg_solve_precond(A_apply, M_apply, b, x0, tol, max_iters):
+    """PCG with z = M_apply(r) (Jacobi: `pcg_solve`; the general AMG's
+    V-cycle: `core.amg.make_vcycle`) until ||r|| <= tol ||b|| or max_iters
+    iterations; returns (x, iterations). Its loop test is data dependent,
+    so in eager PyTorch it reads r.r back to the host once per iteration
+    (a device synchronisation each time on a card)."""
     def dot(a, b):
         return torch.sum(a * b)
 
     r = b - A_apply(x0)
-    z = inv_diag[:, None] * r
+    z = M_apply(r)
     p = z
     rz = dot(r, z)
     tol2 = tol * tol * torch.clamp_min(dot(b, b), torch.finfo(b.dtype).tiny)
@@ -228,7 +235,7 @@ def pcg_solve(A_apply, b, x0, diag, tol, max_iters):
         alpha = rz / torch.where(pAp > 0, pAp, 1.0)
         x = x + alpha * p
         r = r - alpha * Ap
-        z = inv_diag[:, None] * r
+        z = M_apply(r)
         rz_new = dot(r, z)
         beta = rz_new / torch.where(rz > 0, rz, 1.0)
         p = z + beta * p

@@ -38,10 +38,12 @@ kernel (`core/banded.py`, dia or ELL matvec), uniform beam lattices on the
 lattice kernel (`core/lattice.py`), grid cloth on the cloth kernel
 (`core/cloth.py`); any other scene steps the general route. Over-
 relaxation disables the fast paths (the kernels run the plain iteration),
-as in the JAX package. `preconditioner="amg"` runs the banded or cloth
-kernel's in-kernel geometric multigrid (`core/mg.py`) in place of the
-Jacobi preconditioner, and raises where the JAX package raises or runs an
-algebraic multigrid instead.
+as in the JAX package. `preconditioner="amg"` runs a multigrid in place
+of the Jacobi preconditioner where the JAX package does: the banded or
+cloth kernel's in-kernel geometric multigrid (dia, `core/mg.py`), the
+banded kernel's in-kernel algebraic multigrid (ell, `core/uamg.py`), or
+the general route's aggregation AMG (ell with the xla CG backend, and the
+fallback where no in-kernel multigrid engages, `core/amg.py`).
 
 Ported so far: every global mode, with kernel-backed hyperelastic and
 corotational tets and triangle strain, bend hinges, anchors, collisions,
@@ -63,10 +65,12 @@ from ..models.base import ForceBatch
 from ..ops.kernels.cg_dia import MAX_DIAGONALS, cg_dia_solve
 from ..ops.kernels.cg_ell import cg_ell_solve
 from ..ops.kernels.cg_step import pcg_solve_fixed_fused
+from .amg import build_amg, levels_to_device, make_vcycle
 from .banded import banded_from_system
 from .cloth import cloth_from_system
 from .lattice import detect_grid_numbering, lattice_from_system
 from .solver import (
+    _assemble_A_hat_csr,
     A_hat_apply,
     A_hat_diag,
     assemble_A_hat,
@@ -75,21 +79,15 @@ from .solver import (
     assemble_transpose_incidence,
     dense_inverse,
     ell_apply,
+    pcg_fixed_precond,
     pcg_solve,
     pcg_solve_fixed,
+    pcg_solve_precond,
     transpose_gather_apply,
 )
 
 GLOBAL_SOLVERS = ("auto", "dense", "cg", "ell", "dia")
 CG_BACKENDS = ("xla", "fused", "kernel")
-# where the JAX package runs its general-path algebraic multigrid
-# (core/amg.py; system.py:456-457, 486-497)
-_GENERAL_AMG = (
-    "preconditioner='amg' here runs the JAX package's general-path "
-    "algebraic multigrid (core/amg.py, the ell + xla PCG), which is not "
-    "ported (ROADMAP A6); the port runs 'amg' as the in-kernel geometric "
-    "multigrid: lattice_fast_path=True with global_solver='dia' on a full "
-    "tet or triangle grid in nested numbering")
 
 
 @dataclasses.dataclass
@@ -129,13 +127,14 @@ class Settings:
     #: the stored inverse (A_hat applied in ELL form), to recover accuracy
     #: a float32 inverse loses
     dense_refine_steps: int = 0
-    #: global-step PCG preconditioner: 'jacobi' (diagonal) or 'amg'. 'amg'
-    #: takes lattice_fast_path=True with global_solver='dia': the in-kernel
-    #: geometric multigrid V-cycle of the banded kernel on a full tet grid
-    #: or of the cloth kernel on a full triangle grid, both in nested
-    #: numbering (core/mg.py). Where the JAX package runs its algebraic
-    #: multigrid instead (the banded kernel's ell mode, the general route's
-    #: ell + xla PCG) the port raises (ROADMAP A6)
+    #: global-step PCG preconditioner: 'jacobi' (diagonal) or 'amg', as in
+    #: the JAX package: with lattice_fast_path=True the in-kernel V-cycle
+    #: of a whole-timestep kernel, geometric under 'dia' (the banded
+    #: kernel on a full tet grid, the cloth kernel on a full triangle
+    #: grid, both in nested numbering; core/mg.py) or algebraic under
+    #: 'ell' (the banded kernel on a tet mesh of any topology;
+    #: core/uamg.py); else, and where none engages, the general route's
+    #: aggregation AMG on 'ell' with cg_backend='xla' (core/amg.py)
     preconditioner: str = "jacobi"
     #: per-ADMM-iteration residuals in `System.last_aux` (step: (iters,),
     #: run: (n_steps, iters)): "primal" the primal residual ||W(Dx - z)||,
@@ -334,6 +333,7 @@ class System:
         self._constraint_names = [f.name for f in self.forces]
         cparams = self._cparams(params)
         params["_solver"] = self._assemble_solver(cparams)
+        amg_levels = None
         if s.preconditioner == "amg":
             mode = self._solver_mode
             # the JAX package's homes of the multigrid (system.py:438-457):
@@ -349,7 +349,7 @@ class System:
                     "(in-kernel algebraic MG, any topology)"
                 )
             if not in_kernel:
-                raise NotImplementedError(_GENERAL_AMG)
+                amg_levels = self._build_general_amg(cparams)
 
         dtype = s.dtype
         self._params_host = params
@@ -360,6 +360,8 @@ class System:
             sv["ell_idx"] = torch.as_tensor(
                 params["_solver"]["ell_idx"], dtype=torch.int32, device=device)
         self._masses_dev = torch.as_tensor(self._m, dtype=dtype, device=device)
+        if amg_levels is not None:
+            sv["amg"] = amg_levels
         if self._solver_mode == "dense":
             sv["A_inv"] = dense_inverse(assemble_A_hat(n, self._m, dt, cparams),
                                         dtype, device)
@@ -384,15 +386,19 @@ class System:
                       "disabled (the general route honors it)")
         elif s.lattice_fast_path:
             self._route_fast_path()
-        if s.preconditioner == "amg" and self._stepper is None:
+        if (s.preconditioner == "amg" and "amg" not in sv
+                and self._stepper is None):
             # an in-kernel candidate that did not engage: the JAX package
             # falls back to its general-path algebraic multigrid
-            # (system.py:483-497), so 'amg' never runs on a Jacobi budget
+            # (system.py:483-497), so 'amg' never runs on a Jacobi budget.
+            # Under 'dia' (relaxation != 1 keeps the kernels off) JAX builds
+            # it and its dia branch still runs the Jacobi cg_dia_solve;
+            # the port does the same
             if s.cg_backend != "xla":
                 raise ValueError(
                     "preconditioner='amg' fallback needs cg_backend='xla'"
                 )
-            raise NotImplementedError(_GENERAL_AMG)
+            sv["amg"] = self._build_general_amg(cparams, label="fallback")
 
         if s.verbose >= 1:
             shape = {"dia": lambda: f"{len(self._dia_offsets)} diagonals",
@@ -407,6 +413,19 @@ class System:
             )
         self.initialized = True
         return True
+
+    def _build_general_amg(self, cparams, label="hierarchy"):
+        """The general route's aggregation-AMG hierarchy of A_hat
+        (core/amg.py) as tensors on the device; sets the V-cycle
+        `_amg_vcycle`."""
+        s = self.settings
+        A = _assemble_A_hat_csr(self.n_nodes, self._m, s.timestep_s, cparams)
+        arrays, meta = build_amg(A)
+        self._amg_vcycle = make_vcycle(meta)
+        if s.verbose:
+            sizes = " -> ".join(str(m["n"]) for m in meta)
+            print(f"Solver: AMG {label} {sizes}")
+        return levels_to_device(arrays, s.dtype, torch.device(s.device))
 
     def _cparams(self, params):
         """The constraint forces' params, in the incidence's order."""
@@ -524,6 +543,15 @@ class System:
                 return A_hat_apply(y, self._masses_dev, dt2, cparams,
                                    sv["inc_idx"])
 
+        if "amg" in sv:
+            # the general route's AMG V-cycle (system.py:744-765)
+            def M(r):
+                return self._amg_vcycle(sv["amg"], r)
+
+            if s.cg_fixed_iters is None:
+                return pcg_solve_precond(A, M, b, x, s.cg_tol,
+                                         s.cg_max_iters)[0]
+            return pcg_fixed_precond(A, b, x, M, self._cg_budget(i))
         if s.cg_fixed_iters is None:
             return pcg_solve(A, b, x, sv["diag"], s.cg_tol, s.cg_max_iters)[0]
         k = self._cg_budget(i)

@@ -9,7 +9,9 @@
 // projections, right-hand side, and a whole fixed-budget PCG solve, for
 // n_steps timesteps per call; its preconditioner Jacobi, or in the dia
 // mode the in-kernel geometric multigrid V-cycle (mg_meta,
-// banded_step.py:600-739 and :924-951; mg_vcycle.cuh).
+// banded_step.py:600-739 and :924-951; mg_vcycle.cuh GridLevels), in the
+// ELL mode the in-kernel algebraic one (uamg_meta, :741-888 and :924-955;
+// mg_vcycle.cuh AggLevels).
 //
 // Layout, with no padding and no lane packing: vertex arrays (n,3)
 // row-major; element planes (P,E) in the tet force's own element order;
@@ -35,8 +37,9 @@
 //     the cluster solve of A x = rhs from x, in place (cg_dia.cu or
 //       cg_ell.cu on cluster_pcg.cuh, D^-1 = invd as given): it forms
 //       r = rhs - A x itself, then cg_iters iterations on one 16-CTA
-//       cluster; under the multigrid, cg_dia.cu's multigrid mode
-//       (mg_vcycle.cuh), the V-cycle in place of D^-1
+//       cluster; under the multigrid, cg_dia.cu's geometric or (ELL)
+//       cg_ell.cu's algebraic multigrid mode (mg_vcycle.cuh), the V-cycle
+//       in place of D^-1
 //   end, per vertex: v = (x - x_pre) (1/dt)
 // With residual collection (collect, banded_step.py:152-157, 187-190,
 // 270-275, 390-441, 464-466, 509-520, 890-915; residuals.cuh), the element
@@ -217,8 +220,6 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
   const bool matrix_ok =
       K > 0 ? (D == 0 && ell_idx_t != nullptr && ell_vals_t != nullptr)
             : (D >= 1 && D <= dia::MAX_DIAGONALS && dia_vals != nullptr);
-  // the multigrid mode solves on the dia rows only
-  if (mg != nullptr && K != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n < 1 || E < 1 || !matrix_ok || K < 0 || H < 0 || S < 1 ||
       n_shapes < 0 || n_shapes > MAX_SHAPES || model < 0 || model > 2 ||
       newton_iters < 0 || cg_iters < 0 || admm_iters < 0 || n_steps < 0)
@@ -274,12 +275,14 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
         err = static_cast<int>(
             cudaLaunchKernel(vertex, vb, dim3(THREADS), kargs, 0, st));
       if (err == 0)
-        err = mg != nullptr
-                  ? window::mg_solve(rhs, x, dia_vals, offsets, D, n,
-                                     cg_iters, mg, scratch, st)
-                  : window::solve(rhs, x, invd, dia_vals, offsets, D,
+        err = mg == nullptr
+                  ? window::solve(rhs, x, invd, dia_vals, offsets, D,
                                   ell_idx_t, ell_vals_t, K, H, n, cg_iters,
-                                  scratch, st);
+                                  scratch, st)
+              : K > 0 ? window::uamg_solve(rhs, x, ell_idx_t, ell_vals_t, K,
+                                           n, cg_iters, mg, scratch, st)
+                      : window::mg_solve(rhs, x, dia_vals, offsets, D, n,
+                                         cg_iters, mg, scratch, st);
     }
     if (err != 0) return window::failed(err);
     window::end_kernel<T><<<vb, THREADS, 0, st>>>(x, v, xpre, a.sc[INV_DT],
@@ -333,16 +336,17 @@ extern "C" {
 // (cg_cluster_plan; nullptr when it is 0). offsets, shape_kinds,
 // shape_prm (n_shapes x 5) and scalars (7: dt, dt^2, 1/dt, dt g xyz,
 // collision weight^2, formed in double) are host arrays. mg: null for the
-// Jacobi-PCG solve, else an mg::Host (mg_vcycle.cuh) whose V-cycle
-// preconditions the solve on the dia rows (K = 0; scratch then holds
-// mg_dia_plan's count). collect: 0 none, 1 the primal residuals, 2 also
+// Jacobi-PCG solve, else the multigrid whose V-cycle preconditions it: an
+// mg::Host on the dia rows (K = 0; scratch then holds mg_dia_plan's
+// count) or an mg::AggHost on the ELL rows (K > 0; uamg_ell_plan's
+// count), mg_vcycle.cuh. collect: 0 none, 1 the primal residuals, 2 also
 // the dual ones, written to res_p and res_d (n_steps, admm_iters); zrows
 // (12,E), tz (n,3), part (admm_iters, eb + vb) and dpart (admm_iters, vb),
 // with eb and vb the element and vertex blocks of 128 threads, are their
 // scratch (null where the mode needs none). Every launch
 // goes to `stream` (a CUDA graph capture takes them all; the solve's
-// set-up, cg_dia_prepare_* / cg_ell_prepare_* / mg_dia_prepare_*, must run
-// before). Returns
+// set-up, cg_dia_prepare_* / cg_ell_prepare_* / mg_dia_prepare_* /
+// uamg_ell_prepare_*, must run before). Returns
 // the first nonzero cudaError_t of the launches, or 0.
 ADMM_BANDED_ENTRY(float, f32)
 ADMM_BANDED_ENTRY(double, f64)

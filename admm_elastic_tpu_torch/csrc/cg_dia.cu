@@ -67,8 +67,9 @@ int mg_solve(const T* b, const T* x0, const T* dia_vals, const int* offsets,
     return static_cast<int>(cudaErrorInvalidValue);
   DiaRows<T> row{dia_vals, {}, D, n};
   for (int d = 0; d < D; ++d) row.offs.v[d] = offsets[d];
-  return admm::mg::solve<T>(row, D, mg, b, x0, n, n_iters, x, scratch,
-                           stream);
+  return admm::mg::solve<T, admm::mg::GridLevels<T>>(row, D, mg, b, x0, n,
+                                                     n_iters, x, scratch,
+                                                     stream);
 }
 
 }  // namespace cg
@@ -112,7 +113,8 @@ ADMM_CG_DIA_ENTRY(double, f64)
                                  scratch, stream);                           \
   }                                                                          \
   int mg_dia_prepare_##SUFFIX(int D, int n, int nc2) {                       \
-    return admm::mg::prepare<T, admm::cg::DiaRows<T>>(D, n, nc2);            \
+    return admm::mg::prepare<T, admm::mg::GridLevels<T>,                    \
+                             admm::cg::DiaRows<T>>(D, n, nc2);               \
   }
 
 ADMM_MG_DIA_ENTRY(float, f32)

@@ -1,8 +1,9 @@
 // What the whole-timestep windows (banded_step.cu, lattice_step.cu,
 // cloth_step.cu) share: the per-vertex kernels that open and close a
 // timestep, and the cluster solves they hand each ADMM iteration's global
-// solve to (cg_dia.cu, cg_ell.cu, and cg_dia.cu's multigrid mode; C entry
-// points of the same library, so each solve kernel is instantiated once).
+// solve to (cg_dia.cu, cg_ell.cu, cg_dia.cu's geometric and cg_ell.cu's
+// algebraic multigrid mode; C entry points of the same library, so each
+// solve kernel is instantiated once).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +32,14 @@ int mg_dia_solve_f64(const double* b, const double* x0, const double* dia,
                      const int* offsets, int D, int n, int n_iters,
                      const void* mg, double* x, double* scratch,
                      void* stream);
+int uamg_ell_solve_f32(const float* b, const float* x0, const int* idx_t,
+                       const float* vals_t, int K, int n, int n_iters,
+                       const void* uamg, float* x, float* scratch,
+                       void* stream);
+int uamg_ell_solve_f64(const double* b, const double* x0, const int* idx_t,
+                       const double* vals_t, int K, int n, int n_iters,
+                       const void* uamg, double* x, double* scratch,
+                       void* stream);
 }
 
 namespace admm {
@@ -117,6 +126,24 @@ inline int mg_solve(const double* rhs, double* x, const double* dia,
                     const void* mg, double* scratch, cudaStream_t st) {
   return mg_dia_solve_f64(rhs, x, dia, offsets, D, n, n_iters, mg, x,
                           scratch, st);
+}
+
+// The global solve of the ELL mode under preconditioner="amg", in place:
+// n_iters PCG iterations preconditioned by the aggregation V-cycle
+// (mg_vcycle.cuh AggLevels) of `uamg` (an mg::AggHost), on slot-major ELL
+// rows, on one cluster.
+inline int uamg_solve(const float* rhs, float* x, const int* ell_idx_t,
+                      const float* ell_vals_t, int K, int n, int n_iters,
+                      const void* uamg, float* scratch, cudaStream_t st) {
+  return uamg_ell_solve_f32(rhs, x, ell_idx_t, ell_vals_t, K, n, n_iters,
+                            uamg, x, scratch, st);
+}
+
+inline int uamg_solve(const double* rhs, double* x, const int* ell_idx_t,
+                      const double* ell_vals_t, int K, int n, int n_iters,
+                      const void* uamg, double* scratch, cudaStream_t st) {
+  return uamg_ell_solve_f64(rhs, x, ell_idx_t, ell_vals_t, K, n, n_iters,
+                            uamg, x, scratch, st);
 }
 
 // A launch's error, or the one it left behind. A window's host call

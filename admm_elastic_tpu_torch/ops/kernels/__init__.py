@@ -18,6 +18,7 @@ from .cloth_step import cloth_rollout, cloth_rollout_reference
 from .banded_local import banded_local_rhs, banded_local_rhs_reference
 from .cheb_dia import cheb_dia_chunk, cheb_dia_chunk_reference
 from .mg import mg_dia_solve, mg_dia_solve_reference
+from .uamg import uamg_ell_solve, uamg_ell_solve_reference
 
 __all__ = [
     "nh_local_step_fused", "nh_local_step_fused_reference",
@@ -34,4 +35,5 @@ __all__ = [
     "banded_local_rhs", "banded_local_rhs_reference",
     "cheb_dia_chunk", "cheb_dia_chunk_reference",
     "mg_dia_solve", "mg_dia_solve_reference",
+    "uamg_ell_solve", "uamg_ell_solve_reference",
 ]

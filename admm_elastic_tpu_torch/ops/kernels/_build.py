@@ -126,6 +126,14 @@ _SIGNATURES = {
     **{f"mg_dia_prepare_{t}": (_I, [_I] * 3) for t in ("f32", "f64")},
     # n, D, nc2, elem_bytes, out
     "mg_dia_plan": (_I, [_I] * 4 + [_P]),
+    # b, x0, the ELL rows (2), then K, n, n_iters, then the multigrid (a
+    # UAMGHost), x, scratch and the stream
+    **{f"uamg_ell_solve_{t}": (_I, [_P] * 4 + [_I] * 3 + [_P] * 4)
+       for t in ("f32", "f64")},
+    # n, nc2
+    **{f"uamg_ell_prepare_{t}": (_I, [_I] * 2) for t in ("f32", "f64")},
+    # n, nc2, elem_bytes, out
+    "uamg_ell_plan": (_I, [_I] * 3 + [_P]),
     **{f"cg_update_{t}": (_I, [_P] * 6 + [_I] + [_P] * 6)
        for t in ("f32", "f64")},
     "cg_partials": (_I, [_I]),

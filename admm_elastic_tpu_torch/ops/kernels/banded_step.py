@@ -18,8 +18,9 @@ optional analytic collision shapes and a gravity kick:
                      rhs = M xbar + dt^2 b
                    global solve: x = A^-1 rhs by cg_iters PCG iterations
                      from x (pAp > 0, rz > 0 guards), preconditioned by
-                     Jacobi or, with `BandedConfig.mg` (dia only), by the
-                     geometric multigrid V-cycle (`mg.py`)
+                     Jacobi or, with `BandedConfig.mg`, by the geometric
+                     multigrid V-cycle (dia, `mg.py`) or the algebraic one
+                     (ELL, `uamg.py`)
     epilogue       v = (x - x_pre) (1/dt)
 
 State (`STATE`): x, v, anchor dual au, collision dual cu (n,3); tet dual u
@@ -31,8 +32,8 @@ Planes (`PLANES`): idx (4,E) int32 corner vertices; cp (12,E) selector planes; w
 matrix (`MATRIX_PLANES`): dia (D,n) diagonals of A at
 `BandedConfig.dia_offs`, or ell_idx (n,K) int32 and ell_vals (n,K) when
 `BandedConfig.ell_width` = K > 0 (`core.solver.assemble_A_hat_ell`);
-with `BandedConfig.mg` the multigrid's planes (`mg.PLANES`). No padding
-anywhere.
+with `BandedConfig.mg` the multigrid's planes (`mg.PLANES` or
+`uamg.PLANES`). No padding anywhere.
 
 `banded_rollout` runs the window's kernels (`csrc/banded_step.cu`: per
 timestep a kick, per ADMM iteration an element kernel, a vertex kernel and
@@ -41,7 +42,8 @@ one cluster solve, `csrc/cluster_pcg.cuh` or its multigrid mode
 `banded_rollout_reference`, a step-by-step transcription of the same math
 in the Pallas kernel's evaluation order (its solve the cluster solve's:
 `core.solver.pcg_fixed_inv` with `cg_step.cluster_dot`, the ELL matvec
-slot by slot, or `mg.pcg_fixed_mg`), for CPU tensors. It never falls back from
+slot by slot, `mg.pcg_fixed_mg` or `uamg.pcg_fixed_uamg`), for CPU
+tensors. It never falls back from
 one to the other. Both return a new state dict and leave their inputs
 untouched. `BandedWindow` is a window on a state's own buffers, which a
 stepper advances in place through one CUDA graph a window length
@@ -60,8 +62,7 @@ from . import _build
 from .cg_dia import MAX_DIAGONALS
 from .cg_ell import bandwidth, ell_apply_by_slot, slot_major
 from .cg_step import cluster_dot, cluster_prepare
-from .mg import MGConfig, check_planes, host_struct, mg_prepare, pcg_fixed_mg
-from . import residuals
+from . import mg, residuals, uamg
 from .nh_local import _newton_hyper, _svd_columns, _warm_guard
 from .residuals import squares
 
@@ -83,8 +84,9 @@ class BandedConfig:
     coll_shapes: ('floor', (y,)) | ('sphere', (cx, cy, cz, r)) |
     ('cylinder', (cx, cy, r)), projected in this order with the shared
     weight^2 coll_w2. ell_width: K of an ELL matrix, with dia_offs = ();
-    0 for a dia matrix. mg: the multigrid's offsets (dia only), whose
-    V-cycle then preconditions the solve; None for Jacobi. collect: None,
+    0 for a dia matrix. mg: the multigrid whose V-cycle then
+    preconditions the solve, a `mg.MGConfig` (dia) or a
+    `uamg.UAMGConfig` (ELL); None for Jacobi. collect: None,
     "primal" (each ADMM iteration's primal residual) or "full" (and its
     dual residual), the JAX kernel's collect / collect_dual."""
 
@@ -98,7 +100,7 @@ class BandedConfig:
     coll_shapes: tuple = ()
     coll_w2: float = 0.0
     ell_width: int = 0
-    mg: MGConfig | None = None
+    mg: mg.MGConfig | uamg.UAMGConfig | None = None
     collect: str | None = None
 
     def __post_init__(self):
@@ -113,8 +115,10 @@ class BandedConfig:
         elif not 1 <= len(self.dia_offs) <= MAX_DIAGONALS:
             raise ValueError(f"{len(self.dia_offs)} diagonals; the kernel "
                              f"takes 1..{MAX_DIAGONALS}")
-        if self.mg is not None and self.ell_width:
-            raise ValueError("the multigrid takes a dia matrix")
+        if isinstance(self.mg, mg.MGConfig) and self.ell_width:
+            raise ValueError("the geometric multigrid takes a dia matrix")
+        if isinstance(self.mg, uamg.UAMGConfig) and not self.ell_width:
+            raise ValueError("the algebraic multigrid takes an ELL matrix")
         if len(self.coll_shapes) > MAX_SHAPES:
             raise ValueError(f"{len(self.coll_shapes)} collision shapes; the "
                              f"kernel takes at most {MAX_SHAPES}")
@@ -357,9 +361,12 @@ def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps,
             if cfg.mg is None:
                 x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
                                   cfg.cg_iters, dot)
+            elif cfg.matrix == "ell":
+                x = uamg.pcg_fixed_uamg(A, mxbar + dt2 * b, x, planes,
+                                        cfg.cg_iters, dot)
             else:
-                x = pcg_fixed_mg(A, mxbar + dt2 * b, x, planes, cfg.mg,
-                                 cfg.cg_iters, dot)
+                x = mg.pcg_fixed_mg(A, mxbar + dt2 * b, x, planes, cfg.mg,
+                                    cfg.cg_iters, dot)
         v = (x - x_pre) * inv_dt
         res_p.append(step_p)
         res_d.append(step_d)
@@ -409,8 +416,10 @@ def _check(state, planes, cfg):
         if t.device != x.device or t.dtype != dtype:
             raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
                              f"{dtype} on {x.device}")
-    if cfg.mg is not None:
-        check_planes(planes, cfg.mg, n, x)
+    if cfg.mg is not None and cfg.matrix == "ell":
+        uamg.check_planes(planes, cfg.mg, x)
+    elif cfg.mg is not None:
+        mg.check_planes(planes, cfg.mg, n, x)
     return n, E, S
 
 
@@ -419,8 +428,9 @@ class BandedWindow:
     CUDA device: `launch(n_steps)` enqueues n_steps timesteps on the
     current stream and advances `state` in place. Holds the window's
     scratch, the matrix as the cluster solve reads it (ELL: slot-major),
-    the multigrid's C description, and the solve's set-up, done here,
-    before any CUDA graph captures a launch."""
+    the multigrid's C description (`mg.MGHost` or `uamg.UAMGHost`), and
+    the solve's set-up, done here, before any CUDA graph captures a
+    launch."""
 
     def __init__(self, state, planes, cfg: BandedConfig):
         self.n, self.E, self.S = _check(state, planes, cfg)
@@ -451,10 +461,13 @@ class BandedWindow:
             self.scratch = cluster_prepare(x, self.n, self.reach,
                                            len(cfg.dia_offs),
                                            cfg.matrix == "ell")
+        elif cfg.matrix == "ell":
+            self.mg = uamg.host_struct(planes, cfg.mg)
+            self.scratch = uamg.uamg_prepare(x, cfg.mg)
         else:
-            self.mg = host_struct(planes, cfg.mg)
-            self.scratch = mg_prepare(x, self.n, len(cfg.dia_offs),
-                                      planes["mg_rp2"].shape[0])
+            self.mg = mg.host_struct(planes, cfg.mg)
+            self.scratch = mg.mg_prepare(x, self.n, len(cfg.dia_offs),
+                                         planes["mg_rp2"].shape[0])
         kinds, table = cfg.shape_table()
         ns = max(len(kinds), 1)
         # the host arrays the C entry reads at each call

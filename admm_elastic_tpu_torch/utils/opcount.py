@@ -10,7 +10,9 @@ candidate), so the count is the work the kernel does on those inputs.
 A multigrid V-cycle is the exception: its twin (`mg.vcycle`) computes the
 coarse levels over every fine row, 0 off each level's representatives, as
 the kernel does, so `count_ops` counts each V-cycle by the work the
-function needs (`vcycle_ops`) instead.
+function needs (`vcycle_ops`) instead; the algebraic one (`uamg.vcycle`)
+adds the zeros of its padded member lists and ELL slots, so it is counted
+the same way (`uamg_vcycle_ops`).
 
 `nbytes(*trees)` sums the sizes of the tensors in dicts, lists or tuples:
 each input read once and each output written once.
@@ -20,8 +22,8 @@ time the card could take for the same work (`roofline_ms`).
 `twin_counts` gives (operations, bytes) of a kernel on its inputs from its
 twin (the element steps', by their `_reference` twins; `cg_update_counts`,
 `cg_dia_counts`, `cg_ell_counts` and `mg_dia_counts` name the CG kernels,
-the solves' with one plain sum a dot (the multigrid mode's V-cycle
-included); `banded_local_counts` and
+the solves' with one plain sum a dot (the multigrid modes' V-cycles
+included, `uamg_ell_counts` the algebraic one's); `banded_local_counts` and
 `cheb_dia_counts` the sharded stepper's), and `rollout_counts` those of the
 whole-timestep kernels (banded in dia or ELL mode, cloth, lattice; the
 banded and cloth ones in their multigrid mode too). The
@@ -43,7 +45,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.solver import dia_apply, pcg_solve_fixed
-from ..ops.kernels import banded_local, cg_ell, cg_step, cheb_dia, mg
+from ..ops.kernels import banded_local, cg_ell, cg_step, cheb_dia, mg, uamg
 
 _ELEMENTWISE = frozenset((
     "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "rsqrt", "log",
@@ -126,26 +128,52 @@ def vcycle_ops(r, A, planes) -> int:
     return 2 * matvec + r.shape[1] * mg_level_ops(planes, r.shape[0])
 
 
+def uamg_level_ops(planes, n) -> int:
+    """Operations one algebraic V-cycle (`uamg.vcycle`) needs on one
+    column of n fine rows, besides its two fine matvecs. With nc1, nc2 the
+    level sizes and L the nonzero entries of A1: on the fine rows z = om0
+    r, r - A z, r - A z, om0 times it, z plus it and z + P0 z1 (6n) and
+    R0 (n - nc1 sums); on level 1 om1 r1, two A1 products (2 L - nc1
+    each), r1 - A1 z1 twice, z1 + P1 z2, om1 times it and z1 plus it
+    (6 nc1) and R1 (nc1 - nc2 sums); A2^-1 r2 nc2 (2 nc2 - 1):
+        7 n + 4 L + 4 nc1 + 2 nc2^2 - 2 nc2."""
+    nc1 = planes["ua_om1"].numel()
+    nc2 = planes["ua_a2inv"].shape[0]
+    L = int(torch.count_nonzero(planes["ua_l1_vals"]))
+    return 7 * n + 4 * L + 4 * nc1 + 2 * nc2 * nc2 - 2 * nc2
+
+
+def uamg_vcycle_ops(r, A, planes) -> int:
+    """Operations one algebraic V-cycle on r (n,k) needs: its two fine
+    matvecs as A counts them, and k columns of `uamg_level_ops`."""
+    matvec, _ = count_ops(A, r)
+    return 2 * matvec + r.shape[1] * uamg_level_ops(planes, r.shape[0])
+
+
 @contextlib.contextmanager
 def _needed_vcycles(counter):
-    """While counting, `mg.vcycle` computes as before, uncounted, and adds
-    its two fine matvecs (run once more to be counted as A counts them)
-    and `mg_level_ops` for each column."""
-    twin = mg.vcycle
+    """While counting, `mg.vcycle` and `uamg.vcycle` compute as before,
+    uncounted, and add their two fine matvecs (run once more to be counted
+    as A counts them) and `mg_level_ops` or `uamg_level_ops` for each
+    column."""
+    twins = (mg.vcycle, uamg.vcycle)
 
-    def vcycle(r, A, planes, cfg):
-        with _paused(counter):
-            z = twin(r, A, planes, cfg)
-            level = r.shape[1] * mg_level_ops(planes, r.shape[0])
-        A(r), A(r)
-        counter.ops += level
-        return z
+    def needed(twin, level_ops):
+        def vcycle(r, A, planes, *cfg):
+            with _paused(counter):
+                z = twin(r, A, planes, *cfg)
+                level = r.shape[1] * level_ops(planes, r.shape[0])
+            A(r), A(r)
+            counter.ops += level
+            return z
+        return vcycle
 
-    mg.vcycle = vcycle
+    mg.vcycle = needed(twins[0], mg_level_ops)
+    uamg.vcycle = needed(twins[1], uamg_level_ops)
     try:
         yield
     finally:
-        mg.vcycle = twin
+        mg.vcycle, uamg.vcycle = twins
 
 
 def nbytes(*trees) -> int:
@@ -218,6 +246,20 @@ def mg_dia_counts(b, x0, dia_vals, offsets, planes, cfg, n_iters):
                        lambda y: dia_apply(y, offsets, dia_vals), b, x0,
                        planes, cfg, n_iters)
     return ops, nbytes(b, x0, dia_vals, [planes[k] for k in mg.PLANES], x)
+
+
+def uamg_ell_counts(b, x0, ell_idx, ell_vals, planes, cfg, n_iters):
+    """(operations, bytes) of a `uamg_ell_solve` of n_iters iterations:
+    the V-cycle PCG's arithmetic with each dot one product and one sum of
+    3n values and each V-cycle what it needs (`uamg_vcycle_ops`); b, x0,
+    the ELL arrays and the multigrid's planes read once however often the
+    iterations read them, x written once."""
+    ops, x = count_ops(uamg.pcg_fixed_uamg,
+                       lambda y: cg_ell.ell_apply_by_slot(y, ell_idx,
+                                                          ell_vals),
+                       b, x0, planes, n_iters)
+    return ops, nbytes(b, x0, ell_idx, ell_vals,
+                       [planes[k] for k in uamg.PLANES], x)
 
 
 def rollout_counts(reference, keys, state, planes, cfg, n_steps):

@@ -19,9 +19,12 @@ steps tet100k on the lattice kernel (the cg global mode with
 banded stepper at one device (`scenes.tet100k_sharded`) with `--solver`
 cg or cheb, whose budgets `--cg` then gives. `--cg-backend` picks
 delaunay100k's ell CG on the general route (the other scenes run dia).
-`--amg` steps tet100k or cloth100k on its whole-timestep route with the
-in-kernel multigrid (`preconditioner="amg"`), `--cg` V-cycle PCG
-iterations a solve. `--collect` turns on residual collection
+`--amg` steps the scene with `preconditioner="amg"`, `--cg` V-cycle PCG
+iterations a solve: with `--route fast` tet100k or cloth100k on its
+whole-timestep route with the in-kernel geometric multigrid, delaunay100k
+on the banded-ELL route with the in-kernel algebraic one; with `--route
+general` delaunay100k on the general ell route (xla) with the aggregation
+AMG. `--collect` turns on residual collection
 (`collect_residuals`: "primal", or both residuals with "full"; the
 sharded stepper takes "primal" only).
 For each CG budget it times `steps` steps twice in one process, each
@@ -51,7 +54,7 @@ import torch
 
 from ..ops.kernels import (banded_local, banded_step, cg_dia, cg_ell,
                            cheb_dia, cloth_step, lattice_step, mg, nh_local,
-                           tet_local, tri_local)
+                           tet_local, tri_local, uamg)
 from . import scenes
 
 
@@ -97,7 +100,8 @@ def _own_launches():
         tri_local.tri_local_step_fused, tri_local.tri_local_step,
         tet_local.arap_local_step_fused, tet_local.arap_local_step,
         banded_local.banded_local_rhs, cheb_dia.cheb_dia_chunk,
-        cg_dia.cg_dia_solve, cg_ell.cg_ell_solve, mg.mg_dia_solve)) + sum(
+        cg_dia.cg_dia_solve, cg_ell.cg_ell_solve, mg.mg_dia_solve,
+        uamg.uamg_ell_solve)) + sum(
         k.ops for k in (banded_step.banded_rollout,
                         lattice_step.lattice_rollout,
                         cloth_step.cloth_rollout))
@@ -179,9 +183,10 @@ def profile(cg, steps, route="general", s=None, scene="tet100k",
     elif s is None:
         kw = {"cg_backend": cg_backend} if scene == "delaunay100k" else {}
         if amg:
-            if scene == "delaunay100k" or route != "fast":
-                raise ValueError("--amg steps tet100k or cloth100k on "
-                                 "--route fast")
+            if route not in ("fast", "general") or (
+                    route == "general" and scene != "delaunay100k"):
+                raise ValueError("--amg steps a scene on --route fast, or "
+                                 "delaunay100k on --route general")
             kw["amg"] = True
         if route == "lattice":
             if scene != "tet100k":
@@ -224,11 +229,14 @@ def profile(cg, steps, route="general", s=None, scene="tet100k",
     label, budget = route, f"cg{cg}"
     if collect != "none":
         label = f"{label} collect={collect}"
-    if getattr(getattr(getattr(s, "_stepper", None), "cfg", None), "mg",
-               None) is not None:
-        budget = f"mg{cg}"
+    mg_cfg = getattr(getattr(getattr(s, "_stepper", None), "cfg", None),
+                     "mg", None)
+    if mg_cfg is not None:
+        budget = f"{'ua' if isinstance(mg_cfg, uamg.UAMGConfig) else ''}mg{cg}"
     if route == "general" and s._solver_mode == "ell":
         label = f"general {s.settings.cg_backend}"
+        if "amg" in s.params["_solver"]:
+            budget = f"amg{cg}"
     elif route == "sharded":
         budget = f"{s.solver}{cg}"
     print(f"[profile {scene} {label} {budget}] "
@@ -252,7 +260,8 @@ def main():
     ap.add_argument("--cg-backend", choices=("xla", "fused", "kernel"),
                     default="xla")
     ap.add_argument("--amg", action="store_true",
-                    help="the in-kernel multigrid (with --route fast)")
+                    help="preconditioner='amg': the in-kernel multigrid "
+                         "(--route fast), the general AMG (--route general)")
     ap.add_argument("--collect", choices=tuple(COLLECT), default="none",
                     help="collect the residuals of each ADMM iteration")
     args = ap.parse_args()

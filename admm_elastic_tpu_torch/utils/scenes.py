@@ -47,7 +47,13 @@ topology: the Delaunay tetrahedralisation of a jittered 37 x 22 x 20 grid
 of points (16,280 nodes, 100,852 tets), whose A_hat has 73 diagonals in its
 numbering, so it runs on the ell solver (`cg_backend` xla, fused or
 kernel) or, with `fast=True`, on the banded route with the ELL matvec.
-`small_delaunay` is the 7 x 5 x 4 mesh of tests/test_uell.py.
+`small_delaunay` is the 7 x 5 x 4 mesh of tests/test_uell.py. With
+`amg=True` delaunay100k is `bench.py --preset delaunay100k --amg`: the
+banded route with the in-kernel algebraic multigrid (16,280 -> 3,696 ->
+501 dofs), bench's 6 V-cycle PCG iterations a solve; with `fast=False`
+the general ell route (xla) with the aggregation AMG. `small_uamg` is the
+10 x 7 x 6 Delaunay mesh of tests/test_uamg.py (420 nodes) on the
+algebraic multigrid route.
 
 `banded_spd` is a random banded SPD system of any size in both the dia and
 the ELL form, for the CG solves at sizes no mesh gives (fewer rows than a
@@ -251,15 +257,18 @@ def delaunay_mesh(nx=7, ny=5, nz=4, jitter=0.3, seed=0, scale=0.1,
 
 def delaunay_system(pts, tets, total_mass, stiffness, anchor_dx, cg,
                     dtype=torch.float32, device="cuda", fast=True,
-                    cg_backend="xla") -> System:
+                    cg_backend="xla", amg=False, admm_iters=10) -> System:
     """A tet mesh on the ell solver: StaticAnchors at x < min x +
     anchor_dx, NeoHookean tets (mu = lam = stiffness, 5 Newton iterations,
-    kernel-backed), gravity, dt 0.04, 10 ADMM iterations."""
+    kernel-backed), gravity, dt 0.04, admm_iters ADMM iterations; amg:
+    preconditioner="amg" (fast: the in-kernel algebraic multigrid, else
+    the general route's AMG)."""
     n = len(pts)
-    s = System(Settings(timestep_s=0.04, admm_iters=10, verbose=0,
+    s = System(Settings(timestep_s=0.04, admm_iters=admm_iters, verbose=0,
                         dtype=dtype, device=device, global_solver="ell",
                         cg_fixed_iters=cg, cg_backend=cg_backend,
-                        preconditioner="jacobi", lattice_fast_path=fast))
+                        preconditioner="amg" if amg else "jacobi",
+                        lattice_fast_path=fast))
     s.add_nodes(pts, np.full(n, total_mass / n))
     s.add_force(StaticAnchor(
         np.flatnonzero(pts[:, 0] < pts[:, 0].min() + anchor_dx)))
@@ -270,19 +279,25 @@ def delaunay_system(pts, tets, total_mass, stiffness, anchor_dx, cg,
     if fast:
         assert isinstance(s._stepper, BandedStepper), type(s._stepper)
         assert s._stepper.cfg.matrix == "ell"
+        assert (s._stepper.cfg.mg is not None) == amg
+    elif amg:
+        assert "amg" in s.params["_solver"]
     return s
 
 
 def delaunay100k(cg, dtype=torch.float32, fast=True, cg_backend="xla",
-                 device="cuda") -> System:
+                 device="cuda", amg=False) -> System:
     """bench.py build_delaunay100k: 50 kg, mu = lam = 1e5, anchors within
     half a grid spacing of the minimum x. bench's general route
     (--no-lattice) builds its tets with the default backend='xla', which
     the port does not have; here they are kernel-backed (the same prox
-    through nh_local_step_fused). The banded route ignores the backend."""
+    through nh_local_step_fused). The banded route ignores the backend.
+    amg=True is build_delaunay100k(amg=True): cg algebraic-V-cycle PCG
+    iterations a solve (bench's 6), in the banded kernel (fast) or on the
+    general route's AMG."""
     pts, tets = (a.copy() for a in _delaunay100k_mesh())
     return delaunay_system(pts, tets, 50.0, 1e5, 0.5 * 0.05, cg, dtype,
-                           device, fast, cg_backend)
+                           device, fast, cg_backend, amg)
 
 
 @functools.cache
@@ -299,6 +314,17 @@ def small_delaunay(cg=25, dtype=torch.float64, device="cuda", fast=True,
     pts, tets = delaunay_mesh()
     return delaunay_system(pts, tets, 2.0, 1e4, 1e-3, cg, dtype, device,
                            fast, cg_backend)
+
+
+def small_uamg(cg=8, dtype=torch.float64, device="cuda", fast=True) -> System:
+    """tests/test_uamg.py's _delaunay_system scene under
+    preconditioner="amg": its 10 x 7 x 6 mesh (420 nodes), 50 kg, mu = lam
+    = 1e5, anchors within 0.025 m of the minimum x, 6 ADMM iterations; on
+    the banded route's algebraic multigrid (levels 420 -> 112 -> 48), or
+    with fast=False on the general route's AMG."""
+    pts, tets = delaunay_mesh(10, 7, 6, scale=0.05, emax=0.11)
+    return delaunay_system(pts, tets, 50.0, 1e5, 0.025, cg, dtype, device,
+                           fast, amg=True, admm_iters=6)
 
 
 def banded_spd(n, offsets=(1, 3, 7), dtype=torch.float64, device="cuda",

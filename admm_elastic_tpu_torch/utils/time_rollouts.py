@@ -20,7 +20,10 @@ banded route; and at budgets of their own: cloth100k on the cloth route
 (cg25, and cg300, its matched Jacobi budget) and tet100k on the sharded
 banded stepper at one device with the Chebyshev solve (cheb180); with
 the in-kernel multigrid (`preconditioner="amg"`), tet100k on the banded
-route at mg6 and mg8 and cloth100k on the cloth route at mg8.
+route at mg6 and mg8 and cloth100k on the cloth route at mg8; with the
+algebraic multigrids (`--scenes uamg`), delaunay100k on the banded-ELL
+route at uamg6 and uamg8 and on the general ell route's aggregation AMG
+at 6 (a checkout before them has neither: leave them out there).
 `--scenes` keeps the scenes whose names start with one of its words.
 `--collect` turns on residual collection on every route ("primal", or
 "full": both residuals; the sharded stepper collects "primal" only, and
@@ -72,6 +75,10 @@ def _scenes(scenes, torch, budgets):
                               (6, 8)),
         "mg cloth100k cloth": (lambda cg: scenes.cloth100k(cg, f32,
                                                            amg=True), (8,)),
+        "uamg delaunay100k banded-ELL": (lambda cg: scenes.delaunay100k(
+            cg, f32, amg=True), (6, 8)),
+        "uamg delaunay100k general": (lambda cg: scenes.delaunay100k(
+            cg, f32, fast=False, amg=True), (6,)),
     }
 
 

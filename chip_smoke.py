@@ -37,7 +37,14 @@ multigrid mode of the cluster solve (mg_dia_solve, `csrc/mg_vcycle.cuh`)
 and of the banded and cloth windows against their twins (phase 3o), then
 tet100k on the banded route at mg6 and mg8 and cloth100k on the cloth
 route at mg8 against the matched Jacobi routes of the same call (phase
-5i).
+5i); and the algebraic multigrids (`preconditioner="amg"` under "ell"):
+the algebraic mode of the cluster solve (uamg_ell_solve, the aggregation
+V-cycle of `csrc/mg_vcycle.cuh`) and the banded window's ELL mode on it
+against their twins (phase 3r), then delaunay100k on the banded-ELL route
+at uamg6 (bench.py's matched row) and uamg8 against the banded-ELL
+Jacobi route at cg1000 with their last ADMM iteration's primal residual
+beside cg75's, and on the general ell route with the aggregation AMG
+(plain PyTorch) at amg6 (phase 5k).
 The two whole-solve kernels (cg_dia_solve, cg_ell_solve: one launch on a
 16-CTA thread-block cluster each) are also held to their twins on
 delaunay100k renumbered at random (phase 3f) and on banded systems of
@@ -102,6 +109,7 @@ from admm_elastic_tpu_torch.ops.kernels import tri_local as ptri  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import banded_local as pbl  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import cheb_dia as pchb  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import mg as pmg  # noqa: E402
+from admm_elastic_tpu_torch.ops.kernels import uamg as puamg  # noqa: E402
 from admm_elastic_tpu_torch.parallel import ShardedBandedStepper  # noqa: E402
 from admm_elastic_tpu_torch.parallel.cheb import (  # noqa: E402
     cheb_coefficients, dia_operator_bounds)
@@ -109,10 +117,10 @@ from admm_elastic_tpu_torch.utils import profile_step, scenes  # noqa: E402
 from admm_elastic_tpu_torch.utils.opcount import (  # noqa: E402
     banded_local_counts, cg_dia_counts, cg_ell_counts, cg_update_counts,
     cheb_dia_counts, mg_dia_counts, nbytes, rollout_counts, roofline_ms,
-    twin_counts)
+    twin_counts, uamg_ell_counts)
 from admm_elastic_tpu_torch.utils.scenes import (  # noqa: E402
     arap100k, banded_spd, beam_system, cloth100k, delaunay100k, small_cloth,
-    small_delaunay, small_mg_beam, tet100k, tet100k_sharded)
+    small_delaunay, small_mg_beam, small_uamg, tet100k, tet100k_sharded)
 DT = 0.04  # the workload's timestep and ADMM iterations
 ADMM_ITERS = 10  # (admm_elastic_tpu_torch/utils/scenes.py)
 WARMUP_STEPS = 2
@@ -126,7 +134,7 @@ KERNELS = (pnh.nh_local_step_fused, pcg.cg_dia_solve, pbs.banded_rollout,
            pell.cg_ell_solve, pnh.nh_local_step, ptri.tri_local_step,
            ptet.arap_local_step_fused, ptet.arap_local_step,
            plat.lattice_rollout, pbl.banded_local_rhs, pchb.cheb_dia_chunk,
-           pmg.mg_dia_solve)
+           pmg.mg_dia_solve, puamg.uamg_ell_solve)
 # the sharded banded stepper at tet100k (phase 5h): solver, budget; cheb180
 # is the Chebyshev budget matched at 100k tets (f64 study, worst residual
 # ratio 1.027 against an exact solve, as cg75's 1.022)
@@ -144,6 +152,20 @@ MG_ROUTES = (("tet100k", 6), ("tet100k", 8), ("cloth100k", 8))
 # limit must reject (0.22 m and 2.5 m there)
 MG_DX_LIMIT_M = {"tet100k": 1e-4, "cloth100k": 3e-3}
 MG_CONTROL_CG = 8
+# the algebraic multigrid routes (phases 3r and 5k): delaunay100k's
+# V-cycle PCG iterations a solve. uamg6 is bench.py --preset delaunay100k
+# --amg (its matched row), uamg8 the JAX package's default budget; the
+# banded-ELL Jacobi route at UAMG_DEEP_CG is the yardstick after 32 steps
+# and cg75 the deepest Jacobi budget the earlier phases time
+UAMG_BUDGETS = (6, 8)
+UAMG_DEEP_CG = 1000
+UAMG_JACOBI_CG = 75
+# the most an algebraic multigrid route may lie from its yardstick after
+# 32 steps in f32 (m), set from phase 5k's readings on the H100: banded
+# uamg6 / uamg8 2.1e-4 / 1.3e-4 from cg1000, the general amg6 3.7e-5 from
+# banded uamg6; the banded-ELL Jacobi route at UAMG_JACOBI_CG (8.4e-3 m
+# from cg1000) is the control the limit must reject
+UAMG_DX_LIMIT_M = 1e-3
 
 
 def reset_launches():
@@ -382,49 +404,233 @@ def check_solve(torch, label, mod, args, tol, reps=20, plain_reps=5):
     return err, ms, plain_ms, bound_ms, bound_by
 
 
+def mg_solve_numbers(torch, solve, twin, counts, args):
+    """A multigrid solve (mg_dia_solve or uamg_ell_solve; args its own,
+    n_iters last) against its twin on the same inputs: (dict of the
+    bitwise checks, max_abs_err, ms, plain_ms, operations, bytes, bound
+    ms, bound by, device operations a solve)."""
+    got = solve(*args)
+    again = solve(*args)
+    want = twin(*args)
+    torch.cuda.synchronize()
+    checks = {"bitwise_vs_twin": bool(torch.equal(got, want)),
+              "bitwise_repeat": bool(torch.equal(got, again)),
+              "finite": bool(torch.isfinite(got).all())}
+    ms = cuda_ms(torch, lambda: solve(*args), 10)
+    plain_ms = cuda_ms(torch, lambda: twin(*args), 2)
+    n_ops, n_bytes = counts(*args)
+    ops = profile_step.call_ops(lambda: solve(*args))["device_ops_per_call"]
+    return (checks, float((got - want).abs().max()), ms, plain_ms, n_ops,
+            n_bytes, *roofline_ms(n_bytes, n_ops), ops)
+
+
+def _rest_rhs(st):
+    """b of a stepper's first solve from rest as ADMM poses it: M x + M
+    dt^2 g, g = -9.8 in y."""
+    x0, m = st.state["x"], st.planes["mass"]
+    b = m[:, None] * x0
+    b[:, 1] -= m * 9.8 * DT * DT
+    return b
+
+
 def check_mg_solve(torch, label, st):
     """The multigrid mode of the cluster solve (mg_dia_solve) on a
     multigrid stepper's own matrix and planes at its budget, from its
-    first solve from rest as ADMM poses it (b = M x + M dt^2 g, warm
-    start x): bitwise against its twin, a bitwise repeat, one device
-    operation a solve. Returns (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)."""
-    x0, cfg = st.state["x"], st.cfg
-    m = st.planes["mass"]
-    b = m[:, None] * x0
-    b[:, 1] -= m * 9.8 * DT * DT
-    args = (b, x0, st.planes["dia"], cfg.dia_offs, st.planes, cfg.mg,
-            cfg.cg_iters)
-    got = pmg.mg_dia_solve(*args)
-    again = pmg.mg_dia_solve(*args)
-    want = pmg.mg_dia_solve_reference(*args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    twin = bool(torch.equal(got, want))
-    bit = bool(torch.equal(got, again))
-    fin = bool(torch.isfinite(got).all())
-    ms = cuda_ms(torch, lambda: pmg.mg_dia_solve(*args), 10)
-    plain_ms = cuda_ms(torch, lambda: pmg.mg_dia_solve_reference(*args), 2)
-    n_ops, n_bytes = mg_dia_counts(*args)
-    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
-    ops = profile_step.call_ops(
-        lambda: pmg.mg_dia_solve(*args))["device_ops_per_call"]
+    first solve from rest (warm start x): bitwise against its twin, a
+    bitwise repeat, one device operation a solve. Returns (max_abs_err,
+    ms, plain_ms, bound_ms, bound_by)."""
+    cfg = st.cfg
+    b = _rest_rhs(st)
+    args = (b, st.state["x"], st.planes["dia"], cfg.dia_offs, st.planes,
+            cfg.mg, cfg.cg_iters)
+    checks, err, ms, plain_ms, n_ops, n_bytes, bound_ms, bound_by, ops = \
+        mg_solve_numbers(torch, pmg.mg_dia_solve, pmg.mg_dia_solve_reference,
+                         mg_dia_counts, args)
     plan = pmg.mg_plan(b.shape[0], len(cfg.dia_offs),
                        st.planes["mg_rp2"].shape[0], b.dtype)
-    ok = twin and bit and fin and ops == 1.0
+    ok = all(checks.values()) and ops == 1.0
     say(f"kernel mg_dia_solve {label} {str(b.dtype)[6:]}", n=b.shape[0],
         levels=st.mg_levels, diagonals=len(cfg.dia_offs),
         level1_diagonals=len(cfg.mg.l1_offs),
         corners=(len(cfg.mg.t0_offs), len(cfg.mg.t1_offs)),
         n_iters=cfg.cg_iters, smem_bytes_per_cta=plan["smem_bytes"],
         matrix_in_smem=plan["matrix_in_smem"], max_abs_err=err,
-        tol="bitwise", bitwise_vs_twin=twin, bitwise_repeat=bit, finite=fin,
-        ms=ms, plain_ms=plain_ms, operations=n_ops, bytes=n_bytes,
-        bound_ms=bound_ms, bound_by=bound_by, device_ops_per_solve=ops,
-        ok=ok)
+        tol="bitwise", **checks, ms=ms, plain_ms=plain_ms, operations=n_ops,
+        bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
+        device_ops_per_solve=ops, ok=ok)
     if not ok:
         raise AssertionError(f"mg_dia_solve {label} disagrees in {b.dtype}")
     return err, ms, plain_ms, bound_ms, bound_by
+
+
+def check_uamg_solve(torch, label, st, n_iters):
+    """The algebraic multigrid mode of the cluster solve (uamg_ell_solve)
+    on a uAMG stepper's own ELL matrix and planes at n_iters, from its
+    first solve from rest: as `check_mg_solve`."""
+    cfg = st.cfg
+    b = _rest_rhs(st)
+    args = (b, st.state["x"], st.planes["ell_idx"], st.planes["ell_vals"],
+            st.planes, cfg.mg, n_iters)
+    checks, err, ms, plain_ms, n_ops, n_bytes, bound_ms, bound_by, ops = \
+        mg_solve_numbers(torch, puamg.uamg_ell_solve,
+                         puamg.uamg_ell_solve_reference, uamg_ell_counts,
+                         args)
+    n, nc1, nc2 = cfg.mg.levels
+    plan = puamg.uamg_plan(n, nc2, b.dtype)
+    ok = all(checks.values()) and ops == 1.0
+    say(f"kernel uamg_ell_solve {label} {str(b.dtype)[6:]}", n=n,
+        levels=cfg.mg.levels, ell_width=cfg.ell_width,
+        level1_ell_width=st.planes["ua_l1_idx"].shape[0],
+        largest_aggregates=(st.planes["ua_m1"].shape[0],
+                            st.planes["ua_m2"].shape[0]),
+        n_iters=n_iters, smem_bytes_per_cta=plan["smem_bytes"],
+        max_abs_err=err, tol="bitwise", **checks, ms=ms, plain_ms=plain_ms,
+        operations=n_ops, bytes=n_bytes, bound_ms=bound_ms,
+        bound_by=bound_by, device_ops_per_solve=ops, ok=ok)
+    if not ok:
+        raise AssertionError(f"uamg_ell_solve {label} disagrees in "
+                             f"{b.dtype} at {n_iters}")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def uamg_kernel_checks(torch):
+    """Phase 3r. The algebraic multigrid mode (preconditioner="amg" under
+    "ell"): the cluster solve's (uamg_ell_solve, csrc/mg_vcycle.cuh
+    AggLevels) and the banded window's ELL mode on it against their twins,
+    bitwise: the 10 x 7 x 6 Delaunay scene in f64 and f32 (the solve; 1
+    ADMM iteration and a 3-step window; the graphs against eager launches
+    and the setters after capture), then delaunay100k's own A and planes
+    in f32 (the solve at uamg6 and uamg8, its time and bound; one step of
+    the window at uamg6, its times and bound a step; 20 steps of its
+    graph, each held to the twin). Returns the window's numbers at uamg6
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    for dtype in (torch.float64, torch.float32):
+        st = small_uamg(8, dtype)._stepper
+        check_uamg_solve(torch, "delaunay 10x7x6", st, 8)
+        check_rollout_small(torch, "banded", st, dtype, 0.0,
+                            name=" uamg delaunay 10x7x6")
+        check_graph(torch, "banded", st,
+                    f"uamg delaunay 10x7x6 {str(dtype)[6:]}")
+    st = delaunay100k(UAMG_BUDGETS[0], amg=True)._stepper
+    for cg in UAMG_BUDGETS:
+        check_uamg_solve(torch, "delaunay100k", st, cg)
+    window = check_rollout_full(torch, "banded", st,
+                                f"delaunay100k uamg{UAMG_BUDGETS[0]}",
+                                torch.float32, 0.0)
+    check_steps(torch, "banded", st, f"delaunay100k uamg{UAMG_BUDGETS[0]}",
+                steps=20)
+    return window
+
+
+def last_primal(torch, s, steps=WINDOW_STEPS):
+    """The last ADMM iteration's primal residual, median over one window
+    of a banded-route System's stepper switched to collect it (its graphs
+    captured anew), then switched back."""
+    st = s._stepper
+    st.collect_residuals = "primal"
+    st.run(steps)
+    torch.cuda.synchronize()
+    st.collect_residuals = False
+    return float(np.median(st.last_primal[:, -1]))
+
+
+def uamg_routes(torch, steps):
+    """Phase 5k. delaunay100k on the banded-ELL route with the in-kernel
+    algebraic multigrid at each UAMG_BUDGETS (uamgN), f32, and on the
+    general ell + xla route with the aggregation AMG at the first (amgN):
+    ms/step (median of 3 x 10), submissions and launches; after `steps`
+    steps each banded route against the banded-ELL Jacobi route at
+    UAMG_DEEP_CG, beside the uamg6 route's divergence from a start moved
+    by 1e-6 m, and the general route against the banded uamg6 route, each
+    within UAMG_DX_LIMIT_M, which the Jacobi control must exceed; then
+    the last ADMM iteration's primal residual of each banded route and of
+    banded-ELL cg75 and cg1000 over one more window. Returns the banded
+    routes' submissions."""
+    routes = {("banded", cg): delaunay100k(cg, amg=True)
+              for cg in UAMG_BUDGETS}
+    routes[("general", UAMG_BUDGETS[0])] = delaunay100k(
+        UAMG_BUDGETS[0], fast=False, amg=True)
+    runs = {}
+    for key, s in routes.items():
+        reset_launches()
+        n0 = pbs.banded_rollout.ops
+        med, windows = drive(torch, s)
+        runs[key] = (med, windows, {k.__name__: k.launches for k in KERNELS},
+                     pbs.banded_rollout.ops - n0)
+    first = routes[("banded", UAMG_BUDGETS[0])]
+    p = delaunay100k(UAMG_BUDGETS[0], amg=True)
+    p.x = p._x + 1e-6 * np.random.default_rng(1).standard_normal(p._x.shape)
+    p.run(steps)
+    sens = float(np.abs(p.x - first.x).max())
+    del p
+    deep = delaunay100k(UAMG_DEEP_CG, fast=True)
+    deep.run(steps)
+    jacobi = delaunay100k(UAMG_JACOBI_CG, fast=True)
+    jacobi.run(steps)
+    jacobi_vs_deep = float(np.abs(jacobi.x - deep.x).max())
+    limit = UAMG_DX_LIMIT_M
+    bad = []
+    if not jacobi_vs_deep > limit:
+        bad.append(f"control banded-ELL cg{UAMG_JACOBI_CG}: {jacobi_vs_deep} "
+                   f"m from cg{UAMG_DEEP_CG}, within the limit {limit} m "
+                   "it must exceed")
+    for (route, cg), (med, windows, counts, n_ops) in runs.items():
+        s = routes[(route, cg)]
+        x = s.x
+        anchored = np.flatnonzero(s._x[:, 0] < s._x[:, 0].min() + 0.025)
+        drift = float(np.abs(x[anchored] - s._x[anchored]).max())
+        sag = float((x[:, 1] - s._x[:, 1]).min())
+        fin = bool(np.isfinite(x).all())
+        want = {k.__name__: 0 for k in KERNELS}
+        if route == "banded":
+            want["banded_rollout"] = WARMUP_STEPS + WINDOWS
+            dx_name, dx = f"banded-ELL cg{UAMG_DEEP_CG}", float(
+                np.abs(x - deep.x).max())
+            extra = dict(levels=s._stepper.mg_levels,
+                         device_ops_per_step=n_ops / steps)
+        else:
+            want["nh_local_step_fused"] = steps * ADMM_ITERS
+            dx_name, dx = f"banded uamg{UAMG_BUDGETS[0]}", float(
+                np.abs(x - first.x).max())
+            extra = dict(levels=[lv["agg"].shape[0] for lv in
+                                 s.params["_solver"]["amg"][:-1]])
+        name = f"{route} {'ua' if route == 'banded' else 'a'}mg{cg}"
+        say(f"delaunay100k {name} f32", ms_per_step_median=med,
+            windows_ms=[round(w, 4) for w in windows],
+            spread_ms=max(windows) - min(windows), steps=steps,
+            launches_per_step={k: v / steps for k, v in counts.items() if v},
+            **extra, anchor_drift_m=drift, min_dy_m=sag,
+            max_abs_dx_m=dx, vs=dx_name,
+            jacobi_cg75_vs_deep_m=jacobi_vs_deep,
+            uamg_perturbed_start_divergence_m=sens, limit_m=limit,
+            finite=fin)
+        if counts != want or (route == "banded" and n_ops != steps * (
+                2 + 3 * ADMM_ITERS)):
+            bad.append(f"{name}: launches {counts} ({n_ops} window "
+                       f"launches), expected {want}")
+        if not (fin and drift < 1e-3 and sag < 0 and dx <= limit):
+            bad.append(f"{name}: bad trajectory ({dx} m from {dx_name}, "
+                       f"limit {limit} m)")
+    if bad:
+        raise AssertionError("delaunay100k uamg: " + "; ".join(bad))
+    residual = {f"uamg{cg}": last_primal(torch, routes[("banded", cg)])
+                for cg in UAMG_BUDGETS}
+    residual[f"jacobi_cg{UAMG_JACOBI_CG}"] = last_primal(torch, jacobi)
+    residual[f"jacobi_cg{UAMG_DEEP_CG}"] = last_primal(torch, deep)
+    if not all(np.isfinite(v) for v in residual.values()):
+        raise AssertionError(f"delaunay100k uamg: residuals {residual}")
+    say("delaunay100k uamg routes f32 (this call)",
+        **{f"{route}_{'ua' if route == 'banded' else 'a'}mg{cg}_ms_per_step":
+           run[0] for (route, cg), run in runs.items()},
+        **{f"last_primal_residual_{k}": v for k, v in residual.items()})
+    out = profile_step.profile(UAMG_BUDGETS[0], WINDOW_STEPS, "fast",
+                               s=first, scene="delaunay100k")
+    check_window_ops(out, f"delaunay100k banded-ELL uamg{UAMG_BUDGETS[0]}")
+    profile_step.profile(UAMG_BUDGETS[0], WINDOW_STEPS, "general",
+                         s=routes[("general", UAMG_BUDGETS[0])],
+                         scene="delaunay100k")
+    return sum(run[2]["banded_rollout"] for (route, _), run in runs.items()
+               if route == "banded")
 
 
 def cluster_floor(torch):
@@ -1535,11 +1741,15 @@ def main():
         check_residual_full(torch, kind, st, label)
         del st
 
+    # phase 3r: the algebraic multigrid mode, solve and window, bitwise
+    uamg_window = uamg_kernel_checks(torch)
+
     # phase 3q: the windows' residual modes ("primal", "full") against
     # their twins on small scenes: residuals bitwise, the state bitwise to
     # the window without collection, graph replays equal to eager launches
     # (the banded window in dia and ELL rows, nh and arap, Jacobi and
-    # multigrid on the 6 x 5 x 4 beam; the cloth window, Jacobi and
+    # multigrid on the 6 x 5 x 4 beam, the algebraic multigrid on the
+    # 10 x 7 x 6 Delaunay mesh; the cloth window, Jacobi and
     # multigrid, on the 8 x 6 sheet); f64 and f32 on the beam's dia nh and
     # the sheet's Jacobi, f32 on the others. At full width in f32 (one step
     # each mode) beside each route's window check above and below
@@ -1557,6 +1767,7 @@ def main():
                  beam_system((6, 5, 4), 0.05, 50.0, 25, dtype, fast=True,
                              global_solver="ell")),
                 ("beam 6x5x4 mg", "banded", small_mg_beam(dtype)),
+                ("delaunay 10x7x6 uamg", "banded", small_uamg(8, dtype)),
                 ("sheet 8x6 mg", "cloth",
                  small_cloth(dtype, preconditioner="amg"))]
         for label, kind, system in small:
@@ -1745,6 +1956,8 @@ def main():
             relaxation=1.6),
         "cloth 8x6 cg": lambda d: small_cloth(torch.float64, d, fast=False,
                                               global_solver="cg"),
+        "delaunay 10x7x6 ell amg (general AMG)": lambda d: small_uamg(
+            8, torch.float64, d, fast=False),
     }
     for label, build in small_routes.items():
         def small(device):
@@ -2244,6 +2457,10 @@ def main():
     launches["banded_ell"] = launches_of("banded", "banded_rollout")
     del d_routes
 
+    # phase 5k: delaunay100k on the banded-ELL route with the in-kernel
+    # algebraic multigrid (uamg6, uamg8) and on the general route's AMG
+    launches["banded_uamg"] = uamg_routes(torch, steps)
+
     # phase 5e: the unfused pipeline at full width, f32: tet100k on the
     # dense mode, arap100k on dia (fused) at cg25/cg75 and with relaxation
     # 1.6 (unfused), cloth100k on the matrix-free cg mode at cg25
@@ -2470,6 +2687,8 @@ def main():
               launches["banded_mg"], *mg_full["tet100k mg8"]),
         entry("cloth_rollout[mg]", "mg_vcycle.cuh", "cloth_step.py:746",
               launches["cloth_mg"], *mg_full["cloth100k mg8"]),
+        entry("banded_rollout[uamg]", "mg_vcycle.cuh", "banded_step.py:1090",
+              launches["banded_uamg"], *uamg_window),
         # the residual modes (phase 5j's launches; 3p and 3q's numbers)
         entry("nh_local_step_fused[emit_z]", "nh_local.cu",
               "nh_local.py:442", residual_launches["nh"], *emitz["nh"]),

@@ -25,7 +25,10 @@ the banded kernel's element and vertex phases (1e-12 relative in f64,
 repeats its twin's arithmetic in its order, bitwise in both layouts of its
 cluster. The multigrid mode of the cluster solve (mg_dia_solve, the
 V-cycle of csrc/mg_vcycle.cuh) and the banded and cloth windows in that
-mode repeat their twins (ops/kernels/mg.py) bitwise too. So do the
+mode repeat their twins (ops/kernels/mg.py) bitwise too, as do the
+algebraic multigrid mode (uamg_ell_solve, the aggregation V-cycle) and the
+banded window's ELL mode on it (ops/kernels/uamg.py); the general route's
+aggregation AMG (plain PyTorch) stays within 1e-8 of its CPU run. So do the
 residual modes: the fused element kernels' emit_z block, the windows'
 "primal" and "full" residuals (summed in the order of
 ops/kernels/residuals.py; the state the same bits as without them) and
@@ -44,7 +47,7 @@ from admm_elastic_tpu_torch.ops.kernels import (_build, banded_local,
                                                 cg_step, cheb_dia,
                                                 cloth_step, lattice_step, mg,
                                                 nh_local, tet_local,
-                                                tri_local)
+                                                tri_local, uamg)
 from admm_elastic_tpu_torch.parallel.cheb import (cheb_coefficients,
                                                   dia_operator_bounds)
 from admm_elastic_tpu_torch.utils import scenes
@@ -53,7 +56,7 @@ from admm_elastic_tpu_torch.utils.scenes import (banded_spd, beam_system,
                                                  grid_mg_problem,
                                                  jittered_system,
                                                  small_cloth, small_delaunay,
-                                                 small_mg_beam)
+                                                 small_mg_beam, small_uamg)
 
 DTYPES = [torch.float64, torch.float32]
 
@@ -392,6 +395,8 @@ STEPPERS = {
     "banded ell": (lambda dt: small_delaunay(25, dt, "cuda",
                                              fast=True)._stepper,
                    banded_step.banded_rollout, banded_step.STATE),
+    "banded uamg": (lambda dt: small_uamg(8, dt)._stepper,
+                    banded_step.banded_rollout, banded_step.STATE),
     "lattice": (lambda dt: _small_lattice("floor", dt, "cuda"),
                 lattice_step.lattice_rollout, lattice_step.STATE),
 }
@@ -696,6 +701,69 @@ def test_mg_windows_every_step_is_the_twins(name):
             assert torch.equal(st.state[k], want[k]), (step, k)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_iters", [0, 8])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_uamg_solve_kernel_is_its_twin(dtype, n_iters):
+    """The algebraic multigrid mode of the cluster solve on the small uAMG
+    scene's own matrix and planes, b N(0,1), from its state: bitwise to
+    the twin, twice the same, 0 iterations give x0 back."""
+    _cuda()
+    st = small_uamg(8, dtype)._stepper
+    b = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (st.n_nodes, 3)), dtype=dtype, device="cuda")
+    args = (b, st.state["x"], st.planes["ell_idx"], st.planes["ell_vals"],
+            st.planes, st.cfg.mg, n_iters)
+    n0 = uamg.uamg_ell_solve.launches
+    got = uamg.uamg_ell_solve(*args)
+    again = uamg.uamg_ell_solve(*args)
+    assert uamg.uamg_ell_solve.launches == n0 + 2
+    want = uamg.uamg_ell_solve_reference(*args)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again) and torch.equal(got, want)
+    if n_iters == 0:
+        assert torch.equal(got, st.state["x"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_uamg_window_steps_are_the_twins(dtype):
+    """The small uAMG scene on the banded window's ELL mode with the
+    algebraic multigrid: a 10-step window bitwise, then 20 graph replays
+    of one step, each held bitwise to the twin from the same state."""
+    _cuda()
+    st = small_uamg(8, dtype)._stepper
+    _window_is_its_twin(banded_step.banded_rollout,
+                        banded_step.banded_rollout_reference,
+                        banded_step.STATE, st, st.planes, st.cfg, 10)
+    for step in range(20):
+        start = {k: st.state[k].clone() for k in banded_step.STATE}
+        st.step()
+        want = banded_step.banded_rollout_reference(start, st.planes, st.cfg,
+                                                    1)
+        for k in banded_step.STATE:
+            assert torch.equal(st.state[k], want[k]), (step, k)
+
+
+@pytest.mark.cuda
+def test_general_amg_route_card_vs_cpu():
+    """The general route's aggregation AMG (small_uamg(fast=False)), f64,
+    5 steps: the card within 1e-8 of the CPU run, and two card runs
+    bitwise the same."""
+    _cuda()
+
+    def run(device):
+        s = small_uamg(8, torch.float64, device, fast=False)
+        assert s._stepper is None and "amg" in s.params["_solver"]
+        s.run(5)
+        return s.x, s.v
+
+    xc, _ = run("cpu")
+    (x1, v1), (x2, v2) = run("cuda"), run("cuda")
+    assert np.abs(x1 - xc).max() < 1e-8
+    assert np.array_equal(x1, x2) and np.array_equal(v1, v2)
+
+
 # the fused element steps' emit_z mode: (kernel, twin, planes, vectors)
 EMIT_Z = {
     "nh_local_step_fused": (nh_local.nh_local_step_fused,
@@ -740,6 +808,7 @@ COLLECTING = {
                                              fast=True)._stepper,
                    banded_step),
     "banded mg": (lambda dt: small_mg_beam(dt)._stepper, banded_step),
+    "banded uamg": (lambda dt: small_uamg(8, dt)._stepper, banded_step),
     "cloth": (lambda dt: small_cloth(dt)._stepper, cloth_step),
     "cloth mg": (lambda dt: small_cloth(dt, preconditioner="amg")._stepper,
                  cloth_step),

@@ -191,10 +191,19 @@ def test_settings_defaults_match_jax():
     # fast path steps the general route, as in JAX (err None)
     (dict(global_solver="cg", fast=True), None),
     (dict(fast=True, cg=(40, 25)), NotImplementedError),
-    (dict(fast=True, preconditioner="amg"), NotImplementedError),
+    # the banded kernel's algebraic multigrid engages, as in JAX (err
+    # BandedStepper; tests/test_torch_uamg.py holds it to JAX's)
+    (dict(fast=True, preconditioner="amg"), BandedStepper),
 ], ids=["cg_backend", "global_solver", "reorder", "cg-mode", "fast-schedule",
         "fast-amg"])
 def test_bad_settings_raise(bad, err):
+    if err is BandedStepper:
+        s = build(pt, admm=2, **bad)
+        assert isinstance(s._stepper, BandedStepper)
+        assert s._stepper.cfg.mg is not None and s._stepper.cfg.cg_iters == 25
+        s.run(2)
+        assert np.isfinite(s.x).all()
+        return
     if err is None:
         runs = []
         for fast in (True, False):

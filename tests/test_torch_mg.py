@@ -14,8 +14,10 @@ Tolerances:
   per window, module-scoped), 2 steps: 1e-8 (tests/test_torch_banded_ref.py
   on the banded route's Newton ties; the cloth kernels' matvecs add the
   diagonals in different orders);
-- routing: JAX's errors word for word, NotImplementedError naming ROADMAP
-  A6 where JAX runs its algebraic multigrid."""
+- routing: JAX's route, or JAX's errors word for word; under 'dia' with
+  relaxation (the kernels off) both packages build the general AMG and
+  step the Jacobi dia solve: x within 1e-8 of JAX's, and bitwise the
+  port's Jacobi route."""
 
 import os
 import sys
@@ -308,24 +310,21 @@ AMG_SCENES = {
     "beam ell fused no fast path": (
         "beam ell", dict(AMG, lattice_fast_path=False, cg_backend="fused"),
         ValueError, ValueError),
-    "beam ell (algebraic MG)": ("beam ell", AMG, "banded",
-                                NotImplementedError),
+    "beam ell (algebraic MG)": ("beam ell", AMG, "banded", "banded"),
     "beam ell xla no fast path (general AMG)": (
         "beam ell", dict(AMG, lattice_fast_path=False), "general",
-        NotImplementedError),
+        "general"),
     "beam dia relaxation (general AMG)": (
-        "beam dia", dict(AMG, relaxation=1.6), "general",
-        NotImplementedError),
+        "beam dia", dict(AMG, relaxation=1.6), "general", "general"),
     "beam dia relaxation fused": (
         "beam dia", dict(AMG, relaxation=1.6, cg_backend="fused"),
         ValueError, ValueError),
 }
 
 
-def _outcome(pkg, name, extra):
-    """The route of a routing-table scene (tests/test_torch_routing.py)
-    with `extra` Settings, or the exception initialize raises: (route or
-    class, message)."""
+def _scene(pkg, name, extra):
+    """A routing-table scene (tests/test_torch_routing.py) with `extra`
+    Settings, not initialized."""
     scene, kw, settings = SCENES[name][:3]
     common = {**dict(timestep_s=0.04, admm_iters=3, verbose=0,
                      cg_fixed_iters=10, lattice_fast_path=True),
@@ -334,6 +333,13 @@ def _outcome(pkg, name, extra):
          else pt.System(pt.Settings(dtype=torch.float64, device="cpu",
                                     **common)))
     scene(pkg, s, **kw)
+    return s
+
+
+def _outcome(pkg, name, extra):
+    """The route of a routing-table scene with `extra` Settings, or the
+    exception initialize raises: (route or class, message)."""
+    s = _scene(pkg, name, extra)
     try:
         s.initialize()
     except (ValueError, NotImplementedError) as e:
@@ -352,8 +358,24 @@ def test_amg_routing_matches_jax(name):
     assert got == want, msg
     if want is ValueError:
         assert msg == msg_jax
-    if want is NotImplementedError:
-        assert "ROADMAP A6" in msg
+
+
+def test_dia_relaxation_amg_runs_jacobi():
+    """JAX's quirk, kept: 'dia' + relaxation + 'amg' builds the general
+    AMG (the kernels are off, so its fallback) and steps the Jacobi dia
+    solve. x within 1e-8 of JAX's after 3 steps, and bitwise the port's
+    run of the same scene under 'jacobi'."""
+    extra = dict(AMG, relaxation=1.6)
+    runs = [_scene(aet, "beam dia", extra), _scene(pt, "beam dia", extra),
+            _scene(pt, "beam dia", dict(extra, preconditioner="jacobi"))]
+    for s in runs:
+        s.initialize()
+        s.run(3)
+    j, s, jac = runs
+    assert j._amg_meta is not None and "amg" in s.params["_solver"]
+    assert "amg" not in jac.params["_solver"]
+    assert np.abs(s.x - np.asarray(j.x)).max() < ROUTE_TOL
+    assert np.array_equal(s.x, jac.x)
 
 
 def test_lattice_skipped_under_amg(monkeypatch):

@@ -312,3 +312,51 @@ def test_vcycle_counts_the_representatives():
             + 2 * nnz["mg_t1"] + a1 + 3 * n1 + 2 * nnz["mg_t0"])
     assert mg_level_ops(planes, n) == want
     assert nnz["mg_t1"] < planes["mg_t1"].numel()
+
+
+def test_uamg_ell_counts_one_iteration():
+    """The algebraic multigrid mode as the geometric one: one more
+    iteration adds the fine ELL matvec, 30n + 6 vector and scalar
+    operations and one V-cycle as the function needs it
+    (`uamg_vcycle_ops`: 7n + 4 L + 4 nc1 + 2 nc2^2 - 2 nc2 a column beside
+    its two matvecs, fewer than the twin, which adds its padding's zeros),
+    in the solve and once per ADMM iteration in the banded window's ELL
+    mode; the solve reads b, x0, the ELL arrays and the planes once and
+    writes x."""
+    import dataclasses
+
+    from admm_elastic_tpu_torch.ops.kernels import banded_step, uamg
+    from admm_elastic_tpu_torch.ops.kernels.cg_ell import ell_apply_by_slot
+    from admm_elastic_tpu_torch.utils.opcount import (nbytes, rollout_counts,
+                                                      uamg_ell_counts,
+                                                      uamg_vcycle_ops)
+    from admm_elastic_tpu_torch.utils.scenes import small_uamg
+
+    st = small_uamg(device="cpu")._stepper
+    x, cfg, planes = st.state["x"], st.cfg, st.planes
+    idx, vals = planes["ell_idx"], planes["ell_vals"]
+    n, nc1, nc2 = st.mg_levels
+    (o3, b3), (o4, b4) = (uamg_ell_counts(x, x, idx, vals, planes, cfg.mg, k)
+                          for k in (3, 4))
+
+    def A(y):
+        return ell_apply_by_slot(y, idx, vals)
+
+    matvec, _ = count_ops(A, x)
+    L = int((planes["ua_l1_vals"] != 0).sum())
+    vcycle = uamg_vcycle_ops(x, A, planes)
+    assert vcycle == 2 * matvec + 3 * (7 * n + 4 * L + 4 * nc1
+                                       + 2 * nc2 * nc2 - 2 * nc2)
+    twin, _ = count_ops(uamg.vcycle, x, A, planes)
+    assert 2 * matvec < vcycle < twin
+    assert o4 - o3 == matvec + 30 * n + 6 + vcycle
+    assert b3 == b4 == nbytes(x, x, idx, vals, x,
+                              [planes[k] for k in uamg.PLANES])
+
+    def counts(k):
+        c = dataclasses.replace(cfg, cg_iters=k, admm_iters=2)
+        return rollout_counts(banded_step.banded_rollout_reference,
+                              banded_step.STATE, st.state, planes, c, 1)
+
+    (r3, _), (r4, _) = counts(3), counts(4)
+    assert r4 - r3 == 2 * (o4 - o3)

@@ -25,9 +25,10 @@ def _build(pkg, cg_fixed_iters, model="nh", **settings):
     beam = pt.geometry.make_beam_tets(6, 4, 4, size=0.05)
     n = beam.n_vertices
     if pkg is aet:
-        s = aet.System(aet.Settings(
-            timestep_s=0.04, admm_iters=10, verbose=0, dtype=jnp.float64,
-            global_solver="dia", cg_fixed_iters=cg_fixed_iters))
+        s = aet.System(aet.Settings(**{
+            "timestep_s": 0.04, "admm_iters": 10, "verbose": 0,
+            "dtype": jnp.float64, "global_solver": "dia",
+            "cg_fixed_iters": cg_fixed_iters, **settings}))
     else:
         s = pt.System(pt.Settings(**{
             "timestep_s": 0.04, "admm_iters": 10, "verbose": 0,
@@ -110,14 +111,28 @@ def test_anchors_hold_and_callbacks_run():
     dict(global_solver="auto", acceleration="anderson"),
     dict(lattice_fast_path=True, relaxation=1.5, acceleration="anderson"),
     dict(acceleration="anderson"),
-    dict(global_solver="ell", preconditioner="amg"),
 ])
 def test_out_of_slice_settings_raise(bad):
-    """Every global mode, relaxation and the residuals are ported; Anderson
-    acceleration and the general route's algebraic multigrid
-    (preconditioner='amg' under 'ell') are not."""
+    """Every global mode, relaxation, the residuals and the multigrids
+    are ported; Anderson acceleration is not."""
     with pytest.raises(NotImplementedError):
         _build(pt, 25, **bad)
+
+
+def test_general_amg_matches_jax():
+    """preconditioner='amg' under 'ell' (the general route's aggregation
+    AMG; this beam's 175 nodes fit its coarsest level, so the hierarchy is
+    A_hat's inverse alone) runs and matches JAX over 3 steps of 3 ADMM
+    iterations."""
+    settings = dict(global_solver="ell", preconditioner="amg", admm_iters=3)
+    j, s = _build(aet, 8, **settings), _build(pt, 8, **settings)
+    assert s._solver_mode == "ell" and "amg" in s.params["_solver"]
+    assert [m["n"] for m in j._amg_meta] == [s.n_nodes]
+    for _ in range(3):
+        j.step()
+        s.step()
+    assert np.abs(s.x - np.asarray(j.x)).max() < TOL
+    assert np.abs(s.v - np.asarray(j.v)).max() < TOL / 0.04
 
 
 def test_out_of_slice_models_and_devices_raise():
