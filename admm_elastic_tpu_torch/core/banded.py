@@ -156,6 +156,8 @@ class BandedStepper:
         else:
             self.planes["ell_idx"] = self._dev(ell[0], torch.int32)
             self.planes["ell_vals"] = self._dev(ell[1])
+        #: the multigrid as its host builder returned it, None under Jacobi
+        self.hierarchy = mg
         if mg is not None:
             self.planes.update((kmg if ell is None else kuamg).planes_from(
                 mg, dtype, self.device))

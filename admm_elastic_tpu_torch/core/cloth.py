@@ -343,6 +343,8 @@ class ClothStepper:
                     "in-kernel multigrid: no stride ladder fits this "
                     "grid (not a full grid in nested numbering?)")
             self.mg_levels = mg["levels"]
+        #: the multigrid as its host builder returned it, None under Jacobi
+        self.hierarchy = mg
 
         self.cfg = ClothConfig(
             dia_offs=tuple(int(o) for o in all_offs), cg_iters=int(cg_iters),

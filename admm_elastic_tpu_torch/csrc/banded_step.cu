@@ -9,9 +9,9 @@
 // projections, right-hand side, and a whole fixed-budget PCG solve, for
 // n_steps timesteps per call; its preconditioner Jacobi, or in the dia
 // mode the in-kernel geometric multigrid V-cycle (mg_meta,
-// banded_step.py:600-739 and :924-951; mg_vcycle.cuh GridLevels), in the
-// ELL mode the in-kernel algebraic one (uamg_meta, :741-888 and :924-955;
-// mg_vcycle.cuh AggLevels).
+// banded_step.py:600-739 and :924-951), in the ELL mode the in-kernel
+// algebraic one (uamg_meta, :741-888 and :924-955); both mg_vcycle.cuh,
+// the geometric one in its compact level form.
 //
 // Layout, with no padding and no lane packing: vertex arrays (n,3)
 // row-major; element planes (P,E) in the tet force's own element order;
@@ -336,10 +336,9 @@ extern "C" {
 // (cg_cluster_plan; nullptr when it is 0). offsets, shape_kinds,
 // shape_prm (n_shapes x 5) and scalars (7: dt, dt^2, 1/dt, dt g xyz,
 // collision weight^2, formed in double) are host arrays. mg: null for the
-// Jacobi-PCG solve, else the multigrid whose V-cycle preconditions it: an
-// mg::Host on the dia rows (K = 0; scratch then holds mg_dia_plan's
-// count) or an mg::AggHost on the ELL rows (K > 0; uamg_ell_plan's
-// count), mg_vcycle.cuh. collect: 0 none, 1 the primal residuals, 2 also
+// Jacobi-PCG solve, else the mg::Host (mg_vcycle.cuh) whose V-cycle
+// preconditions it, on the dia rows (K = 0) or the ELL rows (K > 0);
+// scratch then holds mg_solve_plan's count. collect: 0 none, 1 the primal residuals, 2 also
 // the dual ones, written to res_p and res_d (n_steps, admm_iters); zrows
 // (12,E), tz (n,3), part (admm_iters, eb + vb) and dpart (admm_iters, vb),
 // with eb and vb the element and vertex blocks of 128 threads, are their

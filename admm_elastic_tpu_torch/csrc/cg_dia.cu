@@ -27,9 +27,9 @@
 // where one cluster stops paying). Fixed-order sums, no atomics.
 //
 // The same rows also serve the multigrid mode (mg_dia_solve_*, the PCG
-// with the geometric V-cycle of mg_vcycle.cuh as its preconditioner): the
-// global solve of the banded and cloth windows under
-// preconditioner="amg".
+// with mg_vcycle.cuh's V-cycle on the geometric multigrid, converted to
+// its compact level form, as its preconditioner): the global solve of the
+// banded and cloth windows under preconditioner="amg".
 
 #include "cluster_pcg.cuh"
 #include "dia.cuh"
@@ -58,18 +58,18 @@ int solve(const T* b, const T* x0, const T* diag, const T* dia_vals,
 }
 
 // The multigrid mode (mg_vcycle.cuh): the same dia rows, the V-cycle as
-// the preconditioner.
-template <typename T>
+// the preconditioner (fuse: as mg::solve).
+template <typename T, bool PROBE = false>
 int mg_solve(const T* b, const T* x0, const T* dia_vals, const int* offsets,
              int D, int n, int n_iters, const void* mg, T* x, T* scratch,
-             void* stream) {
+             void* stream, unsigned long long* stamps = nullptr,
+             int fuse = -1) {
   if (D < 1 || D > dia::MAX_DIAGONALS)
     return static_cast<int>(cudaErrorInvalidValue);
   DiaRows<T> row{dia_vals, {}, D, n};
   for (int d = 0; d < D; ++d) row.offs.v[d] = offsets[d];
-  return admm::mg::solve<T, admm::mg::GridLevels<T>>(row, D, mg, b, x0, n,
-                                                     n_iters, x, scratch,
-                                                     stream);
+  return admm::mg::solve<T, DiaRows<T>, PROBE>(
+      row, D, mg, b, x0, n, n_iters, x, scratch, stream, stamps, fuse);
 }
 
 }  // namespace cg
@@ -101,9 +101,9 @@ ADMM_CG_DIA_ENTRY(float, f32)
 ADMM_CG_DIA_ENTRY(double, f64)
 
 // The multigrid mode: n_iters V-cycle PCG iterations from x0 (x may be
-// x0); mg points to an mg::Host (ops/kernels/mg.py MGHost) whose planes
-// are of the solve's type; scratch holds mg_dia_plan's scratch count.
-// mg_dia_prepare_*: the set-up of such a solve, without a launch.
+// x0); mg points to an mg::Host (ops/kernels/uamg.py UAMGHost) whose
+// planes are of the solve's type; scratch holds mg_solve_plan's scratch
+// count. mg_dia_prepare_*: the set-up of such a solve, without a launch.
 #define ADMM_MG_DIA_ENTRY(T, SUFFIX)                                          \
   int mg_dia_solve_##SUFFIX(const T* b, const T* x0, const T* dia,          \
                             const int* offsets, int D, int n, int n_iters,   \
@@ -112,25 +112,34 @@ ADMM_CG_DIA_ENTRY(double, f64)
     return admm::cg::mg_solve<T>(b, x0, dia, offsets, D, n, n_iters, mg, x,  \
                                  scratch, stream);                           \
   }                                                                          \
-  int mg_dia_prepare_##SUFFIX(int D, int n, int nc2) {                       \
-    return admm::mg::prepare<T, admm::mg::GridLevels<T>,                    \
-                             admm::cg::DiaRows<T>>(D, n, nc2);               \
+  int mg_dia_prepare_##SUFFIX(int D, int n, const void* mg) {                \
+    return admm::mg::prepare<T, admm::cg::DiaRows<T>>(D, n, mg);             \
   }
 
 ADMM_MG_DIA_ENTRY(float, f32)
 ADMM_MG_DIA_ENTRY(double, f64)
 
-// The multigrid solve's layout for n rows, D fine diagonals and nc2
-// coarsest dofs on the current device: out = dynamic shared memory a CTA
-// in bytes, fine diagonals in shared memory (0/1), elements of global
-// scratch. Returns a cudaError_t.
-int mg_dia_plan(int n, int D, int nc2, int elem_bytes, long long* out) {
+// The multigrid solve's layout for n rows, D fine matrix values a row it
+// may stage in shared memory (mg_dia_solve: the diagonals; uamg_ell_solve:
+// 0) and the multigrid `mg` (an mg::Host) on the current device: out =
+// dynamic shared memory a CTA in bytes, fine diagonals in shared memory
+// (0/1), the CTA's rows of A2^-1 in shared memory (0/1), elements of
+// global scratch, the fine stages fused (0/1), cluster barriers an
+// iteration, mbarrier waits an iteration. Returns a cudaError_t.
+int mg_solve_plan(int n, int D, const void* mg, int elem_bytes,
+                  long long* out) {
+  if (mg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   admm::mg::Plan p;
-  const int err = admm::mg::plan_for_device(n, D, nc2, elem_bytes, &p);
+  const int err = admm::mg::plan_for_device(
+      n, D, *static_cast<const admm::mg::Host*>(mg), elem_bytes, &p);
   if (err != 0) return err;
   out[0] = p.smem_bytes;
   out[1] = p.mat_smem;
-  out[2] = p.scratch;
+  out[2] = p.a2_smem;
+  out[3] = p.scratch;
+  out[4] = p.fuse;
+  out[5] = p.fuse ? admm::mg::FUSED_BARRIERS : admm::mg::UNFUSED_BARRIERS;
+  out[6] = admm::mg::MBARRIER_WAITS;
   return 0;
 }
 

@@ -31,7 +31,7 @@
 // Fixed-order sums, no atomics.
 //
 // The same rows also serve the algebraic multigrid mode (uamg_ell_solve_*,
-// the PCG with mg_vcycle.cuh's aggregation V-cycle, AggLevels, as its
+// the PCG with mg_vcycle.cuh's aggregation V-cycle as its
 // preconditioner): the global solve of the banded window's ELL mode under
 // preconditioner="amg".
 
@@ -93,16 +93,18 @@ int ell_solve(const T* b, const T* x0, const T* diag, const int* idx_t,
                                n_iters, x, scratch, stream);
 }
 
-// The algebraic multigrid mode (mg_vcycle.cuh, AggLevels): the same ELL
-// rows, streamed from L2, the aggregation V-cycle as the preconditioner.
-template <typename T>
+// The algebraic multigrid mode (mg_vcycle.cuh): the same ELL rows,
+// streamed from L2, the aggregation V-cycle as the preconditioner (fuse:
+// as mg::solve).
+template <typename T, bool PROBE = false>
 int uamg_solve(const T* b, const T* x0, const int* idx_t, const T* vals_t,
                int K, int n, int n_iters, const void* uamg, T* x, T* scratch,
-               void* stream) {
+               void* stream, unsigned long long* stamps = nullptr,
+               int fuse = -1) {
   if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
   const EllRows<T> row{idx_t, vals_t, K, n};
-  return mg::solve<T, mg::AggLevels<T>>(row, 0, uamg, b, x0, n, n_iters, x,
-                                        scratch, stream);
+  return mg::solve<T, EllRows<T>, PROBE>(row, 0, uamg, b, x0, n, n_iters, x,
+                                         scratch, stream, stamps, fuse);
 }
 
 }  // namespace cg
@@ -131,10 +133,10 @@ ADMM_CG_ELL_ENTRY(float, f32)
 ADMM_CG_ELL_ENTRY(double, f64)
 
 // The algebraic multigrid mode: n_iters V-cycle PCG iterations from x0 (x
-// may be x0) on the slot-major ELL rows; uamg points to an mg::AggHost
+// may be x0) on the slot-major ELL rows; uamg points to an mg::Host
 // (ops/kernels/uamg.py UAMGHost) whose planes are of the solve's type;
-// scratch holds uamg_ell_plan's scratch count. uamg_ell_prepare_*: the
-// set-up of such a solve of n rows and nc2 coarsest dofs, without a
+// scratch holds mg_solve_plan's scratch count (cg_dia.cu).
+// uamg_ell_prepare_*: the set-up of such a solve of n rows, without a
 // launch.
 #define ADMM_UAMG_ELL_ENTRY(T, SUFFIX)                                        \
   int uamg_ell_solve_##SUFFIX(const T* b, const T* x0, const int* idx_t,    \
@@ -144,24 +146,11 @@ ADMM_CG_ELL_ENTRY(double, f64)
     return admm::cg::uamg_solve<T>(b, x0, idx_t, vals_t, K, n, n_iters,      \
                                    uamg, x, scratch, stream);                \
   }                                                                          \
-  int uamg_ell_prepare_##SUFFIX(int n, int nc2) {                            \
-    return admm::mg::prepare<T, admm::mg::AggLevels<T>,                     \
-                             admm::cg::EllRows<T>>(0, n, nc2);               \
+  int uamg_ell_prepare_##SUFFIX(int n, const void* uamg) {                   \
+    return admm::mg::prepare<T, admm::cg::EllRows<T>>(0, n, uamg);           \
   }
 
 ADMM_UAMG_ELL_ENTRY(float, f32)
 ADMM_UAMG_ELL_ENTRY(double, f64)
-
-// The algebraic multigrid solve's layout for n rows and nc2 coarsest dofs
-// on the current device: out = dynamic shared memory a CTA in bytes,
-// elements of global scratch. Returns a cudaError_t.
-int uamg_ell_plan(int n, int nc2, int elem_bytes, long long* out) {
-  admm::mg::Plan p;
-  const int err = admm::mg::plan_for_device(n, 0, nc2, elem_bytes, &p);
-  if (err != 0) return err;
-  out[0] = p.smem_bytes;
-  out[1] = p.scratch;
-  return 0;
-}
 
 }  // extern "C"

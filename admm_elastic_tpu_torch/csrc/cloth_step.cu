@@ -632,7 +632,7 @@ extern "C" {
 // scalars (11: dt, dt^2, 1/dt, dt g xyz, the wind's -1000 0.33 dt, 1/3,
 // the wind direction xyz, formed in double) are host arrays. mg: null for
 // the Jacobi-PCG solve, else an mg::Host (mg_vcycle.cuh) whose V-cycle
-// preconditions it (scratch then holds mg_dia_plan's count). collect: 0
+// preconditions it (scratch then holds mg_solve_plan's count). collect: 0
 // none, 1 the primal residuals, 2 also the dual ones, written to res_p and
 // res_d (n_steps, admm_iters); zrows (3, 3 Et + 4 Eh), tz (n,3), part
 // (admm_iters, eb + vb) and dpart (admm_iters, vb), with eb and vb the

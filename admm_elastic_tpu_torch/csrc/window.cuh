@@ -112,8 +112,9 @@ inline int solve(const double* rhs, double* x, const double* invd,
 }
 
 // The global solve under preconditioner="amg", in place: n_iters PCG
-// iterations preconditioned by the geometric V-cycle (mg_vcycle.cuh) of
-// the multigrid `mg` (an mg::Host), on dia rows, on one cluster.
+// iterations preconditioned by the V-cycle (mg_vcycle.cuh) of the
+// geometric multigrid `mg` (an mg::Host of its compact levels), on dia
+// rows, on one cluster.
 inline int mg_solve(const float* rhs, float* x, const float* dia,
                     const int* offsets, int D, int n, int n_iters,
                     const void* mg, float* scratch, cudaStream_t st) {
@@ -130,8 +131,8 @@ inline int mg_solve(const double* rhs, double* x, const double* dia,
 
 // The global solve of the ELL mode under preconditioner="amg", in place:
 // n_iters PCG iterations preconditioned by the aggregation V-cycle
-// (mg_vcycle.cuh AggLevels) of `uamg` (an mg::AggHost), on slot-major ELL
-// rows, on one cluster.
+// (mg_vcycle.cuh) of `uamg` (an mg::Host), on slot-major ELL rows, on one
+// cluster.
 inline int uamg_solve(const float* rhs, float* x, const int* ell_idx_t,
                       const float* ell_vals_t, int K, int n, int n_iters,
                       const void* uamg, float* scratch, cudaStream_t st) {

@@ -118,22 +118,20 @@ _SIGNATURES = {
     **{f"cg_dia_prepare_{t}": (_I, [_I] * 3) for t in ("f32", "f64")},
     **{f"cg_ell_prepare_{t}": (_I, [_I] * 2) for t in ("f32", "f64")},
     "cg_cluster_plan": (_I, [_I] * 4 + [_P]),
-    # b, x0, dia, offsets, then D, n, n_iters, then the multigrid (an
-    # MGHost), x, scratch and the stream
+    # b, x0, dia, offsets, then D, n, n_iters, then the multigrid (a
+    # UAMGHost), x, scratch and the stream
     **{f"mg_dia_solve_{t}": (_I, [_P] * 4 + [_I] * 3 + [_P] * 4)
        for t in ("f32", "f64")},
-    # D, n, nc2
-    **{f"mg_dia_prepare_{t}": (_I, [_I] * 3) for t in ("f32", "f64")},
-    # n, D, nc2, elem_bytes, out
-    "mg_dia_plan": (_I, [_I] * 4 + [_P]),
+    # D, n, the multigrid
+    **{f"mg_dia_prepare_{t}": (_I, [_I] * 2 + [_P]) for t in ("f32", "f64")},
+    # n, D, the multigrid, elem_bytes, out
+    "mg_solve_plan": (_I, [_I] * 2 + [_P, _I, _P]),
     # b, x0, the ELL rows (2), then K, n, n_iters, then the multigrid (a
     # UAMGHost), x, scratch and the stream
     **{f"uamg_ell_solve_{t}": (_I, [_P] * 4 + [_I] * 3 + [_P] * 4)
        for t in ("f32", "f64")},
-    # n, nc2
-    **{f"uamg_ell_prepare_{t}": (_I, [_I] * 2) for t in ("f32", "f64")},
-    # n, nc2, elem_bytes, out
-    "uamg_ell_plan": (_I, [_I] * 3 + [_P]),
+    # n, the multigrid
+    **{f"uamg_ell_prepare_{t}": (_I, [_I, _P]) for t in ("f32", "f64")},
     **{f"cg_update_{t}": (_I, [_P] * 6 + [_I] + [_P] * 6)
        for t in ("f32", "f64")},
     "cg_partials": (_I, [_I]),

@@ -32,8 +32,8 @@ Planes (`PLANES`): idx (4,E) int32 corner vertices; cp (12,E) selector planes; w
 matrix (`MATRIX_PLANES`): dia (D,n) diagonals of A at
 `BandedConfig.dia_offs`, or ell_idx (n,K) int32 and ell_vals (n,K) when
 `BandedConfig.ell_width` = K > 0 (`core.solver.assemble_A_hat_ell`);
-with `BandedConfig.mg` the multigrid's planes (`mg.PLANES` or
-`uamg.PLANES`). No padding anywhere.
+with `BandedConfig.mg` the multigrid's planes (`uamg.PLANES`, the
+geometric multigrid's in its compact level form). No padding anywhere.
 
 `banded_rollout` runs the window's kernels (`csrc/banded_step.cu`: per
 timestep a kick, per ADMM iteration an element kernel, a vertex kernel and
@@ -42,7 +42,7 @@ one cluster solve, `csrc/cluster_pcg.cuh` or its multigrid mode
 `banded_rollout_reference`, a step-by-step transcription of the same math
 in the Pallas kernel's evaluation order (its solve the cluster solve's:
 `core.solver.pcg_fixed_inv` with `cg_step.cluster_dot`, the ELL matvec
-slot by slot, `mg.pcg_fixed_mg` or `uamg.pcg_fixed_uamg`), for CPU
+slot by slot, `uamg.pcg_fixed_uamg` under either multigrid), for CPU
 tensors. It never falls back from
 one to the other. Both return a new state dict and leave their inputs
 untouched. `BandedWindow` is a window on a state's own buffers, which a
@@ -361,12 +361,9 @@ def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps,
             if cfg.mg is None:
                 x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
                                   cfg.cg_iters, dot)
-            elif cfg.matrix == "ell":
+            else:
                 x = uamg.pcg_fixed_uamg(A, mxbar + dt2 * b, x, planes,
                                         cfg.cg_iters, dot)
-            else:
-                x = mg.pcg_fixed_mg(A, mxbar + dt2 * b, x, planes, cfg.mg,
-                                    cfg.cg_iters, dot)
         v = (x - x_pre) * inv_dt
         res_p.append(step_p)
         res_d.append(step_d)
@@ -428,7 +425,7 @@ class BandedWindow:
     CUDA device: `launch(n_steps)` enqueues n_steps timesteps on the
     current stream and advances `state` in place. Holds the window's
     scratch, the matrix as the cluster solve reads it (ELL: slot-major),
-    the multigrid's C description (`mg.MGHost` or `uamg.UAMGHost`), and
+    the multigrid's C description (`uamg.UAMGHost`), and
     the solve's set-up, done here, before any CUDA graph captures a
     launch."""
 
@@ -461,13 +458,10 @@ class BandedWindow:
             self.scratch = cluster_prepare(x, self.n, self.reach,
                                            len(cfg.dia_offs),
                                            cfg.matrix == "ell")
-        elif cfg.matrix == "ell":
-            self.mg = uamg.host_struct(planes, cfg.mg)
-            self.scratch = uamg.uamg_prepare(x, cfg.mg)
         else:
-            self.mg = mg.host_struct(planes, cfg.mg)
-            self.scratch = mg.mg_prepare(x, self.n, len(cfg.dia_offs),
-                                         planes["mg_rp2"].shape[0])
+            self.mg = uamg.host_struct(planes, cfg.mg)
+            self.scratch = uamg.solve_prepare(x, self.n, len(cfg.dia_offs),
+                                              self.mg)
         kinds, table = cfg.shape_table()
         ns = max(len(kinds), 1)
         # the host arrays the C entry reads at each call

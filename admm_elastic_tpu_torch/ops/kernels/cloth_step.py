@@ -49,7 +49,7 @@ corner) order, sentinel R = 3 Et + 4 Eh after the real slots, where
 triangle slot k Et + t is corner k of triangle t and hinge slot 3 Et +
 k Eh + h corner k of hinge h; winc (n,Sw) int32 vertex -> wind triangle
 in (wind group, corner) order, sentinel Ew; with `ClothConfig.mg` the
-multigrid's planes (`mg.PLANES`). No padding.
+multigrid's planes (`uamg.PLANES`, its compact level form). No padding.
 
 `cloth_rollout` runs the window's kernels (`csrc/cloth_step.cu`: per
 timestep a wind kernel (with wind) and a kick, per ADMM iteration an
@@ -58,7 +58,7 @@ element kernel, a vertex kernel and one cluster solve,
 end kernel) for CUDA tensors and `cloth_rollout_reference`, a step-by-step
 transcription of the same math in the Pallas kernel's evaluation order
 (its solve the cluster solve's: `core.solver.pcg_fixed_inv` with
-`cg_step.cluster_dot`, or `mg.pcg_fixed_mg`), for CPU tensors. The
+`cg_step.cluster_dot`, or `uamg.pcg_fixed_uamg`), for CPU tensors. The
 V-cycle's fine matvec is the full diagonals', where JAX's mirrors half of
 them (cloth_step.py:481-492): round-off.
 It never falls back from one to the other. Both return a new state dict
@@ -79,7 +79,8 @@ from . import _build
 from .cg_dia import MAX_DIAGONALS
 from .cg_step import cluster_dot, cluster_prepare
 from .banded_step import BandedWindow, _with_residuals
-from .mg import MGConfig, check_planes, host_struct, mg_prepare, pcg_fixed_mg
+from .mg import MGConfig, check_planes
+from .uamg import host_struct, pcg_fixed_uamg, solve_prepare
 from . import residuals
 from .residuals import squares
 from .tri_local import _tri_body
@@ -356,8 +357,8 @@ def cloth_rollout_reference(state, planes, cfg: ClothConfig, n_steps,
                 x = pcg_fixed_inv(A, mxbar + dt2 * b, x, planes["invd"],
                                   cfg.cg_iters, dot)
             else:
-                x = pcg_fixed_mg(A, mxbar + dt2 * b, x, planes, cfg.mg,
-                                 cfg.cg_iters, dot)
+                x = pcg_fixed_uamg(A, mxbar + dt2 * b, x, planes,
+                                   cfg.cg_iters, dot)
         v = (x - x_pre) * inv_dt
         res_p.append(step_p)
         res_d.append(step_d)
@@ -432,8 +433,8 @@ class ClothWindow:
                                            len(cfg.dia_offs))
         else:
             self.mg = host_struct(planes, cfg.mg)
-            self.scratch = mg_prepare(x, self.n, len(cfg.dia_offs),
-                                      planes["mg_rp2"].shape[0])
+            self.scratch = solve_prepare(x, self.n, len(cfg.dia_offs),
+                                         self.mg)
         scal = cfg.scalars()
         # the host arrays the C entry reads at each call
         self._host = ((ctypes.c_int * len(cfg.dia_offs))(*cfg.dia_offs),

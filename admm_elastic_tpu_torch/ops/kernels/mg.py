@@ -1,5 +1,5 @@
 """The geometric multigrid V-cycle as the preconditioner of a fixed-budget
-PCG: hand-written CUDA kernel + plain twin.
+PCG on dia rows: hand-written CUDA kernel + plain twin.
 
 Counterpart of the multigrid mode (`mg_meta`) of the whole-timestep
 Pallas kernels: `admm_elastic_tpu/ops/pallas/banded_step.py:600-739` (the
@@ -9,29 +9,29 @@ cycle) and `:924-951` (the PCG around it), and `cloth_step.py:457-595`,
 all three columns of the (n,3) vectors:
 
     z  = om0 r;            r1 = R0 (r - A z);    z1 = om1 r1
-    r2 = R1 (r1 - A1 z1) at rp2;   z2 = scatter_rp2(A2^-1 r2)
+    r2 = R1 (r1 - A1 z1);  z2 = A2^-1 r2
     z1 = z1 + P1 z2;       z1 = z1 + om1 (r1 - A1 z1)
     z  = z + P0 z1;        z  = z + om0 (r - A z)
 
-where R_l = sum_c M_c . shift(+c), P_l = R_l^T = sum_c shift(M_c . , -c)
-and A1 is the masked level-1 diagonals (`core/mg.py` builds the planes).
-The PCG keeps JAX's guards: alpha = rz / pAp where pAp > 0 (else / 1),
-beta = rz' / rz where rz > 0 (else / 1).
+`core.mg.build_grid_mg` gives the hierarchy as the TPU kernel holds it,
+every level indexed by fine row: R_l = sum_c M_c . shift(+c) over a
+block's corners, P_l = R_l^T, A1 masked diagonals, zero off each level's
+representatives. On a grid in nested numbering that is an aggregation,
+and `compact_levels` converts it to the algebraic multigrid's level form
+(`uamg.py`): R0 sums the members of a stride block, in corner order; P0
+gathers at each fine row's one parent; A1 is ELL rows at the level-1
+representatives, their slots in diagonal order; level 2 the same, A2^-1 in
+rp2's order. Only exact zeros drop out of the sums (the masks' zero
+terms, z1 off the representatives), so the cycle adds the same nonzero
+terms in the same order and gives the masked cycle's values.
 
-The planes (`PLANES`, numpy from `core.mg.build_grid_mg`, made tensors by
-`planes_from`): mg_l1 (D1,n), mg_om0, mg_om1 (n,), mg_t0 (C0,n), mg_t1
-(C1,n), mg_rp2 (nc2,) int32, mg_a2inv (nc2,nc2); the static offsets are
-`MGConfig`. No padding: the JAX planes' (Nr,128) layout and its pack and
-unpack lane gathers are TPU layout.
-
+`planes_from` makes the compact planes tensors (`uamg.PLANES`);
 `mg_dia_solve` runs a whole solve through `csrc/cg_dia.cu`'s multigrid
 entry (one launch on one 16-CTA thread-block cluster,
-`csrc/mg_vcycle.cuh`) for CUDA tensors and `mg_dia_solve_reference` for CPU
-tensors, never falling back from one to the other; the banded and cloth
-windows call the same entry for each ADMM iteration's solve. The twin
-(`vcycle`, `pcg_fixed_mg`) does the kernel's operations in its order,
-every sum included (`coarse_solve`, `cg_step.cluster_dot`), so the kernel
-equals it bitwise.
+`csrc/mg_vcycle.cuh`) for CUDA tensors and `mg_dia_solve_reference` (the
+twin `uamg.pcg_fixed_uamg` on `dia_apply`) for CPU tensors, never falling
+back from one to the other; the banded and cloth windows call the same
+entry for each ADMM iteration's solve.
 """
 
 from __future__ import annotations
@@ -41,214 +41,113 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from ...core.solver import dia_apply, pcg_fixed_precond
+from ...core.solver import dia_apply
 from . import _build
 from .cg_dia import MAX_DIAGONALS
-from .cg_step import _halving_tree, cluster_dot
+from .cg_step import cluster_dot
+from .uamg import UAMGConfig
+from .uamg import check_planes as _check_level_planes
+from .uamg import host_struct, pcg_fixed_uamg
+from .uamg import planes_from as _level_planes
+from .uamg import solve_prepare
 
-PLANES = ("mg_l1", "mg_om0", "mg_om1", "mg_t0", "mg_t1", "mg_rp2",
-          "mg_a2inv")
-MAX_CORNERS = 64  # the kernel's corner tables (csrc/mg_vcycle.cuh)
-WARP = 32  # lanes of one coarsest-level dot (csrc/mg_vcycle.cuh)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 @dataclasses.dataclass(frozen=True)
 class MGConfig:
-    """The static part of a multigrid: the level-1 operator's offsets and
-    the corner offsets of the two transfers, in fine flat-index units."""
+    """The static part of a geometric multigrid: its level sizes (n, nc1,
+    nc2)."""
 
-    l1_offs: tuple
-    t0_offs: tuple
-    t1_offs: tuple
-
-    def __post_init__(self):
-        if not 1 <= len(self.l1_offs) <= MAX_DIAGONALS:
-            raise ValueError(f"{len(self.l1_offs)} level-1 diagonals; the "
-                             f"kernel takes 1..{MAX_DIAGONALS}")
-        for offs in (self.t0_offs, self.t1_offs):
-            if not 1 <= len(offs) <= MAX_CORNERS:
-                raise ValueError(f"{len(offs)} corners; the kernel takes "
-                                 f"1..{MAX_CORNERS}")
+    levels: tuple
 
     @classmethod
     def of(cls, mg):
         """The config of a `core.mg.build_grid_mg` result."""
-        return cls(*(tuple(int(o) for o in mg[k])
-                     for k in ("l1_offs", "t0_offs", "t1_offs")))
+        return cls(tuple(int(q) for q in mg["levels"]))
+
+
+def _transfer(masks, offs, reps, rank, n_fine):
+    """One level's restriction as member lists: for the coarse dofs at
+    fine positions `reps` (rank order), the fine positions p + c of the
+    corners c whose mask is 1 at p, in corner order, as `rank` numbers
+    them (slot-major (M, nc), sentinel n_fine); and each fine dof's coarse
+    dof, its one parent."""
+    on = np.asarray(masks)[:, reps] != 0  # (C, nc)
+    pos = reps[None, :] + np.asarray(offs, np.int64)[:, None]
+    fine = rank[np.clip(pos, 0, len(rank) - 1)]  # where on: inside
+    slot = np.cumsum(on, axis=0) - 1
+    coarse = np.nonzero(on)[1]
+    members = np.full((max(int(on.sum(0).max()), 1), len(reps)), n_fine,
+                      np.int64)
+    members[slot[on], coarse] = fine[on]
+    parent = np.full(n_fine, -1, np.int64)
+    parent[fine[on]] = coarse
+    if int(on.sum()) != n_fine or (parent < 0).any() or (fine[on] < 0).any():
+        raise ValueError("not an aggregation: a fine dof without exactly "
+                         "one parent")
+    return members, parent
+
+
+def compact_levels(mg):
+    """A `core.mg.build_grid_mg` result in the level form of
+    `core.uamg.build_uamg` (its keys c0, m1, l1_idx, l1_vals, om_invd0,
+    om_invd1, c1, m2, a2inv, levels): level 1 at its representatives in
+    rank order (ascending fine position), level 2 in rp2's order, member
+    lists in corner order, A1's slots in diagonal order with their exact
+    zeros dropped (empty slots value 0 at the row's own index)."""
+    n, nc1, nc2 = (int(q) for q in mg["levels"])
+    t0, l1 = np.asarray(mg["t0_masks"]), np.asarray(mg["l1_vals"])
+    rp1 = np.flatnonzero(t0.any(axis=0))
+    rp2 = np.asarray(mg["rp2"], np.int64)
+    if len(rp1) != nc1 or len(rp2) != nc2:
+        raise ValueError("the masks' representatives are not the levels")
+    rank1 = np.full(n, -1, np.int64)
+    rank1[rp1] = np.arange(nc1)
+    m1, c0 = _transfer(t0, mg["t0_offs"], rp1, np.arange(n), n)
+    m2, c1 = _transfer(mg["t1_masks"], mg["t1_offs"], rp2, rank1, nc1)
+    vals = l1[:, rp1]
+    on = vals != 0
+    cols = rank1[np.clip(rp1[None, :] + np.asarray(mg["l1_offs"],
+                                                   np.int64)[:, None],
+                         0, n - 1)]
+    if (cols[on] < 0).any():
+        raise ValueError("A1 reaches off the level-1 representatives")
+    K1 = max(int(on.sum(0).max()), 1)
+    l1_idx = np.tile(np.arange(nc1, dtype=np.int64), (K1, 1))
+    l1_vals = np.zeros((K1, nc1))
+    slot, row = np.cumsum(on, axis=0) - 1, np.nonzero(on)[1]
+    l1_idx[slot[on], row] = cols[on]
+    l1_vals[slot[on], row] = vals[on]
+    return {"c0": c0, "m1": m1, "l1_idx": l1_idx, "l1_vals": l1_vals,
+            "om_invd0": mg["om_invd0"],
+            "om_invd1": np.asarray(mg["om_invd1"])[rp1], "c1": c1, "m2": m2,
+            "a2inv": mg["a2inv"], "levels": (n, nc1, nc2)}
 
 
 def planes_from(mg, dtype, device):
-    """The tensors of a `core.mg.build_grid_mg` result: floats in dtype,
-    rp2 int32."""
-    def dev(a, dt=dtype):
-        return torch.as_tensor(np.array(a, order="C"), dtype=dt,
-                               device=device)
-
-    return {"mg_l1": dev(mg["l1_vals"]), "mg_om0": dev(mg["om_invd0"]),
-            "mg_om1": dev(mg["om_invd1"]), "mg_t0": dev(mg["t0_masks"]),
-            "mg_t1": dev(mg["t1_masks"]), "mg_rp2": dev(mg["rp2"],
-                                                        torch.int32),
-            "mg_a2inv": dev(mg["a2inv"])}
+    """The kernel's planes (`uamg.PLANES`) of a `core.mg.build_grid_mg`
+    result, in its compact level form: floats in dtype, indices int32."""
+    return _level_planes(compact_levels(mg), dtype, device)
 
 
 def check_planes(planes, cfg: MGConfig, n, like):
-    """Raise unless the planes have cfg's shapes for n rows, contiguous,
-    on like's device in like's dtype (rp2 int32)."""
-    nc2 = planes["mg_rp2"].shape[0] if planes["mg_rp2"].dim() == 1 else -1
-    want = {"mg_l1": (len(cfg.l1_offs), n), "mg_om0": (n,), "mg_om1": (n,),
-            "mg_t0": (len(cfg.t0_offs), n), "mg_t1": (len(cfg.t1_offs), n),
-            "mg_rp2": (nc2,), "mg_a2inv": (nc2, nc2)}
-    for name, shape in want.items():
-        t = planes[name]
-        dtype = torch.int32 if name == "mg_rp2" else like.dtype
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: not contiguous")
-        if t.device != like.device or t.dtype != dtype:
-            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
-                             f"{dtype} on {like.device}")
-    if nc2 < 1:
-        raise ValueError("an empty coarsest level")
-    return nc2
-
-
-# ------------------------------------------------------------ plain twin
-
-def _shift(y, off):
-    """out[i] = y[i + off], 0 past either end."""
-    n = y.shape[0]
-    out = torch.zeros_like(y)
-    lo, hi = max(0, -off), min(n, n - off)
-    if lo < hi:
-        out[lo:hi] = y[lo + off:hi + off]
-    return out
-
-
-def restrict(x, offs, masks):
-    """sum_c M_c . shift(x, +c), the corners added in order."""
-    acc = None
-    for c, m in zip(offs, masks):
-        t = m[:, None] * _shift(x, c)
-        acc = t if acc is None else acc + t
-    return acc
-
-
-def prolong(x, offs, masks):
-    """sum_c shift(M_c . x, -c), the corners added in order."""
-    acc = None
-    for c, m in zip(offs, masks):
-        t = _shift(m[:, None] * x, -c)
-        acc = t if acc is None else acc + t
-    return acc
-
-
-def coarse_solve(a2inv, r2):
-    """A2^-1 r2 for r2 (nc2,3) in the kernel's order: each row's dot by
-    one warp, lane l adding columns l, l + 32, ... in turn, then the
-    lanes by the halving tree."""
-    nc2 = r2.shape[0]
-    m = -(-nc2 // WARP)
-    prod = a2inv[:, :, None] * r2[None, :, :]
-    lanes = F.pad(prod, (0, 0, 0, m * WARP - nc2)).view(nc2, m, WARP, 3)
-    acc = torch.zeros_like(lanes[:, 0])
-    for turn in lanes.unbind(1):
-        acc = acc + turn
-    return _halving_tree(acc.transpose(1, 2).reshape(-1, WARP)).view(nc2, 3)
-
-
-def vcycle(r, A, planes, cfg: MGConfig):
-    """z = V(r) for r (n,3); A applies the fine matrix (n,3) -> (n,3)."""
-    om0, om1 = planes["mg_om0"][:, None], planes["mg_om1"][:, None]
-    t0, t1 = planes["mg_t0"], planes["mg_t1"]
-    rp2 = planes["mg_rp2"].long()
-
-    def A1(y):
-        return dia_apply(y, cfg.l1_offs, planes["mg_l1"])
-
-    z = om0 * r
-    r1 = restrict(r - A(z), cfg.t0_offs, t0)
-    z1 = om1 * r1
-    r2 = restrict(r1 - A1(z1), cfg.t1_offs, t1)[rp2]
-    z2 = torch.zeros_like(r)
-    z2[rp2] = coarse_solve(planes["mg_a2inv"], r2)
-    z1 = z1 + prolong(z2, cfg.t1_offs, t1)
-    z1 = z1 + om1 * (r1 - A1(z1))
-    z = z + prolong(z1, cfg.t0_offs, t0)
-    return z + om0 * (r - A(z))
-
-
-def pcg_fixed_mg(A, b, x0, planes, cfg: MGConfig, n_iters, dot=None):
-    """n_iters PCG iterations on A x = b from x0 with the V-cycle as the
-    preconditioner (`core.solver.pcg_fixed_precond`); `dot` sums a*b over
-    all 3n values (default torch.sum; the kernel's twin passes
-    `cg_step.cluster_dot`). Returns x."""
-    return pcg_fixed_precond(A, b, x0, lambda r: vcycle(r, A, planes, cfg),
-                             int(n_iters), dot)
+    """Raise unless the planes have cfg's level sizes for n rows,
+    contiguous, on like's device in like's dtype (indices int32)."""
+    if cfg.levels[0] != n:
+        raise ValueError(f"{n} rows, the multigrid has {cfg.levels[0]}")
+    _check_level_planes(planes, UAMGConfig(cfg.levels), like)
 
 
 def mg_dia_solve_reference(b, x0, dia_vals, offsets, planes, cfg, n_iters):
     """Plain PyTorch version of `mg_dia_solve`, in its order of
     operations."""
-    return pcg_fixed_mg(lambda y: dia_apply(y, offsets, dia_vals), b, x0,
-                        planes, cfg, n_iters, cluster_dot)
+    return pcg_fixed_uamg(lambda y: dia_apply(y, offsets, dia_vals), b, x0,
+                          planes, int(n_iters), cluster_dot)
 
 
 # ---------------------------------------------------------------- kernel
-
-class MGHost(ctypes.Structure):
-    """What the C entries take of a multigrid (csrc/mg_vcycle.cuh
-    `Host`): the planes' addresses, the sizes and the offset tables."""
-
-    _fields_ = [*((k, ctypes.c_void_p) for k in PLANES),
-                ("D1", ctypes.c_int), ("C0", ctypes.c_int),
-                ("C1", ctypes.c_int), ("nc2", ctypes.c_int),
-                ("l1_offs", ctypes.c_int * MAX_DIAGONALS),
-                ("t0_offs", ctypes.c_int * MAX_CORNERS),
-                ("t1_offs", ctypes.c_int * MAX_CORNERS)]
-
-
-def host_struct(planes, cfg: MGConfig) -> MGHost:
-    """The C description of a multigrid's planes (their addresses now)."""
-    h = MGHost(*(planes[k].data_ptr() for k in PLANES), len(cfg.l1_offs),
-               len(cfg.t0_offs), len(cfg.t1_offs),
-               planes["mg_rp2"].shape[0])
-    h.l1_offs[:len(cfg.l1_offs)] = cfg.l1_offs
-    h.t0_offs[:len(cfg.t0_offs)] = cfg.t0_offs
-    h.t1_offs[:len(cfg.t1_offs)] = cfg.t1_offs
-    return h
-
-
-def mg_plan(n, D, nc2, dtype, device=None) -> dict:
-    """The multigrid solve's layout on a CUDA device (the current one by
-    default): dynamic shared memory a CTA, whether the slab's fine
-    diagonals are in it, and the elements of global scratch."""
-    device = torch.device("cuda", torch.cuda.current_device()) \
-        if device is None else torch.device(device)
-    out = (ctypes.c_longlong * 3)()
-    elem = torch.empty((), dtype=dtype).element_size()
-    with torch.cuda.device(device):
-        _build.check(_build.load_library().mg_dia_plan(
-            n, D, nc2, elem, ctypes.addressof(out)), "mg_dia_plan")
-    return {"smem_bytes": out[0], "matrix_in_smem": bool(out[1]),
-            "scratch": out[2]}
-
-
-def mg_prepare(like, n, D, nc2):
-    """The set-up of the multigrid solves of n rows, D fine diagonals and
-    nc2 coarsest dofs, dtype and device of `like`: the kernel's attributes
-    and the check that the card can place the cluster, which a CUDA graph
-    capture must find done. Returns the solve's global scratch."""
-    plan = mg_plan(n, D, nc2, like.dtype, like.device)
-    with torch.cuda.device(like.device):
-        err = getattr(_build.load_library(),
-                      f"mg_dia_prepare_{_SUFFIX[like.dtype]}")(D, n, nc2)
-    _build.check(err, "multigrid solve set-up")
-    return like.new_empty(plan["scratch"])
-
 
 def _check(b, x0, dia_vals, offsets, planes, cfg):
     n = b.shape[0] if b.dim() == 2 else -1
@@ -266,7 +165,8 @@ def _check(b, x0, dia_vals, offsets, planes, cfg):
     if not 1 <= len(offsets) <= MAX_DIAGONALS:
         raise ValueError(f"{len(offsets)} diagonals; the kernel takes "
                          f"1..{MAX_DIAGONALS}")
-    return n, check_planes(planes, cfg, n, b)
+    check_planes(planes, cfg, n, b)
+    return n
 
 
 def mg_dia_solve(b, x0, dia_vals, offsets, planes, cfg: MGConfig, n_iters):
@@ -274,16 +174,16 @@ def mg_dia_solve(b, x0, dia_vals, offsets, planes, cfg: MGConfig, n_iters):
     x0. b, x0: (n,3); dia_vals (D,n) at `offsets`; planes and cfg: the
     multigrid (`planes_from`, `MGConfig.of`)."""
     offsets = tuple(int(o) for o in offsets)
-    n, nc2 = _check(b, x0, dia_vals, offsets, planes, cfg)
+    n = _check(b, x0, dia_vals, offsets, planes, cfg)
     if b.device.type == "cpu":
         return mg_dia_solve_reference(b, x0, dia_vals, offsets, planes, cfg,
                                       int(n_iters))
     if b.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {b.device}")
-    scratch = mg_prepare(b, n, len(offsets), nc2)
+    host = host_struct(planes, cfg)
+    scratch = solve_prepare(b, n, len(offsets), host)
     x = torch.empty_like(b)
     offs = (ctypes.c_int * len(offsets))(*offsets)
-    host = host_struct(planes, cfg)
     fn = getattr(_build.load_library(), f"mg_dia_solve_{_SUFFIX[b.dtype]}")
     with torch.cuda.device(b.device):
         err = fn(b.data_ptr(), x0.data_ptr(), dia_vals.data_ptr(),

@@ -18,22 +18,27 @@ each dof's aggregate (P_l = R_l^T) and A1 is the level-1 operator's ELL
 rows (`core/uamg.py` builds them). The PCG keeps JAX's guards.
 
 The planes (`PLANES`, made tensors by `planes_from`): ua_c0 (n,) int32;
-ua_m1 (M1,nc1) int32, slot-major, each aggregate's members ascending,
+ua_m1 (M1,nc1) int32, slot-major, each aggregate's members in the order
+its restriction adds them (ascending; a grid's in corner order, `mg.py`),
 then the sentinel n; ua_l1_idx (K1,nc1) int32 and ua_l1_vals (K1,nc1),
 slot-major; ua_om0 (n,), ua_om1 (nc1,); ua_c1 (nc1,) int32; ua_m2
 (M2,nc2) int32 (sentinel nc1); ua_a2inv (nc2,nc2). Sentinels and A1's
-empty slots add exactly 0. The JAX planes' (Nr,128) layout, its transfer
-ops and its (128,128) blocks of A2^-1 are TPU layout.
+empty slots add exactly 0. Level 1 is numbered aggregate by aggregate
+(`by_aggregate`), as the kernel needs. The JAX planes' (Nr,128) layout,
+its transfer ops and its (128,128) blocks of A2^-1 are TPU layout.
 
 `uamg_ell_solve` runs a whole solve through `csrc/cg_ell.cu`'s algebraic
 multigrid entry (one launch on one 16-CTA thread-block cluster,
-`csrc/mg_vcycle.cuh` AggLevels) for CUDA tensors and
-`uamg_ell_solve_reference` for CPU tensors, never falling back from one to
-the other; the banded window calls the same entry for each ADMM
-iteration's solve in its ELL mode. The twin (`vcycle`, `pcg_fixed_uamg`)
-does the kernel's operations in its order, every sum included (member
-order, ELL slot order, `mg.coarse_solve`, `cg_step.cluster_dot`), so the
-kernel equals it bitwise.
+`csrc/mg_vcycle.cuh`) for CUDA tensors and `uamg_ell_solve_reference` for
+CPU tensors, never falling back from one to the other; the banded window
+calls the same entry for each ADMM iteration's solve in its ELL mode. The
+twin (`vcycle`, `pcg_fixed_uamg`) does the kernel's operations in its
+order, every sum included (member order, ELL slot order, `coarse_solve`,
+`cg_step.cluster_dot`), so the kernel equals it bitwise.
+
+This level form is also the geometric multigrid's: `mg.planes_from`
+converts a grid hierarchy to these planes, and `mg.mg_dia_solve` runs the
+same kernel on dia rows. `solve_plan` and `solve_prepare` serve both.
 """
 
 from __future__ import annotations
@@ -43,16 +48,17 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ...core.solver import pcg_fixed_precond
 from . import _build
 from .cg_ell import ell_apply_by_slot, slot_major
-from .cg_step import cluster_dot
-from .mg import coarse_solve
+from .cg_step import _halving_tree, cluster_dot
 
 PLANES = ("ua_c0", "ua_m1", "ua_l1_idx", "ua_l1_vals", "ua_om0", "ua_om1",
           "ua_c1", "ua_m2", "ua_a2inv")
 _INT = ("ua_c0", "ua_m1", "ua_l1_idx", "ua_c1", "ua_m2")
+WARP = 32  # lanes of one coarsest-level dot (csrc/mg_vcycle.cuh)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -69,9 +75,36 @@ class UAMGConfig:
         return cls(tuple(int(q) for q in u["levels"]))
 
 
+def by_aggregate(u):
+    """A level form (`core.uamg.build_uamg`'s keys) with level 1 numbered
+    aggregate by aggregate: level 2's aggregates in order, each one's
+    members consecutive in the order its member list adds them, so that
+    slot 0 of m2 holds each aggregate's first member. The kernel takes the
+    members of a CTA's coarsest rows as its level-1 rows
+    (csrc/mg_vcycle.cuh). Every sum keeps its terms and their order, so
+    the V-cycle's values do not move."""
+    nc1 = int(u["levels"][1])
+    m2 = np.asarray(u["m2"], np.int64)
+    order = m2.T.ravel()
+    order = order[order < nc1]  # old numbers, in the new order
+    if len(order) != nc1 or len(np.unique(order)) != nc1:
+        raise ValueError("level 2's aggregates do not cover level 1 once")
+    new = np.empty(nc1, np.int64)
+    new[order] = np.arange(nc1)
+    c0, m1 = np.asarray(u["c0"]), np.asarray(u["m1"])
+    return {**u, "c0": new[c0], "m1": m1[:, order],
+            "l1_idx": new[np.asarray(u["l1_idx"])[:, order]],
+            "l1_vals": np.asarray(u["l1_vals"])[:, order],
+            "om_invd1": np.asarray(u["om_invd1"])[order],
+            "c1": np.asarray(u["c1"])[order],
+            "m2": np.where(m2 < nc1, new[np.minimum(m2, nc1 - 1)], nc1)}
+
+
 def planes_from(u, dtype, device):
-    """The tensors of a `core.uamg.build_uamg` result: floats in dtype,
-    indices int32."""
+    """The tensors of a `core.uamg.build_uamg` result, level 1 numbered
+    aggregate by aggregate (`by_aggregate`): floats in dtype, indices
+    int32."""
+    u = by_aggregate(u)
     src = {"ua_c0": u["c0"], "ua_m1": u["m1"], "ua_l1_idx": u["l1_idx"],
            "ua_l1_vals": u["l1_vals"], "ua_om0": u["om_invd0"],
            "ua_om1": u["om_invd1"], "ua_c1": u["c1"], "ua_m2": u["m2"],
@@ -122,6 +155,20 @@ def restrict(x, m):
     return acc
 
 
+def coarse_solve(a2inv, r2):
+    """A2^-1 r2 for r2 (nc2,3) in the kernel's order: each row's dot by
+    one warp, lane l adding columns l, l + 32, ... in turn, then the
+    lanes by the halving tree."""
+    nc2 = r2.shape[0]
+    m = -(-nc2 // WARP)
+    prod = a2inv[:, :, None] * r2[None, :, :]
+    lanes = F.pad(prod, (0, 0, 0, m * WARP - nc2)).view(nc2, m, WARP, 3)
+    acc = torch.zeros_like(lanes[:, 0])
+    for turn in lanes.unbind(1):
+        acc = acc + turn
+    return _halving_tree(acc.transpose(1, 2).reshape(-1, WARP)).view(nc2, 3)
+
+
 def l1_apply(y, idx, vals):
     """A1 y over slot-major ELL rows (K1,nc1), the slots added in order."""
     out = torch.zeros_like(y)
@@ -152,7 +199,7 @@ def vcycle(r, A, planes):
 def pcg_fixed_uamg(A, b, x0, planes, n_iters, dot=None):
     """n_iters PCG iterations on A x = b from x0 with the algebraic V-cycle
     as the preconditioner (`core.solver.pcg_fixed_precond`); `dot` as in
-    `mg.pcg_fixed_mg`. Returns x."""
+    `core.solver.pcg_fixed_inv`. Returns x."""
     return pcg_fixed_precond(A, b, x0, lambda r: vcycle(r, A, planes),
                              int(n_iters), dot)
 
@@ -168,8 +215,8 @@ def uamg_ell_solve_reference(b, x0, ell_idx, ell_vals, planes, cfg,
 # ---------------------------------------------------------------- kernel
 
 class UAMGHost(ctypes.Structure):
-    """What the C entries take of an algebraic multigrid
-    (csrc/mg_vcycle.cuh `AggHost`): the planes' addresses and the sizes."""
+    """What the C entries take of a multigrid (csrc/mg_vcycle.cuh `Host`):
+    the planes' addresses and the sizes."""
 
     _fields_ = [*((k, ctypes.c_void_p) for k in PLANES),
                 ("nc1", ctypes.c_int), ("M1", ctypes.c_int),
@@ -177,38 +224,50 @@ class UAMGHost(ctypes.Structure):
                 ("M2", ctypes.c_int)]
 
 
-def host_struct(planes, cfg: UAMGConfig) -> UAMGHost:
-    """The C description of a multigrid's planes (their addresses now)."""
+def host_struct(planes, cfg) -> UAMGHost:
+    """The C description of a multigrid's planes (their addresses now);
+    cfg: a `UAMGConfig` or an `mg.MGConfig`."""
     _, nc1, nc2 = cfg.levels
     return UAMGHost(*(planes[k].data_ptr() for k in PLANES), nc1,
                     planes["ua_m1"].shape[0], planes["ua_l1_idx"].shape[0],
                     nc2, planes["ua_m2"].shape[0])
 
 
-def uamg_plan(n, nc2, dtype, device=None) -> dict:
-    """The solve's layout on a CUDA device (the current one by default):
-    dynamic shared memory a CTA and the elements of global scratch."""
+def solve_plan(n, D, host: UAMGHost, dtype, device=None) -> dict:
+    """A multigrid solve's layout on a CUDA device (the current one by
+    default), n rows, D fine matrix values a row it may keep in shared
+    memory (dia: the diagonals; ELL: 0): dynamic shared memory a CTA,
+    whether the fine diagonals and the CTA's rows of A2^-1 are in it, the
+    elements of global scratch, whether the fine stages are fused, and
+    the cluster barriers and mbarrier waits an iteration."""
     device = torch.device("cuda", torch.cuda.current_device()) \
         if device is None else torch.device(device)
-    out = (ctypes.c_longlong * 2)()
+    out = (ctypes.c_longlong * 7)()
     elem = torch.empty((), dtype=dtype).element_size()
     with torch.cuda.device(device):
-        _build.check(_build.load_library().uamg_ell_plan(
-            n, nc2, elem, ctypes.addressof(out)), "uamg_ell_plan")
-    return {"smem_bytes": out[0], "scratch": out[1]}
+        _build.check(_build.load_library().mg_solve_plan(
+            n, D, ctypes.addressof(host), elem, ctypes.addressof(out)),
+            "mg_solve_plan")
+    return {"smem_bytes": out[0], "matrix_in_smem": bool(out[1]),
+            "a2inv_in_smem": bool(out[2]), "scratch": out[3],
+            "fused": bool(out[4]), "cluster_barriers_per_iteration": out[5],
+            "mbarrier_waits_per_iteration": out[6]}
 
 
-def uamg_prepare(like, cfg: UAMGConfig):
-    """The set-up of the solves of cfg's multigrid, dtype and device of
-    `like`: the kernel's attributes and the check that the card can place
-    the cluster, which a CUDA graph capture must find done. Returns the
+def solve_prepare(like, n, D, host: UAMGHost):
+    """The set-up of the multigrid solves of n rows on `host`'s multigrid,
+    dtype and device of `like`, on dia rows (D diagonals) or ELL rows (D =
+    0): the kernel's attributes and the check that the card can place the
+    cluster, which a CUDA graph capture must find done. Returns the
     solve's global scratch."""
-    n, _, nc2 = cfg.levels
-    plan = uamg_plan(n, nc2, like.dtype, like.device)
+    plan = solve_plan(n, D, host, like.dtype, like.device)
+    lib, suffix = _build.load_library(), _SUFFIX[like.dtype]
     with torch.cuda.device(like.device):
-        err = getattr(_build.load_library(),
-                      f"uamg_ell_prepare_{_SUFFIX[like.dtype]}")(n, nc2)
-    _build.check(err, "algebraic multigrid solve set-up")
+        err = (getattr(lib, f"mg_dia_prepare_{suffix}")(
+            D, n, ctypes.addressof(host)) if D else
+            getattr(lib, f"uamg_ell_prepare_{suffix}")(
+                n, ctypes.addressof(host)))
+    _build.check(err, "multigrid solve set-up")
     return like.new_empty(plan["scratch"])
 
 
@@ -245,9 +304,9 @@ def uamg_ell_solve(b, x0, ell_idx, ell_vals, planes, cfg: UAMGConfig,
                                         cfg, int(n_iters))
     if b.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {b.device}")
-    scratch = uamg_prepare(b, cfg)
-    x = torch.empty_like(b)
     host = host_struct(planes, cfg)
+    scratch = solve_prepare(b, n, 0, host)
+    x = torch.empty_like(b)
     idx_t, vals_t = slot_major(ell_idx), slot_major(ell_vals)
     fn = getattr(_build.load_library(), f"uamg_ell_solve_{_SUFFIX[b.dtype]}")
     with torch.cuda.device(b.device):

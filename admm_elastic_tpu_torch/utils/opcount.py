@@ -7,12 +7,10 @@ and one per input element of every sum. Data movement (indexing, copies,
 stacking, padding, reshapes) counts nothing. The twins evaluate every
 branch the kernels evaluate (both sides of each select, every Newton
 candidate), so the count is the work the kernel does on those inputs.
-A multigrid V-cycle is the exception: its twin (`mg.vcycle`) computes the
-coarse levels over every fine row, 0 off each level's representatives, as
-the kernel does, so `count_ops` counts each V-cycle by the work the
-function needs (`vcycle_ops`) instead; the algebraic one (`uamg.vcycle`)
-adds the zeros of its padded member lists and ELL slots, so it is counted
-the same way (`uamg_vcycle_ops`).
+A multigrid V-cycle is the exception: its twin (`uamg.vcycle`, the
+geometric multigrid's too, in its compact level form) adds the zeros of
+its padded member lists and ELL slots, so `count_ops` counts each V-cycle
+by the work the function needs (`uamg_vcycle_ops`) instead.
 
 `nbytes(*trees)` sums the sizes of the tensors in dicts, lists or tuples:
 each input read once and each output written once.
@@ -45,7 +43,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.solver import dia_apply, pcg_solve_fixed
-from ..ops.kernels import banded_local, cg_ell, cg_step, cheb_dia, mg, uamg
+from ..ops.kernels import banded_local, cg_ell, cg_step, cheb_dia, uamg
 
 _ELEMENTWISE = frozenset((
     "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "rsqrt", "log",
@@ -84,7 +82,7 @@ class _Counter(TorchDispatchMode):
 
 def count_ops(fn, *args, **kwargs) -> tuple[int, object]:
     """(operations, fn's result) of fn(*args, **kwargs); each V-cycle that
-    fn reaches through `mg.vcycle` counts as `vcycle_ops` says."""
+    fn reaches through `uamg.vcycle` counts as `uamg_vcycle_ops` says."""
     with _Counter() as c, _needed_vcycles(c):
         out = fn(*args, **kwargs)
     return c.ops, out
@@ -97,35 +95,6 @@ def _paused(counter):
         yield
     finally:
         counter.paused = False
-
-
-def mg_level_ops(planes, n) -> int:
-    """Operations one V-cycle needs on one column of n fine rows, besides
-    its two fine matvecs: 5n on the fine rows (z = om0 r, r - A z, and
-    r - A z, om0 times it and its sum at the end), and the coarse levels
-    at their representatives only (the n1 rows where om1 is not 0, the nc2
-    rows of rp2). A restriction or level-1 row with m nonzero
-    coefficients is m products and m - 1 sums; a prolongation one product
-    and one sum per nonzero coefficient; the coarsest product nc2 rows of
-    nc2 products and nc2 - 1 sums. With T0, L, T1 the nonzero coefficients
-    of R0, A1 and R1 at those rows:
-        R0 2 T0 - n1, z1 = om1 r1 n1, A1 z1 2 L - n1, r1 - A1 z1 n1,
-        R1 2 T1 - nc2, A2^-1 nc2 (2 nc2 - 1), z1 + P1 z2 2 T1,
-        z1 + om1 (r1 - A1 z1) 2 L - n1 + 3 n1, z + P0 z1 2 T0."""
-    reps1 = planes["mg_om1"] != 0
-    rp2 = planes["mg_rp2"].long()
-    n1, nc2 = int(reps1.sum()), int(rp2.numel())
-    t0, l1, t1 = (int(torch.count_nonzero(planes[k][:, rows]))
-                  for k, rows in (("mg_t0", reps1), ("mg_l1", reps1),
-                                  ("mg_t1", rp2)))
-    return 5 * n + 4 * (t0 + l1 + t1) + 2 * n1 + 2 * nc2 * (nc2 - 1)
-
-
-def vcycle_ops(r, A, planes) -> int:
-    """Operations one V-cycle (`mg.vcycle`) on r (n,k) needs: its two fine
-    matvecs as A counts them, and k columns of `mg_level_ops`."""
-    matvec, _ = count_ops(A, r)
-    return 2 * matvec + r.shape[1] * mg_level_ops(planes, r.shape[0])
 
 
 def uamg_level_ops(planes, n) -> int:
@@ -152,28 +121,24 @@ def uamg_vcycle_ops(r, A, planes) -> int:
 
 @contextlib.contextmanager
 def _needed_vcycles(counter):
-    """While counting, `mg.vcycle` and `uamg.vcycle` compute as before,
-    uncounted, and add their two fine matvecs (run once more to be counted
-    as A counts them) and `mg_level_ops` or `uamg_level_ops` for each
-    column."""
-    twins = (mg.vcycle, uamg.vcycle)
+    """While counting, `uamg.vcycle` computes as before, uncounted, and
+    adds its two fine matvecs (run once more to be counted as A counts
+    them) and `uamg_level_ops` for each column."""
+    twin = uamg.vcycle
 
-    def needed(twin, level_ops):
-        def vcycle(r, A, planes, *cfg):
-            with _paused(counter):
-                z = twin(r, A, planes, *cfg)
-                level = r.shape[1] * level_ops(planes, r.shape[0])
-            A(r), A(r)
-            counter.ops += level
-            return z
-        return vcycle
+    def vcycle(r, A, planes):
+        with _paused(counter):
+            z = twin(r, A, planes)
+            level = r.shape[1] * uamg_level_ops(planes, r.shape[0])
+        A(r), A(r)
+        counter.ops += level
+        return z
 
-    mg.vcycle = needed(twins[0], mg_level_ops)
-    uamg.vcycle = needed(twins[1], uamg_level_ops)
+    uamg.vcycle = vcycle
     try:
         yield
     finally:
-        mg.vcycle, uamg.vcycle = twins
+        uamg.vcycle = twin
 
 
 def nbytes(*trees) -> int:
@@ -239,13 +204,14 @@ def cg_ell_counts(b, x0, diag, ell_idx, ell_vals, n_iters):
 def mg_dia_counts(b, x0, dia_vals, offsets, planes, cfg, n_iters):
     """(operations, bytes) of an `mg_dia_solve` of n_iters iterations: the
     V-cycle PCG's arithmetic with each dot one product and one sum of 3n
-    values and each V-cycle what it needs (`vcycle_ops`); b, x0, the
-    diagonals and the multigrid's planes read once however often the
-    iterations read them, x written once."""
-    ops, x = count_ops(mg.pcg_fixed_mg,
+    values and each V-cycle what it needs (`uamg_vcycle_ops`); b, x0, the
+    diagonals and the multigrid's planes (its compact level form) read
+    once however often the iterations read them, x written once."""
+    ops, x = count_ops(uamg.pcg_fixed_uamg,
                        lambda y: dia_apply(y, offsets, dia_vals), b, x0,
-                       planes, cfg, n_iters)
-    return ops, nbytes(b, x0, dia_vals, [planes[k] for k in mg.PLANES], x)
+                       planes, n_iters)
+    return ops, nbytes(b, x0, dia_vals, [planes[k] for k in uamg.PLANES],
+                       x)
 
 
 def uamg_ell_counts(b, x0, ell_idx, ell_vals, planes, cfg, n_iters):

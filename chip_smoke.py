@@ -433,6 +433,19 @@ def _rest_rhs(st):
     return b
 
 
+def plan_numbers(plan):
+    """What a multigrid solve's plan (`uamg.solve_plan`) keeps where: the
+    shared memory a CTA, the parts resident in it, and the stage ends an
+    iteration."""
+    return {"smem_bytes_per_cta": plan["smem_bytes"],
+            "resident": [k for k in ("matrix", "a2inv")
+                         if plan[f"{k}_in_smem"]],
+            "cluster_barriers_per_iteration":
+                plan["cluster_barriers_per_iteration"],
+            "mbarrier_waits_per_iteration":
+                plan["mbarrier_waits_per_iteration"]}
+
+
 def check_mg_solve(torch, label, st):
     """The multigrid mode of the cluster solve (mg_dia_solve) on a
     multigrid stepper's own matrix and planes at its budget, from its
@@ -446,15 +459,18 @@ def check_mg_solve(torch, label, st):
     checks, err, ms, plain_ms, n_ops, n_bytes, bound_ms, bound_by, ops = \
         mg_solve_numbers(torch, pmg.mg_dia_solve, pmg.mg_dia_solve_reference,
                          mg_dia_counts, args)
-    plan = pmg.mg_plan(b.shape[0], len(cfg.dia_offs),
-                       st.planes["mg_rp2"].shape[0], b.dtype)
+    plan = puamg.solve_plan(b.shape[0], len(cfg.dia_offs),
+                            puamg.host_struct(st.planes, cfg.mg), b.dtype)
     ok = all(checks.values()) and ops == 1.0
     say(f"kernel mg_dia_solve {label} {str(b.dtype)[6:]}", n=b.shape[0],
         levels=st.mg_levels, diagonals=len(cfg.dia_offs),
-        level1_diagonals=len(cfg.mg.l1_offs),
-        corners=(len(cfg.mg.t0_offs), len(cfg.mg.t1_offs)),
-        n_iters=cfg.cg_iters, smem_bytes_per_cta=plan["smem_bytes"],
-        matrix_in_smem=plan["matrix_in_smem"], max_abs_err=err,
+        level1_diagonals=len(st.hierarchy["l1_offs"]),
+        level1_ell_width=st.planes["ua_l1_idx"].shape[0],
+        corners=(len(st.hierarchy["t0_offs"]),
+                 len(st.hierarchy["t1_offs"])),
+        largest_aggregates=(st.planes["ua_m1"].shape[0],
+                            st.planes["ua_m2"].shape[0]),
+        n_iters=cfg.cg_iters, **plan_numbers(plan), max_abs_err=err,
         tol="bitwise", **checks, ms=ms, plain_ms=plain_ms, operations=n_ops,
         bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
         device_ops_per_solve=ops, ok=ok)
@@ -475,16 +491,16 @@ def check_uamg_solve(torch, label, st, n_iters):
         mg_solve_numbers(torch, puamg.uamg_ell_solve,
                          puamg.uamg_ell_solve_reference, uamg_ell_counts,
                          args)
-    n, nc1, nc2 = cfg.mg.levels
-    plan = puamg.uamg_plan(n, nc2, b.dtype)
+    n = cfg.mg.levels[0]
+    plan = puamg.solve_plan(n, 0, puamg.host_struct(st.planes, cfg.mg),
+                            b.dtype)
     ok = all(checks.values()) and ops == 1.0
     say(f"kernel uamg_ell_solve {label} {str(b.dtype)[6:]}", n=n,
         levels=cfg.mg.levels, ell_width=cfg.ell_width,
         level1_ell_width=st.planes["ua_l1_idx"].shape[0],
         largest_aggregates=(st.planes["ua_m1"].shape[0],
                             st.planes["ua_m2"].shape[0]),
-        n_iters=n_iters, smem_bytes_per_cta=plan["smem_bytes"],
-        max_abs_err=err, tol="bitwise", **checks, ms=ms, plain_ms=plain_ms,
+        n_iters=n_iters, **plan_numbers(plan), max_abs_err=err, tol="bitwise", **checks, ms=ms, plain_ms=plain_ms,
         operations=n_ops, bytes=n_bytes, bound_ms=bound_ms,
         bound_by=bound_by, device_ops_per_solve=ops, ok=ok)
     if not ok:

@@ -626,7 +626,16 @@ MG_PROBLEMS = {
     # 90,601 rows, ladder (4, 16) (16 corners a transfer); in f64 the
     # slab's diagonals do not fit in shared memory
     "grid 300x300": lambda dt: grid_mg_problem(300, 300, dt),
+    # 63,001 rows, ladder (2, 8), 1,024 coarsest dofs: the CTA's rows of
+    # A2^-1 do not fit, nor in f64 the diagonals
+    "grid 250x250": lambda dt: grid_mg_problem(250, 250, dt),
 }
+# what the solve's plan keeps in shared memory for each problem: the
+# slab's fine diagonals, the CTA's rows of A2^-1 (every layout it can
+# pick appears)
+MG_RESIDENT = {("grid 300x300", torch.float64): {"a2inv"},
+               ("grid 250x250", torch.float64): set(),
+               ("grid 250x250", torch.float32): {"matrix"}}
 
 
 @pytest.mark.cuda
@@ -635,7 +644,8 @@ MG_PROBLEMS = {
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
 def test_mg_solve_kernel_is_its_twin(dtype, name, n_iters):
     """The multigrid mode of the cluster solve against its twin: bitwise,
-    twice the same, 0 iterations give x0 back."""
+    twice the same, 0 iterations give x0 back, in each layout its plan
+    picks (MG_RESIDENT; both parts resident where it names none)."""
     _cuda()
     p = MG_PROBLEMS[name](dtype)
     args = (p["b"], p["x0"], p["dia_vals"], p["offsets"], p["planes"],
@@ -649,10 +659,15 @@ def test_mg_solve_kernel_is_its_twin(dtype, name, n_iters):
     assert torch.equal(got, again) and torch.equal(got, want)
     if n_iters == 0:
         assert torch.equal(got, p["x0"])
-    plan = mg.mg_plan(p["b"].shape[0], len(p["offsets"]),
-                      p["planes"]["mg_rp2"].shape[0], dtype)
-    assert plan["matrix_in_smem"] == (name != "grid 300x300"
-                                      or dtype == torch.float32)
+    plan = uamg.solve_plan(p["b"].shape[0], len(p["offsets"]),
+                           uamg.host_struct(p["planes"], p["cfg"]), dtype)
+    resident = {k for k in ("matrix", "a2inv") if plan[f"{k}_in_smem"]}
+    assert resident == MG_RESIDENT.get((name, dtype), {"matrix", "a2inv"})
+    # the fine stages fused where a slab takes more than two passes of a
+    # CTA's 1,024 threads (grid 250x250 and 300x300)
+    assert plan["fused"] == (-(-p["b"].shape[0] // 16) > 2 * 1024)
+    assert plan["cluster_barriers_per_iteration"] == (5 if plan["fused"]
+                                                      else 8)
 
 
 @pytest.mark.cuda
@@ -707,7 +722,9 @@ def test_mg_windows_every_step_is_the_twins(name):
 def test_uamg_solve_kernel_is_its_twin(dtype, n_iters):
     """The algebraic multigrid mode of the cluster solve on the small uAMG
     scene's own matrix and planes, b N(0,1), from its state: bitwise to
-    the twin, twice the same, 0 iterations give x0 back."""
+    the twin, twice the same, 0 iterations give x0 back. Its plan keeps
+    the rows of A2^-1 in shared memory (ELL rows stream from L2), as at
+    delaunay100k."""
     _cuda()
     st = small_uamg(8, dtype)._stepper
     b = torch.as_tensor(np.random.default_rng(3).standard_normal(
@@ -723,6 +740,10 @@ def test_uamg_solve_kernel_is_its_twin(dtype, n_iters):
     assert torch.equal(got, again) and torch.equal(got, want)
     if n_iters == 0:
         assert torch.equal(got, st.state["x"])
+    plan = uamg.solve_plan(st.n_nodes, 0, uamg.host_struct(st.planes,
+                                                           st.cfg.mg), dtype)
+    assert not plan["matrix_in_smem"] and plan["a2inv_in_smem"]
+    assert plan["cluster_barriers_per_iteration"] == 8
 
 
 @pytest.mark.cuda

@@ -36,8 +36,11 @@ from admm_elastic_tpu_torch.core import mg as pmg
 from admm_elastic_tpu_torch.core.banded import BandedStepper
 from admm_elastic_tpu_torch.core.cloth import (MG_LADDERS, MG_MAX_NP2,
                                                ClothStepper, ladder_mg)
-from admm_elastic_tpu_torch.core.solver import _assemble_A_hat_csr, dia_apply
+from admm_elastic_tpu_torch.core.solver import (_assemble_A_hat_csr, dia_apply,
+                                                pcg_fixed_precond)
 from admm_elastic_tpu_torch.ops.kernels import mg as kmg
+from admm_elastic_tpu_torch.ops.kernels.cg_step import cluster_dot
+from admm_elastic_tpu_torch.ops.kernels.uamg import coarse_solve, vcycle
 from admm_elastic_tpu_torch.utils.scenes import beam_system
 from test_torch_cloth import cloth
 from test_torch_routing import ROUTES, SCENES
@@ -142,13 +145,11 @@ def test_vcycle_matches_jax(grid):
     n = len(x)
     offs, vals = _fine(A, n, n_pad)
     planes = kmg.planes_from(mine, torch.float64, "cpu")
-    cfg = kmg.MGConfig.of(mine)
     fine = torch.as_tensor(vals[:, :n])
 
     def V(r):
-        return kmg.vcycle(torch.as_tensor(r), lambda y: dia_apply(y, offs,
-                                                                 fine),
-                          planes, cfg).numpy()
+        return vcycle(torch.as_tensor(r), lambda y: dia_apply(y, offs, fine),
+                      planes).numpy()
 
     rng = np.random.default_rng(0)
     r = rng.standard_normal((n, 3))
@@ -203,6 +204,90 @@ def test_pcg_matches_numpy(grid):
         p, rz = z + (rzn / rz) * p, rzn
     np.testing.assert_allclose(got, xs, rtol=0, atol=TOL)
     assert np.abs(got - xt).max() < 1e-3 * np.abs(x0 - xt).max()
+
+
+def _shift(y, off):
+    """out[i] = y[i + off], 0 past either end."""
+    n = y.shape[0]
+    out = torch.zeros_like(y)
+    lo, hi = max(0, -off), min(n, n - off)
+    if lo < hi:
+        out[lo:hi] = y[lo + off:hi + off]
+    return out
+
+
+def _restrict(x, offs, masks):
+    """sum_c M_c . shift(x, +c), the corners added in order."""
+    acc = None
+    for c, m in zip(offs, masks):
+        t = m[:, None] * _shift(x, c)
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def _prolong(x, offs, masks):
+    """sum_c shift(M_c . x, -c), the corners added in order."""
+    acc = None
+    for c, m in zip(offs, masks):
+        t = _shift(m[:, None] * x, -c)
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def _masked_vcycle(r, A, mine):
+    """The V-cycle on the hierarchy as `build_grid_mg` gives it, every
+    level indexed by fine row, 0 off its representatives (the masked twin
+    the port ran before the compact levels), the coarsest product in the
+    kernel's order."""
+    P = {k: torch.as_tensor(np.asarray(mine[k]), dtype=r.dtype)
+         for k in ("l1_vals", "om_invd0", "om_invd1", "t0_masks",
+                   "t1_masks", "a2inv")}
+    om0, om1 = P["om_invd0"][:, None], P["om_invd1"][:, None]
+    rp2 = torch.as_tensor(np.asarray(mine["rp2"])).long()
+
+    def A1(y):
+        return dia_apply(y, mine["l1_offs"], P["l1_vals"])
+
+    z = om0 * r
+    r1 = _restrict(r - A(z), mine["t0_offs"], P["t0_masks"])
+    z1 = om1 * r1
+    r2 = _restrict(r1 - A1(z1), mine["t1_offs"], P["t1_masks"])[rp2]
+    z2 = torch.zeros_like(r)
+    z2[rp2] = coarse_solve(P["a2inv"], r2)
+    z1 = z1 + _prolong(z2, mine["t1_offs"], P["t1_masks"])
+    z1 = z1 + om1 * (r1 - A1(z1))
+    z = z + _prolong(z1, mine["t0_offs"], P["t0_masks"])
+    return z + om0 * (r - A(z))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_compact_levels_are_the_masked_cycle(grid, dtype):
+    """The compact form of a grid hierarchy (`compact_levels`, the planes
+    the kernel takes) drops only exact zeros: its V-cycle and an 8-iteration
+    solve equal the masked hierarchy's (torch.equal), on r and b N(0,1)
+    from a nonzero start."""
+    x, A, n_pad, mine, _, _ = grid
+    n = len(x)
+    offs, vals = _fine(A, n, n_pad)
+    fine = torch.as_tensor(np.ascontiguousarray(vals[:, :n]), dtype=dtype)
+
+    def Af(y):
+        return dia_apply(y, offs, fine)
+
+    planes = kmg.planes_from(mine, dtype, "cpu")
+    n1 = mine["levels"][1]
+    assert planes["ua_l1_idx"].shape[0] <= len(mine["l1_offs"])
+    assert planes["ua_m1"].shape == (len(mine["t0_offs"]), n1)
+    rng = np.random.default_rng(2)
+    r, b, x0 = (torch.as_tensor(rng.standard_normal((n, 3)), dtype=dtype)
+                for _ in range(3))
+    assert torch.equal(vcycle(r, Af, planes), _masked_vcycle(r, Af, mine))
+    want = pcg_fixed_precond(Af, b, x0, lambda q: _masked_vcycle(q, Af, mine),
+                             8, cluster_dot)
+    got = kmg.mg_dia_solve(b, x0, fine, offs, planes, kmg.MGConfig.of(mine),
+                           8)
+    assert torch.equal(got, want)
 
 
 def test_ladder_matches_jax():

@@ -1,5 +1,6 @@
 """The operation and byte counts behind chip_smoke.py's roofline bounds."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -248,17 +249,18 @@ def test_mg_dia_counts_one_iteration():
     """One more V-cycle PCG iteration adds the fine matvec (a product and a
     sum per term inside the matrix), 30n + 6 vector and scalar operations
     (Jacobi's 33n + 6 less z = D^-1 r) and one V-cycle as the function
-    needs it (`vcycle_ops`: fewer operations than the twin, which computes
-    the coarse levels over every fine row), in the solve and once per ADMM
-    iteration in the banded window's multigrid mode; the solve reads b,
-    x0, the diagonals and the multigrid's planes once and writes x."""
+    needs it (`uamg_vcycle_ops` on the compact levels: fewer operations
+    than the twin, which adds its padding's zeros), in the solve and once
+    per ADMM iteration in the banded window's multigrid mode; the solve
+    reads b, x0, the diagonals and the multigrid's planes once and writes
+    x."""
     import dataclasses
 
     from admm_elastic_tpu_torch.core.solver import dia_apply
-    from admm_elastic_tpu_torch.ops.kernels import banded_step, mg
+    from admm_elastic_tpu_torch.ops.kernels import banded_step, uamg
     from admm_elastic_tpu_torch.utils.opcount import (mg_dia_counts, nbytes,
                                                       rollout_counts,
-                                                      vcycle_ops)
+                                                      uamg_vcycle_ops)
     from admm_elastic_tpu_torch.utils.scenes import small_mg_beam
 
     st = small_mg_beam(device="cpu")._stepper
@@ -270,12 +272,12 @@ def test_mg_dia_counts_one_iteration():
     def A(y):
         return dia_apply(y, offs, dia)
 
-    vcycle = vcycle_ops(x, A, st.planes)
-    twin, _ = count_ops(mg.vcycle, x, A, st.planes, cfg.mg)
+    vcycle = uamg_vcycle_ops(x, A, st.planes)
+    twin, _ = count_ops(uamg.vcycle, x, A, st.planes)
     matvec = sum(6 * (n - abs(off)) for off in offs)
     assert 2 * matvec < vcycle < twin
     assert o4 - o3 == matvec + 30 * n + 6 + vcycle
-    planes = nbytes([st.planes[k] for k in mg.PLANES])
+    planes = nbytes([st.planes[k] for k in uamg.PLANES])
     assert b3 == b4 == 8 * (9 * n + dia.numel()) + planes
 
     def counts(k):
@@ -289,29 +291,24 @@ def test_mg_dia_counts_one_iteration():
 
 def test_vcycle_counts_the_representatives():
     """A V-cycle's coarse work is counted at each level's representatives
-    (the builder's level sizes) and at the nonzero coefficients there: on
-    the 6x5x4 beam's hierarchy, with the coarsest product nc2 (2 nc2 - 1)
-    a column."""
-    from admm_elastic_tpu_torch.utils.opcount import mg_level_ops
+    (the builder's level sizes) and at the nonzero coefficients there: the
+    6x5x4 beam's hierarchy in its compact form keeps the levels'
+    representatives and A1's nonzero entries at them, and
+    `uamg_level_ops` counts 7 n + 4 L + 4 n1 + 2 nc2^2 - 2 nc2 a column
+    from them, the coarsest product nc2 (2 nc2 - 1)."""
+    from admm_elastic_tpu_torch.utils.opcount import uamg_level_ops
     from admm_elastic_tpu_torch.utils.scenes import small_mg_beam
 
     st = small_mg_beam(device="cpu")._stepper
-    planes, (n, n1, nc2) = st.planes, st.mg_levels
-    assert int((planes["mg_om1"] != 0).sum()) == n1
-    rows1 = planes["mg_om1"] != 0
-    rp2 = planes["mg_rp2"].long()
-    nnz = {k: sum(int(planes[k][c, i] != 0) for c in range(planes[k].shape[0])
-                  for i in (rows1.nonzero().flatten().tolist()
-                            if k != "mg_t1" else rp2.tolist()))
-           for k in ("mg_t0", "mg_l1", "mg_t1")}
-    restrict0 = 2 * nnz["mg_t0"] - n1
-    a1 = 2 * nnz["mg_l1"] - n1
-    restrict1 = 2 * nnz["mg_t1"] - nc2
-    coarse = nc2 * (2 * nc2 - 1)
-    want = (5 * n + restrict0 + n1 + a1 + n1 + restrict1 + coarse
-            + 2 * nnz["mg_t1"] + a1 + 3 * n1 + 2 * nnz["mg_t0"])
-    assert mg_level_ops(planes, n) == want
-    assert nnz["mg_t1"] < planes["mg_t1"].numel()
+    planes, (n, n1, nc2), h = st.planes, st.mg_levels, st.hierarchy
+    reps1 = np.flatnonzero(np.asarray(h["om_invd1"]) != 0)
+    assert len(reps1) == n1 == planes["ua_om1"].numel()
+    assert nc2 == len(h["rp2"]) == planes["ua_a2inv"].shape[0]
+    L = int(np.count_nonzero(np.asarray(h["l1_vals"])[:, reps1]))
+    assert int(torch.count_nonzero(planes["ua_l1_vals"])) == L
+    want = 7 * n + 4 * L + 4 * n1 + 2 * nc2 * nc2 - 2 * nc2
+    assert uamg_level_ops(planes, n) == want
+    assert planes["ua_l1_vals"].numel() < np.asarray(h["l1_vals"]).size
 
 
 def test_uamg_ell_counts_one_iteration():
