@@ -31,8 +31,8 @@ With `collect_residuals` ("primal" or True) the window's kernels also
 compute each ADMM iteration's primal (and dual) residual, read after each
 window into `last_primal` / `last_dual` (n_steps, admm_iters).
 
-Out of this slice (raise or do not qualify, see ROADMAP.md): the sweep
-mode and scenario sweeps (B2).
+S scenarios of one mesh step together in the kernels' sweep mode:
+`core/sweep.py`.
 """
 
 from __future__ import annotations

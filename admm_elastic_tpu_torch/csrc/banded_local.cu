@@ -171,7 +171,7 @@ int launch(const T* x, const T* au, const T* cu, const T* u, const T* warm,
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err == cudaSuccess && collect) {
     residuals::finalize_kernel<T><<<1, THREADS, 0, s>>>(
-        part, eb + vb, nullptr, 0, 1, T(0), 1, r2, nullptr);
+        part, eb + vb, nullptr, 0, 1, T(0), 1, r2, nullptr, 0, 0, 0);
     err = cudaGetLastError();
   }
   return static_cast<int>(err);

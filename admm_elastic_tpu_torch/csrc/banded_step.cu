@@ -74,6 +74,19 @@
 // it (ops/kernels/banded_step.py), so a window is one submission. The
 // state is advanced in place; no kernel reads, through a const
 // __restrict__ pointer, a buffer that it writes.
+//
+// Scenario sweep (the Pallas kernel's sweep mode, n_scen, banded_step.py:
+// 200-234, 1048-1064; core/sweep.py): n_scen > 1 independent simulations
+// of one mesh in the same launches. Each kernel takes its scenario from
+// blockIdx.y (the finalize kernel from blockIdx.x), the cluster solve one
+// 16-CTA cluster a scenario (cluster_pcg.cuh, Scenarios). Per scenario, at
+// a stride of one scenario's size: the state x, v, au, cu (n,3), u (9,E),
+// warm (3,E); the planes w2, mu, lam, k (E,), invd, aw2 (n,), dia (D,n) or
+// the slot-major ELL values (K,n); the scratch and residual partials.
+// Shared: idx, cp, mass, ancz, inc and the ELL indices. A timestep is the
+// same 2 + 3 admm_iters launches whatever n_scen is, and every scenario
+// runs the single program's arithmetic in its order: a scenario's bits are
+// those of the single window fed its planes.
 
 #include "banded_phases.cuh"
 #include "dia.cuh"
@@ -117,7 +130,7 @@ struct Args {
   T* tz;
   T* part;
   T* dpart;
-  int it, eb, vb;
+  int it, eb, vb, iters;
   int n, E, S, n_shapes, newton_iters;
   T sc[N_SCALARS];
   int shape_kind[MAX_SHAPES];
@@ -126,16 +139,75 @@ struct Args {
 
 static_assert(THREADS == residuals::THREADS, "one block size");
 
+// Scenario blockIdx.y's view of Args: the fields banded_phases.cuh reads,
+// the per-scenario ones at their scenario's offset (0 for one scenario).
+template <typename T>
+struct Scenario {
+  T* x;
+  T* u;
+  T* warm;
+  T* au;
+  T* cu;
+  const int* __restrict__ idx;
+  const T* __restrict__ cp;
+  const T* __restrict__ w2;
+  const T* __restrict__ mu;
+  const T* __restrict__ lam;
+  const T* __restrict__ kp;
+  const T* __restrict__ aw2;
+  const T* __restrict__ ancz;
+  const int* __restrict__ inc;
+  T* xpre;
+  T* mxbar;
+  T* rows;
+  T* rhs;
+  T* zrows;
+  T* tz;
+  int E, S, n_shapes, newton_iters;
+  const T* sc;
+  const int* shape_kind;
+  const T (*shape_prm)[SHAPE_PRM];
+};
+
+template <typename T>
+__device__ __forceinline__ Scenario<T> scenario(const Args<T>& a) {
+  const size_t s = blockIdx.y, n = s * a.n, E = s * a.E;
+  return {a.x + 3 * n,       a.u + 9 * E,      a.warm + 3 * E,
+          a.au + 3 * n,      a.cu + 3 * n,     a.idx,
+          a.cp,              a.w2 + E,         a.mu + E,
+          a.lam + E,         a.kp + E,         a.aw2 + n,
+          a.ancz,            a.inc,            a.xpre + 3 * n,
+          a.mxbar + 3 * n,   a.rows + 12 * E,  a.rhs + 3 * n,
+          a.zrows == nullptr ? nullptr : a.zrows + 12 * E,
+          a.tz == nullptr ? nullptr : a.tz + 3 * n,
+          a.E,               a.S,              a.n_shapes,
+          a.newton_iters,    a.sc,             a.shape_kind,
+          a.shape_prm};
+}
+
+// Scenario blockIdx.y's primal partials of ADMM iteration a.it (its
+// element blocks', then its vertex blocks'), and its dual partials.
+template <typename T>
+__device__ __forceinline__ T* partials(const Args<T>& a) {
+  return a.part + (static_cast<size_t>(blockIdx.y) * a.iters + a.it) *
+                      (a.eb + a.vb);
+}
+
+template <typename T>
+__device__ __forceinline__ T* dual_partials(const Args<T>& a) {
+  return a.dpart + (static_cast<size_t>(blockIdx.y) * a.iters + a.it) * a.vb;
+}
+
 template <typename T, int MODEL, int COLLECT>
 __global__ void __launch_bounds__(THREADS)
     element_kernel(const __grid_constant__ Args<T> a) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const Scenario<T> s = scenario(a);
   if constexpr (COLLECT == residuals::NONE) {
-    if (e < a.E) element_step<T, MODEL>(a, e);
+    if (e < a.E) element_step<T, MODEL>(s, e);
   } else {
-    const T r2 = e < a.E ? element_step<T, MODEL, COLLECT>(a, e) : T(0);
-    residuals::block_partial(
-        r2, a.part + static_cast<size_t>(a.it) * (a.eb + a.vb) + blockIdx.x);
+    const T r2 = e < a.E ? element_step<T, MODEL, COLLECT>(s, e) : T(0);
+    residuals::block_partial(r2, partials(a) + blockIdx.x);
   }
 }
 
@@ -145,23 +217,20 @@ template <typename T, int COLLECT>
 __global__ void __launch_bounds__(THREADS)
     vertex_kernel(const __grid_constant__ Args<T> a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const Scenario<T> s = scenario(a);
   T b[3], r2 = T(0), d2 = T(0);
   if (i < a.n) {
-    r2 = vertex_rhs<T, COLLECT>(a, i, b, &d2);
+    r2 = vertex_rhs<T, COLLECT>(s, i, b, &d2);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const size_t q = 3 * static_cast<size_t>(i) + c;
-      a.rhs[q] = a.mxbar[q] + a.sc[DT2] * b[c];
+      s.rhs[q] = s.mxbar[q] + a.sc[DT2] * b[c];
     }
   }
   if constexpr (COLLECT != residuals::NONE)
-    residuals::block_partial(r2, a.part +
-                                     static_cast<size_t>(a.it) *
-                                         (a.eb + a.vb) +
-                                     a.eb + blockIdx.x);
+    residuals::block_partial(r2, partials(a) + a.eb + blockIdx.x);
   if constexpr (COLLECT == residuals::FULL)
-    residuals::block_partial(
-        d2, a.dpart + static_cast<size_t>(a.it) * a.vb + blockIdx.x);
+    residuals::block_partial(d2, dual_partials(a) + blockIdx.x);
 }
 
 // The dual residual's seed (FULL): the rows of w2 D^T D x_pre, then per
@@ -170,14 +239,14 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
     seed_element_kernel(const __grid_constant__ Args<T> a) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < a.E) seed_rows<T>(a, e);
+  if (e < a.E) seed_rows<T>(scenario(a), e);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     seed_vertex_kernel(const __grid_constant__ Args<T> a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n) seed_vertex<T>(a, i);
+  if (i < a.n) seed_vertex<T>(scenario(a), i);
 }
 
 template <typename T, int COLLECT>
@@ -215,14 +284,15 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
            int n, int E,
            int D, int K, int H, int S, int n_shapes, int model,
            int newton_iters, int cg_iters, int admm_iters, int n_steps,
-           int collect, void* stream) {
+           int collect, int n_scen, void* stream) {
   // exactly one matrix: D diagonals (K = 0) or K ELL slots (D = 0)
   const bool matrix_ok =
       K > 0 ? (D == 0 && ell_idx_t != nullptr && ell_vals_t != nullptr)
             : (D >= 1 && D <= dia::MAX_DIAGONALS && dia_vals != nullptr);
   if (n < 1 || E < 1 || !matrix_ok || K < 0 || H < 0 || S < 1 ||
       n_shapes < 0 || n_shapes > MAX_SHAPES || model < 0 || model > 2 ||
-      newton_iters < 0 || cg_iters < 0 || admm_iters < 0 || n_steps < 0)
+      newton_iters < 0 || cg_iters < 0 || admm_iters < 0 || n_steps < 0 ||
+      n_scen < 1 || n_scen > 65535 || (mg != nullptr && n_scen != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   // what each residual mode writes
   if (collect < residuals::NONE || collect > residuals::FULL ||
@@ -237,7 +307,7 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
   a.aw2 = aw2; a.ancz = ancz; a.inc = inc;
   a.xpre = xpre; a.mxbar = mxbar; a.rows = rows; a.rhs = rhs;
   a.zrows = zrows; a.tz = tz; a.part = part; a.dpart = dpart;
-  a.n = n; a.E = E; a.S = S; a.n_shapes = n_shapes;
+  a.n = n; a.E = E; a.S = S; a.n_shapes = n_shapes; a.iters = admm_iters;
   a.newton_iters = newton_iters;
   for (int q = 0; q < N_SCALARS; ++q) a.sc[q] = static_cast<T>(scalars[q]);
   for (int q = 0; q < n_shapes; ++q) {
@@ -246,7 +316,9 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
       a.shape_prm[q][j] = static_cast<T>(shape_prm[q * SHAPE_PRM + j]);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 vb = window::blocks_for(n), eb = window::blocks_for(E);
+  // y: the scenario
+  const dim3 vb(window::blocks_for(n).x, n_scen),
+      eb(window::blocks_for(E).x, n_scen);
   a.eb = static_cast<int>(eb.x);
   a.vb = static_cast<int>(vb.x);
   // each launch takes a copy of a: `it` is set before the ADMM
@@ -278,7 +350,7 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
         err = mg == nullptr
                   ? window::solve(rhs, x, invd, dia_vals, offsets, D,
                                   ell_idx_t, ell_vals_t, K, H, n, cg_iters,
-                                  scratch, st)
+                                  scratch, st, n_scen)
               : K > 0 ? window::uamg_solve(rhs, x, ell_idx_t, ell_vals_t, K,
                                            n, cg_iters, mg, scratch, st)
                       : window::mg_solve(rhs, x, dia_vals, offsets, D, n,
@@ -289,11 +361,14 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
                                                  n);
     err = window::launched();
     if (err == 0 && collect != residuals::NONE) {
-      const size_t at = static_cast<size_t>(step) * admm_iters;
+      const size_t at = static_cast<size_t>(step) * admm_iters,
+                   iters = admm_iters;
       const bool full = collect == residuals::FULL;
-      residuals::finalize_kernel<T><<<1, THREADS, 0, st>>>(
+      // one block a scenario; scenario s's residuals n_steps admm_iters on
+      residuals::finalize_kernel<T><<<n_scen, THREADS, 0, st>>>(
           part, a.eb + a.vb, full ? dpart : nullptr, a.vb, admm_iters,
-          a.sc[DT2], 0, res_p + at, full ? res_d + at : nullptr);
+          a.sc[DT2], 0, res_p + at, full ? res_d + at : nullptr,
+          iters * (a.eb + a.vb), iters * a.vb, iters * n_steps);
       err = window::launched();
     }
     if (err != 0) return window::failed(err);
@@ -315,13 +390,14 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
       const int* shape_kinds, const double* shape_prm, const double* scalars, \
       const void* mg, int n, int E, int D, int K, int H, int S, int n_shapes, \
       int model, int newton_iters, int cg_iters, int admm_iters, int n_steps, \
-      int collect, void* stream) {                                            \
+      int collect, int n_scen, void* stream) {                                \
     return admm::banded::launch<T>(                                           \
         x, v, u, warm, au, cu, idx, cp, w2, mu, lam, kp, mass, invd, aw2,     \
         ancz, inc, dia_vals, ell_idx_t, ell_vals_t, xpre, mxbar, rows, rhs,   \
         scratch, zrows, tz, part, dpart, res_p, res_d, offsets, shape_kinds,  \
         shape_prm, scalars, mg, n, E, D, K, H, S, n_shapes, model,            \
-        newton_iters, cg_iters, admm_iters, n_steps, collect, stream);        \
+        newton_iters, cg_iters, admm_iters, n_steps, collect, n_scen,         \
+        stream);                                                              \
   }
 
 extern "C" {
@@ -342,7 +418,10 @@ extern "C" {
 // the dual ones, written to res_p and res_d (n_steps, admm_iters); zrows
 // (12,E), tz (n,3), part (admm_iters, eb + vb) and dpart (admm_iters, vb),
 // with eb and vb the element and vertex blocks of 128 threads, are their
-// scratch (null where the mode needs none). Every launch
+// scratch (null where the mode needs none). n_scen: the scenarios of a
+// sweep (1: a single simulation; more: every per-scenario array above n_scen
+// times over, one scenario after the other, the residuals (n_scen, n_steps,
+// admm_iters); Jacobi only, mg null). Every launch
 // goes to `stream` (a CUDA graph capture takes them all; the solve's
 // set-up, cg_dia_prepare_* / cg_ell_prepare_* / mg_dia_prepare_* /
 // uamg_ell_prepare_*, must run before). Returns

@@ -41,10 +41,11 @@ namespace cg {
 template <typename T>
 using DiaRows = dia::Rows<T>;
 
+// n_scen scenarios: one cluster each, their diagonals D n apart.
 template <typename T>
 int solve(const T* b, const T* x0, const T* diag, const T* dia_vals,
           const int* offsets, int D, int H, int n, int n_iters, int diag_inv,
-          T* x, T* scratch, void* stream) {
+          T* x, T* scratch, void* stream, int n_scen = 1) {
   if (D < 1 || D > dia::MAX_DIAGONALS)
     return static_cast<int>(cudaErrorInvalidValue);
   DiaRows<T> row{dia_vals, {}, D, n};
@@ -54,7 +55,8 @@ int solve(const T* b, const T* x0, const T* diag, const T* dia_vals,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return cluster_pcg::solve<T>(row, H, D, b, x0, diag, diag_inv, n,
-                               n_iters, x, scratch, stream);
+                               n_iters, x, scratch, stream, n_scen,
+                               static_cast<size_t>(D) * n);
 }
 
 // The multigrid mode (mg_vcycle.cuh): the same dia rows, the V-cycle as
@@ -93,10 +95,26 @@ extern "C" {
   }                                                                          \
   int cg_dia_prepare_##SUFFIX(int D, int H, int n) {                         \
     return admm::cluster_pcg::prepare<T, admm::cg::DiaRows<T>>(H, D, n);     \
+  }                                                                          \
+  int cg_dia_sweep_##SUFFIX(const T* b, const T* x0, const T* diag,         \
+                            const T* dia, const int* offsets, int D, int H,  \
+                            int n, int n_iters, int diag_inv, T* x,          \
+                            T* scratch, int n_scen, void* stream) {          \
+    return admm::cg::solve<T>(b, x0, diag, dia, offsets, D, H, n, n_iters,   \
+                              diag_inv, x, scratch, stream, n_scen);         \
+  }                                                                          \
+  int cg_dia_clusters_##SUFFIX(int D, int H, int n, int* out) {              \
+    return admm::cluster_pcg::active_clusters<T, admm::cg::DiaRows<T>>(      \
+        H, D, n, out);                                                       \
   }
 
 // cg_dia_prepare_*: the set-up of a solve of n rows, D diagonals reaching
 // H, without a launch (before a CUDA graph captures such solves).
+// cg_dia_sweep_*: n_scen solves of one shape in one launch, one cluster a
+// scenario (cluster_pcg.cuh, Scenarios): b, x0, diag, x (n_scen,n,3) or
+// (n_scen,n), dia (n_scen,D,n), offsets shared, scratch n_scen times the
+// plan's. cg_dia_clusters_*: how many such clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *out.
 ADMM_CG_DIA_ENTRY(float, f32)
 ADMM_CG_DIA_ENTRY(double, f64)
 

@@ -43,7 +43,8 @@ namespace cg {
 
 // The ELL row of the cluster solve: slot k of row i at idx_t[k n + i],
 // vals_t[k n + i] (a slot-major copy of the (n,K) arrays); the slots are
-// added in order.
+// added in order. A sweep scenario's values start `off` further on; the
+// indices are shared.
 template <typename T>
 struct EllRows {
   const int* __restrict__ idx_t;
@@ -56,8 +57,8 @@ struct EllRows {
     int stride;
   };
 
-  __device__ View stage(int lo, int, T*) const {
-    return {idx_t + lo, vals_t + lo, n};
+  __device__ View stage(int lo, int, T*, size_t off = 0) const {
+    return {idx_t + lo, vals_t + off + lo, n};
   }
 
   template <typename Col>
@@ -83,14 +84,16 @@ struct EllRows {
   }
 };
 
+// n_scen scenarios: one cluster each, their values K n apart.
 template <typename T>
 int ell_solve(const T* b, const T* x0, const T* diag, const int* idx_t,
               const T* vals_t, int K, int H, int n, int n_iters, int diag_inv,
-              T* x, T* scratch, void* stream) {
+              T* x, T* scratch, void* stream, int n_scen = 1) {
   if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
   const EllRows<T> row{idx_t, vals_t, K, n};
   return cluster_pcg::solve<T>(row, H, 0, b, x0, diag, diag_inv, n,
-                               n_iters, x, scratch, stream);
+                               n_iters, x, scratch, stream, n_scen,
+                               static_cast<size_t>(K) * n);
 }
 
 // The algebraic multigrid mode (mg_vcycle.cuh): the same ELL rows,
@@ -127,8 +130,25 @@ extern "C" {
   }                                                                          \
   int cg_ell_prepare_##SUFFIX(int H, int n) {                                \
     return admm::cluster_pcg::prepare<T, admm::cg::EllRows<T>>(H, 0, n);     \
+  }                                                                          \
+  int cg_ell_sweep_##SUFFIX(const T* b, const T* x0, const T* diag,         \
+                            const int* idx_t, const T* vals_t, int K, int H, \
+                            int n, int n_iters, int diag_inv, T* x,          \
+                            T* scratch, int n_scen, void* stream) {          \
+    return admm::cg::ell_solve<T>(b, x0, diag, idx_t, vals_t, K, H, n,       \
+                                  n_iters, diag_inv, x, scratch, stream,     \
+                                  n_scen);                                   \
+  }                                                                          \
+  int cg_ell_clusters_##SUFFIX(int H, int n, int* out) {                     \
+    return admm::cluster_pcg::active_clusters<T, admm::cg::EllRows<T>>(      \
+        H, 0, n, out);                                                       \
   }
 
+// cg_ell_sweep_*: n_scen solves of one shape in one launch, one cluster a
+// scenario (cluster_pcg.cuh, Scenarios): b, x0, diag, x (n_scen,n,3) or
+// (n_scen,n), vals_t (n_scen,K,n), idx_t (K,n) shared, scratch n_scen times
+// the plan's. cg_ell_clusters_*: how many such clusters the card holds at
+// once (cudaOccupancyMaxActiveClusters), into *out.
 ADMM_CG_ELL_ENTRY(float, f32)
 ADMM_CG_ELL_ENTRY(double, f64)
 

@@ -592,7 +592,7 @@ int launch(T* x, T* v, T* tu, T* hu, T* au, const int* tidx, const int* tgrp,
       const bool full = collect == residuals::FULL;
       residuals::finalize_kernel<T><<<1, THREADS, 0, st>>>(
           part, a.eb + a.vb, full ? dpart : nullptr, a.vb, admm_iters,
-          a.sc[DT2], 0, res_p + at, full ? res_d + at : nullptr);
+          a.sc[DT2], 0, res_p + at, full ? res_d + at : nullptr, 0, 0, 0);
       err = window::launched();
     }
     if (err != 0) return window::failed(err);

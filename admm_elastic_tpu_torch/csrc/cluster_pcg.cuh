@@ -59,6 +59,13 @@
 // mbarriers are set up) and closes it (no CTA exits while another may
 // still write to it).
 //
+// Scenarios. One launch may solve n_scen systems of the same shape (a
+// scenario sweep): cluster blockIdx.y solves scenario blockIdx.y, with its
+// b, x0, x, D^-1 and scratch at that scenario's offset (3n, 3n, 3n, n and
+// the plan's scratch count a scenario) and its matrix values at mat_stride
+// a scenario (the row's index arrays are shared). Each cluster runs the
+// single solve's program, so a scenario's bits are the single solve's.
+//
 // Dot products: every thread adds its rows' values in turn, each row the
 // three products in order; the CTA adds its threads by a halving tree
 // within each warp of 32 and then over the 32 warps; every CTA adds the 16
@@ -328,7 +335,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     solve_kernel(const Row row, const T* __restrict__ b, const T* x0,
                  const T* __restrict__ diag, int diag_inv, int n, int H,
                  int iters, T* x_out, T* scratch, int S, int W,
-                 int mat_smem) {
+                 int mat_smem, size_t mat_stride, size_t scratch_stride) {
   extern __shared__ __align__(16) unsigned char dyn_raw[];
   // every rank's partials: [0] r.(D^-1 r), [1] p.Ap
   __shared__ T slots[2][CLUSTER];
@@ -337,6 +344,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   cgr::cluster_group cl = cgr::this_cluster();
   const int me = static_cast<int>(cl.block_rank());
   const int tid = threadIdx.x;
+  // this cluster's scenario (0 for a single solve)
+  const size_t sc = blockIdx.y, sn = n;
+  b += 3 * sn * sc;
+  x0 += 3 * sn * sc;
+  x_out += 3 * sn * sc;
+  diag += sn * sc;
+  if (scratch != nullptr) scratch += scratch_stride * sc;
   const int lo = min(me * S, n), rows = min(lo + S, n) - lo, hi = lo + rows;
   // WINDOW: rows [wlo, wlo + wn), none for a CTA without rows; SHARED: the
   // slab
@@ -352,7 +366,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   const typename Row::View mv = row.stage(
-      lo, rows, mat_smem ? dyn + (WINDOW ? region(W, S) : 0) : nullptr);
+      lo, rows, mat_smem ? dyn + (WINDOW ? region(W, S) : 0) : nullptr,
+      mat_stride * sc);
   const size_t gn = n;
   T* rd = WINDOW ? dyn : scratch + 4 * static_cast<size_t>(lo);  // r, D^-1
   // p: three values a row; SHARED f32 four (one aligned load a row; in
@@ -512,16 +527,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   cl.sync();
 }
 
-// The launch of one cluster of a solve kernel, with `smem` bytes of
-// dynamic shared memory a CTA.
+// The launch of one cluster of a solve kernel (n_scen: one a scenario,
+// along y), with `smem` bytes of dynamic shared memory a CTA.
 inline cudaLaunchConfig_t cluster_config(int smem, cudaStream_t st,
-                                         cudaLaunchAttribute* attr) {
+                                         cudaLaunchAttribute* attr,
+                                         int n_scen = 1) {
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CLUSTER;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER);
+  cfg.gridDim = dim3(CLUSTER, n_scen);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -597,28 +613,50 @@ int prepare(int H, int mat_per_row, int n) {
                                       : ready<T, Row, false>(pl.smem_bytes));
 }
 
+// The cluster solves resident on the card at once for a solve of n rows
+// reaching H (its plan's kernel, attributes set): a sweep's solve of more
+// scenarios runs in waves of this many.
+template <typename T, typename Row>
+int active_clusters(int H, int mat_per_row, int n, int* out) {
+  Plan pl;
+  const int err = checked_plan(n, H, mat_per_row, sizeof(T), 0, true, &pl);
+  if (err != 0) return err;
+  const void* fn = pl.vec_smem ? (const void*)solve_kernel<T, Row, true>
+                               : (const void*)solve_kernel<T, Row, false>;
+  cudaError_t e = ready(fn, pl.smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(pl.smem_bytes, nullptr, attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, fn, &cfg));
+}
+
 template <typename T, typename Row, bool WINDOW>
 cudaError_t launch_kernel(const Row& row, const Plan& pl, int H,
                           const T* b, const T* x0, const T* diag,
                           int diag_inv, int n, int iters, T* x, T* scratch,
-                          cudaStream_t st) {
+                          int n_scen, size_t mat_stride, cudaStream_t st) {
   const cudaError_t e = ready<T, Row, WINDOW>(pl.smem_bytes);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(pl.smem_bytes, st, attr);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(pl.smem_bytes, st, attr, n_scen);
   return cudaLaunchKernelEx(&cfg, solve_kernel<T, Row, WINDOW>, row, b, x0,
                             diag, diag_inv, n, H, iters, x, scratch, pl.slab,
-                            pl.window, pl.mat_smem);
+                            pl.window, pl.mat_smem, mat_stride,
+                            static_cast<size_t>(pl.scratch));
 }
 
 // The whole solve: its plan, then one launch in the plan's layout. diag:
 // the diagonal of A, or with diag_inv = 1 its inverse (D^-1 as given);
 // x may be x0. scratch: the plan's elements of global scratch (nullptr
-// when 0).
+// when 0), n_scen times over. n_scen scenarios (see Scenarios above),
+// their matrix values mat_stride apart.
 template <typename T, typename Row>
 int solve(const Row& row, int H, int mat_per_row, const T* b, const T* x0,
           const T* diag, int diag_inv, int n, int iters, T* x, T* scratch,
-          void* stream) {
+          void* stream, int n_scen = 1, size_t mat_stride = 0) {
+  if (n_scen < 1 || n_scen > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
   const int err = checked_plan(n, H, mat_per_row, sizeof(T), iters,
                                scratch != nullptr, &pl);
@@ -627,9 +665,11 @@ int solve(const Row& row, int H, int mat_per_row, const T* b, const T* x0,
   const cudaError_t e =
       pl.vec_smem
           ? launch_kernel<T, Row, true>(row, pl, H, b, x0, diag, diag_inv, n,
-                                        iters, x, scratch, st)
+                                        iters, x, scratch, n_scen,
+                                        mat_stride, st)
           : launch_kernel<T, Row, false>(row, pl, H, b, x0, diag, diag_inv,
-                                         n, iters, x, scratch, st);
+                                         n, iters, x, scratch, n_scen,
+                                         mat_stride, st);
   if (e != cudaSuccess) cudaGetLastError();  // returned here, not left behind
   return static_cast<int>(e);
 }

@@ -19,7 +19,7 @@ struct Offsets {
 // order, terms past either end of the matrix skipped (as
 // core/solver.dia_apply skips them). stage() copies the offsets, and the
 // CTA's slab of the diagonals where they fit, into shared memory, else
-// reads them from dia (D,n).
+// reads them from dia (D,n); `off` moves to a sweep scenario's diagonals.
 template <typename T>
 struct Rows {
   const T* __restrict__ dia;
@@ -32,13 +32,14 @@ struct Rows {
     const int* offs;
   };
 
-  __device__ View stage(int lo, int rows, T* smem) const {
+  __device__ View stage(int lo, int rows, T* smem, size_t off = 0) const {
     __shared__ int offs_s[MAX_DIAGONALS];
     for (int d = threadIdx.x; d < D; d += blockDim.x) offs_s[d] = offs.v[d];
-    if (smem == nullptr) return {dia + lo, n, offs_s};
+    const T* vals = dia + off;
+    if (smem == nullptr) return {vals + lo, n, offs_s};
     for (int q = threadIdx.x; q < D * rows; q += blockDim.x) {
       const int d = q / rows, li = q - d * rows;
-      smem[q] = dia[static_cast<size_t>(d) * n + lo + li];
+      smem[q] = vals[static_cast<size_t>(d) * n + lo + li];
     }
     return {smem, rows, offs_s};
   }

@@ -46,12 +46,22 @@ __device__ __forceinline__ T sum_partials(const T* p, int count, T* sh) {
 // One block of THREADS: for each of `iters` ADMM iterations, the primal
 // residual sqrt(sum of its `stride` partials) into res_p[it] (raw: the sum
 // itself) and, with dpart, the dual residual dt2 sqrt(sum of its `dstride`
-// partials) into res_d[it].
+// partials) into res_d[it]. A scenario sweep launches one block a
+// scenario: block s reads its partials part_scen (dpart_scen) further on
+// and writes its residuals res_scen further on.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     finalize_kernel(const T* part, int stride, const T* dpart, int dstride,
-                    int iters, T dt2, int raw, T* res_p, T* res_d) {
+                    int iters, T dt2, int raw, T* res_p, T* res_d,
+                    size_t part_scen, size_t dpart_scen, size_t res_scen) {
   __shared__ T sh[THREADS];
+  const size_t s = blockIdx.x;
+  part += part_scen * s;
+  res_p += res_scen * s;
+  if (dpart != nullptr) {
+    dpart += dpart_scen * s;
+    res_d += res_scen * s;
+  }
   for (int it = 0; it < iters; ++it) {
     const T tp = sum_partials(part + static_cast<size_t>(it) * stride,
                               stride, sh);

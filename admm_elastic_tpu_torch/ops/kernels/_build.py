@@ -116,6 +116,8 @@ _SIGNATURES = {
        for m in ("dia", "ell") for t in ("f32", "f64")},
     # D, H, n; H, n
     **{f"cg_dia_prepare_{t}": (_I, [_I] * 3) for t in ("f32", "f64")},
+    **{f"cg_dia_clusters_{t}": (_I, [_I] * 3 + [_P]) for t in ("f32", "f64")},
+    **{f"cg_ell_clusters_{t}": (_I, [_I] * 2 + [_P]) for t in ("f32", "f64")},
     **{f"cg_ell_prepare_{t}": (_I, [_I] * 2) for t in ("f32", "f64")},
     "cg_cluster_plan": (_I, [_I] * 4 + [_P]),
     # b, x0, dia, offsets, then D, n, n_iters, then the multigrid (a
@@ -150,7 +152,7 @@ _SIGNATURES = {
     # and results 2, host arrays 4, the multigrid (or null), then n, E, D,
     # K, H, S, n_shapes, model, newton_iters, cg_iters, admm_iters,
     # n_steps, collect, and the stream
-    **{f"banded_rollout_{t}": (_I, [_P] * 36 + [_I] * 13 + [_P])
+    **{f"banded_rollout_{t}": (_I, [_P] * 36 + [_I] * 14 + [_P])
        for t in ("f32", "f64")},
     # state 5, element planes 7, vertex planes 7, scratch 6 (xpre, mxbar,
     # rows, wf, rhs, the solve's), residual scratch 4 and results 2, host

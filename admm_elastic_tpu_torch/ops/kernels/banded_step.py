@@ -48,6 +48,16 @@ one to the other. Both return a new state dict and leave their inputs
 untouched. `BandedWindow` is a window on a state's own buffers, which a
 stepper advances in place through one CUDA graph a window length
 (`_graph.WindowGraphs`).
+
+Sweep mode (`BandedConfig.n_scen` = S, the Pallas kernel's n_scen;
+`core/sweep.py`): S independent simulations of one mesh. The state and
+the `SWEPT` planes gain a leading S axis (x (S,n,3), u (S,9,E), w2 (S,E),
+invd (S,n), dia (S,D,n), ell_vals (S,n,K), ...); idx, cp, mass, ancz,
+inc and ell_idx stay shared. The kernels take the scenario from their
+grid (one cluster a scenario in the solve), the same launches a timestep
+whatever S is; the twin runs the single twin on each scenario's slice.
+Residuals come back (S, n_steps, admm_iters). Jacobi only: the multigrid
+raises under a sweep, as the Pallas kernel does.
 """
 
 from __future__ import annotations
@@ -70,6 +80,9 @@ STATE = ("x", "v", "u", "warm", "au", "cu")
 PLANES = ("idx", "cp", "w2", "mu", "lam", "k", "mass", "invd", "aw2", "ancz",
           "inc")
 MATRIX_PLANES = {"dia": ("dia",), "ell": ("ell_idx", "ell_vals")}
+#: the planes a sweep gives each scenario (a leading S axis); the rest are
+#: shared
+SWEPT = ("w2", "mu", "lam", "k", "invd", "aw2", "dia", "ell_vals")
 MAX_SHAPES = 16  # the kernels' collision table (csrc/banded_phases.cuh)
 _SHAPE_KINDS = {"floor": 0, "sphere": 1, "cylinder": 2}
 _SHAPE_ARITY = {"floor": 1, "sphere": 4, "cylinder": 3}
@@ -88,7 +101,9 @@ class BandedConfig:
     preconditions the solve, a `mg.MGConfig` (dia) or a
     `uamg.UAMGConfig` (ELL); None for Jacobi. collect: None,
     "primal" (each ADMM iteration's primal residual) or "full" (and its
-    dual residual), the JAX kernel's collect / collect_dual."""
+    dual residual), the JAX kernel's collect / collect_dual. n_scen:
+    None, or the S scenarios of a sweep (state and SWEPT planes with a
+    leading S axis)."""
 
     dia_offs: tuple
     model: str
@@ -102,8 +117,16 @@ class BandedConfig:
     ell_width: int = 0
     mg: mg.MGConfig | uamg.UAMGConfig | None = None
     collect: str | None = None
+    n_scen: int | None = None
 
     def __post_init__(self):
+        if self.n_scen is not None:
+            if self.n_scen < 1:
+                raise ValueError("n_scen: a sweep runs at least 1 scenario")
+            if self.mg is not None:  # banded_step.py:1018-1031
+                raise NotImplementedError(
+                    "in-kernel multigrid: non-sweep only (the JAX kernel "
+                    "raises for a sweep under the multigrid too)")
         if self.collect not in residuals.MODES:
             raise ValueError(f"collect: one of {tuple(residuals.MODES)}")
         if self.model not in _MODELS:
@@ -313,6 +336,12 @@ def _vertex_rhs(x, au, cu, rows, planes, cfg, collect=None, zrows=None,
     return b, au, cu, pieces, tz, squares(tz - tz_prev)
 
 
+def scenario_planes(planes, s):
+    """Scenario s's planes of a sweep: its slice of the SWEPT planes, the
+    shared ones as they are."""
+    return {k: t[s] if k in SWEPT else t for k, t in planes.items()}
+
+
 def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps,
                              dot=cluster_dot):
     """Plain PyTorch version of the kernels: the same phases in the same
@@ -320,7 +349,15 @@ def banded_rollout_reference(state, planes, cfg: BandedConfig, n_steps,
     default in the cluster solve's order; None: torch.sum). With
     cfg.collect the result also holds "primal" (and, "full", "dual"):
     (n_steps, admm_iters) residuals, summed in the kernels' order
-    (`residuals.py`)."""
+    (`residuals.py`). A sweep (cfg.n_scen) runs this on each scenario's
+    slice and stacks the results."""
+    if cfg.n_scen is not None:
+        single = dataclasses.replace(cfg, n_scen=None)
+        outs = [banded_rollout_reference({k: state[k][s] for k in STATE},
+                                         scenario_planes(planes, s), single,
+                                         n_steps, dot)
+                for s in range(cfg.n_scen)]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     x, v, u, warm, au, cu = (state[k] for k in STATE)
     dtype, dev = x.dtype, x.device
     dt, dt2, inv_dt, *rest = (torch.tensor(q, dtype=dtype, device=dev)
@@ -389,7 +426,8 @@ def _with_residuals(out, collect, res_p, res_d, n_steps, cfg, x):
 
 def _check(state, planes, cfg):
     x = state["x"]
-    n = x.shape[0] if x.dim() == 2 else -1
+    lead = () if cfg.n_scen is None else (cfg.n_scen,)
+    n = x.shape[-2] if x.dim() == 2 + len(lead) else -1
     E = state["u"].shape[-1]
     S = planes["inc"].shape[-1]
     want = {"x": (n, 3), "v": (n, 3), "au": (n, 3), "cu": (n, 3),
@@ -400,6 +438,9 @@ def _check(state, planes, cfg):
         want["ell_idx"] = want["ell_vals"] = (n, cfg.ell_width)
     else:
         want["dia"] = (len(cfg.dia_offs), n)
+    for name in (*STATE, *SWEPT):
+        if name in want:
+            want[name] = lead + want[name]
     if x.dtype not in _SUFFIX:
         raise TypeError(f"unsupported dtype {x.dtype}")
     for name, shape in want.items():
@@ -424,27 +465,30 @@ class BandedWindow:
     """The kernels of a rollout window on one state's own buffers, on a
     CUDA device: `launch(n_steps)` enqueues n_steps timesteps on the
     current stream and advances `state` in place. Holds the window's
-    scratch, the matrix as the cluster solve reads it (ELL: slot-major),
-    the multigrid's C description (`uamg.UAMGHost`), and
-    the solve's set-up, done here, before any CUDA graph captures a
-    launch."""
+    scratch (a sweep's for each scenario), the matrix as the cluster
+    solve reads it (ELL: slot-major), the multigrid's C description
+    (`uamg.UAMGHost`), and the solve's set-up, done here, before any
+    CUDA graph captures a launch."""
 
     def __init__(self, state, planes, cfg: BandedConfig):
         self.n, self.E, self.S = _check(state, planes, cfg)
         self.state, self.planes, self.cfg = state, planes, cfg
+        self.n_scen = cfg.n_scen or 1
         x = state["x"]
+        lead = x.shape[:-2]  # a sweep's (S,)
         self.xpre, self.mxbar, self.rhs = (torch.empty_like(x)
                                            for _ in range(3))
-        self.rows = x.new_empty((12, self.E))
+        self.rows = x.new_empty(lead + (12, self.E))
         # residual collection's scratch, and its results for each window
         # length (`residuals(n)`)
         eb, vb = (-(-m // residuals.THREADS) for m in (self.E, self.n))
         full = cfg.collect == "full"
-        self.zrows = x.new_empty((12, self.E)) if full else None
+        self.zrows = x.new_empty(lead + (12, self.E)) if full else None
         self.tz = torch.empty_like(x) if full else None
-        self.part = (x.new_empty((cfg.admm_iters, eb + vb))
+        self.part = (x.new_empty(lead + (cfg.admm_iters, eb + vb))
                      if cfg.collect else None)
-        self.dpart = x.new_empty((cfg.admm_iters, vb)) if full else None
+        self.dpart = (x.new_empty(lead + (cfg.admm_iters, vb)) if full
+                      else None)
         self._res = {}
         if cfg.matrix == "ell":
             self.matrix = (None, slot_major(planes["ell_idx"]),
@@ -457,7 +501,7 @@ class BandedWindow:
             self.mg = None
             self.scratch = cluster_prepare(x, self.n, self.reach,
                                            len(cfg.dia_offs),
-                                           cfg.matrix == "ell")
+                                           cfg.matrix == "ell", self.n_scen)
         else:
             self.mg = uamg.host_struct(planes, cfg.mg)
             self.scratch = uamg.solve_prepare(x, self.n, len(cfg.dia_offs),
@@ -479,14 +523,16 @@ class BandedWindow:
                           + residuals.extra_ops(self.cfg.collect))
 
     def residuals(self, n_steps):
-        """The (2, n_steps, admm_iters) buffer an n_steps window writes its
-        primal ([0]) and dual ([1]) residuals to; None without collect."""
+        """The (2, n_steps, admm_iters) buffer ((2, S, n_steps,
+        admm_iters) for a sweep) an n_steps window writes its primal ([0])
+        and dual ([1]) residuals to; None without collect."""
         if not self.cfg.collect:
             return None
         if n_steps not in self._res:
+            x = self.state["x"]  # (n,3), or a sweep's (S,n,3)
             # made at a graph's capture, no launch of its own
-            self._res[n_steps] = self.state["x"].new_empty(
-                (2, n_steps, self.cfg.admm_iters))
+            self._res[n_steps] = x.new_empty(
+                (2, *x.shape[:-2], n_steps, self.cfg.admm_iters))
         return self._res[n_steps]
 
     def launch(self, n_steps):
@@ -509,7 +555,7 @@ class BandedWindow:
                 self.n, self.E, len(cfg.dia_offs), cfg.ell_width, self.reach,
                 self.S, len(cfg.coll_shapes), _MODELS[cfg.model],
                 cfg.newton_iters, cfg.cg_iters, cfg.admm_iters,
-                int(n_steps), residuals.MODES[cfg.collect],
+                int(n_steps), residuals.MODES[cfg.collect], self.n_scen,
                 _build.stream_ptr(x))
         _build.check(err, "banded_rollout")
 

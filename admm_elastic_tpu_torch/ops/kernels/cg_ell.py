@@ -88,8 +88,10 @@ def bandwidth(ell_idx):
 
 def slot_major(t):
     """The (K,n) copy of an (n,K) ELL array that the kernel reads (a
-    warp's 32 rows of one slot are one line), kept while t is unchanged."""
-    return _kept(t, "_slot_major", lambda a: a.t().contiguous())
+    warp's 32 rows of one slot are one line), kept while t is unchanged;
+    (S,K,n) of a sweep's (S,n,K) values."""
+    return _kept(t, "_slot_major",
+                 lambda a: a.transpose(-2, -1).contiguous())
 
 
 def cg_ell_solve(b, x0, diag, ell_idx, ell_vals, n_iters, inverse=False):

@@ -145,13 +145,13 @@ def cluster_solve(name, b, ptrs, width, reach, mat_per_row, n_iters,
     return x
 
 
-def cluster_prepare(like, n, reach, width, ell=False):
+def cluster_prepare(like, n, reach, width, ell=False, n_scen=1):
     """The set-up of the cluster solves of n rows reaching `reach`, dtype
     and device of `like`, D = `width` diagonals (or ELL rows, ell=True):
     the kernel's attributes and the check that the card can place the
     cluster, which a CUDA graph capture must find done. Returns the
-    solve's global scratch (None when its plan keeps the vectors in
-    shared memory)."""
+    solve's global scratch, n_scen times over for a sweep's solves (None
+    when its plan keeps the vectors in shared memory)."""
     plan = cluster_plan(n, like.dtype, reach, 0 if ell else width,
                         like.device)
     lib, suffix = _build.load_library(), _SUFFIX[like.dtype]
@@ -160,7 +160,27 @@ def cluster_prepare(like, n, reach, width, ell=False):
                else getattr(lib, f"cg_dia_prepare_{suffix}")(width, reach,
                                                              n))
     _build.check(err, "cluster solve set-up")
-    return like.new_empty(plan["scratch"]) if plan["scratch"] else None
+    return (like.new_empty(plan["scratch"] * n_scen) if plan["scratch"]
+            else None)
+
+
+def active_clusters(n, dtype, reach, width, ell=False, device=None) -> int:
+    """How many clusters of the cluster solve of n rows reaching `reach`
+    (D = `width` diagonals, or ELL rows with ell=True) the card holds at
+    once (cudaOccupancyMaxActiveClusters for its plan's kernel and shared
+    memory): a sweep's solve of S scenarios, one cluster each, runs in
+    ceil(S / this) waves."""
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    lib, suffix = _build.load_library(), _SUFFIX[dtype]
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = (getattr(lib, f"cg_ell_clusters_{suffix}")(
+            int(reach), int(n), ctypes.byref(out)) if ell
+               else getattr(lib, f"cg_dia_clusters_{suffix}")(
+            int(width), int(reach), int(n), ctypes.byref(out)))
+    _build.check(err, "cluster occupancy")
+    return out.value
 
 
 def cg_update_reference(x, r, p, rz, Ap, inv_diag):

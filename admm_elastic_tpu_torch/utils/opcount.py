@@ -24,7 +24,8 @@ the solves' with one plain sum a dot (the multigrid modes' V-cycles
 included, `uamg_ell_counts` the algebraic one's); `banded_local_counts` and
 `cheb_dia_counts` the sharded stepper's), and `rollout_counts` those of the
 whole-timestep kernels (banded in dia or ELL mode, cloth, lattice; the
-banded and cloth ones in their multigrid mode too). The
+banded and cloth ones in their multigrid mode too; `sweep_counts` the
+banded window's sweep mode). The
 lattice kernel's twin skips a group's zero selector coefficients as the
 kernel does, so its count is the arithmetic of the nonzero ones.
 The residual modes (the element steps' `emit_z`, the windows'
@@ -37,13 +38,15 @@ most THREADS - 1 additions a block row).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import inspect
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.solver import dia_apply, pcg_solve_fixed
-from ..ops.kernels import banded_local, cg_ell, cg_step, cheb_dia, uamg
+from ..ops.kernels import (banded_local, banded_step, cg_ell, cg_step,
+                           cheb_dia, uamg)
 
 _ELEMENTWISE = frozenset((
     "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "rsqrt", "log",
@@ -239,6 +242,24 @@ def rollout_counts(reference, keys, state, planes, cfg, n_steps):
           else {})
     ops, out = count_ops(reference, state, planes, cfg, n_steps, **kw)
     return ops, nbytes(({k: state[k] for k in keys}, planes), out)
+
+
+def sweep_counts(state, planes, cfg, n_steps):
+    """(operations, bytes) of a sweep window (`banded_rollout` with
+    cfg.n_scen = S scenarios) for n_steps: S times one scenario's
+    operations (the twin evaluates every branch, so each scenario does the
+    same work; counted on scenario 0 with plain sums, as
+    `rollout_counts`), the state and every plane read once (a swept plane
+    for each scenario, a shared one once) and the new state written
+    once."""
+    S = cfg.n_scen
+    ops, out = count_ops(banded_step.banded_rollout_reference,
+                         {k: state[k][0] for k in banded_step.STATE},
+                         banded_step.scenario_planes(planes, 0),
+                         dataclasses.replace(cfg, n_scen=None), n_steps,
+                         dot=None)
+    read = nbytes({k: state[k] for k in banded_step.STATE}, planes)
+    return S * ops, read + S * nbytes(out)
 
 
 def banded_local_counts(x, au, cu, u, warm, planes, cfg, collect=False):

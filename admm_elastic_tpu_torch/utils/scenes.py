@@ -55,6 +55,14 @@ the general ell route (xla) with the aggregation AMG. `small_uamg` is the
 10 x 7 x 6 Delaunay mesh of tests/test_uamg.py (420 nodes) on the
 algebraic multigrid route.
 
+`sweep64`: `bench.py --preset sweep64` (bench_sweep): 64 drops of one
+beam with varied stiffness, the scenario sweep (`core/sweep.py`) on the
+ell solver (bench's) or dia. The armadillo mesh bench names is not in the
+repo, so the preset's own fallback stands in: make_beam_tets(10, 8, 7,
+size=0.1), 792 nodes, 2,800 tets. `jittered_sweep` is a small sweep of
+the jittered beam for the card checks: stiffness, optionally anchor
+weights and a floor, in either matrix form and model.
+
 `banded_spd` is a random banded SPD system of any size in both the dia and
 the ELL form, for the CG solves at sizes no mesh gives (fewer rows than a
 cluster has CTAs, a last slab cut short, slabs too large for shared
@@ -200,6 +208,93 @@ def jittered_beam(nx=4, ny=3, nz=3, seed=0, jitter=0.08):
     mesh.vertices = mesh.vertices + jitter * 0.25 * rng.randn(
         *mesh.vertices.shape)
     return mesh
+
+
+def stiffness_sweep(system, mus, model="nh", lam_ratio=2.5):
+    """A sweep dict scaling the tet force's stiffness per scenario as
+    HyperElasticTet would build it with mu = mus[s] (lam = lam_ratio mu, k
+    = mu, weight = sqrt(k vol)); arap: LinearTetStrain's k and weight
+    scaled by mus[s] / mus[0]."""
+    tf = next(f for f in system.forces
+              if isinstance(f, (HyperElasticTet, LinearTetStrain)))
+    p = system._params_host[tf.name]
+    E = len(p["indices"])
+    mus = np.asarray(mus, np.float64)
+    if model == "arap":
+        scale = mus[:, None] / mus[0]
+        return {(tf.name, "k"): np.broadcast_to(p["k"], (E,))[None] * scale,
+                (tf.name, "weight"):
+                    np.broadcast_to(p["weight"], (E,))[None] * np.sqrt(scale)}
+    vols = np.asarray(p["weight"], np.float64) ** 2 / np.asarray(p["k"])
+    return {(tf.name, "mu"): np.repeat(mus[:, None], E, axis=1),
+            (tf.name, "lam"): np.repeat(lam_ratio * mus[:, None], E, axis=1),
+            (tf.name, "k"): np.repeat(mus[:, None], E, axis=1),
+            (tf.name, "weight"): np.sqrt(mus[:, None] * vols[None])}
+
+
+def sweep64(n_scenarios=64, solver="ell", dtype=torch.float32,
+            device="cuda"):
+    """bench.py --preset sweep64 (bench_sweep): the beam stand-in (792
+    nodes, 2,800 tets, 140 kg) hung from its 8 highest vertices, NeoHookean
+    (5 Newton iterations) under gravity, dt 0.06, 10 ADMM iterations,
+    cg12; scenario s has mu = lam = k = geomspace(3e4, 3e5, S)[s] and
+    weights sqrt(mu vol). Returns the SweepStepper."""
+    from ..core.sweep import sweep_from_system
+
+    beam = make_beam_tets(10, 8, 7, size=0.1)
+    verts = beam.vertices
+    n = len(verts)
+    s = System(Settings(timestep_s=0.06, admm_iters=10, verbose=0,
+                        dtype=dtype, device=device, global_solver=solver,
+                        cg_fixed_iters=12, cg_backend="fused"))
+    s.add_nodes(verts, np.full(n, 140.0 / n))
+    s.add_force(StaticAnchor(np.argsort(verts[:, 1])[-8:]))
+    s.add_force(HyperElasticTet(beam.tets, mu=1e5, lam=1e5, max_iters=5,
+                                backend="pallas"))
+    s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
+    assert s.initialize()
+    sweep = stiffness_sweep(s, np.geomspace(3e4, 3e5, n_scenarios),
+                            lam_ratio=1.0)
+    return sweep_from_system(s, sweep, n_scenarios)[0]
+
+
+def jittered_sweep(n_scenarios=4, solver="dia", model="nh",
+                   dtype=torch.float64, device="cuda", anchor_sweep=False,
+                   floor=False, dims=(8, 6, 5), cg=25, admm=10,
+                   collect=False):
+    """A sweep of the jittered beam (seed 0) pinned at vertices 0 and 1
+    (weight 1000), 2 kg, gravity, dt 0.04, `admm` ADMM iterations: stiffness
+    mu over geomspace(4e3, 3e4, S) (`stiffness_sweep`; nh: 4 Newton
+    iterations), with anchor_sweep the anchors' weight over
+    geomspace(1000, 1e-6, S) (the last scenario all but released), with
+    floor a Floor 0.3 below the beam. Returns the SweepStepper."""
+    from ..core.sweep import sweep_from_system
+
+    mesh = jittered_beam(*dims)
+    n = mesh.n_vertices
+    s = System(Settings(timestep_s=0.04, admm_iters=admm, verbose=0,
+                        dtype=dtype, device=device, global_solver=solver,
+                        cg_fixed_iters=cg, collect_residuals=collect))
+    s.add_nodes(mesh.vertices, np.full(n, 2.0 / n))
+    if model == "arap":
+        s.add_force(LinearTetStrain(mesh.tets, stiffness=1e4,
+                                    backend="pallas"))
+    else:
+        s.add_force(HyperElasticTet(mesh.tets, mu=1e4, lam=2.5e4,
+                                    max_iters=4, model=model,
+                                    backend="pallas"))
+    anchor = s.add_force(StaticAnchor([0, 1], weight=1000.0))
+    if floor:
+        lo = float(mesh.vertices[:, 1].min())
+        s.add_force(Collision([Floor(center=(0.0, lo - 0.3, 0.0))],
+                              n_nodes=n))
+    s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
+    assert s.initialize()
+    sweep = stiffness_sweep(s, np.geomspace(4e3, 3e4, n_scenarios), model)
+    if anchor_sweep:
+        sweep[(anchor.name, "weight")] = np.geomspace(1000.0, 1e-6,
+                                                      n_scenarios)
+    return sweep_from_system(s, sweep, n_scenarios)[0]
 
 
 def jittered_system(dims=(8, 6, 5), cg=25, dtype=torch.float64,

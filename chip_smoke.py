@@ -64,6 +64,17 @@ launches (phase 3q), then every route that collects at full width timed
 with collection off, "primal" and True beside the first and last ADMM
 iteration's residuals, the general route's against the banded route's,
 and iteration 0's dual residual by both forms of its seed (phase 5j).
+The scenario sweep (`core/sweep.py`, the banded window's sweep mode: S
+simulations of one mesh in the same launches, one cluster solve a
+scenario): small sweeps of 4 jittered beams in both matrix forms and
+three models, bitwise to the twin and each scenario bitwise to a
+single-scenario window fed its planes, 20 graph steps held to the twin and
+the residual modes (phase 3s); then `bench.py --preset sweep64` at full
+width (64 drops of a 2,800-tet beam, f32) on ELL and dia: ms/step and per
+scenario-step beside the single-scenario route of scenario 0 (and that
+times 64), device ops a step, the clusters the card holds at once and the
+waves they make, scenarios 0, 31, 63 against their own single routes after
+32 steps (bitwise), and the same sweep at 1,024 scenarios (phase 5l).
 Every phase prints one line of numbers, its script time last (t=). Any
 failure raises: the script
 then exits non-zero and prints no result line. It needs CUDA (it never
@@ -117,7 +128,7 @@ from admm_elastic_tpu_torch.utils import profile_step, scenes  # noqa: E402
 from admm_elastic_tpu_torch.utils.opcount import (  # noqa: E402
     banded_local_counts, cg_dia_counts, cg_ell_counts, cg_update_counts,
     cheb_dia_counts, mg_dia_counts, nbytes, rollout_counts, roofline_ms,
-    twin_counts, uamg_ell_counts)
+    sweep_counts, twin_counts, uamg_ell_counts)
 from admm_elastic_tpu_torch.utils.scenes import (  # noqa: E402
     arap100k, banded_spd, beam_system, cloth100k, delaunay100k, small_cloth,
     small_delaunay, small_mg_beam, small_uamg, tet100k, tet100k_sharded)
@@ -166,6 +177,28 @@ UAMG_JACOBI_CG = 75
 # banded uamg6; the banded-ELL Jacobi route at UAMG_JACOBI_CG (8.4e-3 m
 # from cg1000) is the control the limit must reject
 UAMG_DX_LIMIT_M = 1e-3
+# the small sweeps of phase 3s (scenes.jittered_sweep, 4 scenarios, 3 ADMM
+# iterations of cg8: the twin's dots are host-bound, and bitwise needs no
+# depth)
+SMALL_SWEEPS = (
+    ("dia nh", {"solver": "dia"}),
+    ("ell nh", {"solver": "ell"}),
+    ("dia arap anchors floor", {"solver": "dia", "model": "arap",
+                                "anchor_sweep": True, "floor": True}),
+    ("ell arap anchors floor", {"solver": "ell", "model": "arap",
+                                "anchor_sweep": True, "floor": True}),
+)
+SMALL_DEPTH = {"admm": 3, "cg": 8}
+# phase 5l: bench.py --preset sweep64's scenarios, the scenarios held to
+# their own single-scenario routes, and the scale README claims for the
+# JAX package's sweep
+SWEEP_SCENARIOS = 64
+# the ADMM iterations of phase 5l's full-width check against the twin (the
+# twin takes ~1 s a scenario-step at the preset's 10; the shapes are the
+# preset's)
+SWEEP_CHECK_ADMM = 2
+SWEEP_WITNESSES = (0, 31, 63)
+SWEEP_WIDE = 1024
 
 
 def reset_launches():
@@ -647,6 +680,188 @@ def uamg_routes(torch, steps):
                          scene="delaunay100k")
     return sum(run[2]["banded_rollout"] for (route, _), run in runs.items()
                if route == "banded")
+
+
+def sweep_scenarios_bitwise(torch, sw, steps):
+    """A sweep window from its stepper's state against a single-scenario
+    window of each scenario fed that scenario's planes and state: the
+    scenarios that disagree (none: bitwise)."""
+    got = pbs.banded_rollout(sw.state, sw.planes, sw.cfg, steps)
+    bad = []
+    for s in range(sw.n_scen):
+        one = sw.scenario(s)
+        single = pbs.banded_rollout(one.state, one.planes, one.cfg, steps)
+        if not all(torch.equal(single[k], got[k][s]) for k in pbs.STATE):
+            bad.append(s)
+    return bad
+
+
+def sweep_kernel_checks(torch):
+    """Phase 3s. The banded window's sweep mode on small sweeps of 4
+    jittered beams (SMALL_SWEEPS: dia and ELL, nh and arap, one sweeping
+    the anchor weights over a floor), f64 and f32: a 3-step window bitwise
+    to its twin and repeated bitwise, each scenario bitwise to a
+    single-scenario window fed its planes; then 20 graph steps of the ELL
+    sweep in f32 each held to the twin, and the residual modes of the
+    sweep (dia f64, ELL f32) against the twin and as graph replays."""
+    for dtype in (torch.float64, torch.float32):
+        for label, kw in SMALL_SWEEPS:
+            sw = scenes.jittered_sweep(4, dtype=dtype, **SMALL_DEPTH, **kw)
+            ex, rel, ev, bit, fin, twin = rollout_errors(torch, "banded", sw,
+                                                         sw.cfg, 3)
+            bad = sweep_scenarios_bitwise(torch, sw, 3)
+            ok = bit and fin and twin and not bad
+            say(f"kernel sweep {label} {str(dtype)[6:]} small 3-step window",
+                scenarios=sw.n_scen, n=sw.n_nodes, elements=sw.n_elements,
+                max_abs_err_x=ex, max_abs_err_v=ev, tol="bitwise",
+                bitwise_vs_twin=twin, bitwise_repeat=bit, finite=fin,
+                scenarios_bitwise_vs_single_window=not bad,
+                scenarios_that_disagree=bad, ok=ok)
+            if not ok:
+                raise AssertionError(f"sweep {label} disagrees in {dtype}")
+    sw = scenes.jittered_sweep(4, solver="ell", dtype=torch.float32,
+                               anchor_sweep=True, floor=True, **SMALL_DEPTH)
+    check_steps(torch, "banded", sw, "sweep ell f32 4 scenarios", steps=20)
+    check_residual_window(torch, "banded", sw, "sweep ell 4 scenarios",
+                          torch.float32)
+    sw = scenes.jittered_sweep(4, solver="dia", anchor_sweep=True,
+                               floor=True, **SMALL_DEPTH)
+    check_residual_window(torch, "banded", sw, "sweep dia 4 scenarios",
+                          torch.float64)
+
+
+def check_sweep_full(torch, sw, label):
+    """One full-width step of a sweep from its stepper's state at
+    SWEEP_CHECK_ADMM ADMM iterations, kernel vs twin (bitwise; the twin,
+    whose dots are host-bound, runs once and is timed there), the
+    kernel's time per 1-step and per 10-step launch and the bound of that
+    step (`sweep_counts`); then the kernel's times at the full depth."""
+    cfg = dataclasses.replace(sw.cfg, admm_iters=SWEEP_CHECK_ADMM)
+    got = pbs.banded_rollout(sw.state, sw.planes, cfg, 1)
+    again = pbs.banded_rollout(sw.state, sw.planes, cfg, 1)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = pbs.banded_rollout_reference(sw.state, sw.planes, cfg, 1)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    keys = pbs.STATE
+    ex = float((got["x"] - want["x"]).abs().max())
+    ev = float((got["v"] - want["v"]).abs().max())
+    bit = all(torch.equal(got[k], again[k]) for k in keys)
+    fin = all(bool(torch.isfinite(got[k]).all()) for k in keys)
+    twin = all(torch.equal(got[k], want[k]) for k in keys)
+
+    def launch_ms(c):
+        return (cuda_ms(torch, lambda: pbs.banded_rollout(
+                    sw.state, sw.planes, c, 1), 5),
+                cuda_ms(torch, lambda: pbs.banded_rollout(
+                    sw.state, sw.planes, c, 10), 3))
+
+    ms, window_ms = launch_ms(cfg)
+    full_ms, full_window_ms = launch_ms(sw.cfg)
+    n_ops, n_bytes = sweep_counts(sw.state, sw.planes, cfg, 1)
+    bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
+    ok = bit and fin and twin
+    say(f"kernel sweep f32 {label}", scenarios=sw.n_scen, n=sw.n_nodes,
+        elements=sw.n_elements, matrix=sw.cfg.matrix,
+        admm_iters=SWEEP_CHECK_ADMM, max_abs_err_x=ex, max_abs_err_v=ev,
+        tol="bitwise", bitwise_vs_twin=twin, bitwise_repeat=bit,
+        finite=fin, ms_per_1step_launch=ms, ms_per_10step_launch=window_ms,
+        plain_ms_per_step=plain_ms, operations=n_ops, bytes=n_bytes,
+        bound_ms=bound_ms, bound_by=bound_by,
+        full_depth_ms_per_1step_launch=full_ms,
+        full_depth_ms_per_10step_launch=full_window_ms, ok=ok)
+    if not ok:
+        raise AssertionError(f"sweep disagrees at {label}")
+    return ex, ms, plain_ms, bound_ms, bound_by
+
+
+def sweep_clusters(torch, sw):
+    """The clusters of a sweep's solve the card holds at once."""
+    if sw.cfg.matrix == "ell":
+        return pstep.active_clusters(sw.n_nodes, sw.dtype,
+                                     pell.bandwidth(sw.planes["ell_idx"]), 0,
+                                     ell=True)
+    offs = sw.cfg.dia_offs
+    return pstep.active_clusters(sw.n_nodes, sw.dtype,
+                                 max(abs(o) for o in offs), len(offs))
+
+
+def sweep_routes(torch, steps):
+    """Phase 5l. bench.py --preset sweep64 at full width, f32, on ELL (the
+    preset's solver) and on dia: the sweep's ms/step (median of 3 x 10
+    after 2 single steps) and per scenario-step, its submissions and
+    window launches, beside the single-scenario route of scenario 0 (its
+    own planes) and that times 64; the clusters of its solve the card
+    holds at once and the waves S of them make; after `steps` steps
+    scenarios 0, 31 and 63 against their own single-scenario routes
+    (bitwise: |dx| 0); device ops a step and the idle share. ELL is first
+    held to its twin at full width (one step of SWEEP_CHECK_ADMM ADMM
+    iterations, `check_sweep_full`). Then
+    the ELL sweep at SWEEP_WIDE scenarios, timed the same way. Returns
+    (the sweep routes' submissions, the ELL check's numbers)."""
+    bad, submissions, full = [], 0, None
+    for solver in ("ell", "dia"):
+        sw = scenes.sweep64(SWEEP_SCENARIOS, solver)
+        singles = {s: sw.scenario(s) for s in SWEEP_WITNESSES}
+        if solver == "ell":
+            full = check_sweep_full(torch, sw, f"sweep64 {solver} cg12")
+        clusters = sweep_clusters(torch, sw)
+        reset_launches()
+        n0 = pbs.banded_rollout.ops
+        med, windows = drive(torch, sw)
+        n_sub = pbs.banded_rollout.launches
+        n_ops = pbs.banded_rollout.ops - n0
+        submissions += n_sub
+        med1, windows1 = drive(torch, singles[0])
+        for s in SWEEP_WITNESSES[1:]:
+            singles[s].run(steps)
+        x = sw.x
+        dx = {s: float(np.abs(x[s] - one.x).max())
+              for s, one in singles.items()}
+        fin = bool(np.isfinite(x).all())
+        sag = float((x[:, :, 1] - sw.base.state["x"][:, 1].cpu().numpy()
+                     ).min())
+        say(f"sweep64 {solver} f32", scenarios=sw.n_scen, n=sw.n_nodes,
+            elements=sw.n_elements, ms_per_step_median=med,
+            windows_ms=[round(w, 4) for w in windows],
+            spread_ms=max(windows) - min(windows),
+            ms_per_scenario_step=med / sw.n_scen,
+            single_route_ms_per_step=med1,
+            single_windows_ms=[round(w, 4) for w in windows1],
+            single_times_scenarios_ms=med1 * sw.n_scen,
+            submissions=n_sub, expected_submissions=WARMUP_STEPS + WINDOWS,
+            device_ops_per_step=n_ops / steps,
+            clusters_resident=clusters,
+            solve_waves=-(-sw.n_scen // clusters), steps=steps,
+            **{f"max_abs_dx_scenario_{s}_vs_single_m": d
+               for s, d in dx.items()}, min_dy_m=sag, finite=fin)
+        if n_sub != WARMUP_STEPS + WINDOWS or n_ops != steps * (
+                2 + 3 * ADMM_ITERS):
+            bad.append(f"{solver}: {n_sub} submissions, {n_ops} launches")
+        if not (fin and sag < 0 and not any(dx.values())):
+            bad.append(f"{solver}: bad trajectory ({dx}, min dy {sag})")
+        check_window_ops(profile_step.profile(12, WINDOW_STEPS, "fast", s=sw,
+                                              scene="sweep64"),
+                         f"sweep64 {solver}")
+        del sw, singles
+    sw = scenes.sweep64(SWEEP_WIDE, "ell")
+    reset_launches()
+    med, windows = drive(torch, sw)
+    clusters = sweep_clusters(torch, sw)
+    fin = bool(np.isfinite(sw.x).all())
+    submissions += pbs.banded_rollout.launches
+    say(f"sweep{SWEEP_WIDE} ell f32", scenarios=sw.n_scen,
+        ms_per_step_median=med, windows_ms=[round(w, 4) for w in windows],
+        spread_ms=max(windows) - min(windows),
+        ms_per_scenario_step=med / sw.n_scen, clusters_resident=clusters,
+        solve_waves=-(-sw.n_scen // clusters), finite=fin)
+    if not fin:
+        bad.append(f"sweep{SWEEP_WIDE}: not finite")
+    if bad:
+        raise AssertionError("sweep64: " + "; ".join(bad))
+    return submissions, full
 
 
 def cluster_floor(torch):
@@ -1760,6 +1975,9 @@ def main():
     # phase 3r: the algebraic multigrid mode, solve and window, bitwise
     uamg_window = uamg_kernel_checks(torch)
 
+    # phase 3s: the banded window's sweep mode on small sweeps, bitwise
+    sweep_kernel_checks(torch)
+
     # phase 3q: the windows' residual modes ("primal", "full") against
     # their twins on small scenes: residuals bitwise, the state bitwise to
     # the window without collection, graph replays equal to eager launches
@@ -2477,6 +2695,10 @@ def main():
     # algebraic multigrid (uamg6, uamg8) and on the general route's AMG
     launches["banded_uamg"] = uamg_routes(torch, steps)
 
+    # phase 5l: the scenario sweep at sweep64's full width, ELL and dia,
+    # beside the single-scenario route, and at 1,024 scenarios
+    launches["sweep"], sweep32 = sweep_routes(torch, steps)
+
     # phase 5e: the unfused pipeline at full width, f32: tet100k on the
     # dense mode, arap100k on dia (fused) at cg25/cg75 and with relaxation
     # 1.6 (unfused), cloth100k on the matrix-free cg mode at cg25
@@ -2705,6 +2927,8 @@ def main():
               launches["cloth_mg"], *mg_full["cloth100k mg8"]),
         entry("banded_rollout[uamg]", "mg_vcycle.cuh", "banded_step.py:1090",
               launches["banded_uamg"], *uamg_window),
+        entry("banded_rollout[sweep]", "banded_step.cu", "banded_step.py:1090",
+              launches["sweep"], *sweep32),
         # the residual modes (phase 5j's launches; 3p and 3q's numbers)
         entry("nh_local_step_fused[emit_z]", "nh_local.cu",
               "nh_local.py:442", residual_launches["nh"], *emitz["nh"]),

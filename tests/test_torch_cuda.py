@@ -950,3 +950,84 @@ def test_banded_local_collect_is_its_twin(dtype, model):
         assert torch.equal(g, w)
     for g, o in zip(got, off):
         assert torch.equal(g, o)
+
+
+# the small sweeps of the card checks (scenes.jittered_sweep: 3 scenarios,
+# 4 ADMM iterations of cg10, which keeps the twin's host-bound dots few)
+SWEEPS = {
+    "dia nh": {"solver": "dia"},
+    "ell nh": {"solver": "ell"},
+    "dia arap anchors floor": {"solver": "dia", "model": "arap",
+                               "anchor_sweep": True, "floor": True},
+    "ell stvk anchors floor": {"solver": "ell", "model": "stvk",
+                               "anchor_sweep": True, "floor": True},
+}
+
+
+def _sweep(dtype=torch.float64, **kw):
+    return scenes.jittered_sweep(3, dtype=dtype, cg=10, admm=4, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SWEEPS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_sweep_window_is_its_twin(dtype, name):
+    """A sweep of 3 jittered beams, one 3-step window: bitwise to its
+    twin, and each scenario bitwise to a single-scenario window fed that
+    scenario's planes from its state."""
+    _cuda()
+    sw = _sweep(dtype, **SWEEPS[name])
+    keys = banded_step.STATE
+    got = banded_step.banded_rollout(sw.state, sw.planes, sw.cfg, 3)
+    want = banded_step.banded_rollout_reference(sw.state, sw.planes, sw.cfg,
+                                                3)
+    for k in keys:
+        assert torch.equal(got[k], want[k]), k
+    for s in range(sw.n_scen):
+        one = sw.scenario(s)
+        single = banded_step.banded_rollout(one.state, one.planes, one.cfg, 3)
+        for k in keys:
+            assert torch.equal(single[k], got[k][s]), (s, k)
+    assert float((got["x"][0] - got["x"][-1]).abs().max()) > 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collect", ["primal", "full"])
+@pytest.mark.parametrize("solver", ["dia", "ell"])
+def test_sweep_residuals_are_the_twins(solver, collect):
+    """The sweep window's residual modes in f64: (S, n_steps, admm_iters)
+    residuals and state bitwise to the twin; the state bitwise to the
+    window without collection."""
+    _cuda()
+    sw = _sweep(solver=solver, anchor_sweep=True, floor=True)
+    cfg = dataclasses.replace(sw.cfg, collect=collect)
+    got = banded_step.banded_rollout(sw.state, sw.planes, cfg, 2)
+    want = banded_step.banded_rollout_reference(sw.state, sw.planes, cfg, 2)
+    off = banded_step.banded_rollout(sw.state, sw.planes, sw.cfg, 2)
+    assert got["primal"].shape == (3, 2, cfg.admm_iters)
+    for k in (*banded_step.STATE, "primal",
+              *(("dual",) if collect == "full" else ())):
+        assert torch.equal(got[k], want[k]), k
+    for k in banded_step.STATE:
+        assert torch.equal(got[k], off[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dia", "ell"])
+def test_sweep_graph_steps_are_the_twins(solver):
+    """A SweepStepper's graph replays in f32, one step at a time for 5
+    steps, each bitwise to the twin from the same state; a 10-step run is
+    one submission."""
+    _cuda()
+    sw = _sweep(torch.float32, solver=solver)
+    keys = banded_step.STATE
+    for step in range(5):
+        start = {k: sw.state[k].clone() for k in keys}
+        sw.step()
+        want = banded_step.banded_rollout_reference(start, sw.planes, sw.cfg,
+                                                    1)
+        for k in keys:
+            assert torch.equal(sw.state[k], want[k]), (step, k)
+    n0 = banded_step.banded_rollout.launches
+    sw.run(10)
+    assert banded_step.banded_rollout.launches == n0 + 1
