@@ -46,7 +46,7 @@ from ..models import (Collision, Cylinder, ExplicitForce, Floor,
                       HyperElasticTet, LinearTetStrain, Sphere, StaticAnchor)
 from ..ops.kernels._graph import WindowGraphs
 from ..ops.kernels.banded_step import (STATE, BandedConfig, BandedWindow,
-                                       banded_rollout)
+                                       banded_rollout, slot_planes)
 from ..ops.kernels import mg as kmg
 from ..ops.kernels import residuals, uamg as kuamg
 from .mg import build_grid_mg
@@ -151,6 +151,9 @@ class BandedStepper:
             "ancz": self._dev(ancz),
             "inc": self._dev(inc, torch.int32),
         }
+        # the incidence as the kernels read it
+        self.planes["pos"], self.planes["off"] = slot_planes(
+            self.planes["inc"], E)
         if ell is None:
             self.planes["dia"] = self._dev(dia_vals)
         else:
@@ -250,10 +253,12 @@ def banded_from_system(system):
     kernel's arap mode), StaticAnchors with any weights, at most one
     Collision over all nodes holding only Floor/Sphere/Cylinder, all-node
     ExplicitForce kicks, no residual_tol, collect_residuals False,
-    "primal" or True (the kernel emits them). (Relaxation never reaches
-    here: System.initialize keeps it on the general route; acceleration
-    raises there.) A `(first, rest)` cg_fixed_iters raises: the kernel
-    takes one budget (the JAX stepper's int() of a tuple fails as well).
+    "primal" or True (the kernel emits them), relaxation 1 and no
+    acceleration (the kernel runs the plain alpha = 1 iteration): the
+    functions that call this directly (`sweep_from_system`,
+    `sharded_banded_from_system`) return None otherwise, as JAX's do. A
+    `(first, rest)` cg_fixed_iters raises: the kernel takes one budget
+    (the JAX stepper's int() of a tuple fails as well).
 
     Under preconditioner="amg" (default budget 8) the dia mode builds the
     geometric multigrid (`core.mg.build_grid_mg`) and returns None where
@@ -267,6 +272,9 @@ def banded_from_system(system):
     # (banded.py:584-589)
     if s.collect_residuals not in (False, None, True, "primal") or (
             s.residual_tol is not None):
+        return None
+    # the kernel runs the plain alpha = 1 iteration only (banded.py:590-591)
+    if s.relaxation != 1.0 or s.acceleration is not None:
         return None
     if system._solver_mode not in ("dia", "ell"):
         return None

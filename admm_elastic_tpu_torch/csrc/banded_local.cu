@@ -7,8 +7,9 @@
 //   element kernel, one thread per tet: F = u + sum_k cp x[idx_k], oriented
 //     SVD; nh/stvk: warm-start guards, Newton prox, warm'; arap: z = (k U
 //     diag(1,1,+-1) V^T + w2 F) / (w2 + k), warm untouched; u' = F - z;
-//     rows[3k+a] = sum_b cp[4b+k] w2 (F - 2u')[3a+b]
-//   vertex kernel, one thread per vertex: b = its incidence rows summed in
+//     rows[3k+a] = sum_b cp[4b+k] w2 (F - 2u')[3a+b], each into its
+//     vertex's slot
+//   vertex kernel, one thread per vertex: b = its slots' rows summed in
 //     slot order (fixed order, no atomics); the anchor dual (exactly 0
 //     where the anchor weight is 0) and its RHS aw2 (ancz - au'); the
 //     floor/sphere/cylinder projections in declaration order, the
@@ -24,9 +25,10 @@
 // window accumulator are TPU layout and have no counterpart.
 //
 // Layout: vertex arrays (n,3) row-major; element planes (P,E) in the tet
-// force's order; idx (4,E); the vertex -> (element, corner) incidence inc
-// (n,S) with a sentinel >= 4E after the real slots
-// (core/solver.assemble_transpose_incidence).
+// force's order; idx (4,E); the vertex -> (element, corner) incidence as
+// slot planes, pos (4,E) and off (n+1,) (banded_phases.cuh): the element
+// rows pass from the element kernel to the vertex kernel in a slot buffer
+// (4E,4), vertex by vertex.
 //
 // What bounds it on this card: at the 100k-tet beam (E = 100,000, n =
 // 22,386, f32) its inputs and outputs are ~22 MB (~6.7 us at HBM rate)
@@ -60,7 +62,7 @@ struct Args {
   T* warm;      // (3,E), the output warm'
   T* au;        // (n,3), the output au'
   T* cu;        // (n,3), the output cu'
-  T* rows;      // (12,E)
+  T* rows;      // (4E,4) slot buffer
   const int* __restrict__ idx;
   const T* __restrict__ cp;
   const T* __restrict__ w2;
@@ -69,7 +71,8 @@ struct Args {
   const T* __restrict__ kp;
   const T* __restrict__ aw2;
   const T* __restrict__ ancz;
-  const int* __restrict__ inc;
+  const int* __restrict__ pos;  // (4,E)
+  const int* __restrict__ off;  // (n+1,)
   const T* __restrict__ u_in;
   const T* __restrict__ warm_in;
   const T* __restrict__ au_in;
@@ -79,7 +82,7 @@ struct Args {
   // blocks' then the vertex blocks'
   T* part;
   int eb;
-  int n, E, S, n_shapes, newton_iters;
+  int n, E, n_shapes, newton_iters;
   T sc[N_SCALARS];
   int shape_kind[MAX_SHAPES];
   T shape_prm[MAX_SHAPES][SHAPE_PRM];
@@ -132,21 +135,23 @@ template <typename T>
 int launch(const T* x, const T* au, const T* cu, const T* u, const T* warm,
            const int* idx, const T* cp, const T* w2, const T* mu,
            const T* lam, const T* kp, const T* aw2, const T* ancz,
-           const int* inc, T* b, T* au_out, T* cu_out, T* u_out,
-           T* warm_out, T* rows, T* part, T* r2, const int* shape_kinds,
+           const int* pos, const int* off, T* b, T* au_out, T* cu_out,
+           T* u_out, T* warm_out, T* rows, T* part, T* r2,
+           const int* shape_kinds,
            const double* shape_prm, const double* scalars, int n, int E,
-           int S, int n_shapes, int model, int newton_iters, int collect,
+           int n_shapes, int model, int newton_iters, int collect,
            void* stream) {
-  if (n < 1 || E < 1 || S < 1 || n_shapes < 0 || n_shapes > MAX_SHAPES ||
+  if (n < 1 || E < 1 || n_shapes < 0 || n_shapes > MAX_SHAPES ||
       model < 0 || model > 2 || newton_iters < 0 ||
       (collect != 0 && (part == nullptr || r2 == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args<T> a{};
   a.x = x; a.u = u_out; a.warm = warm_out; a.au = au_out; a.cu = cu_out;
   a.rows = rows; a.idx = idx; a.cp = cp; a.w2 = w2; a.mu = mu; a.lam = lam;
-  a.kp = kp; a.aw2 = aw2; a.ancz = ancz; a.inc = inc; a.u_in = u;
+  a.kp = kp; a.aw2 = aw2; a.ancz = ancz; a.pos = pos; a.off = off;
+  a.u_in = u;
   a.warm_in = warm; a.au_in = au; a.cu_in = cu; a.b = b; a.part = part;
-  a.n = n; a.E = E; a.S = S; a.n_shapes = n_shapes;
+  a.n = n; a.E = E; a.n_shapes = n_shapes;
   a.newton_iters = newton_iters;
   for (int q = 0; q < N_SCALARS; ++q) a.sc[q] = static_cast<T>(scalars[q]);
   for (int q = 0; q < n_shapes; ++q) {
@@ -184,15 +189,16 @@ int launch(const T* x, const T* au, const T* cu, const T* u, const T* warm,
   int banded_local_rhs_##SUFFIX(                                              \
       const T* x, const T* au, const T* cu, const T* u, const T* warm,        \
       const int* idx, const T* cp, const T* w2, const T* mu, const T* lam,    \
-      const T* kp, const T* aw2, const T* ancz, const int* inc, T* b,         \
-      T* au_out, T* cu_out, T* u_out, T* warm_out, T* rows, T* part, T* r2,   \
-      const int* shape_kinds, const double* shape_prm,                        \
-      const double* scalars, int n, int E, int S, int n_shapes, int model,    \
-      int newton_iters, int collect, void* stream) {                          \
+      const T* kp, const T* aw2, const T* ancz, const int* pos,               \
+      const int* off, T* b, T* au_out, T* cu_out, T* u_out, T* warm_out,      \
+      T* rows, T* part, T* r2, const int* shape_kinds,                        \
+      const double* shape_prm, const double* scalars, int n, int E,           \
+      int n_shapes, int model, int newton_iters, int collect,                 \
+      void* stream) {                                                         \
     return admm::banded_local::launch<T>(                                     \
-        x, au, cu, u, warm, idx, cp, w2, mu, lam, kp, aw2, ancz, inc, b,      \
+        x, au, cu, u, warm, idx, cp, w2, mu, lam, kp, aw2, ancz, pos, off, b, \
         au_out, cu_out, u_out, warm_out, rows, part, r2, shape_kinds,         \
-        shape_prm, scalars, n, E, S, n_shapes, model, newton_iters, collect,  \
+        shape_prm, scalars, n, E, n_shapes, model, newton_iters, collect,     \
         stream);                                                              \
   }
 
@@ -200,8 +206,9 @@ extern "C" {
 
 // model: 0 = NeoHookean, 1 = StVK, 2 = ARAP (mu, lam and newton_iters
 // unused). x, au, cu, u, warm are read; b, au_out, cu_out, u_out,
-// warm_out are written, rows (12,E) is scratch. shape_kinds, shape_prm
-// (n_shapes x 5) and scalars (7, banded_step.cu's; the collision
+// warm_out are written, rows (4E,4) is scratch: the slot buffer of the
+// slot planes pos (4,E), off (n+1,).
+// shape_kinds, shape_prm (n_shapes x 5) and scalars (7, banded_step.cu's; the collision
 // weight^2 is read) are host arrays. collect: 1 also writes the squared
 // primal residual to r2 (one value), part (eb + vb) its scratch; 0
 // neither (both may be null). Returns the cudaError_t of the launches, or

@@ -5,11 +5,26 @@
 // Both come from admm_elastic_tpu/ops/pallas/banded_step.py (the chunk
 // phase and the solve phase's prologue), whose math the Pallas kernel
 // banded_local.py repeats. The functions are generic over the caller's
-// argument struct A, which names the fields they use: element planes idx
-// (4,E), cp (12,E), w2, mu, lam, kp (E,); state x (n,3), u (9,E), warm
-// (3,E), au, cu (n,3); rows (12,E); vertex planes aw2 (n,), ancz (n,3),
-// inc (n,S); E, S, newton_iters, n_shapes, shape_kind, shape_prm and the
-// scalars sc[] (COLL_W2 read here).
+// argument struct A, which names the fields they use: element planes idx,
+// pos (4,E), cp (12,E), w2, mu, lam, kp (E,); state x (n,3), u (9,E), warm
+// (3,E), au, cu (n,3); the slot buffer rows (4E,4); vertex planes aw2
+// (n,), off (n+1,), ancz (n,3); n, E, newton_iters, n_shapes, shape_kind,
+// shape_prm and the scalars sc[] (COLL_W2 read here).
+//
+// The element rows reach the vertices through SLOTS: vertex i's incidence
+// lists its (element, corner) pairs in ascending order of 4e+k
+// (core/solver.assemble_transpose_incidence). The slot buffer holds them
+// vertex by vertex, in that order, with no padding: 4E rows of 4 values
+// (a corner's 3 rows and a pad: one 16-byte access, two in f64), vertex
+// i's slots at rows off[i] .. off[i+1] - 1, and pos[k,e] = off[i] + j the
+// row of corner k of element e, its vertex i and its place j in i's list
+// (ops/kernels/banded_step.slot_planes). The element phase writes each
+// corner's rows straight into its slot, which no other thread writes;
+// the vertex phase then reads its own run of slots, independent loads of
+// whole lines, and adds them in order: the sum the incidence walk gave,
+// bit for bit, with no dependent chain of index loads and no atomics.
+// pos is read after the element's arithmetic, so nothing of the scatter
+// is live across it.
 //
 // Residual collection is a compile-time mode, COLLECT (residuals.cuh):
 // NONE computes nothing more than the phases themselves; PRIMAL
@@ -33,20 +48,50 @@ enum ShapeKind { FLOOR = 0, SPHERE = 1, CYLINDER = 2 };
 // scalars[]: dt, dt^2, 1/dt, dt g (3), collision weight^2
 enum Scalar { DT = 0, DT2, INV_DT, DTG0, DTG1, DTG2, COLL_W2, N_SCALARS };
 
-// rows[3k+j] of element e = sum_b cp[4b+k] y[3j+b], from y already scaled
-// by w2, the terms added in order of b.
-template <typename T>
-__device__ __forceinline__ void tet_rows(const T c[12], const T y[9],
-                                         T* rows, size_t sE, int e) {
+// A slot of the slot buffer: 3 values and a pad, 16-byte aligned.
+__device__ __forceinline__ void store_slot(float* s, const float v[3]) {
+  *reinterpret_cast<float4*>(s) = make_float4(v[0], v[1], v[2], 0.0f);
+}
+
+__device__ __forceinline__ void store_slot(double* s, const double v[3]) {
+  reinterpret_cast<double2*>(s)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(s)[1] = make_double2(v[2], 0.0);
+}
+
+__device__ __forceinline__ void load_slot(const float* s, float v[3]) {
+  const float4 q = *reinterpret_cast<const float4*>(s);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+}
+
+__device__ __forceinline__ void load_slot(const double* s, double v[3]) {
+  const double2 a = reinterpret_cast<const double2*>(s)[0];
+  const double2 b = reinterpret_cast<const double2*>(s)[1];
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+}
+
+// Row 3k+j of element e = sum_b cp[4b+k] y[3j+b], from y already scaled
+// by w2, the terms added in order of b, into corner k's slot (pos) of the
+// slot buffer rows.
+template <typename T, typename A>
+__device__ __forceinline__ void tet_rows(const A& a, const T c[12],
+                                         const T y[9], T* rows, int e) {
+  const size_t sE = static_cast<size_t>(a.E);
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int k = 0; k < 4; ++k) {
+    T v[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       T acc = c[k] * y[3 * j];
       acc = acc + c[4 + k] * y[3 * j + 1];
       acc = acc + c[8 + k] * y[3 * j + 2];
-      rows[(3 * k + j) * sE + e] = acc;
+      v[j] = acc;
     }
+    store_slot(rows + 4 * static_cast<size_t>(a.pos[k * sE + e]), v);
+  }
 }
 
 // Element e: local step, dual update and its 12 RHS rows. Returns its piece
@@ -118,12 +163,12 @@ __device__ __forceinline__ T element_step(const A& a, int e) {
       r2 = r2 + du * du;
     }
   }
-  tet_rows<T>(c, zu, a.rows, sE, e);
+  tet_rows<T>(a, c, zu, a.rows, e);
   if constexpr (COLLECT == residuals::FULL) {
     T zz[9];
 #pragma unroll
     for (int q = 0; q < 9; ++q) zz[q] = w2e * z[q];
-    tet_rows<T>(c, zz, a.zrows, sE, e);
+    tet_rows<T>(a, c, zz, a.zrows, e);
   }
   return w2e * r2;
 }
@@ -158,7 +203,7 @@ __device__ __forceinline__ void seed_rows(const A& a, int e) {
       for (int k = 1; k < 4; ++k) acc = acc + c[4 * b + k] * xg[k][ia];
       zz[3 * ia + b] = w2e * acc;
     }
-  tet_rows<T>(c, zz, a.zrows, sE, e);
+  tet_rows<T>(a, c, zz, a.zrows, e);
 }
 
 // Collision shapes in declaration order (banded_step.py:478-503).
@@ -190,23 +235,31 @@ __device__ __forceinline__ void project(const A& a, T z[3]) {
   }
 }
 
-// The incidence sum of vertex i's element rows (rows (12,E)), in slot
-// order, no atomics.
+// The incidence sum of vertex i's element rows (the slot buffer rows
+// (4E,4)): its slots added in order, no atomics. The loads of SLOT_BATCH
+// slots are issued before their adds.
+constexpr int SLOT_BATCH = 8;
+
 template <typename T, typename A>
 __device__ __forceinline__ void gather_rows(const A& a, const T* rows, int i,
                                             T out[3]) {
-  const size_t si = static_cast<size_t>(i);
-  const int total = 4 * a.E;
-  const size_t sE = static_cast<size_t>(a.E);
+  const int first = a.off[i], cnt = a.off[i + 1] - first;
+  const T* col = rows + 4 * static_cast<size_t>(first);
 #pragma unroll
   for (int c = 0; c < 3; ++c) out[c] = T(0);
-  for (int j = 0; j < a.S; ++j) {
-    const int slot = a.inc[si * a.S + j];
-    if (slot >= total) break;  // the sentinels follow the real slots
-    const size_t e = static_cast<size_t>(slot >> 2);
-    const int k = slot & 3;
+  for (int j0 = 0; j0 < cnt; j0 += SLOT_BATCH) {
+    T v[SLOT_BATCH][3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) out[c] = out[c] + rows[(3 * k + c) * sE + e];
+    for (int q = 0; q < SLOT_BATCH; ++q) {
+      if (j0 + q < cnt) load_slot(col + 4 * (j0 + q), v[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < SLOT_BATCH; ++q) {
+      if (j0 + q < cnt) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) out[c] = out[c] + v[q][c];
+      }
+    }
   }
 }
 

@@ -16,8 +16,11 @@
 // Layout, with no padding and no lane packing: vertex arrays (n,3)
 // row-major; element planes (P,E) in the tet force's own element order;
 // the element->vertex map idx (4,E); the vertex->(element,corner) incidence
-// inc (n,S), row-major, whose slots hold 4e+k in ascending order and then a
-// sentinel >= 4E (core/solver.assemble_transpose_incidence). The matrix:
+// as slot planes: pos (4,E), the row of corner k of element e in a slot
+// buffer (4E,4) through which the element rows pass to the vertex
+// kernel, and off (n+1,), where each vertex's run of rows starts
+// (banded_phases.cuh; the incidence itself, inc (n,S), is the twin's).
+// The matrix:
 // dia (D,n) at offsets offs, or the ELL arrays slot-major, (K,n) each
 // (cg_ell.cu); the Pallas kernel's uell slot and fold planes, lane
 // dilution and hub splits are TPU layout and are not carried over.
@@ -29,8 +32,9 @@
 //     element kernel, one thread per element: F = u + sum_k cp x[idx_k],
 //       oriented SVD; nh/stvk: warm-start guards, Newton prox, warm';
 //       arap: z = (k U diag(1,1,+-1) V^T + w2 F) / (w2 + k); u' = F - z,
-//       rows[3k+a] = sum_b cp[4b+k] w2 (F - 2u')[3a+b]
-//     vertex kernel, one thread per vertex: b = its incidence rows summed
+//       rows[3k+a] = sum_b cp[4b+k] w2 (F - 2u')[3a+b], each into its
+//       vertex's slot
+//     vertex kernel, one thread per vertex: b = its slots' rows summed
 //       in slot order (fixed order, no atomics); anchor dual (zero where
 //       the anchor weight is 0) and its RHS; collision shapes projected
 //       in declaration order, dual and RHS; rhs = M xbar + dt^2 b
@@ -82,8 +86,9 @@
 // 16-CTA cluster a scenario (cluster_pcg.cuh, Scenarios). Per scenario, at
 // a stride of one scenario's size: the state x, v, au, cu (n,3), u (9,E),
 // warm (3,E); the planes w2, mu, lam, k (E,), invd, aw2 (n,), dia (D,n) or
-// the slot-major ELL values (K,n); the scratch and residual partials.
-// Shared: idx, cp, mass, ancz, inc and the ELL indices. A timestep is the
+// the slot-major ELL values (K,n); the slot buffers (4E,4), the scratch
+// and residual partials. Shared: idx, pos, cp, mass, ancz, off and the ELL
+// indices. A timestep is the
 // same 2 + 3 admm_iters launches whatever n_scen is, and every scenario
 // runs the single program's arithmetic in its order: a scenario's bits are
 // those of the single window fed its planes.
@@ -116,13 +121,14 @@ struct Args {
   // vertex planes
   const T* __restrict__ aw2;
   const T* __restrict__ ancz;   // (n,3)
-  const int* __restrict__ inc;  // (n,S)
+  const int* __restrict__ pos;  // (4,E) slot planes
+  const int* __restrict__ off;  // (n+1,)
   // scratch
   T* xpre;
   T* mxbar;
-  T* rows;  // (12,E)
+  T* rows;  // (4E,4) slot buffer
   T* rhs;   // (n,3)
-  // residual collection: the dual residual's rows (12,E) and T z (n,3);
+  // residual collection: the dual residual's rows (4E,4) and T z (n,3);
   // the partials of ADMM iteration `it`: primal part[it * (eb + vb) +
   // block] (the element blocks', then the vertex blocks'), dual
   // dpart[it * vb + block]
@@ -131,7 +137,7 @@ struct Args {
   T* part;
   T* dpart;
   int it, eb, vb, iters;
-  int n, E, S, n_shapes, newton_iters;
+  int n, E, n_shapes, newton_iters;
   T sc[N_SCALARS];
   int shape_kind[MAX_SHAPES];
   T shape_prm[MAX_SHAPES][SHAPE_PRM];
@@ -156,14 +162,15 @@ struct Scenario {
   const T* __restrict__ kp;
   const T* __restrict__ aw2;
   const T* __restrict__ ancz;
-  const int* __restrict__ inc;
+  const int* __restrict__ pos;
+  const int* __restrict__ off;
   T* xpre;
   T* mxbar;
   T* rows;
   T* rhs;
   T* zrows;
   T* tz;
-  int E, S, n_shapes, newton_iters;
+  int n, E, n_shapes, newton_iters;
   const T* sc;
   const int* shape_kind;
   const T (*shape_prm)[SHAPE_PRM];
@@ -171,16 +178,17 @@ struct Scenario {
 
 template <typename T>
 __device__ __forceinline__ Scenario<T> scenario(const Args<T>& a) {
-  const size_t s = blockIdx.y, n = s * a.n, E = s * a.E;
+  const size_t s = blockIdx.y, n = s * a.n, E = s * a.E, slots = 16 * E;
   return {a.x + 3 * n,       a.u + 9 * E,      a.warm + 3 * E,
           a.au + 3 * n,      a.cu + 3 * n,     a.idx,
           a.cp,              a.w2 + E,         a.mu + E,
           a.lam + E,         a.kp + E,         a.aw2 + n,
-          a.ancz,            a.inc,            a.xpre + 3 * n,
-          a.mxbar + 3 * n,   a.rows + 12 * E,  a.rhs + 3 * n,
-          a.zrows == nullptr ? nullptr : a.zrows + 12 * E,
+          a.ancz,            a.pos,            a.off,
+          a.xpre + 3 * n,    a.mxbar + 3 * n,  a.rows + slots,
+          a.rhs + 3 * n,
+          a.zrows == nullptr ? nullptr : a.zrows + slots,
           a.tz == nullptr ? nullptr : a.tz + 3 * n,
-          a.E,               a.S,              a.n_shapes,
+          a.n,               a.E,              a.n_shapes,
           a.newton_iters,    a.sc,             a.shape_kind,
           a.shape_prm};
 }
@@ -276,20 +284,21 @@ template <typename T>
 int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
            const T* cp, const T* w2, const T* mu, const T* lam, const T* kp,
            const T* mass, const T* invd, const T* aw2, const T* ancz,
-           const int* inc, const T* dia_vals, const int* ell_idx_t,
+           const int* pos, const int* off, const T* dia_vals,
+           const int* ell_idx_t,
            const T* ell_vals_t, T* xpre, T* mxbar, T* rows, T* rhs,
            T* scratch, T* zrows, T* tz, T* part, T* dpart, T* res_p,
            T* res_d, const int* offsets, const int* shape_kinds,
            const double* shape_prm, const double* scalars, const void* mg,
            int n, int E,
-           int D, int K, int H, int S, int n_shapes, int model,
+           int D, int K, int H, int n_shapes, int model,
            int newton_iters, int cg_iters, int admm_iters, int n_steps,
            int collect, int n_scen, void* stream) {
   // exactly one matrix: D diagonals (K = 0) or K ELL slots (D = 0)
   const bool matrix_ok =
       K > 0 ? (D == 0 && ell_idx_t != nullptr && ell_vals_t != nullptr)
             : (D >= 1 && D <= dia::MAX_DIAGONALS && dia_vals != nullptr);
-  if (n < 1 || E < 1 || !matrix_ok || K < 0 || H < 0 || S < 1 ||
+  if (n < 1 || E < 1 || !matrix_ok || K < 0 || H < 0 ||
       n_shapes < 0 || n_shapes > MAX_SHAPES || model < 0 || model > 2 ||
       newton_iters < 0 || cg_iters < 0 || admm_iters < 0 || n_steps < 0 ||
       n_scen < 1 || n_scen > 65535 || (mg != nullptr && n_scen != 1))
@@ -304,10 +313,10 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
   Args<T> a{};
   a.x = x; a.v = v; a.u = u; a.warm = warm; a.au = au; a.cu = cu;
   a.idx = idx; a.cp = cp; a.w2 = w2; a.mu = mu; a.lam = lam; a.kp = kp;
-  a.aw2 = aw2; a.ancz = ancz; a.inc = inc;
+  a.aw2 = aw2; a.ancz = ancz; a.pos = pos; a.off = off;
   a.xpre = xpre; a.mxbar = mxbar; a.rows = rows; a.rhs = rhs;
   a.zrows = zrows; a.tz = tz; a.part = part; a.dpart = dpart;
-  a.n = n; a.E = E; a.S = S; a.n_shapes = n_shapes; a.iters = admm_iters;
+  a.n = n; a.E = E; a.n_shapes = n_shapes; a.iters = admm_iters;
   a.newton_iters = newton_iters;
   for (int q = 0; q < N_SCALARS; ++q) a.sc[q] = static_cast<T>(scalars[q]);
   for (int q = 0; q < n_shapes; ++q) {
@@ -383,20 +392,21 @@ int launch(T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx,
   int banded_rollout_##SUFFIX(                                                \
       T* x, T* v, T* u, T* warm, T* au, T* cu, const int* idx, const T* cp,   \
       const T* w2, const T* mu, const T* lam, const T* kp, const T* mass,     \
-      const T* invd, const T* aw2, const T* ancz, const int* inc,             \
-      const T* dia_vals, const int* ell_idx_t, const T* ell_vals_t, T* xpre,  \
+      const T* invd, const T* aw2, const T* ancz, const int* pos,             \
+      const int* off, const T* dia_vals, const int* ell_idx_t,                \
+      const T* ell_vals_t, T* xpre,                                           \
       T* mxbar, T* rows, T* rhs, T* scratch, T* zrows, T* tz, T* part,        \
       T* dpart, T* res_p, T* res_d, const int* offsets,                       \
       const int* shape_kinds, const double* shape_prm, const double* scalars, \
-      const void* mg, int n, int E, int D, int K, int H, int S, int n_shapes, \
+      const void* mg, int n, int E, int D, int K, int H, int n_shapes,        \
       int model, int newton_iters, int cg_iters, int admm_iters, int n_steps, \
       int collect, int n_scen, void* stream) {                                \
     return admm::banded::launch<T>(                                           \
         x, v, u, warm, au, cu, idx, cp, w2, mu, lam, kp, mass, invd, aw2,     \
-        ancz, inc, dia_vals, ell_idx_t, ell_vals_t, xpre, mxbar, rows, rhs,   \
-        scratch, zrows, tz, part, dpart, res_p, res_d, offsets, shape_kinds,  \
-        shape_prm, scalars, mg, n, E, D, K, H, S, n_shapes, model,            \
-        newton_iters, cg_iters, admm_iters, n_steps, collect, n_scen,         \
+        ancz, pos, off, dia_vals, ell_idx_t, ell_vals_t, xpre, mxbar, rows,   \
+        rhs, scratch, zrows, tz, part, dpart, res_p, res_d, offsets,          \
+        shape_kinds, shape_prm, scalars, mg, n, E, D, K, H, n_shapes,         \
+        model, newton_iters, cg_iters, admm_iters, n_steps, collect, n_scen,  \
         stream);                                                              \
   }
 
@@ -407,16 +417,18 @@ extern "C" {
 // or the slot-major ell_idx_t/ell_vals_t (K,n) with K slots (D = 0,
 // dia_vals null); H: how far a row reaches (the largest |offset|, or
 // cg_ell's bandwidth). The state (x, v, u, warm, au, cu) is advanced
-// n_steps timesteps in place; xpre, mxbar, rhs (n,3) and rows (12,E) are
-// scratch, and scratch holds the cluster solve's global scratch
-// (cg_cluster_plan; nullptr when it is 0). offsets, shape_kinds,
-// shape_prm (n_shapes x 5) and scalars (7: dt, dt^2, 1/dt, dt g xyz,
-// collision weight^2, formed in double) are host arrays. mg: null for the
+// n_steps timesteps in place; xpre, mxbar, rhs (n,3) and rows (4E,4), the
+// slot buffer, are scratch (pos (4,E), off (n+1,): its slot planes,
+// banded_step.slot_planes), and scratch holds the
+// cluster solve's global scratch (cg_cluster_plan; nullptr when it is 0).
+// offsets, shape_kinds, shape_prm (n_shapes x 5) and scalars (7: dt,
+// dt^2, 1/dt, dt g xyz, collision weight^2, formed in double) are host
+// arrays. mg: null for the
 // Jacobi-PCG solve, else the mg::Host (mg_vcycle.cuh) whose V-cycle
 // preconditions it, on the dia rows (K = 0) or the ELL rows (K > 0);
 // scratch then holds mg_solve_plan's count. collect: 0 none, 1 the primal residuals, 2 also
 // the dual ones, written to res_p and res_d (n_steps, admm_iters); zrows
-// (12,E), tz (n,3), part (admm_iters, eb + vb) and dpart (admm_iters, vb),
+// (4E,4), tz (n,3), part (admm_iters, eb + vb) and dpart (admm_iters, vb),
 // with eb and vb the element and vertex blocks of 128 threads, are their
 // scratch (null where the mode needs none). n_scen: the scenarios of a
 // sweep (1: a single simulation; more: every per-scenario array above n_scen

@@ -1,6 +1,6 @@
 // Sparse-DIAgonal matvec rows and fixed-order partial sums: the dia row of
-// the cluster solves (cg_dia.cu, cheb_dia.cu) and the block partials of
-// the CG chain (pcg_chain.cuh).
+// the cluster solves (cg_dia.cu, cheb_dia.cu), and a sum of per-block
+// partials (the grid stage of csrc/probes/sync_probe.cu).
 #pragma once
 
 #include "common.cuh"

@@ -134,9 +134,9 @@ _SIGNATURES = {
        for t in ("f32", "f64")},
     # n, the multigrid
     **{f"uamg_ell_prepare_{t}": (_I, [_I, _P]) for t in ("f32", "f64")},
-    **{f"cg_update_{t}": (_I, [_P] * 6 + [_I] + [_P] * 6)
+    # x, r, p, rz, Ap, invd, then n, then x', r', p', rz' and the stream
+    **{f"cg_update_{t}": (_I, [_P] * 6 + [_I] + [_P] * 5)
        for t in ("f32", "f64")},
-    "cg_partials": (_I, [_I]),
     **{f"nh_local_step_{t}": (_I, [_P] * 9 + [_I] * 3 + [_P])
        for t in ("f32", "f64")},
     **{f"tri_local_step_fused_{t}": (_I, [_P] * 11 + [_I] * 2 + [_P])
@@ -147,12 +147,12 @@ _SIGNATURES = {
        for t in ("f32", "f64")},
     **{f"arap_local_step_{t}": (_I, [_P] * 6 + [_I] + [_P])
        for t in ("f32", "f64")},
-    # state 6, element planes 6, vertex planes 5, matrix 3 (dia, ell_idx_t,
-    # ell_vals_t), scratch 5, residual scratch 4 (zrows, tz, part, dpart)
-    # and results 2, host arrays 4, the multigrid (or null), then n, E, D,
-    # K, H, S, n_shapes, model, newton_iters, cg_iters, admm_iters,
-    # n_steps, collect, and the stream
-    **{f"banded_rollout_{t}": (_I, [_P] * 36 + [_I] * 14 + [_P])
+    # state 6, element planes 6, vertex planes 4 and the slot planes 2,
+    # matrix 3 (dia, ell_idx_t, ell_vals_t), scratch 5, residual scratch 4
+    # (zrows, tz, part, dpart) and results 2, host arrays 4, the multigrid
+    # (or null), then n, E, D, K, H, n_shapes, model, newton_iters,
+    # cg_iters, admm_iters, n_steps, collect, and the stream
+    **{f"banded_rollout_{t}": (_I, [_P] * 37 + [_I] * 13 + [_P])
        for t in ("f32", "f64")},
     # state 5, element planes 7, vertex planes 7, scratch 6 (xpre, mxbar,
     # rows, wf, rhs, the solve's), residual scratch 4 and results 2, host
@@ -165,11 +165,11 @@ _SIGNATURES = {
     # the stream
     **{f"lattice_rollout_{t}": (_I, [_P] * 21 + [_I] * 11 + [_P])
        for t in ("f32", "f64")},
-    # state in 5, element planes 6, vertex planes 3, outputs 6 (b, au, cu,
-    # u, warm, rows scratch), the residual's partials and r2 (or null),
-    # host arrays 3, then n, E, S, n_shapes, model, newton_iters, collect,
-    # and the stream
-    **{f"banded_local_rhs_{t}": (_I, [_P] * 25 + [_I] * 7 + [_P])
+    # state in 5, element planes 6, vertex planes 2, the slot planes 2,
+    # outputs 6 (b, au, cu, u, warm, the slot buffer), the residual's
+    # partials and r2 (or null), host arrays 3, then n, E, n_shapes,
+    # model, newton_iters, collect, and the stream
+    **{f"banded_local_rhs_{t}": (_I, [_P] * 26 + [_I] * 6 + [_P])
        for t in ("f32", "f64")},
     # b, x, z, d, invd, dia, c1, c2, x/z/d out, d scratch, offsets, then n,
     # D, n_it, first, last, inv_theta, and the stream

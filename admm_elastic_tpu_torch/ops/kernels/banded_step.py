@@ -28,7 +28,11 @@ State (`STATE`): x, v, anchor dual au, collision dual cu (n,3); tet dual u
 Planes (`PLANES`): idx (4,E) int32 corner vertices; cp (12,E) selector planes; w2, mu, lam, k
 (E,); mass, invd = 1/diag(A), aw2 = summed anchor weight^2 (n,); ancz
 (n,3) anchor targets; inc (n,S) int32 vertex -> 4e+k incidence, sentinel
-4E after the real slots (`core.solver.assemble_transpose_incidence`); the
+4E after the real slots (`core.solver.assemble_transpose_incidence`), the
+twin's; the same incidence as the kernels' slot planes (`slot_planes`):
+pos (4,E) int32, where corner k of element e's rows go in the slot
+buffer (4E,4), and off (n+1,) int32, where each vertex's run of rows
+there starts; the
 matrix (`MATRIX_PLANES`): dia (D,n) diagonals of A at
 `BandedConfig.dia_offs`, or ell_idx (n,K) int32 and ell_vals (n,K) when
 `BandedConfig.ell_width` = K > 0 (`core.solver.assemble_A_hat_ell`);
@@ -36,7 +40,10 @@ with `BandedConfig.mg` the multigrid's planes (`uamg.PLANES`, the
 geometric multigrid's in its compact level form). No padding anywhere.
 
 `banded_rollout` runs the window's kernels (`csrc/banded_step.cu`: per
-timestep a kick, per ADMM iteration an element kernel, a vertex kernel and
+timestep a kick, per ADMM iteration an element kernel, which writes each
+element's rows into its vertices' slots of a slot buffer (4E,4), a
+vertex kernel, which adds its slots in order (`scatter_slots`,
+`sum_slots`: the same sums as the twin's incidence walk), and
 one cluster solve, `csrc/cluster_pcg.cuh` or its multigrid mode
 `csrc/mg_vcycle.cuh`, then an end kernel) for CUDA tensors and
 `banded_rollout_reference`, a step-by-step transcription of the same math
@@ -66,6 +73,7 @@ import ctypes
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from ...core.solver import dia_apply, pcg_fixed_inv
 from . import _build
@@ -77,8 +85,10 @@ from .nh_local import _newton_hyper, _svd_columns, _warm_guard
 from .residuals import squares
 
 STATE = ("x", "v", "u", "warm", "au", "cu")
+#: the planes the kernels read, in their C entry's order (the twin reads
+#: the incidence "inc" in place of the slot planes "pos" and "off")
 PLANES = ("idx", "cp", "w2", "mu", "lam", "k", "mass", "invd", "aw2", "ancz",
-          "inc")
+          "pos", "off")
 MATRIX_PLANES = {"dia": ("dia",), "ell": ("ell_idx", "ell_vals")}
 #: the planes a sweep gives each scenario (a leading S axis); the rest are
 #: shared
@@ -287,6 +297,48 @@ def seed_tz(x_pre, planes, cfg):
     return tz
 
 
+def slot_planes(inc, E):
+    """The kernels' form of a tet incidence inc (n,S) (slots 4e+k in
+    ascending order, then sentinels >= 4E), for a slot buffer (4E,4) that
+    holds each vertex's slots in that order, vertex after vertex: pos (4,E)
+    int32, the row off[i] + j of corner k of element e, its vertex i and
+    its place j in i's list; and off (n+1,) int32, where each vertex's
+    rows start (off[n] = 4E)."""
+    inc = inc.long()
+    n, S = inc.shape
+    real = inc < 4 * E
+    off = F.pad(torch.cumsum(real.sum(1), 0), (1, 0))
+    row = off[:-1, None] + torch.arange(S, device=inc.device)[None, :]
+    pos = torch.empty(4 * E, dtype=torch.int32, device=inc.device)
+    pos[inc[real]] = row[real].to(torch.int32)
+    return pos.view(E, 4).T.contiguous(), off.to(torch.int32)
+
+
+def scatter_slots(rows, pos):
+    """What the element kernels write: each element's rows (12,E), rows
+    3k..3k+2, into its corner k's row (`slot_planes`' pos) of a slot
+    buffer (4E,4); the pads stay 0 (the kernels never read them)."""
+    buf = rows.new_zeros((rows.shape[1] * 4, 4))
+    pos = pos.long()
+    for k in range(4):
+        for c in range(3):
+            buf[pos[k], c] = rows[3 * k + c]
+    return buf
+
+
+def sum_slots(buf, off):
+    """What the vertex kernels read: each vertex's rows off[i] ..
+    off[i+1] - 1 of the slot buffer (4E,4), added in order from 0 (the
+    twin's `_gather_rows`, bitwise): (n,3)."""
+    off = off.long()
+    first, cnt = off[:-1], off[1:] - off[:-1]
+    out = buf.new_zeros((cnt.shape[0], 3))
+    for j in range(int(cnt.max()) if cnt.numel() else 0):
+        at = torch.clamp(first + j, max=buf.shape[0] - 1)
+        out = torch.where((cnt > j)[:, None], out + buf[at, :3], out)
+    return out
+
+
 def _gather_rows(rows, inc):
     """The incidence sum of each vertex's element rows (12,E), in slot
     order (row 4e+k, column a; the zero sentinel row at 4E): (n,3)."""
@@ -433,7 +485,8 @@ def _check(state, planes, cfg):
     want = {"x": (n, 3), "v": (n, 3), "au": (n, 3), "cu": (n, 3),
             "u": (9, E), "warm": (3, E), "idx": (4, E), "cp": (12, E),
             "w2": (E,), "mu": (E,), "lam": (E,), "k": (E,), "mass": (n,),
-            "invd": (n,), "aw2": (n,), "ancz": (n, 3), "inc": (n, S)}
+            "invd": (n,), "aw2": (n,), "ancz": (n, 3), "inc": (n, S),
+            "pos": (4, E), "off": (n + 1,)}
     if cfg.matrix == "ell":
         want["ell_idx"] = want["ell_vals"] = (n, cfg.ell_width)
     else:
@@ -449,7 +502,8 @@ def _check(state, planes, cfg):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
-        dtype = (torch.int32 if name in ("idx", "inc", "ell_idx")
+        dtype = (torch.int32 if name in ("idx", "inc", "pos", "off",
+                                         "ell_idx")
                  else x.dtype)
         if t.device != x.device or t.dtype != dtype:
             raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
@@ -471,19 +525,21 @@ class BandedWindow:
     CUDA graph captures a launch."""
 
     def __init__(self, state, planes, cfg: BandedConfig):
-        self.n, self.E, self.S = _check(state, planes, cfg)
+        self.n, self.E, _ = _check(state, planes, cfg)
         self.state, self.planes, self.cfg = state, planes, cfg
         self.n_scen = cfg.n_scen or 1
         x = state["x"]
         lead = x.shape[:-2]  # a sweep's (S,)
         self.xpre, self.mxbar, self.rhs = (torch.empty_like(x)
                                            for _ in range(3))
-        self.rows = x.new_empty(lead + (12, self.E))
+        # the slot buffers (4E,4): the element rows on their way to the
+        # vertices
+        self.rows = x.new_empty(lead + (4 * self.E, 4))
         # residual collection's scratch, and its results for each window
         # length (`residuals(n)`)
         eb, vb = (-(-m // residuals.THREADS) for m in (self.E, self.n))
         full = cfg.collect == "full"
-        self.zrows = x.new_empty(lead + (12, self.E)) if full else None
+        self.zrows = x.new_empty(lead + (4 * self.E, 4)) if full else None
         self.tz = torch.empty_like(x) if full else None
         self.part = (x.new_empty(lead + (cfg.admm_iters, eb + vb))
                      if cfg.collect else None)
@@ -553,7 +609,7 @@ class BandedWindow:
                 *(ctypes.addressof(a) for a in self._host),
                 None if self.mg is None else ctypes.addressof(self.mg),
                 self.n, self.E, len(cfg.dia_offs), cfg.ell_width, self.reach,
-                self.S, len(cfg.coll_shapes), _MODELS[cfg.model],
+                len(cfg.coll_shapes), _MODELS[cfg.model],
                 cfg.newton_iters, cfg.cg_iters, cfg.admm_iters,
                 int(n_steps), residuals.MODES[cfg.collect], self.n_scen,
                 _build.stream_ptr(x))

@@ -1,4 +1,4 @@
-"""One fused Jacobi-PCG vector update: hand-written CUDA kernels + plain
+"""One fused Jacobi-PCG vector update: hand-written CUDA kernel + plain
 twin, and the fixed-iteration solve built on it.
 
 Counterpart of `admm_elastic_tpu/ops/pallas/cg_step.py` (`cg_update`,
@@ -9,13 +9,14 @@ beta p. Vectors are (n,3) (the JAX kernel's (3, n+pad) lane layout is not
 carried over), inv_diag is (n,), rz a one-element tensor; rz' comes back
 as a 0-dim tensor on the same device, never read by the host.
 
-`cg_update` runs `csrc/cg_step.cu` for CUDA tensors (one C call, three
-launches) and `cg_update_reference` for CPU tensors. It never falls back
-from one to the other.
+`cg_update` runs `csrc/cg_step.cu` for CUDA tensors (one C call, one
+launch on one 16-CTA thread-block cluster, both dots summed in
+`cluster_dot`'s order) and `cg_update_reference` for CPU tensors. It
+never falls back from one to the other.
 
 The whole solves (`cg_dia_solve`, `cg_ell_solve`) run on one thread-block
-cluster (`csrc/cluster_pcg.cuh`); `cluster_dot` is their order of sums,
-`cluster_plan` their layout and `cluster_solve` their launch.
+cluster too (`csrc/cluster_pcg.cuh`); `cluster_dot` is their order of
+sums, `cluster_plan` their layout and `cluster_solve` their launch.
 """
 
 from __future__ import annotations
@@ -30,16 +31,16 @@ import torch.nn.functional as F
 from . import _build
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-THREADS = 256  # the block of the chain kernels (csrc/pcg_chain.cuh)
-# the cluster solves (csrc/cluster_pcg.cuh): CTAs of the cluster (fixed at
-# compile time) and threads of each
+# the cluster kernels (csrc/cluster_pcg.cuh, csrc/cg_step.cu): CTAs of the
+# cluster (fixed at compile time) and threads of each
 CLUSTER = 16
 CLUSTER_THREADS = 1024
 
 
 def _halving_tree(v):
-    """Sum each row of (m, THREADS) as block_sum does (csrc/common.cuh):
-    lane t adds lane t + s for s = THREADS/2, ..., 1."""
+    """Sum each row of (m, w), w a power of two, as the kernels' trees do
+    (`block_sum` in csrc/common.cuh, the warp trees of
+    csrc/cluster_pcg.cuh): lane t adds lane t + s for s = w/2, ..., 1."""
     w = v.shape[1]
     while w > 1:
         w //= 2
@@ -48,33 +49,14 @@ def _halving_tree(v):
     return v[:, 0]
 
 
-def chain_dot(a, b):
-    """sum(a * b) over (n,3) in the order of the chain kernels' partial
-    sums (csrc/pcg_chain.cuh), so a twin that uses it repeats the kernels
-    bitwise: per row the three products in order; per block of THREADS
-    rows the halving tree; the block partials strided over THREADS lanes,
-    then the same tree."""
-    prod = a * b
-    rows = (prod[:, 0] + prod[:, 1]) + prod[:, 2]
-    nb = -(-rows.shape[0] // THREADS)
-    part = _halving_tree(F.pad(rows, (0, nb * THREADS - rows.shape[0]))
-                         .reshape(nb, THREADS))
-    m = -(-nb // THREADS)
-    lanes = F.pad(part, (0, m * THREADS - nb)).reshape(m, THREADS)
-    acc = lanes[0]
-    for j in range(1, m):
-        acc = acc + lanes[j]
-    return _halving_tree(acc[None, :])[0]
-
-
 def cluster_dot(a, b):
-    """sum(a * b) over (n,3) in the order of the cluster solves' sums
-    (csrc/cluster_pcg.cuh), so a twin that uses it repeats them bitwise:
-    per row the three products in order; the rows cut into CLUSTER slabs
-    of ceil(n / CLUSTER); in a slab, thread t adds rows t, t +
-    CLUSTER_THREADS, ... in turn; the threads' sums by the halving tree
-    within each warp of 32, then over the 32 warps; the slabs' sums in
-    rank order."""
+    """sum(a * b) over (n,3) in the order of the cluster kernels' sums
+    (csrc/cluster_pcg.cuh, csrc/cg_step.cu), so a twin that uses it
+    repeats them bitwise: per row the three products in order; the rows
+    cut into CLUSTER slabs of ceil(n / CLUSTER); in a slab, thread t adds
+    rows t, t + CLUSTER_THREADS, ... in turn; the threads' sums by the
+    halving tree within each warp of 32, then over the 32 warps; the
+    slabs' sums in rank order."""
     p0, p1, p2 = (a * b).unbind(1)
     rows = (p0 + p1) + p2
     n = rows.shape[0]
@@ -184,21 +166,34 @@ def active_clusters(n, dtype, reach, width, ell=False, device=None) -> int:
 
 
 def cg_update_reference(x, r, p, rz, Ap, inv_diag):
-    """Plain PyTorch version: the Pallas kernel's steps, with its sums in
-    the CUDA kernel's order (`chain_dot`)."""
-    pAp = chain_dot(p, Ap)
+    """Plain PyTorch version: the Pallas kernel's steps, with both dots
+    summed in the CUDA kernel's order (`cluster_dot`)."""
+    pAp = cluster_dot(p, Ap)
     rz = rz.reshape(())
     alpha = rz / torch.where(pAp > 0, pAp, 1.0)
     x = x + alpha * p
     r = r - alpha * Ap
     z = inv_diag[:, None] * r
-    rz_new = chain_dot(r, z)
+    rz_new = cluster_dot(r, z)
     beta = rz_new / torch.where(rz > 0, rz, 1.0)
     return x, r, z + beta * p, rz_new
 
 
 def _check(x, r, p, rz, Ap, inv_diag):
+    """n, after checking the six inputs: the common case in one
+    expression, the detail only where it fails."""
     n = x.shape[0] if x.dim() == 2 else -1
+    if (x.shape == r.shape == p.shape == Ap.shape == (n, 3)
+            and inv_diag.shape == (n,) and rz.numel() == 1
+            and x.dtype in _SUFFIX
+            and x.dtype == r.dtype == p.dtype == Ap.dtype == inv_diag.dtype
+            == rz.dtype
+            and x.device == r.device == p.device == Ap.device
+            == inv_diag.device == rz.device
+            and x.is_contiguous() and r.is_contiguous()
+            and p.is_contiguous() and Ap.is_contiguous()
+            and inv_diag.is_contiguous()):
+        return n
     if x.dtype not in _SUFFIX:
         raise TypeError(f"unsupported dtype {x.dtype}")
     for name, t, shape in (("x", x, (n, 3)), ("r", r, (n, 3)),
@@ -213,28 +208,43 @@ def _check(x, r, p, rz, Ap, inv_diag):
         if t.device != x.device or t.dtype != x.dtype:
             raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
                              f"{x.dtype} on {x.device}")
-    return n
+    raise ValueError("cg_update: inconsistent inputs")
 
 
-def cg_update(x, r, p, rz, Ap, inv_diag):
-    """One fused CG update; returns (x', r', p', rz')."""
+@functools.cache
+def _update_fn(dtype):
+    return getattr(_build.load_library(), "cg_update_" + _SUFFIX[dtype])
+
+
+def cg_update(x, r, p, rz, Ap, inv_diag, out=None):
+    """One fused CG update; returns (x', r', p', rz'). `out`: optional
+    (x', r', p', rz') buffers the kernel writes instead of new ones (each
+    may be its own input's buffer; the CPU twin returns new tensors)."""
     n = _check(x, r, p, rz, Ap, inv_diag)
     if x.device.type == "cpu":
         return cg_update_reference(x, r, p, rz, Ap, inv_diag)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
-    lib = _build.load_library()
-    fn = getattr(lib, "cg_update_" + _SUFFIX[x.dtype])
-    x_out, r_out, p_out = (torch.empty_like(x) for _ in range(3))
-    rz_out = x.new_empty(())
-    partials = x.new_empty(lib.cg_partials(n))
-    err = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), rz.data_ptr(),
-             Ap.data_ptr(), inv_diag.data_ptr(), n, x_out.data_ptr(),
-             r_out.data_ptr(), p_out.data_ptr(), rz_out.data_ptr(),
-             partials.data_ptr(), _build.stream_ptr(x))
-    _build.check(err, "cg_update")
+    if out is None:
+        out = (torch.empty_like(x), torch.empty_like(x),
+               torch.empty_like(x), x.new_empty(()))
+    elif not (len(out) == 4 and all(
+            o.shape == x.shape and o.dtype == x.dtype and o.device == x.device
+            and o.is_contiguous() for o in out[:3])
+              and out[3].numel() == 1 and out[3].dtype == x.dtype
+              and out[3].device == x.device):
+        raise ValueError("out: (x', r', p') of x's shape, dtype and device "
+                         "and a one-element rz' expected")
+    x_out, r_out, p_out, rz_out = out
+    err = _update_fn(x.dtype)(
+        x.data_ptr(), r.data_ptr(), p.data_ptr(), rz.data_ptr(),
+        Ap.data_ptr(), inv_diag.data_ptr(), n, x_out.data_ptr(),
+        r_out.data_ptr(), p_out.data_ptr(), rz_out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        _build.check(err, "cg_update")
     cg_update.launches += 1
-    return x_out, r_out, p_out, rz_out
+    return out
 
 
 cg_update.launches = 0
@@ -242,12 +252,16 @@ cg_update.launches = 0
 
 def pcg_solve_fixed_fused(A_apply, b, x0, diag, n_iters: int):
     """Fixed-iteration Jacobi-PCG: A_apply (plain PyTorch, e.g. the ELL
-    gather) then one `cg_update` per iteration. Returns x."""
+    gather) then one `cg_update` per iteration. Returns x. On a card the
+    iterations ping-pong between two sets of (x, r, p, rz) buffers."""
     inv_diag = 1.0 / diag
     r = b - A_apply(x0)
     p = inv_diag[:, None] * r
-    rz = chain_dot(r, p)
+    rz = cluster_dot(r, p)
     x = x0
-    for _ in range(int(n_iters)):
-        x, r, p, rz = cg_update(x, r, p, rz, A_apply(p), inv_diag)
+    sets = ([tuple(torch.empty_like(b) for _ in range(3)) + (b.new_empty(()),)
+             for _ in range(2)] if b.device.type == "cuda" else [None, None])
+    for k in range(int(n_iters)):
+        x, r, p, rz = cg_update(x, r, p, rz, A_apply(p), inv_diag,
+                                out=sets[k % 2])
     return x

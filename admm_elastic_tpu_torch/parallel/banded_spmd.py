@@ -88,7 +88,10 @@ class ShardedBandedStepper:
         x = spmd.x   # (n, 3) in the System's numbering
 
     `state` holds the base's keys: x, v, au (anchor dual), cu (collision
-    dual) (n,3); u (9,E) and warm (3,E) element duals; t. `axis`,
+    dual) (n,3); u (9,E) and warm (3,E) element duals; t. On a card with
+    the pallas backend the duals live in two sets of buffers that the
+    ADMM iterations write in turn, so a state dict's duals hold until the
+    next step (`detach` hands over copies). `axis`,
     `mg_cycles` and `system` keep the JAX signature and are ignored: at
     one device there is no mesh axis to shard over, and the multigrid
     (ROADMAP A6) and `refresh_params` (ROADMAP 2e) that read the others
@@ -153,6 +156,9 @@ class ShardedBandedStepper:
             for q in cfg.scalars())
         self._scalars = (dt, dt2, inv_dt, torch.stack(dtg))
         self.state = {k: t.clone() for k, t in base.state.items()}
+        #: on a card, the local phase's two sets of output buffers
+        #: (`_local_out`), made at the first step
+        self._sets = None
 
     def set_cheb_bounds(self, lmin: float, lmax: float):
         """Adopt the spectral interval of D^-1 A (margins applied) and
@@ -224,13 +230,24 @@ class ShardedBandedStepper:
             st = self._timestep(st)
         return st
 
+    def _local_out(self, u):
+        """On a card, the (b, au', cu', u', warm') buffers the next local
+        phase writes: of the stepper's two sets, the one that does not hold
+        its inputs (u among them), so that the ADMM iterations alternate
+        between them and allocate nothing; else None (new tensors)."""
+        if self.backend != "pallas" or u.device.type != "cuda":
+            return None
+        if self._sets is None:
+            st = self.state
+            self._sets = [tuple(torch.empty_like(st[k]) for k in (
+                "x", "au", "cu", "u", "warm")) for _ in range(2)]
+        return self._sets[1] if u is self._sets[0][3] else self._sets[0]
+
     def _timestep(self, st):
         cfg, planes = self.cfg, self.base.planes
         x, v = st["x"], st["v"]
         dt, dt2, inv_dt, dtg = self._scalars
         mass = planes["mass"][:, None]
-        local = (banded_local_rhs if self.backend == "pallas"
-                 else banded_local_rhs_reference)
         solve = self._cheb if self.solver == "cheb" else self._cg
         # gated by mass > 0, as the banded kernel's kick
         v = v + torch.where(mass > 0, dtg, 0.0)
@@ -240,8 +257,13 @@ class ShardedBandedStepper:
         au, cu, u, warm = st["au"], st["cu"], st["u"], st["warm"]
         r2 = []
         for _ in range(self.admm_iters):
-            b, au, cu, u, warm, *sq = local(x, au, cu, u, warm, planes, cfg,
-                                            self.collect_residuals)
+            if self.backend == "pallas":
+                b, au, cu, u, warm, *sq = banded_local_rhs(
+                    x, au, cu, u, warm, planes, cfg, self.collect_residuals,
+                    out=self._local_out(u))
+            else:
+                b, au, cu, u, warm, *sq = banded_local_rhs_reference(
+                    x, au, cu, u, warm, planes, cfg, self.collect_residuals)
             r2 += sq
             x = solve(x, mxbar + dt2 * b)
         out = {"x": x, "v": (x - x_pre) * inv_dt, "u": u, "warm": warm,

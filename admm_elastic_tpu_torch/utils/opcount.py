@@ -263,13 +263,15 @@ def sweep_counts(state, planes, cfg, n_steps):
 
 
 def banded_local_counts(x, au, cu, u, warm, planes, cfg, collect=False):
-    """(operations, bytes) of one `banded_local_rhs`: the state and the
-    planes it reads once, its five outputs (six with collect) written once
-    (the element rows passed between its two kernels, and the residual's
-    partials, are not counted)."""
-    return twin_counts(banded_local.banded_local_rhs_reference, x, au, cu, u,
-                       warm, {k: planes[k] for k in banded_local.PLANES}, cfg,
-                       collect)
+    """(operations, bytes) of one `banded_local_rhs`: the twin's
+    arithmetic; the state and the planes the kernels read (the slot planes,
+    not the twin's incidence) once, its five outputs (six with collect)
+    written once (the slot buffer passed between its two kernels, and the
+    residual's partials, are not counted)."""
+    ops, out = count_ops(banded_local.banded_local_rhs_reference, x, au, cu,
+                         u, warm, planes, cfg, collect)
+    return ops, nbytes(x, au, cu, u, warm,
+                       [planes[k] for k in banded_local.PLANES], out)
 
 
 def cheb_dia_counts(b, x, z, d, invd, dia, c1, c2, *, offsets, n_it, first,

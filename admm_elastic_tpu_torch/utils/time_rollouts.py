@@ -16,9 +16,13 @@ tet100k on the banded route (`lattice_fast_path=True`, dia) and on the
 lattice route (the cg global mode), arap100k on the banded route's arap
 mode, delaunay100k on the banded route's ELL mode, and tet100k's beam
 made 4 times longer (160 x 25 x 20 cells, 87,906 nodes, 200 kg) on the
-banded route; and at budgets of their own: cloth100k on the cloth route
-(cg25, and cg300, its matched Jacobi budget) and tet100k on the sharded
-banded stepper at one device with the Chebyshev solve (cheb180); with
+banded route; tet100k on the sharded banded stepper at one device with
+the cluster CG solve, and delaunay100k on the general ell route with the
+fused CG update (`cg_backend="fused"`, one `cg_update` a CG iteration);
+and at budgets of their own: cloth100k on the cloth route (cg25, and
+cg300, its matched Jacobi budget), tet100k on the sharded banded stepper
+with the Chebyshev solve (cheb180), and sweep64 (64 scenarios of one
+beam on the banded window's sweep mode, ELL, its preset's cg12); with
 the in-kernel multigrid (`preconditioner="amg"`), tet100k on the banded
 route at mg6 and mg8 and cloth100k on the cloth route at mg8; with the
 algebraic multigrids (`--scenes uamg`), delaunay100k on the banded-ELL
@@ -71,6 +75,11 @@ def _scenes(scenes, torch, budgets):
                             (25, 300)),
         "tet100k sharded cheb": (lambda cg: scenes.tet100k_sharded(
             "cheb", cg, f32), (180,)),
+        "tet100k sharded cg": (lambda cg: scenes.tet100k_sharded(
+            "cg", cg, f32), budgets),
+        "delaunay100k general fused": (lambda cg: scenes.delaunay100k(
+            cg, f32, fast=False, cg_backend="fused"), budgets),
+        "sweep64 ell": (lambda cg: scenes.sweep64(), (12,)),
         "mg tet100k banded": (lambda cg: scenes.tet100k(cg, f32, amg=True),
                               (6, 8)),
         "mg cloth100k cloth": (lambda cg: scenes.cloth100k(cg, f32,

@@ -23,6 +23,18 @@ time before the closing synchronize, over 20; the host's work, as long
 as it does not wait for the card), and the relative error against that
 checkout's own plain version. Needs a CUDA device.
 
+The general ell route's fused CG (`cg_update`, one call a CG iteration
+after the plain ELL matvec) is timed on its own input, `--make FILE
+--fused`: delaunay100k's first ELL solve (f32). Its lines give, for one
+`cg_update` call on the solve's first iteration's inputs, the device ms
+(CUDA events around 20 back-to-back calls), the host us a call, and the
+ms a call as 20 calls captured in one CUDA graph (the device's time,
+launch gaps included); and for `pcg_solve_fixed_fused` at 25 and 75
+iterations the ms a solve by events around 20 solves and the host us a
+solve: the route's cost a CG iteration, host work and all, beside its
+relative distance from that checkout's `cg_ell_solve` twin (another sum
+order, so printed, not checked).
+
 The multigrid solves (`mg_dia_solve`, `uamg_ell_solve`) are timed the same
 way on their own inputs, `--make FILE --multigrid`: the first solve from
 rest of tet100k and cloth100k under `preconditioner="amg"` (dia) and of
@@ -97,11 +109,17 @@ def multigrid_inputs():
     return out
 
 
-def make(path, multigrid=False):
+def make(path, multigrid=False, fused=False):
     import torch
 
     if multigrid:
         return save(path, multigrid_inputs())
+    if fused:
+        from admm_elastic_tpu_torch.utils import scenes
+
+        s = scenes.delaunay100k(25, torch.float64, fast=False)
+        return save(path, {"delaunay100k fused f32": (
+            "fused", scenes.ell_solve_inputs(s, torch.float32))})
 
     from admm_elastic_tpu_torch.parallel.cheb import (cheb_coefficients,
                                                       dia_operator_bounds)
@@ -295,6 +313,64 @@ def probe_stages(dll, mod, kind, args, planes, cfg, label, name, fuse):
     return line
 
 
+def events_ms(torch, call, reps, windows):
+    """(device ms a call by CUDA events around `reps` back-to-back calls,
+    host us a call before the closing synchronize), medians of
+    `windows`."""
+    dev_ms, host_us = [], []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        for _ in range(reps):
+            call()
+        e1.record()
+        host_us.append(1e6 * (time.perf_counter() - t0) / reps)
+        torch.cuda.synchronize()
+        dev_ms.append(e0.elapsed_time(e1) / reps)
+    return statistics.median(dev_ms), statistics.median(host_us)
+
+
+def fused_lines(torch, mod, solver, args, label, name, reps, windows):
+    """The lines of a fused input (see the module's docstring)."""
+    b, x0, diag, idx, vals = args
+    step = mod.cg_step
+
+    def A(y):
+        return solver.ell_apply(y, idx, vals)
+
+    inv = 1.0 / diag
+    r = b - A(x0)
+    p = inv[:, None] * r
+    ins = (x0, r, p, (r * p).sum(), A(p), inv)
+    base = {"label": label, "input": name, "n": b.shape[0],
+            "device": torch.cuda.get_device_name(0)}
+
+    def update():
+        return step.cg_update(*ins)
+
+    ms, host = events_ms(torch, update, reps, windows)
+    lines = [{**base, "call": "cg_update", "ms": ms,
+              "host_us_per_call": host,
+              "graph_ms": graph_ms(torch, update, reps, windows)}]
+    for k in (25, 75):
+        def solve(_k=k):
+            return step.pcg_solve_fixed_fused(A, b, x0, diag, _k)
+
+        got = solve()
+        want = mod.cg_ell.cg_ell_solve_reference(b, x0, diag, idx, vals, k)
+        ms, host = events_ms(torch, solve, 5, windows)
+        lines.append({**base, "call": "pcg_solve_fixed_fused", "n_iters": k,
+                      "ms": ms, "host_us_per_call": host,
+                      "us_per_iteration": 1e3 * ms / k,
+                      "rel_vs_cg_ell_twin": float(
+                          (got - want).abs().max() / want.abs().max())})
+    for line in lines:
+        print(json.dumps(line), flush=True)
+    return lines
+
+
 def time_root(inputs, root, label, out_path, reps=20, windows=3,
               probe=False):
     sys.path.insert(0, os.path.abspath(root))
@@ -302,6 +378,7 @@ def time_root(inputs, root, label, out_path, reps=20, windows=3,
     import torch
 
     import admm_elastic_tpu_torch as pkg
+    from admm_elastic_tpu_torch.core import solver
     from admm_elastic_tpu_torch.ops import kernels
     from admm_elastic_tpu_torch.ops.kernels import cg_dia, cg_ell, cheb_dia
 
@@ -312,6 +389,10 @@ def time_root(inputs, root, label, out_path, reps=20, windows=3,
     lines = []
     for name, (kind, args) in data.items():
         args = tuple(a.cuda() if torch.is_tensor(a) else a for a in args)
+        if kind == "fused":
+            lines += fused_lines(torch, kernels, solver, args, label, name,
+                                 reps, windows)
+            continue
         if kind == "cheb":
             *args, kw = args
             budgets = (len(args[6]) + 1,)
@@ -406,6 +487,8 @@ def main():
     ap.add_argument("--make", help="build the inputs and save them here")
     ap.add_argument("--multigrid", action="store_true",
                     help="with --make: the multigrid solves' inputs only")
+    ap.add_argument("--fused", action="store_true",
+                    help="with --make: the fused CG's input only")
     ap.add_argument("--inputs", help="the saved inputs to time")
     ap.add_argument("--root", default=".",
                     help="checkout whose admm_elastic_tpu_torch to time")
@@ -417,7 +500,7 @@ def main():
     if a.make:
         sys.path.insert(0, os.path.abspath(
             os.path.join(os.path.dirname(__file__), "..", "..")))
-        make(a.make, a.multigrid)
+        make(a.make, a.multigrid, a.fused)
     else:
         time_root(a.inputs, a.root, a.label or a.root, a.out,
                   probe=a.probe)

@@ -125,6 +125,7 @@ from admm_elastic_tpu_torch.parallel import ShardedBandedStepper  # noqa: E402
 from admm_elastic_tpu_torch.parallel.cheb import (  # noqa: E402
     cheb_coefficients, dia_operator_bounds)
 from admm_elastic_tpu_torch.utils import profile_step, scenes  # noqa: E402
+from admm_elastic_tpu_torch.utils.time_solves import graph_ms  # noqa: E402
 from admm_elastic_tpu_torch.utils.opcount import (  # noqa: E402
     banded_local_counts, cg_dia_counts, cg_ell_counts, cg_update_counts,
     cheb_dia_counts, mg_dia_counts, nbytes, rollout_counts, roofline_ms,
@@ -980,11 +981,16 @@ def grid_costs(torch, probe, rounds=2000):
     return out
 
 
-def check_cg_update(torch, prob, dtype):
+def check_cg_update(torch, prob, dtype, wide=100003):
     """One cg_update (the first iteration of the solve) and a 25-iteration
     pcg_solve_fixed_fused chain against their plain versions (the twin sums
     in the kernel's order, so they should agree bitwise): relative error
-    within 1e-12 (f64) or 1e-4 (f32), bitwise repeat."""
+    within 1e-12 (f64) or 1e-4 (f32), bitwise repeat; bitwise also with
+    each output written over its own input, and on random vectors of
+    `wide` rows (a CTA's threads hold 6 or 7 rows, the first in
+    registers); one device op a call (the nodes of a captured call). Times
+    it by events (host work included, `cuda_ms`) and as 20 calls in one
+    CUDA graph (the device's time)."""
     b, x0, diag, idx, vals = prob
 
     def A(y):
@@ -993,10 +999,24 @@ def check_cg_update(torch, prob, dtype):
     inv = 1.0 / diag
     r = b - A(x0)
     p = inv[:, None] * r
-    ins = (x0, r, p, pstep.chain_dot(r, p), A(p), inv)
+    ins = (x0, r, p, pstep.cluster_dot(r, p), A(p), inv)
     got = pstep.cg_update(*ins)
     again = pstep.cg_update(*ins)
     want = pstep.cg_update_reference(*ins)
+    over = tuple(t.clone() for t in ins)
+    pstep.cg_update(*over, out=(over[0], over[1], over[2], over[3]))
+    in_place = all(torch.equal(g, w) for g, w in zip(over[:3], want[:3])) \
+        and torch.equal(over[3].reshape(()), want[3])
+    rng = np.random.default_rng(7)
+    wins = [torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                            device=b.device)
+            for shape in ((wide, 3),) * 3 + ((),) + ((wide, 3),)]
+    wins[3] = wins[3].abs()
+    wins.append(torch.as_tensor(rng.uniform(0.5, 2.0, wide), dtype=dtype,
+                                device=b.device))
+    wide_bit = all(torch.equal(g, w) for g, w in zip(
+        pstep.cg_update(*wins), pstep.cg_update_reference(*wins)))
+    ops = profile_step.call_ops(lambda: pstep.cg_update(*ins))
     chain = pstep.pcg_solve_fixed_fused(A, b, x0, diag, 25)
     chain_want, r, p, rz = x0, *ins[1:4]
     for _ in range(25):
@@ -1013,17 +1033,24 @@ def check_cg_update(torch, prob, dtype):
     tol = 1e-12 if dtype == torch.float64 else 1e-4
     bit = all(torch.equal(g, a) for g, a in zip(got, again))
     fin = all(bool(torch.isfinite(g).all()) for g in (*got, chain))
-    ok = rel <= tol and chain_rel <= tol and bit and fin
+    one_op = ops["device_ops_per_call"] == 1.0 and ops["kinds"] == ["kernel"]
+    ok = (rel <= tol and chain_rel <= tol and bit and fin and in_place
+          and wide_bit and one_op)
     ms = cuda_ms(torch, lambda: pstep.cg_update(*ins), 10, batch=20)
+    device_ms = graph_ms(torch, lambda: pstep.cg_update(*ins), 20, 3)
     plain_ms = cuda_ms(torch, lambda: pstep.cg_update_reference(*ins), 10,
                        batch=20)
     n_ops, n_bytes = cg_update_counts(*ins)
     bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
     say(f"kernel cg_update {str(dtype)[6:]}", n=b.shape[0], max_abs_err=err,
         rel_err=rel, chain25_rel_err=chain_rel, tol=tol,
-        bitwise_vs_twin=twin_bit, bitwise_repeat=bit, finite=fin, ms=ms,
-        plain_ms=plain_ms, operations=n_ops, bytes=n_bytes,
-        bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+        bitwise_vs_twin=twin_bit, bitwise_repeat=bit,
+        bitwise_over_its_inputs=in_place, wide_n=wide,
+        wide_bitwise_vs_twin=wide_bit, finite=fin,
+        device_ops_per_call=ops["device_ops_per_call"], op_kinds=ops["kinds"],
+        ms=ms, device_ms_graph=device_ms, plain_ms=plain_ms,
+        operations=n_ops, bytes=n_bytes, bound_ms=bound_ms,
+        bound_by=bound_by, ok=ok)
     if not ok:
         raise AssertionError(f"cg_update disagrees in {dtype}")
     return err, ms, plain_ms, bound_ms, bound_by
@@ -2142,6 +2169,15 @@ def main():
         if dtype == torch.float32:
             local_collect32 = check_local_collect(torch, "tet100k", ins,
                                                   st.planes, st.cfg, dtype)
+            # the call as the sharded stepper makes it (its output buffers
+            # given), by events, and as 20 calls in one CUDA graph (the
+            # device's time)
+            out = tuple(torch.empty_like(t) for t in ins)
+            say("kernel banded_local_rhs tet100k float32 times",
+                ms_out_given=cuda_ms(torch, lambda: pbl.banded_local_rhs(
+                    *ins, st.planes, st.cfg, out=out), 10, batch=20),
+                device_ms_graph=graph_ms(torch, lambda: pbl.banded_local_rhs(
+                    *ins, st.planes, st.cfg), 20, 3))
         del st
 
     # phase 3m: the Chebyshev chunk (cheb_dia_chunk, one launch on a

@@ -9,8 +9,9 @@ PyTorch is installed (tests/conftest.py sets JAX up, hence --noconftest):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 The twins of cg_update, cg_dia_solve and cg_ell_solve add in the
-kernels' order (`chain_dot`, `cluster_dot`, `dia_apply`,
-`ell_apply_by_slot`), so the kernels must repeat them bitwise, the two
+kernels' order (`cluster_dot`, `dia_apply`, `ell_apply_by_slot`), so the
+kernels must repeat them bitwise, cg_update (one launch on one cluster)
+at delaunay100k's n and where a thread holds several rows, the two
 cluster solves at any n (`scenes.banded_spd`: fewer rows than CTAs, a
 last slab cut short, windows too large for shared memory, a random
 numbering). The banded, lattice and cloth windows (element kernel,
@@ -48,9 +49,11 @@ from admm_elastic_tpu_torch.ops.kernels import (_build, banded_local,
                                                 cloth_step, lattice_step, mg,
                                                 nh_local, tet_local,
                                                 tri_local, uamg)
+from admm_elastic_tpu_torch.parallel.banded_spmd import (
+    sharded_banded_from_system)
 from admm_elastic_tpu_torch.parallel.cheb import (cheb_coefficients,
                                                   dia_operator_bounds)
-from admm_elastic_tpu_torch.utils import scenes
+from admm_elastic_tpu_torch.utils import profile_step, scenes
 from admm_elastic_tpu_torch.utils.scenes import (banded_spd, beam_system,
                                                  cloth_system,
                                                  grid_mg_problem,
@@ -86,13 +89,42 @@ def test_cg_update_kernel_is_its_twin(dtype):
     inv = 1.0 / diag
     r = b - solver.ell_apply(x0, idx, vals)
     p = inv[:, None] * r
-    ins = (x0, r, p, cg_step.chain_dot(r, p), solver.ell_apply(p, idx, vals),
-           inv)
+    ins = (x0, r, p, cg_step.cluster_dot(r, p),
+           solver.ell_apply(p, idx, vals), inv)
     n0 = cg_step.cg_update.launches
     got = cg_step.cg_update(*ins)
     assert cg_step.cg_update.launches == n0 + 1
     for g, w in zip(got, cg_step.cg_update_reference(*ins)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16280, 100003])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_cg_update_is_one_cluster_launch(dtype, n):
+    """cg_update on random vectors at delaunay100k's n (one row a thread)
+    and at 100,003 (6 or 7 rows a thread, 2 kept in registers): bitwise to
+    its twin, also with each output written over its own input; one
+    device op, a kernel, a call."""
+    dev = _cuda()
+    rng = np.random.default_rng(n)
+
+    def vec(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    x, r, p, Ap = (vec(rng.standard_normal((n, 3))) for _ in range(4))
+    ins = (x, r, p, vec(0.7), Ap, vec(rng.uniform(0.5, 2.0, n)))
+    want = cg_step.cg_update_reference(*ins)
+    for g, w in zip(cg_step.cg_update(*ins), want):
+        assert torch.equal(g, w)
+    over = tuple(t.clone() for t in ins)
+    cg_step.cg_update(*over, out=over[:4])
+    for g, w in zip(over[:4], want):
+        assert torch.equal(g, w)
+    ops = profile_step.call_ops(lambda: cg_step.cg_update(*ins))
+    assert ops == {"device_ops_per_call": 1.0, "kinds": ["kernel"]}
+    with pytest.raises(ValueError, match="out"):
+        cg_step.cg_update(*ins, out=(x, r, p[:-1], ins[3]))
 
 
 @pytest.mark.cuda
@@ -483,6 +515,8 @@ def test_banded_local_kernel_matches_twin(dtype, model):
     assert banded_local.banded_local_rhs.launches == n0 + 2
     want = banded_local.banded_local_rhs_reference(*ins, st.planes, st.cfg)
     assert _rel(got, want) < (1e-12 if dtype == torch.float64 else 1e-4)
+    with pytest.raises(ValueError, match="out"):
+        banded_local.banded_local_rhs(*ins, st.planes, st.cfg, out=ins[:4])
     for g, a in zip(got, again):
         assert torch.equal(g, a)
         assert bool(torch.isfinite(g).all())
@@ -950,6 +984,29 @@ def test_banded_local_collect_is_its_twin(dtype, model):
         assert torch.equal(g, w)
     for g, o in zip(got, off):
         assert torch.equal(g, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["dia", "ell"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_sharded_steps_are_the_plain_composition(dtype, scene):
+    """The sharded stepper at one device on the card, pallas backend
+    (banded_local_rhs writing its two alternating sets of buffers, then the
+    cluster solve), against its xla backend (the plain composition) on the
+    same card: 3 steps, every state tensor bitwise after each."""
+    _cuda()
+    s = (jittered_system((4, 3, 3), 25, dtype, "cuda") if scene == "dia"
+         else small_delaunay(25, dtype, "cuda"))
+    kern, _ = sharded_banded_from_system(s)
+    plain, _ = sharded_banded_from_system(s, backend="xla")
+    assert kern.backend == "pallas"
+    n0 = banded_local.banded_local_rhs.launches
+    for step in range(3):
+        kern.step()
+        plain.step()
+        for k in ("x", "v", "u", "warm", "au", "cu"):
+            assert torch.equal(kern.state[k], plain.state[k]), (step, k)
+    assert banded_local.banded_local_rhs.launches == n0 + 3 * kern.admm_iters
 
 
 # the small sweeps of the card checks (scenes.jittered_sweep: 3 scenarios,

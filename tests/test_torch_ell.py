@@ -4,7 +4,7 @@ diagonals): host assembly and grid detection array-equal; the ELL matvec,
 the tolerance PCG, the fused CG update and its fixed-iteration solve, and
 the ELL CG kernel's plain twin within 1e-12 of the JAX functions (the
 Pallas kernels in interpret mode). Only summation orders differ (the
-twins add in the CUDA kernels' order: `chain_dot`, `cluster_dot`). CG
+twins add in the CUDA kernels' order, `cluster_dot`). CG
 amplifies such differences: on this A_hat they stay below 2e-14 relative
 for 20 fixed iterations and reach ~5e-12 at 25, so the fixed-budget
 comparisons run 1 and 20.

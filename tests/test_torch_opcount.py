@@ -229,7 +229,8 @@ def test_cheb_dia_counts_one_iteration():
 
 def test_banded_local_counts_bytes():
     """banded_local_rhs reads x, au, cu (n,3), u (9,E), warm (3,E) and the
-    nine planes it uses, and writes b, au', cu', u', warm'."""
+    ten planes its kernels use (the slot planes pos and off, not the
+    twin's incidence), and writes b, au', cu', u', warm'."""
     from admm_elastic_tpu_torch.ops.kernels import banded_local
     from admm_elastic_tpu_torch.utils.opcount import (banded_local_counts,
                                                       nbytes)
@@ -241,6 +242,7 @@ def test_banded_local_counts_bytes():
     ops, n_bytes = banded_local_counts(*ins, st.planes, st.cfg)
     n, E = st.n_nodes, st.n_elements
     planes = nbytes([st.planes[k] for k in banded_local.PLANES])
+    assert planes == 8 * (12 * E + 4 * E + 4 * n) + 4 * (8 * E + n + 1)
     assert n_bytes == 2 * 8 * (9 * n + 12 * E) + planes
     assert ops > 1000 * E  # the SVD and the Newton prox per element
 
