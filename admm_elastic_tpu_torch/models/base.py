@@ -20,13 +20,6 @@ import numpy as np
 import torch
 
 
-def flat_rows(blocks):
-    """A fused kernel's row planes -> flat rows: plane 3k+j of element e ->
-    row K e + k, column j; a second (emit_z) block fills columns 3:6."""
-    flat = [c.T.reshape(-1, 3) for c in blocks]
-    return flat[0] if len(flat) == 1 else torch.cat(flat, dim=1)
-
-
 class ForceBatch(abc.ABC):
     """Abstract constraint batch. Subclasses define R (row-groups per element)
     and K (stencil vertices per element)."""

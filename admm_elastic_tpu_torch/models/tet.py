@@ -9,9 +9,10 @@ The port keeps the per-element quantities of a kernel-backed force in
 plane layout, unpadded: Dx, u and z are (9, E) with plane 3a+b holding
 F_{a,b}; the warm start sigma is (3, E); the selector coefficients are
 (12, E) with plane 4b+k holding coeff[e,b,k]. The fused kernels form Dx
-and the RHS rows themselves (the dia/ell route); the unfused pipeline (the
-dense and cg global modes, over-relaxation) takes Dx from `compute_Dx` and
-its rows from `rhs_contribution`.
+and the RHS rows themselves (the dia/ell route; the hyperelastic kernel
+gathers the positions itself, the ARAP one takes them gathered); the
+unfused pipeline (the dense and cg global modes, over-relaxation) takes Dx
+from `compute_Dx` and its rows from `rhs_contribution`.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 
 from ..ops.kernels.nh_local import nh_local_step, nh_local_step_fused
 from ..ops.kernels.tet_local import arap_local_step, arap_local_step_fused
-from .base import ForceBatch, flat_rows
+from ..ops.segment import flat_rows
+from .base import ForceBatch
 
 _D4 = np.array(
     [[-1.0, -1.0, -1.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]
@@ -155,17 +157,26 @@ class HyperElasticTet(_TetPlanes):
         state = {"sigma": np.ones((3, self.n_elements))}
         return params, state
 
-    def fused_local_rhs(self, params, x, u, state, with_z=False):
-        """One kernel for the per-iteration element pipeline: gathered
-        positions in; z, u', warm start and the flat D^T W^2 (z-u') rows
-        (E*4, 3) out; with_z, (E*4, 6) rows whose columns 3:6 are D^T W^2
-        z (the kernel's emit_z block), as rhs_contribution6."""
-        z9, unew9, warm_new, *rows = nh_local_step_fused(
-            self._gathered(params, x), u, state["sigma"], params["coeff_p"],
+    def fused_local_rhs(self, params, x, u, state, with_z=False, out=None):
+        """One kernel for the per-iteration element pipeline: positions x
+        (n,3) in (the kernel gathers each tet's vertices); z, u', warm start
+        and the flat D^T W^2 (z-u') rows (E*4, 3) out; with_z, (E*4, 6)
+        rows whose columns 3:6 are D^T W^2 z (the kernel's emit_z mode),
+        as rhs_contribution6. `out`: a set of `fused_out_buffers` to write
+        in place of new tensors."""
+        z9, unew9, warm_new, rows = nh_local_step_fused(
+            x, params["indices"], u, state["sigma"], params["coeff_p"],
             params["mu"], params["lam"], params["k"], params["w2"],
-            iters=self.max_iters, model=self.model, emit_z=with_z,
+            iters=self.max_iters, model=self.model, emit_z=with_z, out=out,
         )
-        return z9, unew9, {**state, "sigma": warm_new}, flat_rows(rows)
+        return z9, unew9, {**state, "sigma": warm_new}, rows
+
+    def fused_out_buffers(self, x, with_z=False):
+        """A new set of fused_local_rhs's outputs (z9, u9', warm start,
+        rows) of x's dtype and device, to give it as `out`."""
+        E = self.n_elements
+        return tuple(x.new_empty(s) for s in (
+            (9, E), (9, E), (3, E), (4 * E, 6 if with_z else 3)))
 
     def project_with_dual(self, Dx, u, params, state):
         """The unfused element step from Dx planes: (z9, u9', state with

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..ops.kernels.tri_local import tri_local_step, tri_local_step_fused
-from .base import ForceBatch, flat_rows
+from ..ops.segment import flat_rows
+from .base import ForceBatch
 
 _D3 = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
 

@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import torch
@@ -106,9 +107,9 @@ def build() -> tuple[Path, float]:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points (restype, argtypes): pointers and the stream as void*
 _SIGNATURES = {
-    # the fused element steps' last output pointer is the emit_z block,
-    # null when it is not asked for
-    **{f"nh_local_step_fused_{t}": (_I, [_P] * 13 + [_I] * 3 + [_P])
+    # x, tets, u, warm, cp, mu, lam, k, w2, then z, u', warm', rows, then
+    # E, iters, model, emit_z and the stream
+    **{f"nh_local_step_fused_{t}": (_I, [_P] * 13 + [_I] * 4 + [_P])
        for t in ("f32", "f64")},
     # b, x0, diag, the matrix (2), then D or K, H, n, n_iters, diag_inv,
     # then x, scratch and the stream
@@ -139,6 +140,8 @@ _SIGNATURES = {
        for t in ("f32", "f64")},
     **{f"nh_local_step_{t}": (_I, [_P] * 9 + [_I] * 3 + [_P])
        for t in ("f32", "f64")},
+    # the other fused element steps' last output pointer is the emit_z
+    # block, null when it is not asked for
     **{f"tri_local_step_fused_{t}": (_I, [_P] * 11 + [_I] * 2 + [_P])
        for t in ("f32", "f64")},
     **{f"tri_local_step_{t}": (_I, [_P] * 8 + [_I] * 2 + [_P])
@@ -209,10 +212,91 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of t's device as a C entry takes it (the
+    raw handle: ~0.3 us a call on an H100's host, where building the
+    torch.cuda.Stream object took ~6 us)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _span(t):
+    """The bytes a contiguous tensor occupies: (first, past the last)."""
+    p = t.data_ptr()
+    return p, p + t.numel() * t.element_size()
+
+
+class Plan:
+    """The work of a wrapper that its constant inputs fix (checks, pointers,
+    the C entry), done once. A subclass checks those tensors and calls
+    `hold`; `plan` keeps the plans made so far. A plan holds the tensors by
+    weak reference only and serves while each is still the very tensor it
+    was made on: a replaced tensor gets a new plan."""
+
+    def hold(self, tensors, dtype, device, read=None):
+        """Keep weak references to `tensors` {name: tensor}, the dtype and
+        device the plan's calls take, and the spans of the tensors the
+        kernel reads (`read`, by default `tensors`) for `outputs`."""
+        self.dtype, self.device = dtype, device
+        self._refs = {k: weakref.ref(t) for k, t in tensors.items()}
+        self._spans = [_span(t) for t in (tensors.values() if read is None
+                                          else read) if t.numel()]
+
+    def serves(self, tensors):
+        """Whether each held tensor is still the one of its name in
+        `tensors`."""
+        return all(tensors.get(k) is r() for k, r in self._refs.items())
+
+    def outputs(self, out, shapes, ins):
+        """A call's output buffers: new ones of `shapes`, or `out` checked
+        to hold one contiguous tensor of each shape, of the plan's dtype
+        and device, none of them overlapping another, an input (`ins`) or
+        the plan's constants."""
+        if out is None:
+            return tuple(torch.empty(s, dtype=self.dtype, device=self.device)
+                         for s in shapes)
+        out = tuple(out)
+        if len(out) != len(shapes) or not all(
+                isinstance(o, torch.Tensor) and o.shape == s
+                and o.dtype == self.dtype and o.device == self.device
+                and o.is_contiguous() for o, s in zip(out, shapes)):
+            raise ValueError(f"out: {len(shapes)} contiguous buffers of "
+                             f"shapes {tuple(shapes)}, {self.dtype} on "
+                             f"{self.device}, expected")
+        # by first byte: a span that starts before the end of an earlier one
+        # overlaps it, which is an error where either is an output
+        spans = sorted([(*_span(o), True) for o in out if o.numel()]
+                       + [(*_span(t), False) for t in ins if t.numel()]
+                       + [(*sp, False) for sp in self._spans])
+        end = out_end = 0
+        for lo, hi, is_out in spans:
+            if lo < (end if is_out else out_end):
+                raise ValueError("out: a buffer overlaps an input or "
+                                 "another output")
+            end = max(end, hi)
+            if is_out:
+                out_end = max(out_end, hi)
+        return out
+
+
+#: the plans made so far, by their wrapper's key; a few are kept (a
+#: System's forces and a stepper's calls find theirs at once)
+_PLANS: dict = {}
+KEEP_PLANS = 16
+
+
+def plan(key, tensors, make):
+    """The plan made under `key` while it serves `tensors`, else `make()`
+    in its place (the oldest plan dropped beyond KEEP_PLANS)."""
+    made = _PLANS.get(key)
+    if made is None or not made.serves(tensors):
+        made = make()
+        _PLANS.pop(key, None)
+        while len(_PLANS) >= KEEP_PLANS:
+            _PLANS.pop(next(iter(_PLANS)))
+        _PLANS[key] = made
+    return made
 
 
 def check_inputs(planes, vectors):

@@ -44,7 +44,6 @@ when the caller gives its buffers.
 from __future__ import annotations
 
 import ctypes
-import weakref
 
 import torch
 
@@ -114,7 +113,7 @@ def _check(x, au, cu, u, warm, planes):
     _check_all({**want, **_plane_shapes(planes, n, E)}, x.dtype, x.device)
 
 
-class _Phase:
+class _Phase(_build.Plan):
     """The C call of banded_local_rhs on one planes dict and config: its
     planes checked, their pointers, the shape table and scalars as C
     arrays, and the entry point, made once."""
@@ -124,8 +123,7 @@ class _Phase:
         want = _plane_shapes(planes, n, E)
         _check_all(want, x.dtype, x.device)
         self.n, self.E = n, E
-        # weak: a cached phase keeps no planes alive
-        self._refs = {k: weakref.ref(planes[k]) for k in want}
+        self.hold({k: planes[k] for k in want}, x.dtype, x.device)
         self.ptrs = tuple(planes[k].data_ptr() for k in PLANES)
         kinds, table = cfg.shape_table()
         ns = len(kinds)
@@ -140,11 +138,6 @@ class _Phase:
                        - (-n // residuals.THREADS))
         self.fn = getattr(_build.load_library(),
                           "banded_local_rhs_" + _build.SUFFIX[x.dtype])
-
-    def serves(self, planes):
-        """Whether `planes` still holds the very tensors this was made
-        on."""
-        return all(planes.get(k) is r() for k, r in self._refs.items())
 
     def check(self, x, au, cu, u, warm):
         """The state's shapes, devices, dtypes and layout: the common case
@@ -164,32 +157,11 @@ class _Phase:
         _check_all(want, x.dtype, x.device)
 
 
-def _check_out(out, like):
-    """Raise unless each buffer of `out` has the shape, dtype and device of
-    its counterpart in `like` and is contiguous."""
-    if len(out) != len(like) or not all(
-            o.shape == t.shape and o.dtype == t.dtype and o.device == t.device
-            and o.is_contiguous() for o, t in zip(out, like)):
-        raise ValueError("out: buffers of the outputs' shapes, dtype and "
-                         "device expected")
-
-
-# the phases made so far, by planes dict, config, dtype and device; a few
-# are kept (a stepper's calls find theirs at once)
-_PHASES: dict = {}
-_KEEP = 8
-
-
 def _phase(planes, cfg, x):
-    key = (id(planes), cfg, x.dtype, x.device)
-    ph = _PHASES.get(key)
-    if ph is None or not ph.serves(planes):
-        ph = _Phase(planes, cfg, x)
-        _PHASES.pop(key, None)
-        while len(_PHASES) >= _KEEP:
-            _PHASES.pop(next(iter(_PHASES)))
-        _PHASES[key] = ph
-    return ph
+    """The phase of this planes dict, config, dtype and device
+    (`_build.plan`)."""
+    return _build.plan(("banded_local_rhs", id(planes), cfg, x.dtype,
+                        x.device), planes, lambda: _Phase(planes, cfg, x))
 
 
 def banded_local_rhs(x, au, cu, u, warm, planes, cfg: BandedConfig,
@@ -206,11 +178,8 @@ def banded_local_rhs(x, au, cu, u, warm, planes, cfg: BandedConfig,
                                           collect)
     ph = _phase(planes, cfg, x)
     ph.check(x, au, cu, u, warm)
-    if out is None:
-        out = (torch.empty_like(x), torch.empty_like(x), torch.empty_like(x),
-               torch.empty_like(u), torch.empty_like(warm))
-    else:
-        _check_out(out, (x, x, x, u, warm))
+    out = ph.outputs(out, (x.shape, x.shape, x.shape, u.shape, warm.shape),
+                     (x, au, cu, u, warm))
     slots = x.new_empty((4 * ph.E, 4))
     part = x.new_empty((ph.nparts,)) if collect else None
     r2 = x.new_empty(()) if collect else None
@@ -227,7 +196,6 @@ def banded_local_rhs(x, au, cu, u, warm, planes, cfg: BandedConfig,
         _build.check(err, "banded_local_rhs")
     banded_local_rhs.launches += 1
     banded_local_rhs.residual_launches += bool(collect)
-    out = tuple(out)
     return out + (r2,) if collect else out
 
 

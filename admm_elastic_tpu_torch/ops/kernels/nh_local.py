@@ -3,30 +3,38 @@
 Counterpart of `admm_elastic_tpu/ops/pallas/nh_local.py`, both entries.
 Per element:
 
-    F      = Dx + u          (fused: Dx = sum_k cp * xg, selector on x)
+    F      = Dx + u          (fused: Dx = sum_k cp * x[tet[k]])
     U,s,V  = oriented SVD(F)               (signed s2; proper rotations)
     sigma* = argmin psi(sigma) + k/2 ||sigma - s||^2   (damped Newton)
     z      = U diag(sigma*) V^T,   u' = u + Dx - z
-    contrib[3k+j] = w2 * sum_r cp[4r+k] * (z - u')[3j+r]   (fused only)
-    contribz[3k+j] = w2 * sum_r cp[4r+k] * z[3j+r]          (emit_z only)
+    rows[4e+k, j]   = w2 * sum_r cp[4r+k] * (z - u')[3j+r]   (fused only)
+    rows[4e+k, 3+j] = w2 * sum_r cp[4r+k] * z[3j+r]          (emit_z only)
 
-`nh_local_step_fused` takes gathered positions and emits the RHS rows (the
-dia/ell route) and, with `emit_z`, the rows of w2 D^T z beside them (the
-dual residual's, `Settings(collect_residuals=True)`); `nh_local_step`
-takes Dx (the unfused pipeline of the dense and cg global modes and of
-over-relaxation). Layout: plane-major xg12, cp12, contrib12, contribz12
-(12,E); dx9, u9, z9 (9,E); warm (3,E); mu, lam, k, w2 (E,). No padding:
-E is any size.
+`nh_local_step_fused` takes the positions x (n,3) and the tets (E,4),
+gathers each element's vertices itself and emits the RHS rows (4E,3) in
+the layout the System's incidence gather reads (the dia/ell route) and,
+with `emit_z`, (4E,6) rows whose columns 3:6 are w2 D^T z (the dual
+residual's, `Settings(collect_residuals=True)`); `nh_local_step` takes Dx
+(the unfused pipeline of the dense and cg global modes and of
+over-relaxation). Layout: plane-major cp12 (12,E); dx9, u9, z9 (9,E);
+warm (3,E); mu, lam, k, w2 (E,). No padding: E is any size. The Pallas
+kernel's own layout (gathered positions and row planes (12,E)) is
+`_fused_planes`, which the JAX comparisons call.
 
-Each wrapper launches its kernel (`csrc/nh_local.cu`) for CUDA tensors and
-runs its `_reference` twin, a straight transcription of the Pallas math,
-for CPU tensors. It never falls back from one to the other.
+Each wrapper checks its constant inputs (the selector planes, the
+materials, the tets) once per force, dtype and device (`_Plan`, which
+keeps their pointers and the C entry), then only the state in one
+expression a call; both take optional `out=` buffers. It launches its
+kernel (`csrc/nh_local.cu`) for CUDA tensors and runs its `_reference`
+twin, a straight transcription of the Pallas math, for CPU tensors. It
+never falls back from one to the other.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..segment import flat_rows
 from . import _build
 
 _SWEEPS = 6
@@ -356,10 +364,13 @@ def rows_of(cp, planes, k_count, r_count, w2):
     return out
 
 
-def nh_local_step_fused_reference(xg12, u9, warm, cp12, mu, lam, k, w2,
-                                  iters=5, model="nh", emit_z=False):
-    """Plain PyTorch version of the fused kernel, same signature and
-    outputs: (z9, u9_new, warm_new, contrib12[, contribz12])."""
+def _fused_planes(xg12, u9, warm, cp12, mu, lam, k, w2, iters=5,
+                  model="nh", emit_z=False):
+    """The fused step on gathered positions in the Pallas kernel's own
+    layout: xg12 (12,E) with plane 3k+a = x[tet[e,k], a] in; (z9, u9_new,
+    warm_new, contrib12[, contribz12]) out, row plane 3k+j of element e
+    the row 4e+k's column j. The JAX comparisons call it on their inputs;
+    `nh_local_step_fused_reference` gathers and lays its rows out."""
     xg = [xg12[p] for p in range(12)]
     cp = [cp12[p] for p in range(12)]
     dx = []
@@ -379,6 +390,19 @@ def nh_local_step_fused_reference(xg12, u9, warm, cp12, mu, lam, k, w2,
     return out
 
 
+def nh_local_step_fused_reference(x, tets, u9, warm, cp12, mu, lam, k, w2,
+                                  iters=5, model="nh", emit_z=False):
+    """Plain PyTorch version of the fused kernel, same signature and
+    outputs: (z9, u9_new, warm_new, rows), rows (4E,3), or (4E,6) with
+    emit_z. It gathers the positions, runs `_fused_planes` and lays the
+    rows out: the gather and the layout move values and change no bits."""
+    E = tets.shape[0]
+    z9, u9_new, warm_new, *blocks = _fused_planes(
+        x[tets.long()].reshape(E, 12).T, u9, warm, cp12, mu, lam, k, w2,
+        iters=iters, model=model, emit_z=emit_z)
+    return z9, u9_new, warm_new, flat_rows(blocks)
+
+
 def nh_local_step_reference(dx9, u9, warm, mu, lam, k, iters=5, model="nh"):
     """Plain PyTorch version of the unfused kernel, same signature and
     outputs: (z9, u9_new, warm_new)."""
@@ -388,27 +412,130 @@ def nh_local_step_reference(dx9, u9, warm, mu, lam, k, iters=5, model="nh"):
     return torch.stack(z_planes), torch.stack(u_planes), warm_new
 
 
-def nh_local_step_fused(xg12, u9, warm, cp12, mu, lam, k, w2, iters=5,
-                        model="nh", emit_z=False):
-    """Fused local step + RHS contribution. Returns
-    (z9, u9_new, warm_new, contrib12), and with emit_z contribz12 after
-    them (the other outputs are the same bits either way)."""
+class _Plan(_build.Plan):
+    """An entry's constant inputs for one force: checked once (shape,
+    layout, one dtype and device), the tets (fused entry) in int32 with
+    their largest index, the pointers and, on a card, the C entry resolved
+    once."""
+
+    def __init__(self, entry, consts, tets):
+        first = next(iter(consts.values()))
+        dtype, device = first.dtype, first.device
+        self.E = E = first.shape[-1]
+        if dtype not in _build.SUFFIX:
+            raise TypeError(f"unsupported dtype {dtype}")
+        for name, t in consts.items():
+            shape = (12, E) if name == "cp12" else (E,)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                                 f"{shape}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: not contiguous")
+            if t.dtype != dtype or t.device != device:
+                raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                                 f"{dtype} on {device}")
+        # the device index as Tensor.get_device() gives it (-1 off CUDA):
+        # the per-call check compares ints, not torch.device objects
+        self.index = device.index if device.type == "cuda" else -1
+        held = dict(consts)
+        self.vmax = -1
+        if tets is not None:
+            if (tuple(tets.shape) != (E, 4) or tets.is_floating_point()
+                    or tets.is_complex() or tets.device != device):
+                raise ValueError(f"tets: {tets.dtype} {tuple(tets.shape)} on "
+                                 f"{tets.device}, expected integers (E, 4) "
+                                 f"= ({E}, 4) on {device}")
+            held["tets"] = tets
+        self.fn = None
+        if device.type not in ("cuda", "cpu"):
+            self.hold(held, dtype, device)
+            return  # no kernel and no twin: the wrapper raises
+        read = list(consts.values())
+        if tets is not None:
+            t32 = tets.to(torch.int32).contiguous()
+            if t32.data_ptr() % 16:  # the kernel reads a tet as one int4
+                t32 = t32.clone()
+            if E and int(t32.min()) < 0:
+                raise ValueError("tets: negative vertex index")
+            self.vmax = int(t32.max()) if E else -1
+            self.tets32, self.tets_ptr = t32, t32.data_ptr()
+            read.append(t32)
+        self.hold(held, dtype, device, read)
+        self.ptrs = tuple(t.data_ptr() for t in consts.values())
+        if device.type == "cuda":
+            self.fn = getattr(_build.load_library(),
+                              f"{entry}_{_build.SUFFIX[dtype]}")
+
+    def check_state(self, state):
+        """Raise unless each of state {name: (tensor, shape)} has its shape
+        and the plan's dtype and device and is contiguous (the caller's
+        one-expression test failed)."""
+        for name, (t, shape) in state.items():
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                                 f"{shape}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: not contiguous")
+            if t.dtype != self.dtype or t.device != self.device:
+                raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                                 f"{self.dtype} on {self.device}")
+
+
+def _plan(entry, consts, tets=None):
+    """The entry's plan for these constants (`_build.plan`, by their
+    identities)."""
+    held = consts if tets is None else {**consts, "tets": tets}
+    return _build.plan((entry, *map(id, held.values())), held,
+                       lambda: _Plan(entry, consts, tets))
+
+
+def nh_local_step_fused(x, tets, u9, warm, cp12, mu, lam, k, w2, iters=5,
+                        model="nh", emit_z=False, out=None):
+    """Fused local step + RHS rows from the positions x (n,3) and the tets
+    (E,4) (integers; the kernel reads them in int32, converted once).
+    Returns (z9, u9_new, warm_new, rows): rows (4E,3), row 4e+k the
+    element's D^T W^2 (z - u') row for its vertex k; with emit_z (4E,6),
+    columns 3:6 the rows of D^T W^2 z (the other outputs are the same bits
+    either way). `out`: optional buffers of those four outputs to write
+    instead of new ones, none of them overlapping an input."""
     if model not in _MODELS:
         raise ValueError(f"unknown hyperelastic model {model!r}")
-    E = _build.check_inputs({"xg12": (xg12, 12), "u9": (u9, 9), "warm": (warm, 3),
-                "cp12": (cp12, 12)}, {"mu": mu, "lam": lam, "k": k, "w2": w2})
-    if xg12.device.type == "cpu":
-        return nh_local_step_fused_reference(xg12, u9, warm, cp12, mu, lam,
-                                             k, w2, iters=iters, model=model,
-                                             emit_z=emit_z)
-    outs = (torch.empty_like(u9), torch.empty_like(u9), torch.empty_like(warm),
-            torch.empty_like(xg12),
-            torch.empty_like(xg12) if emit_z else None)
-    _build.launch("nh_local_step_fused", (xg12, u9, warm, cp12, mu, lam, k, w2),
-            outs, E, int(iters), _MODELS[model])
+    plan = _plan("nh_local_step_fused", {"cp12": cp12, "mu": mu, "lam": lam,
+                                         "k": k, "w2": w2}, tets)
+    E = plan.E
+    if not (x.dim() == 2 and x.shape[1] == 3 and x.shape[0] > plan.vmax
+            and u9.shape == (9, E) and warm.shape == (3, E)
+            and x.dtype is u9.dtype is warm.dtype is plan.dtype
+            and x.get_device() == u9.get_device() == warm.get_device()
+            == plan.index and x.is_contiguous() and u9.is_contiguous()
+            and warm.is_contiguous()):
+        if x.dim() == 2 and x.shape[0] <= plan.vmax:
+            raise ValueError(f"x: {x.shape[0]} vertices, the tets reach "
+                             f"vertex {plan.vmax}")
+        plan.check_state({"x": (x, (len(x) if x.dim() else 0, 3)),
+                          "u9": (u9, (9, E)), "warm": (warm, (3, E))})
+    shapes = ((9, E), (9, E), (3, E), (4 * E, 6 if emit_z else 3))
+    if plan.fn is None:
+        if x.device.type != "cpu":
+            raise RuntimeError(f"no kernel for device {x.device}")
+        got = nh_local_step_fused_reference(
+            x, tets, u9, warm, cp12, mu, lam, k, w2, iters=iters,
+            model=model, emit_z=emit_z)
+        if out is None:
+            return got
+        out = plan.outputs(out, shapes, (x, u9, warm))
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return out
+    outs = plan.outputs(out, shapes, (x, u9, warm))
+    _build.check(plan.fn(x.data_ptr(), plan.tets_ptr, u9.data_ptr(),
+                         warm.data_ptr(), *plan.ptrs,
+                         *(o.data_ptr() for o in outs), E, int(iters),
+                         _MODELS[model], int(emit_z), _build.stream_ptr(x)),
+                 "nh_local_step_fused")
     nh_local_step_fused.launches += 1
     nh_local_step_fused.residual_launches += bool(emit_z)
-    return outs if emit_z else outs[:4]
+    return outs
 
 
 nh_local_step_fused.launches = 0
@@ -416,19 +543,38 @@ nh_local_step_fused.launches = 0
 nh_local_step_fused.residual_launches = 0
 
 
-def nh_local_step(dx9, u9, warm, mu, lam, k, iters=5, model="nh"):
-    """Unfused local step from Dx. Returns (z9, u9_new, warm_new)."""
+def nh_local_step(dx9, u9, warm, mu, lam, k, iters=5, model="nh", out=None):
+    """Unfused local step from Dx. Returns (z9, u9_new, warm_new). `out`:
+    optional buffers of those three outputs to write instead of new ones,
+    none of them overlapping an input."""
     if model not in _MODELS:
         raise ValueError(f"unknown hyperelastic model {model!r}")
-    E = _build.check_inputs({"dx9": (dx9, 9), "u9": (u9, 9), "warm": (warm, 3)},
-               {"mu": mu, "lam": lam, "k": k})
-    if dx9.device.type == "cpu":
-        return nh_local_step_reference(dx9, u9, warm, mu, lam, k,
-                                       iters=iters, model=model)
-    outs = (torch.empty_like(u9), torch.empty_like(u9),
-            torch.empty_like(warm))
-    _build.launch("nh_local_step", (dx9, u9, warm, mu, lam, k), outs, E,
-            int(iters), _MODELS[model])
+    plan = _plan("nh_local_step", {"mu": mu, "lam": lam, "k": k})
+    E = plan.E
+    if not (dx9.shape == u9.shape == (9, E) and warm.shape == (3, E)
+            and dx9.dtype is u9.dtype is warm.dtype is plan.dtype
+            and dx9.get_device() == u9.get_device() == warm.get_device()
+            == plan.index and dx9.is_contiguous() and u9.is_contiguous()
+            and warm.is_contiguous()):
+        plan.check_state({"dx9": (dx9, (9, E)), "u9": (u9, (9, E)),
+                          "warm": (warm, (3, E))})
+    shapes = ((9, E), (9, E), (3, E))
+    if plan.fn is None:
+        if dx9.device.type != "cpu":
+            raise RuntimeError(f"no kernel for device {dx9.device}")
+        got = nh_local_step_reference(dx9, u9, warm, mu, lam, k,
+                                      iters=iters, model=model)
+        if out is None:
+            return got
+        out = plan.outputs(out, shapes, (dx9, u9, warm))
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return out
+    outs = plan.outputs(out, shapes, (dx9, u9, warm))
+    _build.check(plan.fn(dx9.data_ptr(), u9.data_ptr(), warm.data_ptr(),
+                         *plan.ptrs, *(o.data_ptr() for o in outs), E,
+                         int(iters), _MODELS[model], _build.stream_ptr(dx9)),
+                 "nh_local_step")
     nh_local_step.launches += 1
     return outs
 

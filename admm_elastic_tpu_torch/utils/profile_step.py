@@ -165,11 +165,12 @@ def set_collect(s, mode):
 
 def profile(cg, steps, route="general", s=None, scene="tet100k",
             cg_backend="xla", solver="cg", amg=False,
-            collect="none") -> dict:
+            collect="none", attempts=ATTEMPTS) -> dict:
     """Profile `steps` steps of the scene (or of the given System or
     stepper `s`) and print and return the numbers. amg: the scene on its
     whole-timestep route with the in-kernel multigrid. collect: a key of
-    COLLECT, the residuals the scene's own build collects."""
+    COLLECT, the residuals the scene's own build collects. attempts: the
+    most windows traced (ATTEMPTS by default)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     if s is None and route == "sharded":
@@ -198,11 +199,11 @@ def profile(cg, steps, route="general", s=None, scene="tet100k",
     plain_ms = _window_ms(s, steps)
     # the tracer can drop kernel records (seen after traces of tens of
     # thousands of launches in one process), or every record of a window:
-    # the window is traced again, up to ATTEMPTS times, until every launch
+    # the window is traced again, up to `attempts` times, until every launch
     # of the port's own kernels (their launch counters) has its record.
     # The last window with any device record is the one reported
     dev, wall_ms, lost = [], None, 0
-    for attempt in range(1, ATTEMPTS + 1):
+    for attempt in range(1, attempts + 1):
         n0 = _own_launches()
         with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
             window_ms = _window_ms(s, steps)

@@ -84,12 +84,17 @@ def ptxas_lines(log):
     return {k: " | ".join(v) for k, v in out.items()}
 
 
-def counts(root, label, match=MATCH):
+def counts(root, label, match=MATCH, lib=None, log=""):
+    """The lines of the kernels of the checkout under `root` whose names
+    hold a `match` word; with `lib`, of that built library in its place,
+    ptxas's lines from its build output `log`."""
     sys.path.insert(0, os.path.abspath(root))
     from admm_elastic_tpu_torch.ops.kernels import _build
 
     assert os.path.abspath(_build.__file__).startswith(os.path.abspath(root))
-    lib, _ = _build.build()
+    if lib is None:
+        lib, _ = _build.build()
+        log = _build.build_log()
     nvcc = _build._nvcc()
     sass = subprocess.run([_tool(nvcc, "cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
@@ -100,7 +105,7 @@ def counts(root, label, match=MATCH):
         names = subprocess.run([filt], input="\n".join(names),
                                capture_output=True, text=True,
                                check=True).stdout.splitlines()
-    report = ptxas_lines(_build.build_log())
+    report = ptxas_lines(log)
     lines = []
     for (mangled, ops), name in zip(fns.items(), names):
         if not any(w in name for w in match):

@@ -93,23 +93,41 @@ def beam_system(dims, size, total_mass, cg, dtype=torch.float32,
     """An anchored beam under gravity: NeoHookean tets (mu = lam = 1e5, 5
     Newton iterations) or, with arap=True, LinearTetStrain (stiffness 1e5),
     kernel-backed; dia solver unless `settings` say otherwise."""
-    beam = make_beam_tets(*dims, size=size)
-    n = beam.n_vertices
+    vertices, tets = _beam_mesh(tuple(dims), size)
+    n = vertices.shape[0]
     s = System(Settings(**{
         "timestep_s": 0.04, "admm_iters": 10, "verbose": 0, "dtype": dtype,
         "device": device, "global_solver": "dia", "cg_fixed_iters": cg,
         "lattice_fast_path": fast, **settings}))
-    s.add_nodes(beam.vertices, np.full(n, total_mass / n))
-    s.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
+    s.add_nodes(vertices.copy(), np.full(n, total_mass / n))
+    s.add_force(StaticAnchor(np.flatnonzero(vertices[:, 0] < 1e-9)))
     if arap:
-        s.add_force(LinearTetStrain(beam.tets, stiffness=1e5,
+        s.add_force(LinearTetStrain(tets.copy(), stiffness=1e5,
                                     backend="pallas"))
     else:
-        s.add_force(HyperElasticTet(beam.tets, mu=1e5, lam=1e5, max_iters=5,
-                                    model="nh", backend="pallas"))
+        s.add_force(HyperElasticTet(tets.copy(), mu=1e5, lam=1e5,
+                                    max_iters=5, model="nh",
+                                    backend="pallas"))
     s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
     assert s.initialize()
     return s
+
+
+@functools.cache
+def _beam_mesh(dims, size):
+    """make_beam_tets' (vertices, tets), made once per process (the scenes
+    build the same beam many times); callers take copies."""
+    beam = make_beam_tets(*dims, size=size)
+    return beam.vertices, beam.tets
+
+
+@functools.cache
+def _sheet(nx, ny):
+    """make_plane_grid's (vertices, faces) and their bend hinges, made once
+    per process (extract_hinges walks the faces in Python, ~1 s at
+    cloth100k); callers take copies."""
+    mesh = make_plane_grid(nx, ny)
+    return mesh.vertices, mesh.faces, extract_hinges(mesh.faces)
 
 
 def tet100k(cg, dtype=torch.float32, fast=False,
@@ -151,23 +169,23 @@ def cloth_system(nx, ny, cg, dtype=torch.float32, device="cuda", fast=True,
     LimitedTriangleStrain(100, 0.95, 1.05), Bend(20), StaticAnchors on the
     top edge (every len(top)//24-th vertex, or the first `anchors`),
     gravity and WindForce(wind)."""
-    mesh = make_plane_grid(nx, ny)
-    n = mesh.n_vertices
+    vertices, faces, hinges = _sheet(nx, ny)
+    n = vertices.shape[0]
     s = System(Settings(**{
         "timestep_s": 0.04, "admm_iters": 10, "verbose": 0, "dtype": dtype,
         "device": device, "global_solver": "dia", "cg_fixed_iters": cg,
         "cg_backend": "fused", "preconditioner": "jacobi",
         "lattice_fast_path": fast, **settings}))
-    s.add_nodes(mesh.vertices, np.full(n, 0.5 / n))
-    s.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05,
+    s.add_nodes(vertices.copy(), np.full(n, 0.5 / n))
+    s.add_force(LimitedTriangleStrain(faces.copy(), 100.0, 0.95, 1.05,
                                       backend="pallas"))
-    s.add_force(Bend(extract_hinges(mesh.faces), 20.0))
-    top = np.flatnonzero(np.abs(mesh.vertices[:, 1]
-                                - mesh.vertices[:, 1].max()) < 1e-9)
+    s.add_force(Bend(hinges.copy(), 20.0))
+    top = np.flatnonzero(np.abs(vertices[:, 1] - vertices[:, 1].max())
+                         < 1e-9)
     s.add_force(StaticAnchor(top[:: max(1, len(top) // 24)]
                              if anchors is None else top[:anchors]))
     s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
-    s.add_explicit_force(WindForce(mesh.faces, direction=wind))
+    s.add_explicit_force(WindForce(faces.copy(), direction=wind))
     assert s.initialize()
     return s
 

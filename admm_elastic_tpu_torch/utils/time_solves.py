@@ -222,15 +222,16 @@ def multigrid_solve(mod, kind, args):
             lambda k: twin(*args, planes, cfg, k), planes, cfg)
 
 
-def load_probe(root):
-    """Build the checkout's stage probe (csrc/probes/mg_stage_probe.cu)
-    into a library of its own and load it."""
+def load_probe(name, signatures):
+    """Build the checkout's csrc/probes/NAME.cu into a library of its own
+    and load it, with the C signatures {entry: (restype, argtypes)} set.
+    Returns (the library, nvcc's output, the library's path)."""
     from admm_elastic_tpu_torch.ops.kernels import _build
 
-    src = os.path.join(_build.CSRC, "probes", "mg_stage_probe.cu")
+    src = os.path.join(_build.CSRC, "probes", name + ".cu")
     out_dir = _build.BUILD_ROOT.parent / "probes"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / "libmg_stage_probe.so"
+    lib = out_dir / f"lib{name}.so"
     done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
                            "-I", str(_build.CSRC), "-o", str(lib), src],
                           capture_output=True, text=True)
@@ -238,17 +239,21 @@ def load_probe(root):
         raise RuntimeError(f"nvcc failed on {src}:\n{done.stdout}"
                            f"{done.stderr}")
     dll = ctypes.CDLL(str(lib))
-    i, p = ctypes.c_int, ctypes.c_void_p
-    for name, res, argt in (
-            ("mg_probe_slots_per_pass", i, []), ("mg_probe_slots", i, [i]),
-            ("mg_probe_stage_names", ctypes.c_char_p, [i]),
-            ("mg_stage_probe_dia_f32", i, [p] * 4 + [i] * 3 + [p] * 3
-             + [i, p, p]),
-            ("mg_stage_probe_ell_f32", i, [p] * 4 + [i] * 3 + [p] * 3
-             + [i, p, p])):
-        getattr(dll, name).restype = res
-        getattr(dll, name).argtypes = argt
-    return dll
+    for entry, (res, argt) in signatures.items():
+        getattr(dll, entry).restype = res
+        getattr(dll, entry).argtypes = argt
+    return dll, done.stdout + done.stderr, lib
+
+
+_I, _P = ctypes.c_int, ctypes.c_void_p
+#: csrc/probes/mg_stage_probe.cu's entries
+STAGE_PROBE = {
+    "mg_probe_slots_per_pass": (_I, []), "mg_probe_slots": (_I, [_I]),
+    "mg_probe_stage_names": (ctypes.c_char_p, [_I]),
+    "mg_stage_probe_dia_f32": (_I, [_P] * 4 + [_I] * 3 + [_P] * 3
+                               + [_I, _P, _P]),
+    "mg_stage_probe_ell_f32": (_I, [_P] * 4 + [_I] * 3 + [_P] * 3
+                               + [_I, _P, _P])}
 
 
 def probe_stages(dll, mod, kind, args, planes, cfg, label, name, fuse):
@@ -385,7 +390,7 @@ def time_root(inputs, root, label, out_path, reps=20, windows=3,
     assert os.path.abspath(pkg.__file__).startswith(os.path.abspath(root))
     # the inputs hold the multigrids' numpy hierarchies besides tensors
     data = torch.load(inputs, weights_only=False)
-    dll = load_probe(root) if probe else None
+    dll = load_probe("mg_stage_probe", STAGE_PROBE)[0] if probe else None
     lines = []
     for name, (kind, args) in data.items():
         args = tuple(a.cuda() if torch.is_tensor(a) else a for a in args)

@@ -68,13 +68,28 @@ The scenario sweep (`core/sweep.py`, the banded window's sweep mode: S
 simulations of one mesh in the same launches, one cluster solve a
 scenario): small sweeps of 4 jittered beams in both matrix forms and
 three models, bitwise to the twin and each scenario bitwise to a
-single-scenario window fed its planes, 20 graph steps held to the twin and
+single-scenario window fed its planes, graph steps held to the twin and
 the residual modes (phase 3s); then `bench.py --preset sweep64` at full
 width (64 drops of a 2,800-tet beam, f32) on ELL and dia: ms/step and per
 scenario-step beside the single-scenario route of scenario 0 (and that
 times 64), device ops a step, the clusters the card holds at once and the
 waves they make, scenarios 0, 31, 63 against their own single routes after
 32 steps (bitwise), and the same sweep at 1,024 scenarios (phase 5l).
+The hyperelastic element steps (phase 3): `nh_local_step_fused` (it
+gathers each tet's vertices from x and writes the RHS rows in the
+gather's layout) on tet100k's own mesh and on inverted, collapsed and
+degenerate elements whose vertices it shares with no other, nh and stvk,
+with and without emit_z, and `nh_local_step` on their Dx, bitwise to
+their twins in f64 and f32; their registers, spills and SASS size, and
+their times traced and by events beside the host's us a call (the
+triangle and ARAP steps' times the same way, phases 3c and 3i); in phase
+5 the general route's element pipeline is one device op an ADMM
+iteration, and the route's device ops a step are counted.
+Depth is cut where the plain twins and the tracer would take the time
+(constants below): small windows of SMALL_STEPS steps of SMALL_ADMM ADMM
+iterations, the f64 full-width windows at F64_FULL_ADMM iterations (f32 at
+full depth), GRAPH_STEPS graph steps held to the twin, PROFILE_ATTEMPTS
+traced windows a route; the SASS counts run in a process of their own.
 Every phase prints one line of numbers, its script time last (t=). Any
 failure raises: the script
 then exits non-zero and prints no result line. It needs CUDA (it never
@@ -87,6 +102,7 @@ bound, then {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import statistics
@@ -190,6 +206,23 @@ SMALL_SWEEPS = (
                                 "anchor_sweep": True, "floor": True}),
 )
 SMALL_DEPTH = {"admm": 3, "cg": 8}
+# every other small window of phase 3 (banded, cloth, lattice, their
+# multigrids, the residual modes): SMALL_STEPS steps of SMALL_ADMM ADMM
+# iterations at the scene's CG budget (tests/test_torch_cuda.py holds
+# 10-step windows at the scenes' own depth)
+SMALL_STEPS, SMALL_ADMM = 2, 3
+# the ADMM iterations of the f64 full-width window checks (banded and
+# lattice at tet100k, cloth100k, the banded arap mode): the f64 twin takes
+# seconds a step, and the kernels line reads the f32 checks, at full depth
+F64_FULL_ADMM = 2
+# the graph steps each held to the twin (check_steps: tet100k mg8,
+# cloth100k mg8, delaunay100k uamg6, the small ELL sweep)
+GRAPH_STEPS = 5
+# profile_step's traces (phase 5): at most PROFILE_ATTEMPTS windows a
+# route, of WINDOW_STEPS steps on a whole-timestep route (one submission)
+# and of PROFILE_STEPS on a route that launches per ADMM iteration (a
+# trace of thousands of records a step, which the tracer loses at times)
+PROFILE_ATTEMPTS, PROFILE_STEPS = 2, 3
 # phase 5l: bench.py --preset sweep64's scenarios, the scenarios held to
 # their own single-scenario routes, and the scale README claims for the
 # JAX package's sweep
@@ -254,6 +287,29 @@ def drive(torch, s):
     return statistics.median(windows), windows
 
 
+def trace(cg, route, s, steps=None, **kw):
+    """profile_step.profile of a route at this script's depth (PROFILE_*):
+    its printed line, and the numbers."""
+    if steps is None:
+        steps = (WINDOW_STEPS if route in ("fast", "lattice")
+                 else PROFILE_STEPS)
+    return profile_step.profile(cg, steps, route, s=s,
+                                attempts=PROFILE_ATTEMPTS, **kw)
+
+
+def timed_ms(torch, fn):
+    """fn() once, and the ms from a CUDA event before it to one after it,
+    the stream drained first (a host-bound twin's time is its host's).
+    Returns (fn(), ms)."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def tet_inputs(torch, s, name, rng):
     """A tet100k-sized beam's first ADMM iteration (x_bar after the gravity
     kick, zero dual): gathered positions xg (12,E) and the force's params.
@@ -291,41 +347,58 @@ def tet_dx(xg, cp):
                         xg.reshape(4, 3, E)).reshape(9, E).contiguous()
 
 
-def separated(F9):
-    """Elements whose singular-value gaps exceed 1e-2 (computed in f64 on
-    the host): elsewhere the SVD basis is ill-conditioned."""
-    F = F9.double().cpu().numpy().T.reshape(-1, 3, 3)
-    svs = np.linalg.svd(F, compute_uv=False)
-    gaps = np.minimum(svs[:, 0] - svs[:, 1], svs[:, 1] - svs[:, 2])
-    return gaps > 1e-2
+def unshared(xg):
+    """Positions and int32 tets whose gather is xg (12,E): vertex 4e+k of
+    element e holds xg[3k:3k+3, e] (the gathered inputs of tet_inputs as a
+    mesh whose elements share no vertex)."""
+    E = xg.shape[1]
+    x = xg.T.reshape(4 * E, 3).contiguous()
+    return x, torch.arange(4 * E, dtype=torch.int32,
+                           device=xg.device).reshape(E, 4)
+
+
+def nh_inputs(torch, s, name, xg, rng):
+    """Both hyperelastic entries' inputs at a scene's elements: "mesh", the
+    fused entry on the scene's own mesh (x_bar after the gravity kick moved
+    by 2 mm N(0,1), int32 tets: the main path's gather from L2);
+    "unshared", on tet_inputs' gathered inputs (inverted, collapsed and
+    degenerate elements) as a mesh of unshared vertices; "step", the
+    unfused entry on their Dx. Zero duals, warm start 1."""
+    p = s.params[name]
+    E = p["indices"].shape[0]
+    x0 = s.state["x"]
+    xbar = x0.clone()
+    xbar[:, 1] -= 9.8 * DT * DT
+    xbar += torch.as_tensor(0.002 * rng.standard_normal(x0.shape),
+                            dtype=x0.dtype, device=x0.device)
+    u = torch.zeros((9, E), dtype=x0.dtype, device=x0.device)
+    warm = torch.ones((3, E), dtype=x0.dtype, device=x0.device)
+    consts = [p["coeff_p"], p["mu"], p["lam"], p["k"], p["w2"]]
+    tets = p["indices"].to(torch.int32)
+    return {"mesh": [xbar, tets, u, warm, *consts],
+            "unshared": [*unshared(xg), u, warm, *consts],
+            "step": [tet_dx(xg, p["coeff_p"]), u, warm, *consts[1:4]]}
 
 
 def check_element(torch, label, kernel, twin, ins, dtype, tol, tol_on,
-                  mask=None, counts=None, gates=None, info=None, reps=10,
-                  batch=20, plain_reps=5, **kw):
-    """A kernel against its plain twin on the same inputs (cast to dtype):
-    every output within tol ('abs' or 'rel' to the largest twin value),
-    over the element columns of `mask` or, with no mask, over every value;
-    finite; repeated bitwise; and every extra predicate of `gates` (name ->
+                  counts=None, gates=None, info=None, reps=10, batch=20,
+                  plain_reps=2, **kw):
+    """A kernel against its plain twin on the same inputs (the floating
+    ones cast to dtype): every value within tol ('abs' or 'rel' to the
+    largest twin value); finite; repeated bitwise; and every extra predicate of `gates` (name ->
     fn(got, want)) true. 'bitwise_vs_twin' says whether kernel and twin
     agree to the last bit. Times the kernel (reps samples of `batch`
     launches) and the twin, and bounds it by `counts(*ins, **kw)`
     (operations, bytes), by default its twin's. Returns (error, ms,
     plain_ms, bound_ms, bound_by)."""
-    ins = [t.to(dtype) for t in ins]
+    ins = [t.to(dtype) if t.is_floating_point() else t for t in ins]
     got = kernel(*ins, **kw)
     again = kernel(*ins, **kw)
     want = twin(*ins, **kw)
     torch.cuda.synchronize()
     err, rel = 0.0, 0.0
     for g, w in zip(got, want):
-        if mask is None:
-            d, scale = float((g - w).abs().max()), float(w.abs().max())
-        else:
-            d = float((g - w).abs().amax(dim=0).double().cpu().numpy()[mask]
-                      .max())
-            scale = float(w.abs().amax(dim=0).double().cpu().numpy()[mask]
-                          .max())
+        d, scale = float((g - w).abs().max()), float(w.abs().max())
         err = max(err, d)
         rel = max(rel, d / max(scale, 1e-300))
     fin = all(bool(torch.isfinite(g).all()) for g in got)
@@ -342,8 +415,7 @@ def check_element(torch, label, kernel, twin, ins, dtype, tol, tol_on,
         n_ops, n_bytes = counts(*ins, **kw)
     bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
     if info is None:
-        E = ins[0].shape[1]
-        info = dict(E=E, checked=E if mask is None else int(mask.sum()))
+        info = dict(E=ins[0].shape[1])
     say(f"kernel {label} {str(dtype)[6:]}", **info, max_abs_err=err,
         max_rel_err=rel, tol=tol, tol_on=tol_on, bitwise_vs_twin=bitwise,
         bitwise_repeat=repeat, finite=fin, **gated, ms=ms,
@@ -356,20 +428,79 @@ def check_element(torch, label, kernel, twin, ins, dtype, tol, tol_on,
     return err, ms, plain_ms, bound_ms, bound_by
 
 
-def check_nh(torch, ins, dx, dtype):
-    """Both hyperelastic entries: 1e-9 absolute (f64) or 1e-3 relative
-    (f32) on the separated elements."""
-    xg, u, warm, cp, mu, lam, k, w2 = ins
-    sep = separated(dx + u)
-    tol = (1e-9, "abs") if dtype == torch.float64 else (1e-3, "rel")
-    fused = check_element(torch, "nh_local", pnh.nh_local_step_fused,
-                          pnh.nh_local_step_fused_reference, ins, dtype, *tol,
-                          mask=sep, iters=5)
-    step = check_element(torch, "nh_local_step", pnh.nh_local_step,
-                         pnh.nh_local_step_reference,
-                         [dx, u, warm, mu, lam, k], dtype, *tol, mask=sep,
-                         iters=5)
-    return fused, step
+def check_nh(torch, nh, dtype):
+    """Both hyperelastic entries bitwise to their twins (nh_inputs): the
+    fused one on the scene's mesh and on the unshared inputs, nh and stvk,
+    with and without emit_z; the unfused one on Dx, nh and stvk. The nh
+    cases on the mesh and Dx are also timed traced (the kernels' records
+    under torch.profiler) and by events with the host's us a call. Returns
+    the nh numbers (error, ms, plain_ms, bound_ms, bound_by) of the fused
+    entry on the mesh and of the unfused entry."""
+    got = {}
+    for model in ("nh", "stvk"):
+        for case in ("mesh", "unshared"):
+            for emit_z in (False, True):
+                label = f"nh_local {model} {case}" + (" emit_z" * emit_z)
+                E = nh[case][1].shape[0]
+                got[label] = check_element(
+                    torch, label, pnh.nh_local_step_fused,
+                    pnh.nh_local_step_fused_reference, nh[case], dtype, 0.0,
+                    "abs", info=dict(E=E, n=nh[case][0].shape[0]), iters=5,
+                    model=model, emit_z=emit_z)
+        got[f"step {model}"] = check_element(
+            torch, f"nh_local_step {model}", pnh.nh_local_step,
+            pnh.nh_local_step_reference, nh["step"], dtype, 0.0, "abs",
+            iters=5, model=model)
+    element_times(torch, "nh_local mesh", pnh.nh_local_step_fused,
+                  nh["mesh"], dtype, iters=5)
+    element_times(torch, "nh_local mesh emit_z", pnh.nh_local_step_fused,
+                  nh["mesh"], dtype, iters=5, emit_z=True)
+    element_times(torch, "nh_local_step", pnh.nh_local_step, nh["step"],
+                  dtype, iters=5)
+    return got["nh_local nh mesh"], got["step nh"]
+
+
+def element_times(torch, label, kernel, ins, dtype, **kw):
+    """An element step's time a call on its inputs: traced (the kernel's
+    records under torch.profiler, over 20 calls) and by CUDA events around
+    20 calls with the host's us a call before the closing synchronize
+    (the median of 5 windows): the host's work against the device's."""
+    from admm_elastic_tpu_torch.utils.time_elements import traced
+    from admm_elastic_tpu_torch.utils.time_solves import events_ms
+
+    ins = [t.to(dtype) if t.is_floating_point() else t for t in ins]
+    call = lambda: kernel(*ins, **kw)  # noqa: E731
+    dev_ms, per = traced(torch, call)
+    ev_ms, host_us = events_ms(torch, call, 20, 5)
+    say(f"element time {label} {str(dtype)[6:]}", events_ms=ev_ms,
+        host_us_per_call=host_us, traced_ms=dev_ms, traced_kernels=len(per))
+
+
+def start_element_sass():
+    """Start `utils/sass_counts.py` on this checkout's built library, in a
+    process of its own beside the checks (it disassembles the whole
+    library). Returns a function that waits for it and prints the
+    hyperelastic kernels' registers, spills and static SASS size, one line
+    each."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "admm_elastic_tpu_torch", "utils",
+                                      "sass_counts.py"),
+         "--root", HERE, "--label", "this", "--match", "nh::fused_kernel",
+         "nh::step_kernel"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(proc.kill)
+
+    def finish():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"sass_counts failed:\n{out}{err}")
+        for raw in out.splitlines():
+            line = json.loads(raw)
+            say("sass " + line["kernel"].split("(")[0],
+                instructions=line["instructions"],
+                float_ops=line["by_class"].get("float", 0),
+                ptxas=(line["ptxas"] or "").replace(" ", ""))
+    return finish
 
 
 def check_arap(torch, xg, p, dtype):
@@ -385,6 +516,10 @@ def check_arap(torch, xg, p, dtype):
                          ptet.arap_local_step_reference,
                          [tet_dx(xg, p["coeff_p"]), u, p["w2"], p["k"]],
                          dtype, *tol)
+    element_times(torch, "arap_local_step_fused", ptet.arap_local_step_fused,
+                  [xg, u, p["coeff_p"], p["w2"], p["k"]], dtype)
+    element_times(torch, "arap_local_step", ptet.arap_local_step,
+                  [tet_dx(xg, p["coeff_p"]), u, p["w2"], p["k"]], dtype)
     return fused, step
 
 
@@ -548,11 +683,11 @@ def uamg_kernel_checks(torch):
     "ell"): the cluster solve's (uamg_ell_solve, csrc/mg_vcycle.cuh
     AggLevels) and the banded window's ELL mode on it against their twins,
     bitwise: the 10 x 7 x 6 Delaunay scene in f64 and f32 (the solve; 1
-    ADMM iteration and a 3-step window; the graphs against eager launches
+    ADMM iteration and a small window; the graphs against eager launches
     and the setters after capture), then delaunay100k's own A and planes
     in f32 (the solve at uamg6 and uamg8, its time and bound; one step of
-    the window at uamg6, its times and bound a step; 20 steps of its
-    graph, each held to the twin). Returns the window's numbers at uamg6
+    the window at uamg6, its times and bound a step; GRAPH_STEPS steps of
+    its graph, each held to the twin). Returns the window's numbers at uamg6
     (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
     for dtype in (torch.float64, torch.float32):
         st = small_uamg(8, dtype)._stepper
@@ -567,8 +702,7 @@ def uamg_kernel_checks(torch):
     window = check_rollout_full(torch, "banded", st,
                                 f"delaunay100k uamg{UAMG_BUDGETS[0]}",
                                 torch.float32, 0.0)
-    check_steps(torch, "banded", st, f"delaunay100k uamg{UAMG_BUDGETS[0]}",
-                steps=20)
+    check_steps(torch, "banded", st, f"delaunay100k uamg{UAMG_BUDGETS[0]}")
     return window
 
 
@@ -673,12 +807,10 @@ def uamg_routes(torch, steps):
         **{f"{route}_{'ua' if route == 'banded' else 'a'}mg{cg}_ms_per_step":
            run[0] for (route, cg), run in runs.items()},
         **{f"last_primal_residual_{k}": v for k, v in residual.items()})
-    out = profile_step.profile(UAMG_BUDGETS[0], WINDOW_STEPS, "fast",
-                               s=first, scene="delaunay100k")
+    out = trace(UAMG_BUDGETS[0], "fast", first, scene="delaunay100k")
     check_window_ops(out, f"delaunay100k banded-ELL uamg{UAMG_BUDGETS[0]}")
-    profile_step.profile(UAMG_BUDGETS[0], WINDOW_STEPS, "general",
-                         s=routes[("general", UAMG_BUDGETS[0])],
-                         scene="delaunay100k")
+    trace(UAMG_BUDGETS[0], "general", routes[("general", UAMG_BUDGETS[0])],
+          scene="delaunay100k")
     return sum(run[2]["banded_rollout"] for (route, _), run in runs.items()
                if route == "banded")
 
@@ -700,19 +832,21 @@ def sweep_scenarios_bitwise(torch, sw, steps):
 def sweep_kernel_checks(torch):
     """Phase 3s. The banded window's sweep mode on small sweeps of 4
     jittered beams (SMALL_SWEEPS: dia and ELL, nh and arap, one sweeping
-    the anchor weights over a floor), f64 and f32: a 3-step window bitwise
-    to its twin and repeated bitwise, each scenario bitwise to a
-    single-scenario window fed its planes; then 20 graph steps of the ELL
-    sweep in f32 each held to the twin, and the residual modes of the
-    sweep (dia f64, ELL f32) against the twin and as graph replays."""
+    the anchor weights over a floor), f64 and f32: a SMALL_STEPS-step
+    window bitwise to its twin and repeated bitwise, each scenario bitwise
+    to a single-scenario window fed its planes; then GRAPH_STEPS graph
+    steps of the ELL sweep in f32 each held to the twin, and the residual
+    modes of the sweep (dia f64, ELL f32) against the twin and as graph
+    replays."""
     for dtype in (torch.float64, torch.float32):
         for label, kw in SMALL_SWEEPS:
             sw = scenes.jittered_sweep(4, dtype=dtype, **SMALL_DEPTH, **kw)
-            ex, rel, ev, bit, fin, twin = rollout_errors(torch, "banded", sw,
-                                                         sw.cfg, 3)
-            bad = sweep_scenarios_bitwise(torch, sw, 3)
+            ex, rel, ev, bit, fin, twin, _ = rollout_errors(
+                torch, "banded", sw, sw.cfg, SMALL_STEPS)
+            bad = sweep_scenarios_bitwise(torch, sw, SMALL_STEPS)
             ok = bit and fin and twin and not bad
-            say(f"kernel sweep {label} {str(dtype)[6:]} small 3-step window",
+            say(f"kernel sweep {label} {str(dtype)[6:]} small "
+                f"{SMALL_STEPS}-step window",
                 scenarios=sw.n_scen, n=sw.n_nodes, elements=sw.n_elements,
                 max_abs_err_x=ex, max_abs_err_v=ev, tol="bitwise",
                 bitwise_vs_twin=twin, bitwise_repeat=bit, finite=fin,
@@ -722,7 +856,7 @@ def sweep_kernel_checks(torch):
                 raise AssertionError(f"sweep {label} disagrees in {dtype}")
     sw = scenes.jittered_sweep(4, solver="ell", dtype=torch.float32,
                                anchor_sweep=True, floor=True, **SMALL_DEPTH)
-    check_steps(torch, "banded", sw, "sweep ell f32 4 scenarios", steps=20)
+    check_steps(torch, "banded", sw, "sweep ell f32 4 scenarios")
     check_residual_window(torch, "banded", sw, "sweep ell 4 scenarios",
                           torch.float32)
     sw = scenes.jittered_sweep(4, solver="dia", anchor_sweep=True,
@@ -843,8 +977,7 @@ def sweep_routes(torch, steps):
             bad.append(f"{solver}: {n_sub} submissions, {n_ops} launches")
         if not (fin and sag < 0 and not any(dx.values())):
             bad.append(f"{solver}: bad trajectory ({dx}, min dy {sag})")
-        check_window_ops(profile_step.profile(12, WINDOW_STEPS, "fast", s=sw,
-                                              scene="sweep64"),
+        check_window_ops(trace(12, "fast", sw, scene="sweep64"),
                          f"sweep64 {solver}")
         del sw, singles
     sw = scenes.sweep64(SWEEP_WIDE, "ell")
@@ -1072,36 +1205,40 @@ BITWISE = ("banded", "lattice", "cloth")
 
 def rollout_errors(torch, kind, st, cfg, steps, planes=None):
     """Kernel and twin from the same state; (x abs err, x rel err, v abs
-    err, bitwise repeat, finite, bitwise against the twin)."""
+    err, bitwise repeat, finite, bitwise against the twin, the twin's ms a
+    step)."""
     run, reference, keys = ROLLOUTS[kind]
     planes = st.planes if planes is None else planes
     got = run(st.state, planes, cfg, steps)
     again = run(st.state, planes, cfg, steps)
-    want = reference(st.state, planes, cfg, steps)
-    torch.cuda.synchronize()
+    want, plain_ms = timed_ms(torch, lambda: reference(st.state, planes, cfg,
+                                                       steps))
     ex = float((got["x"] - want["x"]).abs().max())
     ev = float((got["v"] - want["v"]).abs().max())
     rel = ex / float(want["x"].abs().max())
     bit = all(torch.equal(got[k], again[k]) for k in keys)
     fin = all(bool(torch.isfinite(got[k]).all()) for k in keys)
     twin = all(torch.equal(got[k], want[k]) for k in keys)
-    return ex, rel, ev, bit, fin, twin
+    return ex, rel, ev, bit, fin, twin, plain_ms / steps
 
 
 def check_rollout_small(torch, kind, st, dtype, tol_1it, tol_f32=1e-4,
                         name="", planes=None):
-    """1 step of 1 ADMM iteration, then a 3-step window (the card tests,
-    tests/test_torch_cuda.py, hold 10-step windows): x within tol_1it
-    and 1e-8 (f64) or tol_f32 relative (f32); the windows of BITWISE
-    bitwise (the tolerance is then moot)."""
+    """1 step of 1 ADMM iteration, then a window of SMALL_STEPS steps of
+    SMALL_ADMM ADMM iterations (the card tests, tests/test_torch_cuda.py,
+    hold 10-step windows): x within tol_1it and 1e-8 (f64) or tol_f32
+    relative (f32); the windows of BITWISE bitwise (the tolerance is then
+    moot)."""
     f64 = dtype == torch.float64
     ok = True
     for tag, cfg, steps, tol in (
             ("1 iteration", dataclasses.replace(st.cfg, admm_iters=1), 1,
              tol_1it if f64 else 1e-4),
-            ("3-step window", st.cfg, 3, 1e-8 if f64 else tol_f32)):
-        ex, rel, ev, bit, fin, twin = rollout_errors(torch, kind, st, cfg,
-                                                     steps, planes)
+            (f"{SMALL_STEPS}-step window",
+             dataclasses.replace(st.cfg, admm_iters=SMALL_ADMM), SMALL_STEPS,
+             1e-8 if f64 else tol_f32)):
+        ex, rel, ev, bit, fin, twin, _ = rollout_errors(torch, kind, st, cfg,
+                                                        steps, planes)
         err = ex if f64 else rel
         exact = kind in BITWISE
         good = bit and fin and (twin if exact else err <= tol)
@@ -1146,7 +1283,7 @@ def check_graph(torch, kind, st, label):
         raise AssertionError(f"{kind} {label}: graph replay or setters")
 
 
-def check_steps(torch, kind, st, label, steps=10):
+def check_steps(torch, kind, st, label, steps=GRAPH_STEPS):
     """A stepper's windows as graph replays, one step at a time, each held
     bitwise to the twin run from the same state: a fault that shows only
     now and then (a race) shows here as a step that disagrees."""
@@ -1180,19 +1317,24 @@ def rollout_times(torch, kind, st):
     return (ms, window_ms, n_ops, n_bytes, *roofline_ms(n_bytes, n_ops))
 
 
+def f64_depth(st, label):
+    """A stepper at F64_FULL_ADMM ADMM iterations for an f64 full-width
+    check, and the check's label."""
+    return (_with_cfg(st, admm_iters=F64_FULL_ADMM),
+            f"{label} {F64_FULL_ADMM} ADMM iterations")
+
+
 def check_rollout_full(torch, kind, st, label, dtype, tol):
     """One full-width step, kernel vs twin (x within tol: abs in f64,
     relative in f32); the kernel's time per 1-step and per 10-step
-    launch, the twin's per step, and the bound of one step."""
-    run, reference, keys = ROLLOUTS[kind]
-    ex, rel, ev, bit, fin, twin = rollout_errors(torch, kind, st, st.cfg, 1)
+    launch, the twin's (that step's), and the bound of one step."""
+    ex, rel, ev, bit, fin, twin, plain_ms = rollout_errors(torch, kind, st,
+                                                           st.cfg, 1)
     err = ex if dtype == torch.float64 else rel
     exact = kind in BITWISE
     ok = bit and fin and (twin if exact else err <= tol)
     ms, window_ms, n_ops, n_bytes, bound_ms, bound_by = rollout_times(
         torch, kind, st)
-    plain_ms = cuda_ms(torch, lambda: reference(st.state, st.planes, st.cfg,
-                                                1), 1, warmup=0)
     say(f"kernel {kind} {str(dtype)[6:]} {label}", n=st.n_nodes,
         elements=st.n_elements, matrix=getattr(st.cfg, "matrix", "dia"),
         diagonals=len(st.cfg.dia_offs),
@@ -1340,6 +1482,9 @@ def check_tri(torch, ins, dtype):
     step = check_element(torch, "tri_local_step", ptri.tri_local_step,
                          ptri.tri_local_step_reference,
                          [dx, u, w2, k, lmin, lmax], dtype, *tol)
+    element_times(torch, "tri_local", ptri.tri_local_step_fused, ins, dtype)
+    element_times(torch, "tri_local_step", ptri.tri_local_step,
+                  [dx, u, w2, k, lmin, lmax], dtype)
     return fused, step
 
 
@@ -1450,14 +1595,16 @@ def check_emit_z(torch, label, kernel, twin, ins, dtype, **kw):
     every other output bitwise to the launch without emit_z; finite. Times
     both launches and bounds the emit_z one by its twin's counts. Returns
     (error, ms, plain_ms, bound_ms, bound_by)."""
-    ins = [t.to(dtype) for t in ins]
+    ins = [t.to(dtype) if t.is_floating_point() else t for t in ins]
     got = kernel(*ins, emit_z=True, **kw)
     base = kernel(*ins, **kw)
     want = twin(*ins, emit_z=True, **kw)
     torch.cuda.synchronize()
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     twin_ok = all(torch.equal(g, w) for g, w in zip(got, want))
-    same = all(torch.equal(g, b) for g, b in zip(got, base))
+    # (nh_local_step_fused's rows are 6 wide with emit_z, 3 without)
+    same = all(torch.equal(g[..., :b.shape[-1]], b)
+               for g, b in zip(got, base))
     fin = all(bool(torch.isfinite(g).all()) for g in got)
     ms = cuda_ms(torch, lambda: kernel(*ins, emit_z=True, **kw), 10,
                  batch=20)
@@ -1480,35 +1627,37 @@ def residual_errors(torch, kind, st, collect, steps):
     """A window in a residual mode from a stepper's state, kernel against
     twin: (residuals and state bitwise to the twin, the state bitwise to
     the same window with collection off, max |residual error|, finite,
-    the kernel's result)."""
+    the kernel's result, the twin's ms a step)."""
     run, reference, keys = ROLLOUTS[kind]
     cfg = dataclasses.replace(st.cfg, collect=collect)
     got = run(st.state, st.planes, cfg, steps)
     off = run(st.state, st.planes, dataclasses.replace(st.cfg, collect=None),
               steps)
-    want = reference(st.state, st.planes, cfg, steps)
-    torch.cuda.synchronize()
+    want, plain_ms = timed_ms(torch, lambda: reference(st.state, st.planes,
+                                                       cfg, steps))
     res = ["primal"] + (["dual"] if collect == "full" else [])
     twin = all(torch.equal(got[k], want[k]) for k in (*keys, *res))
     same = all(torch.equal(got[k], off[k]) for k in keys)
     err = max(float((got[k] - want[k]).abs().max()) for k in res)
     fin = all(bool(torch.isfinite(got[k]).all()) for k in res)
-    return twin, same, err, fin, got
+    return twin, same, err, fin, got, plain_ms / steps
 
 
 def check_residual_window(torch, kind, st, label, dtype):
     """A window's residual modes on a small scene: 1 step of 1 ADMM
-    iteration and a 3-step window in "primal" and "full", residuals and
-    state bitwise to the twin and the state bitwise to the window with
-    collection off; then the stepper's graphs in each mode (a step and a
-    10-step run) against the eager windows from the same state, residuals
-    included. (tests/test_torch_cuda.py holds 10-step windows.)"""
+    iteration and a window of SMALL_STEPS steps of SMALL_ADMM iterations
+    in "primal" and "full", residuals and state bitwise to the twin and
+    the state bitwise to the window with collection off; then the
+    stepper's graphs in each mode (a step and a 10-step run) against the
+    eager windows from the same state, residuals included.
+    (tests/test_torch_cuda.py holds 10-step windows.)"""
     for collect in RESIDUAL_MODES:
         for tag, sub, steps in (
                 ("1 iteration", _with_cfg(st, admm_iters=1), 1),
-                ("3-step window", st, 3)):
-            twin, same, err, fin, _ = residual_errors(torch, kind, sub,
-                                                      collect, steps)
+                (f"{SMALL_STEPS}-step window",
+                 _with_cfg(st, admm_iters=SMALL_ADMM), SMALL_STEPS)):
+            twin, same, err, fin, _, _ = residual_errors(torch, kind, sub,
+                                                         collect, steps)
             ok = twin and same and fin
             say(f"residuals {kind} {label} {str(dtype)[6:]} {collect} {tag}",
                 n=st.n_nodes, bitwise_vs_twin=twin,
@@ -1549,18 +1698,17 @@ def _same_residuals(host, out):
 def check_residual_full(torch, kind, st, label):
     """One full-width f32 step in each residual mode, kernel against twin:
     bitwise (residuals and state), the state bitwise to the step with
-    collection off; the kernel's times a 1-step and a 10-step window and
-    the bound of one step in the "full" mode. Returns the kernels-line
-    numbers of the "full" mode (error, ms, plain_ms, bound_ms, bound_by)."""
-    run, reference, keys = ROLLOUTS[kind]
+    collection off; the kernel's times a 1-step and a 10-step window, the
+    twin's (that step's) and the bound of one step in the "full" mode.
+    Returns the kernels-line numbers of the "full" mode (error, ms,
+    plain_ms, bound_ms, bound_by)."""
     for collect in RESIDUAL_MODES:
-        twin, same, err, fin, _ = residual_errors(torch, kind, st, collect, 1)
+        twin, same, err, fin, _, plain_ms = residual_errors(torch, kind, st,
+                                                            collect, 1)
         ok = twin and same and fin
         sub = _with_cfg(st, collect=collect)
         ms, window_ms, n_ops, n_bytes, bound_ms, bound_by = rollout_times(
             torch, kind, sub)
-        plain_ms = cuda_ms(torch, lambda: reference(sub.state, sub.planes,
-                                                    sub.cfg, 1), 1, warmup=0)
         say(f"residuals {kind} f32 {label} {collect}", n=st.n_nodes,
             bitwise_vs_twin=twin, state_bitwise_vs_off=same,
             max_abs_err=err, finite=fin, ms_per_1step_launch=ms,
@@ -1662,6 +1810,26 @@ def route_ops(s, mode, counters):
              for k, v in s.state.items()}
     return profile_step.call_ops(
         lambda: s._step(state, s.params))["device_ops_per_call"]
+
+
+def element_pipeline_ops(s):
+    """The general route's element pipeline on tet100k: one device op an
+    ADMM iteration, the kernel (it gathers x and writes the RHS rows in the
+    gather's layout itself; before, a gather, its transposing copy and the
+    rows' copy came with it), and the route's device ops a step (CUDA
+    graphs: `profile_step.call_ops`)."""
+    f = next(f for f in s.forces if type(f).__name__ == "HyperElasticTet")
+    p, st = s.params[f.name], s.state
+    ops = profile_step.call_ops(lambda: f.fused_local_rhs(
+        p, st["x"], st["u"][f.name], st["forces"][f.name]))
+    step_ops = route_ops(s, None, None)
+    one = ops["device_ops_per_call"] == 1.0 and ops["kinds"] == ["kernel"]
+    say("tet100k general element pipeline",
+        device_ops_per_call=ops["device_ops_per_call"], kinds=ops["kinds"],
+        device_ops_per_admm_iteration_expected=1,
+        route_device_ops_per_step=step_ops, ok=one)
+    if not one:
+        raise AssertionError("the element pipeline is not one kernel a call")
 
 
 def residual_readings(rp, rd):
@@ -1820,6 +1988,7 @@ def main():
     _build.load_library()
     probe_lib = probe_lib()
     say("build", seconds=round(build_s, 3), library=os.path.relpath(lib_path, HERE))
+    element_sass = start_element_sass()
     entry, spills = "?", ""
     for line in _build.build_log().splitlines():
         if "Compiling entry function" in line:
@@ -1834,17 +2003,14 @@ def main():
     rng = np.random.default_rng(0)
     ref64 = tet100k(25, torch.float64)
     xg, p = tet_inputs(torch, ref64, "c1_HyperElasticTet", rng)
-    u = torch.zeros((9, xg.shape[1]), dtype=xg.dtype, device=xg.device)
-    warm = torch.ones((3, xg.shape[1]), dtype=xg.dtype, device=xg.device)
-    ins = [xg, u, warm, p["coeff_p"], p["mu"], p["lam"], p["k"], p["w2"]]
-    check_nh(torch, ins, tet_dx(xg, p["coeff_p"]), torch.float64)
-    nh32, nhstep32 = check_nh(torch, ins, tet_dx(xg, p["coeff_p"]),
-                              torch.float32)
+    nh = nh_inputs(torch, ref64, "c1_HyperElasticTet", xg, rng)
+    check_nh(torch, nh, torch.float64)
+    nh32, nhstep32 = check_nh(torch, nh, torch.float32)
     # phase 3p (the emit_z modes) at tet100k's elements
     emitz = {"nh": check_emit_z(torch, "nh_local tet100k",
                                 pnh.nh_local_step_fused,
-                                pnh.nh_local_step_fused_reference, ins,
-                                torch.float32, iters=5)}
+                                pnh.nh_local_step_fused_reference,
+                                nh["mesh"], torch.float32, iters=5)}
     cg_ms = {}
     for dtype in (torch.float64, torch.float32):
         for k in (25, 75):
@@ -1852,7 +2018,7 @@ def main():
                 torch, "tet100k", pcg,
                 (*scenes.dia_solve_inputs(ref64, dtype), k),
                 1e-10 if dtype == torch.float64 else 1e-4)
-    del ref64, ins, xg, p
+    del ref64, nh, xg, p
 
     # phase 3i: the ARAP entries at arap100k's elements
     a64 = arap100k(25, torch.float64)
@@ -1883,8 +2049,8 @@ def main():
         check_graph(torch, "banded", st, f"jittered 8x6x5 {str(dtype)[6:]}")
     st = tet100k(75, torch.float64, fast=True)._stepper
     window_layout(torch, st, "banded tet100k float64")
-    check_rollout_full(torch, "banded", st, "tet100k cg75", torch.float64,
-                       1e-8)
+    check_rollout_full(torch, "banded", *f64_depth(st, "tet100k cg75"),
+                       torch.float64, 1e-8)
     del st
     st = tet100k(75, torch.float32, fast=True)._stepper
     banded32 = check_rollout_full(torch, "banded", st, "tet100k cg75",
@@ -1903,6 +2069,9 @@ def main():
                                 ptri.tri_local_step_fused_reference, ins,
                                 torch.float32)
     del cloth64, ins
+    # the hyperelastic kernels' registers, spills and SASS size, counted
+    # beside phases 3 to 3c
+    element_sass()
 
     # phase 3p: the three fused element kernels' emit_z mode (the rows of
     # w2 D^T z beside the RHS rows) on a small mesh in f64: bitwise to the
@@ -1913,8 +2082,9 @@ def main():
     u9 = torch.zeros_like(xg[:9])
     check_emit_z(torch, "nh_local beam 6x5x4", pnh.nh_local_step_fused,
                  pnh.nh_local_step_fused_reference,
-                 [xg, u9, torch.ones_like(xg[:3]), p["coeff_p"], p["mu"],
-                  p["lam"], p["k"], p["w2"]], torch.float64, iters=5)
+                 [*unshared(xg), u9, torch.ones_like(xg[:3]), p["coeff_p"],
+                  p["mu"], p["lam"], p["k"], p["w2"]], torch.float64,
+                 iters=5)
     check_emit_z(torch, "arap_local_step_fused beam 6x5x4",
                  ptet.arap_local_step_fused,
                  ptet.arap_local_step_fused_reference,
@@ -1956,8 +2126,8 @@ def main():
     del st
     st = cloth100k(25, torch.float64)._stepper
     window_layout(torch, st, "cloth cloth100k float64", window=False)
-    check_rollout_full(torch, "cloth", st, "cloth100k cg25", torch.float64,
-                       0.0)
+    check_rollout_full(torch, "cloth", *f64_depth(st, "cloth100k cg25"),
+                       torch.float64, 0.0)
     del st
     # its time and bound at cg300, the Jacobi budget matched at 225 x 225
     # (held to the twin at cg25 above)
@@ -1970,12 +2140,12 @@ def main():
     # phase 3o: the multigrid mode (preconditioner="amg"): the cluster
     # solve's (mg_dia_solve, csrc/mg_vcycle.cuh) and the banded and cloth
     # windows' against their twins, bitwise: the 6 x 5 x 4 beam and the
-    # 8 x 6 sheet in f64 and f32 (the solve; 1 ADMM iteration and a
-    # 3-step window; the CUDA graphs against eager launches and the
-    # setters after capture), then tet100k's and cloth100k's own A and
-    # rhs in f32 (the solve at mg8, its time and bound; one step of each
-    # window, its times and bound a step; 10 steps of its graph, each
-    # held to the twin)
+    # 8 x 6 sheet in f64 and f32 (the solve; 1 ADMM iteration and a small
+    # window; the CUDA graphs against eager launches and the setters after
+    # capture), then tet100k's and cloth100k's own A and rhs in f32 (the
+    # solve at mg8, its time and bound; one step of each window, its times
+    # and bound a step; GRAPH_STEPS steps of its graph, each held to the
+    # twin)
     for dtype in (torch.float64, torch.float32):
         for label, kind, st in (
                 ("beam 6x5x4", "banded", small_mg_beam(dtype)._stepper),
@@ -2120,7 +2290,9 @@ def main():
         st = tet100k(75, dtype, fast=True, global_solver="cg")._stepper
         window_layout(torch, st, f"lattice tet100k {str(dtype)[6:]}")
         lattice_full[dtype] = check_rollout_full(
-            torch, "lattice", st, "tet100k cg75", dtype,
+            torch, "lattice", *(f64_depth(st, "tet100k cg75")
+                                if dtype == torch.float64
+                                else (st, "tet100k cg75")), dtype,
             1e-8 if dtype == torch.float64 else 1e-4)
     lattice32 = lattice_full[torch.float32]
     del st
@@ -2133,8 +2305,9 @@ def main():
                                         fast=True, arap=True)._stepper,
                             dtype, 1e-11, name=" arap")
     check_rollout_full(torch, "banded",
-                       arap100k(75, torch.float64, fast=True)._stepper,
-                       "arap100k cg75", torch.float64, 1e-8)
+                       *f64_depth(arap100k(75, torch.float64,
+                                           fast=True)._stepper,
+                                  "arap100k cg75"), torch.float64, 1e-8)
     st = arap100k(75, torch.float32, fast=True)._stepper
     bandedarap32 = check_rollout_full(torch, "banded", st, "arap100k cg75",
                                       torch.float32, 1e-4)
@@ -2259,6 +2432,7 @@ def main():
                 "cg_dia": pcg.cg_dia_solve.launches}
     off_path(pbs.banded_rollout, ptri.tri_local_step_fused,
              pcs.cloth_rollout, plat.lattice_rollout)
+    element_pipeline_ops(systems[25])
 
     for cg, (med, windows, counts, s) in per_budget.items():
         x = s.x
@@ -2321,10 +2495,9 @@ def main():
     banded_x = {cg: s.x for cg, s in fast.items()}
     tet75_x = per_budget[75][3].x  # phase 5e's trusted route
     for cg, s in fast.items():
-        check_window_ops(profile_step.profile(cg, WINDOW_STEPS, "fast", s=s),
-                         f"tet100k banded cg{cg}")
+        check_window_ops(trace(cg, "fast", s), f"tet100k banded cg{cg}")
     for cg, run in per_budget.items():
-        profile_step.profile(cg, WINDOW_STEPS, "general", s=run[3])
+        trace(cg, "general", run[3])
     banded_ms = {cg: run[0] for cg, run in fast_budget.items()}
     del systems, fast, per_budget, fast_budget
 
@@ -2379,8 +2552,7 @@ def main():
                                  f"{drift}, min dy {sag}, {vs_same} m from "
                                  "the banded route)")
     for cg, s in lat.items():
-        check_window_ops(profile_step.profile(cg, WINDOW_STEPS, "lattice",
-                                              s=s), f"tet100k lattice cg{cg}")
+        check_window_ops(trace(cg, "lattice", s), f"tet100k lattice cg{cg}")
     del lat
 
     # phase 5h: tet100k on the sharded banded stepper at one device, f32:
@@ -2460,8 +2632,7 @@ def main():
     if bad:
         raise AssertionError("sharded routes: " + "; ".join(bad))
     for (solver, budget), sp in sharded.items():
-        profile_step.profile(budget, WINDOW_STEPS, "sharded", s=sp,
-                             solver=solver)
+        trace(budget, "sharded", sp, solver=solver)
     tet75_ref = banded_x[75]  # phase 5i's trusted route
     del sharded, banded_x
 
@@ -2543,12 +2714,10 @@ def main():
     # the cloth route first: the general route's traces hold tens of
     # thousands of launches
     for cg, s in cloth.items():
-        check_window_ops(profile_step.profile(cg, WINDOW_STEPS, "fast", s=s,
-                                              scene="cloth100k"),
+        check_window_ops(trace(cg, "fast", s, scene="cloth100k"),
                          f"cloth100k cloth cg{cg}", 3 + 3 * ADMM_ITERS)
     for cg, s in gen.items():
-        profile_step.profile(cg, WINDOW_STEPS, "general", s=s,
-                             scene="cloth100k")
+        trace(cg, "general", s, scene="cloth100k")
 
     del gen, cloth
 
@@ -2646,8 +2815,7 @@ def main():
     if bad:
         raise AssertionError("multigrid routes: " + "; ".join(bad))
     for (scene, cg), s in mg_routes.items():
-        check_window_ops(profile_step.profile(cg, WINDOW_STEPS, "fast", s=s,
-                                              scene=scene),
+        check_window_ops(trace(cg, "fast", s, scene=scene),
                          f"{scene} mg{cg}",
                          (2 if scene == "tet100k" else 3) + 3 * ADMM_ITERS)
     del mg_routes, tet75_ref, cloth300_x, deep
@@ -2712,9 +2880,8 @@ def main():
         **{f"{route}_cg{cg}": run[0] for (route, cg), run in d_runs.items()})
     for route, cg in (("banded", 25), ("banded", 75), ("kernel", 25),
                       ("kernel", 75), ("fused", 25), ("xla", 25)):
-        out = profile_step.profile(
-            cg, WINDOW_STEPS, "fast" if route == "banded" else "general",
-            s=d_routes[(route, cg)], scene="delaunay100k")
+        out = trace(cg, "fast" if route == "banded" else "general",
+                    d_routes[(route, cg)], scene="delaunay100k")
         if route == "banded":
             check_window_ops(out, f"delaunay100k banded-ELL cg{cg}")
 
@@ -2843,8 +3010,8 @@ def main():
     say("unfused routes f32 (this call, ms/step)",
         **{k.replace(" ", "_"): v[0] for k, v in u_runs.items()})
     for label, (s, _) in routes.items():
-        profile_step.profile(25, 2 if label.startswith("cloth")
-                             else WINDOW_STEPS, "general", s=s, scene=label)
+        trace(25, "general", s, 2 if label.startswith("cloth") else None,
+              scene=label)
 
     def launches_u(label, name):
         return u_runs[label][2][name]
@@ -2902,8 +3069,7 @@ def main():
             raise AssertionError(f"arap100k banded cg{cg}: bad trajectory "
                                  f"({vs_same} m from the general route)")
     for cg, s in afast.items():
-        check_window_ops(profile_step.profile(cg, WINDOW_STEPS, "fast", s=s,
-                                              scene="arap100k"),
+        check_window_ops(trace(cg, "fast", s, scene="arap100k"),
                          f"arap100k banded cg{cg}")
     del afast, general_arap_x
 

@@ -18,9 +18,12 @@ numbering). The banded, lattice and cloth windows (element kernel,
 vertex kernel, the cluster solve, every ADMM iteration) repeat their
 twins bitwise too, in every mode, and a stepper's CUDA graph replays the
 same bits as the window's eager launches. The element steps
-(nh_local_step, tri_local_step, arap_local_step_fused, arap_local_step)
-are built without FMA contraction and use correctly rounded sqrt and
-division, as their twins do on the card: bitwise. banded_local_rhs runs
+(nh_local_step_fused, nh_local_step, tri_local_step,
+arap_local_step_fused, arap_local_step) are built without FMA contraction
+and use correctly rounded sqrt and division, as their twins do on the
+card: bitwise (the hyperelastic pair also at E = 1, 1,000 and 100,003,
+nh and stvk, the fused one with and without emit_z and into out=
+buffers). banded_local_rhs runs
 the banded kernel's element and vertex phases (1e-12 relative in f64,
 1e-4 in f32: a last-bit difference may move a Newton tie); cheb_dia_chunk
 repeats its twin's arithmetic in its order, bitwise in both layouts of its
@@ -324,6 +327,114 @@ def test_element_step_kernel_is_its_twin(dtype, name):
     for g, w in zip(got, twin(*ins)):
         assert bool(torch.isfinite(g).all())
         assert torch.equal(g, w)
+
+
+def _nh_inputs(E, dtype, dev, seed=0):
+    """Both hyperelastic entries' inputs at E elements: positions of
+    E // 4 + 4 vertices and random tets over them (so inverted and
+    near-degenerate elements; 64 collapsed to one vertex when E > 128),
+    random selector planes, duals, warm starts (a negative third component
+    in an eighth), mu, lam = 4 mu, k = min(mu, lam), w2; and Dx of the
+    unfused entry. Returns (fused arguments, unfused arguments)."""
+    rng = np.random.default_rng(seed)
+    n = E // 4 + 4
+    tets = rng.integers(0, n, size=(E, 4)).astype(np.int32)
+    if E > 128:
+        tets[E // 2: E // 2 + 64] = tets[E // 2: E // 2 + 64, :1]
+    warm = rng.uniform(0.5, 1.5, size=(3, E))
+    warm[2, : E // 8] *= -1.0
+    mu = rng.uniform(1e4, 1e5, E)
+    fl = [rng.normal(size=(n, 3)), rng.normal(size=(9, E)) * 0.1, warm,
+          rng.normal(size=(12, E)), mu, 4.0 * mu, mu,
+          rng.uniform(0.5, 2.0, E)]
+    t = [torch.as_tensor(a, dtype=dtype, device=dev) for a in fl]
+    x, u, warm, cp, mu, lam, k, w2 = t
+    tets = torch.as_tensor(tets, device=dev)
+    return ((x, tets, u, warm, cp, mu, lam, k, w2),
+            (_dx_of(x, tets, cp), u, warm, mu, lam, k))
+
+
+def _dx_of(x, tets, cp):
+    """Dx planes (9,E) of the selector planes on the tets' vertices."""
+    E = tets.shape[0]
+    xg = x[tets.long()].reshape(E, 4, 3)
+    return torch.einsum("bke,eka->abe", cp.reshape(3, 4, E),
+                        xg).reshape(9, E).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 1000, 100003])
+@pytest.mark.parametrize("emit_z", [False, True], ids=["rows", "emit_z"])
+@pytest.mark.parametrize("model", ["nh", "stvk"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_nh_fused_kernel_is_its_twin(dtype, model, emit_z, E):
+    """nh_local_step_fused (the kernel gathers from x through the tets and
+    writes (4E,3) or (4E,6) rows) bitwise to its twin, a partial block and
+    a last warp of few elements included; with emit_z the other outputs
+    the same bits as without."""
+    dev = _cuda()
+    fused, _ = _nh_inputs(E, dtype, dev)
+    n0 = nh_local.nh_local_step_fused.launches
+    m0 = nh_local.nh_local_step_fused.residual_launches
+    got = nh_local.nh_local_step_fused(*fused, model=model, emit_z=emit_z)
+    assert nh_local.nh_local_step_fused.launches == n0 + 1
+    assert nh_local.nh_local_step_fused.residual_launches == m0 + emit_z
+    want = nh_local.nh_local_step_fused_reference(*fused, model=model,
+                                                  emit_z=emit_z)
+    assert got[3].shape == (4 * E, 6 if emit_z else 3)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
+    if emit_z:
+        off = nh_local.nh_local_step_fused(*fused, model=model)
+        assert all(torch.equal(g, o) for g, o in zip(got[:3], off[:3]))
+        assert torch.equal(got[3][:, :3], off[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 1000, 100003])
+@pytest.mark.parametrize("model", ["nh", "stvk"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_nh_step_kernel_is_its_twin(dtype, model, E):
+    dev = _cuda()
+    _, step = _nh_inputs(E, dtype, dev)
+    n0 = nh_local.nh_local_step.launches
+    got = nh_local.nh_local_step(*step, model=model)
+    assert nh_local.nh_local_step.launches == n0 + 1
+    for g, w in zip(got, nh_local.nh_local_step_reference(*step,
+                                                          model=model)):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_nh_out_buffers_on_the_card():
+    """out= buffers get the kernel's bits; one that aliases an input, or
+    another output, raises before any launch."""
+    dev = _cuda()
+    fused, step = _nh_inputs(1000, torch.float32, dev)
+    want = nh_local.nh_local_step_fused(*fused)
+    out = tuple(torch.empty_like(w) for w in want)
+    got = nh_local.nh_local_step_fused(*fused, out=out)
+    assert all(g is o and torch.equal(g, w)
+               for g, o, w in zip(got, out, want))
+    n0 = nh_local.nh_local_step_fused.launches
+    with pytest.raises(ValueError, match="overlaps"):
+        nh_local.nh_local_step_fused(*fused, out=(out[0], fused[2],
+                                                  *out[2:]))
+    with pytest.raises(ValueError, match="overlaps"):  # rows onto cp12
+        nh_local.nh_local_step_fused(
+            *fused, out=(*out[:3], fused[4].view(4000, 3)))
+    with pytest.raises(ValueError, match="overlaps"):
+        nh_local.nh_local_step_fused(*fused, out=(out[0], out[0], *out[2:]))
+    assert nh_local.nh_local_step_fused.launches == n0
+    sout = tuple(torch.empty_like(w) for w in want[:3])
+    got = nh_local.nh_local_step(*step, out=sout)
+    assert all(g is o for g, o in zip(got, sout))
+    assert all(torch.equal(g, w) for g, w in zip(
+        got, nh_local.nh_local_step_reference(*step)))
+    with pytest.raises(ValueError, match="overlaps"):
+        nh_local.nh_local_step(*step, out=(sout[0], step[1], sout[2]))
 
 
 # name: LatticeStepper keyword arguments
@@ -819,11 +930,9 @@ def test_general_amg_route_card_vs_cpu():
     assert np.array_equal(x1, x2) and np.array_equal(v1, v2)
 
 
-# the fused element steps' emit_z mode: (kernel, twin, planes, vectors)
+# the fused element steps' emit_z mode: (kernel, twin, planes, vectors);
+# nh_local_step_fused's is tested with its entry below
 EMIT_Z = {
-    "nh_local_step_fused": (nh_local.nh_local_step_fused,
-                            nh_local.nh_local_step_fused_reference,
-                            (12, 9, 3, 12), 4),
     "arap_local_step_fused": (tet_local.arap_local_step_fused,
                               tet_local.arap_local_step_fused_reference,
                               (12, 9, 12), 2),

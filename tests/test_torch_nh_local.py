@@ -1,7 +1,11 @@
 """The port's plain hyperelastic tet local steps against the JAX package's
-Pallas kernels in f64: the fused one (`nh_local_step_fused`, from gathered
-positions) and the unfused one (`nh_local_step`, from Dx), on the same
-inputs (Dx formed from them).
+Pallas kernels in f64: the fused one (`nh_local_step_fused`, from the
+positions and the tets; the JAX kernel takes the same positions gathered,
+and its row planes are the port's rows laid out) and the unfused one
+(`nh_local_step`, from Dx), on the same inputs (Dx formed from them).
+The fused twin is also held bitwise to the path it replaced (gather,
+the Pallas layout's twin `_fused_planes`, then `flat_rows`), and the
+wrappers' checks and their plans of constant inputs are tested here.
 
 Tolerance: 1e-9 absolute on elements whose singular-value gaps exceed 1e-2
 (the SVD basis is ill-conditioned at near-degenerate sigma, so both answers
@@ -37,7 +41,11 @@ from admm_elastic_tpu.ops.pallas.nh_local import (
     nh_local_step_fused as jax_fused,
 )
 from admm_elastic_tpu.ops.pallas.tet_local import BLOCK
+from admm_elastic_tpu_torch.geometry import make_beam_tets
+from admm_elastic_tpu_torch.models import HyperElasticTet
+from admm_elastic_tpu_torch.ops.kernels import _build
 from admm_elastic_tpu_torch.ops.kernels import nh_local as pnh
+from admm_elastic_tpu_torch.ops.segment import flat_rows
 
 torch.set_num_threads(1)
 
@@ -64,6 +72,27 @@ def _inputs(seed):
     k = np.minimum(mu, lam)
     w2 = rng.uniform(0.5, 2.0, E)
     return xg, u, warm, cp, mu, lam, k, w2
+
+
+def _mesh(xg):
+    """Positions and tets whose gather is xg (12,E): vertex 4e+k of element
+    e holds xg[3k:3k+3, e]."""
+    x = np.ascontiguousarray(xg.T.reshape(4 * E, 3))
+    return x, np.arange(4 * E, dtype=np.int32).reshape(E, 4)
+
+
+def _fused_args(ins):
+    """The fused entry's arguments (x, tets, u9, warm, cp12, mu, lam, k, w2)
+    as tensors, from the gathered inputs."""
+    xg, *rest = ins
+    return [torch.as_tensor(a) for a in (*_mesh(xg), *rest)]
+
+
+def _as_planes(out):
+    """The fused entry's (z9, u9', warm', rows (4E,3)) with the rows as the
+    Pallas kernel's planes (12,E)."""
+    z9, u9, warm, rows = out
+    return z9, u9, warm, rows.reshape(-1, 12).T
 
 
 def _planes_F(xg, cp, u):
@@ -129,9 +158,8 @@ def test_plain_matches_pallas_interpret(model):
     ins = _inputs(3 if model == "nh" else 4)
     ref = jax_fused(*(jnp.asarray(a) for a in ins), iters=5,
                     interpret=True, model=model)
-    out = pnh.nh_local_step_fused(*(torch.as_tensor(a) for a in ins),
-                                  iters=5, model=model)
-    _assert_interpret_agreement(model, ins, ref, out)
+    out = pnh.nh_local_step_fused(*_fused_args(ins), iters=5, model=model)
+    _assert_interpret_agreement(model, ins, ref, _as_planes(out))
 
 
 @pytest.mark.parametrize("model", ["nh", "stvk"])
@@ -184,8 +212,8 @@ def test_plain_is_the_kernel_body_bitwise(model, monkeypatch):
     with jax.disable_jit():
         jnh._make_hyper_fused_kernel(5, model)(*refs, *want)
     monkeypatch.setattr(pnh, "torch", _TorchWithXlaElementary())
-    got = pnh.nh_local_step_fused_reference(
-        *(torch.as_tensor(a) for a in ins), iters=5, model=model)
+    got = _as_planes(pnh.nh_local_step_fused_reference(
+        *_fused_args(ins), iters=5, model=model))
     for name, w, g in zip(("z9", "u9'", "warm'", "contrib12"), want, got):
         d = np.abs(g.numpy() - w.a)
         assert np.array_equal(g.numpy(), w.a), (
@@ -209,35 +237,165 @@ def test_unfused_plain_is_the_kernel_body_bitwise(model, monkeypatch):
 
 
 def test_wrapper_checks_and_cpu_route():
-    ins = [torch.as_tensor(a) for a in _inputs(5)]
+    ins = _fused_args(_inputs(5))
     pnh.nh_local_step_fused.launches = 0
     a = pnh.nh_local_step_fused(*ins, iters=2)
     b = pnh.nh_local_step_fused_reference(*ins, iters=2)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+    assert a[3].shape == (4 * E, 3)
     # the CPU route is the plain version and counts no kernel launch
     assert pnh.nh_local_step_fused.launches == 0
     bad = list(ins)
-    bad[1] = ins[1][:, :-1]
+    bad[2] = ins[2][:, :-1]
     with pytest.raises(ValueError, match="u9"):
         pnh.nh_local_step_fused(*bad)
     bad = list(ins)
-    bad[4] = ins[4].float()
+    bad[5] = ins[5].float()
     with pytest.raises(ValueError, match="mu"):
         pnh.nh_local_step_fused(*bad)
     bad = list(ins)
-    bad[0] = ins[0].T.contiguous().T
+    bad[4] = ins[4].T.contiguous().T
     with pytest.raises(ValueError, match="contiguous"):
         pnh.nh_local_step_fused(*bad)
-    # emit_z: the same outputs, then the rows of w2 D^T z
-    *same, cz = pnh.nh_local_step_fused(*ins, iters=2, emit_z=True)
+    bad = list(ins)
+    bad[1] = ins[1].double()
+    with pytest.raises(ValueError, match="tets"):
+        pnh.nh_local_step_fused(*bad)
+    bad = list(ins)
+    bad[0] = ins[0][:-1]  # the tets reach the last vertex
+    with pytest.raises(ValueError, match="vertices"):
+        pnh.nh_local_step_fused(*bad)
+    # emit_z: the same outputs, the rows 6 wide with w2 D^T z in 3:6
+    *same, rows6 = pnh.nh_local_step_fused(*ins, iters=2, emit_z=True)
     assert all(torch.equal(x, y) for x, y in zip(same, a))
-    E = ins[0].shape[1]
-    want = ins[7] * torch.einsum("rke,jre->kje", ins[3].reshape(3, 4, E),
-                                 a[0].reshape(3, 3, E)).reshape(12, E)
-    torch.testing.assert_close(cz, want, rtol=1e-13, atol=1e-13)
+    assert torch.equal(rows6[:, :3], a[3])
+    cp, w2 = ins[4], ins[8]
+    want = w2 * torch.einsum("rke,jre->kje", cp.reshape(3, 4, E),
+                             a[0].reshape(3, 3, E)).reshape(12, E)
+    torch.testing.assert_close(rows6[:, 3:].reshape(E, 12).T, want,
+                               rtol=1e-13, atol=1e-13)
     with pytest.raises(ValueError, match="model"):
         pnh.nh_local_step_fused(*ins, model="arap")
+
+
+@pytest.mark.parametrize("emit_z", [False, True], ids=["rows", "emit_z"])
+@pytest.mark.parametrize("model", ["nh", "stvk"])
+def test_fused_twin_is_the_gathered_path_bitwise(model, emit_z):
+    """The fused twin from x and the tets equals, bit for bit, the path it
+    replaced on a beam: the force's gather (12,E), the Pallas layout's twin,
+    then flat_rows."""
+    rng = np.random.default_rng(7)
+    beam = make_beam_tets(4, 3, 2, size=0.25)
+    f = HyperElasticTet(beam.tets, mu=1e4, lam=4e4, max_iters=4, model=model,
+                        backend="pallas")
+    params, _ = f.build(beam.vertices, None, 0.04)
+    p = {k: torch.as_tensor(v) for k, v in params.items()}
+    x = torch.as_tensor(beam.vertices + 0.05 * rng.normal(size=(
+        beam.n_vertices, 3)))
+    En = f.n_elements
+    u = torch.as_tensor(0.05 * rng.normal(size=(9, En)))
+    warm = torch.as_tensor(rng.uniform(0.5, 1.5, size=(3, En)))
+    consts = (p["coeff_p"], p["mu"], p["lam"], p["k"], p["w2"])
+    old = pnh._fused_planes(f._gathered(p, x), u, warm, *consts, iters=4,
+                            model=model, emit_z=emit_z)
+    new = pnh.nh_local_step_fused(x, p["indices"], u, warm, *consts,
+                                  iters=4, model=model, emit_z=emit_z)
+    for g, w in zip(new, (*old[:3], flat_rows(old[3:]))):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_plan_rebuilds_when_a_param_is_replaced():
+    names = ("cp12", "mu", "lam", "k", "w2", "tets")
+    ins = _fused_args(_inputs(6))
+    first = pnh.nh_local_step_fused(*ins, iters=1)
+    key = ("nh_local_step_fused", *map(id, ins[4:]), id(ins[1]))
+    plan = _build._PLANS[key]
+    pnh.nh_local_step_fused(*ins, iters=1)
+    assert _build._PLANS[key] is plan  # unchanged constants: the same plan
+    mu2 = 2.0 * ins[5]
+    args = [*ins[:5], mu2, *ins[6:]]
+    got = pnh.nh_local_step_fused(*args, iters=1)
+    key2 = ("nh_local_step_fused", *map(id, args[4:]), id(args[1]))
+    held = dict(zip(names, (*args[4:], args[1])))
+    assert _build._PLANS[key2] is not plan and _build._PLANS[key2].serves(
+        held)
+    assert not plan.serves(held)
+    assert not torch.equal(got[0], first[0])
+    for x, y in zip(got, pnh.nh_local_step_fused_reference(*args, iters=1)):
+        assert torch.equal(x, y)
+    # a replacement of the wrong shape is caught by the new plan
+    args[5] = mu2[:-1]
+    with pytest.raises(ValueError, match="mu"):
+        pnh.nh_local_step_fused(*args, iters=1)
+
+
+def test_state_of_the_wrong_shape_raises():
+    ins = _fused_args(_inputs(6))
+    pnh.nh_local_step_fused(*ins, iters=1)  # its plan is made
+    for i, name, bad in ((2, "u9", ins[2][:8]), (3, "warm", ins[3][:, 1:]),
+                         (0, "x", ins[0].reshape(-1, 6))):
+        args = list(ins)
+        args[i] = bad
+        with pytest.raises(ValueError, match=name):
+            pnh.nh_local_step_fused(*args, iters=1)
+    dx = torch.as_tensor(_unfused(_inputs(6))[0])
+    step = [dx, *ins[2:4], *ins[5:8]]
+    pnh.nh_local_step(*step, iters=1)
+    with pytest.raises(ValueError, match="dx9"):
+        pnh.nh_local_step(dx[:, :-1], *step[1:], iters=1)
+
+
+def test_out_buffers():
+    """out= buffers get the outputs' bits; one that overlaps an input or
+    another output, or has the wrong shape, raises."""
+    ins = _fused_args(_inputs(8))
+    want = pnh.nh_local_step_fused(*ins, iters=2)
+    out = tuple(torch.empty_like(w) for w in want)
+    got = pnh.nh_local_step_fused(*ins, iters=2, out=out)
+    assert all(g is o and torch.equal(g, w)
+               for g, o, w in zip(got, out, want))
+    u_in = ins[2].clone()
+    with pytest.raises(ValueError, match="overlaps"):
+        pnh.nh_local_step_fused(*ins[:2], u_in, *ins[3:], iters=2,
+                                out=(out[0], u_in, *out[2:]))
+    with pytest.raises(ValueError, match="overlaps"):
+        pnh.nh_local_step_fused(*ins, iters=2,
+                                out=(out[0], out[0], *out[2:]))
+    with pytest.raises(ValueError, match="out"):
+        pnh.nh_local_step_fused(*ins, iters=2, emit_z=True, out=out)
+
+
+@pytest.mark.parametrize("collect", [False, True], ids=["plain", "dual"])
+def test_system_alternates_the_fused_buffers(collect, monkeypatch):
+    """The general dia route writes its fused element steps into two sets
+    of buffers in turn: the same bits over 2 steps as new tensors each
+    call, and no tensor of the state is a buffer of a set."""
+    from admm_elastic_tpu_torch.utils.scenes import beam_system
+
+    def run():
+        s = beam_system((2, 1, 1), 0.1, 1.0, 8, torch.float64, "cpu",
+                        admm_iters=4, collect_residuals=collect)
+        s.run(2)
+        return s
+
+    s = run()
+    bufs = [t for sets in s._fused_sets.values() for one in sets
+            for t in one]
+    assert len(bufs) == 8
+    state = [s.state["x"], *s.state["u"].values(),
+             *(t for st in s.state["forces"].values() for t in st.values())]
+    ptrs = {t.untyped_storage().data_ptr() for t in bufs}
+    assert not any(t.untyped_storage().data_ptr() in ptrs for t in state)
+    monkeypatch.delattr(HyperElasticTet, "fused_out_buffers")
+    fresh = run()
+    assert not fresh._fused_sets
+    for a, b in zip(state, [fresh.state["x"], *fresh.state["u"].values(),
+                            *(t for st in fresh.state["forces"].values()
+                              for t in st.values())]):
+        assert torch.equal(a, b)
+    for k in s.last_aux:
+        assert torch.equal(s.last_aux[k], fresh.last_aux[k])
 
 
 def test_unfused_wrapper_checks_and_cpu_route():
