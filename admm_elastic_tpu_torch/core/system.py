@@ -378,9 +378,9 @@ class System:
         # the zero row that the incidence's padding slots gather
         # (3 columns, or 6 with the dual residual's rows)
         self._sentinel = torch.zeros((1, 6), dtype=dtype, device=device)
-        # the fused element steps' two sets of output buffers, by force
-        # and residual mode (_fused_out)
-        self._fused_sets = {}
+        # the element steps' two sets of output buffers, by force, entry
+        # and residual mode (_out)
+        self._out_sets = {}
 
         if s.lattice_fast_path and s.relaxation != 1.0:
             # the whole-timestep kernels run the plain iteration only
@@ -629,15 +629,16 @@ class System:
                     z[f.name], new_u[f.name], new_fstate[f.name], c = \
                         f.fused_local_rhs(p, curr_x, u[f.name],
                                           fstate[f.name], with_z=collect_dual,
-                                          **self._fused_out(f, curr_x,
-                                                            collect_dual,
-                                                            i, iters))
+                                          **self._out(f, "fused", curr_x, i,
+                                                      iters, collect_dual))
                 else:
                     h = f.compute_Dx(p, curr_x)
                     if zprev is not None:
                         h = relax * h + (1.0 - relax) * zprev[f.name]
                     z[f.name], new_u[f.name], new_fstate[f.name] = \
-                        f.project_with_dual(h, u[f.name], p, fstate[f.name])
+                        f.project_with_dual(h, u[f.name], p, fstate[f.name],
+                                            **self._out(f, "project", curr_x,
+                                                        i, iters))
                     if zprev is not None:
                         new_zprev[f.name] = z[f.name]
                     c = (f.rhs_contribution6 if collect_dual and gathered
@@ -692,20 +693,21 @@ class System:
         }
         return new_state, {"primal_residual": rp, "dual_residual": rd}
 
-    def _fused_out(self, f, x, with_z, i, iters):
-        """The out= argument of iteration i's fused element step of force
-        f: where f takes output buffers, one of two sets made once, in
-        turn, so that an iteration writes the set its inputs are not in
-        and allocates nothing; the last iteration writes new tensors, so
-        that no buffer of a set leaves the step in its state."""
-        make = getattr(f, "fused_out_buffers", None)
+    def _out(self, f, entry, x, i, iters, *args):
+        """The out= argument of iteration i's element step `entry`
+        ("fused": fused_local_rhs, "project": project_with_dual) of force
+        f: where f takes output buffers (its `ENTRY_out_buffers(x,
+        *args)`), one of two sets made once, in turn, so that an iteration
+        writes the set its inputs are not in and allocates nothing; the
+        last iteration writes new tensors, so that no buffer of a set
+        leaves the step in its state."""
+        make = getattr(f, f"{entry}_out_buffers", None)
         if make is None or i == iters - 1:
             return {}
-        key = (f.name, with_z)
-        sets = self._fused_sets.get(key)
+        key = (f.name, entry, *args)
+        sets = self._out_sets.get(key)
         if sets is None:
-            sets = self._fused_sets[key] = (make(x, with_z),
-                                            make(x, with_z))
+            sets = self._out_sets[key] = (make(x, *args), make(x, *args))
         return {"out": sets[i % 2]}
 
     def _gather(self, rows, width):

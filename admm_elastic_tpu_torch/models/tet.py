@@ -8,11 +8,12 @@ B[e,c,r], so the canonical (E,R,3) layout Dx[e,r,:] holds F^T rows.
 The port keeps the per-element quantities of a kernel-backed force in
 plane layout, unpadded: Dx, u and z are (9, E) with plane 3a+b holding
 F_{a,b}; the warm start sigma is (3, E); the selector coefficients are
-(12, E) with plane 4b+k holding coeff[e,b,k]. The fused kernels form Dx
-and the RHS rows themselves (the dia/ell route; the hyperelastic kernel
-gathers the positions itself, the ARAP one takes them gathered); the
-unfused pipeline (the dense and cg global modes, over-relaxation) takes Dx
-from `compute_Dx` and its rows from `rhs_contribution`.
+(12, E) with plane 4b+k holding coeff[e,b,k]. The fused kernels gather
+the positions and form Dx and the RHS rows themselves (the dia/ell
+route); the unfused pipeline (the dense and cg global modes,
+over-relaxation) takes Dx from `compute_Dx` and its rows from
+`rhs_contribution`. Both take output buffers (`fused_out_buffers`,
+`project_out_buffers`), which the System hands them in turn.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import torch
 
 from ..ops.kernels.nh_local import nh_local_step, nh_local_step_fused
 from ..ops.kernels.tet_local import arap_local_step, arap_local_step_fused
-from ..ops.segment import flat_rows
 from .base import ForceBatch
 
 _D4 = np.array(
@@ -95,10 +95,22 @@ class _TetPlanes(ForceBatch):
         c = torch.einsum("erk,e,jre->ekj", params["coeff"], params["w2"], y3)
         return c.reshape(-1, 3)
 
-    def _gathered(self, params, x):
-        """xg[3k+a, e] = x[tet[e,k], a], (12, E)."""
-        E = params["indices"].shape[0]
-        return x[params["indices"]].reshape(E, 12).T.contiguous()
+    def _step_shapes(self):
+        """The shapes of the element step's outputs: z9, u9'."""
+        E = self.n_elements
+        return (9, E), (9, E)
+
+    def fused_out_buffers(self, x, with_z=False):
+        """A new set of fused_local_rhs's outputs (the element step's,
+        then the rows) of x's dtype and device, to give it as `out`."""
+        return tuple(x.new_empty(s) for s in (
+            *self._step_shapes(),
+            (4 * self.n_elements, 6 if with_z else 3)))
+
+    def project_out_buffers(self, x):
+        """A new set of project_with_dual's outputs of x's dtype and
+        device, to give it as `out`."""
+        return tuple(x.new_empty(s) for s in self._step_shapes())
 
     def project(self, Dx, u, params, state):
         """Plane-layout z (and new state); the System calls
@@ -171,19 +183,17 @@ class HyperElasticTet(_TetPlanes):
         )
         return z9, unew9, {**state, "sigma": warm_new}, rows
 
-    def fused_out_buffers(self, x, with_z=False):
-        """A new set of fused_local_rhs's outputs (z9, u9', warm start,
-        rows) of x's dtype and device, to give it as `out`."""
-        E = self.n_elements
-        return tuple(x.new_empty(s) for s in (
-            (9, E), (9, E), (3, E), (4 * E, 6 if with_z else 3)))
+    def _step_shapes(self):
+        """z9, u9' and the warm start."""
+        return (*super()._step_shapes(), (3, self.n_elements))
 
-    def project_with_dual(self, Dx, u, params, state):
+    def project_with_dual(self, Dx, u, params, state, out=None):
         """The unfused element step from Dx planes: (z9, u9', state with
-        the new warm start)."""
+        the new warm start). `out`: a set of `project_out_buffers` to write
+        in place of new tensors."""
         z9, unew9, warm_new = nh_local_step(
             Dx, u, state["sigma"], params["mu"], params["lam"], params["k"],
-            iters=self.max_iters, model=self.model)
+            iters=self.max_iters, model=self.model, out=out)
         return z9, unew9, {**state, "sigma": warm_new}
 
 
@@ -221,16 +231,21 @@ class LinearTetStrain(_TetPlanes):
         params["coeff_p"] = _coeff_planes(params)
         return params, {}
 
-    def fused_local_rhs(self, params, x, u, state, with_z=False):
-        """One kernel for the per-iteration element pipeline: gathered
-        positions in; z, u' and the flat D^T W^2 (z-u') rows (E*4, 3) out
-        (with_z: (E*4, 6), as HyperElasticTet's)."""
-        z9, unew9, *rows = arap_local_step_fused(
-            self._gathered(params, x), u, params["coeff_p"], params["w2"],
-            params["k"], emit_z=with_z)
-        return z9, unew9, state, flat_rows(rows)
+    def fused_local_rhs(self, params, x, u, state, with_z=False, out=None):
+        """One kernel for the per-iteration element pipeline: positions x
+        (n,3) in (the kernel gathers each tet's vertices); z, u' and the
+        flat D^T W^2 (z-u') rows (E*4, 3) out (with_z: (E*4, 6), as
+        HyperElasticTet's). `out`: a set of `fused_out_buffers` to write
+        in place of new tensors."""
+        z9, unew9, rows = arap_local_step_fused(
+            x, params["indices"], u, params["coeff_p"], params["w2"],
+            params["k"], emit_z=with_z, out=out)
+        return z9, unew9, state, rows
 
-    def project_with_dual(self, Dx, u, params, state):
-        """The unfused element step from Dx planes: (z9, u9', state)."""
-        z9, unew9 = arap_local_step(Dx, u, params["w2"], params["k"])
+    def project_with_dual(self, Dx, u, params, state, out=None):
+        """The unfused element step from Dx planes: (z9, u9', state).
+        `out`: a set of `project_out_buffers` to write in place of new
+        tensors."""
+        z9, unew9 = arap_local_step(Dx, u, params["w2"], params["k"],
+                                    out=out)
         return z9, unew9, state

@@ -140,13 +140,15 @@ _SIGNATURES = {
        for t in ("f32", "f64")},
     **{f"nh_local_step_{t}": (_I, [_P] * 9 + [_I] * 3 + [_P])
        for t in ("f32", "f64")},
-    # the other fused element steps' last output pointer is the emit_z
-    # block, null when it is not asked for
+    # the triangle step's last output pointer is the emit_z block, null
+    # when it is not asked for
     **{f"tri_local_step_fused_{t}": (_I, [_P] * 11 + [_I] * 2 + [_P])
        for t in ("f32", "f64")},
     **{f"tri_local_step_{t}": (_I, [_P] * 8 + [_I] * 2 + [_P])
        for t in ("f32", "f64")},
-    **{f"arap_local_step_fused_{t}": (_I, [_P] * 9 + [_I] + [_P])
+    # x, tets, u, cp, w2, k, then z, u', rows, then E, emit_z and the
+    # stream
+    **{f"arap_local_step_fused_{t}": (_I, [_P] * 9 + [_I] * 2 + [_P])
        for t in ("f32", "f64")},
     **{f"arap_local_step_{t}": (_I, [_P] * 6 + [_I] + [_P])
        for t in ("f32", "f64")},
@@ -280,6 +282,90 @@ class Plan:
         return out
 
 
+class ElementPlan(Plan):
+    """An element step's constant inputs for one force (the selector planes
+    cp12 (12,E) and per-element vectors (E,), in the C entry's order):
+    checked once (shape, layout, one dtype and device), the tets of a
+    fused entry in int32 with their largest index, the pointers and, on a
+    card, the C entry resolved once. Used by the hyperelastic and the
+    ARAP element steps (`nh_local.py`, `tet_local.py`)."""
+
+    def __init__(self, entry, consts, tets):
+        first = next(iter(consts.values()))
+        dtype, device = first.dtype, first.device
+        self.E = E = first.shape[-1]
+        if dtype not in SUFFIX:
+            raise TypeError(f"unsupported dtype {dtype}")
+        for name, t in consts.items():
+            shape = (12, E) if name == "cp12" else (E,)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                                 f"{shape}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: not contiguous")
+            if t.dtype != dtype or t.device != device:
+                raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                                 f"{dtype} on {device}")
+        # the device index as Tensor.get_device() gives it (-1 off CUDA):
+        # the per-call check compares ints, not torch.device objects
+        self.index = device.index if device.type == "cuda" else -1
+        held = dict(consts)
+        self.vmax = -1
+        if tets is not None:
+            if (tuple(tets.shape) != (E, 4) or tets.is_floating_point()
+                    or tets.is_complex() or tets.device != device):
+                raise ValueError(f"tets: {tets.dtype} {tuple(tets.shape)} on "
+                                 f"{tets.device}, expected integers (E, 4) "
+                                 f"= ({E}, 4) on {device}")
+            held["tets"] = tets
+        self.fn = None
+        if device.type not in ("cuda", "cpu"):
+            self.hold(held, dtype, device)
+            return  # no kernel and no twin: the wrapper raises
+        read = list(consts.values())
+        if tets is not None:
+            t32 = tets.to(torch.int32).contiguous()
+            if t32.data_ptr() % 16:  # the kernel reads a tet as one int4
+                t32 = t32.clone()
+            if E and int(t32.min()) < 0:
+                raise ValueError("tets: negative vertex index")
+            self.vmax = int(t32.max()) if E else -1
+            self.tets32, self.tets_ptr = t32, t32.data_ptr()
+            read.append(t32)
+        self.hold(held, dtype, device, read)
+        self.ptrs = tuple(t.data_ptr() for t in consts.values())
+        if device.type == "cuda":
+            self.fn = getattr(load_library(), f"{entry}_{SUFFIX[dtype]}")
+
+    def check_state(self, state):
+        """Raise unless each of state {name: (tensor, shape)} has its shape
+        and the plan's dtype and device and is contiguous (the caller's
+        one-expression test failed)."""
+        for name, (t, shape) in state.items():
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                                 f"{shape}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: not contiguous")
+            if t.dtype != self.dtype or t.device != self.device:
+                raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                                 f"{self.dtype} on {self.device}")
+
+    def twin(self, out, shapes, ins, run):
+        """A call where the plan has no kernel: on CPU tensors the plain
+        twin's outputs (`run()`), copied into `out` where it is given
+        (checked as `outputs` checks it); on any other device an error."""
+        if ins[0].device.type != "cpu":
+            raise RuntimeError(f"no kernel for device {ins[0].device}")
+        got = run()
+        if out is None:
+            return got
+        out = self.outputs(out, shapes, ins)
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return out
+
+
 #: the plans made so far, by their wrapper's key; a few are kept (a
 #: System's forces and a stepper's calls find theirs at once)
 _PLANS: dict = {}
@@ -297,6 +383,14 @@ def plan(key, tensors, make):
             _PLANS.pop(next(iter(_PLANS)))
         _PLANS[key] = made
     return made
+
+
+def element_plan(entry, consts, tets=None):
+    """The element step `entry`'s plan for these constants (`plan`, by
+    their identities)."""
+    held = consts if tets is None else {**consts, "tets": tets}
+    return plan((entry, *map(id, held.values())), held,
+                lambda: ElementPlan(entry, consts, tets))
 
 
 def check_inputs(planes, vectors):

@@ -22,12 +22,12 @@ kernel's own layout (gathered positions and row planes (12,E)) is
 `_fused_planes`, which the JAX comparisons call.
 
 Each wrapper checks its constant inputs (the selector planes, the
-materials, the tets) once per force, dtype and device (`_Plan`, which
-keeps their pointers and the C entry), then only the state in one
-expression a call; both take optional `out=` buffers. It launches its
-kernel (`csrc/nh_local.cu`) for CUDA tensors and runs its `_reference`
-twin, a straight transcription of the Pallas math, for CPU tensors. It
-never falls back from one to the other.
+materials, the tets) once per force, dtype and device
+(`_build.ElementPlan`, which keeps their pointers and the C entry), then
+only the state in one expression a call; both take optional `out=`
+buffers. It launches its kernel (`csrc/nh_local.cu`) for CUDA tensors and
+runs its `_reference` twin, a straight transcription of the Pallas math,
+for CPU tensors. It never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -412,83 +412,6 @@ def nh_local_step_reference(dx9, u9, warm, mu, lam, k, iters=5, model="nh"):
     return torch.stack(z_planes), torch.stack(u_planes), warm_new
 
 
-class _Plan(_build.Plan):
-    """An entry's constant inputs for one force: checked once (shape,
-    layout, one dtype and device), the tets (fused entry) in int32 with
-    their largest index, the pointers and, on a card, the C entry resolved
-    once."""
-
-    def __init__(self, entry, consts, tets):
-        first = next(iter(consts.values()))
-        dtype, device = first.dtype, first.device
-        self.E = E = first.shape[-1]
-        if dtype not in _build.SUFFIX:
-            raise TypeError(f"unsupported dtype {dtype}")
-        for name, t in consts.items():
-            shape = (12, E) if name == "cp12" else (E,)
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                                 f"{shape}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name}: not contiguous")
-            if t.dtype != dtype or t.device != device:
-                raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
-                                 f"{dtype} on {device}")
-        # the device index as Tensor.get_device() gives it (-1 off CUDA):
-        # the per-call check compares ints, not torch.device objects
-        self.index = device.index if device.type == "cuda" else -1
-        held = dict(consts)
-        self.vmax = -1
-        if tets is not None:
-            if (tuple(tets.shape) != (E, 4) or tets.is_floating_point()
-                    or tets.is_complex() or tets.device != device):
-                raise ValueError(f"tets: {tets.dtype} {tuple(tets.shape)} on "
-                                 f"{tets.device}, expected integers (E, 4) "
-                                 f"= ({E}, 4) on {device}")
-            held["tets"] = tets
-        self.fn = None
-        if device.type not in ("cuda", "cpu"):
-            self.hold(held, dtype, device)
-            return  # no kernel and no twin: the wrapper raises
-        read = list(consts.values())
-        if tets is not None:
-            t32 = tets.to(torch.int32).contiguous()
-            if t32.data_ptr() % 16:  # the kernel reads a tet as one int4
-                t32 = t32.clone()
-            if E and int(t32.min()) < 0:
-                raise ValueError("tets: negative vertex index")
-            self.vmax = int(t32.max()) if E else -1
-            self.tets32, self.tets_ptr = t32, t32.data_ptr()
-            read.append(t32)
-        self.hold(held, dtype, device, read)
-        self.ptrs = tuple(t.data_ptr() for t in consts.values())
-        if device.type == "cuda":
-            self.fn = getattr(_build.load_library(),
-                              f"{entry}_{_build.SUFFIX[dtype]}")
-
-    def check_state(self, state):
-        """Raise unless each of state {name: (tensor, shape)} has its shape
-        and the plan's dtype and device and is contiguous (the caller's
-        one-expression test failed)."""
-        for name, (t, shape) in state.items():
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                                 f"{shape}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name}: not contiguous")
-            if t.dtype != self.dtype or t.device != self.device:
-                raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
-                                 f"{self.dtype} on {self.device}")
-
-
-def _plan(entry, consts, tets=None):
-    """The entry's plan for these constants (`_build.plan`, by their
-    identities)."""
-    held = consts if tets is None else {**consts, "tets": tets}
-    return _build.plan((entry, *map(id, held.values())), held,
-                       lambda: _Plan(entry, consts, tets))
-
-
 def nh_local_step_fused(x, tets, u9, warm, cp12, mu, lam, k, w2, iters=5,
                         model="nh", emit_z=False, out=None):
     """Fused local step + RHS rows from the positions x (n,3) and the tets
@@ -500,8 +423,9 @@ def nh_local_step_fused(x, tets, u9, warm, cp12, mu, lam, k, w2, iters=5,
     instead of new ones, none of them overlapping an input."""
     if model not in _MODELS:
         raise ValueError(f"unknown hyperelastic model {model!r}")
-    plan = _plan("nh_local_step_fused", {"cp12": cp12, "mu": mu, "lam": lam,
-                                         "k": k, "w2": w2}, tets)
+    plan = _build.element_plan("nh_local_step_fused",
+                               {"cp12": cp12, "mu": mu, "lam": lam, "k": k,
+                                "w2": w2}, tets)
     E = plan.E
     if not (x.dim() == 2 and x.shape[1] == 3 and x.shape[0] > plan.vmax
             and u9.shape == (9, E) and warm.shape == (3, E)
@@ -516,17 +440,10 @@ def nh_local_step_fused(x, tets, u9, warm, cp12, mu, lam, k, w2, iters=5,
                           "u9": (u9, (9, E)), "warm": (warm, (3, E))})
     shapes = ((9, E), (9, E), (3, E), (4 * E, 6 if emit_z else 3))
     if plan.fn is None:
-        if x.device.type != "cpu":
-            raise RuntimeError(f"no kernel for device {x.device}")
-        got = nh_local_step_fused_reference(
-            x, tets, u9, warm, cp12, mu, lam, k, w2, iters=iters,
-            model=model, emit_z=emit_z)
-        if out is None:
-            return got
-        out = plan.outputs(out, shapes, (x, u9, warm))
-        for o, g in zip(out, got):
-            o.copy_(g)
-        return out
+        return plan.twin(out, shapes, (x, u9, warm),
+                         lambda: nh_local_step_fused_reference(
+                             x, tets, u9, warm, cp12, mu, lam, k, w2,
+                             iters=iters, model=model, emit_z=emit_z))
     outs = plan.outputs(out, shapes, (x, u9, warm))
     _build.check(plan.fn(x.data_ptr(), plan.tets_ptr, u9.data_ptr(),
                          warm.data_ptr(), *plan.ptrs,
@@ -549,7 +466,8 @@ def nh_local_step(dx9, u9, warm, mu, lam, k, iters=5, model="nh", out=None):
     none of them overlapping an input."""
     if model not in _MODELS:
         raise ValueError(f"unknown hyperelastic model {model!r}")
-    plan = _plan("nh_local_step", {"mu": mu, "lam": lam, "k": k})
+    plan = _build.element_plan("nh_local_step",
+                               {"mu": mu, "lam": lam, "k": k})
     E = plan.E
     if not (dx9.shape == u9.shape == (9, E) and warm.shape == (3, E)
             and dx9.dtype is u9.dtype is warm.dtype is plan.dtype
@@ -560,16 +478,10 @@ def nh_local_step(dx9, u9, warm, mu, lam, k, iters=5, model="nh", out=None):
                           "warm": (warm, (3, E))})
     shapes = ((9, E), (9, E), (3, E))
     if plan.fn is None:
-        if dx9.device.type != "cpu":
-            raise RuntimeError(f"no kernel for device {dx9.device}")
-        got = nh_local_step_reference(dx9, u9, warm, mu, lam, k,
-                                      iters=iters, model=model)
-        if out is None:
-            return got
-        out = plan.outputs(out, shapes, (dx9, u9, warm))
-        for o, g in zip(out, got):
-            o.copy_(g)
-        return out
+        return plan.twin(out, shapes, (dx9, u9, warm),
+                         lambda: nh_local_step_reference(
+                             dx9, u9, warm, mu, lam, k, iters=iters,
+                             model=model))
     outs = plan.outputs(out, shapes, (dx9, u9, warm))
     _build.check(plan.fn(dx9.data_ptr(), u9.data_ptr(), warm.data_ptr(),
                          *plan.ptrs, *(o.data_ptr() for o in outs), E,

@@ -1,22 +1,26 @@
-"""Times the hyperelastic tet element steps of the port found under a given
-root at tet100k's shapes, so that two checkouts (a commit and its parent)
+"""Times the tet element steps of the port found under a given root at
+their workload's shapes, so that two checkouts (a commit and its parent)
 are timed one after the other on the same card, each in a process of its
 own; and, for this checkout, each device schedule of the same arithmetic.
 
-    python admm_elastic_tpu_torch/utils/time_elements.py --root DIR \\
-        --label NAME [--out JSONL] [--save DIR]
-    python admm_elastic_tpu_torch/utils/time_elements.py --designs|--host \\
-        [--out JSONL]
+    python admm_elastic_tpu_torch/utils/time_elements.py [--force arap] \\
+        --root DIR --label NAME [--out JSONL] [--save DIR]
+    python admm_elastic_tpu_torch/utils/time_elements.py [--force arap] \\
+        --designs|--host [--out JSONL]
     python admm_elastic_tpu_torch/utils/time_elements.py --compare DIR
 
-`--root` builds tet100k (dia, cg25) with that checkout's `utils/scenes.py`
-in f32 and f64, moves x by 5 mm N(0,1) and the duals by 0.01 N(0,1) and
-the warm start by U(0.5, 1.5) (seed 0), and times, through the force's
-own methods (as the System calls them): `fused_local_rhs` without and
-with the dual residual's rows (the general dia/ell route's whole element
-pipeline: in a checkout before the element kernel gathered for itself,
-the gather, its transposing copy, the kernel and the rows' copy), and
-`project_with_dual` on Dx (the unfused pipeline's `nh_local_step`). For
+`--force nh` (the default) times the hyperelastic pair
+(`nh_local_step_fused`, `nh_local_step`) at tet100k's shapes, `--force
+arap` the ARAP pair (`arap_local_step_fused`, `arap_local_step`) at
+arap100k's (the same beam with LinearTetStrain). `--root` builds the
+scene (dia, cg25) with that checkout's `utils/scenes.py` in f32 and f64,
+moves x by 5 mm N(0,1) and the duals by 0.01 N(0,1) and the warm start
+(nh) by U(0.5, 1.5) (seed 0), and times, through the force's own methods
+(as the System calls them): `fused_local_rhs` without and with the dual
+residual's rows (the general dia/ell route's whole element pipeline: in
+a checkout before the element kernel gathered for itself, the gather,
+its transposing copy, the kernel and the rows' copy), and
+`project_with_dual` on Dx (the unfused pipeline's step). For
 each it prints one JSON line: the ms a call by CUDA events around 20
 back-to-back calls and the host us a call before the closing synchronize
 (`time_solves.events_ms`, the median of 5 such windows), the ms a call
@@ -25,23 +29,25 @@ device's time with the launch gaps), the traced device ms a call (the
 sum of the kernels' records over 20 calls under `torch.profiler`, by
 kernel name; traced again, up to 5 times, while a record is missing) and
 the device operations a call (`profile_step.call_ops`). A last line gives
-the device operations of one whole step of tet100k's general route in
+the device operations of one whole step of the scene's general route in
 f32 (a CUDA graph of `System._step`). With `--save` each call's outputs
 go to DIR/LABEL_NAME.npy (a label holds no "_"), so that `--compare DIR`
 can hold two checkouts' outputs against each other bit for bit (exit 1
 unless all agree).
 
-`--designs` builds `csrc/probes/nh_design_probe.cu` of this checkout (the
-element kernels of `csrc/nh_local.cu` under each register cap tried:
-design d is `__launch_bounds__(128, d + 1)`, d = 0 with no cap, d = 1
-to 7 with a cap of 65,536 / 128 (d + 1) registers) and, on the same
-tet100k inputs in f32 and f64, launches each
-design's fused (nh, no emit_z) and unfused entry directly: bits against
+`--designs` builds the force's schedule probe of this checkout,
+`csrc/probes/nh_design_probe.cu` or `arap_design_probe.cu` (the element
+kernels of `csrc/nh_local.cu` or `tet_local.cu` under each register cap
+tried: design d is `__launch_bounds__(128, d + 1)`, d = 0 with no cap,
+d = 1 to 7 with a cap of 65,536 / 128 (d + 1) registers) and, on the
+same inputs in f32 and f64, launches each design's fused (nh: the
+NeoHookean model; no emit_z) and unfused entry directly: bits against
 design 0 and the twin, ms a call by CUDA events around 20 launches,
 traced device ms a call, and ptxas's registers and spills with the
 static SASS instruction count (`utils/sass_counts.py`). `--host` splits
-this checkout's fused wrapper's host work a call into its parts (the
-plan lookup, the output allocations, the stream lookup, the C entry).
+this checkout's wrappers' host work a call into its parts (the plan
+lookup, the output allocations, the stream lookup, the C entry; the
+fused and the unfused wrapper with and without `out=` buffers).
 Needs a CUDA device.
 """
 
@@ -55,16 +61,25 @@ import sys
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 REPS, WINDOWS, ATTEMPTS = 20, 5, 5
-#: csrc/probes/nh_design_probe.cu's designs: d is __launch_bounds__(128,
-#: d + 1)
-N_DESIGNS = 8
 _I, _P = ctypes.c_int, ctypes.c_void_p
-#: the probe's entries
-DESIGN_PROBE = {
-    **{f"nh_design_fused_{t}": (_I, [_I] + [_P] * 13 + [_I] * 2 + [_P])
-       for t in ("f32", "f64")},
-    **{f"nh_design_step_{t}": (_I, [_I] + [_P] * 9 + [_I] * 2 + [_P])
-       for t in ("f32", "f64")}}
+#: each force's schedule probe: its source under csrc/probes/ and its
+#: entries' C signatures; design d is __launch_bounds__(128, d + 1)
+N_DESIGNS = 8
+PROBES = {
+    "nh": ("nh_design_probe", {
+        **{f"nh_design_fused_{t}": (_I, [_I] + [_P] * 13 + [_I] * 2 + [_P])
+           for t in ("f32", "f64")},
+        **{f"nh_design_step_{t}": (_I, [_I] + [_P] * 9 + [_I] * 2 + [_P])
+           for t in ("f32", "f64")}}),
+    "arap": ("arap_design_probe", {
+        **{f"arap_design_fused_{t}": (_I, [_I] + [_P] * 9 + [_I, _P])
+           for t in ("f32", "f64")},
+        **{f"arap_design_step_{t}": (_I, [_I] + [_P] * 6 + [_I, _P])
+           for t in ("f32", "f64")}}),
+}
+#: the force class and the scene of each --force
+FORCES = {"nh": ("HyperElasticTet", "tet100k"),
+          "arap": ("LinearTetStrain", "arap100k")}
 
 
 def traced(torch, call, reps=REPS):
@@ -95,13 +110,14 @@ def traced(torch, call, reps=REPS):
     return (sum(per.values()) if best else None), per
 
 
-def tet100k_inputs(torch, scenes, dtype):
-    """tet100k's System (dia, cg25), its HyperElasticTet and params, and
-    seeded x, u and force state at tet100k's shapes."""
+def force_inputs(torch, scenes, dtype, force):
+    """The force's scene (tet100k or arap100k; dia, cg25), its tet force
+    and params, and seeded x, u and force state at the scene's shapes."""
     import numpy as np
 
-    s = scenes.tet100k(25, dtype)
-    f = next(f for f in s.forces if type(f).__name__ == "HyperElasticTet")
+    cls, scene = FORCES[force]
+    s = getattr(scenes, scene)(25, dtype)
+    f = next(f for f in s.forces if type(f).__name__ == cls)
     p = s.params[f.name]
     rng = np.random.default_rng(0)
     x0 = s.state["x"]
@@ -111,12 +127,13 @@ def tet100k_inputs(torch, scenes, dtype):
     u = torch.as_tensor(0.01 * rng.standard_normal((9, E)), dtype=dtype,
                         device=x0.device)
     st = dict(s.state["forces"][f.name])
-    st["sigma"] = torch.as_tensor(rng.uniform(0.5, 1.5, (3, E)), dtype=dtype,
-                                  device=x0.device)
+    if force == "nh":
+        st["sigma"] = torch.as_tensor(rng.uniform(0.5, 1.5, (3, E)),
+                                      dtype=dtype, device=x0.device)
     return s, f, p, x, u, st
 
 
-def time_root(root, label, out_path, save):
+def time_root(root, label, out_path, save, force):
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -129,7 +146,7 @@ def time_root(root, label, out_path, save):
     card = torch.cuda.get_device_name(0)
     lines = []
     for dtype in (torch.float32, torch.float64):
-        s, f, p, x, u, st = tet100k_inputs(torch, scenes, dtype)
+        s, f, p, x, u, st = force_inputs(torch, scenes, dtype, force)
         dx = f.compute_Dx(p, x)
         calls = {
             "fused": lambda: f.fused_local_rhs(p, x, u, st),
@@ -140,7 +157,8 @@ def time_root(root, label, out_path, save):
         for name, call in calls.items():
             ev_ms, host_us = events_ms(torch, call, REPS, WINDOWS)
             dev_ms, per = traced(torch, call)
-            line = {"label": label, "call": name, "dtype": str(dtype)[6:],
+            line = {"label": label, "force": force, "call": name,
+                    "dtype": str(dtype)[6:],
                     "E": f.n_elements, "device": card, "events_ms": ev_ms,
                     "host_us": host_us,
                     "graph_ms": graph_ms(torch, call, REPS, WINDOWS),
@@ -152,17 +170,20 @@ def time_root(root, label, out_path, save):
             if save:
                 os.makedirs(save, exist_ok=True)
                 out = call()
-                flat = [out[0], out[1], out[2]["sigma"],
+                flat = [out[0], out[1], *out[2].values(),
                         *(out[3:] if name != "step" else ())]
-                tag = f"{label}_{name}_{str(dtype)[6:]}".replace(" ", "-")
+                tag = f"{label}_{force}-{name}-{str(dtype)[6:]}".replace(
+                    " ", "-")
                 np.save(os.path.join(save, tag + ".npy"), np.concatenate(
                     [t.double().cpu().numpy().ravel() for t in flat]))
         del s, f, p, x, u, st, dx, calls
-    s = scenes.tet100k(25, torch.float32)
+    scene = FORCES[force][1]
+    s = getattr(scenes, scene)(25, torch.float32)
     state = {k: (dict(v) if isinstance(v, dict) else v)
              for k, v in s.state.items()}
-    line = {"label": label, "call": "tet100k general step", "dtype":
-            "float32", "device": card, "device_ops_per_step":
+    line = {"label": label, "force": force,
+            "call": f"{scene} general step", "dtype": "float32",
+            "device": card, "device_ops_per_step":
             profile_step.call_ops(lambda: s._step(state, s.params))[
                 "device_ops_per_call"]}
     print(json.dumps(line), flush=True)
@@ -173,42 +194,60 @@ def time_root(root, label, out_path, save):
                 fh.write(json.dumps(line) + "\n")
 
 
-def designs(out_path):
+def entry_args(force, f, p, x, u, st):
+    """The force's two wrappers on these inputs as the C entries take them:
+    {"fused"|"step": (module, wrapper name, its tensor arguments, its
+    keyword arguments, the ints its C entry takes after E)}."""
+    from admm_elastic_tpu_torch.ops.kernels import nh_local, tet_local
+
+    tets = p["indices"]
+    dx = f.compute_Dx(p, x)
+    if force == "arap":
+        consts = (p["coeff_p"], p["w2"], p["k"])
+        return {"fused": (tet_local, "arap_local_step_fused",
+                          (x, tets, u, *consts), {}, ()),
+                "step": (tet_local, "arap_local_step", (dx, u, *consts[1:]),
+                         {}, ())}
+    consts = (p["coeff_p"], p["mu"], p["lam"], p["k"], p["w2"])
+    iters = {"iters": f.max_iters}
+    return {"fused": (nh_local, "nh_local_step_fused",
+                      (x, tets, u, st["sigma"], *consts), iters,
+                      (f.max_iters,)),
+            "step": (nh_local, "nh_local_step",
+                     (dx, u, st["sigma"], *consts[1:4]), iters,
+                     (f.max_iters,))}
+
+
+def designs(out_path, force):
     import torch
 
     sys.path.insert(0, ROOT)
-    from admm_elastic_tpu_torch.ops.kernels import _build, nh_local
+    from admm_elastic_tpu_torch.ops.kernels import _build
     from admm_elastic_tpu_torch.utils import sass_counts, scenes
     from admm_elastic_tpu_torch.utils.time_solves import load_probe
 
-    dll, log, lib = load_probe("nh_design_probe", DESIGN_PROBE)
+    probe, signatures = PROBES[force]
+    dll, log, lib = load_probe(probe, signatures)
     card = torch.cuda.get_device_name(0)
-    sass = sass_counts.counts(ROOT, "probe", ("nh::",), lib=lib, log=log)
+    sass = sass_counts.counts(ROOT, "probe", (f"{force}::",), lib=lib,
+                              log=log)
     lines = []
     for dtype in (torch.float32, torch.float64):
         t = _build.SUFFIX[dtype]
-        s, f, p, x, u, st = tet100k_inputs(torch, scenes, dtype)
-        E, warm = f.n_elements, st["sigma"]
-        tets = p["indices"].to(torch.int32).contiguous()
-        consts = (p["coeff_p"], p["mu"], p["lam"], p["k"], p["w2"])
-        dx = f.compute_Dx(p, x)
-        twins = {"fused": nh_local.nh_local_step_fused_reference(
-                     x, tets, u, warm, *consts, iters=f.max_iters),
-                 "step": nh_local.nh_local_step_reference(
-                     dx, u, warm, *consts[1:4], iters=f.max_iters)}
-        for entry, twin in twins.items():
+        s, f, p, x, u, st = force_inputs(torch, scenes, dtype, force)
+        E = f.n_elements
+        for entry, (mod, name, args, kw, ints) in entry_args(
+                force, f, p, x, u, st).items():
+            args = [a.to(torch.int32).contiguous()
+                    if not a.is_floating_point() else a for a in args]
+            twin = getattr(mod, name + "_reference")(*args, **kw)
             outs = [torch.empty_like(w) for w in twin]
-            if entry == "fused":
-                fn = getattr(dll, f"nh_design_fused_{t}")
-                args = (x, tets, u, warm, *consts)
-            else:
-                fn = getattr(dll, f"nh_design_step_{t}")
-                args = (dx, u, warm, *consts[1:4])
+            fn = getattr(dll, f"{force}_design_{entry}_{t}")
             ptrs = [a.data_ptr() for a in (*args, *outs)]
             first = None
             for d in range(N_DESIGNS):
                 def call():
-                    err = fn(d, *ptrs, E, f.max_iters,
+                    err = fn(d, *ptrs, E, *ints,
                              torch.cuda.current_stream().cuda_stream)
                     _build.check(err, f"design {d}")
 
@@ -226,9 +265,10 @@ def designs(out_path):
                     e1.record()
                     torch.cuda.synchronize()
                     ev.append(e0.elapsed_time(e1) / REPS)
-                kernel = [ln for ln in sass
-                          if _instance(entry, dtype, d) in ln["kernel"]]
-                line = {"design": d, "min_blocks": d + 1, "entry": entry,
+                kernel = [ln for ln in sass if _instance(
+                    force, entry, dtype, d) in ln["kernel"]]
+                line = {"force": force, "design": d,
+                        "min_blocks": d + 1, "entry": entry,
                         "dtype": str(dtype)[6:], "E": E, "device": card,
                         "events_ms": sorted(ev)[len(ev) // 2],
                         "traced_ms": traced(torch, call)[0],
@@ -241,7 +281,7 @@ def designs(out_path):
                         if kernel else None}
                 print(json.dumps(line), flush=True)
                 lines.append(line)
-        del s, f, p, x, u, st, dx, twins
+        del s, f, p, x, u, st
     if out_path:
         with open(out_path, "a") as fh:
             for line in lines:
@@ -252,59 +292,71 @@ def designs(out_path):
         raise SystemExit(f"time_elements: {len(bad)} designs disagree")
 
 
-def host_split(out_path):
-    """The host's us a call of `nh_local_step_fused` at tet100k's shapes
-    (f32), whole and by part: the force's method, the wrapper with and
-    without `out=` buffers, its plan lookup, its four output allocations,
-    one allocation split into four views in their place, the stream
-    lookup and the C entry alone (a launch). Each part over 200
-    calls on the host clock, before the closing synchronize (the card
-    runs behind: the host's work is what is timed)."""
+def host_split(out_path, force):
+    """The host's us a call of the force's element wrappers at its scene's
+    shapes (f32), whole and by part: the force's fused method, the fused
+    wrapper with and without `out=` buffers, its plan lookup, its output
+    allocations, one allocation split into as many views in their place,
+    the stream lookup and the C entry alone (a launch); and the unfused
+    wrapper with and without `out=` buffers. Each part over 200 calls on
+    the host clock, before the closing synchronize (the card runs behind:
+    the host's work is what is timed)."""
     import time
 
     import torch
 
     sys.path.insert(0, ROOT)
-    from admm_elastic_tpu_torch.ops.kernels import _build, nh_local
+    from admm_elastic_tpu_torch.ops.kernels import _build
     from admm_elastic_tpu_torch.utils import scenes
 
-    s, f, p, x, u, st = tet100k_inputs(torch, scenes, torch.float32)
-    names = ("cp12", "mu", "lam", "k", "w2")
-    consts = tuple(p[k] for k in ("coeff_p", "mu", "lam", "k", "w2"))
-    tets, warm = p["indices"], st["sigma"]
-    args = (x, tets, u, warm, *consts)
-    want = nh_local.nh_local_step_fused(*args)
+    s, f, p, x, u, st = force_inputs(torch, scenes, torch.float32, force)
+    calls = entry_args(force, f, p, x, u, st)
+    mod, name, args, kw, ints = calls["fused"]
+    wrapper = getattr(mod, name)
+    want = wrapper(*args, **kw)
     out = tuple(torch.empty_like(w) for w in want)
-    plan = nh_local._plan("nh_local_step_fused", dict(zip(names, consts)),
-                          tets)
-    ptrs = (x.data_ptr(), plan.tets_ptr, u.data_ptr(), warm.data_ptr(),
+    names = (("cp12", "w2", "k") if force == "arap"
+             else ("cp12", "mu", "lam", "k", "w2"))
+    consts = dict(zip(names, args[-len(names):]))
+    tets = args[1]
+    plan = _build.element_plan(name, consts, tets)
+    state = args[2:-len(names)]  # u9 (and the warm start)
+    ptrs = (x.data_ptr(), plan.tets_ptr, *(a.data_ptr() for a in state),
             *plan.ptrs, *(o.data_ptr() for o in out))
     stream = _build.stream_ptr(x)
     sizes = [w.numel() for w in want]
+    smod, sname, sargs, skw, _ = calls["step"]
+    step = getattr(smod, sname)
+    sout = tuple(torch.empty_like(w) for w in step(*sargs, **skw))
 
     def one_allocation():
         buf = torch.empty(sum(sizes), dtype=x.dtype, device=x.device)
         return [b.view(w.shape) for b, w in zip(torch.split(buf, sizes),
                                                 want)]
 
+    n = len(want)
     parts = {
         "force method": lambda: f.fused_local_rhs(p, x, u, st),
-        "wrapper": lambda: nh_local.nh_local_step_fused(*args),
-        "wrapper, out= given": lambda: nh_local.nh_local_step_fused(
-            *args, out=out),
-        "plan lookup": lambda: nh_local._plan(
-            "nh_local_step_fused", dict(zip(names, consts)), tets),
-        "4 output allocations": lambda: [
+        "wrapper": lambda: wrapper(*args, **kw),
+        "wrapper, out= given": lambda: wrapper(*args, **kw, out=out),
+        "plan lookup": lambda: _build.element_plan(name, consts, tets),
+        f"{n} output allocations": lambda: [
             torch.empty(w.shape, dtype=w.dtype, device=w.device)
             for w in want],
-        "1 allocation, 4 views": one_allocation,
+        f"1 allocation, {n} views": one_allocation,
         "stream lookup": lambda: _build.stream_ptr(x),
-        "C entry alone": lambda: plan.fn(*ptrs, plan.E, f.max_iters, 0, 0,
-                                         stream),
+        # E, the ints, then emit_z (nh: model 0 first) and the stream
+        "C entry alone": lambda: plan.fn(*ptrs, plan.E, *ints,
+                                         *((0,) if force == "nh" else ()),
+                                         0, stream),
+        "unfused wrapper": lambda: step(*sargs, **skw),
+        "unfused wrapper, out= given": lambda: step(*sargs, **skw,
+                                                    out=sout),
     }
-    line = {"call": "host split nh_local_step_fused", "dtype": "float32",
-            "E": plan.E, "device": torch.cuda.get_device_name(0)}
-    for name, call in parts.items():
+    line = {"call": f"host split {name}", "force": force,
+            "dtype": "float32", "E": plan.E,
+            "device": torch.cuda.get_device_name(0)}
+    for part, call in parts.items():
         best = []
         for _ in range(WINDOWS):
             torch.cuda.synchronize()
@@ -313,20 +365,22 @@ def host_split(out_path):
                 call()
             best.append(1e6 * (time.perf_counter() - t0) / 200)
         torch.cuda.synchronize()
-        line[f"{name} us"] = sorted(best)[len(best) // 2]
+        line[f"{part} us"] = sorted(best)[len(best) // 2]
     print(json.dumps(line), flush=True)
     if out_path:
         with open(out_path, "a") as fh:
             fh.write(json.dumps(line) + "\n")
 
 
-def _instance(entry, dtype, d):
+def _instance(force, entry, dtype, d):
     """The demangled name (as cuobjdump gives it) of design d's kernel of
-    an entry (NeoHookean, no emit_z), up to its arguments."""
+    a force's entry (nh: NeoHookean; no emit_z), up to its arguments."""
     import torch
 
     ctype = "float" if dtype == torch.float32 else "double"
     mode = "(bool)0, " if entry == "fused" else ""
+    if force == "arap":
+        return f"arap::{entry}_kernel<{ctype}, {mode}(int){d + 1}>"
     return f"nh::{entry}_kernel<{ctype}, (int)0, {mode}(int){d + 1}>"
 
 
@@ -353,6 +407,9 @@ def compare(save) -> bool:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--force", choices=tuple(FORCES), default="nh",
+                    help="the element pair: nh (tet100k) or arap "
+                         "(arap100k)")
     ap.add_argument("--root", default=".",
                     help="checkout whose element steps to time")
     ap.add_argument("--label", default="")
@@ -368,11 +425,11 @@ def main():
     if a.compare:
         sys.exit(0 if compare(a.compare) else 1)
     if a.host:
-        host_split(a.out)
+        host_split(a.out, a.force)
     elif a.designs:
-        designs(a.out)
+        designs(a.out, a.force)
     else:
-        time_root(a.root, a.label or a.root, a.out, a.save)
+        time_root(a.root, a.label or a.root, a.out, a.save, a.force)
 
 
 if __name__ == "__main__":

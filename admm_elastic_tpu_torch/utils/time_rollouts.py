@@ -29,10 +29,11 @@ algebraic multigrids (`--scenes uamg`), delaunay100k on the banded-ELL
 route at uamg6 and uamg8 and on the general ell route's aggregation AMG
 at 6 (a checkout before them has neither: leave them out there); and
 the general route (`--scenes general`: no whole-timestep stepper, the
-element steps through `nh_local_step_fused` or `nh_local_step`): tet100k
-on dia at the `--cg` budgets, on the dense inverse and with
-`relaxation=1.6` (cg25), and delaunay100k on ell with the cg_ell kernel
-(cg25).
+element steps through `nh_local_step_fused` or `nh_local_step`, and
+`arap_local_step_fused` or `arap_local_step`): tet100k on dia at the
+`--cg` budgets, on the dense inverse and with `relaxation=1.6` (cg25),
+delaunay100k on ell with the cg_ell kernel (cg25), and arap100k on dia
+at the `--cg` budgets and with `relaxation=1.6` (cg25).
 `--scenes` keeps the scenes whose names start with one of its words.
 `--collect` turns on residual collection on every route ("primal", or
 "full": both residuals; the sharded stepper collects "primal" only, and
@@ -101,6 +102,10 @@ def _scenes(scenes, torch, budgets):
             (40, 25, 20), 0.05, 50.0, cg, f32, relaxation=1.6), (25,)),
         "general delaunay100k ell": (lambda cg: scenes.delaunay100k(
             cg, f32, fast=False, cg_backend="kernel"), (25,)),
+        "general arap100k dia": (lambda cg: scenes.arap100k(cg, f32),
+                                 budgets),
+        "general arap100k relaxation1.6": (lambda cg: scenes.arap100k(
+            cg, f32, relaxation=1.6), (25,)),
     }
 
 

@@ -357,13 +357,11 @@ def unshared(xg):
                            device=xg.device).reshape(E, 4)
 
 
-def nh_inputs(torch, s, name, xg, rng):
-    """Both hyperelastic entries' inputs at a scene's elements: "mesh", the
-    fused entry on the scene's own mesh (x_bar after the gravity kick moved
-    by 2 mm N(0,1), int32 tets: the main path's gather from L2);
-    "unshared", on tet_inputs' gathered inputs (inverted, collapsed and
-    degenerate elements) as a mesh of unshared vertices; "step", the
-    unfused entry on their Dx. Zero duals, warm start 1."""
+def mesh_inputs(torch, s, name, xg, rng):
+    """A tet force's element inputs at a scene's elements: (x_bar after the
+    gravity kick moved by 2 mm N(0,1), the int32 tets, zero duals, the
+    force's params, the unshared form of tet_inputs' gathered inputs xg
+    (inverted, collapsed and degenerate elements), their Dx)."""
     p = s.params[name]
     E = p["indices"].shape[0]
     x0 = s.state["x"]
@@ -372,12 +370,32 @@ def nh_inputs(torch, s, name, xg, rng):
     xbar += torch.as_tensor(0.002 * rng.standard_normal(x0.shape),
                             dtype=x0.dtype, device=x0.device)
     u = torch.zeros((9, E), dtype=x0.dtype, device=x0.device)
-    warm = torch.ones((3, E), dtype=x0.dtype, device=x0.device)
+    return (xbar, p["indices"].to(torch.int32), u, p, unshared(xg),
+            tet_dx(xg, p["coeff_p"]))
+
+
+def nh_inputs(torch, s, name, xg, rng):
+    """Both hyperelastic entries' inputs at a scene's elements: "mesh", the
+    fused entry on the scene's own mesh (mesh_inputs: the main path's
+    gather from L2); "unshared", on tet_inputs' gathered inputs as a mesh
+    of unshared vertices; "step", the unfused entry on their Dx. Zero
+    duals, warm start 1."""
+    xbar, tets, u, p, free, dx = mesh_inputs(torch, s, name, xg, rng)
+    warm = torch.ones_like(u[:3])
     consts = [p["coeff_p"], p["mu"], p["lam"], p["k"], p["w2"]]
-    tets = p["indices"].to(torch.int32)
     return {"mesh": [xbar, tets, u, warm, *consts],
-            "unshared": [*unshared(xg), u, warm, *consts],
-            "step": [tet_dx(xg, p["coeff_p"]), u, warm, *consts[1:4]]}
+            "unshared": [*free, u, warm, *consts],
+            "step": [dx, u, warm, *consts[1:4]]}
+
+
+def arap_inputs(torch, s, name, xg, rng):
+    """Both ARAP entries' inputs at a scene's elements, as nh_inputs':
+    "mesh", "unshared" (the fused entry) and "step" (the unfused one).
+    Zero duals."""
+    xbar, tets, u, p, free, dx = mesh_inputs(torch, s, name, xg, rng)
+    consts = [p["coeff_p"], p["w2"], p["k"]]
+    return {"mesh": [xbar, tets, u, *consts],
+            "unshared": [*free, u, *consts], "step": [dx, u, *consts[1:]]}
 
 
 def check_element(torch, label, kernel, twin, ins, dtype, tol, tol_on,
@@ -480,13 +498,13 @@ def start_element_sass():
     """Start `utils/sass_counts.py` on this checkout's built library, in a
     process of its own beside the checks (it disassembles the whole
     library). Returns a function that waits for it and prints the
-    hyperelastic kernels' registers, spills and static SASS size, one line
-    each."""
+    hyperelastic and ARAP element kernels' registers, spills and static
+    SASS size, one line each."""
     proc = subprocess.Popen(
         [sys.executable, os.path.join(HERE, "admm_elastic_tpu_torch", "utils",
                                       "sass_counts.py"),
          "--root", HERE, "--label", "this", "--match", "nh::fused_kernel",
-         "nh::step_kernel"],
+         "nh::step_kernel", "arap::fused_kernel", "arap::step_kernel"],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     atexit.register(proc.kill)
 
@@ -503,24 +521,33 @@ def start_element_sass():
     return finish
 
 
-def check_arap(torch, xg, p, dtype):
-    """Both ARAP entries on arap100k's elements: 1e-12 (f64) or 1e-5 (f32)
-    relative on every element."""
-    u = torch.zeros((9, xg.shape[1]), dtype=xg.dtype, device=xg.device)
-    tol = (1e-12, "rel") if dtype == torch.float64 else (1e-5, "rel")
-    fused = check_element(torch, "arap_local_step_fused",
-                          ptet.arap_local_step_fused,
-                          ptet.arap_local_step_fused_reference,
-                          [xg, u, p["coeff_p"], p["w2"], p["k"]], dtype, *tol)
+def check_arap(torch, arap, dtype):
+    """Both ARAP entries bitwise to their twins (arap_inputs): the fused
+    one on the scene's mesh and on the unshared inputs, with and without
+    emit_z; the unfused one on Dx. The cases on the mesh and Dx are also
+    timed traced and by events with the host's us a call. Returns the
+    numbers (error, ms, plain_ms, bound_ms, bound_by) of the fused entry
+    on the mesh and of the unfused entry."""
+    got = {}
+    for case in ("mesh", "unshared"):
+        for emit_z in (False, True):
+            label = f"arap_local_step_fused {case}" + (" emit_z" * emit_z)
+            got[label] = check_element(
+                torch, label, ptet.arap_local_step_fused,
+                ptet.arap_local_step_fused_reference, arap[case], dtype, 0.0,
+                "abs", info=dict(E=arap[case][1].shape[0],
+                                 n=arap[case][0].shape[0]), emit_z=emit_z)
     step = check_element(torch, "arap_local_step", ptet.arap_local_step,
-                         ptet.arap_local_step_reference,
-                         [tet_dx(xg, p["coeff_p"]), u, p["w2"], p["k"]],
-                         dtype, *tol)
-    element_times(torch, "arap_local_step_fused", ptet.arap_local_step_fused,
-                  [xg, u, p["coeff_p"], p["w2"], p["k"]], dtype)
+                         ptet.arap_local_step_reference, arap["step"], dtype,
+                         0.0, "abs")
+    element_times(torch, "arap_local_step_fused mesh",
+                  ptet.arap_local_step_fused, arap["mesh"], dtype)
+    element_times(torch, "arap_local_step_fused mesh emit_z",
+                  ptet.arap_local_step_fused, arap["mesh"], dtype,
+                  emit_z=True)
     element_times(torch, "arap_local_step", ptet.arap_local_step,
-                  [tet_dx(xg, p["coeff_p"]), u, p["w2"], p["k"]], dtype)
-    return fused, step
+                  arap["step"], dtype)
+    return got["arap_local_step_fused mesh"], step
 
 
 def check_solve(torch, label, mod, args, tol, reps=20, plain_reps=5):
@@ -1613,7 +1640,7 @@ def check_emit_z(torch, label, kernel, twin, ins, dtype, **kw):
     n_ops, n_bytes = twin_counts(twin, *ins, emit_z=True, **kw)
     bound_ms, bound_by = roofline_ms(n_bytes, n_ops)
     ok = twin_ok and same and fin
-    say(f"emit_z {label} {str(dtype)[6:]}", E=ins[0].shape[1],
+    say(f"emit_z {label} {str(dtype)[6:]}", E=got[0].shape[-1],
         max_abs_err=err, bitwise_vs_twin=twin_ok,
         other_outputs_bitwise_vs_off=same, finite=fin, ms=ms,
         ms_without_emit_z=ms_off, plain_ms=plain_ms, operations=n_ops,
@@ -2023,15 +2050,14 @@ def main():
     # phase 3i: the ARAP entries at arap100k's elements
     a64 = arap100k(25, torch.float64)
     xg, p = tet_inputs(torch, a64, "c1_LinearTetStrain", rng)
-    check_arap(torch, xg, p, torch.float64)
-    arapf32, arap32 = check_arap(torch, xg, p, torch.float32)
+    arap = arap_inputs(torch, a64, "c1_LinearTetStrain", xg, rng)
+    check_arap(torch, arap, torch.float64)
+    arapf32, arap32 = check_arap(torch, arap, torch.float32)
     # phase 3p at arap100k's elements
     emitz["arap"] = check_emit_z(
         torch, "arap_local_step_fused arap100k", ptet.arap_local_step_fused,
-        ptet.arap_local_step_fused_reference,
-        [xg, torch.zeros_like(xg[:9]), p["coeff_p"], p["w2"], p["k"]],
-        torch.float32)
-    del a64, xg, p
+        ptet.arap_local_step_fused_reference, arap["mesh"], torch.float32)
+    del a64, xg, p, arap
 
     # phase 3b: the banded whole-timestep window against its plain version
     # (bitwise): the jittered beam (floor, sphere, cylinder) in every mode
@@ -2069,8 +2095,8 @@ def main():
                                 ptri.tri_local_step_fused_reference, ins,
                                 torch.float32)
     del cloth64, ins
-    # the hyperelastic kernels' registers, spills and SASS size, counted
-    # beside phases 3 to 3c
+    # the hyperelastic and ARAP kernels' registers, spills and SASS size,
+    # counted beside phases 3 to 3c
     element_sass()
 
     # phase 3p: the three fused element kernels' emit_z mode (the rows of
@@ -2088,7 +2114,8 @@ def main():
     check_emit_z(torch, "arap_local_step_fused beam 6x5x4",
                  ptet.arap_local_step_fused,
                  ptet.arap_local_step_fused_reference,
-                 [xg, u9, p["coeff_p"], p["w2"], p["k"]], torch.float64)
+                 [*unshared(xg), u9, p["coeff_p"], p["w2"], p["k"]],
+                 torch.float64)
     check_emit_z(torch, "tri_local sheet 8x6", ptri.tri_local_step_fused,
                  ptri.tri_local_step_fused_reference,
                  tri_inputs(torch, small_cloth(torch.float64, fast=False),

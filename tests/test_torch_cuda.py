@@ -22,7 +22,8 @@ same bits as the window's eager launches. The element steps
 arap_local_step_fused, arap_local_step) are built without FMA contraction
 and use correctly rounded sqrt and division, as their twins do on the
 card: bitwise (the hyperelastic pair also at E = 1, 1,000 and 100,003,
-nh and stvk, the fused one with and without emit_z and into out=
+nh and stvk, the ARAP pair at E = 7, 1,000 and 100,003, on a mesh and on
+unshared vertices, the fused ones with and without emit_z and into out=
 buffers). banded_local_rhs runs
 the banded kernel's element and vertex phases (1e-12 relative in f64,
 1e-4 in f32: a last-bit difference may move a Newton tie); cheb_dia_chunk
@@ -301,16 +302,29 @@ def _element_inputs(planes, vectors, dtype, device, seed=0, E=4096):
     return [torch.as_tensor(a, dtype=dtype, device=device) for a in ins]
 
 
+def _unshared(ins):
+    """A fused tet step's inputs (xg12, then the rest) with the gathered
+    positions xg12 (12,E) as positions (4E,3) and int32 tets (E,4) of
+    vertices no two elements share: vertex 4e+k holds xg12[3k:3k+3, e]."""
+    xg, *rest = ins
+    E = xg.shape[1]
+    return [xg.T.reshape(4 * E, 3).contiguous(),
+            torch.arange(4 * E, dtype=torch.int32,
+                         device=xg.device).view(E, 4), *rest]
+
+
+# name: (kernel, twin, planes, vectors, the gathered positions as a mesh)
 ELEMENT_STEPS = {
     "nh_local_step": (nh_local.nh_local_step,
-                      nh_local.nh_local_step_reference, (9, 9, 3), 3),
+                      nh_local.nh_local_step_reference, (9, 9, 3), 3, False),
     "tri_local_step": (tri_local.tri_local_step,
-                       tri_local.tri_local_step_reference, (6, 6), 4),
+                       tri_local.tri_local_step_reference, (6, 6), 4, False),
     "arap_local_step_fused": (tet_local.arap_local_step_fused,
                               tet_local.arap_local_step_fused_reference,
-                              (12, 9, 12), 2),
+                              (12, 9, 12), 2, True),
     "arap_local_step": (tet_local.arap_local_step,
-                        tet_local.arap_local_step_reference, (9, 9), 2),
+                        tet_local.arap_local_step_reference, (9, 9), 2,
+                        False),
 }
 
 
@@ -319,8 +333,10 @@ ELEMENT_STEPS = {
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
 def test_element_step_kernel_is_its_twin(dtype, name):
     dev = _cuda()
-    kernel, twin, planes, vectors = ELEMENT_STEPS[name]
+    kernel, twin, planes, vectors, mesh = ELEMENT_STEPS[name]
     ins = _element_inputs(planes, vectors, dtype, dev)
+    if mesh:
+        ins = _unshared(ins)
     n0 = kernel.launches
     got = kernel(*ins)
     assert kernel.launches == n0 + 1
@@ -435,6 +451,111 @@ def test_nh_out_buffers_on_the_card():
         got, nh_local.nh_local_step_reference(*step)))
     with pytest.raises(ValueError, match="overlaps"):
         nh_local.nh_local_step(*step, out=(sout[0], step[1], sout[2]))
+
+
+def _arap_inputs(E, dtype, dev, form, seed=0):
+    """Both ARAP entries' inputs at E elements: the fused entry's on
+    "mesh", positions of E // 4 + 4 vertices and random tets over them (so
+    inverted and near-degenerate elements; 64 collapsed to one vertex when
+    E > 128), or on "unshared", `_element_inputs`' gathered positions
+    (inverted and zeroed elements) as vertices no two elements share;
+    random selector planes, duals, w2 and k. Returns (fused arguments,
+    the unfused entry's on their Dx)."""
+    if form == "unshared":
+        xg, u, cp, w2, k = _element_inputs((12, 9, 12), 2, dtype, dev,
+                                           seed=seed, E=E)
+        x, tets = _unshared([xg])
+    else:
+        rng = np.random.default_rng(seed)
+        n = E // 4 + 4
+        tets = rng.integers(0, n, size=(E, 4)).astype(np.int32)
+        if E > 128:
+            tets[E // 2: E // 2 + 64] = tets[E // 2: E // 2 + 64, :1]
+        x, u, cp, w2, k = (torch.as_tensor(a, dtype=dtype, device=dev)
+                           for a in (rng.normal(size=(n, 3)),
+                                     0.1 * rng.normal(size=(9, E)),
+                                     rng.normal(size=(12, E)),
+                                     rng.uniform(0.5, 2.0, E),
+                                     rng.uniform(0.5, 5.0, E)))
+        tets = torch.as_tensor(tets, device=dev)
+    return (x, tets, u, cp, w2, k), (_dx_of(x, tets, cp), u, w2, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [7, 1000, 100003])
+@pytest.mark.parametrize("form", ["mesh", "unshared"])
+@pytest.mark.parametrize("emit_z", [False, True], ids=["rows", "emit_z"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_arap_fused_kernel_is_its_twin(dtype, emit_z, form, E):
+    """arap_local_step_fused (the kernel gathers from x through the tets
+    and writes (4E,3) or (4E,6) rows) bitwise to its twin, on a mesh and
+    on unshared vertices, a last warp of few elements and a grid of fewer
+    than 32 included; with emit_z the other outputs the same bits as
+    without."""
+    dev = _cuda()
+    fused, _ = _arap_inputs(E, dtype, dev, form)
+    fn = tet_local.arap_local_step_fused
+    n0, m0 = fn.launches, fn.residual_launches
+    got = fn(*fused, emit_z=emit_z)
+    assert fn.launches == n0 + 1 and fn.residual_launches == m0 + emit_z
+    want = tet_local.arap_local_step_fused_reference(*fused, emit_z=emit_z)
+    assert got[2].shape == (4 * E, 6 if emit_z else 3)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
+    if emit_z:
+        off = fn(*fused)
+        assert all(torch.equal(g, o) for g, o in zip(got[:2], off[:2]))
+        assert torch.equal(got[2][:, :3], off[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [7, 1000, 100003])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_arap_step_kernel_is_its_twin(dtype, E):
+    dev = _cuda()
+    _, step = _arap_inputs(E, dtype, dev, "mesh")
+    n0 = tet_local.arap_local_step.launches
+    got = tet_local.arap_local_step(*step)
+    assert tet_local.arap_local_step.launches == n0 + 1
+    for g, w in zip(got, tet_local.arap_local_step_reference(*step)):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_arap_out_buffers_on_the_card(dtype):
+    """Two sets of out= buffers used in turn, as the System uses them (the
+    outputs of one call the inputs of the next), get the twin's bits;
+    one that aliases an input, or another output, raises before any
+    launch. The fused call is one device op in a CUDA graph."""
+    dev = _cuda()
+    fused, step = _arap_inputs(1000, dtype, dev, "mesh")
+    for fn, twin, args, iu in (
+            (tet_local.arap_local_step_fused,
+             tet_local.arap_local_step_fused_reference, fused, 2),
+            (tet_local.arap_local_step, tet_local.arap_local_step_reference,
+             step, 1)):
+        sets = [tuple(torch.empty_like(w) for w in fn(*args))
+                for _ in range(2)]
+        args = list(args)
+        for i in range(4):
+            want = twin(*args)
+            got = fn(*args, out=sets[i % 2])
+            assert all(g is o and torch.equal(g, w)
+                       for g, o, w in zip(got, sets[i % 2], want))
+            args[iu] = got[1]  # the next call's duals
+        n0 = fn.launches
+        out = sets[0]
+        with pytest.raises(ValueError, match="overlaps"):
+            fn(*args, out=(out[0], args[iu], *out[2:]))
+        with pytest.raises(ValueError, match="overlaps"):
+            fn(*args, out=(out[0], out[0], *out[2:]))
+        assert fn.launches == n0
+    ops = profile_step.call_ops(
+        lambda: tet_local.arap_local_step_fused(*fused))
+    assert ops == {"device_ops_per_call": 1.0, "kinds": ["kernel"]}
 
 
 # name: LatticeStepper keyword arguments
@@ -930,15 +1051,16 @@ def test_general_amg_route_card_vs_cpu():
     assert np.array_equal(x1, x2) and np.array_equal(v1, v2)
 
 
-# the fused element steps' emit_z mode: (kernel, twin, planes, vectors);
-# nh_local_step_fused's is tested with its entry below
+# the fused element steps' emit_z mode: (kernel, twin, planes, vectors,
+# the gathered positions as a mesh); nh_local_step_fused's is tested with
+# its entry above
 EMIT_Z = {
     "arap_local_step_fused": (tet_local.arap_local_step_fused,
                               tet_local.arap_local_step_fused_reference,
-                              (12, 9, 12), 2),
+                              (12, 9, 12), 2, True),
     "tri_local_step_fused": (tri_local.tri_local_step_fused,
                              tri_local.tri_local_step_fused_reference,
-                             (9, 6, 6), 4),
+                             (9, 6, 6), 4, False),
 }
 
 
@@ -947,10 +1069,13 @@ EMIT_Z = {
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
 def test_emit_z_kernel_is_its_twin(dtype, name):
     """The z block and every other output bitwise to the twin's, and the
-    other outputs bitwise to the launch without emit_z."""
+    other outputs bitwise to the launch without emit_z (the ARAP step's
+    rows are 6 wide with it, the triangle step's z rows a block more)."""
     dev = _cuda()
-    kernel, twin, planes, vectors = EMIT_Z[name]
+    kernel, twin, planes, vectors, mesh = EMIT_Z[name]
     ins = _element_inputs(planes, vectors, dtype, dev)
+    if mesh:
+        ins = _unshared(ins)
     n0 = kernel.residual_launches
     got = kernel(*ins, emit_z=True)
     assert kernel.residual_launches == n0 + 1
@@ -958,8 +1083,8 @@ def test_emit_z_kernel_is_its_twin(dtype, name):
         assert bool(torch.isfinite(g).all())
         assert torch.equal(g, w)
     off = kernel(*ins)
-    assert len(got) == len(off) + 1
-    assert all(torch.equal(g, o) for g, o in zip(got, off))
+    assert all(torch.equal(g[..., :o.shape[-1]], o)
+               for g, o in zip(got, off))
 
 
 # the collecting windows: stepper maker, wrapper, twin, state keys

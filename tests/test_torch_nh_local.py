@@ -283,8 +283,8 @@ def test_wrapper_checks_and_cpu_route():
 @pytest.mark.parametrize("model", ["nh", "stvk"])
 def test_fused_twin_is_the_gathered_path_bitwise(model, emit_z):
     """The fused twin from x and the tets equals, bit for bit, the path it
-    replaced on a beam: the force's gather (12,E), the Pallas layout's twin,
-    then flat_rows."""
+    replaced on a beam: the gather (12,E) the force made, the Pallas
+    layout's twin, then flat_rows."""
     rng = np.random.default_rng(7)
     beam = make_beam_tets(4, 3, 2, size=0.25)
     f = HyperElasticTet(beam.tets, mu=1e4, lam=4e4, max_iters=4, model=model,
@@ -297,8 +297,9 @@ def test_fused_twin_is_the_gathered_path_bitwise(model, emit_z):
     u = torch.as_tensor(0.05 * rng.normal(size=(9, En)))
     warm = torch.as_tensor(rng.uniform(0.5, 1.5, size=(3, En)))
     consts = (p["coeff_p"], p["mu"], p["lam"], p["k"], p["w2"])
-    old = pnh._fused_planes(f._gathered(p, x), u, warm, *consts, iters=4,
-                            model=model, emit_z=emit_z)
+    xg = x[p["indices"]].reshape(En, 12).T.contiguous()
+    old = pnh._fused_planes(xg, u, warm, *consts, iters=4, model=model,
+                            emit_z=emit_z)
     new = pnh.nh_local_step_fused(x, p["indices"], u, warm, *consts,
                                   iters=4, model=model, emit_z=emit_z)
     for g, w in zip(new, (*old[:3], flat_rows(old[3:]))):
@@ -380,16 +381,16 @@ def test_system_alternates_the_fused_buffers(collect, monkeypatch):
         return s
 
     s = run()
-    bufs = [t for sets in s._fused_sets.values() for one in sets
+    bufs = [t for sets in s._out_sets.values() for one in sets
             for t in one]
     assert len(bufs) == 8
     state = [s.state["x"], *s.state["u"].values(),
              *(t for st in s.state["forces"].values() for t in st.values())]
     ptrs = {t.untyped_storage().data_ptr() for t in bufs}
     assert not any(t.untyped_storage().data_ptr() in ptrs for t in state)
-    monkeypatch.delattr(HyperElasticTet, "fused_out_buffers")
+    monkeypatch.setattr(HyperElasticTet, "fused_out_buffers", None)
     fresh = run()
-    assert not fresh._fused_sets
+    assert not fresh._out_sets
     for a, b in zip(state, [fresh.state["x"], *fresh.state["u"].values(),
                             *(t for st in fresh.state["forces"].values()
                               for t in st.values())]):

@@ -170,7 +170,9 @@ def test_lattice_rollout_counts():
 
 @pytest.mark.parametrize("kernel,planes,vectors,floats", [
     ("nh_local_step", (9, 9, 3), 3, 45),
-    ("arap_local_step_fused", (12, 9, 12), 2, 65),
+    # x (4E,3) and int32 tets (E,4) of unshared vertices, then planes: the
+    # tets' 16 bytes an element count as two values
+    ("arap_local_step_fused", ("x", "tets", 9, 12), 2, 67),
     ("arap_local_step", (9, 9), 2, 38),
     ("tri_local_step", (6, 6), 4, 28),
 ], ids=["nh_local_step", "arap_local_step_fused", "arap_local_step",
@@ -186,7 +188,10 @@ def test_local_step_counts_are_per_element(kernel, planes, vectors, floats):
 
     def counts(E, seed):
         g = torch.Generator().manual_seed(seed)
-        ins = [torch.randn(r, E, generator=g, dtype=torch.float64)
+        ins = [torch.randn(4 * E, 3, generator=g, dtype=torch.float64)
+               if r == "x" else torch.arange(4 * E, dtype=torch.int32).view(
+                   E, 4) if r == "tets"
+               else torch.randn(r, E, generator=g, dtype=torch.float64)
                for r in planes]
         ins += [torch.rand(E, generator=g, dtype=torch.float64) + 0.5
                 for _ in range(vectors)]

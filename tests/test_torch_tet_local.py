@@ -1,12 +1,18 @@
 """The port's plain ARAP (corotational) tet local steps against the JAX
 package's Pallas kernels (`arap_local_step_fused`, `arap_local_step`) in
-f64.
+f64, and the port's wrappers, plans, `out=` buffers and the System's two
+sets of them on the general route.
 
 The inputs are random selector planes and positions, a quarter of them
 inverted, plus elements whose F is set exactly (positions zero, so F = u):
 F = 0, rank 1, rank 2, scaled rotations and reflections (F^T F isotropic:
 every Jacobi rotation has apq = 0 and sign(0) = 0), diagonal F with
 repeated entries (ties in the sorting network), and collapsed F (1e-9).
+The port's fused entry gathers from positions x through the tets, so it
+takes the gathered positions (12,E) of the JAX kernel as a mesh whose
+elements share no vertex (`_unshared`: vertex 4e+k holds element e's
+corner k), and its (4E,3) rows are held against JAX's row planes (12,E)
+laid out as rows (`flat_rows`).
 
 Two comparisons, as tests/test_torch_nh_local.py makes them:
 - the Pallas kernel body evaluated by JAX one operation at a time
@@ -29,8 +35,10 @@ import torch
 
 from admm_elastic_tpu.ops.pallas import tet_local as jtet
 from admm_elastic_tpu.ops.pallas.tet_local import BLOCK
+from admm_elastic_tpu_torch.ops.kernels import _build
 from admm_elastic_tpu_torch.ops.kernels import nh_local as pnh
 from admm_elastic_tpu_torch.ops.kernels import tet_local as ptet
+from admm_elastic_tpu_torch.ops.segment import flat_rows
 
 torch.set_num_threads(1)
 
@@ -86,6 +94,26 @@ def _unfused(ins):
     return _dx(xg, cp), u, w2, k
 
 
+def _unshared(xg):
+    """Positions (4E,3) and int32 tets (E,4) whose gather is xg (12,E):
+    vertex 4e+k holds xg[3k:3k+3, e]."""
+    n = xg.shape[1]
+    return (np.ascontiguousarray(xg.T.reshape(4 * n, 3)),
+            np.arange(4 * n, dtype=np.int32).reshape(n, 4))
+
+
+def _fused(ins):
+    """The port's fused arguments (x, tets, u9, cp12, w2, k) of the JAX
+    kernel's (xg12, u9, cp12, w2, k), as tensors."""
+    xg, u, cp, w2, k = ins
+    return [torch.as_tensor(a) for a in (*_unshared(xg), u, cp, w2, k)]
+
+
+def _rows(planes):
+    """JAX's row planes (12,E) as the port's (4E,3) rows."""
+    return flat_rows([torch.as_tensor(np.array(planes))]).numpy()
+
+
 class _Ref:
     """An array standing in for a Pallas ref: reads give jnp arrays,
     writes land in numpy."""
@@ -119,20 +147,22 @@ def test_plain_is_the_kernel_body_bitwise(fused, monkeypatch):
         want = [_Ref(np.zeros((n, E))) for n in (9, 9, 12)]
         body, plain = jtet._make_arap_fused_kernel(False), \
             ptet.arap_local_step_fused_reference
-        args = ins
+        args = _fused(ins)
     else:
-        args = _unfused(ins)
-        refs = [_Ref(a) for a in args[:2]] + [_Ref(a[None]) for a in args[2:]]
+        refs = [_Ref(a) for a in _unfused(ins)[:2]] + [
+            _Ref(a[None]) for a in _unfused(ins)[2:]]
         want = [_Ref(np.zeros((9, E))) for _ in range(2)]
         body, plain = jtet._arap_kernel, ptet.arap_local_step_reference
+        args = [torch.as_tensor(a) for a in _unfused(ins)]
     with jax.disable_jit():
         body(*refs, *want)
     monkeypatch.setattr(pnh, "torch", _TorchWithRoundedSqrt())
     monkeypatch.setattr(ptet, "torch", _TorchWithRoundedSqrt())
-    got = plain(*(torch.as_tensor(a) for a in args))
-    for w, g in zip(want, got):
-        d = np.abs(g.numpy() - w.a)
-        assert np.array_equal(g.numpy(), w.a), (
+    got = plain(*args)
+    for w, g in zip((*(w.a for w in want[:2]), *(
+            _rows(w.a) if fused else w.a for w in want[2:])), got):
+        d = np.abs(g.numpy() - w)
+        assert np.array_equal(g.numpy(), w), (
             f"{int((d > 0).sum())} values differ, max {d.max():.3g}")
 
 
@@ -143,7 +173,8 @@ def test_plain_matches_pallas_interpret(fused):
     if fused:
         ref = jtet.arap_local_step_fused(*(jnp.asarray(a) for a in ins),
                                          interpret=True)
-        out = ptet.arap_local_step_fused(*(torch.as_tensor(a) for a in ins))
+        ref = (*ref[:2], _rows(ref[2]))
+        out = ptet.arap_local_step_fused(*_fused(ins))
     else:
         args = _unfused(ins)
         ref = jtet.arap_local_step(*(jnp.asarray(a) for a in args),
@@ -156,8 +187,10 @@ def test_plain_matches_pallas_interpret(fused):
         r, o = np.asarray(r), o.numpy()
         assert o.shape == r.shape and np.isfinite(o).all()
         assert np.abs(r).max() < 100.0
-        np.testing.assert_allclose(o[:, unique], r[:, unique], rtol=0,
-                                   atol=1e-12)
+        # planes: element e is column e; rows: element e is rows 4e..4e+3
+        keep = (np.s_[:, unique] if o.shape[1] == E
+                else np.s_[np.repeat(unique, 4)])
+        np.testing.assert_allclose(o[keep], r[keep], rtol=0, atol=1e-12)
     # rank 1: z = (k R + w2 F) / (w2 + k) with R proper, on F's range alike
     xg, u, cp, w2, k = ins
     F = (_dx(xg, cp) + u)[:, RANK1].T.reshape(-1, 3, 3)
@@ -196,7 +229,7 @@ def test_rotations_are_proper_and_exact_where_known():
 
 
 def test_wrappers_checks_and_cpu_route():
-    ins = [torch.as_tensor(a) for a in _inputs(5)]
+    ins = _fused(_inputs(5))
     un = [torch.as_tensor(a) for a in _unfused(_inputs(5))]
     ptet.arap_local_step_fused.launches = 0
     ptet.arap_local_step.launches = 0
@@ -210,8 +243,12 @@ def test_wrappers_checks_and_cpu_route():
     assert ptet.arap_local_step_fused.launches == 0
     assert ptet.arap_local_step.launches == 0
     bad = list(ins)
-    bad[1] = ins[1][:, :-1]
+    bad[2] = ins[2][:, :-1]
     with pytest.raises(ValueError, match="u9"):
+        ptet.arap_local_step_fused(*bad)
+    bad = list(ins)
+    bad[0] = ins[0][:-1]
+    with pytest.raises(ValueError, match="vertices"):
         ptet.arap_local_step_fused(*bad)
     bad = list(un)
     bad[3] = un[3].float()
@@ -221,15 +258,141 @@ def test_wrappers_checks_and_cpu_route():
     bad[0] = un[0].T.contiguous().T
     with pytest.raises(ValueError, match="contiguous"):
         ptet.arap_local_step(*bad)
-    # emit_z: the same outputs, then the rows of w2 D^T z
+    # emit_z: the same outputs, the rows 6 wide, columns 3:6 w2 D^T z
     a = ptet.arap_local_step_fused(*ins)
-    *same, cz = ptet.arap_local_step_fused(*ins, emit_z=True)
+    *same, rows6 = ptet.arap_local_step_fused(*ins, emit_z=True)
     assert all(torch.equal(x, y) for x, y in zip(same, a))
-    E = ins[0].shape[1]
-    want = ins[3] * torch.einsum("rke,jre->kje", ins[2].reshape(3, 4, E),
+    assert rows6.shape == (4 * E, 6) and torch.equal(rows6[:, :3], a[2])
+    want = ins[4] * torch.einsum("rke,jre->kje", ins[3].reshape(3, 4, E),
                                  a[0].reshape(3, 3, E)).reshape(12, E)
-    torch.testing.assert_close(cz, want, rtol=1e-13, atol=1e-13)
+    torch.testing.assert_close(rows6[:, 3:].reshape(E, 12).T, want,
+                               rtol=1e-13, atol=1e-13)
     for fn, args in ((ptet.arap_local_step_fused, ins),
                      (ptet.arap_local_step, un)):
         with pytest.raises(RuntimeError, match="no kernel"):
             fn(*(t.to("meta") for t in args))
+
+
+@pytest.mark.parametrize("emit_z", [False, True], ids=["rows", "emit_z"])
+def test_fused_twin_is_the_gathered_path_bitwise(emit_z):
+    """The fused twin from x and the tets equals, bit for bit, the path it
+    replaced on a beam of shared vertices: the gather (12,E) the force
+    made, the Pallas layout's twin, then flat_rows."""
+    from admm_elastic_tpu_torch.geometry import make_beam_tets
+    from admm_elastic_tpu_torch.models import LinearTetStrain
+
+    rng = np.random.default_rng(7)
+    beam = make_beam_tets(4, 3, 2, size=0.25)
+    f = LinearTetStrain(beam.tets, 1e4, backend="pallas")
+    params, _ = f.build(beam.vertices, None, 0.04)
+    p = {k: torch.as_tensor(v) for k, v in params.items()}
+    x = torch.as_tensor(beam.vertices + 0.05 * rng.normal(size=(
+        beam.n_vertices, 3)))
+    En = f.n_elements
+    u = torch.as_tensor(0.05 * rng.normal(size=(9, En)))
+    consts = (p["coeff_p"], p["w2"], p["k"])
+    xg = x[p["indices"]].reshape(En, 12).T.contiguous()
+    old = ptet._fused_planes(xg, u, *consts, emit_z=emit_z)
+    new = ptet.arap_local_step_fused(x, p["indices"], u, *consts,
+                                     emit_z=emit_z)
+    for g, w in zip(new, (*old[:2], flat_rows(old[2:]))):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_plan_rebuilds_when_a_param_is_replaced():
+    """A replaced constant gets a new plan (and the replaced one's bits);
+    unchanged constants keep theirs."""
+    ins = _fused(_inputs(6))
+    first = ptet.arap_local_step_fused(*ins)
+    key = ("arap_local_step_fused", *map(id, ins[3:]), id(ins[1]))
+    plan = _build._PLANS[key]
+    ptet.arap_local_step_fused(*ins)
+    assert _build._PLANS[key] is plan
+    args = [*ins[:5], 2.0 * ins[5]]
+    got = ptet.arap_local_step_fused(*args)
+    key2 = ("arap_local_step_fused", *map(id, args[3:]), id(args[1]))
+    assert _build._PLANS[key2] is not plan
+    assert not plan.serves(dict(zip(("cp12", "w2", "k", "tets"),
+                                    (*args[3:], args[1]))))
+    assert not torch.equal(got[0], first[0])
+    for x, y in zip(got, ptet.arap_local_step_fused_reference(*args)):
+        assert torch.equal(x, y)
+    dx, u, w2, k = (torch.as_tensor(a) for a in _unfused(_inputs(6)))
+    ptet.arap_local_step(dx, u, w2, k)
+    step = _build._PLANS[("arap_local_step", id(w2), id(k))]
+    ptet.arap_local_step(dx, u, w2, k)
+    assert _build._PLANS[("arap_local_step", id(w2), id(k))] is step
+    args[5] = args[5][:-1]  # a replacement of the wrong shape
+    with pytest.raises(ValueError, match="k"):
+        ptet.arap_local_step_fused(*args)
+
+
+def test_out_buffers():
+    """out= buffers get the outputs' bits in place; one of the wrong shape,
+    or that overlaps an input or another output, raises."""
+    ins = _fused(_inputs(8))
+    un = [torch.as_tensor(a) for a in _unfused(_inputs(8))]
+    for fn, args, iu in ((ptet.arap_local_step_fused, ins, 2),
+                         (ptet.arap_local_step, un, 1)):
+        want = fn(*args)
+        out = tuple(torch.empty_like(w) for w in want)
+        got = fn(*args, out=out)
+        assert all(g is o and torch.equal(g, w)
+                   for g, o, w in zip(got, out, want))
+        call = list(args)
+        call[iu] = u_in = args[iu].clone()
+        with pytest.raises(ValueError, match="overlaps"):
+            fn(*call, out=(out[0], u_in, *out[2:]))
+        with pytest.raises(ValueError, match="overlaps"):
+            fn(*args, out=(out[0], out[0], *out[2:]))
+        with pytest.raises(ValueError, match="out"):
+            fn(*args, out=(out[0][:, :-1], *out[1:]))
+    with pytest.raises(ValueError, match="overlaps"):  # rows onto cp12
+        ptet.arap_local_step_fused(*ins, out=(
+            torch.empty_like(ins[2]), torch.empty_like(ins[2]),
+            ins[3].view(4 * E, 3)))
+    with pytest.raises(ValueError, match="out"):  # 3-wide rows, emit_z
+        ptet.arap_local_step_fused(*ins, emit_z=True, out=tuple(
+            torch.empty_like(w) for w in ptet.arap_local_step_fused(*ins)))
+
+
+@pytest.mark.parametrize("case", ["arap-dia", "arap-relax1.6",
+                                  "nh-relax1.6"])
+def test_system_out_sets_are_bitwise(case, monkeypatch):
+    """The general route hands its tet forces' element steps two sets of
+    buffers in turn (the fused step on dia, the unfused one under
+    over-relaxation): the same bits over 3 steps as new tensors each call,
+    and no tensor of the state is a buffer of a set."""
+    from admm_elastic_tpu_torch.models import HyperElasticTet, LinearTetStrain
+    from admm_elastic_tpu_torch.utils.scenes import beam_system
+
+    model, route = case.split("-")
+    entry = "fused" if route == "dia" else "project"
+    relax = 1.0 if route == "dia" else 1.6
+
+    def run():
+        s = beam_system((3, 2, 2), 0.1, 1.0, 8, torch.float64, "cpu",
+                        arap=model == "arap", admm_iters=4,
+                        relaxation=relax)
+        s.run(3)
+        return s
+
+    def state(s):
+        return [s.state["x"], s.state["v"], *s.state["u"].values(),
+                *(t for st in s.state["forces"].values()
+                  for t in st.values())]
+
+    s = run()
+    assert {k[1] for k in s._out_sets} == {entry}
+    bufs = [t for sets in s._out_sets.values() for one in sets
+            for t in one]
+    assert len(bufs) == {"arap-dia": 6, "arap-relax1.6": 4,
+                         "nh-relax1.6": 6}[case]
+    ptrs = {t.untyped_storage().data_ptr() for t in bufs}
+    assert not any(t.untyped_storage().data_ptr() in ptrs for t in state(s))
+    cls = HyperElasticTet if model == "nh" else LinearTetStrain
+    monkeypatch.setattr(cls, f"{entry}_out_buffers", None)
+    fresh = run()
+    assert not fresh._out_sets
+    for a, b in zip(state(s), state(fresh)):
+        assert torch.equal(a, b)
