@@ -6,10 +6,11 @@ package imports torch and never jax.
 
 Layout (mirrors the JAX package):
   core/      System (builder + timestep), global-solver assembly and solves
-  models/    constraint batches (anchors, hyperelastic tets) and explicit
-             forces (gravity)
-  ops/       gather primitives; kernels/ holds the hand-written kernels'
-             wrappers and their plain PyTorch twins
+  models/    constraint batches (tets, triangles, springs, bend hinges,
+             anchors, collisions) and explicit forces (gravity, wind)
+  ops/       gather primitives; the default element backend's batched
+             SVD (svd.py) and Newton (newton.py); kernels/ holds the
+             hand-written kernels' wrappers and their plain PyTorch twins
   csrc/      CUDA C++ sources of the kernels (built at first use)
   geometry/  procedural meshes (numpy)
   parallel/  the sharded banded stepper (one device so far)

@@ -358,7 +358,8 @@ def banded_from_system(system):
             print(f"Solver: in-kernel {kind} engaged "
                   f"({lv[0]} -> {lv[1]} -> {lv[2]})")
     return BandedStepper(
-        system._x, system._m, p["indices"], p["coeff"], p["w2"], mu, lam,
+        system._x, system._m, p["indices"], p["coeff"],
+        np.asarray(p["weight"], np.float64) ** 2, mu, lam,
         p["k"], model, newton_iters,
         np.concatenate(anchor_idx or [np.zeros(0, np.int64)]),
         np.concatenate(anchor_w2 or [np.zeros(0)]),

@@ -45,12 +45,15 @@ banded kernel's in-kernel algebraic multigrid (ell, `core/uamg.py`), or
 the general route's aggregation AMG (ell with the xla CG backend, and the
 fallback where no in-kernel multigrid engages, `core/amg.py`).
 
-Ported so far: every global mode, with kernel-backed hyperelastic and
-corotational tets and triangle strain, bend hinges, anchors, collisions,
-gravity and wind, relaxation, the per-iteration residuals
-(`collect_residuals`, `residual_tol`, `last_aux`), on the general route
-and the three whole-timestep routes. Every other setting raises
-NotImplementedError rather than running something else.
+Ported so far: every global mode, with hyperelastic and corotational
+tets and triangle strain on either backend (the default 'xla': the JAX
+package's element math in plain PyTorch, canonical layout; 'pallas': the
+kernels), volume and area preservation, the Fung triangle, springs, bend
+hinges, anchors, collisions, gravity and wind, relaxation, the
+per-iteration residuals (`collect_residuals`, `residual_tol`,
+`last_aux`), on the general route and the three whole-timestep routes.
+Every other setting raises NotImplementedError rather than running
+something else.
 """
 
 from __future__ import annotations

@@ -1,8 +1,14 @@
 """Procedural mesh builders (numpy, host side).
 
 Counterpart of `admm_elastic_tpu/geometry/primitives.py`; only
-`make_beam_tets` (the 100k-tet benchmark mesh) and `make_plane_grid` (the
-cloth100k sheet) are ported so far.
+`make_sym_plane` (the reference's cloth layout), `make_beam_tets` (the
+100k-tet benchmark mesh) and `make_plane_grid` (the cloth100k sheet) are
+ported so far.
+
+`make_sym_plane` reproduces the reference's vertex/face layout exactly
+(trimesh2 TriMeshBuilder.h:116-170) because sample apps pin cloth corners
+by raw vertex index (windyflag.cpp:93-96) — index layout is part of the
+contract.
 """
 
 from __future__ import annotations
@@ -11,6 +17,45 @@ import numpy as np
 
 from .tetmesh import TetMesh
 from .trimesh import TriMesh
+
+
+def make_sym_plane(tess_x: int, tess_y: int) -> TriMesh:
+    """Symmetric quad-split plane on [-1,1]^2, z=0.
+
+    Vertex order: grid verts x-major ((tess_x+1)*(tess_y+1)), then quad centers.
+    Each quad becomes 4 triangles around its center vertex.
+    """
+    tess_x = max(tess_x, 1)
+    tess_y = max(tess_y, 1)
+    n_grid = (tess_x + 1) * (tess_y + 1)
+
+    verts = []
+    for x in range(tess_x + 1):
+        for y in range(tess_y + 1):
+            verts.append((-1.0 + 2.0 * x / tess_x, -1.0 + 2.0 * y / tess_y, 0.0))
+    for x in range(tess_x):
+        for y in range(tess_y):
+            verts.append(
+                (
+                    -1.0 + 2.0 * x / tess_x + 1.0 / tess_x,
+                    -1.0 + 2.0 * y / tess_y + 1.0 / tess_y,
+                    0.0,
+                )
+            )
+
+    faces = []
+    for x in range(tess_x):
+        for y in range(tess_y):
+            ll = y + x * (tess_y + 1)
+            lr = y + (x + 1) * (tess_y + 1)
+            ul = ll + 1
+            ur = lr + 1
+            cent = n_grid + x * tess_y + y
+            faces += [(ll, lr, cent), (lr, ur, cent), (cent, ur, ul), (ll, cent, ul)]
+
+    return TriMesh(
+        np.asarray(verts, dtype=np.float64), np.asarray(faces, dtype=np.int32)
+    )
 
 
 def make_beam_tets(nx: int, ny: int, nz: int, size: float = 1.0) -> TetMesh:

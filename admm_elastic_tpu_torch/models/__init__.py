@@ -1,13 +1,16 @@
 """Constraint ("force") batches and explicit forces."""
 
 from .base import ForceBatch
+from .spring import Spring
 from .anchor import StaticAnchor
+from .tet import HyperElasticTet, LinearTetStrain, TetVolume
+from .triangle import FungTriangle, LimitedTriangleStrain, TriArea
 from .bend import Bend
 from .collision import Collision, Cylinder, Floor, Sphere
-from .tet import HyperElasticTet, LinearTetStrain
-from .triangle import LimitedTriangleStrain
 from .explicit import ExplicitForce, WindForce
 
-__all__ = ["ForceBatch", "StaticAnchor", "Bend", "Collision", "Floor",
-           "Sphere", "Cylinder", "HyperElasticTet", "LinearTetStrain",
-           "LimitedTriangleStrain", "ExplicitForce", "WindForce"]
+__all__ = ["ForceBatch", "Spring", "StaticAnchor",
+           "LinearTetStrain", "TetVolume", "HyperElasticTet",
+           "LimitedTriangleStrain", "FungTriangle", "TriArea", "Bend",
+           "Collision", "Floor", "Sphere", "Cylinder",
+           "ExplicitForce", "WindForce"]

@@ -1,15 +1,21 @@
-"""Triangle (cloth) strain constraints (reference TriangleForce.cpp).
+"""Triangle (cloth) constraints (reference TriangleForce.cpp): strain with
+strain limiting, the Fung skin model and area preservation.
 
 Selector: 2 row-groups per triangle. The rest-state 2D basis B (3,2) maps
 world positions to the 3x2 deformation gradient F = X_def @ B; coeff[e,r,c]
 = B[e,c,r], so the canonical (E,R,3) layout Dx[e,r,:] holds F^T rows.
 
-The port keeps the kernel-backed force's per-element quantities in plane
-layout, unpadded: Dx, u and z are (6, E) with plane 2a+b holding F_{a,b};
-the selector coefficients are (6, E) with plane 3b+k holding coeff[e,b,k].
-The fused kernel forms Dx and the RHS rows itself (the dia route); the
-unfused pipeline (the dense and cg global modes, over-relaxation) takes Dx
-from `compute_Dx` and its rows from `rhs_contribution`.
+LimitedTriangleStrain has two backends, as in the JAX package. The
+default 'xla' runs the JAX package's element math in plain PyTorch on
+batched tensors (`ops/svd.svd3x2`) in the canonical (E,R,3) layout of
+`models/base.py`, with JAX's params. 'pallas' runs the hand-written
+kernels and keeps the per-element quantities in plane layout, unpadded:
+Dx, u and z are (6, E) with plane 2a+b holding F_{a,b}; the selector
+coefficients are (6, E) with plane 3b+k holding coeff[e,b,k]. The fused
+kernel forms Dx and the RHS rows itself (the dia route); the unfused
+pipeline (the dense and cg global modes, over-relaxation) takes Dx from
+`compute_Dx` and its rows from `rhs_contribution`. FungTriangle and
+TriArea are canonical-layout plain PyTorch, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,8 +24,11 @@ import numpy as np
 import torch
 
 from ..ops.kernels.tri_local import tri_local_step, tri_local_step_fused
+from ..ops.newton import newton_minimize
 from ..ops.segment import flat_rows
+from ..ops.svd import _matmul, svd3x2
 from .base import ForceBatch
+from .tet import _F_of, _mix, _reconstruct, _rows_of, check_backend
 
 _D3 = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
 
@@ -69,11 +78,11 @@ class LimitedTriangleStrain(ForceBatch):
     """Projective-dynamics triangle strain with strain limiting: project F
     to T = U2 V^T, mix with k = stiffness*area, then clamp the column norms
     of z into [limit_min, limit_max] (TriangleForce.cpp:79-113).
+    XML types `lineartrianglestrain` / `trianglestrain`.
 
-    backend: 'pallas' runs the element step through the hand-written
-    kernels (`ops/kernels/tri_local.py`), the counterpart of the JAX
-    package's Pallas route. The JAX default 'xla' (vmapped `svd3x2`) is not
-    ported yet."""
+    backend: 'xla' (the default: vmapped `svd3x2` in plain PyTorch,
+    canonical layout) or 'pallas' (the hand-written kernels of
+    `ops/kernels/tri_local.py`)."""
 
     R, K = 2, 3
 
@@ -88,15 +97,7 @@ class LimitedTriangleStrain(ForceBatch):
         self.limit_max = np.broadcast_to(np.asarray(limit_max, np.float64),
                                          (E,)).copy()
         self.strain_limiting = bool(strain_limiting)
-        if backend == "xla":
-            raise NotImplementedError(
-                "LimitedTriangleStrain(backend='xla') needs ops/svd.py "
-                "(svd3x2), which is not ported yet (ROADMAP A2 item 2a: the "
-                "backend='xla' routes); use backend='pallas'"
-            )
-        if backend != "pallas":
-            raise ValueError(f"unknown backend {backend!r}")
-        self.backend = backend
+        self.backend = check_backend(backend)
 
     @property
     def n_elements(self) -> int:
@@ -106,17 +107,22 @@ class LimitedTriangleStrain(ForceBatch):
         B, area = build_tri_basis(x, self.faces)
         params = _tri_selector_params(self.faces, B)
         params["weight"] = np.sqrt(self.stiffness) * np.sqrt(area)
-        params["w2"] = params["weight"] ** 2
         params["k"] = self.stiffness * area
         params["limit_min"] = self.limit_min
         params["limit_max"] = self.limit_max
-        params["coeff_p"] = _coeff_planes(params)
+        if self.backend == "pallas":
+            params["w2"] = params["weight"] ** 2
+            params["coeff_p"] = _coeff_planes(params)
         return params, {}
 
     def dual_init(self):
+        if self.backend == "xla":
+            return super().dual_init()
         return np.zeros((6, self.n_elements))
 
-    supports_fused_local_rhs = True
+    @property
+    def supports_fused_local_rhs(self) -> bool:
+        return self.backend == "pallas"
 
     def fused_local_rhs(self, params, x, u, state, with_z=False):
         """One kernel for the per-iteration element pipeline: gathered
@@ -134,31 +140,157 @@ class LimitedTriangleStrain(ForceBatch):
         return z6, unew6, state, flat_rows(rows)
 
     def compute_Dx(self, params, x):
-        """Dx planes (6, E): plane 2a+b = sum_k coeff[e,b,k] x[face[e,k], a]."""
+        """Dx: (E,2,3) rows on 'xla'; on 'pallas' planes (6, E), plane
+        2a+b = sum_k coeff[e,b,k] x[face[e,k], a]."""
+        if self.backend == "xla":
+            return super().compute_Dx(params, x)
         E = params["indices"].shape[0]
         verts = x[params["indices"]]  # (E,K,3)
         return torch.einsum("ebk,eka->abe", params["coeff"],
                             verts).reshape(6, E).contiguous()
 
     def rhs_contribution(self, params, z, u):
-        """Rows of D^T W^2 (z - u) from planes: (E*3, 3)."""
+        """Rows of D^T W^2 (z - u): (E*3, 3)."""
+        if self.backend == "xla":
+            return super().rhs_contribution(params, z, u)
         E = params["indices"].shape[0]
         y3 = (z - u).reshape(3, 2, E)  # [j,r,e]
         c = torch.einsum("erk,e,jre->ekj", params["coeff"], params["w2"], y3)
         return c.reshape(-1, 3)
 
     def project_with_dual(self, Dx, u, params, state):
-        """The unfused element step from Dx planes: (z6, u6', state)."""
+        """The element step from Dx: (z, u', state); on 'pallas' the
+        unfused kernel from Dx planes."""
+        if self.backend == "xla":
+            return super().project_with_dual(Dx, u, params, state)
         z6, unew6 = tri_local_step(Dx, u, params["w2"], params["k"],
                                    params["limit_min"], params["limit_max"],
                                    limiting=self.strain_limiting)
         return z6, unew6, state
 
     def project(self, Dx, u, params, state):
-        """Plane-layout z (and state); the System calls project_with_dual."""
-        z, _, st = self.project_with_dual(Dx, u, params, state)
-        return z, st
+        """z (and state): canonical rows on 'xla', planes on 'pallas'
+        (whose System calls project_with_dual)."""
+        if self.backend == "pallas":
+            z, _, st = self.project_with_dual(Dx, u, params, state)
+            return z, st
+        F = _F_of(Dx + u)  # (E,3,2)
+        U, _, V = svd3x2(F)
+        T = _matmul(U, V.transpose(1, 2))  # U2 @ V^T, (E,3,2)
+        zF = _mix(params, T, F)
+        if self.strain_limiting:
+            # column norms of z, clamped into [limit_min, limit_max]
+            # (TriangleForce.cpp:100-107; scale uses max(l, 1e-6))
+            l = torch.sqrt(torch.sum(zF * zF, dim=1))  # (E,2)
+            lmin = params["limit_min"][:, None]
+            lmax = params["limit_max"][:, None]
+            safe_l = torch.clamp_min(l, 1e-6)
+            scale = torch.where(l < lmin, lmin / safe_l,
+                                torch.where(l > lmax, lmax / safe_l, 1.0))
+            zF = zF * scale[:, None, :]
+        return _rows_of(zF), state
 
     def primal_piece(self, params, u_new, u_old):
+        if self.backend == "xla":
+            return super().primal_piece(params, u_new, u_old)
         du = u_new - u_old
         return torch.sum(params["w2"] * torch.sum(du * du, dim=0))
+
+
+def fung_energy(sigma2, mu, b):
+    """Fung exponential skin energy on 2 in-plane singular values with
+    incompressibility sigma3 = 1/(sigma1*sigma2) (TriangleForce.cpp:120-144):
+    mu/(2b) * (exp(b*(I1-3)) - 1). sigma2 (..., 2); mu broadcasts against
+    sigma2[..., 0]."""
+    s3 = 1.0 / (sigma2[..., 0] * sigma2[..., 1])
+    I1 = sigma2[..., 0] ** 2 + sigma2[..., 1] ** 2 + s3 * s3
+    return mu / (2.0 * b) * (torch.exp(b * (I1 - 3.0)) - 1.0)
+
+
+def _fung_objective(sig, mu, k, s0):
+    """One element's Fung prox objective (b = 1)."""
+    return fung_energy(sig, mu, 1.0) + 0.5 * k * torch.sum((sig - s0) ** 2,
+                                                           dim=-1)
+
+
+class FungTriangle(ForceBatch):
+    """Fung skin model: SVD -> minimize prox over 2 singular values ->
+    z = U diag(sigma*) V^T (TriangleForce.cpp:164-248). b = 1, k = mu
+    (TriangleForce.hpp:48, TriangleForce.cpp:195-198). L-BFGS (10 iters)
+    replaced by the batched Newton, its derivatives by torch.func, as the
+    JAX package's by jax.grad / jacfwd."""
+
+    R, K = 2, 3
+    SIGMA_FLOOR = 1e-8
+
+    def __init__(self, faces, mu, limit_min=0.0, limit_max=9999999.0, max_iters=10):
+        self.faces = np.asarray(faces, dtype=np.int32).reshape(-1, 3)
+        E = len(self.faces)
+        self.mu = np.broadcast_to(np.asarray(mu, np.float64), (E,)).copy()
+        self.limit_min = limit_min
+        self.limit_max = limit_max
+        self.max_iters = int(max_iters)
+
+    @property
+    def n_elements(self) -> int:
+        return len(self.faces)
+
+    def build(self, x, masses, dt):
+        B, area = build_tri_basis(x, self.faces)
+        params = _tri_selector_params(self.faces, B)
+        params["weight"] = np.sqrt(self.mu) * np.sqrt(area)
+        params["mu"] = self.mu
+        params["k"] = self.mu  # TriangleForce.cpp:195
+        return params, {}
+
+    def project(self, Dx, u, params, state):
+        F = _F_of(Dx + u)
+        U, s, V = svd3x2(F)
+        sigma_star = newton_minimize(
+            _fung_objective, s, self.max_iters, floor=self.SIGMA_FLOOR,
+            params=(params["mu"], params["k"], s))
+        return _rows_of(_reconstruct(U, sigma_star, V)), state
+
+
+class TriArea(ForceBatch):
+    """Triangle area preservation: fixed-point clamp of sigma1*sigma2 into
+    [limit_min, limit_max] (TriangleForce.cpp:251-295). API-only in the
+    reference (not reachable from XML)."""
+
+    R, K = 2, 3
+
+    def __init__(self, faces, stiffness, iters=4, limit_min=1.0, limit_max=1.0):
+        self.faces = np.asarray(faces, dtype=np.int32).reshape(-1, 3)
+        E = len(self.faces)
+        self.stiffness = np.broadcast_to(np.asarray(stiffness, np.float64), (E,)).copy()
+        self.iters = int(iters)
+        self.limit_min = np.broadcast_to(np.asarray(limit_min, np.float64), (E,)).copy()
+        self.limit_max = np.broadcast_to(np.asarray(limit_max, np.float64), (E,)).copy()
+
+    @property
+    def n_elements(self) -> int:
+        return len(self.faces)
+
+    def build(self, x, masses, dt):
+        B, area = build_tri_basis(x, self.faces)
+        params = _tri_selector_params(self.faces, B)
+        params["weight"] = np.sqrt(self.stiffness) * np.sqrt(area)
+        params["k"] = self.stiffness * area
+        params["limit_min"] = self.limit_min
+        params["limit_max"] = self.limit_max
+        return params, {}
+
+    def project(self, Dx, u, params, state):
+        F = _F_of(Dx + u)
+        U, s0, V = svd3x2(F)
+        lmin, lmax = params["limit_min"], params["limit_max"]
+        S, d = s0, torch.zeros_like(s0)
+        for _ in range(self.iters):
+            v = S[:, 0] * S[:, 1]
+            f = v - torch.minimum(torch.maximum(v, lmin), lmax)
+            g = torch.stack([S[:, 1], S[:, 0]], dim=1)
+            gg = torch.sum(g * g, dim=1)
+            gd = torch.sum(g * d, dim=1)
+            d = -((f - gd) / torch.where(gg > 0, gg, 1.0))[:, None] * g
+            S = s0 + d
+        return _rows_of(_mix(params, _reconstruct(U, S, V), F)), state

@@ -32,6 +32,15 @@ pipeline; with `amg=True` on the cloth route with the in-kernel 2D
 multigrid (bench.py build_cloth100k(amg=True), its matched row). `small_cloth`
 is the 8 x 6 sheet of the cloth parity tests.
 
+`tet100k`, `arap100k` and `cloth100k` take `backend="xla"` for the same
+scene with the JAX package's default element models (`ops/svd.py`,
+`ops/newton.py` in plain PyTorch) in place of the kernels' (the
+fast routes select by type and build the same windows).
+
+`golden_cloth` and `golden_tetdrop` are the two scenes of the JAX
+package's golden trajectories (tests/test_golden.py, tests/golden/*.npz),
+built with the default constructors and Settings (f64, dense).
+
 `tet100k_sharded`: tet100k's scene on the sharded banded stepper at one
 device (`parallel/banded_spmd.py`): `tet100k(budget, fast=True)`, then
 `sharded_banded_from_system` with solver "cg" (a `budget`-iteration
@@ -79,7 +88,8 @@ import torch
 from ..core.banded import BandedStepper
 from ..core.solver import assemble_A_hat_dia, ell_apply
 from ..core.system import Settings, System
-from ..geometry import extract_hinges, make_beam_tets, make_plane_grid
+from ..geometry import (extract_hinges, make_beam_tets, make_plane_grid,
+                        make_sym_plane)
 from ..models import (Bend, Collision, Cylinder, ExplicitForce, Floor,
                       HyperElasticTet, LimitedTriangleStrain, LinearTetStrain,
                       Sphere, StaticAnchor, WindForce)
@@ -88,11 +98,12 @@ DT = 0.04  # every scene's timestep
 
 
 def beam_system(dims, size, total_mass, cg, dtype=torch.float32,
-                device="cuda", fast=False, arap=False,
+                device="cuda", fast=False, arap=False, backend="pallas",
                 **settings) -> System:
     """An anchored beam under gravity: NeoHookean tets (mu = lam = 1e5, 5
     Newton iterations) or, with arap=True, LinearTetStrain (stiffness 1e5),
-    kernel-backed; dia solver unless `settings` say otherwise."""
+    kernel-backed (backend='xla': the JAX package's default element math
+    in plain PyTorch); dia solver unless `settings` say otherwise."""
     vertices, tets = _beam_mesh(tuple(dims), size)
     n = vertices.shape[0]
     s = System(Settings(**{
@@ -103,11 +114,11 @@ def beam_system(dims, size, total_mass, cg, dtype=torch.float32,
     s.add_force(StaticAnchor(np.flatnonzero(vertices[:, 0] < 1e-9)))
     if arap:
         s.add_force(LinearTetStrain(tets.copy(), stiffness=1e5,
-                                    backend="pallas"))
+                                    backend=backend))
     else:
         s.add_force(HyperElasticTet(tets.copy(), mu=1e5, lam=1e5,
                                     max_iters=5, model="nh",
-                                    backend="pallas"))
+                                    backend=backend))
     s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
     assert s.initialize()
     return s
@@ -131,7 +142,7 @@ def _sheet(nx, ny):
 
 
 def tet100k(cg, dtype=torch.float32, fast=False,
-            global_solver="dia", amg=False) -> System:
+            global_solver="dia", amg=False, backend="pallas") -> System:
     """The repo's headline workload (bench.py build_tet100k): 40 x 25 x 20
     cells x 5 = 100,000 tets, 22,386 nodes, 50 kg, cell size 0.05 m.
     global_solver="dense" raises dense_max_nodes past n, as bench.py does
@@ -142,7 +153,8 @@ def tet100k(cg, dtype=torch.float32, fast=False,
         fast, global_solver = True, "dia"
     return beam_system((40, 25, 20), 0.05, 50.0, cg, dtype, fast=fast,
                        global_solver=global_solver, dense_max_nodes=1 << 30,
-                       preconditioner="amg" if amg else "jacobi")
+                       preconditioner="amg" if amg else "jacobi",
+                       backend=backend)
 
 
 def tet100k_sharded(solver="cg", budget=75, dtype=torch.float32):
@@ -155,15 +167,16 @@ def tet100k_sharded(solver="cg", budget=75, dtype=torch.float32):
 
 
 def arap100k(cg, dtype=torch.float32, relaxation=1.0,
-             fast=False) -> System:
+             fast=False, backend="pallas") -> System:
     """tet100k with LinearTetStrain(stiffness=1e5) in place of the
     NeoHookean tet, on the dia solver (see the module docstring)."""
     return beam_system((40, 25, 20), 0.05, 50.0, cg, dtype, fast=fast,
-                       arap=True, relaxation=relaxation)
+                       arap=True, relaxation=relaxation, backend=backend)
 
 
 def cloth_system(nx, ny, cg, dtype=torch.float32, device="cuda", fast=True,
-                 wind=(4.0, 0.0, 1.0), anchors=None, **settings) -> System:
+                 wind=(4.0, 0.0, 1.0), anchors=None, backend="pallas",
+                 **settings) -> System:
     """A make_plane_grid(nx, ny) sheet with bench.py build_cloth100k's
     physics and Settings (unless `settings` say otherwise): 0.5 kg,
     LimitedTriangleStrain(100, 0.95, 1.05), Bend(20), StaticAnchors on the
@@ -178,7 +191,7 @@ def cloth_system(nx, ny, cg, dtype=torch.float32, device="cuda", fast=True,
         "lattice_fast_path": fast, **settings}))
     s.add_nodes(vertices.copy(), np.full(n, 0.5 / n))
     s.add_force(LimitedTriangleStrain(faces.copy(), 100.0, 0.95, 1.05,
-                                      backend="pallas"))
+                                      backend=backend))
     s.add_force(Bend(hinges.copy(), 20.0))
     top = np.flatnonzero(np.abs(vertices[:, 1] - vertices[:, 1].max())
                          < 1e-9)
@@ -191,7 +204,7 @@ def cloth_system(nx, ny, cg, dtype=torch.float32, device="cuda", fast=True,
 
 
 def cloth100k(cg, dtype=torch.float32, fast=True,
-              global_solver="dia", amg=False) -> System:
+              global_solver="dia", amg=False, backend="pallas") -> System:
     """bench.py build_cloth100k: 225 x 225 quads, 51,076 nodes, 101,250
     triangles, 151,425 hinges, 26 anchors, wind (4, 0, 1). amg=True is
     build_cloth100k(amg=True): the cloth route with the in-kernel 2D
@@ -199,7 +212,50 @@ def cloth100k(cg, dtype=torch.float32, fast=True,
     8)."""
     return cloth_system(225, 225, cg, dtype, fast=fast or amg,
                         global_solver=global_solver,
-                        preconditioner="amg" if amg else "jacobi")
+                        preconditioner="amg" if amg else "jacobi",
+                        backend=backend)
+
+
+#: the golden scenes' steps (tests/test_golden.py SCENES)
+GOLDEN_STEPS = {"cloth": 12, "tetdrop": 20}
+
+
+def golden_cloth(device="cuda") -> System:
+    """tests/test_golden.py's cloth: a make_sym_plane(6, 4) sheet, 0.5 kg,
+    LimitedTriangleStrain(100, 0.95, 1.05), Bend(20), two anchors,
+    gravity and wind (1.5, 0, 0.4); 15 ADMM iterations, f64, default
+    backend and Settings (the dense mode)."""
+    mesh = make_sym_plane(6, 4)
+    n = mesh.n_vertices
+    s = System(Settings(timestep_s=0.04, admm_iters=15, verbose=0,
+                        dtype=torch.float64, device=device))
+    s.add_nodes(mesh.vertices, np.full(n, 0.5 / n))
+    s.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05))
+    s.add_force(Bend(extract_hinges(mesh.faces), 20.0))
+    s.add_force(StaticAnchor([0, 4]))
+    s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
+    s.add_explicit_force(WindForce(mesh.faces, direction=(1.5, 0, 0.4)))
+    assert s.initialize()
+    return s
+
+
+def golden_tetdrop(device="cuda") -> System:
+    """tests/test_golden.py's tetdrop: a make_beam_tets(3, 2, 2, 0.3) beam
+    1 m up, 5 kg, NeoHookean (mu = lam = 1e4, 5 Newton iterations) over a
+    Floor at y = 0, gravity; 10 ADMM iterations, f64, default backend and
+    Settings (the dense mode)."""
+    beam = make_beam_tets(3, 2, 2, size=0.3)
+    beam.vertices[:, 1] += 1.0
+    n = beam.n_vertices
+    s = System(Settings(timestep_s=0.04, admm_iters=10, verbose=0,
+                        dtype=torch.float64, device=device))
+    s.add_nodes(beam.vertices, np.full(n, 5.0 / n))
+    s.add_force(HyperElasticTet(beam.tets, mu=1e4, lam=1e4, max_iters=5,
+                                model="nh"))
+    s.add_force(Collision([Floor(center=(0, 0, 0))], n_nodes=n))
+    s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
+    assert s.initialize()
+    return s
 
 
 def small_mg_beam(dtype=torch.float64, device="cuda", cg=8) -> System:

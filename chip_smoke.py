@@ -90,6 +90,13 @@ Depth is cut where the plain twins and the tracer would take the time
 iterations, the f64 full-width windows at F64_FULL_ADMM iterations (f32 at
 full depth), GRAPH_STEPS graph steps held to the twin, PROFILE_ATTEMPTS
 traced windows a route; the SASS counts run in a process of their own.
+The JAX package's default element backend (`backend="xla"`: the
+SVD and Newton of `ops/svd.py` and `ops/newton.py` in plain PyTorch, no
+kernel of its own): tet100k, arap100k and cloth100k default-constructed
+on the general dia route (cg_dia_solve) with their ms/step, device ops a
+step and idle share, against the pallas-constructed scenes; the same
+three on their whole-timestep windows, bitwise the pallas-constructed
+Systems'; the JAX package's two golden trajectories in f64 (phase 5m).
 Every phase prints one line of numbers, its script time last (t=). Any
 failure raises: the script
 then exits non-zero and prints no result line. It needs CUDA (it never
@@ -119,6 +126,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from admm_elastic_tpu_torch.core.banded import BandedStepper  # noqa: E402
+from admm_elastic_tpu_torch.core.cloth import ClothStepper  # noqa: E402
 from admm_elastic_tpu_torch.core.lattice import LatticeStepper  # noqa: E402
 from admm_elastic_tpu_torch.models import StaticAnchor  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import _build  # noqa: E402
@@ -233,6 +241,14 @@ SWEEP_SCENARIOS = 64
 SWEEP_CHECK_ADMM = 2
 SWEEP_WITNESSES = (0, 31, 63)
 SWEEP_WIDE = 1024
+# phase 5m: the default element backend ('xla', plain PyTorch) at full
+# width on the general dia route: the steps of each trajectory (after one
+# warm-up step), the budget, the steps of its profile, and the steps of the
+# whole-timestep windows held bitwise to the pallas-constructed Systems'
+XLA_STEPS, XLA_CG, XLA_PROFILE_STEPS, XLA_FAST_STEPS = 16, 25, 2, 10
+# the most a golden scene may lie from its file on the card, f64 (relative
+# to the trajectory's largest coordinate)
+GOLDEN_REL_LIMIT = 1e-8
 
 
 def reset_launches():
@@ -1023,6 +1039,111 @@ def sweep_routes(torch, steps):
     if bad:
         raise AssertionError("sweep64: " + "; ".join(bad))
     return submissions, full
+
+
+def default_backend_routes(torch):
+    """Phase 5m. The JAX package's default element backend (backend='xla':
+    `ops/svd.py`, `ops/newton.py` in plain PyTorch, no kernel of its own)
+    at full width, f32: tet100k (HyperElasticTet, 5 Newton iterations),
+    arap100k (LinearTetStrain) and cloth100k (LimitedTriangleStrain),
+    default-constructed, on the general dia route at cg25 (its solve is
+    cg_dia_solve): ms/step, and device ops a step and idle share by
+    profile_step; |dx| after the steps against the same scene built with
+    backend='pallas' (other SVD and Newton code, so printed, not bounded),
+    beside the xla route's own |dx| from a start moved by 1e-6 m. The
+    same three with lattice_fast_path=True take the banded, banded arap
+    and cloth windows, x bitwise the pallas-constructed Systems'. Then the
+    two golden scenes in f64 against tests/golden/*.npz. Returns the
+    general routes' numbers by scene."""
+    builds = {"tet100k": tet100k, "arap100k": arap100k,
+              "cloth100k": cloth100k}
+    tri = (ptri.tri_local_step_fused, ptri.tri_local_step)
+    elements = (pnh.nh_local_step_fused, pnh.nh_local_step,
+                ptet.arap_local_step_fused, ptet.arap_local_step, *tri)
+    numbers = {}
+    for name, build in builds.items():
+        s = build(XLA_CG, torch.float32, fast=False, backend="xla")
+        if s._stepper is not None or s._solver_mode != "dia" or any(
+                getattr(f, "backend", "xla") != "xla" for f in s.forces):
+            raise AssertionError(f"{name} xla: not the general dia route")
+        s.step()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        s.run(XLA_STEPS)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / XLA_STEPS
+        n_cg = pcg.cg_dia_solve.launches
+        off_path(*elements, pbs.banded_rollout, pcs.cloth_rollout,
+                 plat.lattice_rollout)
+        on_card = all(t.is_cuda for t in (s.state["x"], s.state["v"],
+                                          *s.state["u"].values()))
+        x = s.x
+        prof = trace(XLA_CG, "general", s, steps=XLA_PROFILE_STEPS,
+                     scene=name)
+        del s
+        p = build(XLA_CG, torch.float32, fast=False, backend="pallas")
+        p.run(1 + XLA_STEPS)
+        vs_pallas = float(np.abs(p.x - x).max())
+        del p
+        q = build(XLA_CG, torch.float32, fast=False, backend="xla")
+        q.x = q._x + 1e-6 * np.random.default_rng(1).standard_normal(
+            q._x.shape)
+        q.run(1 + XLA_STEPS)
+        own = float(np.abs(q.x - x).max())
+        del q
+        fin = bool(np.isfinite(x).all())
+        numbers[name] = (ms, prof["device_ops_per_step"], prof["idle_share"])
+        say(f"{name} xla general cg{XLA_CG} f32", ms_per_step=ms,
+            steps=1 + XLA_STEPS, cg_dia_launches=n_cg,
+            expected_cg_dia_launches=XLA_STEPS * ADMM_ITERS,
+            device_ops_per_step=prof["device_ops_per_step"],
+            idle_share=prof["idle_share"],
+            max_abs_dx_vs_pallas_m=vs_pallas,
+            perturbed_start_divergence_m=own, state_on_card=on_card,
+            finite=fin)
+        if not (fin and np.isfinite(vs_pallas) and np.isfinite(own)
+                and on_card and n_cg == XLA_STEPS * ADMM_ITERS):
+            raise AssertionError(f"{name} xla: non-finite values, a tensor "
+                                 f"off the card or {n_cg} cg_dia launches")
+
+    routes = {"tet100k": (BandedStepper, "nh", pbs.banded_rollout),
+              "arap100k": (BandedStepper, "arap", pbs.banded_rollout),
+              "cloth100k": (ClothStepper, "cloth", pcs.cloth_rollout)}
+    for name, build in builds.items():
+        kind, model, kernel = routes[name]
+        runs = []
+        for backend in ("xla", "pallas"):
+            s = build(XLA_CG, torch.float32, fast=True, backend=backend)
+            if not (isinstance(s._stepper, kind)
+                    and s._stepper.model == model):
+                raise AssertionError(f"{name} {backend} fast: route "
+                                     f"{type(s._stepper).__name__}")
+            reset_launches()
+            s.run(XLA_FAST_STEPS)
+            runs.append((s.x, kernel.launches))
+            del s
+        same = bool(np.array_equal(runs[0][0], runs[1][0]))
+        say(f"{name} xla fast cg{XLA_CG} f32", route=kind.__name__,
+            model=model, window_launches=runs[0][1],
+            bitwise_vs_pallas=same, finite=bool(np.isfinite(runs[0][0]).all()))
+        if not (same and runs[0][1] > 0):
+            raise AssertionError(f"{name} xla fast: x differs from the "
+                                 "pallas-constructed System's")
+
+    for name in ("cloth", "tetdrop"):
+        s = getattr(scenes, f"golden_{name}")("cuda")
+        s.run(scenes.GOLDEN_STEPS[name])
+        want = np.load(os.path.join(HERE, "tests", "golden",
+                                    f"{name}.npz"))["x"]
+        d = float(np.abs(s.x - want).max())
+        rel = d / float(np.abs(want).max())
+        say(f"golden {name} f64", mode=s._solver_mode, max_abs_diff_m=d,
+            max_rel_diff=rel, limit=GOLDEN_REL_LIMIT)
+        if not rel <= GOLDEN_REL_LIMIT:
+            raise AssertionError(f"golden {name}: {rel} from the file")
+    return numbers
+
 
 
 def cluster_floor(torch):
@@ -3107,6 +3228,9 @@ def main():
                "banded", "tet100k")
     seed_forms(torch, cloth100k(25, torch.float32)._stepper, "cloth",
                "cloth100k")
+
+    # phase 5m: the default element backend ('xla'), general and fast
+    default_backend_routes(torch)
 
     def entry(name, source, replaces, n, err, ms, plain_ms, bound_ms,
               bound_by):

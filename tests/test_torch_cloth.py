@@ -44,7 +44,7 @@ def cloth(pkg, fast, *, nx=8, ny=6, wind=True, bend=True, anchors=True,
           iters=10, cg=30, stiff=100.0, lim=(0.95, 1.05), bend_k=20.0,
           anchor_w=1000.0,
           n_anchors=4, gravity=(0, -9.8, 0), wind_dir=(1.5, 0, 0.4),
-          scramble=None, **settings):
+          scramble=None, backend="pallas", **settings):
     """tests/test_cloth_fast.py's _cloth_system, for pkg in (aet, pt)."""
     mesh = pkg.geometry.make_plane_grid(nx, ny)
     n = mesh.n_vertices
@@ -68,7 +68,7 @@ def cloth(pkg, fast, *, nx=8, ny=6, wind=True, bend=True, anchors=True,
             **settings))
     m = pkg.models
     s.add_nodes(verts, np.full(n, 0.5 / n))
-    s.add_force(m.LimitedTriangleStrain(faces, stiff, *lim, backend="pallas"))
+    s.add_force(m.LimitedTriangleStrain(faces, stiff, *lim, backend=backend))
     if bend:
         s.add_force(m.Bend(pkg.geometry.extract_hinges(faces), bend_k))
     if anchors:
@@ -216,9 +216,20 @@ def test_out_of_slice_cloths_raise(bad):
 def test_routing():
     assert isinstance(cloth(pt, True)._stepper, ClothStepper)
     assert cloth(pt, False)._stepper is None
+    # the default backend='xla' constructs and steps (on the cloth kernel,
+    # which selects by type); an unknown backend raises JAX's ValueError
     faces = pt.geometry.make_plane_grid(2, 2).faces
-    with pytest.raises(NotImplementedError, match="xla"):
-        pt.models.LimitedTriangleStrain(faces, 1.0)  # backend='xla'
+    assert pt.models.LimitedTriangleStrain(faces, 1.0).backend == "xla"
+    with pytest.raises(ValueError, match="backend"):
+        pt.models.LimitedTriangleStrain(faces, 1.0, backend="cuda")
+    s = cloth(pt, True, backend="xla")
+    assert isinstance(s._stepper, ClothStepper)
+    s.run(2)
+    assert np.isfinite(s.x).all()
+    # a scrambled sheet reaches the renumbered fallback, which rebuilds the
+    # force with its backend; where JAX would renumber, the port raises
+    with pytest.raises(NotImplementedError, match="renumbering"):
+        cloth(pt, True, scramble=0, backend="xla", reorder="none")
     # 'amg' engages the cloth kernel's multigrid; without the fast path
     # it raises JAX's ValueError (tests/test_torch_mg.py holds the rest)
     assert cloth(pt, True, preconditioner="amg")._stepper.cfg.mg is not None

@@ -1322,3 +1322,76 @@ def test_sweep_graph_steps_are_the_twins(solver):
     n0 = banded_step.banded_rollout.launches
     sw.run(10)
     assert banded_step.banded_rollout.launches == n0 + 1
+
+
+# the default element backend ('xla', plain PyTorch): small scenes on the
+# card against their CPU runs, f64. The hyperelastic beam runs 2 Newton
+# iterations, short of the minimum, where the packages' last-ulp
+# differences in exp, log and sqrt cannot meet a tie of candidate values
+XLA_SCENES = {
+    "nh beam dia": lambda d: beam_system(
+        (4, 3, 3), 0.05, 1.0, 25, torch.float64, d, backend="xla"),
+    "arap beam dense": lambda d: beam_system(
+        (4, 3, 3), 0.05, 1.0, None, torch.float64, d, arap=True,
+        global_solver="dense", backend="xla"),
+    "cloth 8x6 cg": lambda d: small_cloth(torch.float64, d, fast=False,
+                                          global_solver="cg",
+                                          backend="xla"),
+}
+
+
+def _xla_nh_two_iterations(s):
+    for f in s.forces:
+        if hasattr(f, "max_iters"):
+            f.max_iters = 2
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(XLA_SCENES))
+def test_xla_backend_on_the_card_matches_cpu(name):
+    """A default-constructed scene steps on the card within 1e-10 of its
+    CPU run (f64, 5 steps) on the general route, and launches no element
+    kernel."""
+    _cuda()
+    runs = []
+    for device in ("cpu", "cuda"):
+        s = _xla_nh_two_iterations(XLA_SCENES[name](device))
+        assert s._stepper is None
+        assert all(getattr(f, "backend", "xla") == "xla" for f in s.forces)
+        n0 = nh_local.nh_local_step_fused.launches + \
+            tet_local.arap_local_step.launches + \
+            tri_local.tri_local_step.launches
+        s.run(5)
+        assert n0 == nh_local.nh_local_step_fused.launches + \
+            tet_local.arap_local_step.launches + \
+            tri_local.tri_local_step.launches
+        runs.append(s.x)
+    assert np.isfinite(runs[1]).all()
+    assert np.abs(runs[1] - runs[0]).max() < 1e-10
+
+
+@pytest.mark.cuda
+def test_xla_backend_leaves_no_tensor_off_the_card():
+    """The default backend's step on the card copies nothing to the host
+    and synchronises with it nowhere (torch's sync debug mode raises on
+    either), and every tensor of its state and params stays on the card."""
+    _cuda()
+    s = _xla_nh_two_iterations(XLA_SCENES["nh beam dia"]("cuda"))
+    s.step()  # the solve's one-time set-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s.run(2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from tensors(v)
+        elif isinstance(tree, torch.Tensor):
+            yield tree
+
+    assert all(t.is_cuda for t in tensors(s.state))
+    assert all(t.is_cuda for t in tensors(s.params))

@@ -20,7 +20,7 @@ ROUTES = {"BandedStepper": "banded", "LatticeStepper": "lattice",
 
 def _beam_scene(pkg, s, *, dims=(3, 2, 2), jitter=0.0, scramble=None,
                 model="nh", mu=1e4, anchor_w=(1000.0,), floor=None,
-                explicit_indices=None):
+                explicit_indices=None, backend="pallas"):
     mesh = pkg.geometry.make_beam_tets(*dims, size=0.25)
     verts, tets = mesh.vertices.copy(), np.asarray(mesh.tets)
     if jitter:
@@ -34,10 +34,10 @@ def _beam_scene(pkg, s, *, dims=(3, 2, 2), jitter=0.0, scramble=None,
     m = pkg.models
     s.add_nodes(verts, np.full(n, 1.0 / n))
     if model == "arap":
-        s.add_force(m.LinearTetStrain(tets, stiffness=mu, backend="pallas"))
+        s.add_force(m.LinearTetStrain(tets, stiffness=mu, backend=backend))
     else:
         s.add_force(m.HyperElasticTet(tets, mu, 1e4, max_iters=3, model=model,
-                                      backend="pallas"))
+                                      backend=backend))
     left = np.flatnonzero(verts[:, 0] < verts[:, 0].min() + 1e-3)
     for q, w in enumerate(anchor_w):
         s.add_force(m.StaticAnchor(left[q::len(anchor_w)], weight=w))
@@ -61,7 +61,7 @@ def _delaunay_scene(pkg, s):
     s.add_explicit_force(m.ExplicitForce(direction=(0, -9.8, 0)))
 
 
-def _cloth_scene(pkg, s, per_elem=False):
+def _cloth_scene(pkg, s, per_elem=False, backend="pallas"):
     mesh = pkg.geometry.make_plane_grid(6, 4)
     n = mesh.n_vertices
     m = pkg.models
@@ -69,7 +69,7 @@ def _cloth_scene(pkg, s, per_elem=False):
              if per_elem else 100.0)
     s.add_nodes(mesh.vertices, np.full(n, 0.5 / n))
     s.add_force(m.LimitedTriangleStrain(mesh.faces, stiff, 0.95, 1.05,
-                                        backend="pallas"))
+                                        backend=backend))
     s.add_force(m.Bend(pkg.geometry.extract_hinges(mesh.faces), 20.0))
     s.add_force(m.StaticAnchor([0, 4]))
     s.add_explicit_force(m.ExplicitForce(direction=(0, -9.8, 0)))
@@ -118,6 +118,21 @@ SCENES = {
     "cloth cg": (_cloth_scene, {}, dict(global_solver="cg"), "cloth"),
     "cloth per-element stiffness": (_cloth_scene, dict(per_elem=True),
                                     dict(global_solver="dia"), "general"),
+    # the default backend='xla': the routes select by type, not backend
+    "default beam dia": (_beam_scene, dict(backend="xla"),
+                         dict(global_solver="dia"), "banded"),
+    "default arap ell": (_beam_scene, dict(model="arap", backend="xla"),
+                         dict(global_solver="ell"), "banded"),
+    "default beam cg": (_beam_scene, dict(backend="xla"),
+                        dict(global_solver="cg"), "lattice"),
+    "default beam cg relaxation": (_beam_scene, dict(backend="xla"),
+                                   dict(global_solver="cg", relaxation=1.6),
+                                   "general"),
+    "default cloth dia": (_cloth_scene, dict(backend="xla"),
+                          dict(global_solver="dia"), "cloth"),
+    "default cloth per-element stiffness": (
+        _cloth_scene, dict(per_elem=True, backend="xla"),
+        dict(global_solver="dia"), "general"),
 }
 
 
@@ -148,6 +163,29 @@ def test_route_matches_jax(name):
         assert s._stepper.model == j._lattice.model
         np.testing.assert_array_equal(s._to_canon, j._to_canon)
         np.testing.assert_array_equal(s.x, j.x)
+
+
+@pytest.mark.parametrize("name", ["beam dia", "arap dia", "beam cg",
+                                  "cloth dia"])
+def test_default_backend_builds_the_same_window(name):
+    """A default-constructed (backend='xla') scene builds its
+    whole-timestep stepper from the same host params as the
+    pallas-constructed one: the same planes, bit for bit."""
+    scene, kw, settings = SCENES[name][:3]
+    runs = []
+    for backend in ("pallas", "xla"):
+        s = pt.System(pt.Settings(dtype=torch.float64, device="cpu",
+                                  timestep_s=0.04, admm_iters=3, verbose=0,
+                                  cg_fixed_iters=10, lattice_fast_path=True,
+                                  **settings))
+        scene(pt, s, **kw, backend=backend)
+        assert s.initialize() and s._stepper is not None
+        runs.append(s._stepper)
+    a, b = runs
+    assert a.planes.keys() == b.planes.keys()
+    for k in a.planes:
+        if isinstance(a.planes[k], torch.Tensor):
+            assert torch.equal(a.planes[k], b.planes[k]), k
 
 
 def test_general_note_printed(capsys):

@@ -137,8 +137,18 @@ def test_general_amg_matches_jax():
 
 def test_out_of_slice_models_and_devices_raise():
     beam = pt.geometry.make_beam_tets(1, 1, 1)
-    with pytest.raises(NotImplementedError, match="xla"):
-        pt.models.HyperElasticTet(beam.tets, 1e5, 1e5)  # backend='xla'
+    # the default backend='xla' constructs and steps; an unknown backend
+    # raises JAX's ValueError
+    s = pt.System(pt.Settings(verbose=0, dtype=torch.float64, device="cpu"))
+    s.add_nodes(beam.vertices, np.ones(beam.n_vertices))
+    s.add_force(pt.models.StaticAnchor([0]))
+    s.add_force(pt.models.HyperElasticTet(beam.tets, 1e5, 1e5))
+    s.add_explicit_force(pt.models.ExplicitForce(direction=(0, -9.8, 0)))
+    assert s.initialize() and s.forces[1].backend == "xla"
+    s.step()
+    assert np.isfinite(s.x).all() and s.x[1:, 1].min() < beam.vertices[:, 1].min()
+    with pytest.raises(ValueError, match="backend"):
+        pt.models.HyperElasticTet(beam.tets, 1e5, 1e5, backend="cuda")
     assert pt.Settings().device == "cuda"
     if not torch.cuda.is_available():
         s = pt.System(pt.Settings(verbose=0))
