@@ -19,8 +19,9 @@ and the spectral bounds lmax are JAX's. The V-cycle applies, per level:
     coarsest      A_inv @ r, one product
 
 JAX computes this outside any Pallas kernel (segment_sum, gathers, a
-matmul under XLA), so here it is plain PyTorch on the device. Its
-`rebuild_amg_values` belongs to `recompute_weights`, which is not ported.
+matmul under XLA), so here it is plain PyTorch on the device.
+`rebuild_amg_values` refreshes a hierarchy's values over its frozen
+aggregates after runtime weight edits (`System.recompute_weights`).
 """
 
 from __future__ import annotations
@@ -80,14 +81,18 @@ def _aggregate(S):
     return agg, n_agg
 
 
-def _csr_to_ell(A, pad_to=8):
-    """CSR A as (n,K) ELL rows, K the widest row rounded up to pad_to, each
-    row's entries in column order; the empty slots value 0 at the row's
-    own index."""
+def _csr_to_ell(A, pad_to=8, K_fixed=None):
+    """CSR A as (n,K) ELL rows, K the widest row rounded up to pad_to (or
+    K_fixed, which a wider row must not exceed), each row's entries in
+    column order; the empty slots value 0 at the row's own index."""
     deg = np.diff(A.indptr)
     n = A.shape[0]
     K = max(int(deg.max()) if n else 1, 1)
     K = -(-K // pad_to) * pad_to
+    if K_fixed is not None:
+        if K > K_fixed:
+            raise ValueError(f"amg: sparsity widened ({K} > stored {K_fixed})")
+        K = K_fixed
     idx = np.tile(np.arange(n, dtype=np.int64)[:, None], (1, K))
     vals = np.zeros((n, K), np.float64)
     row_of = np.repeat(np.arange(n), deg)
@@ -143,6 +148,36 @@ def build_amg(A, coarse_max=1024, theta=0.08, max_levels=12):
     arrays.append({"A_inv": np.linalg.inv(lvl.toarray())})
     meta.append({"n": int(lvl.shape[0]), "nc": 0})
     return tuple(arrays), tuple(meta)
+
+
+def rebuild_amg_values(A, arrays, meta):
+    """The values of a hierarchy (`build_amg`'s arrays, as numpy) for the
+    edited CSR A over its frozen aggregation, as the JAX package's
+    rebuild_amg_values: a weight edit keeps the sparsity pattern (the
+    assembly keeps structural zeros), so the aggregates, the member lists,
+    the level sizes and the ELL widths stay; the matrices, diagonals,
+    spectral bounds and the coarsest inverse are made anew."""
+    import scipy.sparse as sp
+
+    out = []
+    lvl = A.tocsr()
+    for lv, arr in enumerate(arrays[:-1]):
+        idx, vals = _csr_to_ell(lvl, K_fixed=arr["ell_vals"].shape[1])
+        diag = lvl.diagonal()
+        diag = np.where(diag > 0, diag, 1.0)
+        out.append({
+            "ell_idx": idx, "ell_vals": vals, "inv_diag": 1.0 / diag,
+            "agg": arr["agg"],
+            "lmax": np.float64(1.05 * max(_rho_dinv_a(lvl), 1e-12)),
+            "members": arr["members"],
+        })
+        n, nc = meta[lv]["n"], meta[lv]["nc"]
+        agg = np.asarray(arr["agg"], np.int64)
+        P = sp.csr_matrix((np.ones(n), (np.arange(n), agg)), shape=(n, nc))
+        lvl = (P.T @ lvl @ P).tocsr()
+        lvl.sum_duplicates()
+    out.append({"A_inv": np.linalg.inv(lvl.toarray())})
+    return tuple(out)
 
 
 def levels_to_device(arrays, dtype, device):

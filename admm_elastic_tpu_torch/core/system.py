@@ -49,9 +49,12 @@ Ported so far: every global mode, with hyperelastic and corotational
 tets and triangle strain on either backend (the default 'xla': the JAX
 package's element math in plain PyTorch, canonical layout; 'pallas': the
 kernels), volume and area preservation, the Fung triangle, springs, bend
-hinges, anchors, collisions, gravity and wind, relaxation, the
-per-iteration residuals (`collect_residuals`, `residual_tol`,
-`last_aux`), on the general route and the three whole-timestep routes.
+hinges, static and moving anchors, collisions, gravity and wind,
+relaxation, the per-iteration residuals (`collect_residuals`,
+`residual_tol`, `last_aux`), on the general route and the three
+whole-timestep routes; runtime edits (`set_force_param`,
+`set_force_state`, `recompute_weights`) and checkpoints
+(`save_checkpoint`, `load_checkpoint`) with the JAX package's semantics.
 Every other setting raises NotImplementedError rather than running
 something else.
 """
@@ -68,7 +71,8 @@ from ..models.base import ForceBatch
 from ..ops.kernels.cg_dia import MAX_DIAGONALS, cg_dia_solve
 from ..ops.kernels.cg_ell import cg_ell_solve
 from ..ops.kernels.cg_step import pcg_solve_fixed_fused
-from .amg import build_amg, levels_to_device, make_vcycle
+from .amg import (build_amg, levels_to_device, make_vcycle,
+                  rebuild_amg_values)
 from .banded import banded_from_system
 from .cloth import cloth_from_system
 from .lattice import detect_grid_numbering, lattice_from_system
@@ -252,6 +256,15 @@ def _to_device(tree, dtype, device):
     return torch.as_tensor(a, device=device)
 
 
+def like(value, ref):
+    """value as a new, writable copy of ref's kind: a tensor of ref's
+    dtype and device, or a host array of ref's dtype."""
+    if isinstance(ref, torch.Tensor):
+        return torch.as_tensor(np.array(value), dtype=ref.dtype,
+                               device=ref.device)
+    return np.array(value, dtype=np.asarray(ref).dtype)
+
+
 class System:
     def __init__(self, settings: Settings | None = None):
         self.settings = settings or Settings()
@@ -355,13 +368,13 @@ class System:
                 amg_levels = self._build_general_amg(cparams)
 
         dtype = s.dtype
+        # the host copy is the one source of every parameter: the edits
+        # (set_force_param) write it and the device copy together, and the
+        # whole-timestep steppers are built from it
         self._params_host = params
-        self.params = _to_device(params, dtype, device)
-        sv = self.params["_solver"]
-        if "ell_idx" in sv:
-            # the ELL CG kernel and the banded kernel take int32 indices
-            sv["ell_idx"] = torch.as_tensor(
-                params["_solver"]["ell_idx"], dtype=torch.int32, device=device)
+        self.params = _to_device({k: v for k, v in params.items()
+                                  if k != "_solver"}, dtype, device)
+        self.params["_solver"] = sv = self._device_solver(params["_solver"])
         self._masses_dev = torch.as_tensor(self._m, dtype=dtype, device=device)
         if amg_levels is not None:
             sv["amg"] = amg_levels
@@ -369,8 +382,7 @@ class System:
             sv["A_inv"] = dense_inverse(assemble_A_hat(n, self._m, dt, cparams),
                                         dtype, device)
         elif self._solver_mode == "cg":
-            sv["diag"] = A_hat_diag(self._masses_dev, dt * dt,
-                                    self._cparams(self.params), sv["inc_idx"])
+            self._refresh_cg_diag()
         self.state = {
             "x": torch.as_tensor(self._x, dtype=dtype, device=device),
             "v": torch.zeros((n, 3), dtype=dtype, device=device),
@@ -420,13 +432,39 @@ class System:
         self.initialized = True
         return True
 
+    def _device_solver(self, host_sv) -> dict:
+        """The global solve's host arrays as tensors on the device: floats
+        in the Settings' dtype, the incidence int64, and ELL column indices
+        int32, as the ELL CG kernel and the banded kernel take them."""
+        s = self.settings
+        device = torch.device(s.device)
+        sv = _to_device(host_sv, s.dtype, device)
+        if "ell_idx" in sv:
+            sv["ell_idx"] = torch.as_tensor(host_sv["ell_idx"],
+                                            dtype=torch.int32, device=device)
+        return sv
+
+    def _refresh_cg_diag(self):
+        """The cg mode's Jacobi diagonal from the current weights: the JAX
+        package recomputes it at every step (system.py:599-600), so every
+        edit of the params refreshes it here (in its own tensor, once made)."""
+        sv = self.params["_solver"]
+        diag = A_hat_diag(self._masses_dev, self.settings.timestep_s ** 2,
+                          self._cparams(self.params), sv["inc_idx"])
+        if "diag" in sv:
+            sv["diag"].copy_(diag)
+        else:
+            sv["diag"] = diag
+
     def _build_general_amg(self, cparams, label="hierarchy"):
         """The general route's aggregation-AMG hierarchy of A_hat
         (core/amg.py) as tensors on the device; sets the V-cycle
-        `_amg_vcycle`."""
+        `_amg_vcycle` and keeps the levels' sizes `_amg_meta`, over which
+        recompute_weights refreshes the values."""
         s = self.settings
         A = _assemble_A_hat_csr(self.n_nodes, self._m, s.timestep_s, cparams)
         arrays, meta = build_amg(A)
+        self._amg_meta = meta
         self._amg_vcycle = make_vcycle(meta)
         if s.verbose:
             sizes = " -> ".join(str(m["n"]) for m in meta)
@@ -780,6 +818,175 @@ class System:
         dual = getattr(self._stepper, "last_dual", None)
         if dual is not None:
             self.last_aux["dual_residual"] = pick(dual)
+
+    # ------------------------------------------------------- runtime edits
+
+    def set_force_param(self, force, key, value):
+        """Host-side runtime edit of a parameter (a weight, a wind
+        direction, a material), in effect at the next step, as in the JAX
+        package (system.py:1158-1163): the host copy and the device copy
+        are written together, in the dtype each held. A parameter the port
+        keeps derived from the edited one follows it: the squared weight
+        `w2` of a 'pallas' tet or triangle (JAX squares `weight` at every
+        call), and the cg mode's Jacobi diagonal (JAX's is made every
+        step). What JAX derives only at initialize or recompute_weights
+        stays as it was until recompute_weights: the dense inverse, the dia
+        and ELL matrices and their AMG, and every whole-timestep stepper's
+        planes. (`coeff_p`, the selector planes of a 'pallas' force, is a
+        parameter of its own in both packages: an edit of `coeff` does not
+        reach it.)"""
+        name = force if isinstance(force, str) else force.name
+        host, dev = self._params_host[name], self.params[name]
+        host[key] = like(value, host[key])
+        dev[key] = like(host[key], dev[key])
+        if key == "weight" and "w2" in host:
+            host["w2"] = host["weight"] ** 2
+            dev["w2"] = like(host["w2"], dev["w2"])
+        if self._solver_mode == "cg" and name in self._constraint_names:
+            self._refresh_cg_diag()
+
+    def set_force_state(self, force, key, value):
+        """Overwrite a force's state entry (a control point, an anchor's
+        `active` flag) on the general route, in the dtype it held
+        (system.py:1165-1170). A whole-timestep stepper keeps its own state,
+        as in the JAX package."""
+        name = force if isinstance(force, str) else force.name
+        st = self.state["forces"][name]
+        st[key] = like(value, st[key])
+
+    def recompute_weights(self):
+        """After runtime weight edits (the poordillo release,
+        System.cpp:159-179), as the JAX package (system.py:944-1034): the
+        dense mode inverts A_hat anew (keeping the refinement's ELL
+        operands), the dia mode assembles its diagonals anew (the pattern
+        must stay: AssertionError 'sparsity pattern changed' else), the
+        ell mode its ELL matrix and the values of its AMG over the frozen
+        aggregates; the cg mode needs nothing. An engaged whole-timestep
+        stepper is built anew from the edited params (its planes, its
+        multigrid) and takes over the live state tensors of the old one,
+        so its windows are captured anew on them; ValueError where the
+        edited scene routes onto another kernel or another state layout."""
+        s = self.settings
+        n, dt = self.n_nodes, s.timestep_s
+        host = self._params_host
+        cparams = self._cparams(host)
+        sv = self.params["_solver"]
+        mode = self._solver_mode
+        if mode == "dense":
+            new = {}
+            if s.dense_refine_steps > 0:
+                new["ell_idx"], new["ell_vals"], _ = assemble_A_hat_ell(
+                    n, self._m, dt, cparams)
+            dev = self._device_solver(new)
+            dev["A_inv"] = dense_inverse(assemble_A_hat(n, self._m, dt,
+                                                        cparams),
+                                         s.dtype, torch.device(s.device))
+        elif mode == "dia":
+            dia = assemble_A_hat_dia(n, self._m, dt, cparams,
+                                     max_diagonals=MAX_DIAGONALS)
+            if dia is None or dia[0] != self._dia_offsets:
+                raise AssertionError("sparsity pattern changed")
+            new = {"dia_vals": dia[1], "diag": dia[2]}
+            dev = self._device_solver(new)
+        elif mode == "ell":
+            new = dict(zip(("ell_idx", "ell_vals", "diag"),
+                           assemble_A_hat_ell(n, self._m, dt, cparams)))
+            dev = self._device_solver(new)
+            if "amg" in sv:
+                A = _assemble_A_hat_csr(n, self._m, dt, cparams)
+                levels = tuple({k: a.cpu().numpy() for k, a in lv.items()}
+                               for lv in sv["amg"])
+                dev["amg"] = levels_to_device(
+                    rebuild_amg_values(A, levels, self._amg_meta), s.dtype,
+                    torch.device(s.device))
+        if mode != "cg":
+            # the RHS's vertex incidence is topology: kept as it is
+            new["inc_idx"] = host["_solver"]["inc_idx"]
+            dev["inc_idx"] = sv["inc_idx"]
+            host["_solver"] = new
+            self.params["_solver"] = dev
+        if self._stepper is not None:
+            self._reroute()
+
+    def _reroute(self):
+        """Build the engaged stepper anew from the edited params and hand
+        it the old one's state tensors (system.py:1012-1034)."""
+        old = self._stepper
+        st = old.state
+        self._stepper = None
+        self._route_fast_path()
+        new = self._stepper
+        if new is None or new.model != old.model:
+            raise ValueError(
+                "recompute_weights: the edited scene no longer routes "
+                f"onto the same whole-timestep kernel (was {old.model!r}); "
+                "rebuild the System for this edit")
+        if ({k: tuple(t.shape) for k, t in st.items()}
+                != {k: tuple(t.shape) for k, t in new.state.items()}):
+            raise ValueError(
+                "recompute_weights: the edit changed the kernel's packed "
+                "state layout (e.g. an ELL repack); rebuild the System for "
+                "this edit")
+        new.state = st
+
+    # ---------------------------------------------------------- checkpoints
+
+    def save_checkpoint(self, path: str) -> None:
+        """Checkpoint the live state (system.py:1038-1054): the general
+        route's state tree, or an engaged stepper's own state under
+        `_fast_path` (the general state is stale there), with the elapsed
+        time. A general-route file has the JAX package's keys (x, v, t,
+        u/<force>, forces/<force>/..., _elapsed_s), so it loads in either
+        package; a stepper's state is each package's own."""
+        from ..utils.checkpoint import save_state
+
+        if self._stepper is not None:
+            save_state(path, {"_fast_path": dict(self._stepper.state),
+                              "_elapsed_s": np.float64(self.elapsed_s)})
+        else:
+            save_state(path, dict(self.state,
+                                  _elapsed_s=np.float64(self.elapsed_s)))
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a checkpoint of an identically built System
+        (system.py:1056-1093), with the JAX package's ValueErrors where the
+        file's route, keys or shapes are not this System's. A stepper's
+        state is copied into its own buffers, which its captured windows
+        replay on."""
+        from ..utils.checkpoint import load_state
+
+        s = self.settings
+        dtype, device = s.dtype, torch.device(s.device)
+        if self._stepper is not None:
+            tree = load_state(path, dtype=dtype, device=device)
+            if "_fast_path" not in tree:
+                raise ValueError(
+                    "checkpoint was saved from the general path but this "
+                    "System runs a whole-timestep fast path — rebuild "
+                    "with the same configuration it was saved from")
+            self.elapsed_s = float(tree["_elapsed_s"])
+            st, cur = tree["_fast_path"], self._stepper.state
+            if set(st) != set(cur):
+                raise ValueError(
+                    f"fast-path checkpoint keys {sorted(st)} do not match "
+                    f"this stepper's state {sorted(cur)}")
+            for k, v in st.items():
+                if cur[k].shape != v.shape:
+                    raise ValueError(
+                        f"checkpoint plane {k!r} shape {tuple(v.shape)} != "
+                        f"{tuple(cur[k].shape)} — mesh/settings differ")
+            for k, v in st.items():
+                cur[k].copy_(v)
+        else:
+            with np.load(path) as data:
+                if any(k.startswith("_fast_path") for k in data.files):
+                    raise ValueError(
+                        "checkpoint was saved from a whole-timestep fast "
+                        "path but this System runs the general path")
+            tree = load_state(path, dtype=dtype, device=device, like=dict(
+                self.state, _elapsed_s=np.float64(0.0)))
+            self.elapsed_s = float(tree.pop("_elapsed_s"))
+            self.state = tree
 
     # ------------------------------------------------------------- access
 

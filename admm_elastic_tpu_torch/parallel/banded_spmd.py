@@ -28,8 +28,11 @@ and RHS combine return at once, and its slab and chunk planes, pad chunks,
 windows, lane permutations and `_positions` are TPU layout: the stepper
 here works on its base `BandedStepper`'s arrays as they are, in the
 System's vertex numbering. More devices (the collectives over
-`torch.distributed`) are the rest of ROADMAP A9; the sharded multigrid
-solve needs A6 and `refresh_params` 2e. Those raise NotImplementedError.
+`torch.distributed`) are the rest of ROADMAP A9, and the sharded
+multigrid solve needs A6: those raise NotImplementedError. After runtime
+edits of the System it was built from (`set_force_param`,
+`recompute_weights`), `refresh_params` re-packs its planes from that System
+and keeps its live state.
 A base stepper that collects "primal" residuals makes this one collect
 them too (B11's collect output, square-rooted: `last_primal`, (admm_iters,)
 of the last step); True raises the JAX stepper's ValueError.
@@ -91,11 +94,12 @@ class ShardedBandedStepper:
     dual) (n,3); u (9,E) and warm (3,E) element duals; t. On a card with
     the pallas backend the duals live in two sets of buffers that the
     ADMM iterations write in turn, so a state dict's duals hold until the
-    next step (`detach` hands over copies). `axis`,
-    `mg_cycles` and `system` keep the JAX signature and are ignored: at
-    one device there is no mesh axis to shard over, and the multigrid
-    (ROADMAP A6) and `refresh_params` (ROADMAP 2e) that read the others
-    are not ported.
+    next step (`detach` hands over copies). `axis` and `mg_cycles` keep
+    the JAX signature and are ignored: at one device there is no mesh axis
+    to shard over, and the multigrid (ROADMAP A6) that reads the other is
+    not ported. `system`, the System the base was built from
+    (`sharded_banded_from_system` records it), is what `refresh_params`
+    re-packs from.
     """
 
     model_name = "banded_spmd"
@@ -128,18 +132,29 @@ class ShardedBandedStepper:
                              f"{backend}")
         self.backend = backend
         self.solver = solver
-        cfg = base.cfg
-        self.cfg = cfg
-        self.cheb_iters = int(cheb_iters or cfg.cg_iters)
+        self._system = system
+        self.cheb_iters = int(cheb_iters or base.cfg.cg_iters)
         self.model = base.model
+        #: (admm_iters,) primal residuals of the last step (collect mode),
+        #: a host copy
+        self.last_primal = None
+        self._adopt(base)
+        self.state = {k: t.clone() for k, t in base.state.items()}
+        #: on a card, the local phase's two sets of output buffers
+        #: (`_local_out`), made at the first step
+        self._sets = None
+
+    def _adopt(self, base: BandedStepper):
+        """Take the base stepper's planes and configuration: the scalars,
+        and under 'cheb' the spectral bounds of its matrix (a host Lanczos
+        from a fixed start, `parallel/cheb.py`) and their schedule."""
+        self.base = base
+        cfg = self.cfg = base.cfg
         self.dt = cfg.dt
         self.admm_iters = cfg.admm_iters
         self.cg_iters = cfg.cg_iters
         self.collect_residuals = bool(base.collect_residuals)
-        #: (admm_iters,) primal residuals of the last step (collect mode),
-        #: a host copy
-        self.last_primal = None
-        if solver == "cheb":
+        if self.solver == "cheb":
             p = base.planes
             if cfg.matrix == "ell":
                 lmin, lmax = ell_operator_bounds(
@@ -155,10 +170,6 @@ class ShardedBandedStepper:
             torch.tensor(q, dtype=base.dtype, device=base.device)
             for q in cfg.scalars())
         self._scalars = (dt, dt2, inv_dt, torch.stack(dtg))
-        self.state = {k: t.clone() for k, t in base.state.items()}
-        #: on a card, the local phase's two sets of output buffers
-        #: (`_local_out`), made at the first step
-        self._sets = None
 
     def set_cheb_bounds(self, lmin: float, lmax: float):
         """Adopt the spectral interval of D^-1 A (margins applied) and
@@ -294,10 +305,34 @@ class ShardedBandedStepper:
         return True
 
     def refresh_params(self):
-        raise NotImplementedError(
-            "ShardedBandedStepper.refresh_params: runtime force edits "
-            "(set_force_param, recompute_weights) are not ported "
-            "(ROADMAP 2e)")
+        """After runtime force edits on the originating System
+        (`set_force_param` + `recompute_weights()`, the poordillo release):
+        re-pack the planes from the System without re-partitioning, keeping
+        the live state, as the JAX stepper's refresh_params
+        (banded_spmd.py:1101-1150). The structure must stay (AssertionError
+        else: the partition, the matrix's diagonals or ELL columns); a
+        weight edit moves the spectrum, so the Chebyshev bounds and
+        schedule are made anew."""
+        if self._system is None:
+            raise ValueError(
+                "refresh_params needs a System reference — build via "
+                "sharded_banded_from_system")
+        if self.D != 1:
+            raise NotImplementedError(
+                f"refresh_params over {self.D} devices: the port runs one "
+                "device; the collectives over torch.distributed are the rest "
+                "of ROADMAP A9")
+        new = banded_from_system(self._system)
+        assert new is not None, "scene no longer qualifies for the kernel"
+        old = self.base
+        assert (new.n_nodes, new.n_elements) == (old.n_nodes, old.n_elements)
+        assert new.cfg.dia_offs == old.cfg.dia_offs
+        assert new.cfg.ell_width == old.cfg.ell_width
+        if old.cfg.matrix == "ell":
+            # a weight edit that changes the pattern is a rebuild
+            assert torch.equal(new.planes["ell_idx"], old.planes["ell_idx"])
+        assert torch.equal(new.planes["inc"], old.planes["inc"])
+        self._adopt(new)
 
     def detach(self):
         """Write the stepper's state (x, v, anchor and collision duals,

@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.system import like
+
 
 #: keys of the port's tree that a JAX tree may lack: WindForce's vertex
 #: incidence (`inc`), the RHS incidence (`inc_idx`; the JAX dense and cg
@@ -38,6 +40,8 @@ _PORT_ONLY = ("inc", "inc_idx", "_solver")
 
 
 def _load(port, ref, where):
+    """ref's tree in port's structure, each leaf `like` the port's leaf:
+    a tensor of its dtype and device, or a host array of its dtype."""
     if isinstance(port, dict):
         if not isinstance(ref, dict):
             raise ValueError(f"{where}: expected a dict in the reference tree")
@@ -53,7 +57,7 @@ def _load(port, ref, where):
     if ref is port:
         return port
     a = np.asarray(ref)
-    shape = tuple(port.shape)
+    shape = np.shape(port)
     if a.shape != shape:
         # strip the block padding of the last (element) axis
         if (a.ndim == len(shape) and a.ndim >= 1
@@ -61,18 +65,26 @@ def _load(port, ref, where):
             a = a[..., : shape[-1]]
         else:
             raise ValueError(f"{where}: reference shape {a.shape}, port {shape}")
-    # a fresh writable, contiguous copy (device_get may return read-only
-    # views)
-    return torch.as_tensor(np.array(a), dtype=port.dtype, device=port.device)
+    return like(a, port)
 
 
 def from_reference(system, params_np, state_np) -> None:
     """Overwrite `system.params` and `system.state` with the reference's
     values (converted to the port's dtype, device and layout), and set
-    `elapsed_s` from the reference's time."""
+    `elapsed_s` from the reference's time. The System's host copy of the
+    forces' params follows (the steppers and recompute_weights read it),
+    and so does the cg mode's Jacobi diagonal."""
     if not system.initialized:
         raise RuntimeError("initialize() the port System first")
     system.params = _load(system.params, params_np, "params")
+    host = dict(system._params_host)
+    solver = host.pop("_solver")
+    system._params_host = {
+        **_load(host, {k: v for k, v in params_np.items() if k != "_solver"},
+                "params"),
+        "_solver": solver}
+    if system._solver_mode == "cg":
+        system._refresh_cg_diag()
     system.state = _load(system.state, state_np, "state")
     system.elapsed_s = float(np.asarray(state_np["t"]))
 

@@ -41,6 +41,11 @@ fast routes select by type and build the same windows).
 package's golden trajectories (tests/test_golden.py, tests/golden/*.npz),
 built with the default constructors and Settings (f64, dense).
 
+`tet100k_grab`: tet100k with poordillo's grab (a MovingAnchor on the
+nodes near the far top corner, `grab_nodes`), on the general dia route;
+the JAX package's poordillo drags such a grab along `smooth_move` and
+releases it.
+
 `tet100k_sharded`: tet100k's scene on the sharded banded stepper at one
 device (`parallel/banded_spmd.py`): `tet100k(budget, fast=True)`, then
 `sharded_banded_from_system` with solver "cg" (a `budget`-iteration
@@ -92,18 +97,30 @@ from ..geometry import (extract_hinges, make_beam_tets, make_plane_grid,
                         make_sym_plane)
 from ..models import (Bend, Collision, Cylinder, ExplicitForce, Floor,
                       HyperElasticTet, LimitedTriangleStrain, LinearTetStrain,
-                      Sphere, StaticAnchor, WindForce)
+                      MovingAnchor, Sphere, StaticAnchor, WindForce)
 
 DT = 0.04  # every scene's timestep
 
 
+def grab_nodes(vertices, size, radius=1.5):
+    """The nodes within `radius` grid spacings `size` of a beam's far top
+    corner (the vertex of largest x, then largest y): what a
+    poordillo-style grab holds (poordillo grabs the nodes inside a
+    sphere)."""
+    v = np.asarray(vertices, np.float64)
+    corner = v[np.lexsort((v[:, 1], v[:, 0]))[-1]]
+    return np.flatnonzero(np.linalg.norm(v - corner, axis=1)
+                          <= radius * size * (1 + 1e-9))
+
+
 def beam_system(dims, size, total_mass, cg, dtype=torch.float32,
                 device="cuda", fast=False, arap=False, backend="pallas",
-                **settings) -> System:
+                extra_forces=(), **settings) -> System:
     """An anchored beam under gravity: NeoHookean tets (mu = lam = 1e5, 5
     Newton iterations) or, with arap=True, LinearTetStrain (stiffness 1e5),
     kernel-backed (backend='xla': the JAX package's default element math
-    in plain PyTorch); dia solver unless `settings` say otherwise."""
+    in plain PyTorch); dia solver unless `settings` say otherwise.
+    `extra_forces` are added after the tet force."""
     vertices, tets = _beam_mesh(tuple(dims), size)
     n = vertices.shape[0]
     s = System(Settings(**{
@@ -119,6 +136,8 @@ def beam_system(dims, size, total_mass, cg, dtype=torch.float32,
         s.add_force(HyperElasticTet(tets.copy(), mu=1e5, lam=1e5,
                                     max_iters=5, model="nh",
                                     backend=backend))
+    for f in extra_forces:
+        s.add_force(f)
     s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
     assert s.initialize()
     return s
@@ -155,6 +174,19 @@ def tet100k(cg, dtype=torch.float32, fast=False,
                        global_solver=global_solver, dense_max_nodes=1 << 30,
                        preconditioner="amg" if amg else "jacobi",
                        backend=backend)
+
+
+def tet100k_grab(cg, dtype=torch.float32, backend="pallas") -> System:
+    """tet100k with poordillo's grab: a MovingAnchor on the 7 nodes within
+    1.5 grid spacings of the beam's far top corner, on the general dia
+    route (a MovingAnchor is not a StaticAnchor: no window takes it). The
+    dillo mesh of the JAX package's poordillo sample is not in the repo;
+    tet100k's beam stands in for it."""
+    dims, size = (40, 25, 20), 0.05
+    grab = MovingAnchor(grab_nodes(_beam_mesh(dims, size)[0], size))
+    return beam_system(dims, size, 50.0, cg, dtype, fast=False,
+                       global_solver="dia", backend=backend,
+                       extra_forces=(grab,))
 
 
 def tet100k_sharded(solver="cg", budget=75, dtype=torch.float32):

@@ -97,6 +97,13 @@ on the general dia route (cg_dia_solve) with their ms/step, device ops a
 step and idle share, against the pallas-constructed scenes; the same
 three on their whole-timestep windows, bitwise the pallas-constructed
 Systems'; the JAX package's two golden trajectories in f64 (phase 5m).
+Runtime edits and checkpoints at tet100k (phase 5n): poordillo's grab,
+drag and release on the general dia route (a MovingAnchor, through
+nh_local_step_fused and cg_dia_solve), the banded window after a release
+of half its anchors (its new planes' graph steps each bitwise the twin's)
+and the sharded cheb180 stepper after refresh_params (bitwise one built
+from the released System), and checkpoints resumed bitwise on the
+general route and the banded window.
 Every phase prints one line of numbers, its script time last (t=). Any
 failure raises: the script
 then exits non-zero and prints no result line. It needs CUDA (it never
@@ -128,7 +135,7 @@ sys.path.insert(0, HERE)
 from admm_elastic_tpu_torch.core.banded import BandedStepper  # noqa: E402
 from admm_elastic_tpu_torch.core.cloth import ClothStepper  # noqa: E402
 from admm_elastic_tpu_torch.core.lattice import LatticeStepper  # noqa: E402
-from admm_elastic_tpu_torch.models import StaticAnchor  # noqa: E402
+from admm_elastic_tpu_torch.models import StaticAnchor, smooth_move  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import _build  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import banded_step as pbs  # noqa: E402
 from admm_elastic_tpu_torch.core.solver import (  # noqa: E402
@@ -145,7 +152,8 @@ from admm_elastic_tpu_torch.ops.kernels import banded_local as pbl  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import cheb_dia as pchb  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import mg as pmg  # noqa: E402
 from admm_elastic_tpu_torch.ops.kernels import uamg as puamg  # noqa: E402
-from admm_elastic_tpu_torch.parallel import ShardedBandedStepper  # noqa: E402
+from admm_elastic_tpu_torch.parallel import (  # noqa: E402
+    ShardedBandedStepper, sharded_banded_from_system)
 from admm_elastic_tpu_torch.parallel.cheb import (  # noqa: E402
     cheb_coefficients, dia_operator_bounds)
 from admm_elastic_tpu_torch.utils import profile_step, scenes  # noqa: E402
@@ -249,6 +257,19 @@ XLA_STEPS, XLA_CG, XLA_PROFILE_STEPS, XLA_FAST_STEPS = 16, 25, 2, 10
 # the most a golden scene may lie from its file on the card, f64 (relative
 # to the trajectory's largest coordinate)
 GOLDEN_REL_LIMIT = 1e-8
+# phase 5n: runtime edits and checkpoints at tet100k, f32, cg25: the steps
+# of poordillo's drag (the grab lifted by EDIT_DRAG_M along smooth_move) and
+# after its release on the general route; the banded window's steps before
+# its checkpoint and after it, then after a release of every other x = 0
+# anchor (1 timed with its recapture, EDIT_TIMED_STEPS timed, GRAPH_STEPS
+# held to the twin); the sharded cheb180 steps before and after
+# refresh_params; the general route's steps after its checkpoint
+EDIT_STEPS, EDIT_DRAG_M, EDIT_CG = 8, (0.0, 0.15, 0.0), 25
+EDIT_WINDOW_STEPS, EDIT_TIMED_STEPS, EDIT_SHARDED_STEPS = 10, 3, 5
+EDIT_CKPT_STEPS = 2
+# the most the grab may lie from its control point at the end of the drag
+# (m): a fifth of the drag; weight 1000 a node against the beam's pull
+EDIT_HELD_LIMIT_M = 0.03
 
 
 def reset_launches():
@@ -1144,6 +1165,187 @@ def default_backend_routes(torch):
             raise AssertionError(f"golden {name}: {rel} from the file")
     return numbers
 
+
+
+def runtime_edits(torch):
+    """Phase 5n. Runtime force edits and checkpoints at tet100k, f32, cg25,
+    through the System's API as poordillo uses it.
+    (a) The general dia route with a 'pallas' tet and a MovingAnchor on the
+    7 nodes at the far top corner (`scenes.tet100k_grab`): EDIT_STEPS steps
+    dragging it along smooth_move, the release (weight 0, active False,
+    recompute_weights), EDIT_STEPS steps: ms/step before and after, the
+    host ms of the release, the grab's distance from its control point and
+    its travel after the release; nh_local_step_fused and cg_dia_solve
+    launched every ADMM iteration. Its checkpoint: saved after the release,
+    EDIT_CKPT_STEPS steps on, and a fresh System given the same edits and
+    the file takes them bitwise.
+    (b, c) The banded dia window: EDIT_WINDOW_STEPS steps, a checkpoint,
+    as many again; a fresh System loads the file and its steps are
+    bitwise. Then every other x = 0 anchor released on the first
+    (set_force_param, recompute_weights: the host ms of the rebuild), one
+    step timed with the windows' recapture, EDIT_TIMED_STEPS steps timed,
+    GRAPH_STEPS graph steps each held bitwise to the twin on the new
+    planes; the second, edited without recompute_weights, takes as many
+    steps: x differs and the lowest y is higher.
+    (d) The sharded stepper (cheb180) built on the first System before the
+    release: refresh_params after it (the host ms, with its Lanczos
+    bounds), EDIT_SHARDED_STEPS steps bitwise a sharded stepper built from
+    the released System given the same state. Returns the phase's
+    seconds."""
+    t_phase = time.perf_counter()
+    ckpt_dir = os.path.join(HERE, "build", "checkpoints")
+    os.makedirs(ckpt_dir, exist_ok=True)
+
+    # (a) poordillo on the general route
+    s = scenes.tet100k_grab(EDIT_CG, torch.float32)
+    grab = s.forces[2]
+    if s._stepper is not None or s._solver_mode != "dia" or (
+            type(grab).__name__ != "MovingAnchor"):
+        raise AssertionError("tet100k grab: not the general dia route")
+    start = s._x[grab.indices]
+    end = start + np.asarray(EDIT_DRAG_M)
+    n_grab = grab.n_elements
+    reset_launches()
+    drag_ms = []
+    for k in range(EDIT_STEPS):
+        target = smooth_move((k + 1) * DT, 0.0, EDIT_STEPS * DT, start, end)
+        s.set_force_state(grab, "pos", target)
+        drag_ms.append(timed_ms(torch, s.step)[1])
+    held = float(np.linalg.norm(s.x[grab.indices] - target, axis=1).max())
+    at_release = s.x[grab.indices]
+
+    def release():
+        s.set_force_param(grab, "weight", np.zeros(n_grab))
+        s.set_force_state(grab, "active", np.zeros(n_grab, bool))
+        s.recompute_weights()
+
+    release_ms = timed_ms(torch, release)[1]
+    after_ms = [timed_ms(torch, s.step)[1] for _ in range(EDIT_STEPS)]
+    travel = float(np.linalg.norm(s.x[grab.indices] - at_release,
+                                  axis=1).max())
+    n_nh, n_cg = pnh.nh_local_step_fused.launches, pcg.cg_dia_solve.launches
+    off_path(pbs.banded_rollout, pcs.cloth_rollout, plat.lattice_rollout)
+    want = 2 * EDIT_STEPS * ADMM_ITERS
+    fin = bool(np.isfinite(s.x).all())
+    say("edits tet100k general dia cg25 grab f32", grabbed=n_grab,
+        drag_m=list(EDIT_DRAG_M),
+        ms_per_step_drag_median=statistics.median(drag_ms[1:]),
+        ms_per_step_after_median=statistics.median(after_ms[1:]),
+        first_step_ms=drag_ms[0], first_step_after_release_ms=after_ms[0],
+        release_host_ms=release_ms, grab_from_target_m=held,
+        limit_m=EDIT_HELD_LIMIT_M, tip_travel_after_release_m=travel,
+        nh_local_step_fused_launches=n_nh, cg_dia_solve_launches=n_cg,
+        expected_launches=want, finite=fin)
+    if not (fin and held <= EDIT_HELD_LIMIT_M and travel > 1e-3
+            and n_nh == n_cg == want):
+        raise AssertionError("tet100k grab: the grab, its release or the "
+                             "launches went wrong")
+    path = os.path.join(ckpt_dir, "general.npz")
+    s.save_checkpoint(path)
+    for _ in range(EDIT_CKPT_STEPS):
+        s.step()
+    q = scenes.tet100k_grab(EDIT_CG, torch.float32)
+    qgrab = q.forces[2]
+    q.set_force_param(qgrab, "weight", np.zeros(n_grab))
+    q.recompute_weights()
+    q.load_checkpoint(path)
+    for _ in range(EDIT_CKPT_STEPS):
+        q.step()
+    general_resume = bool(np.array_equal(s.x, q.x)) and all(
+        torch.equal(s.state["u"][k], q.state["u"][k]) for k in s.state["u"])
+    del s, q
+
+    # (b, c) the banded window: a checkpoint, then a release
+    b1 = tet100k(EDIT_CG, torch.float32, fast=True)
+    b2 = tet100k(EDIT_CG, torch.float32, fast=True)
+    if not all(isinstance(b._stepper, BandedStepper) for b in (b1, b2)):
+        raise AssertionError("tet100k fast: not the banded window")
+    path = os.path.join(ckpt_dir, "banded.npz")
+    b1.run(EDIT_WINDOW_STEPS)
+    b1.save_checkpoint(path)
+    b1.run(EDIT_WINDOW_STEPS)
+    buffers = dict(b2._stepper.state)
+    b2.load_checkpoint(path)
+    in_place = all(b2._stepper.state[k] is t for k, t in buffers.items())
+    b2.run(EDIT_WINDOW_STEPS)
+    banded_resume = in_place and all(
+        torch.equal(t, b2._stepper.state[k])
+        for k, t in b1._stepper.state.items())
+    say("edits checkpoints f32", general_grab_steps=EDIT_CKPT_STEPS,
+        general_resume_bitwise=general_resume,
+        banded_steps=EDIT_WINDOW_STEPS, banded_resume_bitwise=banded_resume,
+        banded_load_into_own_buffers=in_place)
+    if not (general_resume and banded_resume):
+        raise AssertionError("a checkpoint did not resume bitwise")
+
+    # (d), built before the release
+    sp, _ = sharded_banded_from_system(b1, solver="cheb", cheb_iters=180)
+    sp.run(2)
+    bounds = sp.cheb_bounds
+
+    anchor = b1.forces[0]
+    w = np.array(anchor.weight)
+    w[::2] = 0.0
+    old = b1._stepper
+
+    def rebuild():
+        b1.set_force_param(anchor, "weight", w)
+        b1.recompute_weights()
+
+    rebuild_ms = timed_ms(torch, rebuild)[1]
+    b2.set_force_param(b2.forces[0], "weight", w)
+    if b1._stepper is old or not all(
+            b1._stepper.state[k] is t for k, t in old.state.items()):
+        raise AssertionError("the release did not rebuild the stepper on "
+                             "its state")
+    del old
+    reset_launches()
+    first_ms = timed_ms(torch, b1.step)[1]
+    timed = [timed_ms(torch, b1.step)[1] for _ in range(EDIT_TIMED_STEPS)]
+    check_steps(torch, "banded", b1._stepper, "tet100k after a release")
+    n_windows = pbs.banded_rollout.launches
+    b2.run(1 + EDIT_TIMED_STEPS + GRAPH_STEPS)
+    dx = float(np.abs(b1.x - b2.x).max())
+    low = (float(b1.x[:, 1].min()), float(b2.x[:, 1].min()))
+    say("edits tet100k banded release f32", released=int((w == 0).sum()),
+        of=len(w), rebuild_host_ms=rebuild_ms,
+        first_step_with_recapture_ms=first_ms,
+        ms_per_step_median=statistics.median(timed),
+        recapture_ms=first_ms - statistics.median(timed),
+        graph_steps_checked=GRAPH_STEPS, banded_rollout_launches=n_windows,
+        max_abs_dx_vs_not_recomputed_m=dx, min_y_m=low[0],
+        min_y_not_recomputed_m=low[1])
+    if not (n_windows == 1 + EDIT_TIMED_STEPS + GRAPH_STEPS and dx > 1e-5
+            and low[0] < low[1]):
+        raise AssertionError("the banded release did not take effect")
+    del b2
+
+    # (d) the sharded stepper after refresh_params
+    refresh_ms = timed_ms(torch, sp.refresh_params)[1]
+    state = {k: t.clone() for k, t in sp.state.items()}
+    reset_launches()
+    sp.run(EDIT_SHARDED_STEPS)
+    n_local = pbl.banded_local_rhs.launches
+    n_cheb = pchb.cheb_dia_chunk.launches
+    ref, _ = sharded_banded_from_system(b1, solver="cheb", cheb_iters=180)
+    ref.state = state
+    ref.run(EDIT_SHARDED_STEPS)
+    same = all(torch.equal(sp.state[k], ref.state[k]) for k in state)
+    want = EDIT_SHARDED_STEPS * ADMM_ITERS
+    say("edits tet100k sharded cheb180 refresh_params f32",
+        refresh_host_ms=refresh_ms, bounds_before=list(bounds),
+        bounds_after=list(sp.cheb_bounds), steps=EDIT_SHARDED_STEPS,
+        bitwise_vs_built_from_released=same,
+        banded_local_rhs_launches=n_local, cheb_dia_chunk_launches=n_cheb,
+        expected_launches=want)
+    if not (same and n_local == n_cheb == want
+            and tuple(sp.cheb_bounds) != tuple(bounds)):
+        raise AssertionError("sharded refresh_params: not the stepper built "
+                             "from the released System")
+    del sp, ref, b1
+    seconds = time.perf_counter() - t_phase
+    say("edits phase 5n", seconds=seconds)
+    return seconds
 
 
 def cluster_floor(torch):
@@ -3231,6 +3433,10 @@ def main():
 
     # phase 5m: the default element backend ('xla'), general and fast
     default_backend_routes(torch)
+
+    # phase 5n: runtime edits (poordillo's grab, drag and release) and
+    # checkpoints, general route, banded window, sharded stepper
+    runtime_edits(torch)
 
     def entry(name, source, replaces, n, err, ms, plain_ms, bound_ms,
               bound_by):

@@ -14,7 +14,8 @@ the same budget is the banded route's arithmetic (the local phase is the
 banded twin's, and the PCG differs only in how r D^-1 r is associated),
 within 1e-10, for nh, stvk, arap, a released anchor over a floor, the
 floor/sphere/cylinder shapes and the ELL matrix of the 140-node Delaunay
-mesh. The Chebyshev solve at a generous budget tracks a cg200 solve
+mesh, and after an anchor release through refresh_params (cg; cheb
+bitwise a sharded stepper built from the released System). The Chebyshev solve at a generous budget tracks a cg200 solve
 within 2e-3 of the scale, as tests/test_banded_spmd.py asks of JAX's."""
 
 import os
@@ -218,6 +219,49 @@ def test_detach_then_base_steps_on():
     assert float(np.abs(ref.x - base.x).max()) < 1e-10
 
 
+@pytest.mark.parametrize("solver", ["cg", "cheb"])
+def test_refresh_params_release(solver):
+    """An anchor release on the System (set_force_param, recompute_weights)
+    reaches the sharded stepper through refresh_params, which keeps its
+    state: under cg it steps on as the System's released BandedStepper
+    from that state (within 1e-10), under cheb bitwise as a sharded stepper
+    built from the released System given that state, with the bounds of
+    the new matrix. D > 1 and a stepper without its System raise."""
+    s = build(pt, jittered_beam(**SCENES["nh"][0]), fast=True, admm=4,
+              anchor_w=np.array([1000.0, 1000.0]))
+    spmd, _ = sharded_banded_from_system(s, solver=solver,
+                                         cheb_iters=CHEB_ITERS)
+    bounds = getattr(spmd, "cheb_bounds", None)
+    spmd.run(2)
+    anchor = s.forces[1]
+    s.set_force_param(anchor, "weight", np.array([0.0, 1000.0]))
+    s.recompute_weights()
+    spmd.refresh_params()
+    assert spmd.base is not s._stepper
+    assert float(spmd.base.planes["aw2"][0]) == 0.0
+    state = {k: t.clone() for k, t in spmd.state.items()}
+    if solver == "cg":
+        ref = s._stepper
+    else:
+        ref, _ = sharded_banded_from_system(s, solver=solver,
+                                            cheb_iters=CHEB_ITERS)
+        assert ref.cheb_bounds == spmd.cheb_bounds != bounds
+    ref.state = state
+    spmd.run(3)
+    ref.run(3)
+    for k in ("x", "v", "au", "cu", "u", "warm"):
+        err = float((spmd.state[k] - ref.state[k]).abs().max())
+        assert err < 1e-10 if solver == "cg" else err == 0.0, f"{k}: {err}"
+    # the released node moved, the one still anchored barely
+    moved = np.abs(spmd.x[:2] - s._x[:2]).max(axis=1)
+    assert moved[0] > 1e-4 > moved[1], moved
+    spmd.D = 2
+    with pytest.raises(NotImplementedError, match="A9"):
+        spmd.refresh_params()
+    with pytest.raises(ValueError, match="System reference"):
+        ShardedBandedStepper(spmd.base).refresh_params()
+
+
 def test_out_of_slice_raises():
     spmd, _ = _pair("nh", "xla")
     base = spmd.base
@@ -229,8 +273,6 @@ def test_out_of_slice_raises():
         ShardedBandedStepper(base, solver="lu")
     with pytest.raises(ValueError, match="mesh device"):
         ShardedBandedStepper(base, mesh=[torch.device("meta")])
-    with pytest.raises(NotImplementedError, match="2e"):
-        spmd.refresh_params()
     base.collect_residuals = True
     with pytest.raises(ValueError, match="'primal' residuals only"):
         ShardedBandedStepper(base)
